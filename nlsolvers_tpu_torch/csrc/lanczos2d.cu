@@ -11,9 +11,8 @@
 //   K3 combine       <- _combine_call
 //        y_spec = sum_i q[spec, i] W_i for k specs in one pass
 //
-// Fields are planar float32 (P, ny, nx): P = 2 holds (re, im) planes of a
-// complex field, P = 1 a real field. <a, b> is the Hermitian product
-// sum conj(a) b, returned as (re, im).
+// Fields are planar float32 (P, ny, nx); the block shape, the dot and the
+// reduction are in lz_common.cuh.
 //
 // What bounds them on an H100: bytes streamed from device memory. The
 // arithmetic is a few flops per loaded float. K2 at iteration j reads j+2
@@ -34,36 +33,18 @@
 //   costs no traffic.
 // * Scalars (s_j, bs, c_i, q) are read from a device buffer, so no host sync
 //   is needed between the scalar recurrence and the kernels.
-// * Cross-block reductions are two-stage and deterministic: each block
-//   writes its partial sums to a scratch buffer (warp shuffles, then a fixed
-//   sum over the block's warps), and reduce_partials sums those in a fixed
-//   order. No atomics, so results repeat bit for bit from run to run.
+// * Cross-block reductions are two-stage and deterministic, with no
+//   atomics (reduce_partials, lz_common.cuh).
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "lz_common.cuh"
 
 namespace {
 
-constexpr int TX = 128;        // columns per block = threads per block
-constexpr int TY = 8;          // rows per block
-constexpr int NWARP = TX / 32;
-constexpr int MAXCOLS = 32;    // longest basis list a launch takes
 constexpr int KMAX = 4;        // most specs one combine launch takes
-constexpr int RED_THREADS = 256;
-// most per-block partial sums: K2's nsq, gram (2 nw) and d (2 (nw + 1))
-constexpr int RED_W = 4 * MAXCOLS + 3;
 
-struct Cols { const float* p[MAXCOLS]; };
 struct Outs { float* p[KMAX]; };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // Variant diagonal: "reference" is -3 on the whole boundary ring (corners
 // included) and -4 inside; "clean" is -(number of existing neighbours).
@@ -72,63 +53,6 @@ __device__ __forceinline__ float stencil_diag(int r, int x, int ny, int nx,
   const int top = r == 0, bot = r == ny - 1, lft = x == 0, rgt = x == nx - 1;
   if (clean) return -(4.0f - top - bot - lft - rgt);
   return (top | bot | lft | rgt) ? -3.0f : -4.0f;
-}
-
-// acc += conj(a) * b
-template <int P>
-__device__ __forceinline__ void hdot(const float* a, const float* b,
-                                     float* acc) {
-  if (P == 1) {
-    acc[0] += a[0] * b[0];
-  } else {
-    acc[0] += a[0] * b[0] + a[1] * b[1];
-    acc[1] += a[0] * b[1] - a[1] * b[0];
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void load(const float* __restrict__ f, size_t idx,
-                                     size_t plane, float* v) {
-  v[0] = __ldg(f + idx);
-  if (P == 2) v[1] = __ldg(f + plane + idx);
-}
-
-// Reduce one per-thread value over the block's warps into red[warp][o].
-__device__ __forceinline__ void put(float (*red)[RED_W], int o,
-                                    float v) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5][o] = v;
-}
-
-__device__ __forceinline__ void write_partials(
-    float (*red)[RED_W], int nout, float* __restrict__ partial) {
-  __syncthreads();
-  const size_t bid = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  for (int o = threadIdx.x; o < nout; o += TX) {
-    float v = red[0][o];
-#pragma unroll
-    for (int w = 1; w < NWARP; ++w) v += red[w][o];
-    partial[bid * nout + o] = v;
-  }
-}
-
-// Second stage: out[o] = sum_b partial[b, o] in a fixed order.
-__global__ void reduce_partials(const float* __restrict__ partial, int nblk,
-                                int nout, float* __restrict__ out) {
-  __shared__ float ws[RED_THREADS / 32];
-  const int o = blockIdx.x;
-  float acc = 0.0f;
-  for (int b = threadIdx.x; b < nblk; b += RED_THREADS)
-    acc += partial[(size_t)b * nout + o];
-  acc = warp_sum(acc);
-  if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = ws[0];
-#pragma unroll
-    for (int w = 1; w < RED_THREADS / 32; ++w) s += ws[w];
-    out[o] = s;
-  }
 }
 
 // ---------------------------------------------------------------- K1 pass1
@@ -383,18 +307,6 @@ __global__ void __launch_bounds__(256) combine_kernel(
       if (P == 2) out.p[sp][n + e] = y[sp][1];
     }
   }
-}
-
-int bucket(int n) { return n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32; }
-
-dim3 tile_grid(int ny, int nx) {
-  return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY);
-}
-
-Cols make_cols(const float* const* ptrs, int n) {
-  Cols c = {};
-  for (int i = 0; i < n; ++i) c.p[i] = ptrs[i];
-  return c;
 }
 
 template <int P, int MAXW>

@@ -32,8 +32,9 @@ def phase_kick_planar(up, rho, theta):
 
 
 def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m):
-    """SS2 on PLANAR state (2, ny, nx) float32: the fused-kernel path.
-    `desc` is the operator's kernel descriptor; `rho_fn` a planar density."""
+    """SS2 on PLANAR state (2, R, nx) float32 (R = ny in 2D, nz*ny in 3D):
+    the fused-kernel path. `desc` is the operator's kernel descriptor;
+    `rho_fn` a planar density."""
     from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
 
     up = phase_kick_planar(up, rho_fn(up), 0.5 * dt)

@@ -5,8 +5,11 @@ PLANAR float32: a complex field is (2, ny, nx) (re, im planes), a real field
 (1, ny, nx). Krylov columns W_i are kept UNNORMALIZED with their inverse
 norms s_i tracked as scalars, so normalization folds into the next matvec.
 
-Three hand-written CUDA kernels (csrc/lanczos2d.cu) carry the loop; each has
-its plain PyTorch version beside it and a launch counter on its wrapper:
+The entry points (supported_desc, lanczos_planar, matfunc_apply_planar*)
+also serve the 3D kinds, whose loop is ops/cuda/lanczos3d.py.
+
+Three hand-written CUDA kernels (csrc/lanczos2d.cu) carry the 2D loop; each
+has its plain PyTorch version beside it and a launch counter on its wrapper:
 
   pass1_iso2d / pass1_iso2d_ref   replaces _pass1_call (mode iso2d)
   pipe_iso2d  / pipe_iso2d_ref    replaces _pipe_call (mode iso2d)
@@ -33,7 +36,7 @@ from nlsolvers_tpu_torch.ops.cuda import _build
 __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
            "matfunc_apply_planar", "matfunc_apply_planar_multi",
            "pass1_iso2d", "pass1_iso2d_ref", "pipe_iso2d", "pipe_iso2d_ref",
-           "combine", "combine_ref", "MAX_M", "MAX_SPECS"]
+           "combine", "combine_ref", "MAX_M", "MAX_SPECS", "KINDS_3D"]
 
 # Longest basis (Krylov m) and most matrix functions per combine the kernels
 # take: csrc/lanczos2d.cu's MAXCOLS and KMAX, checked when it is loaded.
@@ -50,9 +53,17 @@ def matvec_descriptor(kind, shape, scale, sign=1.0, variant="reference"):
                 sign=float(sign), variant=variant)
 
 
+# descriptor kinds whose Lanczos loop is ops/cuda/lanczos3d.py
+KINDS_3D = ("laplacian_3d", "aniso_laplacian_3d")
+
+
 def supported_desc(desc, u_shape, dtype):
-    """Can the fused path run this operator/field combination? The kernels
-    mask ragged edges, so any grid with ny, nx >= 3 qualifies."""
+    """Can the fused path run this operator/field combination? `u_shape` is
+    the grid, (ny, nx) or (nz, ny, nx); the 3D kinds are lanczos3d's. The
+    kernels mask ragged edges, so any grid with sides >= 3 qualifies."""
+    if desc is not None and desc.get("kind") in KINDS_3D:
+        from nlsolvers_tpu_torch.ops.cuda import lanczos3d
+        return lanczos3d.supported_desc(desc, u_shape, dtype)
     if desc is None or desc.get("kind") != "laplacian_2d":
         return False
     if desc.get("variant") not in ("reference", "clean"):
@@ -391,32 +402,46 @@ def _lanczos_pipe(u, m, desc):
 
 
 def lanczos_planar(u, desc, m):
-    """Fused-kernel Lanczos on a planar (P, ny, nx) float32 field.
+    """Fused-kernel Lanczos on a planar (P, ny, nx) float32 field, or for
+    the 3D kinds on the merged (P, nz*ny, nx) view of an (nz, ny, nx) grid.
 
     Returns (W, s, alpha, beta, beta0): unnormalized Krylov columns W (list;
     W[i] * s[i] is the normalized v_i), their inverse norms s, and the
-    entries of T, with the semantics of ops/krylov.lanczos.
+    entries of T, with the semantics of ops/krylov.lanczos. 2D runs the
+    pipelined K1/K2 loop, 3D the two-pass loop of ops/cuda/lanczos3d.py.
     """
-    if not supported_desc(desc, u.shape[1:], torch.float32):
+    three_d = desc is not None and desc.get("kind") in KINDS_3D
+    grid = tuple(u.shape[1:])
+    if three_d and grid == (desc.get("nz", 0) * desc.get("ny", 0),
+                            desc.get("nx")):
+        grid = (desc["nz"], desc["ny"], desc["nx"])      # the merged view
+    if not supported_desc(desc, grid, torch.float32):
         raise NotImplementedError(
-            f"fused Lanczos ports only the 2D 5-point Laplacian (ROADMAP.md "
-            f"queue 1, items 7-8 for the rest), got {desc}")
+            f"fused Lanczos ports the 2D 5-point Laplacian and the 3D "
+            f"operators (ROADMAP.md queue 1, item 7 for the rest), got a "
+            f"{None if desc is None else desc.get('kind')} descriptor for a "
+            f"{tuple(u.shape)} field")
     if m > MAX_M:
         raise ValueError(f"Krylov m={m} exceeds the kernels' {MAX_M}")
     if m > 1:
+        if three_d:
+            from nlsolvers_tpu_torch.ops.cuda import lanczos3d
+            return lanczos3d.lanczos_twopass3d(u, desc, m)
         return _lanczos_pipe(u, m, desc)
     beta0 = torch.sqrt(torch.sum(u * u))
     return [u], [safe_inv(beta0)], [], [], beta0
 
 
 def matfunc_apply_planar(u, desc, t, func, m):
-    """y = f(t * sign*scale*L) u on a planar (P, ny, nx) float32 field."""
+    """y = f(t * sign*scale*L) u on a planar (P, ny, nx) float32 field (the
+    merged (P, nz*ny, nx) view for the 3D kinds)."""
     return matfunc_apply_planar_multi(u, desc, ((t, func),), m)[0]
 
 
 def matfunc_apply_planar_multi(u, desc, specs, m):
     """[f(t L) u for (t, f) in specs] from ONE fused-kernel Lanczos run and
-    one combine pass; q[spec, i] = (Re coef_i s_i, Im coef_i s_i)."""
+    one combine pass; q[spec, i] = (Re coef_i s_i, Im coef_i s_i). Serves
+    the 2D and the 3D kinds: combine is geometry-free."""
     W, s, alphas, betas, beta0 = lanczos_planar(u, desc, m)
     alpha, beta = krylov.tridiag_entries(alphas, betas, beta0, m,
                                          torch.float32)

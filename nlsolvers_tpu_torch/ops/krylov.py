@@ -12,7 +12,8 @@ True; it is False by default and this package never sets it. The JAX
 package pins HIGHEST precision for the same reason (krylov.py:49-55).
 
 Operators that carry a `kernel_desc` and a supported shape and dtype are
-dispatched to the fused kernels of ops/cuda/lanczos2d.py by `_fused_path`.
+dispatched to the fused kernels (ops/cuda/lanczos2d.py, lanczos3d.py) by
+`_fused_path`.
 """
 
 import numpy as np
@@ -182,12 +183,12 @@ def matfunc_apply_multi(matvec, u, specs, m=default_krylov_m, reorth=True):
 
 
 def _fused_path(matvec, u, specs, m, reorth):
-    """Dispatch to the fused Lanczos kernels (ops/cuda/lanczos2d.py) when the
+    """Dispatch to the fused Lanczos kernels (ops/cuda/) when the
     operator carries a descriptor and the configuration allows it. Returns
     None when the generic path should run instead. The fused path always
     reorthogonalizes fully, so reorth=False falls through."""
     desc = getattr(matvec, "kernel_desc", None)
-    if desc is None or not reorth or u.ndim != 2:
+    if desc is None or not reorth or u.ndim not in (2, 3):
         return None
     if config.kernel_mode == "off":
         return None
@@ -195,12 +196,16 @@ def _fused_path(matvec, u, specs, m, reorth):
         matfunc_apply_planar_multi, supported_desc)
     if not supported_desc(desc, u.shape, u.dtype):
         return None
+    # 3D fields run on the merged (nz*ny, nx) row view
+    view = (u.shape[0] * u.shape[1], u.shape[2]) if u.ndim == 3 else u.shape
     if u.dtype == torch.complex64:
-        planar = torch.stack([u.real, u.imag])
+        planar = torch.stack([u.real.reshape(view), u.imag.reshape(view)])
         outs = matfunc_apply_planar_multi(planar, desc, specs, m)
-        return tuple(torch.complex(o[0], o[1]) for o in outs)
-    outs = matfunc_apply_planar_multi(u[None], desc, specs, m)
-    return tuple(o[0] for o in outs)
+        return tuple(torch.complex(o[0], o[1]).reshape(u.shape)
+                     for o in outs)
+    outs = matfunc_apply_planar_multi(u.reshape(view)[None].contiguous(),
+                                      desc, specs, m)
+    return tuple(o[0].reshape(u.shape) for o in outs)
 
 
 def expm_apply(matvec, u, t, m=default_krylov_m, reorth=True):

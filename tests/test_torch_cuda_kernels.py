@@ -6,7 +6,8 @@ Imports no JAX, so it also runs where only the port is installed:
         tests/test_torch_cuda_kernels.py
 
 Without a CUDA device every test skips (the kernels have no CPU mode; their
-plain versions are held against JAX in tests/test_torch_lanczos2d.py).
+plain versions are held against JAX in tests/test_torch_lanczos2d.py and
+tests/test_torch_lanczos3d.py).
 Tolerances: fields rel-L2 <= 1e-5 (same elementwise arithmetic up to FMA
 contraction); reductions |got - want| <= 1e-4 * ||a|| ||b|| (summation order
 differs).
@@ -17,7 +18,10 @@ import pytest
 import torch
 
 from nlsolvers_tpu_torch import config
+from nlsolvers_tpu_torch.ops import operators as tops
+from nlsolvers_tpu_torch.ops.cuda import bc3d as tb
 from nlsolvers_tpu_torch.ops.cuda import lanczos2d as tl
+from nlsolvers_tpu_torch.ops.cuda import lanczos3d as t3
 
 FIELD_TOL, DOT_TOL = 1e-5, 1e-4
 
@@ -93,3 +97,55 @@ def test_wrapper_rejects_bad_input(cuda):
         tl.pass1_iso2d(one, u, [u[:, :8]], desc)
     with pytest.raises(ValueError):
         tl.pass1_iso2d(one, u.transpose(1, 2), [], desc)
+
+
+def _desc3d(shape, mode, cuda):
+    dx = 2.0 * 5.0 / (shape[-1] - 1)
+    if mode == "aniso":
+        c = 1.0 + 0.4 * np.random.default_rng(5).random(shape)
+        return tops.anisotropic_laplacian_3d(c, dx, device=cuda).kernel_desc
+    return tops.laplacian_3d(shape, dx, variant=mode, device=cuda).kernel_desc
+
+
+@pytest.mark.parametrize("shape,mode,j", [
+    ((37, 50, 61), "reference", 0), ((37, 50, 61), "clean", 4),
+    ((37, 50, 61), "aniso", 8), ((3, 4, 130), "reference", tl.MAX_M - 2),
+    ((9, 11, 13), "clean", tl.MAX_M - 2), ((5, 7, 33), "aniso", tl.MAX_M - 2)])
+def test_3d_kernels_match_plain_on_card(cuda, shape, mode, j):
+    """pass1_3d and pass2 on ragged grids up to j = MAX_M - 2 columns, and
+    the in-place ghost copy, which must equal its plain version exactly."""
+    nz, ny, nx = shape
+    desc = _desc3d(shape, mode, cuda)
+    rng = np.random.default_rng(60 + j)
+    w, *W = [torch.from_numpy(
+        rng.standard_normal((2, nz * ny, nx)).astype(np.float32)).to(cuda)
+        for _ in range(j + 2)]
+    scal = torch.tensor([[0.7, 0.3]], device=cuda)
+    q = torch.from_numpy(
+        rng.uniform(-0.5, 0.5, (j + 1, 2)).astype(np.float32)).to(cuda)
+    before = (t3.pass1_3d.launches, t3.pass2.launches,
+              tb.neumann_bc_planar_3d.launches)
+    for call in (lambda: t3.pass1_3d(scal, W[j], W[:j], desc),
+                 lambda: t3.pass2(q, w, W)):
+        _check(*_kernel_and_plain(call), [w, *W])
+    got, want = _kernel_and_plain(
+        lambda: tb.neumann_bc_planar_3d(w.clone(), shape))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (t3.pass1_3d.launches, t3.pass2.launches,
+            tb.neumann_bc_planar_3d.launches) == tuple(b + 1 for b in before)
+
+
+def test_3d_wrappers_reject_bad_input(cuda):
+    shape = (4, 5, 6)
+    desc = _desc3d(shape, "reference", cuda)
+    u = torch.zeros((2, 20, 6), device=cuda)
+    one = torch.eye(1, 2, device=cuda)
+    with pytest.raises(TypeError):
+        t3.pass1_3d(one, u.double(), [], desc)
+    with pytest.raises(ValueError):
+        t3.pass1_3d(one, u.reshape(2, 10, 12).contiguous(), [], desc)
+    with pytest.raises(ValueError):
+        t3.pass2(torch.zeros((2, 2), device=cuda), u, [u])
+    with pytest.raises(ValueError):
+        tb.neumann_bc_planar_3d(u.double(), shape)

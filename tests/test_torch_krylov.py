@@ -39,7 +39,8 @@ def _dense_pair(L):
 
 def _stencil_pair(n, dx, sign=1.0):
     lj = jops.laplacian_2d((n, n), dx, dx, dtype=jnp.float64)
-    lt = tops.laplacian_2d((n, n), dx, dx, dtype=torch.float64)
+    lt = tops.laplacian_2d((n, n), dx, dx, dtype=torch.float64,
+                           device="cpu")
     if sign == 1.0:
         return lj, lt
     return (lambda u: -lj(u)), (lambda u: -lt(u))
@@ -121,7 +122,8 @@ def test_expm_vs_scipy(m):
     u = _u(nf * nf, True, 9)
     t = 1j * 1e-2
     want = scipy.sparse.linalg.expm_multiply(t * L, u)
-    lt = tops.laplacian_2d((nf, nf), dx, dx, dtype=torch.float64)
+    lt = tops.laplacian_2d((nf, nf), dx, dx, dtype=torch.float64,
+                           device="cpu")
     got = tk.expm_apply(lt, torch.from_numpy(u.reshape(nf, nf)), t, m=m)
     assert _rel(got.numpy().reshape(-1), want) < 1e-9
 
@@ -134,7 +136,7 @@ def test_zero_start_vector_gives_zero(dtype):
     n = 12
     rd = torch.float64 if dtype in (torch.float64, torch.complex128) \
         else torch.float32
-    lt = tops.laplacian_2d((n, n), 0.2, 0.2, dtype=rd)
+    lt = tops.laplacian_2d((n, n), 0.2, 0.2, dtype=rd, device="cpu")
     z = torch.zeros((n, n), dtype=dtype)
     specs = (((1e-3, "sinc"), (1j * 1e-3, "exp")) if dtype.is_complex
              else ((1e-3, "sinc"), (1e-3, "cos_sqrt")))
@@ -150,7 +152,8 @@ def test_fused_dispatch_matches_generic():
     kernel_mode "auto" and the generic path under "off"; both agree at the
     complex64 tolerance of tests/test_pallas.py (rtol 2e-4, atol 2e-5)."""
     n = 32
-    lt = tops.laplacian_2d((n, n), 0.3, 0.3, dtype=torch.float32)
+    lt = tops.laplacian_2d((n, n), 0.3, 0.3, dtype=torch.float32,
+                           device="cpu")
     u = torch.from_numpy(_u((n, n), True, 10).astype(np.complex64))
     fused = tk.matfunc_apply(lt, u, 1j * 1e-3, "exp", m=8)
     old = config.kernel_mode

@@ -142,7 +142,7 @@ def test_run_matches_jax_complex128():
     pj = jproblems.nlse_problem("cubic", (n, n), LX, DT, dtype=jnp.complex128,
                                 **kw)
     pt = tproblems.nlse_problem("cubic", (n, n), LX, DT,
-                                dtype=torch.complex128, **kw)
+                                dtype=torch.complex128, device="cpu", **kw)
     assert not pt.meta["planar_state"]
     want = np.asarray(jproblems.run(pj, pj.init(u0), 4, 3))
     got = tproblems.run(pt, pt.init(u0), 4, 3).numpy()
@@ -157,7 +157,8 @@ def test_golden_nlse_cubic_2d(case):
     nt, snaps = int(d["nt"]), int(d["num_snapshots"])
     prob = tproblems.nlse_problem(
         "cubic", d["u0"].shape, float(d["Lx"]), float(d["T"]) / nt,
-        m_field=d["m"], krylov_m=int(d["krylov_m"]), dtype=torch.complex128)
+        m_field=d["m"], krylov_m=int(d["krylov_m"]), dtype=torch.complex128,
+        device="cpu")
     traj = tproblems.run(prob, prob.init(d["u0"]), snaps, nt // snaps).numpy()
     assert traj.shape == d["traj"].shape
     for k in range(snaps):
@@ -177,7 +178,7 @@ def test_import_loads_no_jax():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("kw", [dict(shape=(8, 8, 8)),
+@pytest.mark.parametrize("kw", [dict(shape=(8, 8, 8), integrator="sewi"),
                                 dict(c_field=np.ones((8, 8))),
                                 dict(integrator="sewi"),
                                 dict(bc="radiating"),
@@ -188,4 +189,5 @@ def test_outside_the_slice_raises(kw):
     kw = dict(kw)
     shape = kw.pop("shape", (8, 8))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tproblems.nlse_problem("cubic", shape, 5.0, 1e-3, **kw)
+        tproblems.nlse_problem("cubic", shape, 5.0, 1e-3, device="cpu",
+                               **kw)
