@@ -8,7 +8,8 @@ nvidia-smi. Imports torch, numpy and nlsolvers_tpu_torch only, never JAX.
 Phases, one line each (or a few):
   1. device    the card's name and `nvidia-smi` name, power limit
   2. build     one nvcc per csrc/*.cu, all started together; seconds,
-               registers and spills from ptxas
+               registers and spills from ptxas, and per instantiation of
+               the 2D pass1/pipe kernels (iso and aniso)
   3. parity    each 2D kernel (K1-K3) against its plain PyTorch version on
                the same seeded CUDA tensors, at 1024^2 complex64 and on a
                ragged 250x333 grid: fields rel-L2 <= 1e-5 (same elementwise
@@ -43,9 +44,32 @@ Phases, one line each (or a few):
                100), their chunks interleaved, and 256^3 iso (3 of 20), each
                with device busy ms per step, idle share, launches and host
                syncs per step; at 128^3 also the host's own profile.
-Then the card's name and power limit, the kernels as one JSON line, and last
-{"ok": true, "device": ...}. Any failed phase exits non-zero and prints no
-result.
+ 11. parity2d-aniso  K1' (pass1_aniso2d) and K2' (pipe_aniso2d) against
+               their plain versions, c = 1 + 0.4 U[0, 1), at 1024^2 and on
+               a ragged 250x333 grid, j up to 18 (the 16 and 32 column
+               buckets of m=20), complex and real fields: the gates of
+               phase 3. Device times per step at 1024^2 m=10 beside the
+               bytes bound.
+ 12. main2d-aniso  nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) with
+               c(x) from default_rng(0) (benchmarks/perf_table.py's
+               nlse2d_1024_ss2_aniso): 200 steps through problems.run,
+               exactly 1 K1' + 9 K2' + 1 K3 launches per step and no iso
+               launch, finite snapshots, relative mass drift < 1e-3.
+ 13. sewi2d    the same problem with integrator="sewi", 100 steps through
+               problems.run: the step-1 bootstrap launches exactly 1 K1' +
+               9 K2' + 1 K3 and every later step 3 K1' + 27 K2' + 3 K3;
+               finite snapshots; the mass drift is printed, not gated (sEWI
+               does not conserve it exactly).
+ 14. paths2d-aniso  20 steps of SS2, sEWI, fused sEWI and Gautschi on c(x):
+               kernels vs plain planar (rel-L2 <= 1e-5), plain planar vs
+               the complex path (<= 2e-4); 10 steps of 3D sEWI at 128^3,
+               kernels vs plain planar (<= 1e-5).
+ 15. rate2d-aniso  1024^2 iso SS2 and c(x) SS2 (3 chunks of 200 each,
+               interleaved), then c(x) sEWI (3 of 50), as in phase 10. Each
+               run carries its step index, so sEWI bootstraps once.
+Then the card's name and power limit, the kernels as one JSON line (all
+eight: K1-K3, pass1_3d, pass2, bc3d, K1', K2'), and last {"ok": true,
+"device": ...}. Any failed phase exits non-zero and prints no result.
 """
 
 import json
@@ -54,6 +78,7 @@ import subprocess
 import sys
 import time
 import warnings
+from functools import partial
 from pathlib import Path
 
 N, LX, DT, KRYLOV_M = 1024, 10.0, 1e-4, 10
@@ -157,16 +182,20 @@ def kernel_name(mangled):
     return name
 
 
-def spilling_kernels(lines):
-    """The kernels that ptxas -v reports spilling registers, from a build
-    log's lines, each with its spill stores."""
-    out, fn = [], ""
+def kernel_resources(lines):
+    """(kernel, registers, spill-store bytes) for each kernel in a build
+    log's ptxas -v lines."""
+    import re
+    out, fn, spill = [], "", 0
     for ln in lines:
         if "Function properties for" in ln:
-            fn = ln.split("Function properties for")[1].strip()
-        elif "spill stores" in ln and " 0 bytes spill stores" not in ln:
-            out.append(f"{kernel_name(fn)} "
-                       f"({ln.strip().split(',')[1].strip()})")
+            fn = kernel_name(ln.split("Function properties for")[1].strip())
+        elif "spill stores" in ln:
+            spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif "Used " in ln and " registers" in ln and fn:
+            regs = int(ln.split("Used ")[1].split(" registers")[0])
+            out.append((fn, regs, spill))
+            fn, spill = "", 0
     return out
 
 
@@ -176,10 +205,19 @@ def bound_ms(nbytes):
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def advance(step, s, n):
-    for i in range(1, n + 1):
+def advance(step, s, n, first=1):
+    """n steps from step index `first`. A two-step integrator takes its SS2
+    bootstrap at index 1 only, so a caller that goes on from an earlier
+    advance passes the next index."""
+    for i in range(first, first + n):
         s = step(s, i)
     return s
+
+
+def finite(torch, s):
+    """All values finite, for a state or a two-step state (u, u_prev)."""
+    parts = s if isinstance(s, tuple) else (s,)
+    return all(bool(torch.isfinite(x).all()) for x in parts)
 
 
 def host_syncs(torch, fn):
@@ -203,28 +241,32 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
     torch.profiler over n_prof steps (device busy ms/step, idle share,
     launches per step, the top kernels), the host syncs of one step and,
     with host_profile, the host functions that take the most time (cProfile
-    over n_prof steps). runs: {label: (problem, state)}."""
+    over n_prof steps). runs: {label: (problem, initial state)}. Each run
+    carries its step index, so a two-step integrator bootstraps once, in the
+    warm-up, and every timed step is a step of the integrator itself."""
     state = {k: advance(p.step, s, 3) for k, (p, s) in runs.items()}
+    nxt = {k: 4 for k in runs}
     torch.cuda.synchronize()
     rates = {k: [] for k in runs}
     for k in order:
         t0 = time.perf_counter()
-        state[k] = advance(runs[k][0].step, state[k], chunk)
+        state[k] = advance(runs[k][0].step, state[k], chunk, nxt[k])
         torch.cuda.synchronize()
         rates[k].append(chunk / (time.perf_counter() - t0))
+        nxt[k] += chunk
     for label, (prob, _) in runs.items():
         s = state[label]
-        check(bool(torch.isfinite(s).all()), f"{label}: non-finite state "
-              f"after timing")
+        check(finite(torch, s), f"{label}: non-finite state after timing")
         r = rates[label]
         sps = statistics.median(r)
         print(f"{label}: {sps:.2f} steps/s median of {len(r)} x {chunk} "
               f"steps (min {min(r):.2f}, max {max(r):.2f}; in call order "
               f"{', '.join(f'{x:.1f}' for x in r)}); {1e3 / sps:.4f} ms/step")
-        box = [s]
+        box, idx = [s], [nxt[label]]
 
         def steps():
-            box[0] = advance(prob.step, box[0], n_prof)
+            box[0] = advance(prob.step, box[0], n_prof, idx[0])
+            idx[0] += n_prof
 
         rows = profiled(torch, steps)
         busy_ms = sum(dev_us(e) for e in rows) / 1e3 / n_prof
@@ -238,7 +280,8 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
                   f"{e.count // n_prof:4d}x/step {e.key[:70]}")
 
         def one_step():
-            box[0] = prob.step(box[0], 1)
+            box[0] = prob.step(box[0], idx[0])
+            idx[0] += 1
 
         print(f"{label}: host syncs in one step: "
               f"{host_syncs(torch, one_step)}")
@@ -248,7 +291,7 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
             torch.cuda.synchronize()
             prof_h = cProfile.Profile()
             prof_h.enable()
-            s = advance(prob.step, box[0], n_prof)
+            s = advance(prob.step, box[0], n_prof, idx[0])
             torch.cuda.synchronize()
             prof_h.disable()
             st = pstats.Stats(prof_h)
@@ -306,17 +349,24 @@ def main():
     # ---------------------------------------------------------- 2. build
     libs = ("lanczos2d", "lanczos3d")
     _build.build_all(libs)
+    resources = {}
     for lib in libs:
         log = _build.build_log(lib)
-        lines = log.read_text().splitlines() if log.exists() else []
-        spills = spilling_kernels(lines)
-        regs = [int(ln.split("Used ")[1].split(" registers")[0])
-                for ln in lines if "registers" in ln and "Used " in ln]
+        res = resources[lib] = kernel_resources(
+            log.read_text().splitlines() if log.exists() else [])
+        regs = [nreg for _, nreg, _ in res]
+        spills = [f"{k} ({sp} bytes spill stores)" for k, _, sp in res if sp]
         print(f"build {lib}: {_build.build_seconds(lib):.2f} s (nvcc sm_90a "
               f"and load, builds in parallel); {len(regs)} kernels, "
               f"registers {min(regs, default=0)}-{max(regs, default=0)}; "
               f"kernels that spill registers: {len(spills)} "
               f"{'; '.join(spills)}")
+    # every instantiation of the 2D kernels: <P, MAXW, OP> (OP 1 = aniso)
+    # and <P, MAXW, LAST, OP>
+    for kname, nreg, spill in resources["lanczos2d"]:
+        if kname.startswith(("pass1_2d_kernel", "pipe_2d_kernel")):
+            print(f"ptxas {kname}: {nreg} registers, {spill} bytes spill "
+                  f"stores")
 
     # ---------------------------------------------------------- 3. parity
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -346,31 +396,30 @@ def main():
 
     dx = 2.0 * LX / (N - 1)
     desc = operators.laplacian_2d((N, N), dx, dx, device=dev).kernel_desc
-    errs = {k: 0.0 for k in ("K1", "K2", "K3", "pass1_3d", "pass2", "bc3d")}
+    errs = {k: 0.0 for k in ("K1", "K2", "K3", "pass1_3d", "pass2", "bc3d",
+                             "K1'", "K2'")}
 
-    def parity_pass1(j, d, ny, nx, P=2):
+    def parity_pass1(j, d, ny, nx, P=2, fn=lz.pass1_iso2d, key="K1"):
         W = [field(ny, nx, P) for _ in range(j + 1)]
         scal = scalars(1)
-        (w, raw), (w0, raw0) = both(
-            lambda: lz.pass1_iso2d(scal, W[j], W[:j], d))
+        (w, raw), (w0, raw0) = both(lambda: fn(scal, W[j], W[:j], d))
         fe, de = rel(w, w0), dot_err(raw, raw0, W, w0)
-        errs["K1"] = max(errs["K1"], float((w - w0).abs().max()))
+        errs[key] = max(errs[key], float((w - w0).abs().max()))
         return fe, de
 
-    def parity_pipe(j, last, d, ny, nx, P=2):
+    def parity_pipe(j, last, d, ny, nx, P=2, fn=lz.pipe_iso2d, key="K2"):
         av, *W = [field(ny, nx, P) for _ in range(j + 2)]
         scal = scalars(j + 2)
-        got, want = both(lambda: lz.pipe_iso2d(scal, av, W, d, last))
+        got, want = both(lambda: fn(scal, av, W, d, last))
         fe = rel(got[0], want[0])
-        errs["K2"] = max(errs["K2"], float((got[0] - want[0]).abs().max()))
+        errs[key] = max(errs[key], float((got[0] - want[0]).abs().max()))
         nsq, gram = (got[1], got[2]) if last else (got[2], got[3])
         nsq0, gram0 = (want[1], want[2]) if last else (want[2], want[3])
         de = max(float((nsq - nsq0).abs().max() / nsq0.abs().max()),
                  dot_err(gram, gram0, W, want[0]))
         if not last:
             fe = max(fe, rel(got[1], want[1]))
-            errs["K2"] = max(errs["K2"],
-                             float((got[1] - want[1]).abs().max()))
+            errs[key] = max(errs[key], float((got[1] - want[1]).abs().max()))
             de = max(de, dot_err(got[4], want[4], W + [want[0]], want[1]))
         return fe, de
 
@@ -621,10 +670,11 @@ def main():
     del W, w, Wc, wc, up, d3
 
     # ---------------------------------------------------------- 8. main3d
-    def problem3d(n, c=None):
+    def problem3d(n, c=None, integrator="ss2"):
         prob = problems.nlse_problem("cubic", (n, n, n), LX, DT,
                                      m_field=torch.ones((n, n, n)),
-                                     c_field=c, krylov_m=KRYLOV_M)
+                                     c_field=c, krylov_m=KRYLOV_M,
+                                     integrator=integrator)
         check(prob.meta["planar_state"] and prob.meta["device"] == "cuda",
               f"3D problem at {n}^3 did not take the planar path on the card")
         x = torch.linspace(-LX, LX, n, dtype=torch.float32, device=dev)
@@ -710,6 +760,217 @@ def main():
     rate(torch, {big: (prob_big, s_big)}, 20, [big] * 3, 5)
     del prob_big, s_big
 
+    # ---------------------------------------------------------- 11. parity2d-aniso
+    # c = 1 + 0.4 U[0, 1) from default_rng(0), as benchmarks/perf_table.py's
+    # nlse2d_1024_ss2_aniso row
+    c2 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
+        (N, N))).astype(np.float32))
+    desc_a = operators.anisotropic_laplacian_2d(c2, dx, dx,
+                                                device=dev).kernel_desc
+    ragged_a = operators.anisotropic_laplacian_2d(
+        1.0 + 0.4 * torch.rand((250, 333), generator=gen, device=dev), dx, dx,
+        device=dev).kernel_desc
+    a1 = dict(fn=lz.pass1_aniso2d, key="K1'")
+    a2 = dict(fn=lz.pipe_aniso2d, key="K2'")
+    cases = [
+        ("K1' j=0", lambda: parity_pass1(0, desc_a, N, N, **a1)),
+        ("K1' j=4", lambda: parity_pass1(4, desc_a, N, N, **a1)),
+        ("K1' j=8", lambda: parity_pass1(8, desc_a, N, N, **a1)),
+        ("K1' j=18", lambda: parity_pass1(18, desc_a, N, N, **a1)),
+        ("K1' j=4 real", lambda: parity_pass1(4, desc_a, N, N, P=1, **a1)),
+        ("K2' j=0", lambda: parity_pipe(0, False, desc_a, N, N, **a2)),
+        ("K2' j=4", lambda: parity_pipe(4, False, desc_a, N, N, **a2)),
+        ("K2' j=8", lambda: parity_pipe(8, False, desc_a, N, N, **a2)),
+        (f"K2' j={KRYLOV_M - 2} last",
+         lambda: parity_pipe(KRYLOV_M - 2, True, desc_a, N, N, **a2)),
+        ("K2' j=12 (m=20)", lambda: parity_pipe(12, False, desc_a, N, N,
+                                                **a2)),
+        ("K2' j=17 (m=20)", lambda: parity_pipe(17, False, desc_a, N, N,
+                                                **a2)),
+        ("K2' j=18 last (m=20)", lambda: parity_pipe(18, True, desc_a, N, N,
+                                                     **a2)),
+        ("K2' j=0 real", lambda: parity_pipe(0, False, desc_a, N, N, P=1,
+                                             **a2)),
+        ("K2' j=8 real", lambda: parity_pipe(8, False, desc_a, N, N, P=1,
+                                             **a2)),
+        ("K1' j=2 250x333", lambda: parity_pass1(2, ragged_a, 250, 333,
+                                                 **a1)),
+        ("K2' j=2 250x333", lambda: parity_pipe(2, False, ragged_a, 250, 333,
+                                                **a2)),
+        ("K2' j=2 last 250x333",
+         lambda: parity_pipe(2, True, ragged_a, 250, 333, **a2)),
+        ("K2' j=18 250x333", lambda: parity_pipe(18, False, ragged_a, 250,
+                                                 333, **a2)),
+        ("K2' j=4 real 250x333",
+         lambda: parity_pipe(4, False, ragged_a, 250, 333, P=1, **a2)),
+    ]
+    for label, fn in cases:
+        gate(label, *fn())
+    del ragged_a
+
+    # K1' and K2' per step of the main2d-aniso path (1024^2, m=10)
+    u = field()
+    W = [field() for _ in range(KRYLOV_M)]
+    av = field()
+    ka1 = timed(lambda: lz.pass1_aniso2d(one, u, [], desc_a))
+    ka2 = [0.0] * 4
+    for j in range(KRYLOV_M - 1):
+        sc = scalars(j + 2)
+        t = timed(lambda: lz.pipe_aniso2d(sc, av, W[:j + 1], desc_a,
+                                          j == KRYLOV_M - 2))
+        show(f"K2' j={j}", t)
+        ka2 = [a + b for a, b in zip(ka2, t)]
+    times_a = {"K1'": ka1, "K2'": tuple(ka2)}
+    # bytes per step: K1' reads W_0 and the two weight planes, writes av_0;
+    # K2' as K2, plus the two weight planes at every iteration but the last
+    wplane = N * N * 4
+    bytes_a = {"K1'": 2 * col2 + 2 * wplane,
+               "K2'": k2_cols * col2 + 2 * (KRYLOV_M - 2) * wplane}
+    for key, t in times_a.items():
+        show(f"{key} per step", t)
+        nb = bytes_a[key]
+        print(f"bound {key} per step: {nb / 1e6:.1f} MB -> "
+              f"{bound_ms(nb):.4f} ms at 3.35 TB/s; kernel at "
+              f"{bound_ms(nb) / t[0]:.3f} of it")
+    del u, W, av
+
+    # ---------------------------------------------------------- 12. main2d-aniso
+    counters2a = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
+                  "K1'": lz.pass1_aniso2d, "K2'": lz.pipe_aniso2d,
+                  "K3": lz.combine}
+
+    def counted(fn):
+        for f in counters2a.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            k: f.launches for k, f in counters2a.items()}
+
+    def problem2d(integrator="ss2", c=c2):
+        prob = problems.nlse_problem("cubic", (N, N), LX, DT,
+                                     m_field=m_field, c_field=c,
+                                     krylov_m=KRYLOV_M, integrator=integrator,
+                                     dtype=torch.complex64)
+        check(prob.meta["planar_state"] and prob.meta["device"] == "cuda",
+              f"2D {integrator} did not take the planar path on the card")
+        return prob, prob.init(u0)
+
+    def mass_drift(traj):
+        mass = (traj.abs().double() ** 2).sum(dim=(1, 2))
+        return float(((mass - mass[0]).abs() / mass[0]).max())
+
+    prob_a, state_a = problem2d()
+    traj, wall, launches_a = counted(
+        lambda: problems.run(prob_a, state_a, snaps, freq))
+    want = {"K1": 0, "K2": 0, "K1'": steps, "K2'": (KRYLOV_M - 1) * steps,
+            "K3": steps}
+    print(f"main2d-aniso: {steps} steps of cubic SS2 with c(x) at {N}^2 "
+          f"m={KRYLOV_M} in {wall:.3f} s; launches {launches_a}")
+    check(launches_a == want, f"main2d-aniso: launches {launches_a} != "
+          f"{want}")
+    check(tuple(traj.shape) == (snaps, N, N) and traj.dtype == torch.complex64,
+          f"main2d-aniso: snapshots {tuple(traj.shape)} {traj.dtype}")
+    check(bool(torch.isfinite(torch.view_as_real(traj)).all()),
+          "main2d-aniso: non-finite snapshot")
+    drift = mass_drift(traj)
+    print(f"main2d-aniso: relative mass drift over {steps} steps "
+          f"{drift:.3e}")
+    check(drift < 1e-3, f"main2d-aniso: mass drift {drift:.3e} >= 1e-3")
+    del traj
+
+    # ---------------------------------------------------------- 13. sewi2d
+    prob_s, state_s = problem2d("sewi")
+    _, _, boot = counted(lambda: prob_s.step(state_s, 1))
+    want_boot = {"K1": 0, "K2": 0, "K1'": 1, "K2'": KRYLOV_M - 1, "K3": 1}
+    check(boot == want_boot, f"sewi2d: bootstrap launches {boot} != "
+          f"{want_boot}")
+    snaps_s, freq_s = 5, 25
+    steps_s = (snaps_s - 1) * freq_s
+    traj, wall, got = counted(
+        lambda: problems.run(prob_s, state_s, snaps_s, freq_s))
+    per_step = {"K1": 0, "K2": 0, "K1'": 3, "K2'": 3 * (KRYLOV_M - 1),
+                "K3": 3}
+    want = {k: boot[k] + (steps_s - 1) * v for k, v in per_step.items()}
+    print(f"sewi2d: {steps_s} steps of cubic sEWI with c(x) at {N}^2 "
+          f"m={KRYLOV_M} in {wall:.3f} s; launches {got} (bootstrap "
+          f"{boot}, then {per_step} per step)")
+    check(got == want, f"sewi2d: launches {got} != {want}")
+    check(bool(torch.isfinite(torch.view_as_real(traj)).all()),
+          "sewi2d: non-finite snapshot")
+    print(f"sewi2d: relative mass drift over {steps_s} steps "
+          f"{mass_drift(traj):.3e} (not gated: sEWI does not conserve it "
+          f"exactly)")
+    del traj
+
+    # ---------------------------------------------------------- 14. paths2d-aniso
+    lap_a = operators.anisotropic_laplacian_2d(c2, dx, dx, device=dev)
+    rho = nlse_density("cubic", m_field.to(dev))
+    two_step = {"sewi": nlse.sewi_step,
+                "sewi_fused": partial(nlse.sewi_step, fuse_exp_sinc=True),
+                "gautschi": nlse.gautschi_step}
+
+    def complex_run(integrator, lap, neum, z, n):
+        """n steps of the complex path from z: the package's complex
+        steppers, whose Lanczos is ops/krylov's generic one under
+        kernel_mode "off"; a two-step integrator takes one SS2 step at
+        step 1."""
+        z_prev = z
+        for i in range(1, n + 1):
+            if integrator == "ss2" or i == 1:
+                z, z_prev = neum(nlse.ss2_step(z, lap, rho, DT,
+                                               m=KRYLOV_M)), z
+            else:
+                zn, z_prev = two_step[integrator](z, z_prev, lap, rho, DT,
+                                                  m=KRYLOV_M)
+                z = neum(zn)
+        return z
+
+    for integ in ("ss2", "sewi", "sewi_fused", "gautschi"):
+        prob_i, s0 = problem2d(integ)
+        auto = prob_i.observe(advance(prob_i.step, s0, n_par))
+        config.kernel_mode = "off"
+        try:
+            plain = prob_i.observe(advance(prob_i.step, s0, n_par))
+            cpath = complex_run(integ, lap_a, boundaries.neumann_no_velocity_2d,
+                                prob_i.observe(prob_i.init(u0)), n_par)
+        finally:
+            config.kernel_mode = "auto"
+        e_kp, e_pc = rel(auto, plain), rel(plain, cpath)
+        print(f"paths2d-aniso {integ}: {n_par} steps kernels vs plain planar "
+              f"rel-L2 {e_kp:.3e}; plain planar vs complex path rel-L2 "
+              f"{e_pc:.3e}")
+        check(e_kp <= 1e-5, f"2D c(x) {integ} kernel vs plain path rel-L2 "
+              f"{e_kp:.3e} > 1e-5")
+        check(e_pc <= 2e-4, f"2D c(x) {integ} planar vs complex path rel-L2 "
+              f"{e_pc:.3e} > 2e-4")
+        del prob_i, s0, auto, plain, cpath
+    n_par3 = 10
+    prob3s, s3s = problem3d(N3, integrator="sewi")
+    auto = prob3s.observe(advance(prob3s.step, s3s, n_par3))
+    config.kernel_mode = "off"
+    try:
+        plain = prob3s.observe(advance(prob3s.step, s3s, n_par3))
+    finally:
+        config.kernel_mode = "auto"
+    e_kp = rel(auto, plain)
+    print(f"paths3d sewi: {n_par3} steps at {N3}^3 kernels vs plain planar "
+          f"rel-L2 {e_kp:.3e}")
+    check(e_kp <= 1e-5, f"3D sEWI kernel vs plain path rel-L2 {e_kp:.3e} > "
+          f"1e-5")
+    del prob3s, s3s, auto, plain
+
+    # ---------------------------------------------------------- 15. rate2d-aniso
+    prob_iso, state_iso = problem2d(c=None)
+    iso2, cx2 = f"rate2d iso {N}^2", f"rate2d c(x) {N}^2"
+    rate(torch, {iso2: (prob_iso, state_iso), cx2: (prob_a, state_a)}, 200,
+         [iso2, cx2, cx2, iso2, iso2, cx2], 20)
+    del prob_iso, state_iso
+    sw2 = f"rate2d c(x) sewi {N}^2"
+    rate(torch, {sw2: (prob_s, state_s)}, 50, [sw2] * 3, 10)
+    del prob_a, state_a, prob_s, state_s
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib):
         """One kernel of the JSON line: `launches` over the n_steps of its
@@ -735,6 +996,10 @@ def main():
               errs["pass2"], t3["pass2"], bytes3["pass2"], pass2_lib),
         entry("bc3d", SOURCE3, f"{PALLAS_BC}:52", launches3["bc3d"], steps3,
               0.0, t3["bc3d"], bytes3["bc3d"], None),
+        entry("pass1_aniso2d", SOURCE, f"{PALLAS}:473", launches_a["K1'"],
+              steps, errs["K1'"], times_a["K1'"], bytes_a["K1'"], None),
+        entry("pipe_aniso2d", SOURCE, f"{PALLAS}:779", launches_a["K2'"],
+              steps, errs["K2'"], times_a["K2'"], bytes_a["K2'"], None),
     ]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -1,24 +1,33 @@
 // Hand-written Hopper (sm_90a) kernels for the pipelined 2D Lanczos
-// matrix-function loop on the 5-point no-flux Laplacian ("iso2d").
+// matrix-function loop, on two stencil operators: the 5-point no-flux
+// Laplacian ("iso2d") and the finite-volume div(c grad u) with zero-padded
+// face weights wx, wy ("aniso2d").
 //
 // Replaces three Pallas TPU kernels of nlsolvers_tpu/ops/pallas/lanczos2d.py:
-//   K1 pass1_iso2d   <- _pass1_call, mode "iso2d"
+//   K1 / K1' pass1_iso2d, pass1_aniso2d <- _pass1_call, modes iso2d, aniso2d
 //        w = s_j A(W_j) - bs W_{j-1}, fused with raw_i = <W_i, w>, i <= j
-//   K2 pipe_iso2d    <- _pipe_call, mode "iso2d"
+//   K2 / K2' pipe_iso2d, pipe_aniso2d   <- _pipe_call, modes iso2d, aniso2d
 //        W_{j+1} = s av_j - sum_i c_i W_i (complex c_i), ||W_{j+1}||^2,
 //        gram_i = <W_i, W_{j+1}>; unless LAST also av_{j+1} = A(W_{j+1}),
 //        d_i = <W_i, av_{j+1}> (i <= j) and d_{j+1} = <W_{j+1}, av_{j+1}>
-//   K3 combine       <- _combine_call
+//   K3 combine                          <- _combine_call
 //        y_spec = sum_i q[spec, i] W_i for k specs in one pass
 //
 // Fields are planar float32 (P, ny, nx); the block shape, the dot and the
-// reduction are in lz_common.cuh.
+// reduction are in lz_common.cuh. The operator is a template policy (OP) of
+// one pass1 and one pipe kernel: both stencils read the same five values of
+// u per cell, so the tiling, the halo rebuild and the dots are shared; the
+// aniso stencil adds four weight loads per cell (wx at x and x-1, wy at r
+// and r-1), which read the same two weight planes one column or one row
+// apart and so come from L1/L2 after the first touch. The LAST pipe
+// iteration computes no stencil and reads no weights, in both modes.
 //
 // What bounds them on an H100: bytes streamed from device memory. The
 // arithmetic is a few flops per loaded float. K2 at iteration j reads j+2
 // columns (av_j, W_0..W_j) and writes 2 (W_{j+1}, av_{j+1}); at 1024^2
-// complex64 a column is 8 MB, so K2 at j = 8 moves ~88 MB. K1 reads j+1
-// columns and writes 1; K3 reads m and writes k.
+// complex64 a column is 8 MB, so K2 at j = 8 moves ~88 MB (aniso: two
+// 4 MB weight planes more). K1 reads j+1 columns and writes 1; K3 reads m
+// and writes k.
 //
 // What the design does about it:
 // * Every column is read from device memory once per launch. A block owns a
@@ -28,9 +37,10 @@
 // * K2 needs the stencil of the column it is building. It rebuilds W_{j+1}
 //   on the tile's halo rows and columns from av_j and the W_i, read straight
 //   from global memory, with the same coefficients, and keeps a 3-row ring
-//   of W_{j+1} in shared memory for the stencil. No halo arrays are built.
-// * The diagonal of the stencil is computed from the row/column index, so it
-//   costs no traffic.
+//   of W_{j+1} in shared memory for the stencil. No halo arrays are built;
+//   the aniso weights of the halo faces are read from global memory too.
+// * The iso diagonal is computed from the row/column index, so it costs no
+//   traffic.
 // * Scalars (s_j, bs, c_i, q) are read from a device buffer, so no host sync
 //   is needed between the scalar recurrence and the kernels.
 // * Cross-block reductions are two-stage and deterministic, with no
@@ -43,8 +53,18 @@
 namespace {
 
 constexpr int KMAX = 4;        // most specs one combine launch takes
+constexpr int OP_ISO = 0;      // 5-point Laplacian, diagonal from the index
+constexpr int OP_ANISO = 1;    // div(c grad u) with zero-padded face weights
 
 struct Outs { float* p[KMAX]; };
+
+// What an operator reads besides u: the aniso face weights (ny, nx), wx
+// zero in column nx-1 and wy zero in row ny-1; the iso diagonal variant.
+struct Op2d {
+  const float* wx;
+  const float* wy;
+  int clean;
+};
 
 // Variant diagonal: "reference" is -3 on the whole boundary ring (corners
 // included) and -4 inside; "clean" is -(number of existing neighbours).
@@ -55,14 +75,47 @@ __device__ __forceinline__ float stencil_diag(int r, int x, int ny, int nx,
   return (top | bot | lft | rgt) ? -3.0f : -4.0f;
 }
 
+// The operator's coefficients at cell (r, x), shared by the planes: the iso
+// diagonal in k[0], or the aniso face weights at x+1/2, x-1/2, r+1/2 and
+// r-1/2 (0 for a face outside the grid).
+template <int OP>
+__device__ __forceinline__ void load_coef(const Op2d& op, int r, int x,
+                                          int ny, int nx, size_t idx,
+                                          float (&k)[4]) {
+  if (OP == OP_ISO) {
+    k[0] = stencil_diag(r, x, ny, nx, op.clean);
+  } else {
+    k[0] = __ldg(op.wx + idx);
+    k[1] = x > 0 ? __ldg(op.wx + idx - 1) : 0.0f;
+    k[2] = __ldg(op.wy + idx);
+    k[3] = r > 0 ? __ldg(op.wy + idx - nx) : 0.0f;
+  }
+}
+
+// A(u) at one cell before the scale, from the cell c and its neighbours
+// (0 outside the grid). aniso keeps _stencil_aniso's order of terms:
+// fx - fx[x-1] + fy - fy[r-1], with no face left of x = 0 or above r = 0.
+template <int OP>
+__device__ __forceinline__ float stencil(float c, float up, float dn,
+                                         float lf, float rt, int r, int x,
+                                         const float (&k)[4]) {
+  if (OP == OP_ISO) return up + dn + lf + rt + k[0] * c;
+  const float fx = k[0] * (rt - c);
+  const float fx_l = x > 0 ? k[1] * (c - lf) : 0.0f;
+  const float fy = k[2] * (dn - c);
+  const float fy_u = r > 0 ? k[3] * (c - up) : 0.0f;
+  return fx - fx_l + fy - fy_u;
+}
+
 // ---------------------------------------------------------------- K1 pass1
 // MAXW bounds j (the number of earlier columns) so the per-column
 // accumulators stay in registers.
-template <int P, int MAXW>
-__global__ void __launch_bounds__(TX) pass1_iso2d_kernel(
+template <int P, int MAXW, int OP>
+__global__ void __launch_bounds__(TX) pass1_2d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
-    const float* __restrict__ wjm1, int j, float* __restrict__ w_out,
-    float* __restrict__ partial, int ny, int nx, float ss, int clean) {
+    const float* __restrict__ wjm1, int j, Op2d op,
+    float* __restrict__ w_out, float* __restrict__ partial, int ny, int nx,
+    float ss) {
   __shared__ float red[NWARP][RED_W];
   const int t = threadIdx.x;
   const int x = blockIdx.x * TX + t;
@@ -77,7 +130,8 @@ __global__ void __launch_bounds__(TX) pass1_iso2d_kernel(
     for (int rr = 0; rr < rows; ++rr) {
       const int r = y0 + rr;
       const size_t idx = (size_t)r * nx + x;
-      const float diag = stencil_diag(r, x, ny, nx, clean);
+      float k[4];
+      load_coef<OP>(op, r, x, ny, nx, idx, k);
       float c[P], w[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
@@ -87,7 +141,7 @@ __global__ void __launch_bounds__(TX) pass1_iso2d_kernel(
         const float dn = r < ny - 1 ? __ldg(b + idx + nx) : 0.0f;
         const float lf = x > 0 ? __ldg(b + idx - 1) : 0.0f;
         const float rt = x < nx - 1 ? __ldg(b + idx + 1) : 0.0f;
-        const float av = (up + dn + lf + rt + diag * cv) * ss;
+        const float av = stencil<OP>(cv, up, dn, lf, rt, r, x, k) * ss;
         float wv = s * av;
         if (j > 0) wv = wv - bs * __ldg(wjm1 + p * plane + idx);
         c[p] = cv;
@@ -145,12 +199,13 @@ __device__ __forceinline__ void rebuild(const float* __restrict__ av,
   if (P == 2) v[1] = a1;
 }
 
-// MAXW bounds nw = j + 1, the number of basis columns.
-template <int P, int MAXW, bool LAST>
-__global__ void __launch_bounds__(TX) pipe_iso2d_kernel(
+// MAXW bounds nw = j + 1, the number of basis columns. LAST computes no
+// stencil, so its one instantiation (OP_ISO) serves both operators.
+template <int P, int MAXW, bool LAST, int OP>
+__global__ void __launch_bounds__(TX) pipe_2d_kernel(
     const float* __restrict__ scal, const float* __restrict__ av, Cols W,
-    int nw, float* __restrict__ wn_out, float* __restrict__ av_out,
-    float* __restrict__ partial, int ny, int nx, float ss, int clean) {
+    int nw, Op2d op, float* __restrict__ wn_out, float* __restrict__ av_out,
+    float* __restrict__ partial, int ny, int nx, float ss) {
   __shared__ float red[NWARP][RED_W];
   __shared__ float ring[LAST ? 1 : 3][P][TX + 2];
   const int t = threadIdx.x;
@@ -222,13 +277,14 @@ __global__ void __launch_bounds__(TX) pipe_iso2d_kernel(
       const int rs = r - 1;            // a tile row: y0 <= rs < y0 + rows
       const int sc = (rr - 1) % 3, su = (rr - 2) % 3;
       const size_t idx = (size_t)rs * nx + x;
-      const float diag = stencil_diag(rs, x, ny, nx, clean);
+      float k[4];
+      load_coef<OP>(op, rs, x, ny, nx, idx, k);
       float a[P], c[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         c[p] = ring[sc][p][t + 1];
-        a[p] = (ring[su][p][t + 1] + ring[slot][p][t + 1] + ring[sc][p][t]
-                + ring[sc][p][t + 2] + diag * c[p]) * ss;
+        a[p] = stencil<OP>(c[p], ring[su][p][t + 1], ring[slot][p][t + 1],
+                           ring[sc][p][t], ring[sc][p][t + 2], rs, x, k) * ss;
         av_out[p * plane + idx] = a[p];
       }
 #pragma unroll
@@ -309,25 +365,83 @@ __global__ void __launch_bounds__(256) combine_kernel(
   }
 }
 
-template <int P, int MAXW>
+template <int P, int MAXW, int OP>
 void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
-                  float* w, float* partial, int ny, int nx, float ss,
-                  int clean, cudaStream_t st) {
-  pass1_iso2d_kernel<P, MAXW><<<tile_grid(ny, nx), TX, 0, st>>>(
-      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, w, partial, ny, nx,
-      ss, clean);
+                  const Op2d& op, float* w, float* partial, int ny, int nx,
+                  float ss, cudaStream_t st) {
+  pass1_2d_kernel<P, MAXW, OP><<<tile_grid(ny, nx), TX, 0, st>>>(
+      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, op, w, partial, ny,
+      nx, ss);
 }
 
-template <int P, int MAXW>
+template <int P, int MAXW, int OP>
 void launch_pipe(bool last, const float* scal, const float* av, Cols W,
-                 int nw, float* wn, float* avn, float* partial, int ny,
-                 int nx, float ss, int clean, cudaStream_t st) {
+                 int nw, const Op2d& op, float* wn, float* avn,
+                 float* partial, int ny, int nx, float ss, cudaStream_t st) {
   if (last)
-    pipe_iso2d_kernel<P, MAXW, true><<<tile_grid(ny, nx), TX, 0, st>>>(
-        scal, av, W, nw, wn, avn, partial, ny, nx, ss, clean);
+    pipe_2d_kernel<P, MAXW, true, OP_ISO><<<tile_grid(ny, nx), TX, 0, st>>>(
+        scal, av, W, nw, op, wn, avn, partial, ny, nx, ss);
   else
-    pipe_iso2d_kernel<P, MAXW, false><<<tile_grid(ny, nx), TX, 0, st>>>(
-        scal, av, W, nw, wn, avn, partial, ny, nx, ss, clean);
+    pipe_2d_kernel<P, MAXW, false, OP><<<tile_grid(ny, nx), TX, 0, st>>>(
+        scal, av, W, nw, op, wn, avn, partial, ny, nx, ss);
+}
+
+int num_blocks(int ny, int nx) {
+  const dim3 g = tile_grid(ny, nx);
+  return (int)(g.x * g.y);
+}
+
+// K1 / K1' with the operator OP, then the reduction of its partial sums.
+template <int OP>
+int pass1_2d(int P, const float* scal, const float* wj,
+             const float* const* prev, int j, const Op2d& op, float* w,
+             float* partial, float* raw, int ny, int nx, float ss,
+             cudaStream_t st) {
+  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < 3 || nx < 3)
+    return (int)cudaErrorInvalidValue;
+  const Cols c = make_cols(prev, j);
+  const int b = bucket(j);
+#define LZ_P1(PP, BB) launch_pass1<PP, BB, OP>(scal, wj, c, j, op, w, \
+                                               partial, ny, nx, ss, st)
+  if (P == 1) {
+    if (b == 4) LZ_P1(1, 4); else if (b == 8) LZ_P1(1, 8);
+    else if (b == 16) LZ_P1(1, 16); else LZ_P1(1, 32);
+  } else {
+    if (b == 4) LZ_P1(2, 4); else if (b == 8) LZ_P1(2, 8);
+    else if (b == 16) LZ_P1(2, 16); else LZ_P1(2, 32);
+  }
+#undef LZ_P1
+  const int nout = 2 * (j + 1);
+  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, num_blocks(ny, nx),
+                                                nout, raw);
+  return (int)cudaGetLastError();
+}
+
+// K2 / K2' with the operator OP, then the reduction of its partial sums.
+template <int OP>
+int pipe_2d(int P, int last, const float* scal, const float* av,
+            const float* const* W, int nw, const Op2d& op, float* wn,
+            float* avn, float* partial, float* red, int ny, int nx, float ss,
+            cudaStream_t st) {
+  if ((P != 1 && P != 2) || nw < 1 || nw + 1 > MAXCOLS || ny < 3 || nx < 3)
+    return (int)cudaErrorInvalidValue;
+  const Cols c = make_cols(W, nw);
+  const int b = bucket(nw);
+  const bool l = last != 0;
+#define LZ_PI(PP, BB) launch_pipe<PP, BB, OP>(l, scal, av, c, nw, op, wn, \
+                                              avn, partial, ny, nx, ss, st)
+  if (P == 1) {
+    if (b == 4) LZ_PI(1, 4); else if (b == 8) LZ_PI(1, 8);
+    else if (b == 16) LZ_PI(1, 16); else LZ_PI(1, 32);
+  } else {
+    if (b == 4) LZ_PI(2, 4); else if (b == 8) LZ_PI(2, 8);
+    else if (b == 16) LZ_PI(2, 16); else LZ_PI(2, 32);
+  }
+#undef LZ_PI
+  const int nout = 1 + 2 * nw + (l ? 0 : 2 * (nw + 1));
+  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, num_blocks(ny, nx),
+                                                nout, red);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -335,10 +449,7 @@ void launch_pipe(bool last, const float* scal, const float* av, Cols W,
 extern "C" {
 
 // Number of blocks (= partial-sum rows) the K1/K2 launches use.
-int lz_num_blocks(int ny, int nx) {
-  const dim3 g = tile_grid(ny, nx);
-  return (int)(g.x * g.y);
-}
+int lz_num_blocks(int ny, int nx) { return num_blocks(ny, nx); }
 
 int lz_max_cols() { return MAXCOLS; }
 const char* lz_error_string(int err) {
@@ -352,24 +463,18 @@ int lz_pass1_iso2d(int P, const float* scal, const float* wj,
                    const float* const* prev, int j, float* w, float* partial,
                    float* raw, int ny, int nx, float ss, int clean,
                    cudaStream_t st) {
-  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < 3 || nx < 3)
-    return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(prev, j);
-  const int b = bucket(j);
-#define LZ_P1(PP, BB) launch_pass1<PP, BB>(scal, wj, c, j, w, partial, ny, \
-                                           nx, ss, clean, st)
-  if (P == 1) {
-    if (b == 4) LZ_P1(1, 4); else if (b == 8) LZ_P1(1, 8);
-    else if (b == 16) LZ_P1(1, 16); else LZ_P1(1, 32);
-  } else {
-    if (b == 4) LZ_P1(2, 4); else if (b == 8) LZ_P1(2, 8);
-    else if (b == 16) LZ_P1(2, 16); else LZ_P1(2, 32);
-  }
-#undef LZ_P1
-  const int nout = 2 * (j + 1);
-  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, lz_num_blocks(ny, nx),
-                                                nout, raw);
-  return (int)cudaGetLastError();
+  return pass1_2d<OP_ISO>(P, scal, wj, prev, j, Op2d{nullptr, nullptr, clean},
+                          w, partial, raw, ny, nx, ss, st);
+}
+
+// K1'. As K1, with the (ny, nx) zero-padded face weights wx, wy.
+int lz_pass1_aniso2d(int P, const float* scal, const float* wj,
+                     const float* const* prev, int j, const float* wx,
+                     const float* wy, float* w, float* partial, float* raw,
+                     int ny, int nx, float ss, cudaStream_t st) {
+  if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
+  return pass1_2d<OP_ANISO>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, w,
+                            partial, raw, ny, nx, ss, st);
 }
 
 // K2. W: host array of nw = j+1 device pointers W_0..W_j. scal: (nw+1, 2)
@@ -379,25 +484,19 @@ int lz_pipe_iso2d(int P, int last, const float* scal, const float* av,
                   const float* const* W, int nw, float* wn, float* avn,
                   float* partial, float* red, int ny, int nx, float ss,
                   int clean, cudaStream_t st) {
-  if ((P != 1 && P != 2) || nw < 1 || nw + 1 > MAXCOLS || ny < 3 || nx < 3)
-    return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(W, nw);
-  const int b = bucket(nw);
-  const bool l = last != 0;
-#define LZ_PI(PP, BB) launch_pipe<PP, BB>(l, scal, av, c, nw, wn, avn, \
-                                          partial, ny, nx, ss, clean, st)
-  if (P == 1) {
-    if (b == 4) LZ_PI(1, 4); else if (b == 8) LZ_PI(1, 8);
-    else if (b == 16) LZ_PI(1, 16); else LZ_PI(1, 32);
-  } else {
-    if (b == 4) LZ_PI(2, 4); else if (b == 8) LZ_PI(2, 8);
-    else if (b == 16) LZ_PI(2, 16); else LZ_PI(2, 32);
-  }
-#undef LZ_PI
-  const int nout = 1 + 2 * nw + (l ? 0 : 2 * (nw + 1));
-  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, lz_num_blocks(ny, nx),
-                                                nout, red);
-  return (int)cudaGetLastError();
+  return pipe_2d<OP_ISO>(P, last, scal, av, W, nw,
+                         Op2d{nullptr, nullptr, clean}, wn, avn, partial, red,
+                         ny, nx, ss, st);
+}
+
+// K2'. As K2, with the (ny, nx) zero-padded face weights wx, wy.
+int lz_pipe_aniso2d(int P, int last, const float* scal, const float* av,
+                    const float* const* W, int nw, const float* wx,
+                    const float* wy, float* wn, float* avn, float* partial,
+                    float* red, int ny, int nx, float ss, cudaStream_t st) {
+  if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
+  return pipe_2d<OP_ANISO>(P, last, scal, av, W, nw, Op2d{wx, wy, 0}, wn,
+                           avn, partial, red, ny, nx, ss, st);
 }
 
 // K3. q: (k, m, 2) device buffer. W: host array of m device pointers.

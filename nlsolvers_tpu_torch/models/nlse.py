@@ -1,18 +1,29 @@
-"""NLSE SS2 Strang splitting (port of nlsolvers_tpu/models/nlse.py).
+"""NLSE time steppers (port of nlsolvers_tpu/models/nlse.py).
 
 tau = i*dt throughout, as in the reference drivers (nlse_cubic_solver.hpp:
-58-59). ss2_step <-> NLSESolver::step (nlse_cubic_solver.hpp:54-74).
+58-59). Parity map:
+  ss2_step       <-> NLSESolver::step (nlse_cubic_solver.hpp:54-74)
+  sewi_step      <-> NLSESolverDevice::step_sewi (nlse_dev.hpp:205-238):
+                     u' = exp(2 tau L) u_prev - 2 tau exp(tau L) sinc(dt L) B(u)
+  gautschi_step  <-> NLSECubicGautschiSolver::step
+                     (nlse_cubic_gautschi_solver.hpp:17-40), flagged there as
+                     for comparison only, and its "plus" convention
+                     (nlse_cubic_quintic_gautschi_solver.hpp:16-41)
 
-The phase kick and the density are plain torch ops in this port. sEWI and
-Gautschi are not ported yet (ROADMAP.md queue 1, item 6).
+Each has a planar form on (2, R, nx) float32 state for the fused kernels
+(`*_planar`, given the operator's kernel descriptor and a planar density).
+The phase kick and the density are plain torch ops in this port.
 """
 
+import numpy as np
 import torch
 
 from nlsolvers_tpu_torch.config import default_krylov_m
-from nlsolvers_tpu_torch.ops.krylov import expm_apply
+from nlsolvers_tpu_torch.ops.krylov import MATFUNCS, expm_apply, matfunc_apply
 
-__all__ = ["ss2_step", "ss2_step_planar", "phase_kick_planar"]
+__all__ = ["ss2_step", "ss2_step_planar", "phase_kick_planar", "sewi_step",
+           "sewi_step_planar", "gautschi_step", "gautschi_step_planar",
+           "sewi_first_step", "gautschi_phi1_bootstrap"]
 
 
 def ss2_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True):
@@ -40,3 +51,122 @@ def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m):
     up = phase_kick_planar(up, rho_fn(up), 0.5 * dt)
     up = matfunc_apply_planar(up, desc, 1j * dt, "exp", m)
     return phase_kick_planar(up, rho_fn(up), 0.5 * dt)
+
+
+def _B(u, rho_fn):
+    """sEWI source term B(u) = -rho(u) u (nlse.cuh:71-84)."""
+    return -rho_fn(u) * u
+
+
+def _mul_i_planar(up):
+    """i * u on PLANAR (2, ...) state: (re, im) -> (-im, re)."""
+    return torch.stack([-up[1], up[0]])
+
+
+def _exp_sinc(tau, dt):
+    """exp(tau lam) sinc(dt lam) as one matrix function. Asymmetric on
+    purpose: the exp factor takes the imaginary time tau, the sinc factor
+    the REAL dt, as in the sequential form sinc(dt L) then exp(tau L); the
+    time the caller passes is ignored."""
+    return lambda _t, lam: MATFUNCS["exp"](tau, lam) * MATFUNCS["sinc"](dt,
+                                                                        lam)
+
+
+def sewi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
+                     fuse_exp_sinc=False):
+    """One sEWI step on PLANAR (2, R, nx) float32 state; returns (new, up).
+    Same semantics as sewi_step; the final u' = e2 - 2 tau e1 is a planar
+    i-rotation."""
+    from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
+
+    tau = 1j * dt
+    Bp = -rho_fn(up) * up                         # B(u) = -rho(u) u, planar
+    if fuse_exp_sinc:
+        e1 = matfunc_apply_planar(Bp, desc, tau, _exp_sinc(tau, dt), m)
+    else:
+        psi = matfunc_apply_planar(Bp, desc, dt, "sinc", m)
+        e1 = matfunc_apply_planar(psi, desc, tau, "exp", m)
+    e2 = matfunc_apply_planar(up_prev, desc, 2.0 * tau, "exp", m)
+    return e2 - (2.0 * dt) * _mul_i_planar(e1), up
+
+
+def gautschi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
+                         convention="cubic"):
+    """gautschi_step on PLANAR state; returns (new, up). Same two sign
+    conventions as the complex form."""
+    from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
+
+    sgn = -1.0 if convention == "cubic" else 1.0
+    tau = 1j * dt
+    Bp = -rho_fn(up) * up
+    psi = matfunc_apply_planar(Bp, desc, dt, "sinc", m)
+    e1 = matfunc_apply_planar(psi, desc, sgn * tau, "exp", m)
+    e2 = matfunc_apply_planar(up_prev, desc, sgn * 2.0 * tau, "exp", m)
+    return e2 - (sgn * 2.0 * dt) * _mul_i_planar(e1), up
+
+
+def sewi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
+              fuse_exp_sinc=False):
+    """One sEWI (exponential wave integrator) step; returns (u_new, u).
+
+      psi   = sinc(dt L) B(u)        (real time in the sinc)
+      u_new = exp(2 i dt L) u_prev - 2 (i dt) exp(i dt L) psi
+
+    With `fuse_exp_sinc` the product exp(i dt L) sinc(dt L) is one matrix
+    function of L from one Krylov projection of B(u): 2 Lanczos runs per
+    step instead of 3, not bit-identical to the sequential form.
+    """
+    tau = 1j * dt
+    if fuse_exp_sinc:
+        e1 = matfunc_apply(lap, _B(u, rho_fn), tau, _exp_sinc(tau, dt), m=m,
+                           reorth=reorth)
+    else:
+        psi = matfunc_apply(lap, _B(u, rho_fn), dt, "sinc", m=m,
+                            reorth=reorth)
+        e1 = expm_apply(lap, psi, tau, m=m, reorth=reorth)
+    e2 = expm_apply(lap, u_prev, 2.0 * tau, m=m, reorth=reorth)
+    return e2 - 2.0 * tau * e1, u
+
+
+def sewi_first_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True):
+    """sEWI bootstrap: u_prev := u, then one SS2 step (nlse_dev.hpp:
+    206-209)."""
+    return ss2_step(u, lap, rho_fn, dt, m=m, reorth=reorth), u
+
+
+def gautschi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m,
+                  reorth=True, convention="cubic"):
+    """The reference host's comparison 'Gautschi' NLSE step; returns
+    (u_new, u). Two sign conventions:
+      "cubic" (nlse_cubic_gautschi_solver.hpp:17-40):
+        u' = exp(-2 tau L) u_prev + 2 tau exp(-tau L) sinc(dt L) B(u)
+      "plus" (nlse_cubic_quintic_gautschi_solver.hpp:16-41,
+        nlse_saturating_gautschi_solver.hpp:11-44):
+        u' = exp(+2 tau L) u_prev - 2 tau exp(+tau L) sinc(dt L) B(u)
+    """
+    tau = 1j * dt
+    sgn = -1.0 if convention == "cubic" else 1.0
+    psi = matfunc_apply(lap, _B(u, rho_fn), dt, "sinc", m=m, reorth=reorth)
+    e1 = expm_apply(lap, psi, sgn * tau, m=m, reorth=reorth)
+    e2 = expm_apply(lap, u_prev, sgn * 2.0 * tau, m=m, reorth=reorth)
+    return e2 - sgn * 2.0 * tau * e1, u
+
+
+def gautschi_phi1_bootstrap(u, lap, rho_fn, dt, bc_fn=None, pre_steps=10,
+                            m=default_krylov_m, reorth=True):
+    """First-order Gautschi bootstrap: `pre_steps` substeps of
+    u <- exp(tau_s L) u - tau_s^2 phi1(tau_s^2 L) B(u),  tau_s = i dt/pre_steps
+    (nlse_cubic_quintic_gautschi_driver.cpp:103-131), the phi1 term as one
+    Krylov projection. tau_s and tau_s^2 are rounded to the state's
+    precision, as the JAX package's numpy scalars are."""
+    cdtype = np.complex64 if u.dtype == torch.complex64 else np.complex128
+    taus = np.asarray(1j * dt / pre_steps, cdtype)
+    taus2 = complex(taus * taus)
+    taus = complex(taus)
+    for _ in range(pre_steps):
+        filt = matfunc_apply(lap, _B(u, rho_fn), taus2, "phi1", m=m,
+                             reorth=reorth)
+        u = expm_apply(lap, u, taus, m=m, reorth=reorth) - taus2 * filt
+        if bc_fn is not None:
+            u = bc_fn(u)
+    return u

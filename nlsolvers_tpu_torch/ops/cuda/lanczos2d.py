@@ -1,19 +1,25 @@
-"""Fused Lanczos kernels for the 2D 5-point no-flux Laplacian (iso2d).
+"""Fused Lanczos kernels for the 2D stencil operators: the 5-point no-flux
+Laplacian (iso2d) and the finite-volume div(c grad u) (aniso2d).
 
-Port of the iso2d parts of nlsolvers_tpu/ops/pallas/lanczos2d.py. State is
-PLANAR float32: a complex field is (2, ny, nx) (re, im planes), a real field
-(1, ny, nx). Krylov columns W_i are kept UNNORMALIZED with their inverse
+Port of the iso2d and aniso2d parts of nlsolvers_tpu/ops/pallas/lanczos2d.py.
+State is PLANAR float32: a complex field is (2, ny, nx) (re, im planes), a
+real field (1, ny, nx). Krylov columns W_i are kept UNNORMALIZED with their inverse
 norms s_i tracked as scalars, so normalization folds into the next matvec.
 
 The entry points (supported_desc, lanczos_planar, matfunc_apply_planar*)
 also serve the 3D kinds, whose loop is ops/cuda/lanczos3d.py.
 
-Three hand-written CUDA kernels (csrc/lanczos2d.cu) carry the 2D loop; each
-has its plain PyTorch version beside it and a launch counter on its wrapper:
+Hand-written CUDA kernels (csrc/lanczos2d.cu) carry the 2D loop; each has
+its plain PyTorch version beside it and a launch counter on its wrapper:
 
-  pass1_iso2d / pass1_iso2d_ref   replaces _pass1_call (mode iso2d)
-  pipe_iso2d  / pipe_iso2d_ref    replaces _pipe_call (mode iso2d)
-  combine     / combine_ref       replaces _combine_call
+  pass1_iso2d   / pass1_iso2d_ref     replaces _pass1_call (mode iso2d)
+  pass1_aniso2d / pass1_aniso2d_ref   replaces _pass1_call (mode aniso2d)
+  pipe_iso2d    / pipe_iso2d_ref      replaces _pipe_call (mode iso2d)
+  pipe_aniso2d  / pipe_aniso2d_ref    replaces _pipe_call (mode aniso2d)
+  combine       / combine_ref         replaces _combine_call
+
+The iso and aniso wrappers launch one pass1 and one pipe kernel with the
+operator as a template policy; each wrapper counts its own launches.
 
 A wrapper launches its kernel for a CUDA tensor under config.kernel_mode
 "auto" and raises if the kernel cannot run; it takes the plain version for a
@@ -35,8 +41,10 @@ from nlsolvers_tpu_torch.ops.cuda import _build
 
 __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
            "matfunc_apply_planar", "matfunc_apply_planar_multi",
-           "pass1_iso2d", "pass1_iso2d_ref", "pipe_iso2d", "pipe_iso2d_ref",
-           "combine", "combine_ref", "MAX_M", "MAX_SPECS", "KINDS_3D"]
+           "pass1_iso2d", "pass1_iso2d_ref", "pass1_aniso2d",
+           "pass1_aniso2d_ref", "pipe_iso2d", "pipe_iso2d_ref",
+           "pipe_aniso2d", "pipe_aniso2d_ref", "combine", "combine_ref",
+           "MAX_M", "MAX_SPECS", "KINDS_3D"]
 
 # Longest basis (Krylov m) and most matrix functions per combine the kernels
 # take: csrc/lanczos2d.cu's MAXCOLS and KMAX, checked when it is loaded.
@@ -53,20 +61,33 @@ def matvec_descriptor(kind, shape, scale, sign=1.0, variant="reference"):
                 sign=float(sign), variant=variant)
 
 
-# descriptor kinds whose Lanczos loop is ops/cuda/lanczos3d.py
+# descriptor kinds whose Lanczos loop is the 2D one below, and those whose
+# loop is ops/cuda/lanczos3d.py
+KINDS_2D = ("laplacian_2d", "aniso_laplacian_2d")
 KINDS_3D = ("laplacian_3d", "aniso_laplacian_3d")
+
+
+def _weight_ok(w, desc):
+    return (isinstance(w, torch.Tensor) and w.dtype == torch.float32
+            and w.is_contiguous()
+            and tuple(w.shape) == (desc["ny"], desc["nx"]))
 
 
 def supported_desc(desc, u_shape, dtype):
     """Can the fused path run this operator/field combination? `u_shape` is
     the grid, (ny, nx) or (nz, ny, nx); the 3D kinds are lanczos3d's. The
-    kernels mask ragged edges, so any grid with sides >= 3 qualifies."""
+    kernels mask ragged edges, so any grid with sides >= 3 qualifies. The
+    aniso weights must be contiguous float32 (ny, nx) tensors; a wrapper
+    given weights on another device than the field raises."""
     if desc is not None and desc.get("kind") in KINDS_3D:
         from nlsolvers_tpu_torch.ops.cuda import lanczos3d
         return lanczos3d.supported_desc(desc, u_shape, dtype)
-    if desc is None or desc.get("kind") != "laplacian_2d":
+    if desc is None or desc.get("kind") not in KINDS_2D:
         return False
-    if desc.get("variant") not in ("reference", "clean"):
+    if desc["kind"] == "laplacian_2d":
+        if desc.get("variant") not in ("reference", "clean"):
+            return False
+    elif not all(_weight_ok(desc.get(k), desc) for k in ("wx", "wy")):
         return False
     if tuple(u_shape) != (desc["ny"], desc["nx"]):
         return False
@@ -92,9 +113,14 @@ def _lib():
             ("lz_max_specs", []),
             ("lz_pass1_iso2d",
              [i32, vp, vp, pp, i32, vp, vp, vp, i32, i32, f32, i32, vp]),
+            ("lz_pass1_aniso2d",
+             [i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, i32, i32, f32, vp]),
             ("lz_pipe_iso2d",
              [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, i32, i32, f32, i32,
               vp]),
+            ("lz_pipe_aniso2d",
+             [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, i32, i32,
+              f32, vp]),
             ("lz_combine", [i32, vp, pp, i32, i32, pp, i32, i32, vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -146,9 +172,20 @@ def _check_scalars(scal, shape, like, what):
                          f"{shape} tensor on {like.device}")
 
 
-def _op_args(desc):
-    return (float(desc["scale"]) * float(desc["sign"]),
-            int(desc["variant"] == "clean"))
+def _aniso_weights(desc, like, what):
+    """The face weights (wx, wy), checked against the field `like`."""
+    ws = (desc["wx"], desc["wy"])
+    if (tuple(like.shape[1:]) != (desc["ny"], desc["nx"])
+            or not all(_weight_ok(w, desc) and w.device == like.device
+                       for w in ws)):
+        raise ValueError(f"{what}: face weights must be contiguous float32 "
+                         f"{tuple(like.shape[1:])} tensors on {like.device}")
+    return ws
+
+
+def _check_cols(n, what):
+    if n + 1 > MAX_M:
+        raise ValueError(f"{what}: at most {MAX_M} columns, got {n + 1}")
 
 
 # ------------------------------------------------------------ plain versions
@@ -176,6 +213,22 @@ def _stencil_ref(u, desc):
         float(desc["scale"]) * float(desc["sign"]))
 
 
+def _stencil_aniso_ref(u, desc):
+    """div(c grad u) of a planar (P, ny, nx) field from the zero-padded face
+    weights, in the order of terms of the Pallas `_stencil_aniso`:
+    fx - fx[x-1] + fy - fy[r-1], with fx = wx (u[x+1] - u) and
+    fy = wy (u[r+1] - u); no face lies left of x = 0 or above r = 0."""
+    wx, wy = desc["wx"], desc["wy"]
+    zr = torch.zeros_like(u[:, :1, :])
+    zc = torch.zeros_like(u[:, :, :1])
+    fx = wx * (torch.cat([u[:, :, 1:], zc], dim=2) - u)
+    fx_l = torch.cat([zc, fx[:, :, :-1]], dim=2)
+    fy = wy * (torch.cat([u[:, 1:, :], zr], dim=1) - u)
+    fy_u = torch.cat([zr, fy[:, :-1, :]], dim=1)
+    return (fx - fx_l + fy - fy_u) * (
+        float(desc["scale"]) * float(desc["sign"]))
+
+
 def _dots(a, b):
     """Hermitian product <a, b> = sum conj(a) b of planar fields, (re, im)."""
     if a.shape[0] == 1:
@@ -185,13 +238,22 @@ def _dots(a, b):
                         torch.sum(a[0] * b[1] - a[1] * b[0])])
 
 
-def pass1_iso2d_ref(scal, wj, prev, desc):
-    """Plain version of pass1_iso2d."""
-    w = scal[0, 0] * _stencil_ref(wj, desc)
+def _pass1_ref(scal, wj, prev, av):
+    w = scal[0, 0] * av
     if prev:
         w = w - scal[0, 1] * prev[-1]
     raw = torch.stack([_dots(wi, w) for wi in list(prev) + [wj]])
     return w, raw
+
+
+def pass1_iso2d_ref(scal, wj, prev, desc):
+    """Plain version of pass1_iso2d."""
+    return _pass1_ref(scal, wj, prev, _stencil_ref(wj, desc))
+
+
+def pass1_aniso2d_ref(scal, wj, prev, desc):
+    """Plain version of pass1_aniso2d."""
+    return _pass1_ref(scal, wj, prev, _stencil_aniso_ref(wj, desc))
 
 
 def _rebuild_ref(scal, av, W):
@@ -209,16 +271,26 @@ def _rebuild_ref(scal, av, W):
     return a0[None] if a1 is None else torch.stack([a0, a1])
 
 
-def pipe_iso2d_ref(scal, av, W, desc, last):
-    """Plain version of pipe_iso2d."""
+def _pipe_ref(scal, av, W, last, stencil):
     wn = _rebuild_ref(scal, av, W)
     nsq = torch.sum(wn * wn).reshape(1, 1)
     gram = torch.stack([_dots(wi, wn) for wi in W])
     if last:
         return wn, nsq, gram
-    avn = _stencil_ref(wn, desc)
+    avn = stencil(wn)
     d = torch.stack([_dots(wi, avn) for wi in W] + [_dots(wn, avn)])
     return wn, avn, nsq, gram, d
+
+
+def pipe_iso2d_ref(scal, av, W, desc, last):
+    """Plain version of pipe_iso2d."""
+    return _pipe_ref(scal, av, W, last, lambda u: _stencil_ref(u, desc))
+
+
+def pipe_aniso2d_ref(scal, av, W, desc, last):
+    """Plain version of pipe_aniso2d."""
+    return _pipe_ref(scal, av, W, last,
+                     lambda u: _stencil_aniso_ref(u, desc))
 
 
 def combine_ref(q, W):
@@ -244,36 +316,94 @@ def combine_ref(q, W):
 
 # ------------------------------------------------------------ kernel wrappers
 
+def _pass1(scal, wj, prev, desc, aniso, what):
+    """Checks, then launches K1 (iso) or K1' (aniso) on a CUDA field."""
+    _check_fields([wj, *prev], wj, what)
+    _check_scalars(scal, (1, 2), wj, what)
+    lib = _lib()
+    j = len(prev)
+    P, ny, nx = wj.shape
+    ss = float(desc["scale"]) * float(desc["sign"])
+    w = torch.empty_like(wj)
+    partial = torch.empty(lib.lz_num_blocks(ny, nx) * 2 * (j + 1),
+                          dtype=torch.float32, device=wj.device)
+    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
+    head = (P, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j)
+    outs = (w.data_ptr(), partial.data_ptr(), raw.data_ptr(), ny, nx, ss)
+    if aniso:
+        wx, wy = _aniso_weights(desc, wj, what)
+        err = lib.lz_pass1_aniso2d(*head, wx.data_ptr(), wy.data_ptr(),
+                                   *outs, _stream(wj))
+    else:
+        err = lib.lz_pass1_iso2d(*head, *outs,
+                                 int(desc["variant"] == "clean"),
+                                 _stream(wj))
+    _check(err, what)
+    return w, raw
+
+
 def pass1_iso2d(scal, wj, prev, desc):
     """K1: w = s_j A(W_j) - bs W_{j-1} and raw (j+1, 2) = <W_i, w>, i <= j.
 
     scal: (1, 2) float32 [s_j, bs] on the fields' device; wj: W_j;
     prev: W_0..W_{j-1} (j = len(prev) >= 0). Returns (w, raw).
     """
-    j = len(prev)
-    if j + 1 > MAX_M:
-        raise ValueError(f"pass1_iso2d: at most {MAX_M} columns, got {j + 1}")
+    _check_cols(len(prev), "pass1_iso2d")
     if not use_kernel(wj):
         return pass1_iso2d_ref(scal, wj, prev, desc)
-    _check_fields([wj, *prev], wj, "pass1_iso2d")
-    _check_scalars(scal, (1, 2), wj, "pass1_iso2d")
-    lib = _lib()
-    P, ny, nx = wj.shape
-    ss, clean = _op_args(desc)
-    nout = 2 * (j + 1)
-    w = torch.empty_like(wj)
-    partial = torch.empty(lib.lz_num_blocks(ny, nx) * nout,
-                          dtype=torch.float32, device=wj.device)
-    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
-    _check(lib.lz_pass1_iso2d(P, scal.data_ptr(), wj.data_ptr(), _ptrs(prev),
-                              j, w.data_ptr(), partial.data_ptr(),
-                              raw.data_ptr(), ny, nx, ss, clean,
-                              _stream(wj)), "pass1_iso2d")
+    out = _pass1(scal, wj, prev, desc, False, "pass1_iso2d")
     pass1_iso2d.launches += 1
-    return w, raw
+    return out
 
 
 pass1_iso2d.launches = 0
+
+
+def pass1_aniso2d(scal, wj, prev, desc):
+    """K1': pass1_iso2d for the div(c grad u) operator of an
+    "aniso_laplacian_2d" descriptor (face weights wx, wy on the field's
+    device)."""
+    _check_cols(len(prev), "pass1_aniso2d")
+    if not use_kernel(wj):
+        return pass1_aniso2d_ref(scal, wj, prev, desc)
+    out = _pass1(scal, wj, prev, desc, True, "pass1_aniso2d")
+    pass1_aniso2d.launches += 1
+    return out
+
+
+pass1_aniso2d.launches = 0
+
+
+def _pipe(scal, av, W, desc, last, aniso, what):
+    """Checks, then launches K2 (iso) or K2' (aniso) on CUDA fields."""
+    nw = len(W)
+    _check_fields([av, *W], av, what)
+    _check_scalars(scal, (nw + 1, 2), av, what)
+    lib = _lib()
+    P, ny, nx = av.shape
+    ss = float(desc["scale"]) * float(desc["sign"])
+    nout = 1 + 2 * nw + (0 if last else 2 * (nw + 1))
+    wn = torch.empty_like(av)
+    avn = None if last else torch.empty_like(av)
+    partial = torch.empty(lib.lz_num_blocks(ny, nx) * nout,
+                          dtype=torch.float32, device=av.device)
+    red = torch.empty(nout, dtype=torch.float32, device=av.device)
+    head = (P, int(last), scal.data_ptr(), av.data_ptr(), _ptrs(W), nw)
+    outs = (wn.data_ptr(), None if last else avn.data_ptr(),
+            partial.data_ptr(), red.data_ptr(), ny, nx, ss)
+    if aniso:
+        wx, wy = _aniso_weights(desc, av, what)
+        err = lib.lz_pipe_aniso2d(*head, wx.data_ptr(), wy.data_ptr(), *outs,
+                                  _stream(av))
+    else:
+        err = lib.lz_pipe_iso2d(*head, *outs,
+                                int(desc["variant"] == "clean"), _stream(av))
+    _check(err, what)
+    nsq = red[:1].view(1, 1)
+    gram = red[1:1 + 2 * nw].view(nw, 2)
+    if last:
+        return wn, nsq, gram
+    return wn, avn, nsq, gram, red[1 + 2 * nw:].view(nw + 1, 2)
 
 
 def pipe_iso2d(scal, av, W, desc, last):
@@ -283,36 +413,30 @@ def pipe_iso2d(scal, av, W, desc, last):
     W: W_0..W_j. Returns (W_{j+1}, av_{j+1}, nsq (1,1), gram (j+1,2),
     d (j+2,2)), or (W_{j+1}, nsq, gram) when `last`.
     """
-    nw = len(W)
-    if nw + 1 > MAX_M:
-        raise ValueError(f"pipe_iso2d: at most {MAX_M - 1} columns, got {nw}")
+    _check_cols(len(W), "pipe_iso2d")
     if not use_kernel(av):
         return pipe_iso2d_ref(scal, av, W, desc, last)
-    _check_fields([av, *W], av, "pipe_iso2d")
-    _check_scalars(scal, (nw + 1, 2), av, "pipe_iso2d")
-    lib = _lib()
-    P, ny, nx = av.shape
-    ss, clean = _op_args(desc)
-    nout = 1 + 2 * nw + (0 if last else 2 * (nw + 1))
-    wn = torch.empty_like(av)
-    avn = None if last else torch.empty_like(av)
-    partial = torch.empty(lib.lz_num_blocks(ny, nx) * nout,
-                          dtype=torch.float32, device=av.device)
-    red = torch.empty(nout, dtype=torch.float32, device=av.device)
-    _check(lib.lz_pipe_iso2d(P, int(last), scal.data_ptr(), av.data_ptr(),
-                             _ptrs(W), nw, wn.data_ptr(),
-                             None if last else avn.data_ptr(),
-                             partial.data_ptr(), red.data_ptr(), ny, nx, ss,
-                             clean, _stream(av)), "pipe_iso2d")
+    out = _pipe(scal, av, W, desc, last, False, "pipe_iso2d")
     pipe_iso2d.launches += 1
-    nsq = red[:1].view(1, 1)
-    gram = red[1:1 + 2 * nw].view(nw, 2)
-    if last:
-        return wn, nsq, gram
-    return wn, avn, nsq, gram, red[1 + 2 * nw:].view(nw + 1, 2)
+    return out
 
 
 pipe_iso2d.launches = 0
+
+
+def pipe_aniso2d(scal, av, W, desc, last):
+    """K2': pipe_iso2d for the div(c grad u) operator of an
+    "aniso_laplacian_2d" descriptor. The `last` iteration computes no
+    stencil and reads no weights."""
+    _check_cols(len(W), "pipe_aniso2d")
+    if not use_kernel(av):
+        return pipe_aniso2d_ref(scal, av, W, desc, last)
+    out = _pipe(scal, av, W, desc, last, True, "pipe_aniso2d")
+    pipe_aniso2d.launches += 1
+    return out
+
+
+pipe_aniso2d.launches = 0
 
 
 def combine(q, W):
@@ -348,7 +472,8 @@ def safe_inv(nrm):
 
 
 def _lanczos_pipe(u, m, desc):
-    """Pipelined single-pass Lanczos: K1 once, then K2 m-1 times.
+    """Pipelined single-pass Lanczos: K1 once, then K2 m-1 times (K1' and
+    K2' for the aniso descriptor).
 
     w_j = s_j av_j - bs W_{j-1} (bs = beta_{j-1} s_{j-1}) is never
     materialized: its projections raw_i = <W_i, w_j> are recovered as
@@ -358,12 +483,16 @@ def _lanczos_pipe(u, m, desc):
     The rebuild coefficients fold the recurrence term in:
     c_i = s_i^2 raw_i + (i == j-1) bs.
     """
+    if desc["kind"] == "aniso_laplacian_2d":
+        pass1, pipe = pass1_aniso2d, pipe_aniso2d
+    else:
+        pass1, pipe = pass1_iso2d, pipe_iso2d
     f32 = dict(dtype=torch.float32, device=u.device)
     zero = torch.zeros((), **f32)
     nsq0 = torch.sum(u * u)
     beta0 = torch.sqrt(nsq0)
     # init: av_0 = A(W_0) and d_0 = <W_0, av_0>, i.e. pass1 with [1, 0]
-    av, d_prev = pass1_iso2d(torch.eye(1, 2, **f32), u, [], desc)
+    av, d_prev = pass1(torch.eye(1, 2, **f32), u, [], desc)
     W, s = [u], [safe_inv(beta0)]
     alphas, betas = [], []
     g_prev = g_prev2 = None
@@ -388,7 +517,7 @@ def _lanczos_pipe(u, m, desc):
             c[j - 1, 0] += bs
         scal = torch.cat([torch.stack([sj, zero])[None], c])
         last = j == m - 2
-        res = pipe_iso2d(scal, av, W, desc, last)
+        res = pipe(scal, av, W, desc, last)
         if last:
             wn, nsq, gram = res
         else:
@@ -417,8 +546,8 @@ def lanczos_planar(u, desc, m):
         grid = (desc["nz"], desc["ny"], desc["nx"])      # the merged view
     if not supported_desc(desc, grid, torch.float32):
         raise NotImplementedError(
-            f"fused Lanczos ports the 2D 5-point Laplacian and the 3D "
-            f"operators (ROADMAP.md queue 1, item 7 for the rest), got a "
+            f"fused Lanczos takes the 2D and 3D stencil descriptors "
+            f"({KINDS_2D + KINDS_3D}), got a "
             f"{None if desc is None else desc.get('kind')} descriptor for a "
             f"{tuple(u.shape)} field")
     if m > MAX_M:

@@ -14,25 +14,31 @@ y-row of the next. It is expressed exactly by taking the y-neighbour sum over
 the merged (nz*ny, nx) view. `variant="clean"` drops the seam and uses
 diagonal -(number of neighbours).
 
-`anisotropic_laplacian_3d` reproduces the finite-volume div(c grad u)
-builder (laplacians.hpp:158-218): face coupling = mean of the two cells'
-c, diagonal = minus the sum of the row's couplings, with the same y-seam
-under `variant="reference"`.
+`anisotropic_laplacian_2d` and `anisotropic_laplacian_3d` reproduce the
+finite-volume div(c grad u) builders (laplacians.hpp:54-103, 158-218): face
+coupling = mean of the two cells' c, diagonal = minus the sum of the row's
+couplings, with the 3D y-seam under `variant="reference"`.
+
+`separated_laplacian_2d` reproduces `build_separated_laplacian_noflux`
+(laplacians.hpp:220-269): per-direction 1D operators whose sum is the 2D
+5-point operator, corner quirk included.
 
 Operators are closures `apply(u) -> Lu` on fields shaped (..., ny, nx) or
-(..., nz, ny, nx); leading axes are batch axes. Each carries `kernel_desc`,
-the descriptor the Krylov dispatch reads (ops/krylov._fused_path ->
-ops/cuda/lanczos2d, lanczos3d). The operators and their tensors live on
-`device`, the card unless the caller asks for the CPU.
+(..., nz, ny, nx); leading axes are batch axes. Each stencil operator
+carries `kernel_desc`, the descriptor the Krylov dispatch reads
+(ops/krylov._fused_path -> ops/cuda/lanczos2d, lanczos3d); the separated
+pair has none and always takes the generic path. The operators and their
+tensors live on `device`, the card unless the caller asks for the CPU.
 
-The 2D anisotropic, separated and biharmonic operators are not ported yet
-(ROADMAP.md queue 1, items 2 and 7).
+The biharmonic operator, which only the Boussinesq problem uses, is not
+ported yet (ROADMAP.md queue 1, items 2 and 9).
 """
 
 import numpy as np
 import torch
 
-__all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_3d",
+__all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_2d",
+           "anisotropic_laplacian_3d", "separated_laplacian_2d",
            "neighbor_sum"]
 
 
@@ -122,6 +128,74 @@ def laplacian_3d(shape, dx, variant="reference", dtype=torch.float32,
                              nx=int(nx), scale=float(scale), sign=1.0,
                              variant=variant)
     return apply
+
+
+def anisotropic_laplacian_2d(c, dx, dy, device="cuda"):
+    """Finite-volume div(c grad u) on an (ny, nx) grid, scaled 1/(dx*dy).
+
+    `c` (numpy or tensor, (ny, nx)) keeps its dtype for `apply`. The
+    descriptor carries the face weights zero-padded to (ny, nx) as float32
+    tensors on `device`: wx pads column nx-1, wy row ny-1 (the no-flux
+    faces).
+    """
+    if not isinstance(c, torch.Tensor):
+        c = torch.from_numpy(np.array(c))
+    c = c.to(device)
+    ny, nx = c.shape
+    wx = 0.5 * (c[:, :-1] + c[:, 1:])                 # faces along x
+    wy = 0.5 * (c[:-1, :] + c[1:, :])                 # faces along y
+    scale = 1.0 / (dx * dy)
+
+    def apply(u):
+        fx = wx * (u[..., :, 1:] - u[..., :, :-1])
+        fy = wy * (u[..., 1:, :] - u[..., :-1, :])
+        out = torch.zeros(u.shape[:-2] + (ny, nx),
+                          dtype=torch.result_type(u, wx), device=u.device)
+        out[..., :, :-1] += fx
+        out[..., :, 1:] -= fx
+        out[..., :-1, :] += fy
+        out[..., 1:, :] -= fy
+        return out * scale
+
+    f32 = dict(dtype=torch.float32, device=c.device)
+    wx_pad = torch.zeros((ny, nx), **f32)
+    wx_pad[:, :nx - 1] = wx
+    wy_pad = torch.zeros((ny, nx), **f32)
+    wy_pad[:ny - 1] = wy
+    apply.kernel_desc = dict(kind="aniso_laplacian_2d", ny=int(ny),
+                             nx=int(nx), scale=float(scale), sign=1.0,
+                             variant="aniso", wx=wx_pad, wy=wy_pad)
+    return apply
+
+
+def separated_laplacian_2d(shape, dx, dy, dtype=torch.float32,
+                           device="cuda"):
+    """Per-direction 1D no-flux Laplacians (Lx, Ly) on an (ny, nx) grid.
+
+    Diagonals: -2 inside, -1 on that direction's boundary, -1.5 at the
+    corners. Returns (apply_x, apply_y); apply_x(u) + apply_y(u) is the 2D
+    reference-variant operator. No descriptor: the generic Krylov path.
+    """
+    ny, nx = shape
+    col = torch.arange(nx)[None, :].expand(ny, nx)
+    row = torch.arange(ny)[:, None].expand(ny, nx)
+    x_edge = (col == 0) | (col == nx - 1)
+    y_edge = (row == 0) | (row == ny - 1)
+    corner = x_edge & y_edge
+    diag_x = torch.where(x_edge, -1.0, -2.0).to(torch.float64)
+    diag_x[corner] = -1.5
+    diag_y = torch.where(y_edge, -1.0, -2.0).to(torch.float64)
+    diag_y[corner] = -1.5
+    diag_x = diag_x.to(device=device, dtype=dtype)
+    diag_y = diag_y.to(device=device, dtype=dtype)
+
+    def apply_x(u):
+        return (neighbor_sum(u, -1) + diag_x * u) / (dx * dx)
+
+    def apply_y(u):
+        return (neighbor_sum(u, -2) + diag_y * u) / (dy * dy)
+
+    return apply_x, apply_y
 
 
 def anisotropic_laplacian_3d(c, dx, variant="reference", device="cuda"):

@@ -2,7 +2,8 @@
 
 Everything crosses as numpy, copied (JAX hands out read-only arrays). Used
 to hand a JAX problem's state after k steps to the port and compare the next
-step.
+step: the state of a one-step integrator (SS2), or the (u, u_prev) pair of a
+two-step one (sEWI, Gautschi).
 """
 
 import numpy as np
@@ -18,8 +19,15 @@ def state_from_numpy(x, shape, device):
     for a grid `shape` = (ny, nx) or (nz, ny, nx). Real stacks become the
     planar (2, R, nx) float32 state of the port's planar problems, with
     R = ny in 2D and nz*ny in 3D; complex arrays stay complex, of their own
-    dtype.
+    dtype. A two-step state, a tuple or list (u, u_prev) of such arrays,
+    becomes the tuple of the two: the port's two-step state, which goes to
+    `step` as it is (`init` takes a single field).
     """
+    if isinstance(x, (tuple, list)):
+        if len(x) != 2:
+            raise ValueError(f"a two-step state is a pair (u, u_prev), got "
+                             f"{len(x)} arrays")
+        return tuple(state_from_numpy(a, shape, device) for a in x)
     x = np.asarray(x)
     shape = tuple(shape)
     if np.iscomplexobj(x):
@@ -42,9 +50,10 @@ def field_from_numpy(a, device):
 def nlse_args_from_meta(meta, c_field=None):
     """(args, kwargs) for the port's nlse_problem from a JAX Problem.meta:
     the same kind, grid (2D or 3D), Lx, dt, Krylov m, variant, BC and
-    parameters. JAX's meta does not hold the c(x) field: pass the JAX
-    problem's `c_field` (numpy, the grid's shape) to carry it across. m_field,
-    dtype and device are the caller's to add."""
+    parameters, and the integrator (SS2 or a two-step one). JAX's meta does
+    not hold the c(x) field: pass the JAX problem's `c_field` (numpy, the
+    grid's shape, 2D or 3D) to carry it across. m_field, dtype and device
+    are the caller's to add."""
     kind = meta["equation"].removeprefix("nlse_")
     shape = tuple(meta["shape"])
     if meta["dim"] != len(shape) or meta["dim"] not in (2, 3):

@@ -7,7 +7,8 @@ Imports no JAX, so it also runs where only the port is installed:
 
 Without a CUDA device every test skips (the kernels have no CPU mode; their
 plain versions are held against JAX in tests/test_torch_lanczos2d.py and
-tests/test_torch_lanczos3d.py).
+tests/test_torch_lanczos3d.py). The 2D kernels are checked with both
+operators: the 5-point Laplacian (K1, K2) and div(c grad u) (K1', K2').
 Tolerances: fields rel-L2 <= 1e-5 (same elementwise arithmetic up to FMA
 contraction); reductions |got - want| <= 1e-4 * ||a|| ||b|| (summation order
 differs).
@@ -97,6 +98,57 @@ def test_wrapper_rejects_bad_input(cuda):
         tl.pass1_iso2d(one, u, [u[:, :8]], desc)
     with pytest.raises(ValueError):
         tl.pass1_iso2d(one, u.transpose(1, 2), [], desc)
+
+
+def _desc_aniso(ny, nx, cuda):
+    c = 1.0 + 0.4 * np.random.default_rng(7).random((ny, nx))
+    return tops.anisotropic_laplacian_2d(c, 0.02, 0.02,
+                                         device=cuda).kernel_desc
+
+
+@pytest.mark.parametrize("shape,P,j", [((64, 64), 2, 0), ((37, 131), 2, 4),
+                                       ((19, 300), 1, 8),
+                                       ((250, 333), 2, tl.MAX_M - 2),
+                                       ((5, 3), 2, 18), ((3, 129), 1, 12)])
+def test_aniso2d_kernels_match_plain_on_card(cuda, shape, P, j):
+    """K1' and K2' (every bucket up to j = MAX_M - 2, the last iteration
+    too) on ragged grids against their plain versions; each wrapper counts
+    only its own launches."""
+    ny, nx = shape
+    desc = _desc_aniso(ny, nx, cuda)
+    rng = np.random.default_rng(80 + j)
+    av, *W = [torch.from_numpy(
+        rng.standard_normal((P, ny, nx)).astype(np.float32)).to(cuda)
+        for _ in range(j + 2)]
+    scal = torch.from_numpy(
+        rng.uniform(-0.5, 0.5, (j + 2, 2)).astype(np.float32)).to(cuda)
+    counters = (tl.pass1_iso2d, tl.pass1_aniso2d, tl.pipe_iso2d,
+                tl.pipe_aniso2d)
+    before = [f.launches for f in counters]
+    for call in (lambda: tl.pass1_aniso2d(scal[:1].contiguous(), W[j], W[:j],
+                                          desc),
+                 lambda: tl.pipe_aniso2d(scal, av, W, desc, False),
+                 lambda: tl.pipe_aniso2d(scal, av, W, desc, True)):
+        _check(*_kernel_and_plain(call), [av, *W])
+    assert [f.launches for f in counters] == [before[0], before[1] + 1,
+                                              before[2], before[3] + 2]
+
+
+def test_aniso2d_wrappers_reject_bad_input(cuda):
+    desc = _desc_aniso(16, 16, cuda)
+    u = torch.zeros((2, 16, 16), device=cuda)
+    one = torch.eye(1, 2, device=cuda)
+    scal = torch.zeros((2, 2), device=cuda)
+    with pytest.raises(TypeError):
+        tl.pass1_aniso2d(one, u.double(), [], desc)
+    with pytest.raises(ValueError):          # weights on another device
+        tl.pass1_aniso2d(one, u, [], dict(desc, wx=desc["wx"].cpu()))
+    with pytest.raises(ValueError):          # weights of another grid
+        tl.pipe_aniso2d(scal, u[:, :8].contiguous(), [u[:, :8].contiguous()],
+                        desc, False)
+    with pytest.raises(ValueError):
+        tl.pipe_aniso2d(scal, u, [u], dict(desc, wy=desc["wy"].double()),
+                        False)
 
 
 def _desc3d(shape, mode, cuda):

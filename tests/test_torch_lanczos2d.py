@@ -14,6 +14,8 @@ Tolerances (float32):
   the size of the terms it is rebuilt from, so float32 rounding doubles per
   iteration: 3e-5 at i = 7 here.
 
+Both operators are covered: the 5-point Laplacian (iso2d: K1, K2) and the
+finite-volume div(c grad u) with c = 1 + 0.4 U[0, 1) (aniso2d: K1', K2').
 The CUDA kernels themselves are checked against these plain versions on the
 card by chip_smoke.py and tests/test_torch_cuda_kernels.py.
 """
@@ -27,6 +29,7 @@ import torch
 from nlsolvers_tpu.ops import operators as jops
 from nlsolvers_tpu.ops.pallas import lanczos2d as jl
 from nlsolvers_tpu_torch import config
+from nlsolvers_tpu_torch.ops import operators as tops
 from nlsolvers_tpu_torch.ops.cuda import lanczos2d as tl
 
 torch.set_num_threads(1)
@@ -205,3 +208,117 @@ def test_limits_raise(case):
     else:
         with pytest.raises(NotImplementedError):
             tl.lanczos_planar(u, dict(desc, kind="laplacian_3d"), 4)
+
+
+# ------------------------------------------------------------ aniso2d (K1', K2')
+
+def _descs_aniso(n=N, ny=None):
+    """(JAX descriptor, port descriptor) of div(c grad u) on (ny, n), with
+    c = 1 + 0.4 U[0, 1)."""
+    ny = n if ny is None else ny
+    c = (1.0 + 0.4 * np.random.default_rng(4).random((ny, n))).astype(
+        np.float32)
+    dx = 2 * 5.0 / (n - 1)
+    return (jops.anisotropic_laplacian_2d(c, dx, dx)._pallas_desc,
+            tops.anisotropic_laplacian_2d(c, dx, dx, device="cpu").kernel_desc)
+
+
+def _aniso_ops(dj, tile):
+    """JAX's aniso2d operator streams: wx, wy and the gathered wy halo row."""
+    wx = jnp.asarray(dj["wx"]).reshape(1, N, N)
+    wy = jnp.asarray(dj["wy"]).reshape(1, N, N)
+    return wx, wy, jl._gather_halo_rows(wy, tile, N, per_block=1)
+
+
+@pytest.mark.parametrize("P,j", [(2, 0), (2, 2), (1, 0), (1, 2)])
+def test_pass1_aniso_ref_matches_pallas(P, j):
+    dj, dt = _descs_aniso()
+    W = _fields(j + 1, P, 50 + j)
+    scal = np.array([[0.7, 0.3]], np.float32)
+    wj, prev = W[j], W[:j]
+    halo = jl._gather_halo_rows(jnp.asarray(wj), TILE, N)
+    w_j, raw_j = jl._pass1_call(j, P, N, N, TILE, dj["scale"], dj["sign"],
+                                "aniso", True, mode="aniso2d")(
+        jnp.asarray(scal), jnp.asarray(wj), halo, *_aniso_ops(dj, TILE),
+        *map(jnp.asarray, prev))
+    w_t, raw_t = tl.pass1_aniso2d_ref(torch.from_numpy(scal),
+                                      torch.from_numpy(wj), _t(prev), dt)
+    assert _rel(w_t.numpy(), w_j) <= FIELD_TOL
+    _check_dots(raw_t.numpy(), raw_j, prev + [wj], np.asarray(w_j))
+
+
+@pytest.mark.parametrize("P,j", [(2, j) for j in range(7)] + [(1, 0), (1, 6)])
+def test_pipe_aniso_ref_matches_pallas(P, j):
+    """Every iteration of an m=8 run with the aniso stencil, the last one
+    (j = m-2) without it and without the weight streams."""
+    m = 8
+    last = j == m - 2
+    dj, dt = _descs_aniso()
+    scal, av, W = _pipe_inputs(j, P, 60 + j)
+    args = [jnp.asarray(scal), jnp.asarray(av)]
+    if not last:
+        halos = jnp.stack([jl._gather_halo_rows(jnp.asarray(a), TILE, N)
+                           for a in [av] + W])
+        args.append(halos.reshape((j + 2) * P, N // TILE, 2, N))
+        args.extend(_aniso_ops(dj, TILE))
+    args.extend(map(jnp.asarray, W))
+    res_j = jl._pipe_call(j, P, N, N, TILE, dj["scale"], dj["sign"], "aniso",
+                          True, mode="aniso2d", last=last)(*args)
+    res_t = tl.pipe_aniso2d_ref(torch.from_numpy(scal), torch.from_numpy(av),
+                                _t(W), dt, last)
+    assert len(res_t) == len(res_j)
+    wn = np.asarray(res_j[0])
+    assert _rel(res_t[0].numpy(), wn) <= FIELD_TOL
+    if not last:
+        avn_j, d_j = res_j[1], res_j[4]
+        assert _rel(res_t[1].numpy(), avn_j) <= FIELD_TOL
+        _check_dots(res_t[4].numpy(), d_j, W + [wn], np.asarray(avn_j))
+    nsq_j, gram_j = res_j[-2:] if last else res_j[2:4]
+    nsq_t, gram_t = res_t[-2:] if last else res_t[2:4]
+    assert abs(float(nsq_t[0, 0]) - float(nsq_j[0, 0])) <= (
+        DOT_TOL * float(nsq_j[0, 0]))
+    _check_dots(gram_t.numpy(), gram_j, W, wn)
+
+
+def test_lanczos_and_matfunc_planar_aniso_match_pallas():
+    """lanczos_planar and matfunc_apply_planar with an aniso descriptor at
+    128^2, m=8, against the JAX pipelined driver in interpret mode; on the
+    CPU no kernel is launched."""
+    m = 8
+    dj, dt = _descs_aniso()
+    (u,) = _fields(1, 2, 70)
+    t = 1j * 1e-3
+
+    @jax.jit
+    def pallas(uj):
+        return (jl.lanczos_planar(uj, dj, m, interpret=True),
+                jl.matfunc_apply_planar(uj, dj, np.complex64(t), "exp", m,
+                                        interpret=True))
+
+    (W_j, s_j, a_j, b_j, b0_j), y_j = pallas(jnp.asarray(u))
+    counters = (tl.pass1_aniso2d, tl.pipe_aniso2d, tl.combine)
+    before = [f.launches for f in counters]
+    W_t, s_t, a_t, b_t, b0_t = tl.lanczos_planar(torch.from_numpy(u), dt, m)
+    assert len(W_t) == m
+    for x, y in zip(W_t, W_j):
+        assert _rel(x.numpy(), y) <= COL_TOL
+    assert _rel(torch.stack(s_t).numpy(), jnp.stack(s_j)) <= FIELD_TOL
+    assert _rel(torch.stack(a_t).numpy(), jnp.stack(a_j)) <= FIELD_TOL
+    assert _rel(torch.stack(b_t).numpy(), jnp.stack(b_j)) <= FIELD_TOL
+    assert abs(float(b0_t) - float(b0_j)) <= FIELD_TOL * float(b0_j)
+    y_t = tl.matfunc_apply_planar(torch.from_numpy(u), dt, t, "exp", m)
+    assert _rel(y_t.numpy(), y_j) <= FIELD_TOL
+    assert [f.launches for f in counters] == before
+
+
+def test_supported_desc_aniso():
+    """Any grid with sides >= 3 qualifies (no TPU alignment gates); the face
+    weights must be float32 (ny, nx) tensors."""
+    _, dt = _descs_aniso(n=7, ny=5)
+    assert tl.supported_desc(dt, (5, 7), torch.complex64)
+    assert tl.supported_desc(dt, (5, 7), torch.float32)
+    assert not tl.supported_desc(dt, (5, 7), torch.complex128)
+    assert not tl.supported_desc(dt, (7, 5), torch.complex64)
+    assert not tl.supported_desc(dict(dt, wx=dt["wx"].double()), (5, 7),
+                                 torch.complex64)
+    assert not tl.supported_desc(dict(dt, wy=None), (5, 7), torch.complex64)

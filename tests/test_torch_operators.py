@@ -158,3 +158,86 @@ def test_neumann_no_velocity_3d(shape):
     np.testing.assert_array_equal(
         got, np.asarray(jbc.neumann_no_velocity_3d(jnp.asarray(u))))
     np.testing.assert_array_equal(ut.numpy(), u)     # input left unchanged
+
+
+def _c2d(shape, seed):
+    return 1.0 + 0.4 * np.random.default_rng(seed).random(shape)
+
+
+@pytest.mark.parametrize("shape", [(12, 12), (9, 17), (3, 9, 17)])
+def test_anisotropic_laplacian_2d_matches_jax(shape):
+    """div(c grad u) on square and ragged grids, with a batch axis; the
+    descriptor's padded float32 face weights equal JAX's bit for bit."""
+    c = _c2d(shape[-2:], 11)
+    u = _field(shape, 12)
+    lj = jops.anisotropic_laplacian_2d(c, 0.3, 0.25)
+    lt = tops.anisotropic_laplacian_2d(c, 0.3, 0.25, device="cpu")
+    want = np.asarray(lj(jnp.asarray(u)))
+    got = lt(torch.from_numpy(u)).numpy()
+    assert _rel(got, want) <= TOL
+    dj, dt = lj._pallas_desc, lt.kernel_desc
+    assert dj.keys() == dt.keys()
+    for k, v in dj.items():
+        if k in ("wx", "wy"):
+            assert dt[k].dtype == torch.float32 and dt[k].is_contiguous()
+            np.testing.assert_array_equal(dt[k].numpy(), v)
+        else:
+            assert dt[k] == v
+
+
+def test_anisotropic_laplacian_2d_matches_dense():
+    """Against the reference's finite-volume builder (laplacians.hpp:
+    54-103), dense (tests/reference_ops.py)."""
+    n_int, dx = 10, 0.25
+    nf = n_int + 2
+    c = np.random.default_rng(13).uniform(0.5, 2.0, nf * nf)
+    u = _field((nf, nf), 14)
+    L = ref.build_anisotropic_laplacian_noflux(n_int, n_int, dx, dx, c)
+    lt = tops.anisotropic_laplacian_2d(c.reshape(nf, nf), dx, dx,
+                                       device="cpu")
+    got = lt(torch.from_numpy(u)).numpy().reshape(-1)
+    assert _rel(got, L @ u.reshape(-1)) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(12, 12), (9, 17)])
+def test_separated_laplacian_2d_matches_jax(shape):
+    u = _field((2,) + shape, 15)
+    ajx, ajy = jops.separated_laplacian_2d(shape, 0.3, 0.2,
+                                           dtype=jnp.float64)
+    atx, aty = tops.separated_laplacian_2d(shape, 0.3, 0.2,
+                                           dtype=torch.float64, device="cpu")
+    ut = torch.from_numpy(u)
+    for aj, at in ((ajx, atx), (ajy, aty)):
+        assert _rel(at(ut).numpy(), np.asarray(aj(jnp.asarray(u)))) <= TOL
+
+
+def test_separated_laplacian_2d_matches_dense():
+    """Against the reference's per-direction builder (laplacians.hpp:
+    220-269); Lx + Ly is the 2D reference-variant operator."""
+    n_int, dx = 10, 0.25
+    nf = n_int + 2
+    u = _field((nf, nf), 16)
+    Lx, Ly = ref.build_separated_laplacian_noflux(n_int, dx, dx)
+    atx, aty = tops.separated_laplacian_2d((nf, nf), dx, dx,
+                                           dtype=torch.float64, device="cpu")
+    ut = torch.from_numpy(u)
+    assert _rel(atx(ut).numpy().reshape(-1), Lx @ u.reshape(-1)) <= TOL
+    assert _rel(aty(ut).numpy().reshape(-1), Ly @ u.reshape(-1)) <= TOL
+    full = tops.laplacian_2d((nf, nf), dx, dx, dtype=torch.float64,
+                             device="cpu")
+    assert _rel((atx(ut) + aty(ut)).numpy(), full(ut).numpy()) <= TOL
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (2, 9, 13)])
+def test_radiating_nlse_2d_matches_jax(shape):
+    """The radiating envelope BC on a complex field, corners included; the
+    input is left unchanged."""
+    rng = np.random.default_rng(17)
+    u = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    m = rng.uniform(0.5, 1.5, shape[-2:])
+    want = np.asarray(jbc.radiating_nlse_2d(jnp.asarray(u), m, 0.3, 0.3))
+    ut = torch.from_numpy(u.copy())
+    got = tbc.radiating_nlse_2d(ut, torch.from_numpy(m), 0.3, 0.3).numpy()
+    assert _rel(got, want) <= TOL
+    np.testing.assert_array_equal(got[..., 1:-1, 1:-1], u[..., 1:-1, 1:-1])
+    np.testing.assert_array_equal(ut.numpy(), u)

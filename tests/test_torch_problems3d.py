@@ -125,6 +125,34 @@ def test_jax_state_handed_across_steps_alike(jax_run):
     assert torch.equal(prob.init(sc), s)
 
 
+def test_planar_sewi_matches_jax_interpret():
+    """3D sEWI on the planar path (the SS2 bootstrap at step 1, then the
+    two-step scheme through pass1_3d, pass2 and combine), krylov_m=6,
+    against JAX's planar problem in interpret mode after 3 steps."""
+    kw = dict(_kw(False), krylov_m=6, integrator="sewi")
+    old = jconfig.pallas_mode
+    jconfig.pallas_mode = "interpret"
+    try:
+        pj = jproblems.nlse_problem("cubic", SHAPE, LX, DT,
+                                    dtype=jnp.complex64, **kw)
+        step = jax.jit(pj.step)
+        s = pj.init(_u0())
+        for i in range(1, STEPS + 1):
+            s = step(s, i)
+        want = np.asarray(pj.observe(s))
+    finally:
+        jconfig.pallas_mode = old
+    assert pj.meta["planar_state"]
+    prob = tproblems.nlse_problem("cubic", SHAPE, LX, DT,
+                                  dtype=torch.complex64, device="cpu", **kw)
+    assert prob.meta["planar_state"] and prob.meta["dim"] == 3
+    s = prob.init(_u0())
+    for i in range(1, STEPS + 1):
+        s = prob.step(s, i)
+    assert isinstance(s, tuple)
+    assert _rel(prob.observe(s).numpy(), want) <= 1e-5
+
+
 @pytest.mark.parametrize("case,tol_last", [("nlse_cubic_3d", 1e-7),
                                            ("nlse_cubic_3d_long", 1e-6)])
 def test_golden_nlse_cubic_3d_anisotropic(case, tol_last):
