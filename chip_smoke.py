@@ -67,11 +67,43 @@ Phases, one line each (or a few):
  15. rate2d-aniso  1024^2 iso SS2 and c(x) SS2 (3 chunks of 200 each,
                interleaved), then c(x) sEWI (3 of 50), as in phase 10. Each
                run carries its step index, so sEWI bootstraps once.
+ 16. parity-optin  the kernels of the opt-in paths against their plain
+               versions: K13 (ss2_resident_step, one whole SS2 step) at
+               1024^2 m=10 and on a ragged 250x333 grid (every density,
+               both variants, with and without the ghost ring, m=20); K5
+               (iter_step) at 1024^2, 128^3 and ragged grids, every operator
+               it takes, complex and real fields, j up to 18; K8 (pipe_3d)
+               at 128^3 and on a ragged 20x30x50 grid, every 3D operator,
+               complex and real, j up to 18. The gates of phase 3. Device
+               times per step of their paths beside the bounds.
+ 17. main-resident  phase 4's problem with config.resident_mode "auto":
+               200 steps through problems.run under
+               torch.cuda.set_sync_debug_mode("error") (no host sync),
+               exactly 1 K13 launch per step and no other counted launch,
+               mass drift < 1e-3.
+ 18. main-iter  with config.fused_iter: 1024^2 SS2 (exactly 9 K5 + 1 K3
+               per step) and 128^3 SS2 (9 K5 + 1 K3 + 1 bc3d), 100 steps
+               each, mass drift < 1e-3.
+ 19. main-pipe3d  with config.pipeline_3d: 128^3 iso and c(x) SS2, 100
+               steps each: exactly 1 pass1_3d + 8 K8 + 1 K2 (the last,
+               stencil-free iteration) + 1 K3 + 1 bc3d per step, mass drift
+               < 1e-3.
+ 20. paths-optin  20 steps of each switch against the default path:
+               resident (Taylor in place of eigh) rel-L2 <= 1e-4, fused_iter
+               (2D, 3D) and pipeline_3d (iso, c(x)) <= 1e-5 (the same
+               arithmetic, other rounding).
+ 21. rate-optin  steps/s of each opt-in path beside its default, chunks
+               interleaved in this one call, with phase 6's profile: resident
+               vs default and fused_iter vs the pipe at 1024^2 (3 chunks of
+               200 each), pipeline_3d vs two-pass at 128^3 (3 of 100) and
+               256^3 (3 of 20).
 Then the card's name and power limit, the kernels as one JSON line (all
-eight: K1-K3, pass1_3d, pass2, bc3d, K1', K2'), and last {"ok": true,
-"device": ...}. Any failed phase exits non-zero and prints no result.
+eleven: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8), and last
+{"ok": true, "device": ...}. Any failed phase exits non-zero and prints no
+result.
 """
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -87,9 +119,13 @@ FIELD_TOL, DOT_TOL = 1e-5, 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SOURCE = "nlsolvers_tpu_torch/csrc/lanczos2d.cu"
 SOURCE3 = "nlsolvers_tpu_torch/csrc/lanczos3d.cu"
+SOURCE_RS = "nlsolvers_tpu_torch/csrc/resident2d.cu"
 PALLAS = "nlsolvers_tpu/ops/pallas/lanczos2d.py"
 PALLAS3 = "nlsolvers_tpu/ops/pallas/lanczos3d_pipe.py"
 PALLAS_BC = "nlsolvers_tpu/ops/pallas/bc3d.py"
+PALLAS_RS = "nlsolvers_tpu/ops/pallas/resident2d.py"
+F32_OPS_PER_S = 67e12          # H100 SXM data sheet, float32 outside the
+                               # tensor cores
 
 
 class SmokeFailure(RuntimeError):
@@ -122,11 +158,12 @@ def dev_us(e):
             or getattr(e, "self_cuda_time_total", 0) or 0)
 
 
-def profiled(torch, fn, tries=3):
+def profiled(torch, fn, tries=5):
     """torch.profiler's key_averages() over fn(); profiled again, up to
     `tries` times, when the trace holds no kernel rows (the profiler drops a
-    trace now and then: one of ~600 in this script's runs). Fails if every
-    try comes back empty."""
+    trace now and then; once three in a row). None if every try comes back
+    empty: the caller then times with CUDA events or reports the number as
+    not measured."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
@@ -136,8 +173,9 @@ def profiled(torch, fn, tries=3):
         rows = prof.key_averages()
         if any(dev_us(e) > 0 for e in rows):
             return rows
-    raise SmokeFailure(f"torch.profiler recorded no device time in {tries} "
-                       f"tries")
+        time.sleep(0.2)
+    print(f"torch.profiler recorded no device time in {tries} tries")
+    return None
 
 
 def times_ms(torch, fn, reps=20):
@@ -159,7 +197,20 @@ def times_ms(torch, fn, reps=20):
         for _ in range(reps):
             fn()
 
-    device = sum(dev_us(e) for e in profiled(torch, batch)) / 1e3 / reps
+    rows = profiled(torch, batch)
+    if rows is None:
+        # CUDA events around the whole batch: the device time when the
+        # host enqueues faster than the card runs, else an upper bound
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        batch()
+        b.record()
+        b.synchronize()
+        print(f"  (timed by CUDA events around {reps} calls: "
+              f"{a.elapsed_time(b) / reps:.4f} ms per call)")
+        return a.elapsed_time(b) / reps, statistics.median(walls)
+    device = sum(dev_us(e) for e in rows) / 1e3 / reps
     return device, statistics.median(walls)
 
 
@@ -201,8 +252,13 @@ def kernel_resources(lines):
 
 def bound_ms(nbytes):
     """Least time for `nbytes` of device-memory traffic at the data-sheet
-    rate (every kernel here is bound by bytes, not operations)."""
+    rate (every kernel here but K13 is bound by bytes, not operations)."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def ops_ms(nops):
+    """Least time for `nops` float32 operations at the data-sheet rate."""
+    return nops / F32_OPS_PER_S * 1e3
 
 
 def advance(step, s, n, first=1):
@@ -269,12 +325,16 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
             idx[0] += n_prof
 
         rows = profiled(torch, steps)
-        busy_ms = sum(dev_us(e) for e in rows) / 1e3 / n_prof
-        launched = sum(e.count for e in rows if dev_us(e) > 0) / n_prof
-        print(f"{label}: device busy {busy_ms:.4f} ms/step of "
-              f"{1e3 / sps:.4f} ms/step -> idle share "
-              f"{1 - busy_ms * sps / 1e3:.3f}; {launched:.0f} kernel "
-              f"launches per step")
+        if rows is None:
+            print(f"{label}: device busy time not measured (no trace)")
+            rows = []
+        else:
+            busy_ms = sum(dev_us(e) for e in rows) / 1e3 / n_prof
+            launched = sum(e.count for e in rows if dev_us(e) > 0) / n_prof
+            print(f"{label}: device busy {busy_ms:.4f} ms/step of "
+                  f"{1e3 / sps:.4f} ms/step -> idle share "
+                  f"{1 - busy_ms * sps / 1e3:.3f}; {launched:.0f} kernel "
+                  f"launches per step")
         for e in sorted(rows, key=dev_us, reverse=True)[:8]:
             print(f"  {dev_us(e) / 1e3 / n_prof:9.4f} ms/step "
                   f"{e.count // n_prof:4d}x/step {e.key[:70]}")
@@ -328,6 +388,8 @@ def main():
     from nlsolvers_tpu_torch.ops.cuda import bc3d as b3
     from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
     from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
+    from nlsolvers_tpu_torch.ops.cuda import resident2d as rs
+    from nlsolvers_tpu_torch.utils import interop
 
     check("jax" not in sys.modules, "jax was imported")
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -347,7 +409,7 @@ def main():
     print(smi_line)
 
     # ---------------------------------------------------------- 2. build
-    libs = ("lanczos2d", "lanczos3d")
+    libs = ("lanczos2d", "lanczos3d", "resident2d")
     _build.build_all(libs)
     resources = {}
     for lib in libs:
@@ -362,9 +424,12 @@ def main():
               f"kernels that spill registers: {len(spills)} "
               f"{'; '.join(spills)}")
     # every instantiation of the 2D kernels: <P, MAXW, OP> (OP 1 = aniso)
-    # and <P, MAXW, LAST, OP>
-    for kname, nreg, spill in resources["lanczos2d"]:
-        if kname.startswith(("pass1_2d_kernel", "pipe_2d_kernel")):
+    # and <P, MAXW, LAST, OP>; K5 <P, MAXW, OPK>, K8 <P, MAXW, MODE>, K13
+    # <MAXW>
+    for kname, nreg, spill in [r for lib in libs for r in resources[lib]]:
+        if kname.startswith(("pass1_2d_kernel", "pipe_2d_kernel",
+                             "iter_kernel", "pipe3d_kernel",
+                             "resident_kernel")):
             print(f"ptxas {kname}: {nreg} registers, {spill} bytes spill "
                   f"stores")
 
@@ -971,16 +1036,300 @@ def main():
     rate(torch, {sw2: (prob_s, state_s)}, 50, [sw2] * 3, 10)
     del prob_a, state_a, prob_s, state_s
 
+    # ---------------------------------------------------------- 16. parity-optin
+    errs.update({"K13": 0.0, "K5": 0.0, "K8": 0.0})
+    mf1 = m_field.to(dev)
+    ug = u0.to(dev).contiguous()               # the main path's initial field
+
+    def parity_resident(u, mf, d, m, **kw):
+        sc = {}
+        got, want = both(lambda: rs.ss2_resident_step(u, mf, d, DT, m,
+                                                      scratch=sc, **kw))
+        errs["K13"] = max(errs["K13"], float((got - want).abs().max()))
+        return rel(got, want), 0.0
+
+    def parity_iter(j, d, rows, nx, P=2):
+        W = [field(rows, nx, P) for _ in range(j + 1)]
+        # inverse norms near 1/||W_i||, as the loop passes them, so that
+        # the fields keep the loop's magnitudes
+        sv = ((0.5 + 0.5 * torch.rand(j + 1, generator=gen, device=dev))
+              / torch.stack([w.norm() for w in W]))
+        scal = torch.cat([torch.stack([sv[j], sv[0] * 0 + 0.3]), sv])[None]
+        scal = scal.contiguous()
+        (wn, raw, nsq), (wn0, raw0, nsq0) = both(
+            lambda: lz.iter_step(scal, W[j], W[:j], d))
+        w0 = scal[0, 0] * lz._operator_ref(W[j], d)
+        if j > 0:
+            w0 = w0 - scal[0, 1] * W[j - 1]
+        errs["K5"] = max(errs["K5"], float((wn - wn0).abs().max()))
+        return rel(wn, wn0), max(dot_err(raw, raw0, W, w0),
+                                 float((nsq - nsq0).abs().max()
+                                       / nsq0.abs().max()))
+
+    def pipe3(scal, av, W, d, last):
+        return l3.pipe_3d(scal, av, W, d)
+
+    k8 = dict(fn=pipe3, key="K8")
+    R3 = N3 * N3
+    d3b, d3r = ops3d((N3, N3, N3)), ops3d((20, 30, 50))
+    ragged_cl = operators.laplacian_2d((250, 333), dx, dx, variant="clean",
+                                       device=dev).kernel_desc
+    ragged_an = operators.anisotropic_laplacian_2d(
+        1.0 + 0.4 * torch.rand((250, 333), generator=gen, device=dev), dx, dx,
+        device=dev).kernel_desc
+    mf_r = 1.0 + 0.2 * torch.rand((250, 333), generator=gen, device=dev)
+    u_r = field(250, 333)
+    cases = [
+        ("K13 1024^2 m=10", lambda: parity_resident(ug, mf1, desc, KRYLOV_M)),
+        ("K13 1024^2 m=10 random field",
+         lambda: parity_resident(field(), mf1, desc, KRYLOV_M)),
+        ("K13 250x333 clean cubic_quintic m=20 no ghost ring",
+         lambda: parity_resident(u_r, mf_r, ragged_cl, 20,
+                                 kind="cubic_quintic", apply_bc=False)),
+        ("K13 250x333 saturable m=10",
+         lambda: parity_resident(u_r, mf_r, ragged, KRYLOV_M,
+                                 kind="saturable")),
+        ("K5 iso2d j=0", lambda: parity_iter(0, desc, N, N)),
+        ("K5 iso2d j=4", lambda: parity_iter(4, desc, N, N)),
+        ("K5 iso2d j=8", lambda: parity_iter(8, desc, N, N)),
+        ("K5 iso2d clean j=3", lambda: parity_iter(3, clean, N, N)),
+        ("K5 iso2d j=4 real", lambda: parity_iter(4, desc, N, N, P=1)),
+        ("K5 aniso2d j=4", lambda: parity_iter(4, desc_a, N, N)),
+        ("K5 aniso2d j=18", lambda: parity_iter(18, desc_a, N, N)),
+        ("K5 iso2d j=8 250x333", lambda: parity_iter(8, ragged, 250, 333)),
+        ("K5 aniso2d j=2 real 250x333",
+         lambda: parity_iter(2, ragged_an, 250, 333, P=1)),
+        ("K5 iso3d j=0 128^3", lambda: parity_iter(0, d3b["iso"], R3, N3)),
+        ("K5 iso3d j=8 128^3", lambda: parity_iter(8, d3b["iso"], R3, N3)),
+        ("K5 iso3d clean j=4 128^3",
+         lambda: parity_iter(4, d3b["clean"], R3, N3)),
+        ("K5 iso3d j=4 real 128^3",
+         lambda: parity_iter(4, d3b["iso"], R3, N3, P=1)),
+        ("K5 iso3d j=4 20x30x50", lambda: parity_iter(4, d3r["iso"], 600, 50)),
+        ("K5 iso3d clean j=18 real 20x30x50",
+         lambda: parity_iter(18, d3r["clean"], 600, 50, P=1)),
+        ("K8 iso j=0 128^3",
+         lambda: parity_pipe(0, False, d3b["iso"], R3, N3, **k8)),
+        ("K8 iso j=4 128^3",
+         lambda: parity_pipe(4, False, d3b["iso"], R3, N3, **k8)),
+        ("K8 iso j=7 128^3",
+         lambda: parity_pipe(7, False, d3b["iso"], R3, N3, **k8)),
+        ("K8 clean j=4 128^3",
+         lambda: parity_pipe(4, False, d3b["clean"], R3, N3, **k8)),
+        ("K8 aniso j=4 128^3",
+         lambda: parity_pipe(4, False, d3b["aniso"], R3, N3, **k8)),
+        ("K8 aniso j=7 128^3",
+         lambda: parity_pipe(7, False, d3b["aniso"], R3, N3, **k8)),
+        ("K8 iso j=4 real 128^3",
+         lambda: parity_pipe(4, False, d3b["iso"], R3, N3, P=1, **k8)),
+        ("K8 iso j=3 20x30x50",
+         lambda: parity_pipe(3, False, d3r["iso"], 600, 50, **k8)),
+        ("K8 clean j=3 real 20x30x50",
+         lambda: parity_pipe(3, False, d3r["clean"], 600, 50, P=1, **k8)),
+        ("K8 aniso j=3 20x30x50",
+         lambda: parity_pipe(3, False, d3r["aniso"], 600, 50, **k8)),
+        ("K8 aniso j=18 20x30x50",
+         lambda: parity_pipe(18, False, d3r["aniso"], 600, 50, **k8)),
+    ]
+    for label, fn in cases:
+        gate(label, *fn())
+    del u_r, mf_r, ragged_cl, ragged_an, d3r
+
+    # K13, K5 and K8 per step of their paths: K13 and K5 at 1024^2 m=10
+    # (iso), K8 at 128^3 m=10 (iso and c(x); it runs for j = 0..m-3)
+    sc_rs = {}
+    t_rs = timed(lambda: rs.ss2_resident_step(ug, mf1, desc, DT, KRYLOV_M,
+                                              scratch=sc_rs))
+    show("K13 per step", t_rs)
+    W = [field() for _ in range(KRYLOV_M)]
+    t_k5 = [0.0] * 4
+    for j in range(KRYLOV_M - 1):
+        sv = ((0.5 + 0.5 * torch.rand(j + 1, generator=gen, device=dev))
+              / torch.stack([w.norm() for w in W[:j + 1]]))
+        sc5 = torch.cat([torch.stack([sv[j], sv[0] * 0 + 0.3]), sv])[None]
+        sc5 = sc5.contiguous()
+        t = timed(lambda: lz.iter_step(sc5, W[j], W[:j], desc))
+        show(f"K5 j={j}", t)
+        t_k5 = [a + b for a, b in zip(t_k5, t)]
+    show("K5 per step", t_k5)
+    del W
+    W = [field(R3, N3) for _ in range(KRYLOV_M - 1)]
+    av = field(R3, N3)
+    t_k8 = {"iso": [0.0] * 4, "aniso": [0.0] * 4}
+    for j in range(KRYLOV_M - 2):
+        sc8 = scalars(j + 2)
+        for key in t_k8:
+            t = timed(lambda: l3.pipe_3d(sc8, av, W[:j + 1], d3b[key]))
+            show(f"K8 {key} j={j}", t)
+            t_k8[key] = [a + b for a, b in zip(t_k8[key], t)]
+    for key, t in t_k8.items():
+        show(f"K8 {key} per step", t)
+    del W, av
+    # The bounds. K13's function reads u and the m field and writes the new
+    # u; its float32 operations per cell (stencil, recurrence, the CGS dots
+    # and subtractions, norms, both kicks, the combine) bound it first.
+    # Its own design streams the basis: K13_STREAM below.
+    m_ = KRYLOV_M
+    plane2 = N * N * 4
+    bytes_rs = 2 * col2 + plane2
+    ops_rs = N * N * (22 * (m_ - 1) + 8 * m_ * (m_ - 1) + 30 + 8 * m_)
+    stream_rs = (col2 * (2 + sum(5 + 2 * j + (j > 0) for j in range(m_ - 1))
+                         + m_ + 1) + 2 * plane2)
+    print(f"K13 design traffic (basis streamed, in this kernel's order): "
+          f"{stream_rs / 1e6:.1f} MB per step -> {bound_ms(stream_rs):.4f} "
+          f"ms at 3.35 TB/s")
+    # K5 at j reads W_0..W_j and writes W_{j+1}; K8 at j reads av_j and
+    # W_0..W_j, writes W_{j+1} and av_{j+1} (c(x): three weight planes more)
+    bytes_k5 = sum(j + 2 for j in range(m_ - 1)) * col2
+    ops_k5 = N * N * sum(22 + 16 * (j + 1) for j in range(m_ - 1))
+    bytes_k8 = sum(j + 4 for j in range(m_ - 2)) * col3
+    bounds = {"K13": (bytes_rs, ops_rs), "K5": (bytes_k5, ops_k5),
+              "K8": (bytes_k8, 0)}
+    times_o = {"K13": t_rs, "K5": t_k5, "K8": t_k8["iso"]}
+    for key, (nb, no) in bounds.items():
+        b_ms = max(bound_ms(nb), ops_ms(no))
+        print(f"bound {key} per step: {nb / 1e6:.1f} MB -> "
+              f"{bound_ms(nb):.4f} ms at 3.35 TB/s; {no / 1e9:.3f} GFLOP -> "
+              f"{ops_ms(no):.4f} ms at 67 TFLOP/s; kernel at "
+              f"{b_ms / times_o[key][0]:.3f} of the larger")
+
+    # ---------------------------------------------------------- 17. main-resident
+    counters_all = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
+                    "K1'": lz.pass1_aniso2d, "K2'": lz.pipe_aniso2d,
+                    "K3": lz.combine, "K5": lz.iter_step,
+                    "K13": rs.ss2_resident_step, "pass1_3d": l3.pass1_3d,
+                    "pass2": l3.pass2, "K8": l3.pipe_3d,
+                    "bc3d": b3.neumann_bc_planar_3d}
+
+    def main_optin(label, prob, s0, snaps_, freq_, per_step,
+                   sync_free=False):
+        """problems.run with every launch counter at 0 just before and
+        read just after: exactly per_step launches of each kernel per step
+        and none of the others, finite snapshots, mass drift < 1e-3; with
+        sync_free the run is under set_sync_debug_mode("error")."""
+        n_steps = (snaps_ - 1) * freq_
+        for f in counters_all.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        if sync_free:
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            traj = problems.run(prob, s0, snaps_, freq_)
+        finally:
+            if sync_free:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters_all.items()}
+        want = {k: per_step.get(k, 0) * n_steps for k in counters_all}
+        print(f"{label}: {n_steps} steps in {wall:.3f} s; launches "
+              f"{ {k: v for k, v in got.items() if v} } "
+              f"({sum(got.values()) / n_steps:.0f} counted per step)"
+              + ("; no host sync (sync debug mode 'error')" if sync_free
+                 else ""))
+        check(got == want, f"{label}: launches {got} != {want}")
+        check(bool(torch.isfinite(torch.view_as_real(traj)).all()),
+              f"{label}: non-finite snapshot")
+        mass = (traj.abs().double() ** 2).sum(dim=tuple(range(1, traj.dim())))
+        drift_ = float(((mass - mass[0]).abs() / mass[0]).max())
+        print(f"{label}: relative mass drift over {n_steps} steps "
+              f"{drift_:.3e}")
+        check(drift_ < 1e-3, f"{label}: mass drift {drift_:.3e} >= 1e-3")
+        return got, n_steps
+
+    def with_switches(prob, **sw):
+        """prob with config switches set while its step runs."""
+        def step(s, i):
+            old = interop.set_switches(**sw)
+            try:
+                return prob.step(s, i)
+            finally:
+                interop.set_switches(**old)
+        return dataclasses.replace(prob, step=step)
+
+    old_sw = interop.set_switches(resident_mode="auto")
+    try:
+        prob_r = problems.nlse_problem("cubic", (N, N), LX, DT,
+                                       m_field=m_field, krylov_m=KRYLOV_M,
+                                       dtype=torch.complex64)
+    finally:
+        interop.set_switches(**old_sw)
+    check(not prob_r.meta["planar_state"] and prob_r.meta["device"] == "cuda",
+          "the resident problem took another path")
+    state_r = prob_r.init(torch.complex(u0[0], u0[1]))
+    launches_r, steps_r = main_optin("main-resident 1024^2", prob_r, state_r,
+                                     snaps, freq, {"K13": 1}, sync_free=True)
+
+    # ---------------------------------------------------------- 18. main-iter
+    p2, s2 = problem2d(c=None)
+    p2_fused = with_switches(p2, fused_iter=True)
+    launches_i, steps_i = main_optin(
+        "main-iter 1024^2", p2_fused, s2, 3, 50,
+        {"K5": KRYLOV_M - 1, "K3": 1})
+    p3, s3 = problem3d(N3)
+    main_optin("main-iter 128^3", with_switches(p3, fused_iter=True), s3, 3,
+               50, {"K5": KRYLOV_M - 1, "K3": 1, "bc3d": 1})
+
+    # ---------------------------------------------------------- 19. main-pipe3d
+    per_pipe3d = {"pass1_3d": 1, "K8": KRYLOV_M - 2, "K2": 1, "K3": 1,
+                  "bc3d": 1}
+    p3_pipe = with_switches(p3, pipeline_3d=True)
+    launches_p, steps_p = main_optin("main-pipe3d iso 128^3", p3_pipe, s3, 3,
+                                     50, per_pipe3d)
+    p3c, s3c = problem3d(N3, c3)
+    p3c_pipe = with_switches(p3c, pipeline_3d=True)
+    main_optin("main-pipe3d c(x) 128^3", p3c_pipe, s3c, 3, 50, per_pipe3d)
+
+    # ---------------------------------------------------------- 20. paths-optin
+    for label, (po, so), (pd, sd), tol in (
+            ("resident vs default 1024^2", (prob_r, state_r), (p2, s2), 1e-4),
+            ("fused_iter vs default 1024^2", (p2_fused, s2), (p2, s2), 1e-5),
+            ("fused_iter vs default 128^3",
+             (with_switches(p3, fused_iter=True), s3), (p3, s3), 1e-5),
+            ("pipeline_3d vs default iso 128^3", (p3_pipe, s3), (p3, s3),
+             1e-5),
+            ("pipeline_3d vs default c(x) 128^3", (p3c_pipe, s3c),
+             (p3c, s3c), 1e-5)):
+        a = po.observe(advance(po.step, so, n_par))
+        b = pd.observe(advance(pd.step, sd, n_par))
+        e = rel(a, b)
+        print(f"paths-optin {label}: {n_par} steps rel-L2 {e:.3e} (gate "
+              f"{tol:g})")
+        check(e <= tol, f"{label}: rel-L2 {e:.3e} > {tol:g}")
+        del a, b
+
+    # ---------------------------------------------------------- 21. rate-optin
+    rr, rf, rd = (f"rate-optin {k} {N}^2" for k in
+                  ("resident", "fused_iter", "default"))
+    rate(torch, {rr: (prob_r, state_r), rf: (p2_fused, s2), rd: (p2, s2)},
+         200, [rd, rr, rf, rf, rr, rd, rd, rf, rr], 20)
+    del prob_r, state_r, p2, p2_fused, s2, p3c, s3c, p3c_pipe
+    q3, t3w = f"rate-optin pipeline_3d {N3}^3", f"rate-optin two-pass {N3}^3"
+    rate(torch, {q3: (p3_pipe, s3), t3w: (p3, s3)}, 100,
+         [t3w, q3, q3, t3w, t3w, q3], 20)
+    del p3, s3, p3_pipe
+    pb, sb = problem3d(N3_BIG)
+    qb = f"rate-optin pipeline_3d {N3_BIG}^3"
+    tb = f"rate-optin two-pass {N3_BIG}^3"
+    rate(torch, {qb: (with_switches(pb, pipeline_3d=True), sb),
+                 tb: (pb, sb)}, 20, [tb, qb, qb, tb, tb, qb], 5)
+    del pb, sb
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
-              lib):
+              lib, nops=0):
         """One kernel of the JSON line: `launches` over the n_steps of its
         main path's run; `ms`, `plain_ms`, `bound_ms` and `library_ms` per
-        step of that path."""
+        step of that path; bound_ms the larger of the bytes' and the float32
+        operations' time."""
+        by_ops = ops_ms(nops) > bound_ms(nbytes)
         return dict(name=kname, route="cuda", source=source,
                     replaces=replaces, launches=launches_,
                     launches_per_step=launches_ / n_steps, max_abs_err=err,
-                    ms=t[0], plain_ms=t[2], bound_ms=bound_ms(nbytes),
-                    bound_by="bytes", library_ms=lib)
+                    ms=t[0], plain_ms=t[2],
+                    bound_ms=max(bound_ms(nbytes), ops_ms(nops)),
+                    bound_by="operations" if by_ops else "bytes",
+                    library_ms=lib)
 
     kernels = [
         entry("pass1_iso2d", SOURCE, f"{PALLAS}:473", launches["K1"], steps,
@@ -1000,6 +1349,13 @@ def main():
               steps, errs["K1'"], times_a["K1'"], bytes_a["K1'"], None),
         entry("pipe_aniso2d", SOURCE, f"{PALLAS}:779", launches_a["K2'"],
               steps, errs["K2'"], times_a["K2'"], bytes_a["K2'"], None),
+        entry("ss2_resident_step", SOURCE_RS, f"{PALLAS_RS}:90",
+              launches_r["K13"], steps_r, errs["K13"], t_rs, bytes_rs, None,
+              ops_rs),
+        entry("iter_step", SOURCE, f"{PALLAS}:637", launches_i["K5"],
+              steps_i, errs["K5"], t_k5, bytes_k5, None, ops_k5),
+        entry("pipe_3d", SOURCE3, f"{PALLAS3}:1135", launches_p["K8"],
+              steps_p, errs["K8"], t_k8["iso"], bytes_k8, None),
     ]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,7 @@
 // Laplacian ("iso2d") and the finite-volume div(c grad u) with zero-padded
 // face weights wx, wy ("aniso2d").
 //
-// Replaces three Pallas TPU kernels of nlsolvers_tpu/ops/pallas/lanczos2d.py:
+// Replaces four Pallas TPU kernels of nlsolvers_tpu/ops/pallas/lanczos2d.py:
 //   K1 / K1' pass1_iso2d, pass1_aniso2d <- _pass1_call, modes iso2d, aniso2d
 //        w = s_j A(W_j) - bs W_{j-1}, fused with raw_i = <W_i, w>, i <= j
 //   K2 / K2' pipe_iso2d, pipe_aniso2d   <- _pipe_call, modes iso2d, aniso2d
@@ -12,9 +12,13 @@
 //        d_i = <W_i, av_{j+1}> (i <= j) and d_{j+1} = <W_{j+1}, av_{j+1}>
 //   K3 combine                          <- _combine_call
 //        y_spec = sum_i q[spec, i] W_i for k specs in one pass
+//   K5 iter_step (lz_iter)              <- _iter_call, modes iso2d, aniso2d,
+//        iso3d: pass1 and pass2 of iteration j in one cooperative launch,
+//        the opt-in fused iteration (the phase bodies are lz_iter.cuh's)
 //
 // Fields are planar float32 (P, ny, nx); the block shape, the dot and the
-// reduction are in lz_common.cuh. The operator is a template policy (OP) of
+// reduction are in lz_common.cuh, the operators in lz_stencil.cuh. The
+// operator is a template policy (OP) of
 // one pass1 and one pipe kernel: both stencils read the same five values of
 // u per cell, so the tiling, the halo rebuild and the dots are shared; the
 // aniso stencil adds four weight loads per cell (wx at x and x-1, wy at r
@@ -28,6 +32,10 @@
 // complex64 a column is 8 MB, so K2 at j = 8 moves ~88 MB (aniso: two
 // 4 MB weight planes more). K1 reads j+1 columns and writes 1; K3 reads m
 // and writes k.
+//
+// K5 at iteration j reads W_0..W_j (twice: for the dots, then for the
+// subtraction) and writes w and W_{j+1}; w (8.4 MB at 1024^2) is written
+// in phase 0 and read back in phase 1, mostly from the 50 MB L2.
 //
 // What the design does about it:
 // * Every column is read from device memory once per launch. A block owns a
@@ -49,63 +57,13 @@
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
 #include "lz_common.cuh"
+#include "lz_iter.cuh"
+#include "lz_stencil.cuh"
 
 namespace {
 
 constexpr int KMAX = 4;        // most specs one combine launch takes
-constexpr int OP_ISO = 0;      // 5-point Laplacian, diagonal from the index
-constexpr int OP_ANISO = 1;    // div(c grad u) with zero-padded face weights
-
 struct Outs { float* p[KMAX]; };
-
-// What an operator reads besides u: the aniso face weights (ny, nx), wx
-// zero in column nx-1 and wy zero in row ny-1; the iso diagonal variant.
-struct Op2d {
-  const float* wx;
-  const float* wy;
-  int clean;
-};
-
-// Variant diagonal: "reference" is -3 on the whole boundary ring (corners
-// included) and -4 inside; "clean" is -(number of existing neighbours).
-__device__ __forceinline__ float stencil_diag(int r, int x, int ny, int nx,
-                                              int clean) {
-  const int top = r == 0, bot = r == ny - 1, lft = x == 0, rgt = x == nx - 1;
-  if (clean) return -(4.0f - top - bot - lft - rgt);
-  return (top | bot | lft | rgt) ? -3.0f : -4.0f;
-}
-
-// The operator's coefficients at cell (r, x), shared by the planes: the iso
-// diagonal in k[0], or the aniso face weights at x+1/2, x-1/2, r+1/2 and
-// r-1/2 (0 for a face outside the grid).
-template <int OP>
-__device__ __forceinline__ void load_coef(const Op2d& op, int r, int x,
-                                          int ny, int nx, size_t idx,
-                                          float (&k)[4]) {
-  if (OP == OP_ISO) {
-    k[0] = stencil_diag(r, x, ny, nx, op.clean);
-  } else {
-    k[0] = __ldg(op.wx + idx);
-    k[1] = x > 0 ? __ldg(op.wx + idx - 1) : 0.0f;
-    k[2] = __ldg(op.wy + idx);
-    k[3] = r > 0 ? __ldg(op.wy + idx - nx) : 0.0f;
-  }
-}
-
-// A(u) at one cell before the scale, from the cell c and its neighbours
-// (0 outside the grid). aniso keeps _stencil_aniso's order of terms:
-// fx - fx[x-1] + fy - fy[r-1], with no face left of x = 0 or above r = 0.
-template <int OP>
-__device__ __forceinline__ float stencil(float c, float up, float dn,
-                                         float lf, float rt, int r, int x,
-                                         const float (&k)[4]) {
-  if (OP == OP_ISO) return up + dn + lf + rt + k[0] * c;
-  const float fx = k[0] * (rt - c);
-  const float fx_l = x > 0 ? k[1] * (c - lf) : 0.0f;
-  const float fy = k[2] * (dn - c);
-  const float fy_u = r > 0 ? k[3] * (c - up) : 0.0f;
-  return fx - fx_l + fy - fy_u;
-}
 
 // ---------------------------------------------------------------- K1 pass1
 // MAXW bounds j (the number of earlier columns) so the per-column
@@ -173,32 +131,6 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
 }
 
 // ---------------------------------------------------------------- K2 pipe
-// W_{j+1} at one point from av_j and W_0..W_j (same operation order as the
-// Pallas kernel's reconstruction).
-template <int P, int MAXW>
-__device__ __forceinline__ void rebuild(const float* __restrict__ av,
-                                        const Cols& W, int nw, float s,
-                                        const float (&cf)[MAXW][2],
-                                        size_t idx, size_t plane, float* v) {
-  float a0 = s * __ldg(av + idx);
-  float a1 = P == 2 ? s * __ldg(av + plane + idx) : 0.0f;
-#pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    if (i < nw) {
-      const float w0 = __ldg(W.p[i] + idx);
-      if (P == 1) {
-        a0 = a0 - cf[i][0] * w0;
-      } else {
-        const float w1 = __ldg(W.p[i] + plane + idx);
-        a0 = a0 - (cf[i][0] * w0 - cf[i][1] * w1);
-        a1 = a1 - (cf[i][0] * w1 + cf[i][1] * w0);
-      }
-    }
-  }
-  v[0] = a0;
-  if (P == 2) v[1] = a1;
-}
-
 // MAXW bounds nw = j + 1, the number of basis columns. LAST computes no
 // stencil, so its one instantiation (OP_ISO) serves both operators.
 template <int P, int MAXW, bool LAST, int OP>
@@ -365,6 +297,78 @@ __global__ void __launch_bounds__(256) combine_kernel(
   }
 }
 
+// ---------------------------------------------------------------- K5 iter
+// One whole iteration j in one cooperative launch: phase_w, a grid sync,
+// every block sums the raw dots and forms q_i = s_i^2 raw_i itself,
+// phase_sub, a grid sync, and block 0 writes raw and ||W_{j+1}||^2.
+// scal: (j+3) [s_j, bs, s_0..s_j]. w: the (P, rows, nx) scratch that holds
+// w between the phases. part_a / part_b: partial-sum rows of the two phases.
+template <int P, int MAXW, int OPK>
+__global__ void __launch_bounds__(CT) iter_kernel(
+    const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
+    int j, OpArgs a, float* w, float* __restrict__ wn_out, float* part_a,
+    float* part_b, float* __restrict__ raw_out, float* __restrict__ nsq_out) {
+  __shared__ float red[CWARP][RED_W];
+  __shared__ float rs[2 * MAXCOLS];
+  cg::grid_group grid = cg::this_grid();
+  const ColList W = {prev, wj, j};
+  const size_t n = (size_t)a.nz * a.ny * a.nx;
+  phase_w<P, MAXW, OPK, LdNC>(scal[0], scal[1], W, j, a, w, red, part_a);
+  grid.sync();
+  reduce_all(part_a, 2 * (j + 1), rs);
+  if (blockIdx.x == 0)
+    for (int o = threadIdx.x; o < 2 * (j + 1); o += CT) raw_out[o] = rs[o];
+  phase_sub<P, MAXW, LdNC>(W, j, scal + 2, rs, n, w, wn_out, red, part_b);
+  grid.sync();
+  if (blockIdx.x == 0) {
+    reduce_all(part_b, 1, rs);
+    if (threadIdx.x == 0) nsq_out[0] = rs[0];
+  }
+}
+
+// The grid of one iter_kernel instantiation, found once.
+template <int P, int MAXW, int OPK>
+int iter_grid() {
+  static const int g = coop_blocks(iter_kernel<P, MAXW, OPK>);
+  return g;
+}
+
+template <int P, int MAXW, int OPK>
+int launch_iter(const float* scal, const float* wj, Cols prev, int j,
+                OpArgs a, float* w, float* wn, float* part_a, float* part_b,
+                float* raw, float* nsq, cudaStream_t st) {
+  void* args[] = {&scal, &wj, &prev, &j, &a, &w, &wn, &part_a, &part_b,
+                  &raw, &nsq};
+  return coop_launch(iter_kernel<P, MAXW, OPK>, iter_grid<P, MAXW, OPK>(),
+                     args, st);
+}
+
+template <int P, int OPK>
+int iter_bucket(int b, const float* scal, const float* wj, Cols prev, int j,
+                OpArgs a, float* w, float* wn, float* part_a, float* part_b,
+                float* raw, float* nsq, cudaStream_t st) {
+#define LZ_IT(BB) launch_iter<P, BB, OPK>(scal, wj, prev, j, a, w, wn, \
+                                          part_a, part_b, raw, nsq, st)
+  if (b == 4) return LZ_IT(4);
+  if (b == 8) return LZ_IT(8);
+  if (b == 16) return LZ_IT(16);
+  return LZ_IT(32);
+#undef LZ_IT
+}
+
+template <int P>
+int iter_op(int opk, int b, const float* scal, const float* wj, Cols prev,
+            int j, OpArgs a, float* w, float* wn, float* part_a,
+            float* part_b, float* raw, float* nsq, cudaStream_t st) {
+#define LZ_OP(OO) iter_bucket<P, OO>(b, scal, wj, prev, j, a, w, wn, part_a, \
+                                     part_b, raw, nsq, st)
+  if (opk == OPK_ISO2D) return LZ_OP(OPK_ISO2D);
+  if (opk == OPK_ANISO2D) return LZ_OP(OPK_ANISO2D);
+  if (opk == OPK_ISO3D_REF) return LZ_OP(OPK_ISO3D_REF);
+  return LZ_OP(OPK_ISO3D_CLEAN);
+#undef LZ_OP
+}
+
 template <int P, int MAXW, int OP>
 void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
                   const Op2d& op, float* w, float* partial, int ny, int nx,
@@ -497,6 +501,37 @@ int lz_pipe_aniso2d(int P, int last, const float* scal, const float* av,
   if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
   return pipe_2d<OP_ANISO>(P, last, scal, av, W, nw, Op2d{wx, wy, 0}, wn,
                            avn, partial, red, ny, nx, ss, st);
+}
+
+// Rows of the partial-sum scratch of one K5 launch: lz_iter needs
+// (2 MAXCOLS + 1) * lz_coop_max_blocks floats.
+int lz_coop_max_blocks() { return coop_max_blocks(); }
+
+// K5. opk: 0 iso2d, 1 aniso2d, 2 iso3d reference, 3 iso3d clean (nz = 1 in
+// 2D; wx, wy are the aniso2d face weights, null otherwise). scal: (j+3)
+// device buffer [s_j, bs, s_0..s_j]; prev: host array of j device pointers
+// W_0..W_{j-1}; w: (P, nz*ny, nx) scratch; partial: scratch of
+// (2 MAXCOLS + 1) * lz_coop_max_blocks floats; raw: (j+1, 2), nsq: (1, 1)
+// outputs. A cooperative launch the card refuses returns its error.
+int lz_iter(int P, int opk, const float* scal, const float* wj,
+            const float* const* prev, int j, const float* wx, const float* wy,
+            int clean, float* w, float* wn, float* partial, float* raw,
+            float* nsq, int nz, int ny, int nx, float ss, cudaStream_t st) {
+  if ((P != 1 && P != 2) || opk < OPK_ISO2D || opk > OPK_ISO3D_CLEAN
+      || j < 0 || j + 1 > MAXCOLS || nz < 1 || ny < 3 || nx < 3
+      || (opk >= OPK_ISO3D_REF && nz < 3))
+    return (int)cudaErrorInvalidValue;
+  if (opk == OPK_ANISO2D && (wx == nullptr || wy == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Cols c = make_cols(prev, j);
+  const OpArgs a = {Op2d{wx, wy, clean}, nz, ny, nx, ss};
+  float* part_b = partial + (size_t)2 * MAXCOLS * coop_max_blocks();
+  const int b = bucket(j + 1);
+  if (P == 1)
+    return iter_op<1>(opk, b, scal, wj, c, j, a, w, wn, partial, part_b, raw,
+                      nsq, st);
+  return iter_op<2>(opk, b, scal, wj, c, j, a, w, wn, partial, part_b, raw,
+                    nsq, st);
 }
 
 // K3. q: (k, m, 2) device buffer. W: host array of m device pointers.

@@ -1,5 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the two-pass 3D Lanczos
-// matrix-function loop and the 3D no-flux ghost copy.
+// Hand-written Hopper (sm_90a) kernels for the 3D Lanczos matrix-function
+// loops and the 3D no-flux ghost copy.
 //
 // Replaces these Pallas TPU kernels of nlsolvers_tpu/ops/pallas/:
 //   pass1_3d <- lanczos3d_pipe.py _pass1y_call (K6) and _pass1zy_call (K7),
@@ -7,28 +7,22 @@
 //        w = s_j A(W_j) - bs W_{j-1}, fused with raw_i = <W_i, w>, i <= j
 //   pass2    <- lanczos2d.py _pass2_call (K4):
 //        w' = w - sum_{i<=j} q_i W_i (complex q_i), fused with ||w'||^2
+//   pipe_3d  <- lanczos3d_pipe.py _pipe3d_call (K8), the opt-in 3D pipe:
+//        pass2(j) fused with pass1(j+1), K2's outputs (lanczos2d.cu)
 //   bc3d     <- bc3d.py _bc_call (K14): the 6-face no-flux ghost copy
 //
 // The TPU split pass1 into y-slab and z-by-y brick kernels only to fit its
 // blocks into VMEM; the function is the same, so here it is one kernel.
 //
-// Fields are planar float32 (P, R, nx) on the merged row view R = nz * ny:
-// a grid point (z, y, x) is row r = z * ny + y. On that view the x
-// neighbours are +-1 column, the y neighbours +-1 row and the z neighbours
-// +-ny rows. The operator modes:
-//   ISO_REF    7-point Laplacian of the reference (laplacians.hpp:105-156):
-//              y neighbours are the plain merged rows, so row (z, ny-1)
-//              couples to (z+1, 0) (the reference's y-seam); diagonal -5 on
-//              any boundary cell, -6 inside.
-//   ISO_CLEAN  y neighbours only inside a plane; diagonal -(neighbours).
-//   ANISO      finite-volume div(c grad u) with zero-padded face weights
-//              wx, wy, wz, each (R, nx) (ops/operators.py): all boundary and
-//              seam structure is in the weights.
+// Fields are planar float32 (P, R, nx) on the merged row view R = nz * ny;
+// the operator modes (ISO_REF with the reference's y-seam, ISO_CLEAN,
+// ANISO) and their stencil are lz_stencil.cuh's.
 //
 // What bounds them on an H100: bytes streamed from device memory; the
 // arithmetic is a few flops per loaded float. pass1 at iteration j reads
 // j + 1 columns and writes 1 (plus three weight planes for ANISO), pass2
-// reads j + 2 and writes 1. At 128^3 complex64 a column is 16.8 MB.
+// reads j + 2 and writes 1, pipe_3d reads j + 2 and writes 2. At 128^3
+// complex64 a column is 16.8 MB.
 //
 // What the design does about it:
 // * pass1: a block owns a TY x TX tile of the merged view and walks it row
@@ -40,71 +34,28 @@
 // * pass2 is a flat stream over the R * nx points of each plane, one
 //   element per thread per step of a grid-stride loop with a fixed grid, so
 //   its partial sums (and the result) repeat bit for bit.
+// * pipe_3d rebuilds W_{j+1} on its tile and the tile's halo into a
+//   3-plane ring in shared memory while it marches z, so the stencil of
+//   the column it builds needs no second pass (see its kernel).
 // * bc3d writes only the faces, in place. With the reference's order (x
 //   faces on interior y and z, then y faces on interior z, then z faces)
 //   every face cell ends up holding u(clamp(z), clamp(y), clamp(x)), where
 //   clamp maps 0 to 1 and n-1 to n-2: an interior cell that no thread
 //   writes, so one kernel does the whole copy without a race. Its bytes are
 //   the faces', not the volume's.
-// * Scalars (s_j, bs, q_i) are read from a device buffer, and the
+// * Scalars (s_j, bs, q_i, c_i) are read from a device buffer, and the
 //   reductions are two-stage and deterministic (lz_common.cuh).
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
 #include "lz_common.cuh"
+#include "lz_stencil.cuh"
 
 namespace {
-
-enum Mode { ISO_REF = 0, ISO_CLEAN = 1, ANISO = 2 };
 
 // Blocks of the pass2 grid-stride loop: about 16 blocks of TX threads on
 // each of the H100's 132 SMs.
 constexpr int PASS2_BLOCKS = 132 * 16;
-
-struct Weights { const float* wx; const float* wy; const float* wz; };
-
-// The operator at merged row r = z ny + y, column x, of one plane b.
-template <int MODE>
-__device__ __forceinline__ float stencil3d(const float* __restrict__ b,
-                                           const Weights& wt, size_t idx,
-                                           int r, int z, int y, int x,
-                                           int R, int nz, int ny, int nx,
-                                           float ss) {
-  const size_t zoff = (size_t)ny * nx;
-  const float cv = __ldg(b + idx);
-  if (MODE == ANISO) {
-    const float rt = x < nx - 1 ? __ldg(b + idx + 1) : 0.0f;
-    const float fx = __ldg(wt.wx + idx) * (rt - cv);
-    const float fx_l =
-        x > 0 ? __ldg(wt.wx + idx - 1) * (cv - __ldg(b + idx - 1)) : 0.0f;
-    const float dn = r < R - 1 ? __ldg(b + idx + nx) : 0.0f;
-    const float fy = __ldg(wt.wy + idx) * (dn - cv);
-    const float fy_m1 =
-        r > 0 ? __ldg(wt.wy + idx - nx) * (cv - __ldg(b + idx - nx)) : 0.0f;
-    const float zd = z < nz - 1 ? __ldg(b + idx + zoff) : 0.0f;
-    const float fz = __ldg(wt.wz + idx) * (zd - cv);
-    const float fz_m =
-        z > 0 ? __ldg(wt.wz + idx - zoff) * (cv - __ldg(b + idx - zoff))
-              : 0.0f;
-    return (fx - fx_l + fy - fy_m1 + fz - fz_m) * ss;
-  }
-  const bool has_up = MODE == ISO_REF ? r > 0 : y > 0;
-  const bool has_dn = MODE == ISO_REF ? r < R - 1 : y < ny - 1;
-  const float up = has_up ? __ldg(b + idx - nx) : 0.0f;
-  const float dn = has_dn ? __ldg(b + idx + nx) : 0.0f;
-  const float zu = z > 0 ? __ldg(b + idx - zoff) : 0.0f;
-  const float zd = z < nz - 1 ? __ldg(b + idx + zoff) : 0.0f;
-  const float lf = x > 0 ? __ldg(b + idx - 1) : 0.0f;
-  const float rt = x < nx - 1 ? __ldg(b + idx + 1) : 0.0f;
-  const int zb0 = z == 0, zb1 = z == nz - 1, yb0 = y == 0, yb1 = y == ny - 1;
-  const int xb0 = x == 0, xb1 = x == nx - 1;
-  float diag;
-  if (MODE == ISO_REF)
-    diag = (zb0 | zb1 | yb0 | yb1 | xb0 | xb1) ? -5.0f : -6.0f;
-  else
-    diag = -(6.0f - (float)(zb0 + zb1 + yb0 + yb1 + xb0 + xb1));
-  return (up + dn + zu + zd + lf + rt + diag * cv) * ss;
-}
 
 // ------------------------------------------------------------ pass1_3d
 // MAXW bounds j (the number of earlier columns) so the per-column
@@ -207,6 +158,194 @@ __global__ void __launch_bounds__(TX) pass2_kernel(
   }
   put(red, 0, nsq);
   write_partials(red, 1, partial);
+}
+
+// ------------------------------------------------------------ pipe_3d
+// K8: one pipelined iteration j on the 3D operators, K2's design lifted to
+// 3D. A block owns a PY x PX tile of (y, x) and marches over PZ planes of
+// z. Step zr rebuilds W_{j+1} = s av_j - sum_i c_i W_i on plane zr of its
+// tile and on the tile's halo ring (one row and one column on each side),
+// into a 3-plane ring in shared memory, and then applies the operator to
+// plane zr-1 from the ring. The halo rows are the merged rows z ny + y0 - 1
+// and z ny + y0 + PY, so the y-seam of the reference operator and the
+// boundaries come from the merged row index as in pass1_3d; plane z0-1
+// and z1 are rebuilt once more than they are stencilled. Every input column
+// is read from device memory about once per launch: the halo cells, the
+// neighbouring blocks' own cells, mostly come from L2.
+constexpr int PX = 32, PY = 8, PZ = 16;
+constexpr int PT = PX * PY;                       // threads per block
+constexpr int PHALO = 2 * (PX + 2) + 2 * PY;      // halo cells of a plane
+
+template <int P, int MAXW, int MODE>
+__global__ void __launch_bounds__(PT) pipe3d_kernel(
+    const float* __restrict__ scal, const float* __restrict__ av, Cols W,
+    int nw, Weights wt, float* __restrict__ wn_out,
+    float* __restrict__ av_out, float* __restrict__ partial, int nz, int ny,
+    int nx, float ss) {
+  __shared__ float red[PT / 32][RED_W];
+  __shared__ float ring[3][P][PY + 2][PX + 2];
+  const int t = threadIdx.x;
+  const int tx = t % PX, ty = t / PX;
+  const int x0 = blockIdx.x * PX, y0 = blockIdx.y * PY, z0 = blockIdx.z * PZ;
+  const int z1 = min(z0 + PZ, nz);
+  const int x = x0 + tx, y = y0 + ty;
+  const bool in = x < nx && y < ny;
+  const long long R = (long long)nz * ny;
+  const size_t plane = (size_t)R * nx;
+
+  const float s = scal[0];
+  float cf[MAXW][2];
+#pragma unroll
+  for (int i = 0; i < MAXW; ++i) {
+    cf[i][0] = i < nw ? scal[2 + 2 * i] : 0.0f;
+    cf[i][1] = i < nw ? scal[3 + 2 * i] : 0.0f;
+  }
+  // this thread's halo cell, if any: ring row hr, column hc
+  int hr = -1, hc = 0;
+  if (t < PX + 2) {
+    hr = 0;
+    hc = t;
+  } else if (t < 2 * (PX + 2)) {
+    hr = PY + 1;
+    hc = t - (PX + 2);
+  } else if (t < 2 * (PX + 2) + PY) {
+    hr = 1 + t - 2 * (PX + 2);
+    hc = 0;
+  } else if (t < PHALO) {
+    hr = 1 + t - 2 * (PX + 2) - PY;
+    hc = PX + 1;
+  }
+
+  float nsq = 0.0f;
+  float g[MAXW][2] = {};
+  float d[MAXW][2] = {};
+  float dl[2] = {0.0f, 0.0f};     // d_{j+1} = <W_{j+1}, av_{j+1}>
+
+  for (int zr = z0 - 1; zr <= z1; ++zr) {
+    const int slot = (zr + 3) % 3;
+    const bool zok = zr >= 0 && zr < nz;
+    // ring cell (ty+1, tx+1): merged row zr ny + y (past ny on a ragged
+    // tile: the next plane's first row, the y-seam's neighbour)
+    float v[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) v[p] = 0.0f;
+    const long long rv = (long long)zr * ny + y;
+    if (zok && x < nx && rv < R)
+      rebuild<P, MAXW>(av, W, nw, s, cf, (size_t)rv * nx + x, plane, v);
+    if (in && zr >= z0 && zr < z1) {
+      const size_t idx = (size_t)rv * nx + x;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        wn_out[p * plane + idx] = v[p];
+        nsq += v[p] * v[p];
+      }
+#pragma unroll
+      for (int i = 0; i < MAXW; ++i) {
+        if (i < nw) {
+          float wi[P];
+          load<P>(W.p[i], idx, plane, wi);
+          hdot<P>(wi, v, g[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) ring[slot][p][ty + 1][tx + 1] = v[p];
+    if (hr >= 0) {
+      const long long rh = (long long)zr * ny + y0 - 1 + hr;
+      const int xh = x0 - 1 + hc;
+      float h[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) h[p] = 0.0f;
+      if (zok && rh >= 0 && rh < R && xh >= 0 && xh < nx)
+        rebuild<P, MAXW>(av, W, nw, s, cf, (size_t)rh * nx + xh, plane, h);
+#pragma unroll
+      for (int p = 0; p < P; ++p) ring[slot][p][hr][hc] = h[p];
+    }
+    __syncthreads();
+    const int zs = zr - 1;                  // the plane to stencil
+    if (in && zs >= z0 && zs < z1) {
+      const int sc = (zs + 3) % 3, su = (zs + 2) % 3;
+      const int r = zs * ny + y;
+      const size_t idx = (size_t)r * nx + x;
+      float a[P], c[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        c[p] = ring[sc][p][ty + 1][tx + 1];
+        a[p] = stencil3d_vals<MODE>(
+            c[p], ring[sc][p][ty][tx + 1], ring[sc][p][ty + 2][tx + 1],
+            ring[su][p][ty + 1][tx + 1], ring[slot][p][ty + 1][tx + 1],
+            ring[sc][p][ty + 1][tx], ring[sc][p][ty + 1][tx + 2], wt, idx, r,
+            zs, y, x, nz, ny, nx, ss);
+        av_out[p * plane + idx] = a[p];
+      }
+#pragma unroll
+      for (int i = 0; i < MAXW; ++i) {
+        if (i < nw) {
+          float wi[P];
+          load<P>(W.p[i], idx, plane, wi);
+          hdot<P>(wi, a, d[i]);
+        }
+      }
+      hdot<P>(c, a, dl);
+    }
+    __syncthreads();                        // the ring slot is rewritten
+  }
+
+  // partial layout, as K2's: nsq | gram_i (re, im), i < nw | d_i, i <= nw
+  put(red, 0, nsq);
+#pragma unroll
+  for (int i = 0; i < MAXW; ++i) {
+    if (i < nw) {
+      put(red, 1 + 2 * i, g[i][0]);
+      put(red, 2 + 2 * i, g[i][1]);
+    }
+  }
+  const int nout = 1 + 2 * nw;
+#pragma unroll
+  for (int i = 0; i < MAXW; ++i) {
+    if (i < nw) {
+      put(red, nout + 2 * i, d[i][0]);
+      put(red, nout + 2 * i + 1, d[i][1]);
+    }
+  }
+  put(red, nout + 2 * nw, dl[0]);
+  put(red, nout + 2 * nw + 1, dl[1]);
+  const size_t blk = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
+                     + blockIdx.x;
+  write_partials_n(red, PT / 32, nout + 2 * (nw + 1), blk, partial);
+}
+
+dim3 pipe3d_grid(int nz, int ny, int nx) {
+  return dim3((nx + PX - 1) / PX, (ny + PY - 1) / PY, (nz + PZ - 1) / PZ);
+}
+
+template <int P, int MODE>
+void launch_pipe3d(int b, const float* scal, const float* av, Cols W, int nw,
+                   Weights wt, float* wn, float* avn, float* partial, int nz,
+                   int ny, int nx, float ss, cudaStream_t st) {
+  const dim3 g = pipe3d_grid(nz, ny, nx);
+#define LZ_P3(BB) pipe3d_kernel<P, BB, MODE><<<g, PT, 0, st>>>( \
+      scal, av, W, nw, wt, wn, avn, partial, nz, ny, nx, ss)
+  if (b == 4) LZ_P3(4);
+  else if (b == 8) LZ_P3(8);
+  else if (b == 16) LZ_P3(16);
+  else LZ_P3(32);
+#undef LZ_P3
+}
+
+template <int P>
+void pipe3d_mode(int mode, int b, const float* scal, const float* av, Cols W,
+                 int nw, Weights wt, float* wn, float* avn, float* partial,
+                 int nz, int ny, int nx, float ss, cudaStream_t st) {
+  if (mode == ISO_REF)
+    launch_pipe3d<P, ISO_REF>(b, scal, av, W, nw, wt, wn, avn, partial, nz,
+                              ny, nx, ss, st);
+  else if (mode == ISO_CLEAN)
+    launch_pipe3d<P, ISO_CLEAN>(b, scal, av, W, nw, wt, wn, avn, partial, nz,
+                                ny, nx, ss, st);
+  else
+    launch_pipe3d<P, ANISO>(b, scal, av, W, nw, wt, wn, avn, partial, nz, ny,
+                            nx, ss, st);
 }
 
 // ------------------------------------------------------------ bc3d
@@ -372,6 +511,40 @@ int lz3_pass2(int P, const float* q, const float* w, const float* const* W,
   else
     launch_pass2<2>(b, q, w, c, nw, wn, partial, (size_t)n, st);
   reduce_partials<<<1, RED_THREADS, 0, st>>>(partial, PASS2_BLOCKS, 1, nsq);
+  return (int)cudaGetLastError();
+}
+
+// Number of blocks (= partial-sum rows) a pipe_3d launch uses.
+int lz3_pipe3d_blocks(int nz, int ny, int nx) {
+  const dim3 g = pipe3d_grid(nz, ny, nx);
+  return (int)(g.x * g.y * g.z);
+}
+
+// pipe_3d (K8). mode as lz3_pass1. W: host array of nw = j+1 device
+// pointers W_0..W_j. scal: (nw+1, 2) device buffer [(s_j, 0), c_0..c_j].
+// partial: scratch of lz3_pipe3d_blocks * nout floats; red: nout outputs,
+// nout = 1 + 2 nw + 2 (nw + 1) (nsq, gram, d).
+int lz3_pipe3d(int P, int mode, const float* scal, const float* av,
+               const float* const* W, int nw, const float* wx,
+               const float* wy, const float* wz, float* wn, float* avn,
+               float* partial, float* red, int nz, int ny, int nx, float ss,
+               cudaStream_t st) {
+  if ((P != 1 && P != 2) || mode < 0 || mode > 2 || nw < 1
+      || nw + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3)
+    return (int)cudaErrorInvalidValue;
+  if (mode == ANISO && (!wx || !wy || !wz)) return (int)cudaErrorInvalidValue;
+  const Cols c = make_cols(W, nw);
+  const Weights wt = {wx, wy, wz};
+  const int b = bucket(nw);
+  if (P == 1)
+    pipe3d_mode<1>(mode, b, scal, av, c, nw, wt, wn, avn, partial, nz, ny, nx,
+                   ss, st);
+  else
+    pipe3d_mode<2>(mode, b, scal, av, c, nw, wt, wn, avn, partial, nz, ny, nx,
+                   ss, st);
+  const int nout = 1 + 2 * nw + 2 * (nw + 1);
+  reduce_partials<<<nout, RED_THREADS, 0, st>>>(
+      partial, lz3_pipe3d_blocks(nz, ny, nx), nout, red);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 // Shared pieces of the hand-written Lanczos kernels (lanczos2d.cu,
-// lanczos3d.cu): the block shape, the column-pointer struct, the Hermitian
-// dot on planar fields, and the two-stage deterministic reduction.
+// lanczos3d.cu, resident2d.cu): the block shape, the column-pointer struct,
+// the Hermitian dot on planar fields, the pipe kernels' rebuild of
+// W_{j+1}, and the two-stage deterministic reduction.
 //
 // Fields are planar float32 (P, rows, nx): P = 2 holds (re, im) planes of a
 // complex field, P = 1 a real field. <a, b> is the Hermitian product
@@ -71,6 +72,46 @@ __device__ __forceinline__ void write_partials(
     for (int w = 1; w < NWARP; ++w) v += red[w][o];
     partial[bid * nout + o] = v;
   }
+}
+
+// As write_partials, for a block of nwarp warps whose partial-sum row is blk.
+__device__ __forceinline__ void write_partials_n(float (*red)[RED_W],
+                                                 int nwarp, int nout,
+                                                 size_t blk,
+                                                 float* __restrict__ partial) {
+  __syncthreads();
+  for (int o = threadIdx.x; o < nout; o += nwarp * 32) {
+    float v = red[0][o];
+    for (int w = 1; w < nwarp; ++w) v += red[w][o];
+    partial[blk * nout + o] = v;
+  }
+}
+
+// W_{j+1} = s av_j - sum_i c_i W_i at one point from av_j and W_0..W_j
+// (the order of operations of the Pallas pipe kernels' reconstruction),
+// shared by lanczos2d.cu's K2 and lanczos3d.cu's pipe_3d.
+template <int P, int MAXW>
+__device__ __forceinline__ void rebuild(const float* __restrict__ av,
+                                        const Cols& W, int nw, float s,
+                                        const float (&cf)[MAXW][2],
+                                        size_t idx, size_t plane, float* v) {
+  float a0 = s * __ldg(av + idx);
+  float a1 = P == 2 ? s * __ldg(av + plane + idx) : 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXW; ++i) {
+    if (i < nw) {
+      const float w0 = __ldg(W.p[i] + idx);
+      if (P == 1) {
+        a0 = a0 - cf[i][0] * w0;
+      } else {
+        const float w1 = __ldg(W.p[i] + plane + idx);
+        a0 = a0 - (cf[i][0] * w0 - cf[i][1] * w1);
+        a1 = a1 - (cf[i][0] * w1 + cf[i][1] * w0);
+      }
+    }
+  }
+  v[0] = a0;
+  if (P == 2) v[1] = a1;
 }
 
 // Second stage: out[o] = sum_b partial[b, o] in a fixed order.

@@ -14,8 +14,11 @@ complex64 with an operator the fused kernels support takes the PLANAR path:
 the state is (2, R, nx) float32 with R = ny in 2D and nz*ny in 3D (a pair
 of them for the two-step integrators), and `observe` returns the complex
 field of the grid's shape. Everything else (complex128, the radiating BC,
-the separated operator, reorth=False) takes the complex path. The problem
-lives on `device`, the card unless the caller asks for the CPU.
+the separated operator, reorth=False) takes the complex path. With
+config.resident_mode "auto", a 2D SS2 problem that ops/cuda/resident2d.py
+supports takes one resident kernel per step instead, on complex state, as
+the JAX package does. The problem lives on `device`, the card unless the
+caller asks for the CPU.
 """
 
 from dataclasses import dataclass
@@ -25,6 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import default_complex_dtype, real_dtype_of
 from nlsolvers_tpu_torch.models import nlse as nlse_mod
 from nlsolvers_tpu_torch.models.evolve import evolve
@@ -164,6 +168,42 @@ def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
     return step, init, lambda state: to_complex(state[0])
 
 
+def _resident_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
+                  kappa, apply_bc, dtype, integrator, c_field, reorth,
+                  device):
+    """(step, init, observe) with one resident SS2 kernel per step
+    (ops/cuda/resident2d.py) when config.resident_mode allows it and the
+    configuration qualifies, else None. The state stays complex, as the
+    JAX package's: a step stacks it to planar, runs the kernel and makes it
+    complex again. The basis scratch is allocated once per problem."""
+    from nlsolvers_tpu_torch.ops.cuda.resident2d import (ss2_resident_step,
+                                                         supported_resident)
+
+    if not config.use_resident():
+        return None
+    if (integrator != "ss2" or len(shape) != 2 or c_field is not None
+            or dtype != torch.complex64 or not reorth):
+        return None
+    desc = getattr(lap, "kernel_desc", None)
+    if not supported_resident(desc, shape, dtype, krylov_m, dt):
+        return None
+    mf32 = _as_tensor(m_field, device).to(torch.float32).contiguous()
+    scratch = {}
+
+    def step(state, i):
+        del i
+        out = ss2_resident_step(torch.stack([state.real, state.imag]), mf32,
+                                desc, dt, krylov_m, kind=kind, sigma1=sigma1,
+                                sigma2=sigma2, kappa=kappa,
+                                apply_bc=apply_bc, scratch=scratch)
+        return torch.complex(out[0], out[1])
+
+    def init(u0):
+        return _as_tensor(u0, device).to(dtype)
+
+    return step, init, (lambda s: s)
+
+
 def nlse_problem(kind, shape, Lx, dt, *, m_field=None, c_field=None,
                  sigma1=1.0, sigma2=-0.1, kappa=1.0, integrator="ss2",
                  krylov_m=None, dtype=default_complex_dtype,
@@ -219,15 +259,23 @@ def nlse_problem(kind, shape, Lx, dt, *, m_field=None, c_field=None,
     else:
         neumann = lambda u: u
 
+    # the resident kernel does the no-flux ghost copy itself; the radiating
+    # BC and the separated operator take the other paths
+    resident = (None if bc == "radiating" or variant == "separated" else
+                _resident_ss2(kind, shape, dt, krylov_m, lap, m_t, sigma1,
+                              sigma2, kappa, bc == "noflux", dtype,
+                              integrator, c_field, reorth, device))
     planar = (_planar_ss2(kind, shape, dt, krylov_m, lap, m_t, sigma1,
                           sigma2, kappa, bc, dtype, integrator, device)
-              if reorth else None)
+              if reorth and resident is None else None)
     rho = nlse_density(kind, m_t, sigma1=sigma1, sigma2=sigma2, kappa=kappa)
 
     def init_single(u0):
         return _as_tensor(u0, device).to(dtype)
 
-    if planar is not None:
+    if resident is not None:
+        step, init, observe = resident
+    elif planar is not None:
         step, init, observe = planar
     elif integrator == "ss2":
         def step(state, i):

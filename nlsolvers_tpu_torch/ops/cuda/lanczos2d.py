@@ -17,6 +17,9 @@ its plain PyTorch version beside it and a launch counter on its wrapper:
   pipe_iso2d    / pipe_iso2d_ref      replaces _pipe_call (mode iso2d)
   pipe_aniso2d  / pipe_aniso2d_ref    replaces _pipe_call (mode aniso2d)
   combine       / combine_ref         replaces _combine_call
+  iter_step     / iter_ref            replaces _iter_call (modes iso2d,
+                                      aniso2d, iso3d): the opt-in fused
+                                      iteration (config.fused_iter)
 
 The iso and aniso wrappers launch one pass1 and one pipe kernel with the
 operator as a template policy; each wrapper counts its own launches.
@@ -28,13 +31,16 @@ does about it, is in the header of csrc/lanczos2d.cu.
 
 The scalar recurrence between the kernels (_lanczos_pipe) runs as 0-d/1-d
 torch ops on the device, with no .item(); the one host sync left in a
-matrix function is torch.linalg.eigh's (PERF.md).
+matrix function is torch.linalg.eigh's (PERF.md). `lanczos_planar` picks
+the loop: the pipe (2D; 3D with config.pipeline_3d), the two-pass loop (3D)
+or, with config.fused_iter, the two-pass loop with one K5 per iteration.
 """
 
 import ctypes
 
 import torch
 
+from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import use_kernel
 from nlsolvers_tpu_torch.ops import krylov
 from nlsolvers_tpu_torch.ops.cuda import _build
@@ -44,12 +50,18 @@ __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
            "pass1_iso2d", "pass1_iso2d_ref", "pass1_aniso2d",
            "pass1_aniso2d_ref", "pipe_iso2d", "pipe_iso2d_ref",
            "pipe_aniso2d", "pipe_aniso2d_ref", "combine", "combine_ref",
-           "MAX_M", "MAX_SPECS", "KINDS_3D"]
+           "iter_step", "iter_ref", "MAX_M", "MAX_SPECS", "KINDS_3D",
+           "FUSED_ITER_BYTES"]
 
 # Longest basis (Krylov m) and most matrix functions per combine the kernels
 # take: csrc/lanczos2d.cu's MAXCOLS and KMAX, checked when it is loaded.
 MAX_M = 32
 MAX_SPECS = 4
+
+# Largest field (P * rows * nx float32 bytes) that config.fused_iter takes
+# through K5, the JAX package's rule (lanczos2d.py:1387-1390): the w
+# intermediate of one iteration then fits in the H100's 50 MB L2.
+FUSED_ITER_BYTES = 32 * 2**20
 
 
 def matvec_descriptor(kind, shape, scale, sign=1.0, variant="reference"):
@@ -121,7 +133,10 @@ def _lib():
             ("lz_pipe_aniso2d",
              [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, i32, i32,
               f32, vp]),
-            ("lz_combine", [i32, vp, pp, i32, i32, pp, i32, i32, vp])):
+            ("lz_combine", [i32, vp, pp, i32, i32, pp, i32, i32, vp]),
+            ("lz_coop_max_blocks", []),
+            ("lz_iter", [i32, i32, vp, vp, pp, i32, vp, vp, i32, vp, vp, vp,
+                         vp, vp, i32, i32, i32, f32, vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
@@ -293,6 +308,26 @@ def pipe_aniso2d_ref(scal, av, W, desc, last):
                      lambda u: _stencil_aniso_ref(u, desc))
 
 
+def _operator_ref(u, desc):
+    """The operator of any descriptor kind on a planar field."""
+    if desc["kind"] == "laplacian_2d":
+        return _stencil_ref(u, desc)
+    if desc["kind"] == "aniso_laplacian_2d":
+        return _stencil_aniso_ref(u, desc)
+    from nlsolvers_tpu_torch.ops.cuda.lanczos3d import _stencil3d_ref
+    return _stencil3d_ref(u, desc)
+
+
+def iter_ref(scal, wj, prev, desc):
+    """Plain version of iter_step: pass1, then pass2 with q_i = s_i^2 raw_i,
+    in the order of operations of the Pallas _iter_call."""
+    from nlsolvers_tpu_torch.ops.cuda.lanczos3d import pass2_ref
+    w, raw = _pass1_ref(scal[:, :2], wj, prev, _operator_ref(wj, desc))
+    sv = scal[0, 2:]
+    wn, nsq = pass2_ref((sv * sv)[:, None] * raw, w, list(prev) + [wj])
+    return wn, raw, nsq
+
+
 def combine_ref(q, W):
     """Plain version of combine."""
     outs = []
@@ -461,6 +496,73 @@ def combine(q, W):
 combine.launches = 0
 
 
+def _iter_opk(desc, what):
+    """csrc/lanczos2d.cu's operator code of K5 for `desc`; the operators of
+    the Pallas _iter_call only (iso2d, aniso2d, iso3d)."""
+    kind = desc["kind"]
+    if kind == "laplacian_2d":
+        return 0
+    if kind == "aniso_laplacian_2d":
+        return 1
+    if kind == "laplacian_3d":
+        return 2 if desc["variant"] == "reference" else 3
+    raise ValueError(f"{what}: the fused iteration takes the 2D operators "
+                     f"and the 3D Laplacian (the modes of the Pallas "
+                     f"_iter_call), not {kind}")
+
+
+def iter_step(scal, wj, prev, desc):
+    """K5: one whole Lanczos iteration j = len(prev) in one launch.
+
+    scal: (1, j+3) float32 [s_j, bs, s_0..s_j] on the fields' device; wj:
+    W_j; prev: W_0..W_{j-1}, planar (P, rows, nx) fields (the merged view
+    for the 3D Laplacian). Returns (W_{j+1}, raw (j+1, 2), nsq (1, 1)):
+    w = s_j A(W_j) - bs W_{j-1}, raw_i = <W_i, w>, W_{j+1} = w - sum_i
+    s_i^2 raw_i W_i and ||W_{j+1}||^2.
+    """
+    j = len(prev)
+    _check_cols(j, "iter_step")
+    opk = _iter_opk(desc, "iter_step")
+    if not use_kernel(wj):
+        return iter_ref(scal, wj, prev, desc)
+    _check_fields([wj, *prev], wj, "iter_step")
+    _check_scalars(scal, (1, j + 3), wj, "iter_step")
+    P, rows, nx = wj.shape
+    wx = wy = None
+    if opk >= 2:
+        nz, ny = desc["nz"], desc["ny"]
+        if (rows, nx) != (nz * ny, desc["nx"]):
+            raise ValueError(f"iter_step: field {tuple(wj.shape)} is not the "
+                             f"merged view of a ({nz}, {ny}, {desc['nx']}) "
+                             f"grid")
+    else:
+        nz, ny = 1, rows
+        if (rows, nx) != (desc["ny"], desc["nx"]):
+            raise ValueError(f"iter_step: field {tuple(wj.shape)} on a "
+                             f"({desc['ny']}, {desc['nx']}) operator")
+        if opk == 1:
+            wx, wy = _aniso_weights(desc, wj, "iter_step")
+    lib = _lib()
+    w = torch.empty_like(wj)
+    wn = torch.empty_like(wj)
+    partial = torch.empty((2 * MAX_M + 1) * lib.lz_coop_max_blocks(),
+                          dtype=torch.float32, device=wj.device)
+    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
+    nsq = torch.empty((1, 1), dtype=torch.float32, device=wj.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _check(lib.lz_iter(P, opk, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j,
+                       ptr(wx), ptr(wy), int(desc["variant"] == "clean"),
+                       w.data_ptr(), wn.data_ptr(), partial.data_ptr(),
+                       raw.data_ptr(), nsq.data_ptr(), nz, ny, nx,
+                       float(desc["scale"]) * float(desc["sign"]),
+                       _stream(wj)), "iter_step")
+    iter_step.launches += 1
+    return wn, raw, nsq
+
+
+iter_step.launches = 0
+
+
 # ------------------------------------------------------------ Lanczos driver
 
 def safe_inv(nrm):
@@ -471,9 +573,29 @@ def safe_inv(nrm):
                        torch.zeros_like(nrm))
 
 
+def _pipe_kernels(desc):
+    """(pass1, pipe) of the pipelined loop for `desc`: K1/K2, K1'/K2', or
+    in 3D pass1_3d and K8 pipe_3d, whose last, stencil-free iteration is
+    K2's geometry-free LAST launch on the merged view."""
+    kind = desc["kind"]
+    if kind == "aniso_laplacian_2d":
+        return pass1_aniso2d, pipe_aniso2d
+    if kind in KINDS_3D:
+        from nlsolvers_tpu_torch.ops.cuda import lanczos3d
+
+        def pipe(scal, av, W, desc, last):
+            if last:
+                return pipe_iso2d(scal, av, W, desc, True)
+            return lanczos3d.pipe_3d(scal, av, W, desc)
+
+        return lanczos3d.pass1_3d, pipe
+    return pass1_iso2d, pipe_iso2d
+
+
 def _lanczos_pipe(u, m, desc):
-    """Pipelined single-pass Lanczos: K1 once, then K2 m-1 times (K1' and
-    K2' for the aniso descriptor).
+    """Pipelined single-pass Lanczos: pass1 once, then the pipe m-1 times
+    (kernels from _pipe_kernels; the 3D one is the JAX package's
+    lanczos3d_pipe.lanczos_pipe3d, with the same scalar recurrence).
 
     w_j = s_j av_j - bs W_{j-1} (bs = beta_{j-1} s_{j-1}) is never
     materialized: its projections raw_i = <W_i, w_j> are recovered as
@@ -483,10 +605,7 @@ def _lanczos_pipe(u, m, desc):
     The rebuild coefficients fold the recurrence term in:
     c_i = s_i^2 raw_i + (i == j-1) bs.
     """
-    if desc["kind"] == "aniso_laplacian_2d":
-        pass1, pipe = pass1_aniso2d, pipe_aniso2d
-    else:
-        pass1, pipe = pass1_iso2d, pipe_iso2d
+    pass1, pipe = _pipe_kernels(desc)
     f32 = dict(dtype=torch.float32, device=u.device)
     zero = torch.zeros((), **f32)
     nsq0 = torch.sum(u * u)
@@ -537,7 +656,11 @@ def lanczos_planar(u, desc, m):
     Returns (W, s, alpha, beta, beta0): unnormalized Krylov columns W (list;
     W[i] * s[i] is the normalized v_i), their inverse norms s, and the
     entries of T, with the semantics of ops/krylov.lanczos. 2D runs the
-    pipelined K1/K2 loop, 3D the two-pass loop of ops/cuda/lanczos3d.py.
+    pipelined K1/K2 loop, 3D the two-pass loop of ops/cuda/lanczos3d.py or,
+    with config.pipeline_3d, the pipelined loop with K8. With
+    config.fused_iter a field of at most FUSED_ITER_BYTES runs the two-pass
+    loop with one K5 per iteration instead (the 3D c(x) operator raises a
+    ValueError there, as the JAX package's _iter_call has no mode for it).
     """
     three_d = desc is not None and desc.get("kind") in KINDS_3D
     grid = tuple(u.shape[1:])
@@ -553,9 +676,12 @@ def lanczos_planar(u, desc, m):
     if m > MAX_M:
         raise ValueError(f"Krylov m={m} exceeds the kernels' {MAX_M}")
     if m > 1:
-        if three_d:
-            from nlsolvers_tpu_torch.ops.cuda import lanczos3d
-            return lanczos3d.lanczos_twopass3d(u, desc, m)
+        from nlsolvers_tpu_torch.ops.cuda import lanczos3d
+        if config.fused_iter and u.numel() * 4 <= FUSED_ITER_BYTES:
+            _iter_opk(desc, "fused_iter")
+            return lanczos3d.lanczos_twopass(u, desc, m, fused=True)
+        if three_d and not config.pipeline_3d:
+            return lanczos3d.lanczos_twopass(u, desc, m)
         return _lanczos_pipe(u, m, desc)
     beta0 = torch.sqrt(torch.sum(u * u))
     return [u], [safe_inv(beta0)], [], [], beta0

@@ -1,21 +1,28 @@
-"""Two-pass fused Lanczos for the 3D no-flux operators (iso3d, aniso3d).
+"""Fused Lanczos for the 3D no-flux operators (iso3d, aniso3d).
 
-Port of nlsolvers_tpu/ops/pallas/lanczos3d_pipe.py (`lanczos_twopass3d_y`)
-and of the 3D parts of lanczos2d.lanczos_planar. State is PLANAR float32 on
-the merged row view: a complex (nz, ny, nx) field is (2, R, nx) with
-R = nz * ny, a real one (1, R, nx). Krylov columns W_i stay UNNORMALIZED
-with their inverse norms s_i tracked as scalars, as in the 2D loop.
+Port of nlsolvers_tpu/ops/pallas/lanczos3d_pipe.py (`lanczos_twopass3d_y`,
+`lanczos_pipe3d`) and of the 3D parts of lanczos2d.lanczos_planar. State is
+PLANAR float32 on the merged row view: a complex (nz, ny, nx) field is
+(2, R, nx) with R = nz * ny, a real one (1, R, nx). Krylov columns W_i stay
+UNNORMALIZED with their inverse norms s_i tracked as scalars, as in the 2D
+loop.
 
-Two hand-written CUDA kernels (csrc/lanczos3d.cu) carry the loop; each has
-its plain PyTorch version beside it and a launch counter on its wrapper:
+Three hand-written CUDA kernels (csrc/lanczos3d.cu) carry the 3D loops;
+each has its plain PyTorch version beside it and a launch counter on its
+wrapper:
 
   pass1_3d / pass1_3d_ref   replaces lanczos3d_pipe._pass1y_call and
                             _pass1zy_call, and lanczos2d._pass1_call in
                             modes iso3d/aniso3d
   pass2    / pass2_ref      replaces lanczos2d._pass2_call
+  pipe_3d  / pipe_3d_ref    replaces lanczos3d_pipe._pipe3d_call: the
+                            opt-in single-pass pipe (config.pipeline_3d)
 
-The final sum reuses lanczos2d's `combine` on the merged view, and the
-ghost copy after the step is ops/cuda/bc3d.py. A wrapper launches its
+`lanczos_twopass` is the normalized two-pass loop (pass1_3d then pass2), or
+with fused=True one lanczos2d.iter_step (K5) per iteration, in 2D and 3D.
+The pipelined 3D loop is lanczos2d._lanczos_pipe with pipe_3d. The final
+sum reuses lanczos2d's `combine` on the merged view, and the ghost copy
+after the step is ops/cuda/bc3d.py. A wrapper launches its
 kernel for a CUDA tensor under config.kernel_mode "auto" and raises if the
 kernel cannot run; it takes the plain version for a CPU tensor, or under
 "off". The kernels mask ragged edges, so the TPU's alignment gates (nx a
@@ -31,10 +38,12 @@ from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (KINDS_3D, MAX_M,
                                                     _check_fields,
                                                     _check_scalars, _dots,
-                                                    _ptrs, _stream, safe_inv)
+                                                    _pipe_ref, _ptrs,
+                                                    _stream, iter_step,
+                                                    safe_inv)
 
-__all__ = ["supported_desc", "lanczos_twopass3d", "pass1_3d",
-           "pass1_3d_ref", "pass2", "pass2_ref"]
+__all__ = ["supported_desc", "lanczos_twopass", "pass1_3d", "pass1_3d_ref",
+           "pass2", "pass2_ref", "pipe_3d", "pipe_3d_ref"]
 
 # csrc/lanczos3d.cu's operator modes
 _MODES = {"reference": 0, "clean": 1, "aniso": 2}
@@ -77,7 +86,10 @@ def _lib():
             ("lz3_pass1", [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp,
                            i32, i32, i32, f32, vp]),
             ("lz3_pass2", [i32, vp, vp, pp, i32, vp, vp, vp, i64, vp]),
-            ("lz3_bc3d", [i32, vp, i32, i32, i32, vp])):
+            ("lz3_bc3d", [i32, vp, i32, i32, i32, vp]),
+            ("lz3_pipe3d_blocks", [i32, i32, i32]),
+            ("lz3_pipe3d", [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp,
+                            vp, vp, i32, i32, i32, f32, vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
@@ -195,7 +207,20 @@ def pass2_ref(q, w, W):
     return wn, torch.sum(wn * wn).reshape(1, 1)
 
 
+def pipe_3d_ref(scal, av, W, desc):
+    """Plain version of pipe_3d."""
+    return _pipe_ref(scal, av, W, False, lambda u: _stencil3d_ref(u, desc))
+
+
 # ------------------------------------------------------------ kernel wrappers
+
+def _mode_weights(desc, like, what):
+    """csrc/lanczos3d.cu's operator mode and the (wx, wy, wz) pointers."""
+    aniso = desc["kind"] == "aniso_laplacian_3d"
+    mode = _MODES["aniso" if aniso else desc["variant"]]
+    ws = _weights(desc, like, what) if aniso else (None, None, None)
+    return mode, [None if w is None else w.data_ptr() for w in ws]
+
 
 def pass1_3d(scal, wj, prev, desc):
     """w = s_j A(W_j) - bs W_{j-1} and raw (j+1, 2) = <W_i, w>, i <= j, for
@@ -212,19 +237,15 @@ def pass1_3d(scal, wj, prev, desc):
     _check_fields([wj, *prev], wj, "pass1_3d")
     _check_scalars(scal, (1, 2), wj, "pass1_3d")
     nz, ny, nx = _geom(desc, wj, "pass1_3d")
-    aniso = desc["kind"] == "aniso_laplacian_3d"
-    mode = _MODES["aniso" if aniso else desc["variant"]]
-    wx, wy, wz = (_weights(desc, wj, "pass1_3d") if aniso
-                  else (None, None, None))
+    mode, wts = _mode_weights(desc, wj, "pass1_3d")
     lib = _lib()
     nout = 2 * (j + 1)
     w = torch.empty_like(wj)
     partial = torch.empty(lib.lz3_pass1_blocks(nz, ny, nx) * nout,
                           dtype=torch.float32, device=wj.device)
     raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
     _check(lib.lz3_pass1(wj.shape[0], mode, scal.data_ptr(), wj.data_ptr(),
-                         _ptrs(prev), j, ptr(wx), ptr(wy), ptr(wz),
+                         _ptrs(prev), j, *wts,
                          w.data_ptr(), partial.data_ptr(), raw.data_ptr(),
                          nz, ny, nx,
                          float(desc["scale"]) * float(desc["sign"]),
@@ -262,12 +283,52 @@ def pass2(q, w, W):
 pass2.launches = 0
 
 
+def pipe_3d(scal, av, W, desc):
+    """K8: one pipelined 3D Lanczos iteration j = len(W) - 1 on the merged
+    (P, R, nx) view, pass2(j) fused with pass1(j+1).
+
+    scal: (j+2, 2) float32 [(s_j, 0), c_0..c_j] (complex c_i); av: av_j;
+    W: W_0..W_j. Returns (W_{j+1}, av_{j+1}, nsq (1,1), gram (j+1,2),
+    d (j+2,2)), the outputs of the Pallas _pipe3d_call in its order.
+    """
+    nw = len(W)
+    if nw + 1 > MAX_M:
+        raise ValueError(f"pipe_3d: at most {MAX_M} columns, got {nw + 1}")
+    if not use_kernel(av):
+        return pipe_3d_ref(scal, av, W, desc)
+    _check_fields([av, *W], av, "pipe_3d")
+    _check_scalars(scal, (nw + 1, 2), av, "pipe_3d")
+    nz, ny, nx = _geom(desc, av, "pipe_3d")
+    mode, wts = _mode_weights(desc, av, "pipe_3d")
+    lib = _lib()
+    nout = 1 + 2 * nw + 2 * (nw + 1)
+    wn = torch.empty_like(av)
+    avn = torch.empty_like(av)
+    partial = torch.empty(lib.lz3_pipe3d_blocks(nz, ny, nx) * nout,
+                          dtype=torch.float32, device=av.device)
+    red = torch.empty(nout, dtype=torch.float32, device=av.device)
+    _check(lib.lz3_pipe3d(av.shape[0], mode, scal.data_ptr(), av.data_ptr(),
+                          _ptrs(W), nw, *wts, wn.data_ptr(), avn.data_ptr(),
+                          partial.data_ptr(), red.data_ptr(), nz, ny, nx,
+                          float(desc["scale"]) * float(desc["sign"]),
+                          _stream(av)), "pipe_3d")
+    pipe_3d.launches += 1
+    return (wn, avn, red[:1].view(1, 1), red[1:1 + 2 * nw].view(nw, 2),
+            red[1 + 2 * nw:].view(nw + 1, 2))
+
+
+pipe_3d.launches = 0
+
+
 # ------------------------------------------------------------ Lanczos driver
 
-def lanczos_twopass3d(u, desc, m):
-    """Two-pass Lanczos on a planar (P, R, nx) float32 field: per iteration
-    pass1_3d, then pass2 on the merged view, with the scalar recurrence of
-    lanczos3d_pipe.lanczos_twopass3d_y kept on the device (no .item()).
+def lanczos_twopass(u, desc, m, fused=False):
+    """The normalized two-pass Lanczos loop on a planar (P, rows, nx)
+    float32 field, with the scalar recurrence kept on the device (no
+    .item()): per iteration pass1_3d, then pass2 (3D; the JAX package's
+    lanczos3d_pipe.lanczos_twopass3d_y), or with `fused` one K5 iter_step
+    (2D or 3D; the _FUSED_ITER branch of its lanczos2d.lanczos_planar),
+    whose alpha_j is s_j raw_j.
 
     Returns (W, s, alpha, beta, beta0) with the semantics of
     lanczos2d.lanczos_planar.
@@ -279,13 +340,18 @@ def lanczos_twopass3d(u, desc, m):
     zero = torch.zeros((), **f32)
     for j in range(m - 1):
         bs = betas[j - 1] * s[j - 1] if j > 0 else zero
-        scal = torch.stack([s[j], bs]).reshape(1, 2)
-        w, raw = pass1_3d(scal, W[j], W[:j], desc)
-        sv = torch.stack(s)                                  # (j+1,)
-        proj = sv[:, None] * raw
-        alphas.append(proj[j, 0])
-        q = sv[:, None] * proj
-        wn, nsq = pass2(q, w, W[:j + 1])
+        if fused:
+            scal = torch.stack([s[j], bs] + s).reshape(1, j + 3)
+            wn, raw, nsq = iter_step(scal, W[j], W[:j], desc)
+            alphas.append(s[j] * raw[j, 0])
+        else:
+            scal = torch.stack([s[j], bs]).reshape(1, 2)
+            w, raw = pass1_3d(scal, W[j], W[:j], desc)
+            sv = torch.stack(s)                              # (j+1,)
+            proj = sv[:, None] * raw
+            alphas.append(proj[j, 0])
+            q = sv[:, None] * proj
+            wn, nsq = pass2(q, w, W[:j + 1])
         b = torch.sqrt(nsq[0, 0])
         W.append(wn)
         s.append(safe_inv(b))

@@ -2,14 +2,44 @@
 
 Everything crosses as numpy, copied (JAX hands out read-only arrays). Used
 to hand a JAX problem's state after k steps to the port and compare the next
-step: the state of a one-step integrator (SS2), or the (u, u_prev) pair of a
-two-step one (sEWI, Gautschi).
+step: the state of a one-step integrator (SS2, planar or, on the resident
+path, complex), or the (u, u_prev) pair of a two-step one (sEWI, Gautschi).
+`switches_from_jax` reads the JAX run's opt-in kernel switches, and
+`set_switches` sets the port's to them.
 """
 
 import numpy as np
 import torch
 
-__all__ = ["state_from_numpy", "field_from_numpy", "nlse_args_from_meta"]
+from nlsolvers_tpu_torch import config
+
+__all__ = ["state_from_numpy", "field_from_numpy", "nlse_args_from_meta",
+           "switches_from_jax", "set_switches"]
+
+# the port's opt-in switches (config attributes)
+SWITCHES = ("resident_mode", "fused_iter", "pipeline_3d")
+
+
+def switches_from_jax(jax_config, jax_lanczos2d):
+    """The port's switches as a JAX run has them, from the JAX package's
+    config module (resident_mode, pallas_pipeline_3d) and its
+    ops/pallas/lanczos2d module (the private _FUSED_ITER); the objects are
+    passed in, this module imports neither."""
+    return {"resident_mode": jax_config.resident_mode,
+            "fused_iter": bool(jax_lanczos2d._FUSED_ITER),
+            "pipeline_3d": bool(jax_config.pallas_pipeline_3d)}
+
+
+def set_switches(**values):
+    """Set the port's opt-in switches (config.resident_mode, fused_iter,
+    pipeline_3d); returns their previous values, for restoring."""
+    unknown = set(values) - set(SWITCHES)
+    if unknown:
+        raise ValueError(f"unknown switches {sorted(unknown)}")
+    old = {k: getattr(config, k) for k in values}
+    for k, v in values.items():
+        setattr(config, k, v)
+    return old
 
 
 def state_from_numpy(x, shape, device):

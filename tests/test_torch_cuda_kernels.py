@@ -201,3 +201,133 @@ def test_3d_wrappers_reject_bad_input(cuda):
         t3.pass2(torch.zeros((2, 2), device=cuda), u, [u])
     with pytest.raises(ValueError):
         tb.neumann_bc_planar_3d(u.double(), shape)
+
+
+# ------------------------------------------------ K5, K8, K13 (opt-in paths)
+
+def _fields_on(cuda, k, shape, P, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((P,) + shape).astype(
+        np.float32)).to(cuda) for _ in range(k)]
+
+
+def _iter_descs(mode, cuda):
+    """(descriptor, field rows, nx) of each operator K5 takes, on ragged
+    grids."""
+    if mode in ("reference", "clean"):
+        return _desc(37, 131, mode), 37, 131
+    if mode == "aniso2d":
+        return _desc_aniso(19, 300, cuda), 19, 300
+    shape = (9, 11, 13)
+    return _desc3d(shape, mode[:-2], cuda), 99, 13
+
+
+@pytest.mark.parametrize("mode,P,j", [
+    ("reference", 2, 0), ("clean", 2, 5), ("aniso2d", 2, 8),
+    ("aniso2d", 1, 3), ("reference3d", 2, 8), ("clean3d", 1, tl.MAX_M - 2),
+    ("reference", 2, tl.MAX_M - 2)])
+def test_iter_step_matches_plain_on_card(cuda, mode, P, j):
+    """K5 on every operator it takes, both field kinds, up to j = MAX_M - 2,
+    against iter_ref; W_{j+1} by rel-L2, raw and nsq at the dot scale."""
+    desc, rows, nx = _iter_descs(mode, cuda)
+    W = _fields_on(cuda, j + 1, (rows, nx), P, 90 + j)
+    rng = np.random.default_rng(9)
+    s = rng.uniform(0.2, 1.0, j + 1).astype(np.float32)
+    scal = torch.from_numpy(np.concatenate([[s[j], 0.3], s]).astype(
+        np.float32)[None]).to(cuda)
+    before = tl.iter_step.launches
+    _check(*_kernel_and_plain(lambda: tl.iter_step(scal, W[j], W[:j], desc)),
+           W)
+    assert tl.iter_step.launches == before + 1
+
+
+def test_iter_step_rejects_bad_input(cuda):
+    desc = _desc(16, 16, "reference")
+    u = torch.zeros((2, 16, 16), device=cuda)
+    scal = torch.ones((1, 3), device=cuda)
+    with pytest.raises(TypeError):
+        tl.iter_step(scal, u.double(), [], desc)
+    with pytest.raises(ValueError):                  # scalars of another j
+        tl.iter_step(torch.ones((1, 4), device=cuda), u, [], desc)
+    with pytest.raises(ValueError):                  # field of another grid
+        tl.iter_step(scal, u[:, :8].contiguous(), [], desc)
+    with pytest.raises(ValueError):                  # no aniso3d mode
+        tl.iter_step(scal, torch.zeros((2, 20, 6), device=cuda), [],
+                     _desc3d((4, 5, 6), "aniso", cuda))
+
+
+@pytest.mark.parametrize("shape,mode,P,j", [
+    ((37, 50, 61), "reference", 2, 0), ((37, 50, 61), "clean", 2, 4),
+    ((37, 50, 61), "aniso", 2, 8), ((20, 30, 50), "reference", 1, 6),
+    ((3, 9, 130), "aniso", 1, 12), ((17, 3, 33), "reference", 2,
+                                    tl.MAX_M - 2)])
+def test_pipe_3d_matches_plain_on_card(cuda, shape, mode, P, j):
+    """K8 on ragged grids (tiles cut in x, y and z, planes of 3 rows, so
+    the y-seam rows cross tiles), every operator, both field kinds."""
+    nz, ny, nx = shape
+    desc = _desc3d(shape, mode, cuda)
+    av, *W = _fields_on(cuda, j + 2, (nz * ny, nx), P, 70 + j)
+    scal = torch.from_numpy(np.random.default_rng(3).uniform(
+        -0.5, 0.5, (j + 2, 2)).astype(np.float32)).to(cuda)
+    before = (t3.pipe_3d.launches, tl.pipe_iso2d.launches)
+    _check(*_kernel_and_plain(lambda: t3.pipe_3d(scal, av, W, desc)),
+           [av, *W])
+    assert (t3.pipe_3d.launches, tl.pipe_iso2d.launches) == (
+        before[0] + 1, before[1])
+
+
+def test_pipe_3d_rejects_bad_input(cuda):
+    desc = _desc3d((4, 5, 6), "aniso", cuda)
+    u = torch.zeros((2, 20, 6), device=cuda)
+    scal = torch.zeros((2, 2), device=cuda)
+    with pytest.raises(TypeError):
+        t3.pipe_3d(scal, u.double(), [u.double()], desc)
+    with pytest.raises(ValueError):                  # not the merged view
+        t3.pipe_3d(scal, u.reshape(2, 10, 12).contiguous(),
+                   [u.reshape(2, 10, 12).contiguous()], desc)
+    with pytest.raises(ValueError):                  # weights on the CPU
+        t3.pipe_3d(scal, u, [u], dict(desc, wz=desc["wz"].cpu()))
+
+
+@pytest.mark.parametrize("shape,kind,variant,m,bc", [
+    ((64, 64), "cubic", "reference", 10, True),
+    ((37, 131), "cubic_quintic", "clean", 8, True),
+    ((250, 333), "saturable", "reference", 20, False),
+    ((5, 3), "cubic", "clean", 1, True)])
+def test_resident_step_matches_plain_on_card(cuda, shape, kind, variant, m,
+                                             bc):
+    """K13, one whole step, against ss2_resident_step_ref; one launch per
+    step, and a second step through the same scratch."""
+    from nlsolvers_tpu_torch.ops.cuda import resident2d as r2
+    ny, nx = shape
+    dx = 2.0 * 5.0 / (nx - 1)
+    desc = tops.laplacian_2d(shape, dx, dx, variant=variant,
+                             device=cuda).kernel_desc
+    (u,) = _fields_on(cuda, 1, shape, 2, 11)
+    mf = torch.from_numpy((1.0 + 0.2 * np.random.default_rng(2).random(
+        shape)).astype(np.float32)).to(cuda)
+    dt = 2.0 / (8.0 * desc["scale"])                 # theta = 2
+    scratch = {}
+    before = r2.ss2_resident_step.launches
+    for _ in range(2):
+        got, want = _kernel_and_plain(lambda: r2.ss2_resident_step(
+            u, mf, desc, dt, m, kind=kind, apply_bc=bc, scratch=scratch))
+        assert _rel(got, want) <= FIELD_TOL
+        u = got
+    assert r2.ss2_resident_step.launches == before + 2
+
+
+def test_resident_step_rejects_bad_input(cuda):
+    from nlsolvers_tpu_torch.ops.cuda import resident2d as r2
+    desc = _desc(16, 16, "reference")
+    u = torch.zeros((2, 16, 16), device=cuda)
+    mf = torch.ones((16, 16), device=cuda)
+    dt = 0.25 / desc["scale"]                        # theta = 2
+    with pytest.raises(ValueError):
+        r2.ss2_resident_step(u.double(), mf, desc, dt, 8)
+    with pytest.raises(ValueError):
+        r2.ss2_resident_step(u, mf.cpu(), desc, dt, 8)
+    with pytest.raises(ValueError):                  # theta = 4 > 3.5
+        r2.ss2_resident_step(u, mf, desc, 2 * dt, 8)
+    with pytest.raises(ValueError):
+        r2.ss2_resident_step(u, mf, desc, dt, tl.MAX_M + 1)
