@@ -97,14 +97,44 @@ Phases, one line each (or a few):
                vs default and fused_iter vs the pipe at 1024^2 (3 chunks of
                200 each), pipeline_3d vs two-pass at 128^3 (3 of 100) and
                256^3 (3 of 20).
+ 22. parity-shard  the shard kernels against their plain versions with
+               random halos and face weights, at corner, edge and interior
+               places of a larger grid: pass1_shard2d (K1' shard2d,
+               shard2d_aniso) at local 2048^2 and on ragged blocks down to
+               2x2, pass1_shard3d (K9-K12, K1' shard3d*) in every mode at
+               local 256^3 and on ragged blocks down to 2x2x2, P in {1, 2}
+               (P=1 with sign -1), j up to 18: the gates of phase 3; bc3d
+               with global offsets exactly equal. Device times per step of
+               the sharded main paths (every shard, j = 0..8) beside the
+               bytes bound.
+ 23. main-shard2d  make_sharded_nlse_step at 4096^2 on a (2, 2) mesh of
+               four shards on this card (local 2048^2, the JAX README's 2D
+               anchor), cubic SS2 m=10, reference variant, iso and c(x) =
+               1 + 0.4 U[0, 1) from default_rng(0): exactly 4 x (9
+               pass1_shard2d + 9 pass2 + 1 combine) launches per step and no
+               unsharded pass1 or pipe launch, finite state, mass drift <
+               1e-3.
+ 24. main-shard3d  512^3 on (2, 2, 2) (local 256^3), clean variant, iso and
+               c(x): exactly 8 x (9 pass1_shard3d + 9 pass2 + 1 combine + 1
+               bc3d) launches per step; 256^3 on (1, 1, 4), reference
+               variant (x split only): 4 x the same; the same gates.
+ 25. paths-shard  20 steps: the sharded step with the kernels vs its plain
+               versions (rel-L2 <= 1e-5) at 512^2 on (2, 2) and 64^3 on
+               (2, 2, 2) and (1, 1, 4), iso and c(x); the sharded step vs
+               the unsharded kernel path (nlse_problem) on the same global
+               grid at full size (<= 2e-4).
+ 26. rate-shard  steps/s of the sharded step beside the unsharded one at
+               4096^2 (3 chunks of 20 each) and 512^3 (3 of 5), chunks
+               interleaved, with phase 6's profile.
 Then the card's name and power limit, the kernels as one JSON line (all
-eleven: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8), and last
-{"ok": true, "device": ...}. Any failed phase exits non-zero and prints no
-result.
+thirteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
+pass1_shard2d, pass1_shard3d), and last {"ok": true, "device": ...}. Any
+failed phase exits non-zero and prints no result.
 """
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -112,9 +142,12 @@ import time
 import warnings
 from functools import partial
 from pathlib import Path
+from types import SimpleNamespace
 
 N, LX, DT, KRYLOV_M = 1024, 10.0, 1e-4, 10
 N3, N3_BIG = 128, 256
+NS, NS3 = 4096, 512            # the sharded operating points: 2048^2 and
+                               # 256^3 local shards on (2, 2), (2, 2, 2)
 FIELD_TOL, DOT_TOL = 1e-5, 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SOURCE = "nlsolvers_tpu_torch/csrc/lanczos2d.cu"
@@ -518,11 +551,11 @@ def main():
     for label, fn in cases:
         gate(label, *fn())
 
-    def timed(fn):
-        t_k = times_ms(torch, fn)
+    def timed(fn, reps=20):
+        t_k = times_ms(torch, fn, reps)
         config.kernel_mode = "off"
         try:
-            t_p = times_ms(torch, fn)
+            t_p = times_ms(torch, fn, reps)
         finally:
             config.kernel_mode = "auto"
         return t_k + t_p          # (dev, wall) kernel, (dev, wall) plain
@@ -1316,6 +1349,386 @@ def main():
                  tb: (pb, sb)}, 20, [tb, qb, qb, tb, tb, qb], 5)
     del pb, sb
 
+    # ---------------------------------------------------------- 22. parity-shard
+    from nlsolvers_tpu_torch.parallel import mesh as pmesh
+    from nlsolvers_tpu_torch.parallel import shards, spatial
+
+    errs.update({"pass1_shard2d": 0.0, "pass1_shard3d": 0.0})
+    L2, L3 = NS // 2, NS3 // 2              # the local blocks of the meshes
+    scale2, scale3 = ((NS - 1) / (2 * LX)) ** 2, ((NS3 - 1) / (2 * LX)) ** 2
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def faces(*shape):
+        """Face weights 0.5 (c + c') of a c in [1, 1.4)."""
+        return 1.0 + 0.4 * torch.rand(shape, generator=gen, device=dev)
+
+    def desc_s2(mode, ny, nx, pos, P=2):
+        """A 2D shard descriptor: the (ny, nx) block at place `pos` of a
+        grid of 3 x 3 such blocks (sign -1 with P=1)."""
+        d = dict(kind="shard2d_aniso" if mode == "aniso" else "shard2d",
+                 NY=3 * ny, NX=3 * nx, y0=pos[0] * ny, x0=pos[1] * nx,
+                 scale=scale2, sign=-1.0 if P == 1 else 1.0, variant=mode)
+        if mode == "aniso":
+            d.update(wx=faces(ny, nx), wy=faces(ny, nx), wxl=faces(ny),
+                     wyh=faces(nx))
+        return d
+
+    def desc_s3(mode, shape, pos, P=2):
+        """A 3D shard descriptor: the block `shape` at place `pos` of a grid
+        of 3 x 3 x 3 such blocks; under the reference variant z and y are
+        whole (x split only), as the sharded step requires."""
+        nz, ny, nx = shape
+        R = nz * ny
+        ref = mode == "reference"
+        d = dict(kind="shard3d_aniso" if mode == "aniso" else "shard3d",
+                 NZ=nz if ref else 3 * nz, NY=ny if ref else 3 * ny,
+                 NX=3 * nx, lnz=nz, lny=ny, z0=0 if ref else pos[0] * nz,
+                 y0=0 if ref else pos[1] * ny, x0=pos[2] * nx, scale=scale3,
+                 sign=-1.0 if P == 1 else 1.0,
+                 variant="clean" if mode == "aniso" else mode)
+        if mode == "aniso":
+            d.update(wx=faces(R, nx), wy=faces(R, nx), wz=faces(R, nx),
+                     wxl=faces(R), wyh=faces(nz, nx), wzh=faces(ny, nx))
+        return d
+
+    def halos(shape, P):
+        """Random halos of a block `shape`: (yh, xh) in 2D, (yh, zh, xh) in
+        3D."""
+        if len(shape) == 2:
+            ny, nx = shape
+            return rnd(P, 2, nx), rnd(P, 2, ny)
+        nz, ny, nx = shape
+        return rnd(P, 2, nz, nx), rnd(P, 2, ny, nx), rnd(P, 2, nz * ny)
+
+    def parity_shard(kernel, d, shape, j, P, key):
+        W = [field(math.prod(shape[:-1]), shape[-1], P) for _ in range(j + 1)]
+        hs = halos(shape, P)
+        scal = torch.tensor([[0.7, 0.3]], device=dev)
+        (w, raw), (w0, raw0) = both(lambda: kernel(scal, W[j], W[:j], *hs, d))
+        errs[key] = max(errs[key], float((w - w0).abs().max()))
+        return rel(w, w0), dot_err(raw, raw0, W, w0)
+
+    def parity_s2(mode, ny, nx, j, P=2, pos=(1, 1)):
+        return parity_shard(lz.pass1_shard2d, desc_s2(mode, ny, nx, pos, P),
+                            (ny, nx), j, P, "pass1_shard2d")
+
+    def parity_s3(mode, shape, j, P=2, pos=(1, 1, 1)):
+        return parity_shard(l3.pass1_shard3d, desc_s3(mode, shape, pos, P),
+                            shape, j, P, "pass1_shard3d")
+
+    b3l = (L3, L3, L3)
+    cases = [
+        ("pass1_shard2d reference j=0 corner",
+         lambda: parity_s2("reference", L2, L2, 0, pos=(0, 0))),
+        ("pass1_shard2d reference j=8",
+         lambda: parity_s2("reference", L2, L2, 8)),
+        ("pass1_shard2d clean j=4 edge",
+         lambda: parity_s2("clean", L2, L2, 4, pos=(2, 1))),
+        ("pass1_shard2d reference j=18 real",
+         lambda: parity_s2("reference", L2, L2, 18, P=1)),
+        ("pass1_shard2d aniso j=0", lambda: parity_s2("aniso", L2, L2, 0)),
+        ("pass1_shard2d aniso j=8 corner",
+         lambda: parity_s2("aniso", L2, L2, 8, pos=(2, 2))),
+        ("pass1_shard2d aniso j=18", lambda: parity_s2("aniso", L2, L2, 18)),
+        ("pass1_shard2d aniso j=4 real",
+         lambda: parity_s2("aniso", L2, L2, 4, P=1)),
+        ("pass1_shard2d clean j=3 250x333",
+         lambda: parity_s2("clean", 250, 333, 3)),
+        ("pass1_shard2d aniso j=18 250x333 edge",
+         lambda: parity_s2("aniso", 250, 333, 18, pos=(2, 0))),
+        ("pass1_shard2d reference j=2 real 2x131",
+         lambda: parity_s2("reference", 2, 131, 2, P=1, pos=(0, 1))),
+        ("pass1_shard2d aniso j=4 2x2", lambda: parity_s2("aniso", 2, 2, 4)),
+        ("pass1_shard3d reference j=0",
+         lambda: parity_s3("reference", b3l, 0, pos=(0, 0, 1))),
+        ("pass1_shard3d reference j=8 corner",
+         lambda: parity_s3("reference", b3l, 8, pos=(0, 0, 0))),
+        ("pass1_shard3d clean j=0", lambda: parity_s3("clean", b3l, 0)),
+        ("pass1_shard3d clean j=8 corner",
+         lambda: parity_s3("clean", b3l, 8, pos=(0, 0, 0))),
+        ("pass1_shard3d clean j=18 real",
+         lambda: parity_s3("clean", b3l, 18, P=1)),
+        ("pass1_shard3d aniso j=0", lambda: parity_s3("aniso", b3l, 0)),
+        ("pass1_shard3d aniso j=8 edge",
+         lambda: parity_s3("aniso", b3l, 8, pos=(2, 1, 0))),
+        ("pass1_shard3d aniso j=18", lambda: parity_s3("aniso", b3l, 18)),
+        ("pass1_shard3d aniso j=4 real",
+         lambda: parity_s3("aniso", b3l, 4, P=1)),
+        ("pass1_shard3d reference j=3 20x30x50",
+         lambda: parity_s3("reference", (20, 30, 50), 3)),
+        ("pass1_shard3d clean j=18 real 20x30x50",
+         lambda: parity_s3("clean", (20, 30, 50), 18, P=1)),
+        ("pass1_shard3d aniso j=4 20x30x50",
+         lambda: parity_s3("aniso", (20, 30, 50), 4)),
+        ("pass1_shard3d clean j=4 2x2x2",
+         lambda: parity_s3("clean", (2, 2, 2), 4)),
+        ("pass1_shard3d aniso j=18 real 2x2x2",
+         lambda: parity_s3("aniso", (2, 2, 2), 18, P=1)),
+    ]
+    for label, fn in cases:
+        gate(label, *fn())
+    # the ghost copy on one shard's block at its global offsets
+    for shp, glob, offs in ((b3l, (NS3,) * 3, (0, 0, 0)),
+                            (b3l, (NS3,) * 3, (L3, L3, L3)),
+                            (b3l, (NS3, NS3, 4 * L3), (0, 0, L3)),
+                            ((20, 30, 50), (60, 30, 100), (20, 0, 50)),
+                            ((20, 30, 50), (60, 90, 150), (20, 30, 50)),
+                            ((2, 2, 2), (6, 6, 6), (2, 4, 0))):
+        up = field(shp[0] * shp[1], shp[2])
+        got, want = both(lambda: b3.neumann_bc_planar_3d(up.clone(), shp,
+                                                         glob, offs))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        tag = "x".join(map(str, shp))
+        print(f"parity bc3d {tag} at {offs} of {glob}: exactly equal {same}")
+        check(same, f"bc3d {tag} at {offs} differs from its plain version")
+        del up, got, want
+
+    # The shard kernels per step of the sharded main paths: every shard of
+    # the mesh, j = 0..m-2, the loop's scalars [1/chat, 0]. Bytes per
+    # launch: W_0..W_j read, w written, plus the halos (and the weights).
+    # Beside the profiler's sum, CUDA events around `reps` back-to-back
+    # calls (no sync between them) give a second reading of the same work:
+    # the device time when the card is the slower side, else more.
+    def batch_events_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def shard_step_times(kernel, descs, lshape, reps):
+        rows, nx = math.prod(lshape[:-1]), lshape[-1]
+        Ws = [[field(rows, nx) for _ in range(KRYLOV_M - 1)] for _ in descs]
+        hs = [halos(lshape, 2) for _ in descs]
+        s = torch.tensor([[0.5, 0.0]], device=dev)
+        tot = [0.0] * 5
+        for j in range(KRYLOV_M - 1):
+            def call():
+                return [kernel(s, W[j], W[:j], *h, d)
+                        for W, h, d in zip(Ws, hs, descs)]
+            t = timed(call, reps) + (batch_events_ms(call, reps),)
+            tot = [a + b for a, b in zip(tot, t)]
+        return tot
+
+    def mesh_descs(mode, lshape, mshape):
+        """The descriptors of every shard of an mshape mesh of lshape
+        blocks (so every block is at a corner of the grid)."""
+        out = []
+        for k in range(math.prod(mshape)):
+            pos = tuple(int(c) for c in np.unravel_index(k, mshape))
+            d = (desc_s2(mode, *lshape, pos) if len(lshape) == 2
+                 else desc_s3(mode, lshape, pos))
+            d.update(zip(("NZ", "NY", "NX")[-len(lshape):],
+                         (a * b for a, b in zip(mshape, lshape))))
+            out.append(d)
+        return out
+
+    t_s = {}
+    for mode in ("reference", "aniso"):
+        t_s[f"pass1_shard2d {mode}"] = shard_step_times(
+            lz.pass1_shard2d, mesh_descs(mode, (L2, L2), (2, 2)), (L2, L2),
+            10)
+    for mode in ("clean", "aniso"):
+        t_s[f"pass1_shard3d {mode}"] = shard_step_times(
+            l3.pass1_shard3d, mesh_descs(mode, b3l, (2, 2, 2)), b3l, 3)
+    colL2, colL3 = 2 * L2 * L2 * 4, 2 * L3 ** 3 * 4
+    cols = sum(j + 2 for j in range(KRYLOV_M - 1))
+    n_it = KRYLOV_M - 1
+    halo2, halo3 = 2 * 2 * (2 * L2) * 4, 2 * 2 * (3 * L3 * L3) * 4
+    bytes_s = {
+        "pass1_shard2d reference": 4 * (cols * colL2 + n_it * halo2),
+        "pass1_shard2d aniso": 4 * (cols * colL2 + n_it * (
+            halo2 + 2 * L2 * L2 * 4 + 2 * L2 * 4)),
+        "pass1_shard3d clean": 8 * (cols * colL3 + n_it * halo3),
+        "pass1_shard3d aniso": 8 * (cols * colL3 + n_it * (
+            halo3 + 3 * L3 ** 3 * 4 + 3 * L3 * L3 * 4)),
+    }
+    for key, t in t_s.items():
+        show(f"{key} per step (every shard)", t)
+        nb = bytes_s[key]
+        print(f"bound {key} per step: {nb / 1e6:.1f} MB -> "
+              f"{bound_ms(nb):.4f} ms at 3.35 TB/s; kernel at "
+              f"{bound_ms(nb) / t[0]:.3f} of it; CUDA events around the "
+              f"batched calls {t[4]:.4f} ms ({bound_ms(nb) / t[4]:.3f} of "
+              f"the bound)")
+
+    # ---------------------------------------------------------- 23. main-shard2d
+    counters_sh = dict(counters_all, pass1_shard2d=lz.pass1_shard2d,
+                       pass1_shard3d=l3.pass1_shard3d)
+
+    def gaussian(shape):
+        """A Gaussian times exp(0.5 i x) on the grid `shape`, planar
+        (2,) + shape on the card."""
+        x = torch.linspace(-LX, LX, shape[-1], dtype=torch.float32,
+                           device=dev)
+        g = torch.meshgrid(*([x] * len(shape)), indexing="ij")
+        env = torch.exp(-sum(a * a for a in g) / 4)
+        return torch.stack([env * torch.cos(0.5 * g[-1]),
+                            env * torch.sin(0.5 * g[-1])])
+
+    def sharded(global_shape, mshape, variant, c=None):
+        """make_sharded_nlse_step on a mesh of shards that all sit on this
+        card, as a problem-like object for advance/rate: its step takes and
+        returns a tuple of the shards' planar blocks."""
+        axes = ("gy", "gx") if len(global_shape) == 2 else ("gz", "gy", "gx")
+        mesh = pmesh.make_mesh(axes, mshape,
+                               devices=[dev] * math.prod(mshape))
+        step = spatial.make_sharded_nlse_step(
+            "cubic", global_shape, LX, DT, mesh, axis_names=axes,
+            krylov_m=KRYLOV_M, variant=variant, use_c=c is not None)
+        u0 = gaussian(global_shape)
+        mp = shards.shard(torch.ones(global_shape, device=dev), mesh)
+        cp = None if c is None else shards.shard(c, mesh)
+
+        def stp(s, i):
+            del i
+            return tuple(step(list(s), mp) if cp is None
+                         else step(list(s), mp, cp))
+
+        return SimpleNamespace(step=stp, mesh=mesh, u0=u0,
+                               state=tuple(shards.shard(u0, mesh)),
+                               shape=global_shape, variant=variant, c=c)
+
+    def mass(s):
+        return sum(float((x.double() ** 2).sum()) for x in s)
+
+    def main_shard(label, sp, n_steps, per_shard):
+        """n_steps of the sharded step with every launch counter at 0 just
+        before and read just after: exactly per_shard launches of each
+        kernel per shard and step, none of the others; finite state of the
+        global shape; relative mass drift < 1e-3 (taken every n/5 steps)."""
+        n_sh = sp.mesh.size
+        m0, drift = mass(sp.state), 0.0
+        for f in counters_sh.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = sp.state
+        for i in range(1, n_steps + 1):
+            s = sp.step(s, i)
+            if i % max(1, n_steps // 5) == 0:
+                drift = max(drift, abs(mass(s) - m0) / m0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters_sh.items()}
+        want = {k: per_shard.get(k, 0) * n_sh * n_steps for k in counters_sh}
+        print(f"{label}: {n_steps} steps on a {sp.mesh.shape} mesh in "
+              f"{wall:.3f} s (mass checks included); launches "
+              f"{ {k: v for k, v in got.items() if v} } "
+              f"({sum(got.values()) / n_steps:.0f} counted per step)")
+        check(got == want, f"{label}: launches {got} != {want}")
+        full = shards.gather(list(s), sp.mesh)
+        check(tuple(full.shape) == (2,) + sp.shape, f"{label}: gathered "
+              f"state {tuple(full.shape)}")
+        check(bool(torch.isfinite(full).all()), f"{label}: non-finite state")
+        del full
+        print(f"{label}: relative mass drift over {n_steps} steps "
+              f"{drift:.3e}")
+        check(drift < 1e-3, f"{label}: mass drift {drift:.3e} >= 1e-3")
+        return got, n_steps
+
+    per2 = {"pass1_shard2d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1, "K3": 1}
+    per3 = {"pass1_shard3d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1, "K3": 1,
+            "bc3d": 1}
+    cs2 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
+        (NS, NS))).astype(np.float32))
+    sp2 = sharded((NS, NS), (2, 2), "reference")
+    launches_s2, steps_s2 = main_shard(f"main-shard2d {NS}^2 iso", sp2, 50,
+                                       per2)
+    sp2c = sharded((NS, NS), (2, 2), "reference", cs2)
+    main_shard(f"main-shard2d {NS}^2 c(x)", sp2c, 50, per2)
+
+    # ---------------------------------------------------------- 24. main-shard3d
+    cs3 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
+        (NS3,) * 3, dtype=np.float32)))
+    sp3 = sharded((NS3,) * 3, (2, 2, 2), "clean")
+    launches_s3, steps_s3 = main_shard(f"main-shard3d {NS3}^3 iso", sp3, 10,
+                                       per3)
+    sp3c = sharded((NS3,) * 3, (2, 2, 2), "clean", cs3)
+    main_shard(f"main-shard3d {NS3}^3 c(x)", sp3c, 10, per3)
+    sp3r = sharded((N3_BIG,) * 3, (1, 1, 4), "reference")
+    main_shard(f"main-shard3d {N3_BIG}^3 reference (1, 1, 4)", sp3r, 20,
+               per3)
+
+    # ---------------------------------------------------------- 25. paths-shard
+    def kernels_vs_plain(sp, n):
+        a = advance(sp.step, sp.state, n)
+        config.kernel_mode = "off"
+        try:
+            b = advance(sp.step, sp.state, n)
+        finally:
+            config.kernel_mode = "auto"
+        return rel(shards.gather(list(a), sp.mesh),
+                   shards.gather(list(b), sp.mesh))
+
+    g64 = (1.0 + 0.4 * torch.rand((64,) * 3, generator=gen, device=dev))
+    g512 = (1.0 + 0.4 * torch.rand((512, 512), generator=gen, device=dev))
+    for label, sp in (
+            ("512^2 (2, 2) iso", sharded((512, 512), (2, 2), "reference")),
+            ("512^2 (2, 2) c(x)", sharded((512, 512), (2, 2), "reference",
+                                          g512)),
+            ("64^3 (2, 2, 2) iso", sharded((64,) * 3, (2, 2, 2), "clean")),
+            ("64^3 (2, 2, 2) c(x)", sharded((64,) * 3, (2, 2, 2), "clean",
+                                            g64)),
+            ("64^3 (1, 1, 4) reference iso",
+             sharded((64,) * 3, (1, 1, 4), "reference")),
+            ("64^3 (1, 1, 4) reference c(x)",
+             sharded((64,) * 3, (1, 1, 4), "reference", g64))):
+        e = kernels_vs_plain(sp, n_par)
+        print(f"paths-shard {label}: {n_par} steps kernels vs plain rel-L2 "
+              f"{e:.3e}")
+        check(e <= 1e-5, f"sharded {label} kernel vs plain path rel-L2 "
+              f"{e:.3e} > 1e-5")
+
+    def unsharded(sp):
+        """The unsharded kernel path (nlse_problem) on the same grid."""
+        prob = problems.nlse_problem("cubic", sp.shape, LX, DT,
+                                     m_field=torch.ones(sp.shape),
+                                     c_field=sp.c, krylov_m=KRYLOV_M,
+                                     variant=sp.variant,
+                                     dtype=torch.complex64)
+        check(prob.meta["planar_state"] and prob.meta["device"] == "cuda",
+              f"unsharded {sp.shape} did not take the planar path on the "
+              f"card")
+        return SimpleNamespace(prob=prob, state=prob.init(sp.u0))
+
+    ref_runs = {}
+    for label, sp in ((f"{NS}^2 iso", sp2), (f"{NS}^2 c(x)", sp2c),
+                      (f"{NS3}^3 iso", sp3), (f"{NS3}^3 c(x)", sp3c),
+                      (f"{N3_BIG}^3 reference (1, 1, 4)", sp3r)):
+        un = unsharded(sp)
+        a = shards.gather(list(advance(sp.step, sp.state, n_par)), sp.mesh)
+        b = advance(un.prob.step, un.state, n_par).reshape(a.shape)
+        e = rel(a, b)
+        print(f"paths-shard {label}: {n_par} steps sharded vs unsharded "
+              f"kernel path rel-L2 {e:.3e}")
+        check(e <= 2e-4, f"sharded {label} vs unsharded rel-L2 {e:.3e} > "
+              f"2e-4")
+        del a, b
+        if label in (f"{NS}^2 iso", f"{NS3}^3 iso"):
+            ref_runs[label] = un
+        del un
+
+    # ---------------------------------------------------------- 26. rate-shard
+    del sp2c, sp3c, sp3r
+    for label, sp, chunk, n_prof in ((f"{NS}^2", sp2, 20, 5),
+                                     (f"{NS3}^3", sp3, 5, 2)):
+        un = ref_runs.pop(label + " iso")
+        rs_, ru_ = (f"rate-shard sharded {label} {sp.mesh.shape}",
+                    f"rate-shard unsharded {label}")
+        rate(torch, {rs_: (sp, sp.state), ru_: (un.prob, un.state)}, chunk,
+             [rs_, ru_, ru_, rs_, rs_, ru_], n_prof)
+        del un
+    del sp2, sp3
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0):
         """One kernel of the JSON line: `launches` over the n_steps of its
@@ -1356,6 +1769,14 @@ def main():
               steps_i, errs["K5"], t_k5, bytes_k5, None, ops_k5),
         entry("pipe_3d", SOURCE3, f"{PALLAS3}:1135", launches_p["K8"],
               steps_p, errs["K8"], t_k8["iso"], bytes_k8, None),
+        entry("pass1_shard2d", SOURCE, f"{PALLAS}:473",
+              launches_s2["pass1_shard2d"], steps_s2, errs["pass1_shard2d"],
+              t_s["pass1_shard2d reference"],
+              bytes_s["pass1_shard2d reference"], None),
+        entry("pass1_shard3d", SOURCE3, f"{PALLAS3}:558",
+              launches_s3["pass1_shard3d"], steps_s3, errs["pass1_shard3d"],
+              t_s["pass1_shard3d clean"], bytes_s["pass1_shard3d clean"],
+              None),
     ]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -15,6 +15,11 @@
 //   K5 iter_step (lz_iter)              <- _iter_call, modes iso2d, aniso2d,
 //        iso3d: pass1 and pass2 of iteration j in one cooperative launch,
 //        the opt-in fused iteration (the phase bodies are lz_iter.cuh's)
+//   K1' pass1_shard2d                   <- _pass1_call, modes shard2d,
+//        shard2d_aniso: K1 on one shard's block of a sharded grid, the
+//        shard policies OP_SHARD_ISO / OP_SHARD_ANISO of the same kernel
+//        (halos from the neighbour shards, read by the edge threads only;
+//        the diagonal from global coordinates; lz_stencil.cuh)
 //
 // Fields are planar float32 (P, ny, nx); the block shape, the dot and the
 // reduction are in lz_common.cuh, the operators in lz_stencil.cuh. The
@@ -68,12 +73,15 @@ struct Outs { float* p[KMAX]; };
 // ---------------------------------------------------------------- K1 pass1
 // MAXW bounds j (the number of earlier columns) so the per-column
 // accumulators stay in registers.
+// The shard policies take their halos, offsets and edge face weights from
+// sh (unused otherwise).
 template <int P, int MAXW, int OP>
 __global__ void __launch_bounds__(TX) pass1_2d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
-    const float* __restrict__ wjm1, int j, Op2d op,
+    const float* __restrict__ wjm1, int j, Op2d op, Shard2d sh,
     float* __restrict__ w_out, float* __restrict__ partial, int ny, int nx,
     float ss) {
+  constexpr bool SHARD = OP == OP_SHARD_ISO || OP == OP_SHARD_ANISO;
   __shared__ float red[NWARP][RED_W];
   const int t = threadIdx.x;
   const int x = blockIdx.x * TX + t;
@@ -89,16 +97,24 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
       const int r = y0 + rr;
       const size_t idx = (size_t)r * nx + x;
       float k[4];
-      load_coef<OP>(op, r, x, ny, nx, idx, k);
+      if constexpr (SHARD)
+        load_coef_shard<OP>(op, sh, r, x, nx, idx, k);
+      else
+        load_coef<OP>(op, r, x, ny, nx, idx, k);
       float c[P], w[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const float* __restrict__ b = wj + p * plane;
         const float cv = __ldg(b + idx);
-        const float up = r > 0 ? __ldg(b + idx - nx) : 0.0f;
-        const float dn = r < ny - 1 ? __ldg(b + idx + nx) : 0.0f;
-        const float lf = x > 0 ? __ldg(b + idx - 1) : 0.0f;
-        const float rt = x < nx - 1 ? __ldg(b + idx + 1) : 0.0f;
+        float up, dn, lf, rt;
+        if constexpr (SHARD) {
+          neighbours_shard2d(b, sh, p, idx, r, x, ny, nx, up, dn, lf, rt);
+        } else {
+          up = r > 0 ? __ldg(b + idx - nx) : 0.0f;
+          dn = r < ny - 1 ? __ldg(b + idx + nx) : 0.0f;
+          lf = x > 0 ? __ldg(b + idx - 1) : 0.0f;
+          rt = x < nx - 1 ? __ldg(b + idx + 1) : 0.0f;
+        }
         const float av = stencil<OP>(cv, up, dn, lf, rt, r, x, k) * ss;
         float wv = s * av;
         if (j > 0) wv = wv - bs * __ldg(wjm1 + p * plane + idx);
@@ -371,11 +387,11 @@ int iter_op(int opk, int b, const float* scal, const float* wj, Cols prev,
 
 template <int P, int MAXW, int OP>
 void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
-                  const Op2d& op, float* w, float* partial, int ny, int nx,
-                  float ss, cudaStream_t st) {
+                  const Op2d& op, const Shard2d& sh, float* w, float* partial,
+                  int ny, int nx, float ss, cudaStream_t st) {
   pass1_2d_kernel<P, MAXW, OP><<<tile_grid(ny, nx), TX, 0, st>>>(
-      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, op, w, partial, ny,
-      nx, ss);
+      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, op, sh, w, partial,
+      ny, nx, ss);
 }
 
 template <int P, int MAXW, int OP>
@@ -396,16 +412,18 @@ int num_blocks(int ny, int nx) {
 }
 
 // K1 / K1' with the operator OP, then the reduction of its partial sums.
+// A shard's block may have sides of 2 (its halos hold the neighbours).
 template <int OP>
 int pass1_2d(int P, const float* scal, const float* wj,
-             const float* const* prev, int j, const Op2d& op, float* w,
-             float* partial, float* raw, int ny, int nx, float ss,
-             cudaStream_t st) {
-  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < 3 || nx < 3)
+             const float* const* prev, int j, const Op2d& op,
+             const Shard2d& sh, float* w, float* partial, float* raw, int ny,
+             int nx, float ss, cudaStream_t st) {
+  const int lo = OP == OP_SHARD_ISO || OP == OP_SHARD_ANISO ? 2 : 3;
+  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < lo || nx < lo)
     return (int)cudaErrorInvalidValue;
   const Cols c = make_cols(prev, j);
   const int b = bucket(j);
-#define LZ_P1(PP, BB) launch_pass1<PP, BB, OP>(scal, wj, c, j, op, w, \
+#define LZ_P1(PP, BB) launch_pass1<PP, BB, OP>(scal, wj, c, j, op, sh, w, \
                                                partial, ny, nx, ss, st)
   if (P == 1) {
     if (b == 4) LZ_P1(1, 4); else if (b == 8) LZ_P1(1, 8);
@@ -468,7 +486,7 @@ int lz_pass1_iso2d(int P, const float* scal, const float* wj,
                    float* raw, int ny, int nx, float ss, int clean,
                    cudaStream_t st) {
   return pass1_2d<OP_ISO>(P, scal, wj, prev, j, Op2d{nullptr, nullptr, clean},
-                          w, partial, raw, ny, nx, ss, st);
+                          Shard2d{}, w, partial, raw, ny, nx, ss, st);
 }
 
 // K1'. As K1, with the (ny, nx) zero-padded face weights wx, wy.
@@ -477,8 +495,34 @@ int lz_pass1_aniso2d(int P, const float* scal, const float* wj,
                      const float* wy, float* w, float* partial, float* raw,
                      int ny, int nx, float ss, cudaStream_t st) {
   if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
-  return pass1_2d<OP_ANISO>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, w,
-                            partial, raw, ny, nx, ss, st);
+  return pass1_2d<OP_ANISO>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, Shard2d{},
+                            w, partial, raw, ny, nx, ss, st);
+}
+
+// K1' in modes shard2d (aniso = 0: the Laplacian, clean selects the
+// diagonal) and shard2d_aniso (aniso = 1: face weights wx, wy (ny, nx),
+// wxl (ny), wyh (nx)) on one shard's (ny, nx) block at global offsets
+// (y0, x0) of an (NY, NX) grid. yh: (P, 2, nx) halo rows, xh: (P, 2, ny)
+// halo columns. Otherwise as K1.
+int lz_pass1_shard2d(int P, int aniso, int clean, const float* scal,
+                     const float* wj, const float* const* prev, int j,
+                     const float* wx, const float* wy, const float* wxl,
+                     const float* wyh, const float* yh, const float* xh,
+                     float* w, float* partial, float* raw, int ny, int nx,
+                     int y0, int x0, int NY, int NX, float ss,
+                     cudaStream_t st) {
+  if (yh == nullptr || xh == nullptr || y0 < 0 || x0 < 0 || y0 + ny > NY
+      || x0 + nx > NX)
+    return (int)cudaErrorInvalidValue;
+  const Shard2d sh = {yh, xh, wxl, wyh, y0, x0, NY, NX};
+  if (!aniso)
+    return pass1_2d<OP_SHARD_ISO>(P, scal, wj, prev, j,
+                                  Op2d{nullptr, nullptr, clean}, sh, w,
+                                  partial, raw, ny, nx, ss, st);
+  if (wx == nullptr || wy == nullptr || wxl == nullptr || wyh == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return pass1_2d<OP_SHARD_ANISO>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, sh,
+                                  w, partial, raw, ny, nx, ss, st);
 }
 
 // K2. W: host array of nw = j+1 device pointers W_0..W_j. scal: (nw+1, 2)

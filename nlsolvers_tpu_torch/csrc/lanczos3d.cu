@@ -9,10 +9,22 @@
 //        w' = w - sum_{i<=j} q_i W_i (complex q_i), fused with ||w'||^2
 //   pipe_3d  <- lanczos3d_pipe.py _pipe3d_call (K8), the opt-in 3D pipe:
 //        pass2(j) fused with pass1(j+1), K2's outputs (lanczos2d.cu)
-//   bc3d     <- bc3d.py _bc_call (K14): the 6-face no-flux ghost copy
+//   bc3d     <- bc3d.py _bc_call (K14): the 6-face no-flux ghost copy, on
+//               the whole grid or on one shard's block (global offsets)
+//   pass1_shard3d <- lanczos3d_pipe.py _pass1y_shard_call (K9),
+//               _pass1y_shard_aniso_call (K10), _pass1zy_shard_call (K11),
+//               _pass1zy_shard_aniso_call (K12), and lanczos2d.py
+//               _pass1_call in modes shard3d/shard3d_aniso (K1'): pass1_3d
+//               on one shard's block of a sharded grid, the shard modes
+//               SHARD_REF, SHARD_CLEAN, SHARD_ANISO of the same kernel
 //
-// The TPU split pass1 into y-slab and z-by-y brick kernels only to fit its
-// blocks into VMEM; the function is the same, so here it is one kernel.
+// The TPU split pass1 into y-slab and z-by-y brick kernels (and their
+// sharded twins) only to fit its blocks into VMEM; the function is the
+// same, so here it is one kernel with the operator as a mode. On a shard
+// the neighbours outside the block come from halo arrays that only the
+// threads at the block's edges read, and the iso diagonal from the block's
+// global offsets (lz_stencil.cuh's stencil3d_shard), so a shard costs what
+// an unsharded block of its size costs, plus its halos.
 //
 // Fields are planar float32 (P, R, nx) on the merged row view R = nz * ny;
 // the operator modes (ISO_REF with the reference's y-seam, ISO_CLEAN,
@@ -60,10 +72,12 @@ constexpr int PASS2_BLOCKS = 132 * 16;
 // ------------------------------------------------------------ pass1_3d
 // MAXW bounds j (the number of earlier columns) so the per-column
 // accumulators stay in registers.
+// The shard modes take their halos, offsets and edge face weights from sh
+// (unused otherwise); nz, ny, nx are then the block's.
 template <int P, int MAXW, int MODE>
 __global__ void __launch_bounds__(TX) pass1_3d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
-    const float* __restrict__ wjm1, int j, Weights wt,
+    const float* __restrict__ wjm1, int j, Weights wt, Shard3d sh,
     float* __restrict__ w_out, float* __restrict__ partial, int nz, int ny,
     int nx, float ss) {
   __shared__ float red[NWARP][RED_W];
@@ -86,8 +100,12 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const float* __restrict__ b = wj + p * plane;
-        const float av = stencil3d<MODE>(b, wt, idx, r, z, y, x, R, nz, ny,
-                                         nx, ss);
+        float av;
+        if constexpr (MODE >= SHARD_REF)
+          av = stencil3d_shard<MODE>(b, p, wt, sh, idx, r, z, y, x, R, nz, ny,
+                                     nx, ss);
+        else
+          av = stencil3d<MODE>(b, wt, idx, r, z, y, x, R, nz, ny, nx, ss);
         float wv = s * av;
         if (j > 0) wv = wv - bs * __ldg(wjm1 + p * plane + idx);
         c[p] = __ldg(b + idx);
@@ -349,88 +367,114 @@ void pipe3d_mode(int mode, int b, const float* scal, const float* av, Cols W,
 }
 
 // ------------------------------------------------------------ bc3d
-__device__ __forceinline__ int clamp_in(int v, int n) {
-  return v == 0 ? 1 : (v == n - 1 ? n - 2 : v);
+// clamp(v) of a face cell: 0 -> 1 where the block holds the domain's low
+// face (lo), n-1 -> n-2 where it holds the high one (hi).
+__device__ __forceinline__ int clamp_in(int v, int n, int lo, int hi) {
+  return lo && v == 0 ? 1 : (hi && v == n - 1 ? n - 2 : v);
 }
 
-// One thread per face cell. The cells are enumerated without overlap: the
-// two z faces (all y, x), then the two y faces on interior z (all x), then
-// the two x faces on interior z and y.
+// One thread per face cell of the (nz, ny, nx) block at global offsets
+// (z0, y0, x0) of an (NZ, NY, NX) grid: the cells are enumerated without
+// overlap, the block's z-face planes (all y, x), then its y-face rows on the
+// planes that are not z faces (all x), then its x-face columns on the rows
+// that are neither. Unsharded, the block is the grid.
 template <int P>
 __global__ void __launch_bounds__(256) bc3d_kernel(float* __restrict__ u,
-                                                   int nz, int ny, int nx) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long zf = (long long)ny * nx;
-  const long long yf = (long long)(nz - 2) * nx;
-  const long long xf = (long long)(nz - 2) * (ny - 2);
-  long long k = t;
+                                                   int nz, int ny, int nx,
+                                                   int z0, int y0, int x0,
+                                                   int NZ, int NY, int NX) {
+  const int zl = z0 == 0, zh = z0 + nz == NZ;
+  const int yl = y0 == 0, yh = y0 + ny == NY;
+  const int xl = x0 == 0, xh = x0 + nx == NX;
+  const long long izn = nz - zl - zh, iyn = ny - yl - yh;
+  const long long zf = (long long)ny * nx, yf = izn * nx, xf = izn * iyn;
+  long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int z, y, x;
-  if (k < 2 * zf) {
-    z = k < zf ? 0 : nz - 1;
+  if (k < (zl + zh) * zf) {
+    z = zl && k < zf ? 0 : nz - 1;
     k %= zf;
     y = (int)(k / nx);
     x = (int)(k % nx);
-  } else if ((k -= 2 * zf) < 2 * yf) {
-    y = k < yf ? 0 : ny - 1;
+  } else if ((k -= (zl + zh) * zf) < (yl + yh) * yf) {
+    y = yl && k < yf ? 0 : ny - 1;
     k %= yf;
-    z = 1 + (int)(k / nx);
+    z = zl + (int)(k / nx);
     x = (int)(k % nx);
-  } else if ((k -= 2 * yf) < 2 * xf) {
-    x = k < xf ? 0 : nx - 1;
+  } else if ((k -= (yl + yh) * yf) < (xl + xh) * xf) {
+    x = xl && k < xf ? 0 : nx - 1;
     k %= xf;
-    z = 1 + (int)(k / (ny - 2));
-    y = 1 + (int)(k % (ny - 2));
+    z = zl + (int)(k / iyn);
+    y = yl + (int)(k % iyn);
   } else {
     return;
   }
   const size_t plane = (size_t)nz * ny * nx;
   const size_t dst = ((size_t)z * ny + y) * nx + x;
-  const size_t src = ((size_t)clamp_in(z, nz) * ny + clamp_in(y, ny)) * nx
-                     + clamp_in(x, nx);
+  const size_t src = ((size_t)clamp_in(z, nz, zl, zh) * ny
+                      + clamp_in(y, ny, yl, yh)) * nx + clamp_in(x, nx, xl, xh);
 #pragma unroll
   for (int p = 0; p < P; ++p) u[p * plane + dst] = u[p * plane + src];
 }
 
 template <int P, int MAXW, int MODE>
 void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
-                  Weights wt, float* w, float* partial, int nz, int ny,
-                  int nx, float ss, cudaStream_t st) {
+                  Weights wt, const Shard3d& sh, float* w, float* partial,
+                  int nz, int ny, int nx, float ss, cudaStream_t st) {
   pass1_3d_kernel<P, MAXW, MODE><<<tile_grid(nz * ny, nx), TX, 0, st>>>(
-      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, wt, w, partial, nz,
-      ny, nx, ss);
+      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, wt, sh, w, partial,
+      nz, ny, nx, ss);
 }
 
 template <int P, int MODE>
 void pass1_bucket(int b, const float* scal, const float* wj, Cols prev,
-                  int j, Weights wt, float* w, float* partial, int nz, int ny,
-                  int nx, float ss, cudaStream_t st) {
-  if (b == 4)
-    launch_pass1<P, 4, MODE>(scal, wj, prev, j, wt, w, partial, nz, ny, nx,
-                             ss, st);
-  else if (b == 8)
-    launch_pass1<P, 8, MODE>(scal, wj, prev, j, wt, w, partial, nz, ny, nx,
-                             ss, st);
-  else if (b == 16)
-    launch_pass1<P, 16, MODE>(scal, wj, prev, j, wt, w, partial, nz, ny, nx,
-                              ss, st);
-  else
-    launch_pass1<P, 32, MODE>(scal, wj, prev, j, wt, w, partial, nz, ny, nx,
-                              ss, st);
+                  int j, Weights wt, const Shard3d& sh, float* w,
+                  float* partial, int nz, int ny, int nx, float ss,
+                  cudaStream_t st) {
+#define LZ_B(BB) launch_pass1<P, BB, MODE>(scal, wj, prev, j, wt, sh, w, \
+                                           partial, nz, ny, nx, ss, st)
+  if (b == 4) LZ_B(4);
+  else if (b == 8) LZ_B(8);
+  else if (b == 16) LZ_B(16);
+  else LZ_B(32);
+#undef LZ_B
 }
 
 template <int P>
 void pass1_mode(int mode, int b, const float* scal, const float* wj,
-                Cols prev, int j, Weights wt, float* w, float* partial,
-                int nz, int ny, int nx, float ss, cudaStream_t st) {
-  if (mode == ISO_REF)
-    pass1_bucket<P, ISO_REF>(b, scal, wj, prev, j, wt, w, partial, nz, ny,
-                             nx, ss, st);
-  else if (mode == ISO_CLEAN)
-    pass1_bucket<P, ISO_CLEAN>(b, scal, wj, prev, j, wt, w, partial, nz, ny,
-                               nx, ss, st);
+                Cols prev, int j, Weights wt, const Shard3d& sh, float* w,
+                float* partial, int nz, int ny, int nx, float ss,
+                cudaStream_t st) {
+#define LZ_M(MM) pass1_bucket<P, MM>(b, scal, wj, prev, j, wt, sh, w, \
+                                     partial, nz, ny, nx, ss, st)
+  switch (mode) {
+    case ISO_REF: LZ_M(ISO_REF); break;
+    case ISO_CLEAN: LZ_M(ISO_CLEAN); break;
+    case ANISO: LZ_M(ANISO); break;
+    case SHARD_REF: LZ_M(SHARD_REF); break;
+    case SHARD_CLEAN: LZ_M(SHARD_CLEAN); break;
+    default: LZ_M(SHARD_ANISO); break;
+  }
+#undef LZ_M
+}
+
+// pass1_3d (any mode), then the reduction of its partial sums.
+int pass1_any(int P, int mode, const float* scal, const float* wj,
+              const float* const* prev, int j, Weights wt, const Shard3d& sh,
+              float* w, float* partial, float* raw, int nz, int ny, int nx,
+              float ss, cudaStream_t st) {
+  const Cols c = make_cols(prev, j);
+  const int b = bucket(j);
+  if (P == 1)
+    pass1_mode<1>(mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx, ss,
+                  st);
   else
-    pass1_bucket<P, ANISO>(b, scal, wj, prev, j, wt, w, partial, nz, ny, nx,
-                           ss, st);
+    pass1_mode<2>(mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx, ss,
+                  st);
+  const int nout = 2 * (j + 1);
+  const dim3 g = tile_grid(nz * ny, nx);
+  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, (int)(g.x * g.y),
+                                                nout, raw);
+  return (int)cudaGetLastError();
 }
 
 template <int P>
@@ -481,19 +525,34 @@ int lz3_pass1(int P, int mode, const float* scal, const float* wj,
       || j + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3)
     return (int)cudaErrorInvalidValue;
   if (mode == ANISO && (!wx || !wy || !wz)) return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(prev, j);
-  const Weights wt = {wx, wy, wz};
-  const int b = bucket(j);
-  if (P == 1)
-    pass1_mode<1>(mode, b, scal, wj, c, j, wt, w, partial, nz, ny, nx, ss,
-                  st);
-  else
-    pass1_mode<2>(mode, b, scal, wj, c, j, wt, w, partial, nz, ny, nx, ss,
-                  st);
-  const int nout = 2 * (j + 1);
-  reduce_partials<<<nout, RED_THREADS, 0, st>>>(
-      partial, lz3_pass1_blocks(nz, ny, nx), nout, raw);
-  return (int)cudaGetLastError();
+  return pass1_any(P, mode, scal, wj, prev, j, Weights{wx, wy, wz},
+                   Shard3d{}, w, partial, raw, nz, ny, nx, ss, st);
+}
+
+// pass1_shard3d: pass1_3d on one shard's (nz, ny, nx) block at global
+// offsets (z0, y0, x0) of an (NZ, NY, NX) grid. mode: 0 iso reference, 1
+// iso clean, 2 aniso (wx, wy, wz (R, nx), wxl (R), wyh (nz, nx), wzh
+// (ny, nx); null otherwise). yh (P, 2, nz, nx), zh (P, 2, ny, nx), xh
+// (P, 2, R): the halos. Otherwise as lz3_pass1.
+int lz3_pass1_shard(int P, int mode, const float* scal, const float* wj,
+                    const float* const* prev, int j, const float* wx,
+                    const float* wy, const float* wz, const float* wxl,
+                    const float* wyh, const float* wzh, const float* yh,
+                    const float* zh, const float* xh, float* w,
+                    float* partial, float* raw, int nz, int ny, int nx,
+                    int z0, int y0, int x0, int NZ, int NY, int NX, float ss,
+                    cudaStream_t st) {
+  if ((P != 1 && P != 2) || mode < 0 || mode > 2 || j < 0
+      || j + 1 > MAXCOLS || nz < 2 || ny < 2 || nx < 2 || !yh || !zh || !xh
+      || z0 < 0 || y0 < 0 || x0 < 0 || z0 + nz > NZ || y0 + ny > NY
+      || x0 + nx > NX)
+    return (int)cudaErrorInvalidValue;
+  if (mode == ANISO && (!wx || !wy || !wz || !wxl || !wyh || !wzh))
+    return (int)cudaErrorInvalidValue;
+  const Shard3d sh = {yh, zh, xh, wxl, wyh, wzh, z0, y0, x0, NZ, NY, NX};
+  return pass1_any(P, SHARD_REF + mode, scal, wj, prev, j,
+                   Weights{wx, wy, wz}, sh, w, partial, raw, nz, ny, nx, ss,
+                   st);
 }
 
 // pass2. q: (nw, 2) device buffer. W: host array of nw = j+1 device
@@ -548,17 +607,28 @@ int lz3_pipe3d(int P, int mode, const float* scal, const float* av,
   return (int)cudaGetLastError();
 }
 
-// bc3d: the ghost copy on the (P, nz*ny, nx) field u, in place.
-int lz3_bc3d(int P, float* u, int nz, int ny, int nx, cudaStream_t st) {
-  if ((P != 1 && P != 2) || nz < 3 || ny < 3 || nx < 3)
+// bc3d: the ghost copy on the (P, nz*ny, nx) block u at global offsets
+// (z0, y0, x0) of an (NZ, NY, NX) grid, in place (unsharded: offsets 0,
+// the grid's shape). A block with no face cell launches nothing.
+int lz3_bc3d(int P, float* u, int nz, int ny, int nx, int z0, int y0, int x0,
+             int NZ, int NY, int NX, cudaStream_t st) {
+  if ((P != 1 && P != 2) || nz < 2 || ny < 2 || nx < 2 || NZ < 3 || NY < 3
+      || NX < 3 || z0 < 0 || y0 < 0 || x0 < 0 || z0 + nz > NZ
+      || y0 + ny > NY || x0 + nx > NX)
     return (int)cudaErrorInvalidValue;
-  const long long cells = 2LL * ny * nx + 2LL * (nz - 2) * nx
-                          + 2LL * (nz - 2) * (ny - 2);
+  const long long zl = z0 == 0, zh = z0 + nz == NZ, yl = y0 == 0;
+  const long long yh = y0 + ny == NY, xl = x0 == 0, xh = x0 + nx == NX;
+  const long long izn = nz - zl - zh, iyn = ny - yl - yh;
+  const long long cells = (zl + zh) * ny * nx + (yl + yh) * izn * nx
+                          + (xl + xh) * izn * iyn;
+  if (cells == 0) return (int)cudaSuccess;
   const unsigned grid = (unsigned)((cells + 255) / 256);
   if (P == 1)
-    bc3d_kernel<1><<<grid, 256, 0, st>>>(u, nz, ny, nx);
+    bc3d_kernel<1><<<grid, 256, 0, st>>>(u, nz, ny, nx, z0, y0, x0, NZ, NY,
+                                         NX);
   else
-    bc3d_kernel<2><<<grid, 256, 0, st>>>(u, nz, ny, nx);
+    bc3d_kernel<2><<<grid, 256, 0, st>>>(u, nz, ny, nx, z0, y0, x0, NZ, NY,
+                                         NX);
   return (int)cudaGetLastError();
 }
 

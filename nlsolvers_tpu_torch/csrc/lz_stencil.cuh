@@ -22,6 +22,21 @@
 // The operators are written on the values of a cell and its neighbours (0
 // outside the grid), so a kernel may take them from global memory or from
 // a ring of rebuilt values in shared memory.
+//
+// Shard policies (one shard's block of a grid sharded over a mesh; the
+// JAX package's _stencil_shard2d*, _pass1y_shard*, _pass1zy_shard* kernels):
+// the neighbours outside the block come from halo arrays (the neighbour
+// shards' edges, zeros at the domain's edge), read only by the threads at
+// the block's edges; the iso diagonal comes from GLOBAL coordinates (the
+// block's offsets); the aniso face weights are padded with the cross-shard
+// faces, and the faces left of / above / below the block's first column,
+// row and plane come in their own small arrays. So the shard operators
+// need no masks:
+//   OP_SHARD_ISO, OP_SHARD_ANISO   2D (Shard2d)
+//   SHARD_REF, SHARD_CLEAN, SHARD_ANISO   3D on the merged view (Shard3d):
+//     the y halo of each local z-plane carries the ay neighbour's rows
+//     (clean) or, under the reference variant (z and y unsplit), the
+//     merged-view seam rows, so REF and CLEAN differ only in the diagonal.
 
 #pragma once
 
@@ -32,6 +47,8 @@ namespace {
 
 constexpr int OP_ISO = 0;      // 5-point Laplacian, diagonal from the index
 constexpr int OP_ANISO = 1;    // div(c grad u) with zero-padded face weights
+constexpr int OP_SHARD_ISO = 2;    // OP_ISO on one shard's block
+constexpr int OP_SHARD_ANISO = 3;  // OP_ANISO on one shard's block
 
 // What a 2D operator reads besides u: the aniso face weights (ny, nx); the
 // iso diagonal variant.
@@ -39,6 +56,15 @@ struct Op2d {
   const float* wx;
   const float* wy;
   int clean;
+};
+
+// What a 2D shard operator reads besides u and its Op2d.
+struct Shard2d {
+  const float* yh;     // (P, 2, nx): the rows above row 0 and below ny-1
+  const float* xh;     // (P, 2, ny): the columns left of 0 and right of nx-1
+  const float* wxl;    // (ny) aniso: the face weights left of column 0
+  const float* wyh;    // (nx) aniso: the face weights above row 0
+  int y0, x0, NY, NX;  // the block's global offsets; the global grid
 };
 
 // Variant diagonal: "reference" is -3 on the whole boundary ring (corners
@@ -68,24 +94,73 @@ __device__ __forceinline__ void load_coef(const Op2d& op, int r, int x,
   }
 }
 
+// The coefficients of a 2D shard operator at cell (r, x) of the block: the
+// diagonal at the global coordinates, or the face weights with the faces
+// left of column 0 and above row 0 from Shard2d.
+template <int OP>
+__device__ __forceinline__ void load_coef_shard(const Op2d& op,
+                                                const Shard2d& sh, int r,
+                                                int x, int nx, size_t idx,
+                                                float (&k)[4]) {
+  if (OP == OP_SHARD_ISO) {
+    k[0] = stencil_diag(sh.y0 + r, sh.x0 + x, sh.NY, sh.NX, op.clean);
+  } else {
+    k[0] = __ldg(op.wx + idx);
+    k[1] = x > 0 ? __ldg(op.wx + idx - 1) : __ldg(sh.wxl + r);
+    k[2] = __ldg(op.wy + idx);
+    k[3] = r > 0 ? __ldg(op.wy + idx - nx) : __ldg(sh.wyh + x);
+  }
+}
+
+// The four neighbours of cell (r, x) of plane p of a shard's block b: from
+// the block inside it, from the halos at its edges.
+__device__ __forceinline__ void neighbours_shard2d(
+    const float* __restrict__ b, const Shard2d& sh, int p, size_t idx, int r,
+    int x, int ny, int nx, float& up, float& dn, float& lf, float& rt) {
+  up = r > 0 ? __ldg(b + idx - nx) : __ldg(sh.yh + (size_t)2 * p * nx + x);
+  dn = r < ny - 1 ? __ldg(b + idx + nx)
+                  : __ldg(sh.yh + (size_t)(2 * p + 1) * nx + x);
+  lf = x > 0 ? __ldg(b + idx - 1) : __ldg(sh.xh + (size_t)2 * p * ny + r);
+  rt = x < nx - 1 ? __ldg(b + idx + 1)
+                  : __ldg(sh.xh + (size_t)(2 * p + 1) * ny + r);
+}
+
 // A(u) at one 2D cell before the scale, from the cell c and its neighbours
 // (0 outside the grid). aniso keeps _stencil_aniso's order of terms:
-// fx - fx[x-1] + fy - fy[r-1], with no face left of x = 0 or above r = 0.
+// fx - fx[x-1] + fy - fy[r-1], with no face left of x = 0 or above r = 0
+// (on a shard those faces are in k, 0 at the domain's edge).
 template <int OP>
 __device__ __forceinline__ float stencil(float c, float up, float dn,
                                          float lf, float rt, int r, int x,
                                          const float (&k)[4]) {
-  if (OP == OP_ISO) return up + dn + lf + rt + k[0] * c;
+  if (OP == OP_ISO || OP == OP_SHARD_ISO) return up + dn + lf + rt + k[0] * c;
+  const bool shard = OP == OP_SHARD_ANISO;
   const float fx = k[0] * (rt - c);
-  const float fx_l = x > 0 ? k[1] * (c - lf) : 0.0f;
+  const float fx_l = shard || x > 0 ? k[1] * (c - lf) : 0.0f;
   const float fy = k[2] * (dn - c);
-  const float fy_u = r > 0 ? k[3] * (c - up) : 0.0f;
+  const float fy_u = shard || r > 0 ? k[3] * (c - up) : 0.0f;
   return fx - fx_l + fy - fy_u;
 }
 
-enum Mode { ISO_REF = 0, ISO_CLEAN = 1, ANISO = 2 };
+enum Mode {
+  ISO_REF = 0, ISO_CLEAN = 1, ANISO = 2,
+  SHARD_REF = 3, SHARD_CLEAN = 4, SHARD_ANISO = 5   // on one shard's block
+};
 
 struct Weights { const float* wx; const float* wy; const float* wz; };
+
+// What a 3D shard operator reads besides u and its Weights (the block is
+// (nz, ny, nx), merged view R = nz ny).
+struct Shard3d {
+  const float* yh;     // (P, 2, nz, nx): each plane's rows above y = 0 and
+                       // below y = ny-1
+  const float* zh;     // (P, 2, ny, nx): the planes below z = 0, above nz-1
+  const float* xh;     // (P, 2, R): the columns left of 0 and right of nx-1
+  const float* wxl;    // (R) aniso: the face weights left of column 0
+  const float* wyh;    // (nz, nx) aniso: the face weights above each y = 0
+  const float* wzh;    // (ny, nx) aniso: the face weights below z = 0
+  int z0, y0, x0, NZ, NY, NX;  // the block's global offsets; the grid
+};
 
 // The 3D operator at merged row r = z ny + y, column x, scaled by ss, from
 // the cell cv and its neighbours on the merged view: up/dn the rows r-1 and
@@ -118,6 +193,55 @@ __device__ __forceinline__ float stencil3d_vals(float cv, float up, float dn,
   const int xb0 = x == 0, xb1 = x == nx - 1;
   float diag;
   if (MODE == ISO_REF)
+    diag = (zb0 | zb1 | yb0 | yb1 | xb0 | xb1) ? -5.0f : -6.0f;
+  else
+    diag = -(6.0f - (float)(zb0 + zb1 + yb0 + yb1 + xb0 + xb1));
+  return (up + dn + zu + zd + lf + rt + diag * cv) * ss;
+}
+
+// The 3D shard operator at cell (z, y, x) = merged row r of plane p of a
+// shard's block b, scaled by ss: K9's order of terms (iso) and K10's
+// (aniso), neighbours outside the block from the halos of sh.
+template <int MODE>
+__device__ __forceinline__ float stencil3d_shard(
+    const float* __restrict__ b, int p, const Weights& wt, const Shard3d& sh,
+    size_t idx, int r, int z, int y, int x, int R, int nz, int ny, int nx,
+    float ss) {
+  const size_t zoff = (size_t)ny * nx;
+  const float cv = __ldg(b + idx);
+  const float up = y > 0 ? __ldg(b + idx - nx)
+                         : __ldg(sh.yh + ((size_t)2 * p * nz + z) * nx + x);
+  const float dn = y < ny - 1
+                       ? __ldg(b + idx + nx)
+                       : __ldg(sh.yh + ((size_t)(2 * p + 1) * nz + z) * nx + x);
+  const float zu = z > 0 ? __ldg(b + idx - zoff)
+                         : __ldg(sh.zh + ((size_t)2 * p * ny + y) * nx + x);
+  const float zd = z < nz - 1
+                       ? __ldg(b + idx + zoff)
+                       : __ldg(sh.zh + ((size_t)(2 * p + 1) * ny + y) * nx + x);
+  const float lf = x > 0 ? __ldg(b + idx - 1)
+                         : __ldg(sh.xh + (size_t)2 * p * R + r);
+  const float rt = x < nx - 1 ? __ldg(b + idx + 1)
+                              : __ldg(sh.xh + (size_t)(2 * p + 1) * R + r);
+  if (MODE == SHARD_ANISO) {
+    const float wl = x > 0 ? __ldg(wt.wx + idx - 1) : __ldg(sh.wxl + r);
+    const float wu = y > 0 ? __ldg(wt.wy + idx - nx)
+                           : __ldg(sh.wyh + (size_t)z * nx + x);
+    const float wb = z > 0 ? __ldg(wt.wz + idx - zoff)
+                           : __ldg(sh.wzh + (size_t)y * nx + x);
+    const float fx = __ldg(wt.wx + idx) * (rt - cv);
+    const float fx_l = wl * (cv - lf);
+    const float fy = __ldg(wt.wy + idx) * (dn - cv);
+    const float fy_m1 = wu * (cv - up);
+    const float fz = __ldg(wt.wz + idx) * (zd - cv);
+    const float fz_m = wb * (cv - zu);
+    return (fx - fx_l + fy - fy_m1 + fz - fz_m) * ss;
+  }
+  const int gz = sh.z0 + z, gy = sh.y0 + y, gx = sh.x0 + x;
+  const int zb0 = gz == 0, zb1 = gz == sh.NZ - 1, yb0 = gy == 0;
+  const int yb1 = gy == sh.NY - 1, xb0 = gx == 0, xb1 = gx == sh.NX - 1;
+  float diag;
+  if (MODE == SHARD_REF)
     diag = (zb0 | zb1 | yb0 | yb1 | xb0 | xb1) ? -5.0f : -6.0f;
   else
     diag = -(6.0f - (float)(zb0 + zb1 + yb0 + yb1 + xb0 + xb1));

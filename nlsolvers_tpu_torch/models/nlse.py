@@ -12,7 +12,9 @@ tau = i*dt throughout, as in the reference drivers (nlse_cubic_solver.hpp:
 
 Each has a planar form on (2, R, nx) float32 state for the fused kernels
 (`*_planar`, given the operator's kernel descriptor and a planar density).
-The phase kick and the density are plain torch ops in this port.
+`ss2_step_planar_sharded` is SS2 on a sharded planar state (a list of local
+blocks, parallel/shards.py) with a shard descriptor. The phase kick and the
+density are plain torch ops in this port.
 """
 
 import numpy as np
@@ -21,7 +23,8 @@ import torch
 from nlsolvers_tpu_torch.config import default_krylov_m
 from nlsolvers_tpu_torch.ops.krylov import MATFUNCS, expm_apply, matfunc_apply
 
-__all__ = ["ss2_step", "ss2_step_planar", "phase_kick_planar", "sewi_step",
+__all__ = ["ss2_step", "ss2_step_planar", "ss2_step_planar_sharded",
+           "phase_kick_planar", "sewi_step",
            "sewi_step_planar", "gautschi_step", "gautschi_step_planar",
            "sewi_first_step", "gautschi_phi1_bootstrap"]
 
@@ -51,6 +54,21 @@ def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m):
     up = phase_kick_planar(up, rho_fn(up), 0.5 * dt)
     up = matfunc_apply_planar(up, desc, 1j * dt, "exp", m)
     return phase_kick_planar(up, rho_fn(up), 0.5 * dt)
+
+
+def ss2_step_planar_sharded(ups, desc, rho_fns, dt, m=default_krylov_m):
+    """ss2_step_planar on a sharded planar state: `ups` holds each shard's
+    (2, R, nx) float32 block and `rho_fns` each shard's planar density. The
+    kicks run per shard; the matrix function is the sharded Lanczos of the
+    shard descriptor `desc` (parallel/lanczos.py), then K3 combine per
+    shard."""
+    from nlsolvers_tpu_torch.parallel.lanczos import matfunc_apply_sharded
+
+    ups = [phase_kick_planar(up, rho(up), 0.5 * dt)
+           for up, rho in zip(ups, rho_fns)]
+    ups = matfunc_apply_sharded(ups, desc, 1j * dt, "exp", m)
+    return [phase_kick_planar(up, rho(up), 0.5 * dt)
+            for up, rho in zip(ups, rho_fns)]
 
 
 def _B(u, rho_fn):

@@ -13,7 +13,7 @@ works on complex 2D fields only.
 import torch
 
 __all__ = ["neumann_no_velocity_2d", "neumann_no_velocity_3d",
-           "radiating_nlse_2d"]
+           "neumann_no_velocity_3d_block", "radiating_nlse_2d"]
 
 
 def neumann_no_velocity_2d(u):
@@ -39,6 +39,24 @@ def neumann_no_velocity_3d(u):
     u[..., 0, :, :] = u[..., 1, :, :]
     u[..., -1, :, :] = u[..., -2, :, :]
     return u
+
+
+def neumann_no_velocity_3d_block(u, coords, dims):
+    """neumann_no_velocity_3d on one (..., nz, ny, nx) block of a grid of
+    `dims`, by where-masks: which cells are faces comes from the block's
+    global coordinates `coords` (gz, gy, gx, index tensors broadcastable to
+    the block), the sources stay block-local, so a block needs at least 2
+    cells per axis. The order is neumann_no_velocity_3d's. Returns a new
+    tensor."""
+    (gz, gy, gx), (NZ, NY, NX) = coords, dims
+    int_z = (gz >= 1) & (gz <= NZ - 2)
+    int_y = (gy >= 1) & (gy <= NY - 2)
+    u = torch.where((gx == 0) & int_y & int_z, u[..., :, :, 1:2], u)
+    u = torch.where((gx == NX - 1) & int_y & int_z, u[..., :, :, -2:-1], u)
+    u = torch.where((gy == 0) & int_z, u[..., :, 1:2, :], u)
+    u = torch.where((gy == NY - 1) & int_z, u[..., :, -2:-1, :], u)
+    u = torch.where(gz == 0, u[..., 1:2, :, :], u)
+    return torch.where(gz == NZ - 1, u[..., -2:-1, :, :], u)
 
 
 def radiating_nlse_2d(u, m, dx, dy):

@@ -20,6 +20,9 @@ its plain PyTorch version beside it and a launch counter on its wrapper:
   iter_step     / iter_ref            replaces _iter_call (modes iso2d,
                                       aniso2d, iso3d): the opt-in fused
                                       iteration (config.fused_iter)
+  pass1_shard2d / pass1_shard2d_ref   replaces _pass1_call (modes shard2d,
+                                      shard2d_aniso): pass1 on one shard's
+                                      block of a sharded 2D grid
 
 The iso and aniso wrappers launch one pass1 and one pipe kernel with the
 operator as a template policy; each wrapper counts its own launches.
@@ -34,6 +37,8 @@ torch ops on the device, with no .item(); the one host sync left in a
 matrix function is torch.linalg.eigh's (PERF.md). `lanczos_planar` picks
 the loop: the pipe (2D; 3D with config.pipeline_3d), the two-pass loop (3D)
 or, with config.fused_iter, the two-pass loop with one K5 per iteration.
+The sharded loop that drives pass1_shard2d is parallel/lanczos.py; the
+wrapper itself takes one shard's local tensors.
 """
 
 import ctypes
@@ -44,13 +49,16 @@ from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import use_kernel
 from nlsolvers_tpu_torch.ops import krylov
 from nlsolvers_tpu_torch.ops.cuda import _build
+from nlsolvers_tpu_torch.ops.operators import block_coords, boundary_diagonal
 
 __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
            "matfunc_apply_planar", "matfunc_apply_planar_multi",
+           "combine_coefficients",
            "pass1_iso2d", "pass1_iso2d_ref", "pass1_aniso2d",
            "pass1_aniso2d_ref", "pipe_iso2d", "pipe_iso2d_ref",
            "pipe_aniso2d", "pipe_aniso2d_ref", "combine", "combine_ref",
-           "iter_step", "iter_ref", "MAX_M", "MAX_SPECS", "KINDS_3D",
+           "iter_step", "iter_ref", "pass1_shard2d", "pass1_shard2d_ref",
+           "MAX_M", "MAX_SPECS", "KINDS_3D",
            "FUSED_ITER_BYTES"]
 
 # Longest basis (Krylov m) and most matrix functions per combine the kernels
@@ -134,6 +142,9 @@ def _lib():
              [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, i32, i32,
               f32, vp]),
             ("lz_combine", [i32, vp, pp, i32, i32, pp, i32, i32, vp]),
+            ("lz_pass1_shard2d",
+             [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
+              vp, i32, i32, i32, i32, i32, i32, f32, vp]),
             ("lz_coop_max_blocks", []),
             ("lz_iter", [i32, i32, vp, vp, pp, i32, vp, vp, i32, vp, vp, vp,
                          vp, vp, i32, i32, i32, f32, vp])):
@@ -196,6 +207,17 @@ def _aniso_weights(desc, like, what):
         raise ValueError(f"{what}: face weights must be contiguous float32 "
                          f"{tuple(like.shape[1:])} tensors on {like.device}")
     return ws
+
+
+def _check_aux(t, shape, like, what, name):
+    """A halo or weight array: contiguous float32 of `shape` on like's
+    device."""
+    if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+            or t.device != like.device or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {like.device}")
+    return t
 
 
 def _check_cols(n, what):
@@ -269,6 +291,40 @@ def pass1_iso2d_ref(scal, wj, prev, desc):
 def pass1_aniso2d_ref(scal, wj, prev, desc):
     """Plain version of pass1_aniso2d."""
     return _pass1_ref(scal, wj, prev, _stencil_aniso_ref(wj, desc))
+
+
+def _stencil_shard2d_ref(u, yh, xh, d):
+    """The operator of a shard descriptor `d` on one shard's planar block
+    (P, ny, nx), in the order of terms of the Pallas _stencil_shard2d /
+    _stencil_shard2d_aniso. yh (P, 2, nx) holds the rows above and below
+    the block, xh (P, 2, ny) the columns left and right of it (zeros at the
+    domain's edge). Iso: the variant diagonal from global coordinates
+    (y0, x0 offsets of (NY, NX)). Aniso: the padded face weights wx, wy
+    (ny, nx), whose last column and row are the cross-shard faces, wxl (ny)
+    the faces left of column 0 and wyh (nx) those above row 0."""
+    P, ny, nx = u.shape
+    above = torch.cat([yh[:, :1], u[:, :-1]], dim=1)
+    below = torch.cat([u[:, 1:], yh[:, 1:]], dim=1)
+    left = torch.cat([xh[:, 0, :, None], u[:, :, :-1]], dim=2)
+    right = torch.cat([u[:, :, 1:], xh[:, 1, :, None]], dim=2)
+    ss = float(d["scale"]) * float(d["sign"])
+    if d["kind"] == "shard2d":
+        diag = boundary_diagonal(
+            block_coords((d["y0"], d["x0"]), (ny, nx), u.device),
+            (d["NY"], d["NX"]), d["variant"], u.dtype)
+        return (above + below + left + right + diag * u) * ss
+    wx, wy = d["wx"], d["wy"]
+    fx = wx * (right - u)
+    fx_l = torch.cat([d["wxl"][:, None] * (u[:, :, :1] - left[:, :, :1]),
+                      fx[:, :, :-1]], dim=2)
+    fy = wy * (below - u)
+    fy_m1 = torch.cat([d["wyh"][None], wy[:-1]], dim=0) * (u - above)
+    return (fx - fx_l + fy - fy_m1) * ss
+
+
+def pass1_shard2d_ref(scal, wj, prev, yh, xh, d):
+    """Plain version of pass1_shard2d."""
+    return _pass1_ref(scal, wj, prev, _stencil_shard2d_ref(wj, yh, xh, d))
 
 
 def _rebuild_ref(scal, av, W):
@@ -407,6 +463,55 @@ def pass1_aniso2d(scal, wj, prev, desc):
 
 
 pass1_aniso2d.launches = 0
+
+
+def pass1_shard2d(scal, wj, prev, yh, xh, d):
+    """K1' in modes shard2d and shard2d_aniso: pass1_iso2d on one shard's
+    (P, ny, nx) block of a sharded 2D grid.
+
+    yh (P, 2, nx): the rows above row 0 and below row ny-1; xh (P, 2, ny):
+    the columns left of column 0 and right of column nx-1 (the neighbours'
+    edges, zeros at the domain's edge). `d` describes the shard's operator:
+    kind "shard2d" (variant, offsets y0, x0 and the global NY, NX for the
+    diagonal) or "shard2d_aniso" (face weights wx, wy (ny, nx), wxl (ny),
+    wyh (nx)), scale and sign. Returns (w, raw) as pass1_iso2d.
+    """
+    what = "pass1_shard2d"
+    _check_cols(len(prev), what)
+    if not use_kernel(wj):
+        return pass1_shard2d_ref(scal, wj, prev, yh, xh, d)
+    _check_fields([wj, *prev], wj, what)
+    _check_scalars(scal, (1, 2), wj, what)
+    P, ny, nx = wj.shape
+    if ny < 2 or nx < 2:
+        raise ValueError(f"{what}: blocks need sides >= 2, got {(ny, nx)}")
+    _check_aux(yh, (P, 2, nx), wj, what, "yh")
+    _check_aux(xh, (P, 2, ny), wj, what, "xh")
+    aniso = d["kind"] == "shard2d_aniso"
+    if aniso:
+        wts = [_check_aux(d[k], shp, wj, what, k).data_ptr() for k, shp in (
+            ("wx", (ny, nx)), ("wy", (ny, nx)), ("wxl", (ny,)),
+            ("wyh", (nx,)))]
+    else:
+        wts = [None] * 4
+    lib = _lib()
+    j = len(prev)
+    w = torch.empty_like(wj)
+    partial = torch.empty(lib.lz_num_blocks(ny, nx) * 2 * (j + 1),
+                          dtype=torch.float32, device=wj.device)
+    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
+    _check(lib.lz_pass1_shard2d(
+        P, int(aniso), int(d.get("variant") == "clean"), scal.data_ptr(),
+        wj.data_ptr(), _ptrs(prev), j, *wts, yh.data_ptr(), xh.data_ptr(),
+        w.data_ptr(), partial.data_ptr(), raw.data_ptr(), ny, nx,
+        int(d.get("y0", 0)), int(d.get("x0", 0)), int(d.get("NY", 0)),
+        int(d.get("NX", 0)), float(d["scale"]) * float(d["sign"]),
+        _stream(wj)), what)
+    pass1_shard2d.launches += 1
+    return w, raw
+
+
+pass1_shard2d.launches = 0
 
 
 def _pipe(scal, av, W, desc, last, aniso, what):
@@ -695,9 +800,16 @@ def matfunc_apply_planar(u, desc, t, func, m):
 
 def matfunc_apply_planar_multi(u, desc, specs, m):
     """[f(t L) u for (t, f) in specs] from ONE fused-kernel Lanczos run and
-    one combine pass; q[spec, i] = (Re coef_i s_i, Im coef_i s_i). Serves
-    the 2D and the 3D kinds: combine is geometry-free."""
+    one combine pass. Serves the 2D and the 3D kinds: combine is
+    geometry-free."""
     W, s, alphas, betas, beta0 = lanczos_planar(u, desc, m)
+    return combine(combine_coefficients(s, alphas, betas, beta0, specs, m), W)
+
+
+def combine_coefficients(s, alphas, betas, beta0, specs, m):
+    """The (len(specs), m, 2) float32 q of K3 combine for the Lanczos run
+    (s, alphas, betas, beta0): q[spec, i] = (Re coef_i s_i, Im coef_i s_i)
+    with coef = f(t T) e1 beta0 for each (t, f) in specs."""
     alpha, beta = krylov.tridiag_entries(alphas, betas, beta0, m,
                                          torch.float32)
     lam, Q = krylov.tridiag_eigh(alpha, beta)
@@ -711,4 +823,4 @@ def matfunc_apply_planar_multi(u, desc, specs, m):
             cr, ci = coef, torch.zeros_like(coef)
         rows.append(torch.stack([cr.to(torch.float32) * sv,
                                  ci.to(torch.float32) * sv], dim=-1))
-    return combine(torch.stack(rows), W)
+    return torch.stack(rows)

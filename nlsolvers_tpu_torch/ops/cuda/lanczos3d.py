@@ -17,6 +17,13 @@ wrapper:
   pass2    / pass2_ref      replaces lanczos2d._pass2_call
   pipe_3d  / pipe_3d_ref    replaces lanczos3d_pipe._pipe3d_call: the
                             opt-in single-pass pipe (config.pipeline_3d)
+  pass1_shard3d / pass1_shard3d_ref
+                            replaces lanczos3d_pipe._pass1y_shard_call (K9),
+                            _pass1y_shard_aniso_call (K10), _pass1zy_shard_call
+                            (K11), _pass1zy_shard_aniso_call (K12) and
+                            lanczos2d._pass1_call in modes shard3d and
+                            shard3d_aniso: pass1 on one shard's block of a
+                            sharded 3D grid (shard modes of pass1_3d's kernel)
 
 `lanczos_twopass` is the normalized two-pass loop (pass1_3d then pass2), or
 with fused=True one lanczos2d.iter_step (K5) per iteration, in 2D and 3D.
@@ -36,14 +43,16 @@ import torch
 from nlsolvers_tpu_torch.config import use_kernel
 from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (KINDS_3D, MAX_M,
-                                                    _check_fields,
+                                                    _check_aux, _check_fields,
                                                     _check_scalars, _dots,
-                                                    _pipe_ref, _ptrs,
-                                                    _stream, iter_step,
-                                                    safe_inv)
+                                                    _pass1_ref, _pipe_ref,
+                                                    _ptrs, _stream,
+                                                    iter_step, safe_inv)
+from nlsolvers_tpu_torch.ops.operators import block_coords, boundary_diagonal
 
-__all__ = ["supported_desc", "lanczos_twopass", "pass1_3d", "pass1_3d_ref",
-           "pass2", "pass2_ref", "pipe_3d", "pipe_3d_ref"]
+__all__ = ["supported_desc", "lanczos_twopass",
+           "pass1_3d", "pass1_3d_ref", "pass2", "pass2_ref", "pipe_3d",
+           "pipe_3d_ref", "pass1_shard3d", "pass1_shard3d_ref"]
 
 # csrc/lanczos3d.cu's operator modes
 _MODES = {"reference": 0, "clean": 1, "aniso": 2}
@@ -86,7 +95,9 @@ def _lib():
             ("lz3_pass1", [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp,
                            i32, i32, i32, f32, vp]),
             ("lz3_pass2", [i32, vp, vp, pp, i32, vp, vp, vp, i64, vp]),
-            ("lz3_bc3d", [i32, vp, i32, i32, i32, vp]),
+            ("lz3_pass1_shard", [i32, i32, vp, vp, pp, i32] + [vp] * 12
+             + [i32] * 9 + [f32, vp]),
+            ("lz3_bc3d", [i32, vp] + [i32] * 9 + [vp]),
             ("lz3_pipe3d_blocks", [i32, i32, i32]),
             ("lz3_pipe3d", [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp,
                             vp, vp, i32, i32, i32, f32, vp])):
@@ -191,6 +202,57 @@ def pass1_3d_ref(scal, wj, prev, desc):
     return w, raw
 
 
+def _stencil_shard3d_ref(u, yh, zh, xh, d):
+    """The operator of a 3D shard descriptor `d` on one shard's planar block,
+    the merged (P, R = lnz*lny, nx) view, in the order of terms of the
+    Pallas K9 (iso) and K10 (aniso) kernels. yh (P, 2, lnz, nx): the rows
+    above y = 0 and below y = lny-1 of every local z-plane (the ay
+    neighbours' edge rows, or under the reference variant, which keeps the
+    z and y axes whole, the merged-view seam rows); zh (P, 2, lny, nx): the
+    planes below z = 0 and above z = lnz-1; xh (P, 2, R): the columns left
+    and right. Iso: the variant diagonal from global coordinates (offsets
+    z0, y0, x0 of (NZ, NY, NX)). Aniso: the padded face weights wx, wy, wz
+    (R, nx), wxl (R) left of column 0, wyh (lnz, nx) above each plane's row
+    0 and wzh (lny, nx) below plane 0."""
+    P, R, nx = u.shape
+    nz, ny = d["lnz"], d["lny"]
+    u4 = u.view(P, nz, ny, nx)
+    above = torch.cat([yh[:, 0, :, None], u4[:, :, :-1]], dim=2)
+    below = torch.cat([u4[:, :, 1:], yh[:, 1, :, None]], dim=2)
+    z_above = torch.cat([zh[:, :1], u4[:, :-1]], dim=1)
+    z_below = torch.cat([u4[:, 1:], zh[:, 1:]], dim=1)
+    above, below, z_above, z_below = (
+        a.reshape(P, R, nx) for a in (above, below, z_above, z_below))
+    left = torch.cat([xh[:, 0, :, None], u[:, :, :-1]], dim=2)
+    right = torch.cat([u[:, :, 1:], xh[:, 1, :, None]], dim=2)
+    ss = float(d["scale"]) * float(d["sign"])
+    if d["kind"] == "shard3d":
+        coords = block_coords((d["z0"], d["y0"], d["x0"]), (nz, ny, nx),
+                              u.device)
+        diag = boundary_diagonal(coords, (d["NZ"], d["NY"], d["NX"]),
+                                 d["variant"], u.dtype).reshape(R, nx)
+        return (above + below + z_above + z_below + left + right
+                + diag * u) * ss
+    wx, wy, wz = d["wx"], d["wy"], d["wz"]
+    fx = wx * (right - u)
+    fx_l = torch.cat([d["wxl"][:, None] * (u[:, :, :1] - left[:, :, :1]),
+                      fx[:, :, :-1]], dim=2)
+    fy = wy * (below - u)
+    wy_up = torch.cat([d["wyh"][:, None], wy.view(nz, ny, nx)[:, :-1]],
+                      dim=1).reshape(R, nx)
+    fy_m1 = wy_up * (u - above)
+    fz = wz * (z_below - u)
+    wz_up = torch.cat([d["wzh"][None], wz.view(nz, ny, nx)[:-1]],
+                      dim=0).reshape(R, nx)
+    fz_m = wz_up * (u - z_above)
+    return (fx - fx_l + fy - fy_m1 + fz - fz_m) * ss
+
+
+def pass1_shard3d_ref(scal, wj, prev, yh, zh, xh, d):
+    """Plain version of pass1_shard3d."""
+    return _pass1_ref(scal, wj, prev, _stencil_shard3d_ref(wj, yh, zh, xh, d))
+
+
 def pass2_ref(q, w, W):
     """Plain version of pass2."""
     a0 = w[0]
@@ -255,6 +317,60 @@ def pass1_3d(scal, wj, prev, desc):
 
 
 pass1_3d.launches = 0
+
+
+def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
+    """K9-K12 and K1' in modes shard3d, shard3d_aniso: pass1_3d on one
+    shard's block of a sharded 3D grid, the merged (P, R, nx) view of a
+    (lnz, lny, nx) block.
+
+    yh (P, 2, lnz, nx), zh (P, 2, lny, nx) and xh (P, 2, R) are the halos
+    of _stencil_shard3d_ref; `d` describes the shard's operator: kind
+    "shard3d" (variant, offsets z0, y0, x0, global NZ, NY, NX) or
+    "shard3d_aniso" (face weights wx, wy, wz (R, nx), wxl (R), wyh (lnz, nx),
+    wzh (lny, nx)), lnz, lny, scale and sign. Returns (w, raw) as pass1_3d.
+    """
+    what = "pass1_shard3d"
+    j = len(prev)
+    if j + 1 > MAX_M:
+        raise ValueError(f"{what}: at most {MAX_M} columns, got {j + 1}")
+    if not use_kernel(wj):
+        return pass1_shard3d_ref(scal, wj, prev, yh, zh, xh, d)
+    _check_fields([wj, *prev], wj, what)
+    _check_scalars(scal, (1, 2), wj, what)
+    P, R, nx = wj.shape
+    nz, ny = d["lnz"], d["lny"]
+    if nz * ny != R or min(nz, ny, nx) < 2:
+        raise ValueError(f"{what}: field {tuple(wj.shape)} is not the merged "
+                         f"view of a ({nz}, {ny}, {nx}) block with sides >= 2")
+    _check_aux(yh, (P, 2, nz, nx), wj, what, "yh")
+    _check_aux(zh, (P, 2, ny, nx), wj, what, "zh")
+    _check_aux(xh, (P, 2, R), wj, what, "xh")
+    aniso = d["kind"] == "shard3d_aniso"
+    if aniso:
+        wts = [_check_aux(d[k], shp, wj, what, k).data_ptr() for k, shp in (
+            ("wx", (R, nx)), ("wy", (R, nx)), ("wz", (R, nx)), ("wxl", (R,)),
+            ("wyh", (nz, nx)), ("wzh", (ny, nx)))]
+        mode = _MODES["aniso"]
+    else:
+        wts = [None] * 6
+        mode = _MODES[d["variant"]]
+    lib = _lib()
+    w = torch.empty_like(wj)
+    partial = torch.empty(lib.lz3_pass1_blocks(nz, ny, nx) * 2 * (j + 1),
+                          dtype=torch.float32, device=wj.device)
+    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
+    _check(lib.lz3_pass1_shard(
+        P, mode, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j, *wts,
+        yh.data_ptr(), zh.data_ptr(), xh.data_ptr(), w.data_ptr(),
+        partial.data_ptr(), raw.data_ptr(), nz, ny, nx,
+        *(int(d.get(k, 0)) for k in ("z0", "y0", "x0", "NZ", "NY", "NX")),
+        float(d["scale"]) * float(d["sign"]), _stream(wj)), what)
+    pass1_shard3d.launches += 1
+    return w, raw
+
+
+pass1_shard3d.launches = 0
 
 
 def pass2(q, w, W):
@@ -357,3 +473,4 @@ def lanczos_twopass(u, desc, m, fused=False):
         s.append(safe_inv(b))
         betas.append(b)
     return W, s, alphas, betas, beta0
+

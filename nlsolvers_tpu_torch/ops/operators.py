@@ -39,7 +39,7 @@ import torch
 
 __all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_2d",
            "anisotropic_laplacian_3d", "separated_laplacian_2d",
-           "neighbor_sum"]
+           "neighbor_sum", "block_coords", "boundary_diagonal"]
 
 
 def neighbor_sum(u, dim):
@@ -50,6 +50,36 @@ def neighbor_sum(u, dim):
     fwd = torch.cat([u.narrow(dim, 1, n - 1), z], dim=dim)
     bwd = torch.cat([z, u.narrow(dim, 0, n - 1)], dim=dim)
     return fwd + bwd
+
+
+def block_coords(offsets, shape, device):
+    """Global index tensors of a block `shape` at `offsets` of a larger
+    grid, one per axis, each broadcastable to the block."""
+    nd = len(shape)
+    return [o + torch.arange(n, device=device).reshape(
+        [n if a == d else 1 for a in range(nd)])
+        for d, (o, n) in enumerate(zip(offsets, shape))]
+
+
+def boundary_diagonal(coords, dims, variant, dtype):
+    """The variant diagonal of the no-flux Laplacian at the global
+    coordinates `coords` (one index tensor per axis, broadcastable) of a
+    grid of `dims`, in 2D or 3D: "reference" is -(2d-1) on any boundary cell
+    and -2d inside, "clean" is -(number of neighbours). The sharded
+    operators build their diagonal with it."""
+    bounds = [b for c, n in zip(coords, dims) for b in (c == 0, c == n - 1)]
+    if variant == "reference":
+        anyb = bounds[0]
+        for b in bounds[1:]:
+            anyb = anyb | b
+        n2 = 2.0 * len(dims)
+        return torch.where(anyb, 1.0 - n2, -n2).to(dtype)
+    if variant != "clean":
+        raise ValueError(f"unknown variant {variant!r}")
+    nnb = 2.0 * len(dims)
+    for b in bounds:
+        nnb = nnb - b.to(dtype)
+    return -nnb
 
 
 def _diagonal_2d(ny, nx, variant):

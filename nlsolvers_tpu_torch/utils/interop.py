@@ -5,16 +5,20 @@ to hand a JAX problem's state after k steps to the port and compare the next
 step: the state of a one-step integrator (SS2, planar or, on the resident
 path, complex), or the (u, u_prev) pair of a two-step one (sEWI, Gautschi).
 `switches_from_jax` reads the JAX run's opt-in kernel switches, and
-`set_switches` sets the port's to them.
+`set_switches` sets the port's to them. For a grid-sharded run,
+`mesh_like` builds a port mesh of a JAX mesh's shape and axis names;
+parallel/shards.shard takes a global numpy array (the packed state u_packed,
+m_field, c) to the port's sharded field, and shards.gather takes it back.
 """
 
 import numpy as np
 import torch
 
 from nlsolvers_tpu_torch import config
+from nlsolvers_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["state_from_numpy", "field_from_numpy", "nlse_args_from_meta",
-           "switches_from_jax", "set_switches"]
+           "switches_from_jax", "set_switches", "mesh_like"]
 
 # the port's opt-in switches (config attributes)
 SWITCHES = ("resident_mode", "fused_iter", "pipeline_3d")
@@ -98,3 +102,12 @@ def nlse_args_from_meta(meta, c_field=None):
             raise ValueError(f"c_field {c.shape} != grid {shape}")
         kwargs["c_field"] = c
     return args, kwargs
+
+
+def mesh_like(jax_mesh, device):
+    """A port mesh with the shape and axis names of a JAX mesh (any object
+    with .axis_names and a .shape mapping from name to size, as
+    jax.sharding.Mesh has), every shard on `device`."""
+    names = tuple(jax_mesh.axis_names)
+    shape = tuple(int(jax_mesh.shape[a]) for a in names)
+    return Mesh(shape, names, (torch.device(device),) * int(np.prod(shape)))

@@ -331,3 +331,139 @@ def test_resident_step_rejects_bad_input(cuda):
         r2.ss2_resident_step(u, mf, desc, 2 * dt, 8)
     with pytest.raises(ValueError):
         r2.ss2_resident_step(u, mf, desc, dt, tl.MAX_M + 1)
+
+
+# ------------------------------------------------ shard kernels (sharded step)
+
+def _rand(cuda, rng, *shape, lo=None):
+    a = (rng.standard_normal(shape) if lo is None
+         else lo + 0.4 * rng.random(shape))
+    return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("mode,shape,P,j", [
+    ("reference", (64, 64), 2, 0), ("clean", (37, 131), 1, 3),
+    ("aniso", (37, 131), 2, 3), ("aniso", (2, 2), 2, tl.MAX_M - 2),
+    ("reference", (19, 300), 2, 18)])
+def test_pass1_shard2d_matches_plain_on_card(cuda, mode, shape, P, j):
+    """K1' in the shard modes on ragged blocks with random halos and face
+    weights, at an interior place of a larger grid."""
+    ny, nx = shape
+    rng = np.random.default_rng(90 + j)
+    W = [_rand(cuda, rng, P, ny, nx) for _ in range(j + 1)]
+    yh, xh = _rand(cuda, rng, P, 2, nx), _rand(cuda, rng, P, 2, ny)
+    d = dict(kind="shard2d" if mode != "aniso" else "shard2d_aniso",
+             NY=3 * ny, NX=3 * nx, y0=ny, x0=0, scale=1.0 / 0.02 ** 2,
+             sign=-1.0 if P == 1 else 1.0, variant=mode)
+    if mode == "aniso":
+        d.update(wx=_rand(cuda, rng, ny, nx, lo=1.0),
+                 wy=_rand(cuda, rng, ny, nx, lo=1.0),
+                 wxl=_rand(cuda, rng, ny, lo=1.0),
+                 wyh=_rand(cuda, rng, nx, lo=1.0))
+    scal = torch.tensor([[0.7, 0.3]], device=cuda)
+    before = tl.pass1_shard2d.launches
+    _check(*_kernel_and_plain(
+        lambda: tl.pass1_shard2d(scal, W[j], W[:j], yh, xh, d)), W)
+    assert tl.pass1_shard2d.launches == before + 1
+
+
+@pytest.mark.parametrize("mode,shape,P,j", [
+    ("reference", (6, 9, 70), 2, 0), ("clean", (5, 9, 70), 2, 4),
+    ("aniso", (5, 9, 70), 1, 3), ("clean", (2, 2, 2), 2, tl.MAX_M - 2),
+    ("aniso", (4, 3, 129), 2, 18)])
+def test_pass1_shard3d_matches_plain_on_card(cuda, mode, shape, P, j):
+    """pass1_shard3d in each mode on ragged blocks with random halos."""
+    nz, ny, nx = shape
+    R = nz * ny
+    rng = np.random.default_rng(95 + j)
+    W = [_rand(cuda, rng, P, R, nx) for _ in range(j + 1)]
+    yh, zh = _rand(cuda, rng, P, 2, nz, nx), _rand(cuda, rng, P, 2, ny, nx)
+    xh = _rand(cuda, rng, P, 2, R)
+    d = dict(kind="shard3d" if mode != "aniso" else "shard3d_aniso",
+             NZ=2 * nz, NY=ny, NX=3 * nx, z0=nz, y0=0, x0=nx, lnz=nz, lny=ny,
+             scale=1.0 / 0.02 ** 2, sign=1.0, variant=mode)
+    if mode == "aniso":
+        d.update(wx=_rand(cuda, rng, R, nx, lo=1.0),
+                 wy=_rand(cuda, rng, R, nx, lo=1.0),
+                 wz=_rand(cuda, rng, R, nx, lo=1.0),
+                 wxl=_rand(cuda, rng, R, lo=1.0),
+                 wyh=_rand(cuda, rng, nz, nx, lo=1.0),
+                 wzh=_rand(cuda, rng, ny, nx, lo=1.0))
+    scal = torch.tensor([[0.7, 0.3]], device=cuda)
+    before = t3.pass1_shard3d.launches
+    _check(*_kernel_and_plain(
+        lambda: t3.pass1_shard3d(scal, W[j], W[:j], yh, zh, xh, d)), W)
+    assert t3.pass1_shard3d.launches == before + 1
+
+
+@pytest.mark.parametrize("offsets,launch", [((0, 0, 0), 1), ((4, 3, 0), 1),
+                                            ((2, 3, 7), 0), ((4, 6, 14), 1)])
+def test_bc3d_offsets_match_plain_on_card(cuda, offsets, launch):
+    """The ghost copy on a (4, 3, 7) block of an (8, 9, 21) grid equals its
+    plain version exactly; a block with no face launches nothing."""
+    shape, glob = (4, 3, 7), (8, 9, 21)
+    u = _rand(cuda, np.random.default_rng(3), 2, 12, 7)
+    before = tb.neumann_bc_planar_3d.launches
+    got, want = _kernel_and_plain(lambda: tb.neumann_bc_planar_3d(
+        u.clone(), shape, glob, offsets))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert tb.neumann_bc_planar_3d.launches == before + launch
+
+
+def test_shard_wrappers_reject_bad_input(cuda):
+    u = torch.zeros((2, 8, 8), device=cuda)
+    one = torch.eye(1, 2, device=cuda)
+    d = dict(kind="shard2d", NY=16, NX=16, y0=0, x0=0, scale=1.0, sign=1.0,
+             variant="reference")
+    yh = torch.zeros((2, 2, 8), device=cuda)
+    with pytest.raises(ValueError):          # halo of another block
+        tl.pass1_shard2d(one, u, [], yh[:, :, :4].contiguous(), yh, d)
+    with pytest.raises(ValueError):          # halo on another device
+        tl.pass1_shard2d(one, u, [], yh.cpu(), yh, d)
+    d3 = dict(kind="shard3d", NZ=4, NY=4, NX=8, z0=0, y0=0, x0=0, lnz=2,
+              lny=4, scale=1.0, sign=1.0, variant="clean")
+    with pytest.raises(ValueError):          # not the merged view
+        t3.pass1_shard3d(one, u, [], torch.zeros((2, 2, 2, 8), device=cuda),
+                         torch.zeros((2, 2, 4, 8), device=cuda),
+                         torch.zeros((2, 2, 8), device=cuda),
+                         dict(d3, lny=3))
+    with pytest.raises(ValueError):          # a block outside the grid
+        tb.neumann_bc_planar_3d(u, (2, 4, 8), (4, 4, 8), (3, 0, 0))
+
+
+@pytest.mark.parametrize("shape,mshape,variant,use_c", [
+    ((24, 40), (2, 2), "reference", False), ((24, 40), (2, 2), "clean", True),
+    ((8, 12, 16), (2, 2, 2), "clean", False),
+    ((8, 12, 16), (2, 2, 2), "clean", True),
+    ((8, 12, 16), (1, 1, 4), "reference", True)])
+def test_sharded_step_on_card(cuda, shape, mshape, variant, use_c):
+    """The sharded SS2 step on a mesh of shards on one card: kernels
+    against plain versions (rel-L2 <= 1e-5), and the exact launches per
+    step: per shard m-1 shard pass1 and pass2, 1 combine (+ 1 bc3d in 3D);
+    no unsharded pass1."""
+    from nlsolvers_tpu_torch.parallel import mesh as tmesh
+    from nlsolvers_tpu_torch.parallel import shards, spatial
+
+    axes = ("gy", "gx") if len(shape) == 2 else ("gz", "gy", "gx")
+    n = int(np.prod(mshape))
+    mesh = tmesh.make_mesh(axes, mshape, devices=[cuda] * n)
+    rng = np.random.default_rng(12)
+    u0 = 0.1 * rng.standard_normal((2,) + shape).astype(np.float32)
+    args = [u0, np.ones(shape, np.float32)]
+    if use_c:
+        args.append((1.0 + 0.4 * rng.random(shape)).astype(np.float32))
+    m = 6
+    step = spatial.make_sharded_nlse_step("cubic", shape, 5.0, 1e-3, mesh,
+                                          axis_names=axes, krylov_m=m,
+                                          variant=variant, use_c=use_c)
+    parts = [shards.shard(a, mesh) for a in args]
+    pass1 = tl.pass1_shard2d if len(shape) == 2 else t3.pass1_shard3d
+    counters = (pass1, t3.pass2, tl.combine, tb.neumann_bc_planar_3d,
+                tl.pass1_iso2d, tl.pass1_aniso2d, t3.pass1_3d)
+    before = [f.launches for f in counters]
+    got, want = _kernel_and_plain(lambda: shards.gather(step(*parts), mesh))
+    per = [m - 1, m - 1, 1, len(shape) == 3, 0, 0, 0]
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        n * k for k in per]
+    assert _rel(got, want) <= FIELD_TOL
