@@ -9,15 +9,22 @@ Phases, one line each (or a few):
   1. device    the card's name and `nvidia-smi` name, power limit
   2. build     one nvcc per csrc/*.cu, all started together; seconds,
                registers and spills from ptxas, and per instantiation of
-               the 2D pass1/pipe kernels (iso and aniso)
+               the 2D pass1/pipe kernels (iso and aniso; K2 in its 16-byte
+               and scalar forms) and of K3
   3. parity    each 2D kernel (K1-K3) against its plain PyTorch version on
-               the same seeded CUDA tensors, at 1024^2 complex64 and on a
-               ragged 250x333 grid: fields rel-L2 <= 1e-5 (same elementwise
-               arithmetic up to FMA contraction); reduced dots
-               |got - want| <= 1e-4 * ||a|| ||b|| (summation order differs).
-               Times at the main path's shapes: device time of the
-               launched kernels (torch.profiler) and wall time by CUDA
-               events, which include the host's enqueue, over 20 calls.
+               the same seeded CUDA tensors, at 1024^2 complex64, 4096^2
+               and on ragged grids (250x333, 250x334, 251x335: the scalar
+               instantiations; j up to 18, real fields with sign -1):
+               fields rel-L2 <= 1e-5 (same elementwise arithmetic up to FMA
+               contraction); reduced dots |got - want| <= 1e-4 * ||a|| ||b||
+               (summation order differs). K2 and K3 launched twice on the
+               same inputs give the same bits. Times at the main path's
+               shapes: device time of the launched kernels (torch.profiler)
+               and wall time by CUDA events, which include the host's
+               enqueue, over 20 calls; for K2 and K3 per step also by
+               CUDA-graph replay (the step's launches captured once and
+               replayed back to back: no host in the window), at 1024^2
+               and 4096^2, beside torch.matmul's for K3.
   4. main      nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) through
                problems.run: 200 steps, exactly 1 K1 + 9 K2 + 1 K3 launches
                per step, finite snapshots, relative mass drift < 1e-3.
@@ -33,7 +40,8 @@ Phases, one line each (or a few):
                reference, iso clean and aniso operators, j in {0, 4, 8}:
                the same gates, and bc3d exactly equal. Times at 128^3 per
                step of the main path, beside the one-call PyTorch yardsticks
-               (torch.matmul for combine, torch.addmm for pass2).
+               (torch.matmul for combine, torch.addmm for pass2); combine
+               and torch.matmul also by CUDA-graph replay.
   8. main3d    nlse_problem("cubic", (128, 128, 128), 10, 1e-4, m=10): 200
                steps with exactly 9 pass1_3d + 9 pass2 + 1 combine + 1 bc3d
                launches per step, finite snapshots, mass drift < 1e-3; then
@@ -47,9 +55,10 @@ Phases, one line each (or a few):
  11. parity2d-aniso  K1' (pass1_aniso2d) and K2' (pipe_aniso2d) against
                their plain versions, c = 1 + 0.4 U[0, 1), at 1024^2 and on
                a ragged 250x333 grid, j up to 18 (the 16 and 32 column
-               buckets of m=20), complex and real fields: the gates of
-               phase 3. Device times per step at 1024^2 m=10 beside the
-               bytes bound.
+               buckets of m=20), complex and real fields, the scalar
+               instantiations on 250x334 and 251x335, and 4096^2: the gates
+               of phase 3. Device times per step at 1024^2 m=10 beside the
+               bytes bound; K2' by CUDA-graph replay at 1024^2 and 4096^2.
  12. main2d-aniso  nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) with
                c(x) from default_rng(0) (benchmarks/perf_table.py's
                nlse2d_1024_ss2_aniso): 200 steps through problems.run,
@@ -128,8 +137,10 @@ Phases, one line each (or a few):
                interleaved, with phase 6's profile.
 Then the card's name and power limit, the kernels as one JSON line (all
 thirteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
-pass1_shard2d, pass1_shard3d), and last {"ok": true, "device": ...}. Any
-failed phase exits non-zero and prints no result.
+pass1_shard2d, pass1_shard3d; `ms` of K2, K2' and K3 is the CUDA-graph
+reading, with the profiler's sum and the events beside it, and K3's
+library_ms torch.matmul's graph reading), and last {"ok": true, "device":
+...}. Any failed phase exits non-zero and prints no result.
 """
 
 import dataclasses
@@ -245,6 +256,36 @@ def times_ms(torch, fn, reps=20):
         return a.elapsed_time(b) / reps, statistics.median(walls)
     device = sum(dev_us(e) for e in rows) / 1e3 / reps
     return device, statistics.median(walls)
+
+
+def graph_ms(torch, fn, replays=20):
+    """ms per call of fn by CUDA-graph replay: fn's launches captured once
+    in a torch.cuda.CUDAGraph (warmed up on a side stream, as PyTorch
+    requires), replayed back to back with CUDA events around the replays.
+    The host's enqueue is out of the window; the median of three windows."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            g.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / replays)
+    del g
+    return statistics.median(out)
 
 
 def kernel_name(mangled):
@@ -456,13 +497,13 @@ def main():
               f"registers {min(regs, default=0)}-{max(regs, default=0)}; "
               f"kernels that spill registers: {len(spills)} "
               f"{'; '.join(spills)}")
-    # every instantiation of the 2D kernels: <P, MAXW, OP> (OP 1 = aniso)
-    # and <P, MAXW, LAST, OP>; K5 <P, MAXW, OPK>, K8 <P, MAXW, MODE>, K13
-    # <MAXW>
+    # every instantiation of the 2D kernels: <P, MAXW, OP> (OP 1 = aniso),
+    # K2 <P, MAXW, LAST, OP, VEC> and K3 <P, VEC> (VEC 4: 16-byte loads);
+    # K5 <P, MAXW, OPK>, K8 <P, MAXW, MODE>, K13 <MAXW>
     for kname, nreg, spill in [r for lib in libs for r in resources[lib]]:
         if kname.startswith(("pass1_2d_kernel", "pipe_2d_kernel",
-                             "iter_kernel", "pipe3d_kernel",
-                             "resident_kernel")):
+                             "combine_kernel", "iter_kernel",
+                             "pipe3d_kernel", "resident_kernel")):
             print(f"ptxas {kname}: {nreg} registers, {spill} bytes spill "
                   f"stores")
 
@@ -521,15 +562,19 @@ def main():
             de = max(de, dot_err(got[4], want[4], W + [want[0]], want[1]))
         return fe, de
 
-    def parity_combine(k, ny, nx, P=2):
-        W = [field(ny, nx, P) for _ in range(KRYLOV_M)]
-        q = (torch.rand((k, KRYLOV_M, 2), generator=gen, device=dev) - 0.5)
+    def parity_combine(k, ny, nx, P=2, m=KRYLOV_M):
+        W = [field(ny, nx, P) for _ in range(m)]
+        q = (torch.rand((k, m, 2), generator=gen, device=dev) - 0.5)
         got, want = both(lambda: lz.combine(q, W))
         errs["K3"] = max([errs["K3"]] + [float((a - b).abs().max())
                                          for a, b in zip(got, want)])
         return max(rel(a, b) for a, b in zip(got, want)), 0.0
 
     ragged = operators.laplacian_2d((250, 333), dx, dx, device=dev).kernel_desc
+    rag334 = operators.laplacian_2d((250, 334), dx, dx, device=dev).kernel_desc
+    rag335 = operators.laplacian_2d((251, 335), dx, dx, device=dev).kernel_desc
+    dx4 = 2.0 * LX / (NS - 1)
+    desc4 = operators.laplacian_2d((NS, NS), dx4, dx4, device=dev).kernel_desc
     clean = dict(desc, variant="clean")
     cases = [
         ("K1 j=0", lambda: parity_pass1(0, desc, N, N)),
@@ -547,9 +592,40 @@ def main():
         ("K2 j=2 last 250x333",
          lambda: parity_pipe(2, True, ragged, 250, 333)),
         ("K3 k=1 250x333", lambda: parity_combine(1, 250, 333)),
+        # the 16-byte (nx % 4 == 0) and scalar instantiations of K2 and K3,
+        # every bucket (j up to 18, m = 20), P = 1 with sign -1, and 4096^2
+        ("K2 j=17 (m=20)", lambda: parity_pipe(17, False, desc, N, N)),
+        ("K2 j=12 250x334", lambda: parity_pipe(12, False, rag334, 250,
+                                                334)),
+        ("K2 j=18 last 251x335", lambda: parity_pipe(18, True, rag335, 251,
+                                                     335)),
+        ("K2 j=6 real sign -1 251x335",
+         lambda: parity_pipe(6, False, dict(rag335, sign=-1.0), 251, 335,
+                             P=1)),
+        ("K3 k=3 m=20 251x335", lambda: parity_combine(3, 251, 335, m=20)),
+        ("K3 k=2 real 250x334", lambda: parity_combine(2, 250, 334, P=1)),
+        (f"K2 j=4 {NS}^2", lambda: parity_pipe(4, False, desc4, NS, NS)),
+        (f"K2 j={KRYLOV_M - 2} last {NS}^2",
+         lambda: parity_pipe(KRYLOV_M - 2, True, desc4, NS, NS)),
+        (f"K3 k=4 {NS}^2", lambda: parity_combine(4, NS, NS)),
     ]
     for label, fn in cases:
         gate(label, *fn())
+
+    # fixed grid, fixed order of sums, no atomics: two launches on the same
+    # inputs give the same bits
+    av, *W = [field() for _ in range(KRYLOV_M)]
+    sc = scalars(KRYLOV_M)
+    q = torch.rand((2, KRYLOV_M - 1, 2), generator=gen, device=dev) - 0.5
+    for label, fn in (
+            ("K2", lambda: lz.pipe_iso2d(sc, av, W, desc, False)),
+            ("K2 last", lambda: lz.pipe_iso2d(sc, av, W, desc, True)),
+            ("K3", lambda: lz.combine(q, W))):
+        same = all(bool(torch.equal(a, b)) for a, b in zip(fn(), fn()))
+        print(f"repeat {label} at {N}^2: outputs and dots bit for bit equal "
+              f"{same}")
+        check(same, f"{label}: two launches on the same inputs differ")
+    del av, W
 
     def timed(fn, reps=20):
         t_k = times_ms(torch, fn, reps)
@@ -563,6 +639,18 @@ def main():
     def show(label, t):
         print(f"time {label}: kernel {t[0]:.4f} ms device ({t[1]:.4f} "
               f"wall), plain {t[2]:.4f} ms device ({t[3]:.4f} wall)")
+
+    def pipe_step(fn, d, scs, av, W):
+        """The K2 (K2') launches of one Lanczos run, j = 0..m-2, the last
+        one LAST."""
+        for j in range(KRYLOV_M - 1):
+            fn(scs[j], av, W[:j + 1], d, j == KRYLOV_M - 2)
+
+    def show_graph(key, n, g, t, launches):
+        """The graph reading beside the profiler's sum and the events."""
+        print(f"time {key} per step at {n}^2: CUDA-graph replay {g:.4f} ms "
+              f"({g / launches:.4f} ms per launch); profiler sum "
+              f"{t[0]:.4f} ms; CUDA events around each call {t[1]:.4f} ms")
 
     def stacked_complex(W):
         """The planar columns as one (m, n) complex64 tensor (set-up of the
@@ -579,9 +667,9 @@ def main():
     q1 = torch.rand((1, KRYLOV_M, 2), generator=gen, device=dev) - 0.5
     k1 = timed(lambda: lz.pass1_iso2d(one, u, [], desc))
     k2 = [0.0] * 4
+    scs = [scalars(j + 2) for j in range(KRYLOV_M - 1)]
     for j in range(KRYLOV_M - 1):
-        sc = scalars(j + 2)
-        t = timed(lambda: lz.pipe_iso2d(sc, av, W[:j + 1], desc,
+        t = timed(lambda: lz.pipe_iso2d(scs[j], av, W[:j + 1], desc,
                                         j == KRYLOV_M - 2))
         show(f"K2 j={j}", t)
         k2 = [a + b for a, b in zip(k2, t)]
@@ -589,19 +677,55 @@ def main():
     Wc = stacked_complex(W)
     qc = torch.complex(q1[..., 0], q1[..., 1])               # (1, m)
     k3_lib = times_ms(torch, lambda: torch.matmul(qc, Wc))[0]
+    graphs = {"K2": graph_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc,
+                                                      scs, av, W)),
+              "K3": graph_ms(torch, lambda: lz.combine(q1, W)),
+              "K3 matmul": graph_ms(torch, lambda: torch.matmul(qc, Wc))}
     del Wc
     times = {"K1": k1, "K2": tuple(k2), "K3": k3}
     for key, t in times.items():
         show(f"{key} per step", t)
     print(f"time K3 one-call yardstick torch.matmul((1, {KRYLOV_M}) c64, "
           f"({KRYLOV_M}, {N * N}) c64): {k3_lib:.4f} ms device")
+    show_graph("K2", N, graphs["K2"], times["K2"], KRYLOV_M - 1)
+    show_graph("K3", N, graphs["K3"], times["K3"], 1)
+    print(f"time K3 matmul yardstick at {N}^2 by CUDA-graph replay: "
+          f"{graphs['K3 matmul']:.4f} ms")
     # bytes per step: K1 j=0 reads W_0, writes av_0; K2 at j reads av_j and
     # W_0..W_j, writes W_{j+1} and av_{j+1} (the last only W_{j+1}); K3
     # reads m columns, writes 1
     k2_cols = sum(j + 4 for j in range(KRYLOV_M - 2)) + KRYLOV_M + 1
     bytes2 = {"K1": 2 * col2, "K2": k2_cols * col2,
               "K3": (KRYLOV_M + 1) * col2}
+    for key in ("K2", "K3"):
+        print(f"bound {key} per step at {N}^2: {bytes2[key] / 1e6:.1f} MB -> "
+              f"{bound_ms(bytes2[key]):.4f} ms at 3.35 TB/s; graph reading "
+              f"at {bound_ms(bytes2[key]) / graphs[key]:.3f} of it (the "
+              f"50 MB L2 holds several 8.4 MB columns)")
     del u, W, av
+
+    # K2 and K3 at 4096^2 (a column is 134 MB: the bytes bound is honest)
+    W = [field(NS, NS) for _ in range(KRYLOV_M)]
+    av = field(NS, NS)
+    t4 = {"K2": times_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc4, scs,
+                                                  av, W), 5),
+          "K3": times_ms(torch, lambda: lz.combine(q1, W), 5)}
+    Wc = stacked_complex(W)
+    qc = torch.complex(q1[..., 0], q1[..., 1])
+    g4 = {"K2": graph_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc4, scs,
+                                                  av, W), 5),
+          "K3": graph_ms(torch, lambda: lz.combine(q1, W), 5),
+          "K3 matmul": graph_ms(torch, lambda: torch.matmul(qc, Wc), 5)}
+    del Wc
+    for key, launches_ in (("K2", KRYLOV_M - 1), ("K3", 1)):
+        show_graph(key, NS, g4[key], t4[key], launches_)
+        nb = bytes2[key] * (NS // N) ** 2
+        print(f"bound {key} per step at {NS}^2: {nb / 1e6:.1f} MB -> "
+              f"{bound_ms(nb):.4f} ms at 3.35 TB/s; graph reading at "
+              f"{bound_ms(nb) / g4[key]:.3f} of it")
+    print(f"time K3 matmul yardstick at {NS}^2 by CUDA-graph replay: "
+          f"{g4['K3 matmul']:.4f} ms")
+    del W, av
 
     # ---------------------------------------------------------- 4. main path
     x = torch.linspace(-LX, LX, N, dtype=torch.float32)
@@ -745,12 +869,16 @@ def main():
     t3["combine 128^3"] = timed(lambda: lz.combine(q1, W))
     qc = torch.complex(q1[..., 0], q1[..., 1])
     combine3_lib = times_ms(torch, lambda: torch.matmul(qc, Wc))[0]
+    g3d = {"K3": graph_ms(torch, lambda: lz.combine(q1, W)),
+           "K3 matmul": graph_ms(torch, lambda: torch.matmul(qc, Wc))}
     up = field(R3, N3)
     t3["bc3d"] = timed(lambda: b3.neumann_bc_planar_3d(up, shape3))
     for key, t in t3.items():
         show(f"{key} per step", t)
     print(f"time pass2 one-call yardsticks per step: {pass2_lib:.4f} ms; "
           f"combine 128^3 torch.matmul: {combine3_lib:.4f} ms device")
+    print(f"time combine 128^3 by CUDA-graph replay: {g3d['K3']:.4f} ms; "
+          f"torch.matmul by CUDA-graph replay: {g3d['K3 matmul']:.4f} ms")
     bc_cells = (2 * N3 * N3 + 2 * (N3 - 2) * N3 + 2 * (N3 - 2) * (N3 - 2))
     # bytes per step: pass1 at j reads W_0..W_j and writes w (aniso also
     # reads three weight planes); pass2 at j reads w and W_0..W_j and writes
@@ -868,6 +996,12 @@ def main():
     ragged_a = operators.anisotropic_laplacian_2d(
         1.0 + 0.4 * torch.rand((250, 333), generator=gen, device=dev), dx, dx,
         device=dev).kernel_desc
+    rag_a334, rag_a335 = (operators.anisotropic_laplacian_2d(
+        1.0 + 0.4 * torch.rand(shp, generator=gen, device=dev), dx, dx,
+        device=dev).kernel_desc for shp in ((250, 334), (251, 335)))
+    desc4a = operators.anisotropic_laplacian_2d(
+        torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
+            (NS, NS))).astype(np.float32)), dx4, dx4, device=dev).kernel_desc
     a1 = dict(fn=lz.pass1_aniso2d, key="K1'")
     a2 = dict(fn=lz.pipe_aniso2d, key="K2'")
     cases = [
@@ -901,10 +1035,17 @@ def main():
                                                  333, **a2)),
         ("K2' j=4 real 250x333",
          lambda: parity_pipe(4, False, ragged_a, 250, 333, P=1, **a2)),
+        ("K2' j=12 250x334", lambda: parity_pipe(12, False, rag_a334, 250,
+                                                 334, **a2)),
+        ("K2' j=7 last 251x335", lambda: parity_pipe(7, True, rag_a335, 251,
+                                                     335, **a2)),
+        ("K2' j=3 real sign -1 251x335",
+         lambda: parity_pipe(3, False, dict(rag_a335, sign=-1.0), 251, 335,
+                             P=1, **a2)),
     ]
     for label, fn in cases:
         gate(label, *fn())
-    del ragged_a
+    del ragged_a, rag_a334, rag_a335
 
     # K1' and K2' per step of the main2d-aniso path (1024^2, m=10)
     u = field()
@@ -913,12 +1054,14 @@ def main():
     ka1 = timed(lambda: lz.pass1_aniso2d(one, u, [], desc_a))
     ka2 = [0.0] * 4
     for j in range(KRYLOV_M - 1):
-        sc = scalars(j + 2)
-        t = timed(lambda: lz.pipe_aniso2d(sc, av, W[:j + 1], desc_a,
+        t = timed(lambda: lz.pipe_aniso2d(scs[j], av, W[:j + 1], desc_a,
                                           j == KRYLOV_M - 2))
         show(f"K2' j={j}", t)
         ka2 = [a + b for a, b in zip(ka2, t)]
     times_a = {"K1'": ka1, "K2'": tuple(ka2)}
+    graphs["K2'"] = graph_ms(torch, lambda: pipe_step(lz.pipe_aniso2d,
+                                                      desc_a, scs, av, W))
+    show_graph("K2'", N, graphs["K2'"], times_a["K2'"], KRYLOV_M - 1)
     # bytes per step: K1' reads W_0 and the two weight planes, writes av_0;
     # K2' as K2, plus the two weight planes at every iteration but the last
     wplane = N * N * 4
@@ -931,6 +1074,22 @@ def main():
               f"{bound_ms(nb):.4f} ms at 3.35 TB/s; kernel at "
               f"{bound_ms(nb) / t[0]:.3f} of it")
     del u, W, av
+
+    # K2' at 4096^2
+    W = [field(NS, NS) for _ in range(KRYLOV_M)]
+    av = field(NS, NS)
+    gate(f"K2' j=8 {NS}^2", *parity_pipe(8, False, desc4a, NS, NS, **a2))
+    t4["K2'"] = times_ms(torch, lambda: pipe_step(lz.pipe_aniso2d, desc4a,
+                                                  scs, av, W), 5)
+    g4["K2'"] = graph_ms(torch, lambda: pipe_step(lz.pipe_aniso2d, desc4a,
+                                                  scs, av, W), 5)
+    show_graph("K2'", NS, g4["K2'"], t4["K2'"], KRYLOV_M - 1)
+    nb = bytes_a["K2'"] * (NS // N) ** 2
+    ga = g4["K2'"]
+    print(f"bound K2' per step at {NS}^2: {nb / 1e6:.1f} MB -> "
+          f"{bound_ms(nb):.4f} ms at 3.35 TB/s; graph reading at "
+          f"{bound_ms(nb) / ga:.3f} of it")
+    del W, av, desc4a
 
     # ---------------------------------------------------------- 12. main2d-aniso
     counters2a = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
@@ -1216,9 +1375,12 @@ def main():
     bytes_k5 = sum(j + 2 for j in range(m_ - 1)) * col2
     ops_k5 = N * N * sum(22 + 16 * (j + 1) for j in range(m_ - 1))
     bytes_k8 = sum(j + 4 for j in range(m_ - 2)) * col3
+    # c(x): the three (R, nx) face-weight planes, read once per launch
+    bytes_k8a = bytes_k8 + (m_ - 2) * 3 * (col3 // 2)
     bounds = {"K13": (bytes_rs, ops_rs), "K5": (bytes_k5, ops_k5),
-              "K8": (bytes_k8, 0)}
-    times_o = {"K13": t_rs, "K5": t_k5, "K8": t_k8["iso"]}
+              "K8": (bytes_k8, 0), "K8 c(x)": (bytes_k8a, 0)}
+    times_o = {"K13": t_rs, "K5": t_k5, "K8": t_k8["iso"],
+               "K8 c(x)": t_k8["aniso"]}
     for key, (nb, no) in bounds.items():
         b_ms = max(bound_ms(nb), ops_ms(no))
         print(f"bound {key} per step: {nb / 1e6:.1f} MB -> "
@@ -1730,27 +1892,34 @@ def main():
     del sp2, sp3
 
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
-              lib, nops=0):
+              lib, nops=0, graph=None):
         """One kernel of the JSON line: `launches` over the n_steps of its
         main path's run; `ms`, `plain_ms`, `bound_ms` and `library_ms` per
         step of that path; bound_ms the larger of the bytes' and the float32
-        operations' time."""
+        operations' time. `ms` is the CUDA-graph reading where one is given
+        (then the profiler's sum and the events stand beside it), else the
+        profiler's sum."""
         by_ops = ops_ms(nops) > bound_ms(nbytes)
-        return dict(name=kname, route="cuda", source=source,
-                    replaces=replaces, launches=launches_,
-                    launches_per_step=launches_ / n_steps, max_abs_err=err,
-                    ms=t[0], plain_ms=t[2],
-                    bound_ms=max(bound_ms(nbytes), ops_ms(nops)),
-                    bound_by="operations" if by_ops else "bytes",
-                    library_ms=lib)
+        e = dict(name=kname, route="cuda", source=source,
+                 replaces=replaces, launches=launches_,
+                 launches_per_step=launches_ / n_steps, max_abs_err=err,
+                 ms=t[0] if graph is None else graph, plain_ms=t[2],
+                 bound_ms=max(bound_ms(nbytes), ops_ms(nops)),
+                 bound_by="operations" if by_ops else "bytes",
+                 library_ms=lib)
+        if graph is not None:
+            e.update(graph_ms=graph, profiler_ms=t[0], events_ms=t[1])
+        return e
 
     kernels = [
         entry("pass1_iso2d", SOURCE, f"{PALLAS}:473", launches["K1"], steps,
               errs["K1"], times["K1"], bytes2["K1"], None),
         entry("pipe_iso2d", SOURCE, f"{PALLAS}:779", launches["K2"], steps,
-              errs["K2"], times["K2"], bytes2["K2"], None),
+              errs["K2"], times["K2"], bytes2["K2"], None,
+              graph=graphs["K2"]),
         entry("combine", SOURCE, f"{PALLAS}:1005", launches["K3"], steps,
-              errs["K3"], times["K3"], bytes2["K3"], k3_lib),
+              errs["K3"], times["K3"], bytes2["K3"], graphs["K3 matmul"],
+              graph=graphs["K3"]),
         entry("pass1_3d", SOURCE3, f"{PALLAS3}:391", launches3["pass1_3d"],
               steps3, errs["pass1_3d"], t3["pass1_3d"], bytes3["pass1_3d"],
               None),
@@ -1761,7 +1930,8 @@ def main():
         entry("pass1_aniso2d", SOURCE, f"{PALLAS}:473", launches_a["K1'"],
               steps, errs["K1'"], times_a["K1'"], bytes_a["K1'"], None),
         entry("pipe_aniso2d", SOURCE, f"{PALLAS}:779", launches_a["K2'"],
-              steps, errs["K2'"], times_a["K2'"], bytes_a["K2'"], None),
+              steps, errs["K2'"], times_a["K2'"], bytes_a["K2'"], None,
+              graph=graphs["K2'"]),
         entry("ss2_resident_step", SOURCE_RS, f"{PALLAS_RS}:90",
               launches_r["K13"], steps_r, errs["K13"], t_rs, bytes_rs, None,
               ops_rs),

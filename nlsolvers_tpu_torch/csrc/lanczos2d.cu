@@ -43,21 +43,31 @@
 // in phase 0 and read back in phase 1, mostly from the 50 MB L2.
 //
 // What the design does about it:
-// * Every column is read from device memory once per launch. A block owns a
+// * Every column is read from device memory once per launch. K1 owns a
 //   TY x TX tile and walks it row by row; the second and third touches of a
 //   value (a dot after the reconstruction, a stencil neighbour) come one row
 //   step later from L1/L2, not from DRAM.
-// * K2 needs the stencil of the column it is building. It rebuilds W_{j+1}
-//   on the tile's halo rows and columns from av_j and the W_i, read straight
-//   from global memory, with the same coefficients, and keeps a 3-row ring
-//   of W_{j+1} in shared memory for the stencil. No halo arrays are built;
-//   the aniso weights of the halo faces are read from global memory too.
+// * K2 needs the stencil of the column it is building. A block of eight
+//   warps rebuilds W_{j+1} on tiles of 128 columns by 8 S - 2 rows (S
+//   steps of eight rows) plus their halo rows, into a shared ring; lanes 0
+//   and 31 rebuild the two halo columns in the same pass, and the stencil
+//   takes its left and right neighbours by warp shuffles across the 16-byte
+//   groups. gram_i and d_i come from one load of W_i at the stencilled row,
+//   with the dot columns split over lane groups, so no bucket spills. A
+//   fixed grid of the blocks that fit on the card walks the tiles, and S is
+//   picked so that the busiest block takes the fewest steps. The partial
+//   sums are stored output-major and reduced by reduce_partials_om.
+// * K3 loads the coefficients and column pointers into shared memory once
+//   per block, reads 16-byte vectors (four points) per column and plane,
+//   and walks the points in grid-stride order over a fixed grid.
+// * Rows whose width is not a multiple of 4, or fields off a 16-byte
+//   boundary, take K2's and K3's scalar instantiations (VEC = 1).
 // * The iso diagonal is computed from the row/column index, so it costs no
 //   traffic.
 // * Scalars (s_j, bs, c_i, q) are read from a device buffer, so no host sync
 //   is needed between the scalar recurrence and the kernels.
 // * Cross-block reductions are two-stage and deterministic, with no
-//   atomics (reduce_partials, lz_common.cuh).
+//   atomics (reduce_partials, reduce_partials_om, lz_common.cuh).
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
@@ -147,168 +157,514 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
 }
 
 // ---------------------------------------------------------------- K2 pipe
-// MAXW bounds nw = j + 1, the number of basis columns. LAST computes no
-// stencil, so its one instantiation (OP_ISO) serves both operators.
-template <int P, int MAXW, bool LAST, int OP>
-__global__ void __launch_bounds__(TX) pipe_2d_kernel(
-    const float* __restrict__ scal, const float* __restrict__ av, Cols W,
-    int nw, Op2d op, float* __restrict__ wn_out, float* __restrict__ av_out,
-    float* __restrict__ partial, int ny, int nx, float ss) {
-  __shared__ float red[NWARP][RED_W];
-  __shared__ float ring[LAST ? 1 : 3][P][TX + 2];
-  const int t = threadIdx.x;
-  const int x0 = blockIdx.x * TX;
-  const int x = x0 + t;
-  const bool xin = x < nx;
-  const int y0 = blockIdx.y * TY;
-  const int rows = min(TY, ny - y0);
-  const size_t plane = (size_t)ny * nx;
+// Tiles of PX columns by ty = PWARP * S - 2 rows (2 <= S <= 8 steps), walked
+// by blocks of PT threads in a fixed order: block b takes tiles b, b + G,
+// b + 2G, ... of a grid of G blocks that fit on the card at once, and sums
+// into the same accumulators across its tiles.
+//
+// Step s of a tile: warp w rebuilds row k = PWARP s + w of the tile's ty + 2
+// rows (k = 0 and ty + 1 are the halo rows above and below) into a shared
+// ring of RING rows; lanes 0 and 31 rebuild the halo columns x0 - 1 and
+// x0 + PX of that row in the same pass. One __syncthreads. Then warp w
+// stencils tile row t = k - 2, whose rows t-1..t+1 are all in the ring, and
+// takes the dots of row t: gram_i and d_i from ONE load of W_i at row t,
+// with W_{j+1} from the ring and av_{j+1} from a per-warp row buffer. A
+// step's stencils read rows 8s-2..8s+7 while the next step writes rows
+// 8s+8..8s+15: 18 rows, so a ring of 24 needs one barrier per step.
+//
+// A lane holds four points of a 128-column row: cols 4f..4f+3 as one
+// 16-byte vector (VEC = 4, when nx % 4 == 0 and every pointer is 16-byte
+// aligned) or cols f, f+32, f+64, f+96 as scalars (VEC = 1), f = lane. The
+// rebuild and the stencil use that layout. For the dots a warp splits into
+// NG = MAXW / 4 groups of 32 / NG lanes: group q owns the columns i = q +
+// NG c (c < 4) and its lanes walk the row's 32 vectors, so a lane keeps 4
+// complex gram and 4 complex d sums at every bucket (16 registers) instead
+// of 4 MAXW.
+//
+// LAST (no stencil): warp w rebuilds tile row t = w, w + 8, ... and takes
+// its norm and gram dots; no ring across rows and no block barrier.
+constexpr int PT = 256;               // threads per K2 block
+constexpr int PWARP = PT / 32;        // rows per step
+constexpr int PX = 128;               // columns per tile: 32 lanes x 4
+constexpr int RING = 24;              // ring rows (see above)
 
-  const float s = scal[0];
-  float cf[MAXW][2];
-#pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    cf[i][0] = i < nw ? scal[2 + 2 * i] : 0.0f;
-    cf[i][1] = i < nw ? scal[3 + 2 * i] : 0.0f;
-  }
-
-  float nsq = 0.0f;
-  float g[MAXW][2] = {};
-  float d[MAXW][2] = {};
-  float dl[2] = {0.0f, 0.0f};     // d_{j+1} = <W_{j+1}, av_{j+1}>
-
-  // Step rr rebuilds row y0-1+rr (a halo row when rr == 0 or rr == rows+1)
-  // and, once three ring rows exist, stencils row y0-2+rr.
-  const int first = LAST ? 1 : 0;
-  const int stop = LAST ? rows : rows + 1;
-  for (int rr = first; rr <= stop; ++rr) {
-    const int r = y0 - 1 + rr;
-    const bool tile_row = rr >= 1 && rr <= rows;
-    float v[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) v[p] = 0.0f;   // out of grid: zero
-    if (r >= 0 && r < ny && xin)
-      rebuild<P, MAXW>(av, W, nw, s, cf, (size_t)r * nx + x, plane, v);
-    if (tile_row && xin) {
-      const size_t idx = (size_t)r * nx + x;
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        wn_out[p * plane + idx] = v[p];
-        nsq += v[p] * v[p];
-      }
-#pragma unroll
-      for (int i = 0; i < MAXW; ++i) {
-        if (i < nw) {
-          float wi[P];
-          load<P>(W.p[i], idx, plane, wi);
-          hdot<P>(wi, v, g[i]);
-        }
-      }
-    }
-    if (LAST) continue;
-
-    const int slot = rr % 3;
-#pragma unroll
-    for (int p = 0; p < P; ++p) ring[slot][p][t + 1] = v[p];
-    if (t < 2 && tile_row) {       // halo columns x0-1 and x0+TX
-      const int hx = t == 0 ? x0 - 1 : x0 + TX;
-      float h[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) h[p] = 0.0f;
-      if (hx >= 0 && hx < nx)
-        rebuild<P, MAXW>(av, W, nw, s, cf, (size_t)r * nx + hx, plane, h);
-#pragma unroll
-      for (int p = 0; p < P; ++p) ring[slot][p][t == 0 ? 0 : TX + 1] = h[p];
-    }
-    __syncthreads();
-    if (rr >= 2 && xin) {
-      const int rs = r - 1;            // a tile row: y0 <= rs < y0 + rows
-      const int sc = (rr - 1) % 3, su = (rr - 2) % 3;
-      const size_t idx = (size_t)rs * nx + x;
-      float k[4];
-      load_coef<OP>(op, rs, x, ny, nx, idx, k);
-      float a[P], c[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        c[p] = ring[sc][p][t + 1];
-        a[p] = stencil<OP>(c[p], ring[su][p][t + 1], ring[slot][p][t + 1],
-                           ring[sc][p][t], ring[sc][p][t + 2], rs, x, k) * ss;
-        av_out[p * plane + idx] = a[p];
-      }
-#pragma unroll
-      for (int i = 0; i < MAXW; ++i) {
-        if (i < nw) {
-          float wi[P];
-          load<P>(W.p[i], idx, plane, wi);
-          hdot<P>(wi, a, d[i]);
-        }
-      }
-      hdot<P>(c, a, dl);
-    }
-    __syncthreads();                   // ring slot is rewritten next step
-  }
-
-  // partial layout: nsq | gram_i (re, im), i < nw | d_i (re, im), i <= nw
-  put(red, 0, nsq);
-#pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    if (i < nw) {
-      put(red, 1 + 2 * i, g[i][0]);
-      put(red, 2 + 2 * i, g[i][1]);
-    }
-  }
-  int nout = 1 + 2 * nw;
-  if (!LAST) {
-#pragma unroll
-    for (int i = 0; i < MAXW; ++i) {
-      if (i < nw) {
-        put(red, nout + 2 * i, d[i][0]);
-        put(red, nout + 2 * i + 1, d[i][1]);
-      }
-    }
-    put(red, nout + 2 * nw, dl[0]);
-    put(red, nout + 2 * nw + 1, dl[1]);
-    nout += 2 * (nw + 1);
-  }
-  write_partials(red, nout, partial);
+template <int VEC>
+__device__ __forceinline__ int vcol(int f, int e) {
+  return VEC == 4 ? 4 * f + e : f + 32 * e;
 }
 
-// ---------------------------------------------------------------- K3 combine
-template <int P>
-__global__ void __launch_bounds__(256) combine_kernel(
-    const float* __restrict__ q, Cols W, int m, int k, Outs out, size_t n) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float y[KMAX][2] = {};
+// v[e] = p[vcol(f, e)] where vcol(f, e) < nv (inside the grid), else 0.
+template <int VEC>
+__device__ __forceinline__ void ldv(const float* __restrict__ p, int f,
+                                    int nv, float (&v)[4]) {
+  if (VEC == 4) {
+    if (4 * f < nv) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + f);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.0f;
+    }
+  } else {
 #pragma unroll
-  for (int i = 0; i < MAXCOLS; ++i) {
-    if (i < m) {
-      float w[2];
-      w[0] = __ldg(W.p[i] + e);
-      w[1] = P == 2 ? __ldg(W.p[i] + n + e) : 0.0f;
+    for (int e = 0; e < 4; ++e)
+      v[e] = f + 32 * e < nv ? __ldg(p + f + 32 * e) : 0.0f;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void stv(float* __restrict__ p, int f, int nv,
+                                    const float (&v)[4]) {
+  if (VEC == 4) {
+    if (4 * f < nv)
+      reinterpret_cast<float4*>(p)[f] = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
 #pragma unroll
-      for (int sp = 0; sp < KMAX; ++sp) {
-        if (sp < k) {
-          const float a = __ldg(q + 2 * (sp * m + i));
-          const float b = __ldg(q + 2 * (sp * m + i) + 1);
-          if (P == 1) {
-            y[sp][0] = i == 0 ? a * w[0] : y[sp][0] + a * w[0];
-          } else if (i == 0) {
-            y[sp][0] = a * w[0] - b * w[1];
-            y[sp][1] = a * w[1] + b * w[0];
-          } else {
-            y[sp][0] = y[sp][0] + a * w[0] - b * w[1];
-            y[sp][1] = y[sp][1] + a * w[1] + b * w[0];
+    for (int e = 0; e < 4; ++e)
+      if (f + 32 * e < nv) p[f + 32 * e] = v[e];
+  }
+}
+
+// The same layout in shared memory (a whole PX row, no mask).
+template <int VEC>
+__device__ __forceinline__ void lds(const float* p, int f, float (&v)[4]) {
+  if (VEC == 4) {
+    const float4 t = reinterpret_cast<const float4*>(p)[f];
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = p[f + 32 * e];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void sts(float* p, int f, const float (&v)[4]) {
+  if (VEC == 4) {
+    reinterpret_cast<float4*>(p)[f] = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[f + 32 * e] = v[e];
+  }
+}
+
+// W_{j+1} = s av_j - sum_i c_i W_i at a lane's four points of one row
+// (base: the offset of the row's first tile column, of which nv columns lie
+// inside the grid) and, where hin, at the halo column hoff columns from
+// there: rebuild's order of operations (lz_common.cuh), the basis pointers
+// and coefficients from shared memory.
+template <int P, int VEC>
+__device__ __forceinline__ void rebuild_row(
+    const float* __restrict__ av, const float* const* wp, const float* cf,
+    int nw, float s, size_t base, int nv, size_t plane, int lane, bool hin,
+    long hoff, float (&v)[P][4], float (&h)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    ldv<VEC>(av + p * plane + base, lane, nv, v[p]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[p][e] = s * v[p][e];
+    h[p] = hin ? s * __ldg(av + p * plane + base + hoff) : 0.0f;
+  }
+#pragma unroll 4
+  for (int i = 0; i < nw; ++i) {
+    const float cr = cf[2 * i], ci = cf[2 * i + 1];
+    const float* __restrict__ wi = wp[i];
+    float w[P][4], hw[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      ldv<VEC>(wi + p * plane + base, lane, nv, w[p]);
+      hw[p] = hin ? __ldg(wi + p * plane + base + hoff) : 0.0f;
+    }
+    if (P == 1) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[0][e] = v[0][e] - cr * w[0][e];
+      h[0] = h[0] - cr * hw[0];
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float a0 = v[0][e] - (cr * w[0][e] - ci * w[P - 1][e]);
+        v[P - 1][e] = v[P - 1][e] - (cr * w[P - 1][e] + ci * w[0][e]);
+        v[0][e] = a0;
+      }
+      const float h0 = h[0] - (cr * hw[0] - ci * hw[P - 1]);
+      h[P - 1] = h[P - 1] - (cr * hw[P - 1] + ci * hw[0]);
+      h[0] = h0;
+    }
+  }
+}
+
+// The operator's coefficients (load_coef's values) at a lane's four points
+// of row r; every lane of the warp calls it (VEC = 4 shuffles).
+template <int OP, int VEC>
+__device__ __forceinline__ void coef_row(const Op2d& op, int r, int x0,
+                                         int ny, int nx, size_t base, int nv,
+                                         int lane, float (&k)[4][4]) {
+  if (OP == OP_ISO) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      k[e][0] = stencil_diag(r, x0 + vcol<VEC>(lane, e), ny, nx, op.clean);
+    return;
+  }
+  float wx[4], wy[4], wu[4];
+  ldv<VEC>(op.wx + base, lane, nv, wx);
+  ldv<VEC>(op.wy + base, lane, nv, wy);
+  if (r > 0)
+    ldv<VEC>(op.wy + base - nx, lane, nv, wu);
+  else
+    wu[0] = wu[1] = wu[2] = wu[3] = 0.0f;
+  if (VEC == 4) {
+    float left = __shfl_up_sync(0xffffffffu, wx[3], 1);
+    if (lane == 0) left = x0 > 0 ? __ldg(op.wx + base - 1) : 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) k[e][1] = e == 0 ? left : wx[e - 1];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = vcol<VEC>(lane, e);
+      k[e][1] = x0 + c > 0 && c < nv ? __ldg(op.wx + base + c - 1) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    k[e][0] = wx[e];
+    k[e][2] = wy[e];
+    k[e][3] = wu[e];
+  }
+}
+
+// A lane's group sums for the dots: reduce over the group's lanes.
+template <int L>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// MAXW bounds nw = j + 1, the number of basis columns. LAST computes no
+// stencil, so its one instantiation (OP_ISO) serves both operators.
+// partial: output-major, partial[o * gridDim.x + block].
+// Two blocks per SM (128 registers) for the 16-byte forms; the scalar
+// forms and the real 32-column one need more registers than that.
+template <int P, int MAXW, bool LAST, int OP, int VEC>
+__global__ void __launch_bounds__(
+    PT, VEC == 4 && (P == 2 || MAXW < 32) ? 2 : 1) pipe_2d_kernel(
+    const float* __restrict__ scal, const float* __restrict__ av, Cols W,
+    int nw, Op2d op, float* __restrict__ wn_out, float* __restrict__ av_out,
+    float* __restrict__ partial, int ny, int nx, float ss, int steps) {
+  constexpr int NG = MAXW / 4;        // dot groups per warp
+  constexpr int L = 32 / NG;          // lanes per dot group
+  __shared__ __align__(16) float ring[LAST ? PWARP : RING][P][PX];
+  __shared__ float hal[LAST ? 1 : RING][P][2];
+  __shared__ __align__(16) float avb[LAST ? 1 : PWARP][P][PX];
+  __shared__ float red[PWARP][RED_W];
+  __shared__ float cf[2 * MAXW];
+  __shared__ const float* wp[MAXW];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int q = lane / L, gl = lane % L;
+  const size_t plane = (size_t)ny * nx;
+  const float s = scal[0];
+  for (int o = threadIdx.x; o < 2 * nw; o += PT) cf[o] = scal[2 + o];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < MAXW; ++i)
+      if (i < nw) wp[i] = W.p[i];
+  }
+  __syncthreads();
+
+  const int ty = PWARP * steps - 2;
+  const int ntx = (nx + PX - 1) / PX;
+  const int ntiles = ntx * ((ny + ty - 1) / ty);
+  float nsq = 0.0f;
+  float g[4][2] = {}, d[4][2] = {};
+  float dl[2] = {0.0f, 0.0f};        // d_{j+1} = <W_{j+1}, av_{j+1}>
+
+  // The dots of tile row r (base, nv) from W_{j+1} in wrow and, unless
+  // LAST, av_{j+1} in arow.
+  auto dots = [&](const float* wrow, const float* arow, size_t base,
+                  int nv) {
+#pragma unroll
+    for (int pc = 0; pc < NG; ++pc) {
+      const int f = gl + L * pc;
+      float wi[4][P][4], wv[P][4], a4[P][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {             // the group's loads first
+        const int i = q + NG * c;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (i < nw)
+            ldv<VEC>(wp[i] + p * plane + base, f, nv, wi[c][p]);
+          else
+            wi[c][p][0] = wi[c][p][1] = wi[c][p][2] = wi[c][p][3] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        lds<VEC>(wrow + p * PX, f, wv[p]);
+        if (!LAST) lds<VEC>(arow + p * PX, f, a4[p]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (q + NG * c < nw) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x[P], y[P], z[P];
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              x[p] = wi[c][p][e];
+              y[p] = wv[p][e];
+              z[p] = LAST ? 0.0f : a4[p][e];
+            }
+            hdot<P>(x, y, g[c]);
+            if (!LAST) hdot<P>(x, z, d[c]);
           }
         }
       }
     }
-  }
+  };
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int y0 = (tile / ntx) * ty, x0 = (tile % ntx) * PX;
+    const int nv = nx - x0;
+    if constexpr (LAST) {
+      for (int t = w; t < ty && y0 + t < ny; t += PWARP) {
+        const size_t base = (size_t)(y0 + t) * nx + x0;
+        float v[P][4], h[P];
+        rebuild_row<P, VEC>(av, wp, cf, nw, s, base, nv, plane, lane, false,
+                            0, v, h);
 #pragma unroll
-  for (int sp = 0; sp < KMAX; ++sp) {
-    if (sp < k) {
-      out.p[sp][e] = y[sp][0];
-      if (P == 2) out.p[sp][n + e] = y[sp][1];
+        for (int p = 0; p < P; ++p) {
+          stv<VEC>(wn_out + p * plane + base, lane, nv, v[p]);
+          sts<VEC>(ring[w][p], lane, v[p]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) nsq += v[p][e] * v[p][e];
+        }
+        __syncwarp();
+        dots(&ring[w][0][0], nullptr, base, nv);
+        __syncwarp();
+      }
+    } else {
+      for (int st = 0; st < steps; ++st) {
+        const int k = PWARP * st + w;             // rebuilt row y0 - 1 + k
+        if (k < ty + 2) {
+          const int r = y0 - 1 + k;
+          const int slot = k % RING;
+          float v[P][4], h[P];
+          const bool left = lane == 0, edge = left || lane == 31;
+          if (r >= 0 && r < ny) {
+            const size_t base = (size_t)r * nx + x0;
+            const long hoff = left ? -1 : PX;
+            const bool hin = edge && x0 + hoff >= 0 && x0 + hoff < nx;
+            rebuild_row<P, VEC>(av, wp, cf, nw, s, base, nv, plane, lane, hin,
+                                hoff, v, h);
+            if (k >= 1 && k <= ty) {
+#pragma unroll
+              for (int p = 0; p < P; ++p) {
+                stv<VEC>(wn_out + p * plane + base, lane, nv, v[p]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) nsq += v[p][e] * v[p][e];
+              }
+            }
+          } else {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              v[p][0] = v[p][1] = v[p][2] = v[p][3] = 0.0f;
+              h[p] = 0.0f;
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            sts<VEC>(ring[slot][p], lane, v[p]);
+            if (edge) hal[slot][p][left ? 0 : 1] = h[p];
+          }
+        }
+        __syncthreads();
+        const int t = k - 2;                      // stencilled tile row
+        if (t >= 0 && t < ty && y0 + t < ny) {
+          const int r = y0 + t;
+          const size_t base = (size_t)r * nx + x0;
+          const int sc = (t + 1) % RING, su = t % RING, sd = (t + 2) % RING;
+          float kf[4][4];
+          coef_row<OP, VEC>(op, r, x0, ny, nx, base, nv, lane, kf);
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            float cv[4], up[4], dn[4], lf[4], rt[4], a[4];
+            lds<VEC>(ring[sc][p], lane, cv);
+            lds<VEC>(ring[su][p], lane, up);
+            lds<VEC>(ring[sd][p], lane, dn);
+            if (VEC == 4) {
+              const float l0 = __shfl_up_sync(0xffffffffu, cv[3], 1);
+              const float r3 = __shfl_down_sync(0xffffffffu, cv[0], 1);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                lf[e] = e > 0 ? cv[e - 1] : lane > 0 ? l0 : hal[sc][p][0];
+                rt[e] = e < 3 ? cv[e + 1] : lane < 31 ? r3 : hal[sc][p][1];
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int c = vcol<VEC>(lane, e);
+                lf[e] = c > 0 ? ring[sc][p][c - 1] : hal[sc][p][0];
+                rt[e] = c < PX - 1 ? ring[sc][p][c + 1] : hal[sc][p][1];
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = vcol<VEC>(lane, e);
+              a[e] = c < nv ? stencil<OP>(cv[e], up[e], dn[e], lf[e], rt[e], r,
+                                          x0 + c, kf[e]) * ss
+                            : 0.0f;
+            }
+            stv<VEC>(av_out + p * plane + base, lane, nv, a);
+            sts<VEC>(avb[w][p], lane, a);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float cc[P], aa[P];
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              cc[p] = ring[sc][p][vcol<VEC>(lane, e)];
+              aa[p] = avb[w][p][vcol<VEC>(lane, e)];
+            }
+            hdot<P>(cc, aa, dl);
+          }
+          __syncwarp();
+          dots(&ring[sc][0][0], &avb[w][0][0], base, nv);
+          __syncwarp();
+        }
+      }
+      __syncthreads();                            // the ring is reused
+    }
+  }
+
+  // partial layout: nsq | gram_i (re, im), i < nw | d_i (re, im), i <= nw
+  nsq = warp_sum(nsq);
+  if (lane == 0) red[w][0] = nsq;
+  const int nd = 1 + 2 * nw;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int i = q + NG * c;
+    float gs[2], ds[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      gs[h] = group_sum<L>(g[c][h]);
+      ds[h] = LAST ? 0.0f : group_sum<L>(d[c][h]);
+    }
+    if (gl == 0 && i < nw) {
+      red[w][1 + 2 * i] = gs[0];
+      red[w][2 + 2 * i] = gs[1];
+      if (!LAST) {
+        red[w][nd + 2 * i] = ds[0];
+        red[w][nd + 2 * i + 1] = ds[1];
+      }
+    }
+  }
+  int nout = nd;
+  if (!LAST) {
+    const float d0 = warp_sum(dl[0]), d1 = warp_sum(dl[1]);
+    if (lane == 0) {
+      red[w][nd + 2 * nw] = d0;
+      red[w][nd + 2 * nw + 1] = d1;
+    }
+    nout += 2 * (nw + 1);
+  }
+  __syncthreads();
+  for (int o = threadIdx.x; o < nout; o += PT) {
+    float v = red[0][o];
+#pragma unroll
+    for (int ww = 1; ww < PWARP; ++ww) v += red[ww][o];
+    partial[(size_t)o * gridDim.x + blockIdx.x] = v;
+  }
+}
+
+// ---------------------------------------------------------------- K3 combine
+// A fixed grid of the blocks that fit on the card walks the points in
+// grid-stride order; each block loads the k m coefficients and the column
+// pointers into shared memory once. A thread takes four points per visit,
+// as one 16-byte vector per column and plane (VEC = 4: n % 4 == 0 and
+// every pointer 16-byte aligned) or as one point (VEC = 1), and keeps up to
+// four columns' loads in flight.
+constexpr int CB = 256;               // threads per K3 block
+
+template <int P, int VEC>
+__global__ void __launch_bounds__(CB) combine_kernel(
+    const float* __restrict__ q, Cols W, int m, int k, Outs out, size_t n) {
+  __shared__ float qs[2 * KMAX * MAXCOLS];
+  __shared__ const float* wp[MAXCOLS];
+  for (int o = threadIdx.x; o < 2 * k * m; o += CB) qs[o] = q[o];
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < MAXCOLS; ++i)
+      if (i < m) wp[i] = W.p[i];
+  }
+  __syncthreads();
+  const size_t nvec = n / VEC;
+  const size_t stride = (size_t)gridDim.x * CB;
+  for (size_t e = (size_t)blockIdx.x * CB + threadIdx.x; e < nvec;
+       e += stride) {
+    float y[KMAX][P][VEC];
+    auto load = [&](int i, float (&w)[P][VEC]) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (VEC == 4) {
+          const float4 t = __ldg(
+              reinterpret_cast<const float4*>(wp[i] + p * n) + e);
+          w[p][0] = t.x; w[p][1] = t.y; w[p][2] = t.z; w[p][3] = t.w;
+        } else {
+          w[p][0] = __ldg(wp[i] + p * n + e);
+        }
+      }
+    };
+    {
+      float w[P][VEC];
+      load(0, w);
+#pragma unroll
+      for (int sp = 0; sp < KMAX; ++sp) {
+        if (sp < k) {
+          const float a = qs[2 * sp * m], b = qs[2 * sp * m + 1];
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) {
+            if (P == 1) {
+              y[sp][0][c] = a * w[0][c];
+            } else {
+              y[sp][0][c] = a * w[0][c] - b * w[P - 1][c];
+              y[sp][P - 1][c] = a * w[P - 1][c] + b * w[0][c];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll 4
+    for (int i = 1; i < m; ++i) {
+      float w[P][VEC];
+      load(i, w);
+#pragma unroll
+      for (int sp = 0; sp < KMAX; ++sp) {
+        if (sp < k) {
+          const float a = qs[2 * (sp * m + i)], b = qs[2 * (sp * m + i) + 1];
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) {
+            if (P == 1) {
+              y[sp][0][c] = y[sp][0][c] + a * w[0][c];
+            } else {
+              y[sp][0][c] = y[sp][0][c] + a * w[0][c] - b * w[P - 1][c];
+              y[sp][P - 1][c] = y[sp][P - 1][c] + a * w[P - 1][c]
+                                + b * w[0][c];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int sp = 0; sp < KMAX; ++sp) {
+      if (sp < k) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (VEC == 4)
+            reinterpret_cast<float4*>(out.p[sp] + p * n)[e] = make_float4(
+                y[sp][p][0], y[sp][p][1], y[sp][p][2], y[sp][p][3]);
+          else
+            out.p[sp][p * n + e] = y[sp][p][0];
+        }
+      }
     }
   }
 }
@@ -394,16 +750,86 @@ void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
       ny, nx, ss);
 }
 
+// Blocks of `threads` threads of `kernel` that fit on the card at once.
+template <class K>
+int resident_blocks(K kernel, int threads) {
+  int dev = 0, sms = 0, occ = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads,
+                                                       0) != cudaSuccess)
+    return 0;
+  return occ * sms;
+}
+
+int num_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess)
+      return 0;
+    return sms;
+  }();
+  return n;
+}
+
+int pipe_tiles(int ny, int nx, int steps) {
+  const int ty = PWARP * steps - 2;
+  return ((ny + ty - 1) / ty) * ((nx + PX - 1) / PX);
+}
+
+// Steps per K2 tile (ty = 8 steps - 2 rows) for a grid of `fit` resident
+// blocks: the fewest steps the busiest block takes, ceil(tiles / fit)
+// steps, and of those the tallest tiles (the fewest halo rows).
+int pipe_steps(int ny, int nx, int fit) {
+  int best = 8, cost = -1;
+  for (int steps = 8; steps >= 2; --steps) {
+    const int c = (pipe_tiles(ny, nx, steps) + fit - 1) / fit * steps;
+    if (cost < 0 || c < cost) {
+      best = steps;
+      cost = c;
+    }
+  }
+  return best;
+}
+
+// Most blocks of PT threads the card holds at once (2048 threads per SM):
+// a bound on the partial sums per output of any K2 launch.
+int pipe_max_blocks() { return 2048 / PT * num_sms(); }
+
+bool aligned16(const void* p) {
+  return p == nullptr || ((size_t)p & 15) == 0;
+}
+
+template <int P, int MAXW, bool LAST, int OP, int VEC>
+int launch_pipe(const float* scal, const float* av, Cols W, int nw,
+                const Op2d& op, float* wn, float* avn, float* partial,
+                float* red, int ny, int nx, float ss, cudaStream_t st) {
+  auto kern = pipe_2d_kernel<P, MAXW, LAST, OP, VEC>;
+  static const int fit = resident_blocks(kern, PT);
+  if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int steps = pipe_steps(ny, nx, fit);
+  const int tiles = pipe_tiles(ny, nx, steps);
+  const int grid = tiles < fit ? tiles : fit;
+  kern<<<grid, PT, 0, st>>>(scal, av, W, nw, op, wn, avn, partial, ny, nx,
+                            ss, steps);
+  const int nout = 1 + 2 * nw + (LAST ? 0 : 2 * (nw + 1));
+  reduce_partials_om<<<nout, RED_THREADS, 0, st>>>(partial, grid, red);
+  return (int)cudaGetLastError();
+}
+
 template <int P, int MAXW, int OP>
-void launch_pipe(bool last, const float* scal, const float* av, Cols W,
-                 int nw, const Op2d& op, float* wn, float* avn,
-                 float* partial, int ny, int nx, float ss, cudaStream_t st) {
-  if (last)
-    pipe_2d_kernel<P, MAXW, true, OP_ISO><<<tile_grid(ny, nx), TX, 0, st>>>(
-        scal, av, W, nw, op, wn, avn, partial, ny, nx, ss);
-  else
-    pipe_2d_kernel<P, MAXW, false, OP><<<tile_grid(ny, nx), TX, 0, st>>>(
-        scal, av, W, nw, op, wn, avn, partial, ny, nx, ss);
+int pipe_vec(bool last, bool vec, const float* scal, const float* av,
+             Cols W, int nw, const Op2d& op, float* wn, float* avn,
+             float* partial, float* red, int ny, int nx, float ss,
+             cudaStream_t st) {
+#define LZ_PV(LL, OO, VV) launch_pipe<P, MAXW, LL, OO, VV>(                \
+    scal, av, W, nw, op, wn, avn, partial, red, ny, nx, ss, st)
+  if (last) return vec ? LZ_PV(true, OP_ISO, 4) : LZ_PV(true, OP_ISO, 1);
+  return vec ? LZ_PV(false, OP, 4) : LZ_PV(false, OP, 1);
+#undef LZ_PV
 }
 
 int num_blocks(int ny, int nx) {
@@ -440,6 +866,8 @@ int pass1_2d(int P, const float* scal, const float* wj,
 }
 
 // K2 / K2' with the operator OP, then the reduction of its partial sums.
+// The 16-byte instantiation takes rows of nx % 4 == 0 columns and 16-byte
+// aligned fields; any other call takes the scalar one.
 template <int OP>
 int pipe_2d(int P, int last, const float* scal, const float* av,
             const float* const* W, int nw, const Op2d& op, float* wn,
@@ -450,19 +878,29 @@ int pipe_2d(int P, int last, const float* scal, const float* av,
   const Cols c = make_cols(W, nw);
   const int b = bucket(nw);
   const bool l = last != 0;
-#define LZ_PI(PP, BB) launch_pipe<PP, BB, OP>(l, scal, av, c, nw, op, wn, \
-                                              avn, partial, ny, nx, ss, st)
-  if (P == 1) {
-    if (b == 4) LZ_PI(1, 4); else if (b == 8) LZ_PI(1, 8);
-    else if (b == 16) LZ_PI(1, 16); else LZ_PI(1, 32);
-  } else {
-    if (b == 4) LZ_PI(2, 4); else if (b == 8) LZ_PI(2, 8);
-    else if (b == 16) LZ_PI(2, 16); else LZ_PI(2, 32);
-  }
+  bool vec = nx % 4 == 0 && aligned16(av) && aligned16(wn)
+             && (l || aligned16(avn));
+  for (int i = 0; i < nw; ++i) vec = vec && aligned16(W[i]);
+  if (OP == OP_ANISO && !l) vec = vec && aligned16(op.wx) && aligned16(op.wy);
+#define LZ_PI(PP, BB) pipe_vec<PP, BB, OP>(l, vec, scal, av, c, nw, op, wn, \
+                                           avn, partial, red, ny, nx, ss, st)
+  if (P == 1)
+    return b == 4 ? LZ_PI(1, 4) : b == 8 ? LZ_PI(1, 8)
+           : b == 16 ? LZ_PI(1, 16) : LZ_PI(1, 32);
+  return b == 4 ? LZ_PI(2, 4) : b == 8 ? LZ_PI(2, 8)
+         : b == 16 ? LZ_PI(2, 16) : LZ_PI(2, 32);
 #undef LZ_PI
-  const int nout = 1 + 2 * nw + (l ? 0 : 2 * (nw + 1));
-  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, num_blocks(ny, nx),
-                                                nout, red);
+}
+
+template <int P, int VEC>
+int launch_combine(const float* q, Cols W, int m, int k, Outs o, size_t n,
+                   cudaStream_t st) {
+  auto kern = combine_kernel<P, VEC>;
+  static const int fit = resident_blocks(kern, CB);
+  const size_t need = (n / VEC + CB - 1) / CB;
+  const int grid = need < (size_t)fit ? (int)need : fit;
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  kern<<<grid, CB, 0, st>>>(q, W, m, k, o, n);
   return (int)cudaGetLastError();
 }
 
@@ -470,8 +908,11 @@ int pipe_2d(int P, int last, const float* scal, const float* av,
 
 extern "C" {
 
-// Number of blocks (= partial-sum rows) the K1/K2 launches use.
+// Number of blocks (= partial-sum rows) the K1 launches use.
 int lz_num_blocks(int ny, int nx) { return num_blocks(ny, nx); }
+
+// Most blocks (= partial sums per output) a K2 launch uses.
+int lz_pipe_blocks() { return pipe_max_blocks(); }
 
 int lz_max_cols() { return MAXCOLS; }
 const char* lz_error_string(int err) {
@@ -526,7 +967,7 @@ int lz_pass1_shard2d(int P, int aniso, int clean, const float* scal,
 }
 
 // K2. W: host array of nw = j+1 device pointers W_0..W_j. scal: (nw+1, 2)
-// device buffer [(s_j, 0), c_0..c_j]. partial: scratch of lz_num_blocks *
+// device buffer [(s_j, 0), c_0..c_j]. partial: scratch of lz_pipe_blocks *
 // nout floats; red: nout outputs, nout = 1 + 2nw (+ 2(nw+1) unless last).
 int lz_pipe_iso2d(int P, int last, const float* scal, const float* av,
                   const float* const* W, int nw, float* wn, float* avn,
@@ -586,14 +1027,18 @@ int lz_combine(int P, const float* q, const float* const* W, int m, int k,
     return (int)cudaErrorInvalidValue;
   const Cols c = make_cols(W, m);
   Outs o = {};
-  for (int i = 0; i < k; ++i) o.p[i] = outs[i];
   const size_t n = (size_t)ny * nx;
-  const unsigned grid = (unsigned)((n + 255) / 256);
+  bool vec = n % 4 == 0;
+  for (int i = 0; i < k; ++i) {
+    o.p[i] = outs[i];
+    vec = vec && aligned16(outs[i]);
+  }
+  for (int i = 0; i < m; ++i) vec = vec && aligned16(W[i]);
   if (P == 1)
-    combine_kernel<1><<<grid, 256, 0, st>>>(q, c, m, k, o, n);
-  else
-    combine_kernel<2><<<grid, 256, 0, st>>>(q, c, m, k, o, n);
-  return (int)cudaGetLastError();
+    return vec ? launch_combine<1, 4>(q, c, m, k, o, n, st)
+               : launch_combine<1, 1>(q, c, m, k, o, n, st);
+  return vec ? launch_combine<2, 4>(q, c, m, k, o, n, st)
+             : launch_combine<2, 1>(q, c, m, k, o, n, st);
 }
 
 }  // extern "C"

@@ -89,7 +89,8 @@ __device__ __forceinline__ void write_partials_n(float (*red)[RED_W],
 
 // W_{j+1} = s av_j - sum_i c_i W_i at one point from av_j and W_0..W_j
 // (the order of operations of the Pallas pipe kernels' reconstruction),
-// shared by lanczos2d.cu's K2 and lanczos3d.cu's pipe_3d.
+// lanczos3d.cu's pipe_3d; lanczos2d.cu's K2 (rebuild_row) keeps this order
+// on four points at a time.
 template <int P, int MAXW>
 __device__ __forceinline__ void rebuild(const float* __restrict__ av,
                                         const Cols& W, int nw, float s,
@@ -122,6 +123,26 @@ __global__ void reduce_partials(const float* __restrict__ partial, int nblk,
   float acc = 0.0f;
   for (int b = threadIdx.x; b < nblk; b += RED_THREADS)
     acc += partial[(size_t)b * nout + o];
+  acc = warp_sum(acc);
+  if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = ws[0];
+#pragma unroll
+    for (int w = 1; w < RED_THREADS / 32; ++w) s += ws[w];
+    out[o] = s;
+  }
+}
+
+// As reduce_partials, for partial sums stored output-major, partial[o, b]
+// (nblk sums per output): consecutive threads read consecutive blocks' sums.
+__global__ void reduce_partials_om(const float* __restrict__ partial,
+                                   int nblk, float* __restrict__ out) {
+  __shared__ float ws[RED_THREADS / 32];
+  const int o = blockIdx.x;
+  const float* __restrict__ row = partial + (size_t)o * nblk;
+  float acc = 0.0f;
+  for (int b = threadIdx.x; b < nblk; b += RED_THREADS) acc += row[b];
   acc = warp_sum(acc);
   if ((threadIdx.x & 31) == 0) ws[threadIdx.x >> 5] = acc;
   __syncthreads();

@@ -129,6 +129,7 @@ def _lib():
     pp = ctypes.POINTER(ctypes.c_void_p)
     for name, args in (
             ("lz_num_blocks", [i32, i32]),
+            ("lz_pipe_blocks", []),
             ("lz_max_cols", []),
             ("lz_max_specs", []),
             ("lz_pass1_iso2d",
@@ -525,7 +526,7 @@ def _pipe(scal, av, W, desc, last, aniso, what):
     nout = 1 + 2 * nw + (0 if last else 2 * (nw + 1))
     wn = torch.empty_like(av)
     avn = None if last else torch.empty_like(av)
-    partial = torch.empty(lib.lz_num_blocks(ny, nx) * nout,
+    partial = torch.empty(lib.lz_pipe_blocks() * nout,
                           dtype=torch.float32, device=av.device)
     red = torch.empty(nout, dtype=torch.float32, device=av.device)
     head = (P, int(last), scal.data_ptr(), av.data_ptr(), _ptrs(W), nw)

@@ -328,7 +328,8 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
                            axis_names=("gy", "gx"), batch_axis=None,
                            sigma1=1.0, sigma2=-0.1, kappa=1.0,
                            krylov_m=10, dtype=torch.complex64,
-                           variant="reference", reorth=True, use_c=False):
+                           variant="reference", apply_bc=True, reorth=True,
+                           use_c=False):
     """An SS2 step over a spatially sharded grid.
 
     Returns step(u_parts, m_parts) -> u_parts, or step(u_parts, m_parts,
@@ -337,8 +338,8 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
     (parallel/shards.shard): u is planar, (2,) + the local block of each
     shard, stacked (re, im) float32; m and c are float32 local blocks. 3D
     grids take axis_names=("gz", "gy", "gx"). The state stays sharded from
-    step to step; shards.gather makes it one global field. The Neumann
-    ghost copy runs after every step.
+    step to step; shards.gather makes it one global field. With apply_bc
+    the Neumann ghost copy runs after every step; apply_bc=False skips it.
 
     The port takes the complex64 planar path of the JAX package
     (local_single_planar). batch_axis, dtype=complex128 and reorth=False
@@ -375,7 +376,10 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
         raise ValueError(f"the sharded kernels do not take {probe['kind']} "
                          f"(variant {variant!r}) on local blocks {lshape}")
     Rl, nxl = int(np.prod(lshape[:-1])), lshape[-1]
-    if three_d:
+    if not apply_bc:
+        def neumann(ups):
+            return ups
+    elif three_d:
         from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
         offs = [offsets(mesh, k, axis_names, lshape)
                 for k in range(mesh.size)]

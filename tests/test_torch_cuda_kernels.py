@@ -467,3 +467,90 @@ def test_sharded_step_on_card(cuda, shape, mshape, variant, use_c):
     assert [f.launches - b for f, b in zip(counters, before)] == [
         n * k for k in per]
     assert _rel(got, want) <= FIELD_TOL
+
+
+# ------------------------------------------------ K2/K2' tiles and K3 vectors
+
+def _pipe_desc(op, ny, nx, P, cuda):
+    """The operator of a K2 (iso, reference) or K2' (aniso) case; sign -1
+    with a real field, as a real-wave operator runs."""
+    d = _desc(ny, nx, "reference") if op == "iso" else _desc_aniso(ny, nx,
+                                                                    cuda)
+    return dict(d, sign=-1.0) if P == 1 else d
+
+
+# (shape, j, P, last): nx % 4 in {0, 1, 2, 3} (16-byte and scalar
+# instantiations; 37 x 129 and 19 x 303 also have a plane size n % 4 != 0),
+# every bucket up to j = 18 (m = 20), LAST, real fields, and a grid of more
+# tiles than one pass of the fixed grid
+_PIPE_CASES = [((64, 64), 0, 2, False), ((64, 64), 5, 2, False),
+               ((37, 129), 12, 2, False), ((50, 130), 18, 2, False),
+               ((19, 303), 3, 2, False), ((64, 64), 8, 2, True),
+               ((50, 130), 18, 2, True), ((37, 129), 4, 1, False),
+               ((64, 64), 16, 1, True), ((2048, 4096), 2, 2, False)]
+
+
+@pytest.mark.parametrize("op", ["iso", "aniso"])
+@pytest.mark.parametrize("shape,j,P,last", _PIPE_CASES,
+                         ids=[f"{s[0]}x{s[1]}-j{j}-P{P}{'-last' * l}"
+                              for s, j, P, l in _PIPE_CASES])
+def test_pipe_2d_tiles_match_plain_on_card(cuda, op, shape, j, P, last):
+    ny, nx = shape
+    desc = _pipe_desc(op, ny, nx, P, cuda)
+    av, *W = _fields_on(cuda, j + 2, shape, P, 90 + j)
+    rng = np.random.default_rng(91 + j)
+    scal = torch.from_numpy(
+        rng.uniform(-0.5, 0.5, (j + 2, 2)).astype(np.float32)).to(cuda)
+    fn = tl.pipe_iso2d if op == "iso" else tl.pipe_aniso2d
+    before = fn.launches
+    _check(*_kernel_and_plain(lambda: fn(scal, av, W, desc, last)), [av, *W])
+    assert fn.launches == before + 1
+
+
+# (shape, m, k, P, offset): 16-byte vectors (n % 4 == 0), scalars (n % 4
+# != 0, or a column that starts 4 bytes past a 16-byte boundary), k = 1..4
+# specs, real fields, and more points than one pass of the fixed grid
+_COMBINE_CASES = [((64, 64), 10, 1, 2, 0), ((64, 64), 20, 2, 2, 0),
+                  ((37, 129), 10, 3, 2, 0), ((250, 333), 10, 4, 2, 0),
+                  ((64, 64), 10, 2, 2, 1), ((19, 303), 7, 2, 1, 0),
+                  ((64, 64), 1, 1, 1, 0), ((1024, 2048), 10, 4, 2, 0)]
+
+
+@pytest.mark.parametrize("shape,m,k,P,offset", _COMBINE_CASES,
+                         ids=[f"{s[0]}x{s[1]}-m{m}-k{k}-P{P}-off{o}"
+                              for s, m, k, P, o in _COMBINE_CASES])
+def test_combine_vectors_match_plain_on_card(cuda, shape, m, k, P, offset):
+    W = _fields_on(cuda, m, shape, P, 120 + m)
+    if offset:
+        W = [torch.cat([torch.zeros(offset, device=cuda),
+                        w.reshape(-1)])[offset:].view(w.shape) for w in W]
+        assert W[0].data_ptr() % 16 != 0
+    rng = np.random.default_rng(121 + k)
+    q = torch.from_numpy(
+        rng.uniform(-0.5, 0.5, (k, m, 2)).astype(np.float32)).to(cuda)
+    before = tl.combine.launches
+    got, want = _kernel_and_plain(lambda: tl.combine(q, W))
+    assert len(got) == k
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= FIELD_TOL
+    assert tl.combine.launches == before + 1
+
+
+@pytest.mark.parametrize("op,shape", [("iso", (1024, 1024)),
+                                      ("aniso", (250, 333))])
+def test_pipe_2d_and_combine_repeat_bit_for_bit(cuda, op, shape):
+    """Two launches on the same inputs give the same bits: fields, norms
+    and dots (fixed grid, fixed order of sums, no atomics)."""
+    ny, nx = shape
+    desc = _pipe_desc(op, ny, nx, 2, cuda)
+    av, *W = _fields_on(cuda, 10, shape, 2, 130)
+    scal = torch.from_numpy(np.random.default_rng(131).uniform(
+        -0.5, 0.5, (10, 2)).astype(np.float32)).to(cuda)
+    fn = tl.pipe_iso2d if op == "iso" else tl.pipe_aniso2d
+    q = scal[None, :9].contiguous()
+    for last in (False, True):
+        a = fn(scal, av, W, desc, last)
+        b = fn(scal, av, W, desc, last)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y)
+               for x, y in zip(tl.combine(q, W), tl.combine(q, W)))

@@ -319,6 +319,64 @@ def test_sharded_step_matches_jax_and_unsharded(use_c):
             tl.combine.launches) == before
 
 
+@pytest.mark.parametrize("use_c", [False, True], ids=["iso", "aniso"])
+def test_sharded_step_without_bc_matches_jax(use_c):
+    """apply_bc=False skips the ghost copy on both sides: the port's step
+    against JAX's with apply_bc=False (interpret mode) on the test above's
+    grid and mesh, and unlike the step with the ghost copy."""
+    rng = np.random.default_rng(37)
+    u0 = 0.1 * rng.standard_normal((2, N, N)).astype(np.float32)
+    mf = np.ones((N, N), np.float32)
+    c = (1.0 + 0.4 * rng.random((N, N))).astype(np.float32)
+    args = (u0, mf, c) if use_c else (u0, mf)
+    jm, tm = _jax_mesh((2, 2)), _port_mesh((2, 2))
+    kw = dict(axis_names=AXES, krylov_m=M_KRY, use_c=use_c)
+    parts = [shards.shard(a, tm) for a in args]
+    got = shards.gather(tspatial.make_sharded_nlse_step(
+        "cubic", (N, N), LX, DT, tm, apply_bc=False, **kw)(*parts),
+        tm).numpy()
+    old = jconfig.pallas_mode
+    jconfig.pallas_mode = "interpret"
+    try:
+        jstep = jspatial.make_sharded_nlse_step(
+            "cubic", (N, N), LX, DT, jm, dtype=jnp.complex64,
+            apply_bc=False, **kw)
+    finally:
+        jconfig.pallas_mode = old
+    want = _run_jax(jstep, args, "interpret")
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
+    with_bc = shards.gather(tspatial.make_sharded_nlse_step(
+        "cubic", (N, N), LX, DT, tm, **kw)(*parts), tm).numpy()
+    assert not np.array_equal(got[:, 0], with_bc[:, 0])   # the ghost row
+    np.testing.assert_array_equal(got[:, 1:-1, 1:-1], with_bc[:, 1:-1, 1:-1])
+
+
+def test_sharded_step_positional_arguments_bind_as_jax():
+    """The parameters of make_sharded_nlse_step come in JAX's order, so
+    apply_bc, reorth and use_c given by position bind as in JAX."""
+    import inspect
+    names = list(inspect.signature(tspatial.make_sharded_nlse_step).parameters)
+    assert names == list(
+        inspect.signature(jspatial.make_sharded_nlse_step).parameters)
+    assert names[-3:] == ["apply_bc", "reorth", "use_c"]
+    n = 32
+    rng = np.random.default_rng(41)
+    tm = _port_mesh((2, 2))
+    u0 = 0.1 * rng.standard_normal((2, n, n)).astype(np.float32)
+    mf = np.ones((n, n), np.float32)
+    c = (1.0 + 0.4 * rng.random((n, n))).astype(np.float32)
+    parts = [shards.shard(a, tm) for a in (u0, mf, c)]
+    head = ("cubic", (n, n), LX, DT, tm, AXES, None, 1.0, -0.1, 1.0, M_KRY,
+            torch.complex64, "reference")
+    by_pos = tspatial.make_sharded_nlse_step(*head, False, True, True)
+    by_kw = tspatial.make_sharded_nlse_step(*head, apply_bc=False,
+                                            reorth=True, use_c=True)
+    np.testing.assert_array_equal(shards.gather(by_pos(*parts), tm).numpy(),
+                                  shards.gather(by_kw(*parts), tm).numpy())
+    with pytest.raises(NotImplementedError):     # reorth=False by position
+        tspatial.make_sharded_nlse_step(*head, True, False, False)
+
+
 def test_sharded_step_errors():
     tm = _port_mesh((2, 2))
     with pytest.raises(ValueError):              # the grid does not divide

@@ -375,6 +375,40 @@ def test_sharded_step_3d_matches_jax_and_unsharded(shape, mshape, variant,
 
 
 @pytest.mark.parametrize("use_c", [False, True], ids=["iso", "aniso"])
+def test_sharded_step_3d_without_bc_matches_jax(use_c):
+    """apply_bc=False skips the ghost copy (bc3d per shard) on both sides:
+    the port's step against JAX's with apply_bc=False (interpret mode) on
+    the clean (2, 2, 2) case above, and unlike the step with the copy."""
+    shape, mshape = (32, 32, 256), (2, 2, 2)
+    rng = np.random.default_rng(53)
+    u0 = 0.1 * rng.standard_normal((2,) + shape).astype(np.float32)
+    mf = np.ones(shape, np.float32)
+    c = (1.0 + 0.4 * rng.random(shape)).astype(np.float32)
+    args = (u0, mf, c) if use_c else (u0, mf)
+    jm, tm = _jax_mesh(mshape), _port_mesh(mshape)
+    kw = dict(axis_names=AXES, krylov_m=M_KRY, variant="clean", use_c=use_c)
+    parts = [shards.shard(a, tm) for a in args]
+    got = shards.gather(tspatial.make_sharded_nlse_step(
+        "cubic", shape, LX, DT, tm, apply_bc=False, **kw)(*parts),
+        tm).numpy()
+    old = jconfig.pallas_mode
+    jconfig.pallas_mode = "interpret"
+    try:
+        step = jspatial.make_sharded_nlse_step(
+            "cubic", shape, LX, DT, jm, dtype=jnp.complex64, apply_bc=False,
+            **kw)
+        want = np.asarray(step(*[jnp.asarray(a) for a in args]))
+    finally:
+        jconfig.pallas_mode = old
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-5)
+    with_bc = shards.gather(tspatial.make_sharded_nlse_step(
+        "cubic", shape, LX, DT, tm, **kw)(*parts), tm).numpy()
+    assert not np.array_equal(got[:, 0], with_bc[:, 0])   # the ghost plane
+    inner = (slice(None),) + (slice(1, -1),) * 3
+    np.testing.assert_array_equal(got[inner], with_bc[inner])
+
+
+@pytest.mark.parametrize("use_c", [False, True], ids=["iso", "aniso"])
 def test_sharded_step_3d_errors(use_c):
     """The reference variant with split y raises JAX's ValueError; so does
     a grid that does not divide over the mesh."""
