@@ -10,7 +10,8 @@ Phases, one line each (or a few):
   2. build     one nvcc per csrc/*.cu, all started together; seconds,
                registers and spills from ptxas, and per instantiation of
                the 2D pass1/pipe kernels (iso and aniso; K2 in its 16-byte
-               and scalar forms) and of K3
+               and scalar forms), of K3, K5, K8 <P, MAXW, MODE, VEC> and
+               K13 <MAXW, VEC>
   3. parity    each 2D kernel (K1-K3) against its plain PyTorch version on
                the same seeded CUDA tensors, at 1024^2 complex64, 4096^2
                and on ragged grids (250x333, 250x334, 251x335: the scalar
@@ -78,13 +79,18 @@ Phases, one line each (or a few):
                run carries its step index, so sEWI bootstraps once.
  16. parity-optin  the kernels of the opt-in paths against their plain
                versions: K13 (ss2_resident_step, one whole SS2 step) at
-               1024^2 m=10 and on a ragged 250x333 grid (every density,
-               both variants, with and without the ghost ring, m=20); K5
-               (iter_step) at 1024^2, 128^3 and ragged grids, every operator
-               it takes, complex and real fields, j up to 18; K8 (pipe_3d)
-               at 128^3 and on a ragged 20x30x50 grid, every 3D operator,
-               complex and real, j up to 18. The gates of phase 3. Device
-               times per step of their paths beside the bounds.
+               1024^2 m=10 and on ragged grids (250x333, 200x256, 130x260,
+               97x333, 3x129, 5x3: every density, both variants, with and
+               without the ghost ring, m from 1 to 20); K5 (iter_step) at
+               1024^2, 128^3 and ragged grids, every operator it takes,
+               complex and real fields, j up to 18; K8 (pipe_3d) at 128^3,
+               256^3 and on ragged grids (20x30x50, 37x50x61, 21x23x64,
+               9x31x260, 33x17x132, 17x3x33: nx % 4 == 0 and != 0, bricks
+               cut in y and z, halo columns), every 3D operator, complex and
+               real, j up to 18. The gates of phase 3; K8 and K13 launched
+               twice repeat bit for bit. Device times per step of their
+               paths beside the bounds, K8 and K13 also by CUDA-graph
+               replay, and K13's streaming floor.
  17. main-resident  phase 4's problem with config.resident_mode "auto":
                200 steps through problems.run under
                torch.cuda.set_sync_debug_mode("error") (no host sync),
@@ -137,10 +143,10 @@ Phases, one line each (or a few):
                interleaved, with phase 6's profile.
 Then the card's name and power limit, the kernels as one JSON line (all
 thirteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
-pass1_shard2d, pass1_shard3d; `ms` of K2, K2' and K3 is the CUDA-graph
-reading, with the profiler's sum and the events beside it, and K3's
-library_ms torch.matmul's graph reading), and last {"ok": true, "device":
-...}. Any failed phase exits non-zero and prints no result.
+pass1_shard2d, pass1_shard3d; `ms` of K2, K2', K3, K8 and K13 is the
+CUDA-graph reading, with the profiler's sum and the events beside it, and
+K3's library_ms torch.matmul's graph reading), and last {"ok": true,
+"device": ...}. Any failed phase exits non-zero and prints no result.
 """
 
 import dataclasses
@@ -499,7 +505,7 @@ def main():
               f"{'; '.join(spills)}")
     # every instantiation of the 2D kernels: <P, MAXW, OP> (OP 1 = aniso),
     # K2 <P, MAXW, LAST, OP, VEC> and K3 <P, VEC> (VEC 4: 16-byte loads);
-    # K5 <P, MAXW, OPK>, K8 <P, MAXW, MODE>, K13 <MAXW>
+    # K5 <P, MAXW, OPK>, K8 <P, MAXW, MODE, VEC>, K13 <MAXW, VEC>
     for kname, nreg, spill in [r for lib in libs for r in resources[lib]]:
         if kname.startswith(("pass1_2d_kernel", "pipe_2d_kernel",
                              "combine_kernel", "iter_kernel",
@@ -647,8 +653,10 @@ def main():
             fn(scs[j], av, W[:j + 1], d, j == KRYLOV_M - 2)
 
     def show_graph(key, n, g, t, launches):
-        """The graph reading beside the profiler's sum and the events."""
-        print(f"time {key} per step at {n}^2: CUDA-graph replay {g:.4f} ms "
+        """The graph reading beside the profiler's sum and the events; n is
+        the side of a square grid or the grid's name."""
+        at = f"{n}^2" if isinstance(n, int) else n
+        print(f"time {key} per step at {at}: CUDA-graph replay {g:.4f} ms "
               f"({g / launches:.4f} ms per launch); profiler sum "
               f"{t[0]:.4f} ms; CUDA events around each call {t[1]:.4f} ms")
 
@@ -1271,6 +1279,11 @@ def main():
         device=dev).kernel_desc
     mf_r = 1.0 + 0.2 * torch.rand((250, 333), generator=gen, device=dev)
     u_r = field(250, 333)
+
+    def desc2(ny, nx, variant):
+        """The 2D Laplacian at the main path's spacing (theta 2.09)."""
+        return operators.laplacian_2d((ny, nx), dx, dx, variant=variant,
+                                      device=dev).kernel_desc
     cases = [
         ("K13 1024^2 m=10", lambda: parity_resident(ug, mf1, desc, KRYLOV_M)),
         ("K13 1024^2 m=10 random field",
@@ -1281,6 +1294,21 @@ def main():
         ("K13 250x333 saturable m=10",
          lambda: parity_resident(u_r, mf_r, ragged, KRYLOV_M,
                                  kind="saturable")),
+    ] + [
+        (f"K13 {ny}x{nx} {kind} {variant} m={m}"
+         f"{'' if bc else ' no ghost ring'}",
+         lambda ny=ny, nx=nx, kind=kind, variant=variant, m=m, bc=bc:
+         parity_resident(field(ny, nx), 1.0 + 0.2 * torch.rand(
+             (ny, nx), generator=gen, device=dev), desc2(ny, nx, variant), m,
+             kind=kind, apply_bc=bc))
+        for (ny, nx), kind, variant, m, bc in (
+            ((200, 256), "cubic", "clean", 20, False),
+            ((130, 260), "saturable", "clean", KRYLOV_M, True),
+            ((97, 333), "cubic_quintic", "reference", 20, True),
+            ((64, 64), "cubic", "reference", 2, False),
+            ((3, 129), "saturable", "reference", 3, True),
+            ((5, 3), "cubic", "clean", 1, True))
+    ] + [
         ("K5 iso2d j=0", lambda: parity_iter(0, desc, N, N)),
         ("K5 iso2d j=4", lambda: parity_iter(4, desc, N, N)),
         ("K5 iso2d j=8", lambda: parity_iter(8, desc, N, N)),
@@ -1322,17 +1350,45 @@ def main():
          lambda: parity_pipe(3, False, d3r["aniso"], 600, 50, **k8)),
         ("K8 aniso j=18 20x30x50",
          lambda: parity_pipe(18, False, d3r["aniso"], 600, 50, **k8)),
+    ] + [
+        (f"K8 {key} j={j}{' real' * (P == 1)} {'x'.join(map(str, shp))}",
+         lambda shp=shp, key=key, j=j, P=P: parity_pipe(
+             j, False, ops3d(shp)[key], shp[0] * shp[1], shp[2], P=P, **k8))
+        for shp, key, P, j in (
+            ((37, 50, 61), "aniso", 2, 8), ((21, 23, 64), "aniso", 2, 12),
+            ((21, 23, 64), "clean", 1, 18), ((9, 31, 260), "iso", 2, 5),
+            ((9, 31, 260), "aniso", 1, 2), ((33, 17, 132), "clean", 2, 18),
+            ((17, 3, 33), "iso", 2, 18), ((N3_BIG,) * 3, "aniso", 2, 7))
     ]
     for label, fn in cases:
         gate(label, *fn())
     del u_r, mf_r, ragged_cl, ragged_an, d3r
 
+    # K8 and K13 launched twice on the same inputs give the same bits
+    av, *W = [field(R3, N3) for _ in range(KRYLOV_M - 1)]
+    sc8 = scalars(KRYLOV_M - 1)
+    sc_rep = {}
+    for label, fn in (
+            ("K8 c(x)", lambda: l3.pipe_3d(sc8, av, W, d3b["aniso"])),
+            ("K13", lambda: (rs.ss2_resident_step(ug, mf1, desc, DT, 20,
+                                                  scratch=sc_rep),))):
+        same = all(bool(torch.equal(a, b)) for a, b in zip(fn(), fn()))
+        print(f"repeat {label}: outputs and dots bit for bit equal {same}")
+        check(same, f"{label}: two launches on the same inputs differ")
+    del av, W, sc_rep
+
     # K13, K5 and K8 per step of their paths: K13 and K5 at 1024^2 m=10
     # (iso), K8 at 128^3 m=10 (iso and c(x); it runs for j = 0..m-3)
     sc_rs = {}
-    t_rs = timed(lambda: rs.ss2_resident_step(ug, mf1, desc, DT, KRYLOV_M,
-                                              scratch=sc_rs))
+
+    def k13_step():
+        return rs.ss2_resident_step(ug, mf1, desc, DT, KRYLOV_M,
+                                    scratch=sc_rs)
+
+    t_rs = timed(k13_step)
     show("K13 per step", t_rs)
+    g_rs = graph_ms(torch, k13_step)
+    show_graph("K13", N, g_rs, t_rs, 1)
     W = [field() for _ in range(KRYLOV_M)]
     t_k5 = [0.0] * 4
     for j in range(KRYLOV_M - 1):
@@ -1354,8 +1410,17 @@ def main():
             t = timed(lambda: l3.pipe_3d(sc8, av, W[:j + 1], d3b[key]))
             show(f"K8 {key} j={j}", t)
             t_k8[key] = [a + b for a, b in zip(t_k8[key], t)]
+    g_k8 = {}
     for key, t in t_k8.items():
         show(f"K8 {key} per step", t)
+        scs8 = [scalars(j + 2) for j in range(KRYLOV_M - 2)]
+
+        def k8_step(key=key, scs8=scs8):
+            for j in range(KRYLOV_M - 2):
+                l3.pipe_3d(scs8[j], av, W[:j + 1], d3b[key])
+
+        g_k8[key] = graph_ms(torch, k8_step)
+        show_graph(f"K8 {key}", f"{N3}^3", g_k8[key], t, KRYLOV_M - 2)
     del W, av
     # The bounds. K13's function reads u and the m field and writes the new
     # u; its float32 operations per cell (stencil, recurrence, the CGS dots
@@ -1365,11 +1430,16 @@ def main():
     plane2 = N * N * 4
     bytes_rs = 2 * col2 + plane2
     ops_rs = N * N * (22 * (m_ - 1) + 8 * m_ * (m_ - 1) + 30 + 8 * m_)
-    stream_rs = (col2 * (2 + sum(5 + 2 * j + (j > 0) for j in range(m_ - 1))
-                         + m_ + 1) + 2 * plane2)
+    # the kernel's passes: the kick reads u and writes W_0 and av_0; pass j
+    # < m-2 reads av_j and W_0..W_j and writes W_{j+1} and av_{j+1}, the
+    # last reads m columns and writes one; the combine reads m, writes one;
+    # the m field twice
+    stream_rs = (col2 * (3 + sum(j + 4 for j in range(m_ - 2)) + 2 * (m_ + 1))
+                 + 2 * plane2)
     print(f"K13 design traffic (basis streamed, in this kernel's order): "
           f"{stream_rs / 1e6:.1f} MB per step -> {bound_ms(stream_rs):.4f} "
-          f"ms at 3.35 TB/s")
+          f"ms at 3.35 TB/s; graph reading at "
+          f"{bound_ms(stream_rs) / g_rs:.3f} of it")
     # K5 at j reads W_0..W_j and writes W_{j+1}; K8 at j reads av_j and
     # W_0..W_j, writes W_{j+1} and av_{j+1} (c(x): three weight planes more)
     bytes_k5 = sum(j + 2 for j in range(m_ - 1)) * col2
@@ -1381,12 +1451,15 @@ def main():
               "K8": (bytes_k8, 0), "K8 c(x)": (bytes_k8a, 0)}
     times_o = {"K13": t_rs, "K5": t_k5, "K8": t_k8["iso"],
                "K8 c(x)": t_k8["aniso"]}
+    graphs_o = {"K13": g_rs, "K8": g_k8["iso"], "K8 c(x)": g_k8["aniso"]}
     for key, (nb, no) in bounds.items():
         b_ms = max(bound_ms(nb), ops_ms(no))
+        g = graphs_o.get(key)
         print(f"bound {key} per step: {nb / 1e6:.1f} MB -> "
               f"{bound_ms(nb):.4f} ms at 3.35 TB/s; {no / 1e9:.3f} GFLOP -> "
               f"{ops_ms(no):.4f} ms at 67 TFLOP/s; kernel at "
-              f"{b_ms / times_o[key][0]:.3f} of the larger")
+              f"{b_ms / times_o[key][0]:.3f} of the larger (profiler)"
+              + ("" if g is None else f", {b_ms / g:.3f} (graph)"))
 
     # ---------------------------------------------------------- 17. main-resident
     counters_all = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
@@ -1934,11 +2007,12 @@ def main():
               graph=graphs["K2'"]),
         entry("ss2_resident_step", SOURCE_RS, f"{PALLAS_RS}:90",
               launches_r["K13"], steps_r, errs["K13"], t_rs, bytes_rs, None,
-              ops_rs),
+              ops_rs, graph=g_rs),
         entry("iter_step", SOURCE, f"{PALLAS}:637", launches_i["K5"],
               steps_i, errs["K5"], t_k5, bytes_k5, None, ops_k5),
         entry("pipe_3d", SOURCE3, f"{PALLAS3}:1135", launches_p["K8"],
-              steps_p, errs["K8"], t_k8["iso"], bytes_k8, None),
+              steps_p, errs["K8"], t_k8["iso"], bytes_k8, None,
+              graph=g_k8["iso"]),
         entry("pass1_shard2d", SOURCE, f"{PALLAS}:473",
               launches_s2["pass1_shard2d"], steps_s2, errs["pass1_shard2d"],
               t_s["pass1_shard2d reference"],

@@ -56,7 +56,8 @@
 //   with the dot columns split over lane groups, so no bucket spills. A
 //   fixed grid of the blocks that fit on the card walks the tiles, and S is
 //   picked so that the busiest block takes the fewest steps. The partial
-//   sums are stored output-major and reduced by reduce_partials_om.
+//   sums are stored output-major and reduced by reduce_partials_om. The
+//   walker is lz_tile.cuh's, shared with K8 and K13.
 // * K3 loads the coefficients and column pointers into shared memory once
 //   per block, reads 16-byte vectors (four points) per column and plane,
 //   and walks the points in grid-stride order over a fixed grid.
@@ -74,6 +75,7 @@
 #include "lz_common.cuh"
 #include "lz_iter.cuh"
 #include "lz_stencil.cuh"
+#include "lz_tile.cuh"
 
 namespace {
 
@@ -157,188 +159,11 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
 }
 
 // ---------------------------------------------------------------- K2 pipe
-// Tiles of PX columns by ty = PWARP * S - 2 rows (2 <= S <= 8 steps), walked
-// by blocks of PT threads in a fixed order: block b takes tiles b, b + G,
-// b + 2G, ... of a grid of G blocks that fit on the card at once, and sums
-// into the same accumulators across its tiles.
-//
-// Step s of a tile: warp w rebuilds row k = PWARP s + w of the tile's ty + 2
-// rows (k = 0 and ty + 1 are the halo rows above and below) into a shared
-// ring of RING rows; lanes 0 and 31 rebuild the halo columns x0 - 1 and
-// x0 + PX of that row in the same pass. One __syncthreads. Then warp w
-// stencils tile row t = k - 2, whose rows t-1..t+1 are all in the ring, and
-// takes the dots of row t: gram_i and d_i from ONE load of W_i at row t,
-// with W_{j+1} from the ring and av_{j+1} from a per-warp row buffer. A
-// step's stencils read rows 8s-2..8s+7 while the next step writes rows
-// 8s+8..8s+15: 18 rows, so a ring of 24 needs one barrier per step.
-//
-// A lane holds four points of a 128-column row: cols 4f..4f+3 as one
-// 16-byte vector (VEC = 4, when nx % 4 == 0 and every pointer is 16-byte
-// aligned) or cols f, f+32, f+64, f+96 as scalars (VEC = 1), f = lane. The
-// rebuild and the stencil use that layout. For the dots a warp splits into
-// NG = MAXW / 4 groups of 32 / NG lanes: group q owns the columns i = q +
-// NG c (c < 4) and its lanes walk the row's 32 vectors, so a lane keeps 4
-// complex gram and 4 complex d sums at every bucket (16 registers) instead
-// of 4 MAXW.
-//
-// LAST (no stencil): warp w rebuilds tile row t = w, w + 8, ... and takes
-// its norm and gram dots; no ring across rows and no block barrier.
-constexpr int PT = 256;               // threads per K2 block
-constexpr int PWARP = PT / 32;        // rows per step
-constexpr int PX = 128;               // columns per tile: 32 lanes x 4
-constexpr int RING = 24;              // ring rows (see above)
-
-template <int VEC>
-__device__ __forceinline__ int vcol(int f, int e) {
-  return VEC == 4 ? 4 * f + e : f + 32 * e;
-}
-
-// v[e] = p[vcol(f, e)] where vcol(f, e) < nv (inside the grid), else 0.
-template <int VEC>
-__device__ __forceinline__ void ldv(const float* __restrict__ p, int f,
-                                    int nv, float (&v)[4]) {
-  if (VEC == 4) {
-    if (4 * f < nv) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + f);
-      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.0f;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      v[e] = f + 32 * e < nv ? __ldg(p + f + 32 * e) : 0.0f;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void stv(float* __restrict__ p, int f, int nv,
-                                    const float (&v)[4]) {
-  if (VEC == 4) {
-    if (4 * f < nv)
-      reinterpret_cast<float4*>(p)[f] = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (f + 32 * e < nv) p[f + 32 * e] = v[e];
-  }
-}
-
-// The same layout in shared memory (a whole PX row, no mask).
-template <int VEC>
-__device__ __forceinline__ void lds(const float* p, int f, float (&v)[4]) {
-  if (VEC == 4) {
-    const float4 t = reinterpret_cast<const float4*>(p)[f];
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = p[f + 32 * e];
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void sts(float* p, int f, const float (&v)[4]) {
-  if (VEC == 4) {
-    reinterpret_cast<float4*>(p)[f] = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[f + 32 * e] = v[e];
-  }
-}
-
-// W_{j+1} = s av_j - sum_i c_i W_i at a lane's four points of one row
-// (base: the offset of the row's first tile column, of which nv columns lie
-// inside the grid) and, where hin, at the halo column hoff columns from
-// there: rebuild's order of operations (lz_common.cuh), the basis pointers
-// and coefficients from shared memory.
-template <int P, int VEC>
-__device__ __forceinline__ void rebuild_row(
-    const float* __restrict__ av, const float* const* wp, const float* cf,
-    int nw, float s, size_t base, int nv, size_t plane, int lane, bool hin,
-    long hoff, float (&v)[P][4], float (&h)[P]) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    ldv<VEC>(av + p * plane + base, lane, nv, v[p]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) v[p][e] = s * v[p][e];
-    h[p] = hin ? s * __ldg(av + p * plane + base + hoff) : 0.0f;
-  }
-#pragma unroll 4
-  for (int i = 0; i < nw; ++i) {
-    const float cr = cf[2 * i], ci = cf[2 * i + 1];
-    const float* __restrict__ wi = wp[i];
-    float w[P][4], hw[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      ldv<VEC>(wi + p * plane + base, lane, nv, w[p]);
-      hw[p] = hin ? __ldg(wi + p * plane + base + hoff) : 0.0f;
-    }
-    if (P == 1) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[0][e] = v[0][e] - cr * w[0][e];
-      h[0] = h[0] - cr * hw[0];
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a0 = v[0][e] - (cr * w[0][e] - ci * w[P - 1][e]);
-        v[P - 1][e] = v[P - 1][e] - (cr * w[P - 1][e] + ci * w[0][e]);
-        v[0][e] = a0;
-      }
-      const float h0 = h[0] - (cr * hw[0] - ci * hw[P - 1]);
-      h[P - 1] = h[P - 1] - (cr * hw[P - 1] + ci * hw[0]);
-      h[0] = h0;
-    }
-  }
-}
-
-// The operator's coefficients (load_coef's values) at a lane's four points
-// of row r; every lane of the warp calls it (VEC = 4 shuffles).
-template <int OP, int VEC>
-__device__ __forceinline__ void coef_row(const Op2d& op, int r, int x0,
-                                         int ny, int nx, size_t base, int nv,
-                                         int lane, float (&k)[4][4]) {
-  if (OP == OP_ISO) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      k[e][0] = stencil_diag(r, x0 + vcol<VEC>(lane, e), ny, nx, op.clean);
-    return;
-  }
-  float wx[4], wy[4], wu[4];
-  ldv<VEC>(op.wx + base, lane, nv, wx);
-  ldv<VEC>(op.wy + base, lane, nv, wy);
-  if (r > 0)
-    ldv<VEC>(op.wy + base - nx, lane, nv, wu);
-  else
-    wu[0] = wu[1] = wu[2] = wu[3] = 0.0f;
-  if (VEC == 4) {
-    float left = __shfl_up_sync(0xffffffffu, wx[3], 1);
-    if (lane == 0) left = x0 > 0 ? __ldg(op.wx + base - 1) : 0.0f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) k[e][1] = e == 0 ? left : wx[e - 1];
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = vcol<VEC>(lane, e);
-      k[e][1] = x0 + c > 0 && c < nv ? __ldg(op.wx + base + c - 1) : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    k[e][0] = wx[e];
-    k[e][2] = wy[e];
-    k[e][3] = wu[e];
-  }
-}
-
-// A lane's group sums for the dots: reduce over the group's lanes.
-template <int L>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = L / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
+// One pipe pass of lz_tile.cuh over a rebuilt column: tiles of PX columns
+// by ty = PWARP * S - 2 rows (2 <= S <= 8 steps), walked by blocks of PT
+// threads in a fixed order (block b takes tiles b, b + G, b + 2G, ... of a
+// grid of G blocks that fit on the card at once, and sums into the same
+// accumulators across its tiles).
 // MAXW bounds nw = j + 1, the number of basis columns. LAST computes no
 // stencil, so its one instantiation (OP_ISO) serves both operators.
 // partial: output-major, partial[o * gridDim.x + block].
@@ -369,210 +194,10 @@ __global__ void __launch_bounds__(
       if (i < nw) wp[i] = W.p[i];
   }
   __syncthreads();
-
-  const int ty = PWARP * steps - 2;
-  const int ntx = (nx + PX - 1) / PX;
-  const int ntiles = ntx * ((ny + ty - 1) / ty);
-  float nsq = 0.0f;
-  float g[4][2] = {}, d[4][2] = {};
-  float dl[2] = {0.0f, 0.0f};        // d_{j+1} = <W_{j+1}, av_{j+1}>
-
-  // The dots of tile row r (base, nv) from W_{j+1} in wrow and, unless
-  // LAST, av_{j+1} in arow.
-  auto dots = [&](const float* wrow, const float* arow, size_t base,
-                  int nv) {
-#pragma unroll
-    for (int pc = 0; pc < NG; ++pc) {
-      const int f = gl + L * pc;
-      float wi[4][P][4], wv[P][4], a4[P][4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {             // the group's loads first
-        const int i = q + NG * c;
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          if (i < nw)
-            ldv<VEC>(wp[i] + p * plane + base, f, nv, wi[c][p]);
-          else
-            wi[c][p][0] = wi[c][p][1] = wi[c][p][2] = wi[c][p][3] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        lds<VEC>(wrow + p * PX, f, wv[p]);
-        if (!LAST) lds<VEC>(arow + p * PX, f, a4[p]);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (q + NG * c < nw) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float x[P], y[P], z[P];
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-              x[p] = wi[c][p][e];
-              y[p] = wv[p][e];
-              z[p] = LAST ? 0.0f : a4[p][e];
-            }
-            hdot<P>(x, y, g[c]);
-            if (!LAST) hdot<P>(x, z, d[c]);
-          }
-        }
-      }
-    }
-  };
-
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int y0 = (tile / ntx) * ty, x0 = (tile % ntx) * PX;
-    const int nv = nx - x0;
-    if constexpr (LAST) {
-      for (int t = w; t < ty && y0 + t < ny; t += PWARP) {
-        const size_t base = (size_t)(y0 + t) * nx + x0;
-        float v[P][4], h[P];
-        rebuild_row<P, VEC>(av, wp, cf, nw, s, base, nv, plane, lane, false,
-                            0, v, h);
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          stv<VEC>(wn_out + p * plane + base, lane, nv, v[p]);
-          sts<VEC>(ring[w][p], lane, v[p]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) nsq += v[p][e] * v[p][e];
-        }
-        __syncwarp();
-        dots(&ring[w][0][0], nullptr, base, nv);
-        __syncwarp();
-      }
-    } else {
-      for (int st = 0; st < steps; ++st) {
-        const int k = PWARP * st + w;             // rebuilt row y0 - 1 + k
-        if (k < ty + 2) {
-          const int r = y0 - 1 + k;
-          const int slot = k % RING;
-          float v[P][4], h[P];
-          const bool left = lane == 0, edge = left || lane == 31;
-          if (r >= 0 && r < ny) {
-            const size_t base = (size_t)r * nx + x0;
-            const long hoff = left ? -1 : PX;
-            const bool hin = edge && x0 + hoff >= 0 && x0 + hoff < nx;
-            rebuild_row<P, VEC>(av, wp, cf, nw, s, base, nv, plane, lane, hin,
-                                hoff, v, h);
-            if (k >= 1 && k <= ty) {
-#pragma unroll
-              for (int p = 0; p < P; ++p) {
-                stv<VEC>(wn_out + p * plane + base, lane, nv, v[p]);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) nsq += v[p][e] * v[p][e];
-              }
-            }
-          } else {
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-              v[p][0] = v[p][1] = v[p][2] = v[p][3] = 0.0f;
-              h[p] = 0.0f;
-            }
-          }
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            sts<VEC>(ring[slot][p], lane, v[p]);
-            if (edge) hal[slot][p][left ? 0 : 1] = h[p];
-          }
-        }
-        __syncthreads();
-        const int t = k - 2;                      // stencilled tile row
-        if (t >= 0 && t < ty && y0 + t < ny) {
-          const int r = y0 + t;
-          const size_t base = (size_t)r * nx + x0;
-          const int sc = (t + 1) % RING, su = t % RING, sd = (t + 2) % RING;
-          float kf[4][4];
-          coef_row<OP, VEC>(op, r, x0, ny, nx, base, nv, lane, kf);
-#pragma unroll
-          for (int p = 0; p < P; ++p) {
-            float cv[4], up[4], dn[4], lf[4], rt[4], a[4];
-            lds<VEC>(ring[sc][p], lane, cv);
-            lds<VEC>(ring[su][p], lane, up);
-            lds<VEC>(ring[sd][p], lane, dn);
-            if (VEC == 4) {
-              const float l0 = __shfl_up_sync(0xffffffffu, cv[3], 1);
-              const float r3 = __shfl_down_sync(0xffffffffu, cv[0], 1);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                lf[e] = e > 0 ? cv[e - 1] : lane > 0 ? l0 : hal[sc][p][0];
-                rt[e] = e < 3 ? cv[e + 1] : lane < 31 ? r3 : hal[sc][p][1];
-              }
-            } else {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                const int c = vcol<VEC>(lane, e);
-                lf[e] = c > 0 ? ring[sc][p][c - 1] : hal[sc][p][0];
-                rt[e] = c < PX - 1 ? ring[sc][p][c + 1] : hal[sc][p][1];
-              }
-            }
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int c = vcol<VEC>(lane, e);
-              a[e] = c < nv ? stencil<OP>(cv[e], up[e], dn[e], lf[e], rt[e], r,
-                                          x0 + c, kf[e]) * ss
-                            : 0.0f;
-            }
-            stv<VEC>(av_out + p * plane + base, lane, nv, a);
-            sts<VEC>(avb[w][p], lane, a);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float cc[P], aa[P];
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-              cc[p] = ring[sc][p][vcol<VEC>(lane, e)];
-              aa[p] = avb[w][p][vcol<VEC>(lane, e)];
-            }
-            hdot<P>(cc, aa, dl);
-          }
-          __syncwarp();
-          dots(&ring[sc][0][0], &avb[w][0][0], base, nv);
-          __syncwarp();
-        }
-      }
-      __syncthreads();                            // the ring is reused
-    }
-  }
-
-  // partial layout: nsq | gram_i (re, im), i < nw | d_i (re, im), i <= nw
-  nsq = warp_sum(nsq);
-  if (lane == 0) red[w][0] = nsq;
-  const int nd = 1 + 2 * nw;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int i = q + NG * c;
-    float gs[2], ds[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      gs[h] = group_sum<L>(g[c][h]);
-      ds[h] = LAST ? 0.0f : group_sum<L>(d[c][h]);
-    }
-    if (gl == 0 && i < nw) {
-      red[w][1 + 2 * i] = gs[0];
-      red[w][2 + 2 * i] = gs[1];
-      if (!LAST) {
-        red[w][nd + 2 * i] = ds[0];
-        red[w][nd + 2 * i + 1] = ds[1];
-      }
-    }
-  }
-  int nout = nd;
-  if (!LAST) {
-    const float d0 = warp_sum(dl[0]), d1 = warp_sum(dl[1]);
-    if (lane == 0) {
-      red[w][nd + 2 * nw] = d0;
-      red[w][nd + 2 * nw + 1] = d1;
-    }
-    nout += 2 * (nw + 1);
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < nout; o += PT) {
-    float v = red[0][o];
-#pragma unroll
-    for (int ww = 1; ww < PWARP; ++ww) v += red[ww][o];
-    partial[(size_t)o * gridDim.x + blockIdx.x] = v;
-  }
+  const RebuildRows<P, VEC, LdNC> src = {av, wp, cf, nw, s, plane};
+  pipe2d_pass<P, MAXW, LAST, OP, VEC, LdNC>(src, wp, nw, op, wn_out, av_out,
+                                            partial, ny, nx, ss, steps, ring,
+                                            hal, avb, red, lane, w, q, gl);
 }
 
 // ---------------------------------------------------------------- K3 combine
@@ -748,59 +373,6 @@ void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
   pass1_2d_kernel<P, MAXW, OP><<<tile_grid(ny, nx), TX, 0, st>>>(
       scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, op, sh, w, partial,
       ny, nx, ss);
-}
-
-// Blocks of `threads` threads of `kernel` that fit on the card at once.
-template <class K>
-int resident_blocks(K kernel, int threads) {
-  int dev = 0, sms = 0, occ = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-             != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads,
-                                                       0) != cudaSuccess)
-    return 0;
-  return occ * sms;
-}
-
-int num_sms() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess
-        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-               != cudaSuccess)
-      return 0;
-    return sms;
-  }();
-  return n;
-}
-
-int pipe_tiles(int ny, int nx, int steps) {
-  const int ty = PWARP * steps - 2;
-  return ((ny + ty - 1) / ty) * ((nx + PX - 1) / PX);
-}
-
-// Steps per K2 tile (ty = 8 steps - 2 rows) for a grid of `fit` resident
-// blocks: the fewest steps the busiest block takes, ceil(tiles / fit)
-// steps, and of those the tallest tiles (the fewest halo rows).
-int pipe_steps(int ny, int nx, int fit) {
-  int best = 8, cost = -1;
-  for (int steps = 8; steps >= 2; --steps) {
-    const int c = (pipe_tiles(ny, nx, steps) + fit - 1) / fit * steps;
-    if (cost < 0 || c < cost) {
-      best = steps;
-      cost = c;
-    }
-  }
-  return best;
-}
-
-// Most blocks of PT threads the card holds at once (2048 threads per SM):
-// a bound on the partial sums per output of any K2 launch.
-int pipe_max_blocks() { return 2048 / PT * num_sms(); }
-
-bool aligned16(const void* p) {
-  return p == nullptr || ((size_t)p & 15) == 0;
 }
 
 template <int P, int MAXW, bool LAST, int OP, int VEC>

@@ -33,8 +33,8 @@
 // What bounds them on an H100: bytes streamed from device memory; the
 // arithmetic is a few flops per loaded float. pass1 at iteration j reads
 // j + 1 columns and writes 1 (plus three weight planes for ANISO), pass2
-// reads j + 2 and writes 1, pipe_3d reads j + 2 and writes 2. At 128^3
-// complex64 a column is 16.8 MB.
+// reads j + 2 and writes 1, pipe_3d reads j + 2 and writes 2 (plus the
+// three weight planes). At 128^3 complex64 a column is 16.8 MB.
 //
 // What the design does about it:
 // * pass1: a block owns a TY x TX tile of the merged view and walks it row
@@ -46,9 +46,19 @@
 // * pass2 is a flat stream over the R * nx points of each plane, one
 //   element per thread per step of a grid-stride loop with a fixed grid, so
 //   its partial sums (and the result) repeat bit for bit.
-// * pipe_3d rebuilds W_{j+1} on its tile and the tile's halo into a
-//   3-plane ring in shared memory while it marches z, so the stencil of
-//   the column it builds needs no second pass (see its kernel).
+// * pipe_3d is one pipe pass of lz_tile.cuh (K2's walker) on bricks of
+//   128 columns x 6 rows x pz planes: each row is rebuilt once into a
+//   4-plane ring in shared memory with 16-byte loads (lanes 0 and 31 take
+//   the halo columns; at nx = 128 there are none), stencilled from the
+//   ring, and its gram and d dots taken from one load of each W_i over
+//   lane groups, so no bucket spills. The wrapper picks pz per grid so that
+//   the busiest block takes the fewest plane steps. What is left above the
+//   bytes bound: the halo (a brick rebuilds 8 rows of pz + 2 planes to
+//   stencil 6 x pz) and the dots' second read of each W_i, which comes from
+//   L2 (see the kernel). Neighbouring bricks march z in opposite
+//   directions, so that a shared halo plane is rebuilt by both at about the
+//   same time. The partial sums are output-major and reduced by
+//   reduce_partials_om.
 // * bc3d writes only the faces, in place. With the reference's order (x
 //   faces on interior y and z, then y faces on interior z, then z faces)
 //   every face cell ends up holding u(clamp(z), clamp(y), clamp(x)), where
@@ -62,6 +72,7 @@
 
 #include "lz_common.cuh"
 #include "lz_stencil.cuh"
+#include "lz_tile.cuh"
 
 namespace {
 
@@ -179,191 +190,264 @@ __global__ void __launch_bounds__(TX) pass2_kernel(
 }
 
 // ------------------------------------------------------------ pipe_3d
-// K8: one pipelined iteration j on the 3D operators, K2's design lifted to
-// 3D. A block owns a PY x PX tile of (y, x) and marches over PZ planes of
-// z. Step zr rebuilds W_{j+1} = s av_j - sum_i c_i W_i on plane zr of its
-// tile and on the tile's halo ring (one row and one column on each side),
-// into a 3-plane ring in shared memory, and then applies the operator to
-// plane zr-1 from the ring. The halo rows are the merged rows z ny + y0 - 1
-// and z ny + y0 + PY, so the y-seam of the reference operator and the
-// boundaries come from the merged row index as in pass1_3d; plane z0-1
-// and z1 are rebuilt once more than they are stencilled. Every input column
-// is read from device memory about once per launch: the halo cells, the
-// neighbouring blocks' own cells, mostly come from L2.
-constexpr int PX = 32, PY = 8, PZ = 16;
-constexpr int PT = PX * PY;                       // threads per block
-constexpr int PHALO = 2 * (PX + 2) + 2 * PY;      // halo cells of a plane
+// K8: one pipelined iteration j on the 3D operators, one pipe pass of
+// lz_tile.cuh (K2's row layout, halo columns, shuffles and lane-group
+// dots) on bricks of the merged view. A brick is PX columns by TY3 rows of
+// y by pz planes of z; a fixed grid of resident blocks walks the bricks in
+// a fixed order, and the wrapper picks pz per grid so that the busiest
+// block takes the fewest plane steps.
+//
+// Step k of a brick rebuilds plane zr_k: warp w rebuilds row w of its
+// TY3 + 2 rows (the halo rows are the merged rows z ny + y0 - 1 and
+// z ny + y0 + TY3, so the reference operator's y-seam and the boundaries
+// come from the merged row index, as in pass1_3d) into slot k % RING3 of a
+// ring of planes in shared memory. One __syncthreads. Then warp w
+// stencils row w of the plane rebuilt at step k - 1 from the ring (its
+// neighbours in z are the planes of steps k - 2 and k) and takes its dots:
+// gram_i and d_i from one load of W_i. A step's stencil reads three slots
+// while the next step writes the fourth, so the ring needs one barrier per
+// step.
+//
+// The dots read W_i a second time, one step after the rebuild read it: the
+// rows all blocks touch in one step (8 rows of j + 2 columns each) must
+// stay in L2 for that second read to come from there. Bricks of 6 rows
+// keep them at ~21 MB at 128^3, m = 10, and read faster than taller ones
+// (14 to 30 rows; PERF.md). Bricks march up in z (even brick index) or
+// down (odd), so two bricks that share a halo plane rebuild it at about the
+// same time.
+constexpr int TY3 = PWARP - 2;        // brick rows: one rebuilt row per warp
+constexpr int RING3 = 4;              // planes in the ring
 
-template <int P, int MAXW, int MODE>
-__global__ void __launch_bounds__(PT) pipe3d_kernel(
+// The face weights of the ANISO operator at a lane's four points of merged
+// row r (plane z): k = (wx, wx at x-1, wy, wy at r-1, wz, wz at z-1), 0
+// where that face lies outside the grid.
+template <int VEC>
+__device__ __forceinline__ void aniso3d_coef(const Weights& wt, int r, int z,
+                                             int x0, int ny, int nx,
+                                             size_t base, int nv, int lane,
+                                             float (&k)[6][4]) {
+  ldv<VEC>(wt.wx + base, lane, nv, k[0]);
+  ldv<VEC>(wt.wy + base, lane, nv, k[2]);
+  ldv<VEC>(wt.wz + base, lane, nv, k[4]);
+  if (r > 0)
+    ldv<VEC>(wt.wy + base - nx, lane, nv, k[3]);
+  else
+    k[3][0] = k[3][1] = k[3][2] = k[3][3] = 0.0f;
+  if (z > 0)
+    ldv<VEC>(wt.wz + base - (size_t)ny * nx, lane, nv, k[5]);
+  else
+    k[5][0] = k[5][1] = k[5][2] = k[5][3] = 0.0f;
+  if (VEC == 4) {
+    float left = __shfl_up_sync(0xffffffffu, k[0][3], 1);
+    if (lane == 0) left = x0 > 0 ? __ldg(wt.wx + base - 1) : 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) k[1][e] = e == 0 ? left : k[0][e - 1];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = vcol<VEC>(lane, e);
+      k[1][e] = x0 + c > 0 && c < nv ? __ldg(wt.wx + base + c - 1) : 0.0f;
+    }
+  }
+}
+
+// MAXW bounds nw = j + 1. partial: output-major, as K2's.
+template <int P, int MAXW, int MODE, int VEC>
+__global__ void __launch_bounds__(
+    PT, VEC == 4 && (P == 2 || MAXW < 32) ? 2 : 1) pipe3d_kernel(
     const float* __restrict__ scal, const float* __restrict__ av, Cols W,
     int nw, Weights wt, float* __restrict__ wn_out,
     float* __restrict__ av_out, float* __restrict__ partial, int nz, int ny,
-    int nx, float ss) {
-  __shared__ float red[PT / 32][RED_W];
-  __shared__ float ring[3][P][PY + 2][PX + 2];
-  const int t = threadIdx.x;
-  const int tx = t % PX, ty = t / PX;
-  const int x0 = blockIdx.x * PX, y0 = blockIdx.y * PY, z0 = blockIdx.z * PZ;
-  const int z1 = min(z0 + PZ, nz);
-  const int x = x0 + tx, y = y0 + ty;
-  const bool in = x < nx && y < ny;
-  const long long R = (long long)nz * ny;
+    int nx, float ss, int pz) {
+  constexpr int NG = MAXW / 4;        // dot groups per warp
+  constexpr int L = 32 / NG;          // lanes per dot group
+  __shared__ __align__(16) float ring[RING3][PWARP][P][PX];
+  __shared__ float hal[RING3][PWARP][P][2];
+  __shared__ __align__(16) float avb[PWARP][P][PX];
+  __shared__ float red[PWARP][RED_W];
+  __shared__ float cf[2 * MAXW];
+  __shared__ const float* wp[MAXW];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int q = lane / L, gl = lane % L;
+  const int R = nz * ny;
   const size_t plane = (size_t)R * nx;
-
   const float s = scal[0];
-  float cf[MAXW][2];
+  for (int o = threadIdx.x; o < 2 * nw; o += PT) cf[o] = scal[2 + o];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    cf[i][0] = i < nw ? scal[2 + 2 * i] : 0.0f;
-    cf[i][1] = i < nw ? scal[3 + 2 * i] : 0.0f;
+    for (int i = 0; i < MAXW; ++i)
+      if (i < nw) wp[i] = W.p[i];
   }
-  // this thread's halo cell, if any: ring row hr, column hc
-  int hr = -1, hc = 0;
-  if (t < PX + 2) {
-    hr = 0;
-    hc = t;
-  } else if (t < 2 * (PX + 2)) {
-    hr = PY + 1;
-    hc = t - (PX + 2);
-  } else if (t < 2 * (PX + 2) + PY) {
-    hr = 1 + t - 2 * (PX + 2);
-    hc = 0;
-  } else if (t < PHALO) {
-    hr = 1 + t - 2 * (PX + 2) - PY;
-    hc = PX + 1;
-  }
-
+  __syncthreads();
   float nsq = 0.0f;
-  float g[MAXW][2] = {};
-  float d[MAXW][2] = {};
-  float dl[2] = {0.0f, 0.0f};     // d_{j+1} = <W_{j+1}, av_{j+1}>
-
-  for (int zr = z0 - 1; zr <= z1; ++zr) {
-    const int slot = (zr + 3) % 3;
-    const bool zok = zr >= 0 && zr < nz;
-    // ring cell (ty+1, tx+1): merged row zr ny + y (past ny on a ragged
-    // tile: the next plane's first row, the y-seam's neighbour)
-    float v[P];
+  float g[4][2] = {}, d[4][2] = {};
+  float dl[2] = {0.0f, 0.0f};        // d_{j+1} = <W_{j+1}, av_{j+1}>
+  const RebuildRows<P, VEC, LdNC> src = {av, wp, cf, nw, s, plane};
+  const int ntx = (nx + PX - 1) / PX, nty = (ny + TY3 - 1) / TY3;
+  const int ntiles = ntx * nty * ((nz + pz - 1) / pz);
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int tz = tile / (ntx * nty), txy = tile - tz * ntx * nty;
+    const int y0 = (txy / ntx) * TY3, x0 = (txy % ntx) * PX;
+    const int z0 = tz * pz, z1 = min(z0 + pz, nz);
+    const int tyv = min(TY3, ny - y0);
+    const int nv = nx - x0;
+    const bool upward = (tz & 1) == 0;
+    for (int k = 0; k < z1 - z0 + 2; ++k) {
+      const int zr = upward ? z0 - 1 + k : z1 - k;   // the plane rebuilt
+      const int slot = k % RING3;
+      if (w < tyv + 2) {                             // rebuilt row w
+        const int rh = zr * ny + y0 - 1 + w;         // its merged row
+        float v[P][4], h[P];
+        const bool left = lane == 0, edge = left || lane == 31;
+        if (zr >= 0 && zr < nz && rh >= 0 && rh < R) {
+          const size_t base = (size_t)rh * nx + x0;
+          const long hoff = left ? -1 : PX;
+          const bool hin = edge && x0 + hoff >= 0 && x0 + hoff < nx;
+          src.row(base, nv, lane, hin, hoff, v, h);
+          if (zr >= z0 && zr < z1 && w >= 1 && w <= tyv) {
 #pragma unroll
-    for (int p = 0; p < P; ++p) v[p] = 0.0f;
-    const long long rv = (long long)zr * ny + y;
-    if (zok && x < nx && rv < R)
-      rebuild<P, MAXW>(av, W, nw, s, cf, (size_t)rv * nx + x, plane, v);
-    if (in && zr >= z0 && zr < z1) {
-      const size_t idx = (size_t)rv * nx + x;
+            for (int p = 0; p < P; ++p) {
+              stv<VEC>(wn_out + p * plane + base, lane, nv, v[p]);
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
-        wn_out[p * plane + idx] = v[p];
-        nsq += v[p] * v[p];
-      }
+              for (int e = 0; e < 4; ++e) nsq += v[p][e] * v[p][e];
+            }
+          }
+        } else {
 #pragma unroll
-      for (int i = 0; i < MAXW; ++i) {
-        if (i < nw) {
-          float wi[P];
-          load<P>(W.p[i], idx, plane, wi);
-          hdot<P>(wi, v, g[i]);
+          for (int p = 0; p < P; ++p) {
+            v[p][0] = v[p][1] = v[p][2] = v[p][3] = 0.0f;
+            h[p] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sts<VEC>(ring[slot][w][p], lane, v[p]);
+          if (edge) hal[slot][w][p][left ? 0 : 1] = h[p];
         }
       }
-    }
-#pragma unroll
-    for (int p = 0; p < P; ++p) ring[slot][p][ty + 1][tx + 1] = v[p];
-    if (hr >= 0) {
-      const long long rh = (long long)zr * ny + y0 - 1 + hr;
-      const int xh = x0 - 1 + hc;
-      float h[P];
-#pragma unroll
-      for (int p = 0; p < P; ++p) h[p] = 0.0f;
-      if (zok && rh >= 0 && rh < R && xh >= 0 && xh < nx)
-        rebuild<P, MAXW>(av, W, nw, s, cf, (size_t)rh * nx + xh, plane, h);
-#pragma unroll
-      for (int p = 0; p < P; ++p) ring[slot][p][hr][hc] = h[p];
-    }
-    __syncthreads();
-    const int zs = zr - 1;                  // the plane to stencil
-    if (in && zs >= z0 && zs < z1) {
-      const int sc = (zs + 3) % 3, su = (zs + 2) % 3;
+      __syncthreads();
+      if (k < 2 || w >= tyv) continue;
+      const int zs = upward ? zr - 1 : zr + 1;       // the plane stencilled
+      const int sc = (k - 1) % RING3;
+      const int slo = upward ? (k - 2) % RING3 : slot;   // plane zs - 1
+      const int shi = upward ? slot : (k - 2) % RING3;   // plane zs + 1
+      const int y = y0 + w;
       const int r = zs * ny + y;
-      const size_t idx = (size_t)r * nx + x;
-      float a[P], c[P];
+      const size_t base = (size_t)r * nx + x0;
+      float kw[MODE == ANISO ? 6 : 1][4];
+      if constexpr (MODE == ANISO)
+        aniso3d_coef<VEC>(wt, r, zs, x0, ny, nx, base, nv, lane, kw);
 #pragma unroll
       for (int p = 0; p < P; ++p) {
-        c[p] = ring[sc][p][ty + 1][tx + 1];
-        a[p] = stencil3d_vals<MODE>(
-            c[p], ring[sc][p][ty][tx + 1], ring[sc][p][ty + 2][tx + 1],
-            ring[su][p][ty + 1][tx + 1], ring[slot][p][ty + 1][tx + 1],
-            ring[sc][p][ty + 1][tx], ring[sc][p][ty + 1][tx + 2], wt, idx, r,
-            zs, y, x, nz, ny, nx, ss);
-        av_out[p * plane + idx] = a[p];
-      }
+        const float* cr = ring[sc][w + 1][p];
+        float cv[4], lf[4], rt[4], nb[4], a[4];
+        lds<VEC>(cr, lane, cv);
+        row_sides<VEC>(cr, cv, hal[sc][w + 1][p], lane, lf, rt);
+        if constexpr (MODE == ANISO) {
+          // stencil3d_vals's order of terms, each neighbour row read from
+          // the ring just before its term
 #pragma unroll
-      for (int i = 0; i < MAXW; ++i) {
-        if (i < nw) {
-          float wi[P];
-          load<P>(W.p[i], idx, plane, wi);
-          hdot<P>(wi, a, d[i]);
+          for (int e = 0; e < 4; ++e) {
+            a[e] = kw[0][e] * (rt[e] - cv[e]);
+            if (x0 + vcol<VEC>(lane, e) > 0)
+              a[e] = a[e] - kw[1][e] * (cv[e] - lf[e]);
+          }
+          lds<VEC>(ring[sc][w + 2][p], lane, nb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = a[e] + kw[2][e] * (nb[e] - cv[e]);
+          if (r > 0) {
+            lds<VEC>(ring[sc][w][p], lane, nb);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              a[e] = a[e] - kw[3][e] * (cv[e] - nb[e]);
+          }
+          lds<VEC>(ring[shi][w + 1][p], lane, nb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = a[e] + kw[4][e] * (nb[e] - cv[e]);
+          if (zs > 0) {
+            lds<VEC>(ring[slo][w + 1][p], lane, nb);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              a[e] = a[e] - kw[5][e] * (cv[e] - nb[e]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = a[e] * ss;
+        } else {
+          float up[4], dn[4], zu[4];
+          lds<VEC>(ring[sc][w][p], lane, up);
+          lds<VEC>(ring[sc][w + 2][p], lane, dn);
+          lds<VEC>(ring[slo][w + 1][p], lane, zu);
+          lds<VEC>(ring[shi][w + 1][p], lane, nb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            a[e] = stencil3d_vals<MODE>(cv[e], up[e], dn[e], zu[e], nb[e],
+                                        lf[e], rt[e], wt, 0, r, zs, y,
+                                        x0 + vcol<VEC>(lane, e), nz, ny, nx,
+                                        ss);
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (vcol<VEC>(lane, e) >= nv) a[e] = 0.0f;
+        stv<VEC>(av_out + p * plane + base, lane, nv, a);
+        sts<VEC>(avb[w][p], lane, a);
       }
-      hdot<P>(c, a, dl);
+      dot_last<P, VEC>(ring[sc][w + 1], avb[w], lane, dl);
+      __syncwarp();
+      tile_dots<P, MAXW, false, VEC, LdNC>(wp, nw, plane,
+                                           &ring[sc][w + 1][0][0],
+                                           &avb[w][0][0], base, nv, q, gl, g,
+                                           d);
+      __syncwarp();
     }
-    __syncthreads();                        // the ring slot is rewritten
+    __syncthreads();                                 // the ring is reused
   }
-
-  // partial layout, as K2's: nsq | gram_i (re, im), i < nw | d_i, i <= nw
-  put(red, 0, nsq);
-#pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    if (i < nw) {
-      put(red, 1 + 2 * i, g[i][0]);
-      put(red, 2 + 2 * i, g[i][1]);
-    }
-  }
-  const int nout = 1 + 2 * nw;
-#pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    if (i < nw) {
-      put(red, nout + 2 * i, d[i][0]);
-      put(red, nout + 2 * i + 1, d[i][1]);
-    }
-  }
-  put(red, nout + 2 * nw, dl[0]);
-  put(red, nout + 2 * nw + 1, dl[1]);
-  const size_t blk = ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x
-                     + blockIdx.x;
-  write_partials_n(red, PT / 32, nout + 2 * (nw + 1), blk, partial);
+  pipe_partials<MAXW, false>(nsq, g, d, dl, nw, lane, w, q, gl, red, partial);
 }
 
-dim3 pipe3d_grid(int nz, int ny, int nx) {
-  return dim3((nx + PX - 1) / PX, (ny + PY - 1) / PY, (nz + PZ - 1) / PZ);
+template <int P, int MAXW, int MODE, int VEC>
+int launch_pipe3d(bool fit, const float* scal, const float* av, Cols W,
+                  int nw, Weights wt, float* wn, float* avn, float* partial,
+                  int nz, int ny, int nx, float ss, int pz, int grid,
+                  cudaStream_t st) {
+  auto kern = pipe3d_kernel<P, MAXW, MODE, VEC>;
+  if (fit) return resident_blocks(kern, PT);
+  kern<<<grid, PT, 0, st>>>(scal, av, W, nw, wt, wn, avn, partial, nz, ny,
+                            nx, ss, pz);
+  return (int)cudaGetLastError();
 }
 
-template <int P, int MODE>
-void launch_pipe3d(int b, const float* scal, const float* av, Cols W, int nw,
-                   Weights wt, float* wn, float* avn, float* partial, int nz,
-                   int ny, int nx, float ss, cudaStream_t st) {
-  const dim3 g = pipe3d_grid(nz, ny, nx);
-#define LZ_P3(BB) pipe3d_kernel<P, BB, MODE><<<g, PT, 0, st>>>( \
-      scal, av, W, nw, wt, wn, avn, partial, nz, ny, nx, ss)
-  if (b == 4) LZ_P3(4);
-  else if (b == 8) LZ_P3(8);
-  else if (b == 16) LZ_P3(16);
-  else LZ_P3(32);
+// One pipe3d_kernel instantiation: the launch (fit == false) or the blocks
+// of it that fit on the card at once (fit == true).
+template <int P, int MODE, int VEC>
+int pipe3d_bucket(bool fit, int b, const float* scal, const float* av,
+                  Cols W, int nw, Weights wt, float* wn, float* avn,
+                  float* partial, int nz, int ny, int nx, float ss, int pz,
+                  int grid, cudaStream_t st) {
+#define LZ_P3(BB) launch_pipe3d<P, BB, MODE, VEC>(fit, scal, av, W, nw, wt, \
+                                                  wn, avn, partial, nz, ny, \
+                                                  nx, ss, pz, grid, st)
+  if (b == 4) return LZ_P3(4);
+  if (b == 8) return LZ_P3(8);
+  if (b == 16) return LZ_P3(16);
+  return LZ_P3(32);
 #undef LZ_P3
 }
 
-template <int P>
-void pipe3d_mode(int mode, int b, const float* scal, const float* av, Cols W,
-                 int nw, Weights wt, float* wn, float* avn, float* partial,
-                 int nz, int ny, int nx, float ss, cudaStream_t st) {
-  if (mode == ISO_REF)
-    launch_pipe3d<P, ISO_REF>(b, scal, av, W, nw, wt, wn, avn, partial, nz,
-                              ny, nx, ss, st);
-  else if (mode == ISO_CLEAN)
-    launch_pipe3d<P, ISO_CLEAN>(b, scal, av, W, nw, wt, wn, avn, partial, nz,
-                                ny, nx, ss, st);
-  else
-    launch_pipe3d<P, ANISO>(b, scal, av, W, nw, wt, wn, avn, partial, nz, ny,
-                            nx, ss, st);
+int pipe3d_any(bool fit, int P, int vec, int mode, int b, const float* scal,
+               const float* av, Cols W, int nw, Weights wt, float* wn,
+               float* avn, float* partial, int nz, int ny, int nx, float ss,
+               int pz, int grid, cudaStream_t st) {
+#define LZ_A3(PP, MM, VV) pipe3d_bucket<PP, MM, VV>(                         \
+    fit, b, scal, av, W, nw, wt, wn, avn, partial, nz, ny, nx, ss, pz, grid, \
+    st)
+#define LZ_V3(PP, MM) (vec ? LZ_A3(PP, MM, 4) : LZ_A3(PP, MM, 1))
+  if (P == 1)
+    return mode == ISO_REF ? LZ_V3(1, ISO_REF)
+           : mode == ISO_CLEAN ? LZ_V3(1, ISO_CLEAN) : LZ_V3(1, ANISO);
+  return mode == ISO_REF ? LZ_V3(2, ISO_REF)
+         : mode == ISO_CLEAN ? LZ_V3(2, ISO_CLEAN) : LZ_V3(2, ANISO);
+#undef LZ_V3
+#undef LZ_A3
 }
 
 // ------------------------------------------------------------ bc3d
@@ -573,37 +657,48 @@ int lz3_pass2(int P, const float* q, const float* w, const float* const* W,
   return (int)cudaGetLastError();
 }
 
-// Number of blocks (= partial-sum rows) a pipe_3d launch uses.
-int lz3_pipe3d_blocks(int nz, int ny, int nx) {
-  const dim3 g = pipe3d_grid(nz, ny, nx);
-  return (int)(g.x * g.y * g.z);
+// Rows of a pipe_3d brick.
+int lz3_pipe3d_rows() { return TY3; }
+
+// Blocks of the pipe_3d instantiation that a call with P, mode, nw columns
+// and vec (1: the 16-byte form) takes that fit on the card at once.
+int lz3_pipe3d_fit(int P, int mode, int nw, int vec) {
+  if ((P != 1 && P != 2) || mode < 0 || mode > 2 || nw < 1
+      || nw + 1 > MAXCOLS)
+    return 0;
+  return pipe3d_any(true, P, vec, mode, bucket(nw), nullptr, nullptr, Cols{},
+                    nw, Weights{}, nullptr, nullptr, nullptr, 0, 0, 0, 0.0f,
+                    0, 0, nullptr);
 }
 
 // pipe_3d (K8). mode as lz3_pass1. W: host array of nw = j+1 device
 // pointers W_0..W_j. scal: (nw+1, 2) device buffer [(s_j, 0), c_0..c_j].
-// partial: scratch of lz3_pipe3d_blocks * nout floats; red: nout outputs,
-// nout = 1 + 2 nw + 2 (nw + 1) (nsq, gram, d).
-int lz3_pipe3d(int P, int mode, const float* scal, const float* av,
+// Bricks of PX columns, TY3 rows and pz planes, walked by `grid` blocks (at
+// most the blocks of PT threads an SM holds, times the SMs); vec = 1 takes the 16-byte form (nx % 4 == 0
+// and every field and weight 16-byte aligned). partial: scratch of grid *
+// nout floats; red: nout outputs, nout = 1 + 2 nw + 2 (nw + 1) (nsq, gram,
+// d).
+int lz3_pipe3d(int P, int mode, int vec, const float* scal, const float* av,
                const float* const* W, int nw, const float* wx,
                const float* wy, const float* wz, float* wn, float* avn,
                float* partial, float* red, int nz, int ny, int nx, float ss,
-               cudaStream_t st) {
+               int pz, int grid, cudaStream_t st) {
   if ((P != 1 && P != 2) || mode < 0 || mode > 2 || nw < 1
-      || nw + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3)
+      || nw + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3 || pz < 1
+      || grid < 1 || grid > pipe_max_blocks())
     return (int)cudaErrorInvalidValue;
   if (mode == ANISO && (!wx || !wy || !wz)) return (int)cudaErrorInvalidValue;
+  bool ok = nx % 4 == 0 && aligned16(av) && aligned16(wn) && aligned16(avn);
+  for (int i = 0; i < nw; ++i) ok = ok && aligned16(W[i]);
+  if (mode == ANISO) ok = ok && aligned16(wx) && aligned16(wy) && aligned16(wz);
+  if (vec && !ok) return (int)cudaErrorInvalidValue;
   const Cols c = make_cols(W, nw);
-  const Weights wt = {wx, wy, wz};
-  const int b = bucket(nw);
-  if (P == 1)
-    pipe3d_mode<1>(mode, b, scal, av, c, nw, wt, wn, avn, partial, nz, ny, nx,
-                   ss, st);
-  else
-    pipe3d_mode<2>(mode, b, scal, av, c, nw, wt, wn, avn, partial, nz, ny, nx,
-                   ss, st);
+  const int err = pipe3d_any(false, P, vec, mode, bucket(nw), scal, av, c, nw,
+                             Weights{wx, wy, wz}, wn, avn, partial, nz, ny,
+                             nx, ss, pz, grid, st);
+  if (err != 0) return err;
   const int nout = 1 + 2 * nw + 2 * (nw + 1);
-  reduce_partials<<<nout, RED_THREADS, 0, st>>>(
-      partial, lz3_pipe3d_blocks(nz, ny, nx), nout, red);
+  reduce_partials_om<<<nout, RED_THREADS, 0, st>>>(partial, grid, red);
   return (int)cudaGetLastError();
 }
 

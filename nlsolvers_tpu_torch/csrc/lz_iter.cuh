@@ -1,7 +1,7 @@
 // The phase bodies of a whole Lanczos iteration in one cooperative launch,
-// shared by the fused iteration (K5, lanczos2d.cu iter_kernel) and the
-// resident SS2 step (K13, resident2d.cu), which runs m-1 such iterations in
-// one launch.
+// for the fused iteration (K5, lanczos2d.cu iter_kernel), and the grid-wide
+// pieces (reduce_all, coop_launch) that the resident SS2 step (K13,
+// resident2d.cu) shares with it.
 //
 // One iteration j of the normalized two-pass loop (classical Gram-Schmidt
 // with full reorthogonalization, the JAX package's _iter_call):
@@ -15,7 +15,7 @@
 // phases can be separated by grid syncs (cooperative_groups::this_grid()).
 // Every block walks the cells in the same grid-stride order in every phase:
 // a thread reads back the w it wrote itself. Data that other blocks wrote
-// earlier in the same launch (the partial sums; in K13 the basis) is read
+// earlier in the same launch (the partial sums) is read
 // from L2 with __ldcg, never through the read-only cache.
 //
 // Cross-block sums are deterministic and need no atomics: each block writes
@@ -62,21 +62,13 @@ __device__ __forceinline__ float apply_op(const float* b, size_t idx, int r,
       b, none, idx, r, z, y, x, a.nz * a.ny, a.nz, a.ny, a.nx, a.ss);
 }
 
-// Basis columns W_0..W_j: a list of j pointers and W_j (K5), or the slots
-// of one (m, P, rows, nx) buffer (K13).
+// Basis columns W_0..W_j: a list of j pointers and W_j.
 struct ColList {
   Cols c;
   const float* last;
   int j;
   __device__ __forceinline__ const float* operator()(int i) const {
     return i < j ? c.p[i] : last;
-  }
-};
-struct ColSlab {
-  const float* base;
-  size_t col;
-  __device__ __forceinline__ const float* operator()(int i) const {
-    return base + (size_t)i * col;
   }
 };
 
@@ -98,14 +90,16 @@ __device__ __forceinline__ void cwrite(float (*red)[RED_W], int nout,
   }
 }
 
-// After a grid sync, in every block: out[o] = sum_b partial[o][b], o < nout,
-// in one fixed order (lane l adds b = l, l + 32, ..., then the warp's
-// shuffle tree), so every block gets the same bits. out is shared memory.
+// After a grid sync, in every block of NW warps: out[o] = sum_b
+// partial[o][b], o < nout, in one fixed order (lane l adds b = l, l + 32,
+// ..., then the warp's shuffle tree), so every block gets the same bits.
+// out is shared memory.
+template <int NW = CWARP>
 __device__ __forceinline__ void reduce_all(const float* partial, int nout,
                                            float* out) {
   const int lane = threadIdx.x & 31;
   const int nblk = (int)gridDim.x;
-  for (int o = threadIdx.x >> 5; o < nout; o += CWARP) {
+  for (int o = threadIdx.x >> 5; o < nout; o += NW) {
     float acc = 0.0f;
     for (int b = lane; b < nblk; b += 32)
       acc += __ldcg(partial + (size_t)o * nblk + b);
@@ -239,13 +233,14 @@ int coop_max_blocks() {
   return COOP_PER_SM * sms;
 }
 
-// Launch `kernel` cooperatively on `grid` blocks of CT threads; a grid of 0
-// (nothing fits) or a refused launch returns its error.
+// Launch `kernel` cooperatively on `grid` blocks of `threads` threads; a
+// grid of 0 (nothing fits) or a refused launch returns its error.
 template <class K>
-int coop_launch(K kernel, int grid, void** args, cudaStream_t st) {
+int coop_launch(K kernel, int grid, void** args, cudaStream_t st,
+                int threads = CT) {
   if (grid <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(grid), dim3(CT), args, 0, st);
+      (const void*)kernel, dim3(grid), dim3(threads), args, 0, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

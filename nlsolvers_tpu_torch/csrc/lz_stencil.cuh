@@ -255,9 +255,15 @@ struct LdNC {
   __device__ static __forceinline__ float ld(const float* p) {
     return __ldg(p);
   }
+  __device__ static __forceinline__ float4 ld4(const float4* p) {
+    return __ldg(p);
+  }
 };
 struct LdL2 {
   __device__ static __forceinline__ float ld(const float* p) {
+    return __ldcg(p);
+  }
+  __device__ static __forceinline__ float4 ld4(const float4* p) {
     return __ldcg(p);
   }
 };

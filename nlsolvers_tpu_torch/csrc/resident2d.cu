@@ -4,37 +4,46 @@
 // Replaces the Pallas TPU kernel nlsolvers_tpu/ops/pallas/resident2d.py
 // ss2_resident_step (K13): on a planar (2, ny, nx) float32 field u,
 //   u1 = exp(i dt/2 rho(u)) u;  u2 = exp(i dt L) u1 by m-step Lanczos with
-//   full reorthogonalization (classical Gram-Schmidt) and a Taylor series
-//   for exp(i dt T) e1;  u3 = exp(i dt/2 rho(u2)) u2;  the no-flux ghost
-//   ring copy (optional).
+//   full reorthogonalization and a Taylor series for exp(i dt T) e1;
+//   u3 = exp(i dt/2 rho(u2)) u2;  the no-flux ghost ring copy (optional).
 // L is the 5-point no-flux Laplacian (reference or clean diagonal). The
 // Taylor degree is chosen by the caller for a truncation error < 1e-8 from
 // theta = |dt| 8 |scale| (the spectrum of dt L lies in [-theta, 0]), so no
 // eigendecomposition is needed and no scalar ever leaves the card.
 //
-// What bounds it on an H100: bytes streamed from device memory. On the TPU
-// the whole basis (m x 2 x ny x nx float32, 84 MB at 1024^2, m = 10) stayed
-// in VMEM; the H100 has 227 KB of shared memory per SM and 50 MB of L2, so
-// here the basis lives in a device scratch the caller allocates once per
-// problem, and the step streams it: the m-1 iterations read and write
-// about 2j+5 columns each (117 columns of 8.4 MB at 1024^2, m = 10), the
-// kicks and the combine m+4 more: ~1.1 GB per step, a byte bound of ~0.33
-// ms. The streaming path (K1-K3) moves 0.70 GB in 11 launches plus ~300
-// small ones and waits for the host's eigh once per step; this kernel is
-// ONE launch with no host sync.
+// What bounds it on an H100: bytes streamed from device memory. The basis
+// (m x 2 x ny x nx float32, 84 MB at 1024^2, m = 10) does not fit in the
+// 227 KB of shared memory of an SM, and at 1024^2 only partly in the 50 MB
+// L2, so it lives in a device scratch the caller allocates once per problem
+// and the step streams it. The float32 operations of the step (~1.1 GFLOP at
+// 1024^2, m = 10) would take 0.016 ms; the columns streamed take longer.
 //
 // What the design does about it:
-// * One cooperative launch: the grid is as many blocks as fit on the card
-//   at once (at most two per SM), they walk the cells in a fixed
-//   grid-stride order, and the 2m-1 phases are separated by grid syncs.
-//   A launch the card refuses returns its error; nothing falls back.
-// * The phase bodies are lz_iter.cuh's, shared with the fused iteration
-//   K5, and the stencil is lz_stencil.cuh's, shared with K1/K2.
-// * Every block reduces all partial sums in the same order (reduce_all), so
-//   each block holds the same alpha, beta and s_i bit for bit and computes
-//   the Taylor coefficients itself (one warp, lane i = row i of T).
-// * The basis is written and read inside the launch, so every load of it
-//   goes to L2 (__ldcg), never through the read-only cache.
+// * The Lanczos loop is the default path's pipelined recurrence with
+//   deferred norms (ops/cuda/lanczos2d.py _lanczos_pipe): W_{j+1} = s_j av_j
+//   - sum_i c_i W_i is rebuilt on the fly and stencilled into av_{j+1} in
+//   the same pass, and the projections of the next iteration come from the
+//   dots of this one, so an iteration streams j + 4 columns (the last m + 1)
+//   and needs one grid sync. With the first pass (the kick, W_0 and av_0)
+//   and the combine the step streams ~86 columns at m = 10 (~0.72 GB at
+//   1024^2, 0.215 ms at 3.35 TB/s) in m grid syncs.
+// * Each pass is one pipe pass of lz_tile.cuh, the tile walker of K2:
+//   16-byte loads, a shared ring of rows with one barrier per step, the
+//   stencil's side neighbours by shuffles, and the dots over lane groups,
+//   gram and d from one load of each basis column. The first pass takes its
+//   rows from the kicked field (KickRows): the kick is pointwise, so the
+//   halo columns' kicks are recomputed where they are read.
+// * One cooperative launch of the blocks that fit on the card at once; a
+//   launch the card refuses returns its error, and nothing falls back.
+// * After each grid sync every block reduces all partial sums in the same
+//   order (lz_iter.cuh's reduce_all), so one warp in every block computes the
+//   same scalars (s_j, c_i, alpha_j, beta_j) bit for bit, in
+//   _lanczos_pipe's order, and the Taylor coefficients (lane i = row i of T).
+//   The partial sums alternate between two buffers, so a block that runs
+//   ahead never overwrites sums another block still reads.
+// * The basis and the av columns are written and read inside the launch, so
+//   every load of them goes to L2 (__ldcg), never through the read-only
+//   cache.
 // * The ghost ring is folded into the combine: the ring cell (r, x) takes
 //   the kicked value of the interior cell (clamp(r), clamp(x)), which is
 //   what the reference's row-then-column copy leaves there.
@@ -42,6 +51,7 @@
 // Plain C interface for ctypes: every launcher returns a CUDA error code.
 
 #include "lz_iter.cuh"
+#include "lz_tile.cuh"
 
 namespace {
 
@@ -77,61 +87,171 @@ __device__ __forceinline__ int clamp_ring(int v, int n) {
   return v == 0 ? 1 : (v == n - 1 ? n - 2 : v);
 }
 
-// basis: (m, 2, ny, nx) scratch; part_a / part_b: partial-sum rows.
-// MAXW bounds the columns of one iteration (j + 1 <= m - 1).
-template <int MAXW>
-__global__ void __launch_bounds__(CT) resident_kernel(
+// Row source of the first pass: the first half kick of u (rho from the raw
+// u, |u| being phase-invariant), at a lane's four points and, where hin, at
+// the halo column.
+template <int VEC>
+struct KickRows {
+  const float* u;
+  const float* mf;
+  Dens dens;
+  float half_dt;
+  size_t plane;
+  __device__ __forceinline__ void row(size_t base, int nv, int lane, bool hin,
+                                      long hoff, float (&v)[2][4],
+                                      float (&h)[2]) const {
+    float mv[4];
+    ldv<VEC>(u + base, lane, nv, v[0]);
+    ldv<VEC>(u + plane + base, lane, nv, v[1]);
+    ldv<VEC>(mf + base, lane, nv, mv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      kick(v[0][e], v[1][e], density(dens, mv[e], v[0][e], v[1][e]),
+           half_dt);
+    h[0] = h[1] = 0.0f;
+    if (hin) {
+      float re = __ldg(u + base + hoff), im = __ldg(u + plane + base + hoff);
+      kick(re, im, density(dens, __ldg(mf + base + hoff), re, im), half_dt);
+      h[0] = re;
+      h[1] = im;
+    }
+  }
+};
+
+// basis: (m, 2, ny, nx) scratch (slot i holds W_i); avs: (2, 2, ny, nx),
+// av_j in slot j % 2; part: two buffers of RED_W x gridDim.x partial sums.
+// MAXW bounds the dot columns of a pass (nw = j + 1 <= m - 2; the last
+// pass takes no dots). steps: the tile height of pipe_steps. Two blocks per
+// SM (128 registers) for the 16-byte forms up to 8 columns; the 16- and
+// 32-column ones (m > 10) would spill there, so they take one.
+template <int MAXW, int VEC>
+__global__ void __launch_bounds__(
+    PT, VEC == 4 && MAXW < 16 ? 2 : 1) resident_kernel(
     const float* __restrict__ u, const float* __restrict__ mf,
-    float* __restrict__ out, float* basis, float* part_a, float* part_b,
-    int m, OpArgs a, double dt, float half_dt, int deg, Dens dens,
-    int apply_bc) {
-  __shared__ float red[CWARP][RED_W];
-  __shared__ float rs[2 * MAXCOLS];
+    float* __restrict__ out, float* basis, float* avs, float* part, int m,
+    Op2d op, int ny, int nx, float ss, double dt, float half_dt, int deg,
+    Dens dens, int apply_bc, int steps) {
+  __shared__ __align__(16) float ring[RING][2][PX];
+  __shared__ float hal[RING][2][2];
+  __shared__ __align__(16) float avb[PWARP][2][PX];
+  __shared__ float red[PWARP][RED_W];
+  __shared__ float rs[RED_W];
+  __shared__ float cf[2 * MAXCOLS];
+  __shared__ const float* wp[MAXCOLS];
   __shared__ float sv[MAXCOLS + 1], alpha[MAXCOLS], beta[MAXCOLS];
+  __shared__ float gp[2 * MAXCOLS], gq[2 * MAXCOLS], dp[2 * MAXCOLS + 2];
   __shared__ float cre[MAXCOLS], cim[MAXCOLS];
-  __shared__ float beta0;
+  __shared__ float nsq0, beta0;
   cg::grid_group grid = cg::this_grid();
-  const int ny = a.ny, nx = a.nx;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const size_t n = (size_t)ny * nx;
   const size_t col = 2 * n;
-  const size_t stride = (size_t)gridDim.x * CT;
-  const size_t first = (size_t)blockIdx.x * CT + threadIdx.x;
+  if ((int)threadIdx.x < m) wp[threadIdx.x] = basis + threadIdx.x * col;
+  __syncthreads();
 
-  // first half kick; rho from the raw u (|u| is phase-invariant)
-  float nsq = 0.0f;
-  for (size_t e = first; e < n; e += stride) {
-    float re = __ldg(u + e), im = __ldg(u + n + e);
-    kick(re, im, density(dens, __ldg(mf + e), re, im), half_dt);
-    basis[e] = re;
-    basis[n + e] = im;
-    nsq += re * re + im * im;
+  // W_0 = kick(u) into slot 0 and av_0 = A(W_0): ||W_0||^2 and d_0
+  {
+    const KickRows<VEC> src = {u, mf, dens, half_dt, n};
+    pipe2d_pass<2, 4, false, OP_ISO, VEC, LdL2, false>(
+        src, wp, 0, op, basis, avs, part, ny, nx, ss, steps, ring, hal, avb,
+        red, lane, w, 0, lane);
   }
-  cput(red, 0, nsq);
-  cwrite(red, 1, part_b);
   grid.sync();
-  reduce_all(part_b, 1, rs);
+  reduce_all<PWARP>(part, 3, rs);
   if (threadIdx.x == 0) {
+    nsq0 = rs[0];
     beta0 = sqrtf(rs[0]);
     sv[0] = safe_inv(beta0);
+    dp[0] = rs[1];
+    dp[1] = rs[2];
   }
   __syncthreads();
 
-  // Lanczos: W_{j+1} is built in place in slot j+1
-  const ColSlab W = {basis, col};
+  // Lanczos, _lanczos_pipe's recurrence: W_{j+1} into slot j+1
   for (int j = 0; j < m - 1; ++j) {
-    const float s = sv[j];
-    const float bs = j > 0 ? beta[j - 1] * sv[j - 1] : 0.0f;
-    float* wn = basis + (size_t)(j + 1) * col;
-    phase_w<2, MAXW, OPK_ISO2D, LdL2>(s, bs, W, j, a, wn, red, part_a);
+    const int nw = j + 1;
+    const bool last = j == m - 2;
+    if (w == 0 && lane <= j) {
+      // raw_i = <W_i, w_j> = s_j d_i - bs <W_i, W_{j-1}>, where the gram
+      // terms are the pass before last's (i <= j-2), beta_{j-2}^2 or
+      // ||W_0||^2 (i = j-1) and the conjugate of the last pass's gram_{j-1}
+      // (i = j); c_i = s_i^2 raw_i + (i == j-1) bs
+      const int i = lane;
+      const float sj = sv[j];
+      float rr, ri, bs = 0.0f;
+      if (j == 0) {
+        rr = sj * dp[0];
+        ri = sj * dp[1];
+      } else {
+        bs = beta[j - 1] * sv[j - 1];
+        float pr, pi = 0.0f;
+        if (i <= j - 2) {
+          pr = gq[2 * i];
+          pi = gq[2 * i + 1];
+        } else if (i == j - 1) {
+          pr = j >= 2 ? beta[j - 2] * beta[j - 2] : nsq0;
+        } else {
+          pr = gp[2 * (j - 1)];
+          pi = -gp[2 * (j - 1) + 1];
+        }
+        rr = sj * dp[2 * i] - bs * pr;
+        ri = sj * dp[2 * i + 1] - bs * pi;
+      }
+      const float si = sv[i];
+      const float qr = si * rr, qi = si * ri;
+      if (i == j) alpha[j] = qr;
+      float cr = si * qr;
+      if (j > 0 && i == j - 1) cr += bs;
+      cf[2 * i] = cr;
+      cf[2 * i + 1] = si * qi;
+    }
+    __syncthreads();
+    float* pj = part + (size_t)((j + 1) & 1) * RED_W * gridDim.x;
+    float* wn = basis + (size_t)nw * col;
+    float* avn = avs + (size_t)((j + 1) & 1) * col;
+    const RebuildRows<2, VEC, LdL2> src = {avs + (size_t)(j & 1) * col, wp,
+                                           cf, nw, sv[j], n};
+#define RS_PASS(B, LAST, DOTS)                                             \
+  pipe2d_pass<2, B, LAST, OP_ISO, VEC, LdL2, DOTS>(                         \
+      src, wp, nw, op, wn, avn, pj, ny, nx, ss, steps, ring, hal, avb, red, \
+      lane, w, lane / (128 / B), lane % (128 / B))
+    if (last) {
+      RS_PASS(4, true, false);                   // the norm only
+    } else if (nw <= 4) {
+      RS_PASS(4, false, true);
+    } else {
+      if constexpr (MAXW >= 8) {
+        if (nw <= 8) {
+          RS_PASS(8, false, true);
+        } else {
+          if constexpr (MAXW >= 16) {
+            if (nw <= 16) {
+              RS_PASS(16, false, true);
+            } else {
+              if constexpr (MAXW >= 32) RS_PASS(32, false, true);
+            }
+          }
+        }
+      }
+    }
+#undef RS_PASS
     grid.sync();
-    reduce_all(part_a, 2 * (j + 1), rs);
-    if (threadIdx.x == 0) alpha[j] = s * rs[2 * j];
-    phase_sub<2, MAXW, LdL2>(W, j, sv, rs, n, wn, wn, red, part_b);
-    grid.sync();
-    reduce_all(part_b, 1, rs);
-    if (threadIdx.x == 0) {
-      beta[j] = sqrtf(rs[0]);
-      sv[j + 1] = safe_inv(beta[j]);
+    reduce_all<PWARP>(pj, last ? 1 : 1 + 2 * nw + 2 * (nw + 1), rs);
+    if (w == 0) {
+      if (lane == 0) {
+        beta[j] = sqrtf(rs[0]);
+        sv[j + 1] = safe_inv(beta[j]);
+      }
+      if (!last && lane < nw) {                  // gram two passes back
+        gq[2 * lane] = gp[2 * lane];
+        gq[2 * lane + 1] = gp[2 * lane + 1];
+        gp[2 * lane] = rs[1 + 2 * lane];
+        gp[2 * lane + 1] = rs[2 + 2 * lane];
+      }
+      if (!last && lane <= nw) {
+        dp[2 * lane] = rs[1 + 2 * nw + 2 * lane];
+        dp[2 * lane + 1] = rs[2 + 2 * nw + 2 * lane];
+      }
     }
     __syncthreads();
   }
@@ -174,7 +294,8 @@ __global__ void __launch_bounds__(CT) resident_kernel(
   __syncthreads();
 
   // combine, second half kick (rho from the combined field), ghost ring
-  for (size_t e = first; e < n; e += stride) {
+  const size_t stride = (size_t)gridDim.x * PT;
+  for (size_t e = (size_t)blockIdx.x * PT + threadIdx.x; e < n; e += stride) {
     const int r = (int)(e / nx);
     const int x = (int)(e - (size_t)r * nx);
     const size_t src = apply_bc ? (size_t)clamp_ring(r, ny) * nx
@@ -193,20 +314,34 @@ __global__ void __launch_bounds__(CT) resident_kernel(
   }
 }
 
-template <int MAXW>
-int resident_grid() {
-  static const int g = coop_blocks(resident_kernel<MAXW>);
-  return g;
+template <int MAXW, int VEC>
+int launch_resident(const float* u, const float* mf, float* out,
+                    float* basis, float* avs, float* part, int m, Op2d op,
+                    int ny, int nx, float ss, double dt, float half_dt,
+                    int deg, Dens dens, int apply_bc, cudaStream_t st) {
+  auto kern = resident_kernel<MAXW, VEC>;
+  static const int grid = resident_blocks(kern, PT);
+  if (grid <= 0 || grid > pipe_max_blocks())
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  int steps = pipe_steps(ny, nx, grid);
+  void* args[] = {&u, &mf, &out, &basis, &avs, &part, &m, &op, &ny, &nx,
+                  &ss, &dt, &half_dt, &deg, &dens, &apply_bc, &steps};
+  return coop_launch(kern, grid, args, st, PT);
 }
 
-template <int MAXW>
-int launch_resident(const float* u, const float* mf, float* out,
-                    float* basis, float* part_a, float* part_b, int m,
-                    OpArgs a, double dt, float half_dt, int deg, Dens dens,
-                    int apply_bc, cudaStream_t st) {
-  void* args[] = {&u, &mf, &out, &basis, &part_a, &part_b, &m, &a, &dt,
-                  &half_dt, &deg, &dens, &apply_bc};
-  return coop_launch(resident_kernel<MAXW>, resident_grid<MAXW>(), args, st);
+template <int VEC>
+int resident_bucket(int b, const float* u, const float* mf, float* out,
+                    float* basis, float* avs, float* part, int m, Op2d op,
+                    int ny, int nx, float ss, double dt, float half_dt,
+                    int deg, Dens dens, int apply_bc, cudaStream_t st) {
+#define RS_L(BB) launch_resident<BB, VEC>(u, mf, out, basis, avs, part, m, \
+                                          op, ny, nx, ss, dt, half_dt, deg, \
+                                          dens, apply_bc, st)
+  if (b == 4) return RS_L(4);
+  if (b == 8) return RS_L(8);
+  if (b == 16) return RS_L(16);
+  return RS_L(32);
+#undef RS_L
 }
 
 }  // namespace
@@ -215,35 +350,39 @@ extern "C" {
 
 int rs_max_cols() { return MAXCOLS; }
 
-// Rows of the partial-sum scratch: rs_step needs (2 MAXCOLS + 1) *
-// rs_max_blocks floats.
-int rs_max_blocks() { return coop_max_blocks(); }
+// Floats of the partial-sum scratch rs_step needs: two buffers of RED_W
+// sums for each of the most blocks a launch uses.
+long long rs_partial_floats() {
+  return 2LL * RED_W * pipe_max_blocks();
+}
 
 const char* rs_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
 // One SS2 step. u, out: (2, ny, nx); mf: (ny, nx) m field; basis: (m, 2,
-// ny, nx) scratch; partial: (2 MAXCOLS + 1) * rs_max_blocks floats.
-// kind: 0 cubic, 1 cubic_quintic, 2 saturable. deg: Taylor degree.
+// ny, nx) and avs: (2, 2, ny, nx) scratch; partial: rs_partial_floats
+// floats. kind: 0 cubic, 1 cubic_quintic, 2 saturable. deg: Taylor degree.
+// Rows of nx % 4 == 0 columns with 16-byte aligned fields take the 16-byte
+// form, any other grid the scalar one.
 int rs_step(const float* u, const float* mf, float* out, float* basis,
-            float* partial, int m, int ny, int nx, float ss, int clean,
-            double dt, float half_dt, int deg, int kind, float sigma1,
-            float sigma2, float kappa, int apply_bc, cudaStream_t st) {
+            float* avs, float* partial, int m, int ny, int nx, float ss,
+            int clean, double dt, float half_dt, int deg, int kind,
+            float sigma1, float sigma2, float kappa, int apply_bc,
+            cudaStream_t st) {
   if (m < 1 || m > MAXCOLS || ny < 3 || nx < 3 || deg < 1 || kind < 0
       || kind > 2)
     return (int)cudaErrorInvalidValue;
-  const OpArgs a = {Op2d{nullptr, nullptr, clean}, 1, ny, nx, ss};
+  const Op2d op = {nullptr, nullptr, clean};
   const Dens dens = {kind, sigma1, sigma2, kappa};
-  float* part_b = partial + (size_t)2 * MAXCOLS * coop_max_blocks();
-  const int b = bucket(m > 1 ? m - 1 : 1);
-#define RS_L(BB) launch_resident<BB>(u, mf, out, basis, partial, part_b, m, \
-                                     a, dt, half_dt, deg, dens, apply_bc, st)
-  if (b == 4) return RS_L(4);
-  if (b == 8) return RS_L(8);
-  if (b == 16) return RS_L(16);
-  return RS_L(32);
-#undef RS_L
+  const int b = bucket(m > 2 ? m - 2 : 1);
+  const bool vec = nx % 4 == 0 && aligned16(u) && aligned16(mf)
+                   && aligned16(basis) && aligned16(avs);
+  if (vec)
+    return resident_bucket<4>(b, u, mf, out, basis, avs, partial, m, op, ny,
+                              nx, ss, dt, half_dt, deg, dens, apply_bc, st);
+  return resident_bucket<1>(b, u, mf, out, basis, avs, partial, m, op, ny,
+                            nx, ss, dt, half_dt, deg, dens, apply_bc, st);
 }
 
 }  // extern "C"

@@ -98,9 +98,10 @@ def _lib():
             ("lz3_pass1_shard", [i32, i32, vp, vp, pp, i32] + [vp] * 12
              + [i32] * 9 + [f32, vp]),
             ("lz3_bc3d", [i32, vp] + [i32] * 9 + [vp]),
-            ("lz3_pipe3d_blocks", [i32, i32, i32]),
-            ("lz3_pipe3d", [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp,
-                            vp, vp, i32, i32, i32, f32, vp])):
+            ("lz3_pipe3d_rows", []),
+            ("lz3_pipe3d_fit", [i32, i32, i32, i32]),
+            ("lz3_pipe3d", [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp,
+                            vp, vp, vp, i32, i32, i32, f32, i32, i32, vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
@@ -108,6 +109,8 @@ def _lib():
     lib.lz3_error_string.restype = ctypes.c_char_p
     if lib.lz3_max_cols() != MAX_M:
         raise RuntimeError("csrc/lanczos3d.cu MAXCOLS differs from MAX_M")
+    if lib.lz3_pipe3d_rows() != PIPE3D_ROWS:
+        raise RuntimeError("csrc/lanczos3d.cu TY3 differs from PIPE3D_ROWS")
     _lib_cache.append(lib)
     return lib
 
@@ -399,6 +402,51 @@ def pass2(q, w, W):
 pass2.launches = 0
 
 
+# K8's bricks: PIPE3D_COLS columns by PIPE3D_ROWS rows (csrc/lanczos3d.cu
+# TY3: one rebuilt row per warp of its 8) by pz planes
+PIPE3D_COLS = 128
+PIPE3D_ROWS = 6
+
+
+def pipe3d_brick(nz, ny, nx, fit):
+    """(pz, grid) of a K8 launch on an (nz, ny, nx) grid: bricks of pz
+    planes, walked by `grid` blocks, `fit` of which fit on the card at once.
+
+    The busiest block walks ceil(bricks / grid) bricks of pz + 2 plane
+    steps (a halo plane on each side); pz is the one that makes that the
+    fewest steps, and of those the longest bricks (the fewest halo planes).
+    """
+    cols_rows = -(-nx // PIPE3D_COLS) * -(-ny // PIPE3D_ROWS)
+    best = None
+    for pz in range(1, nz + 1):
+        bricks = cols_rows * -(-nz // pz)
+        key = (-(-bricks // fit) * (pz + 2), -pz)
+        if best is None or key < best[0]:
+            best = (key, pz, min(bricks, fit))
+    return best[1:]
+
+
+_brick_cache = {}
+
+
+def _bucket(n):
+    """csrc's template bucket of a column count (lz_common.cuh bucket)."""
+    return 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
+
+
+def _brick(P, mode, nw, vec, nz, ny, nx):
+    """pipe3d_brick for the kernel instantiation a call takes, the blocks
+    that fit read from the library once."""
+    key = (P, mode, _bucket(nw), vec, nz, ny, nx)
+    if key not in _brick_cache:
+        fit = _lib().lz3_pipe3d_fit(P, mode, nw, vec)
+        if fit < 1:
+            raise RuntimeError("pipe_3d: no block of the kernel fits on the "
+                               "card")
+        _brick_cache[key] = pipe3d_brick(nz, ny, nx, fit)
+    return _brick_cache[key]
+
+
 def pipe_3d(scal, av, W, desc):
     """K8: one pipelined 3D Lanczos iteration j = len(W) - 1 on the merged
     (P, R, nx) view, pass2(j) fused with pass1(j+1).
@@ -417,17 +465,21 @@ def pipe_3d(scal, av, W, desc):
     nz, ny, nx = _geom(desc, av, "pipe_3d")
     mode, wts = _mode_weights(desc, av, "pipe_3d")
     lib = _lib()
+    P = av.shape[0]
     nout = 1 + 2 * nw + 2 * (nw + 1)
     wn = torch.empty_like(av)
     avn = torch.empty_like(av)
-    partial = torch.empty(lib.lz3_pipe3d_blocks(nz, ny, nx) * nout,
-                          dtype=torch.float32, device=av.device)
+    vec = int(nx % 4 == 0 and all(
+        p % 16 == 0 for p in [t.data_ptr() for t in (av, wn, avn, *W)]
+        + [w for w in wts if w is not None]))
+    pz, grid = _brick(P, mode, nw, vec, nz, ny, nx)
+    partial = torch.empty(grid * nout, dtype=torch.float32, device=av.device)
     red = torch.empty(nout, dtype=torch.float32, device=av.device)
-    _check(lib.lz3_pipe3d(av.shape[0], mode, scal.data_ptr(), av.data_ptr(),
+    _check(lib.lz3_pipe3d(P, mode, vec, scal.data_ptr(), av.data_ptr(),
                           _ptrs(W), nw, *wts, wn.data_ptr(), avn.data_ptr(),
                           partial.data_ptr(), red.data_ptr(), nz, ny, nx,
-                          float(desc["scale"]) * float(desc["sign"]),
-                          _stream(av)), "pipe_3d")
+                          float(desc["scale"]) * float(desc["sign"]), pz,
+                          grid, _stream(av)), "pipe_3d")
     pipe_3d.launches += 1
     return (wn, avn, red[:1].view(1, 1), red[1:1 + 2 * nw].view(nw, 2),
             red[1 + 2 * nw:].view(nw + 1, 2))

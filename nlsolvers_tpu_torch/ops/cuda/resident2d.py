@@ -18,7 +18,10 @@ kernel masks ragged edges, and its basis lives in device memory.
 
 The wrapper launches the kernel (csrc/resident2d.cu, a cooperative launch)
 for a CUDA tensor under config.kernel_mode "auto" and raises if it cannot
-run; a CPU tensor, or "off", takes the plain version. The basis scratch is
+run; a CPU tensor, or "off", takes the plain version. The kernel's Lanczos
+loop is the default path's pipelined recurrence (lanczos2d._lanczos_pipe),
+the plain version's the Pallas kernel's two-pass Gram-Schmidt: the same
+exact result, other float32 rounding. The scratch (scratch_shapes) is
 allocated at the first launch into the `scratch` dict the caller passes,
 and reused by every later step that passes the same dict.
 """
@@ -34,7 +37,7 @@ from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (MAX_M, _stencil_ref,
                                                     _stream, safe_inv)
 
-__all__ = ["supported_resident", "ss2_resident_step",
+__all__ = ["supported_resident", "scratch_shapes", "ss2_resident_step",
            "ss2_resident_step_ref", "THETA_MAX"]
 
 THETA_MAX = 3.5
@@ -168,15 +171,15 @@ def _lib():
         return _lib_cache[0]
     lib = _build.library("resident2d")
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, args in (
-            ("rs_max_cols", []),
-            ("rs_max_blocks", []),
-            ("rs_step", [vp, vp, vp, vp, vp, i32, i32, i32, f32, i32,
+    for name, args, ret in (
+            ("rs_max_cols", [], i32),
+            ("rs_partial_floats", [], ctypes.c_longlong),
+            ("rs_step", [vp, vp, vp, vp, vp, vp, i32, i32, i32, f32, i32,
                          ctypes.c_double, f32, i32, i32, f32, f32, f32, i32,
-                         vp])):
+                         vp], i32)):
         fn = getattr(lib, name)
         fn.argtypes = args
-        fn.restype = i32
+        fn.restype = ret
     lib.rs_error_string.argtypes = [i32]
     lib.rs_error_string.restype = ctypes.c_char_p
     if lib.rs_max_cols() != MAX_M:
@@ -185,17 +188,27 @@ def _lib():
     return lib
 
 
+def scratch_shapes(m, ny, nx, partial_floats):
+    """The shapes of one problem's scratch: the (m, 2, ny, nx) basis, the
+    two av columns the kernel alternates between, and the partial sums
+    (two buffers, partial_floats in all, rs_partial_floats of the
+    library)."""
+    return {"basis": (m, 2, ny, nx), "avs": (2, 2, ny, nx),
+            "partial": (partial_floats,)}
+
+
 def _scratch(scratch, m, ny, nx, device):
-    """The (m, 2, ny, nx) basis and the partial sums of one problem's
-    launches, allocated at the first launch into the caller's dict."""
+    """The scratch of one problem's launches (scratch_shapes), allocated at
+    the first launch into the caller's dict."""
     key = (m, ny, nx, str(device))
     if scratch.get("key") != key:
-        f32 = dict(dtype=torch.float32, device=device)
+        scratch.clear()
         scratch["key"] = key
-        scratch["basis"] = torch.empty((m, 2, ny, nx), **f32)
-        scratch["partial"] = torch.empty(
-            (2 * MAX_M + 1) * _lib().rs_max_blocks(), **f32)
-    return scratch["basis"], scratch["partial"]
+        shapes = scratch_shapes(m, ny, nx, _lib().rs_partial_floats())
+        for name, shape in shapes.items():
+            scratch[name] = torch.empty(shape, dtype=torch.float32,
+                                        device=device)
+    return scratch["basis"], scratch["avs"], scratch["partial"]
 
 
 def ss2_resident_step(u, m_field, desc, dt, m, kind="cubic", sigma1=1.0,
@@ -228,12 +241,12 @@ def ss2_resident_step(u, m_field, desc, dt, m, kind="cubic", sigma1=1.0,
     if tuple(m_field.shape) != (ny, nx):
         raise ValueError(f"ss2_resident_step: m_field "
                          f"{tuple(m_field.shape)} != {(ny, nx)}")
-    basis, partial = _scratch({} if scratch is None else scratch, m, ny, nx,
-                              u.device)
+    basis, avs, partial = _scratch({} if scratch is None else scratch, m,
+                                   ny, nx, u.device)
     out = torch.empty_like(u)
     err = _lib().rs_step(
         u.data_ptr(), m_field.data_ptr(), out.data_ptr(), basis.data_ptr(),
-        partial.data_ptr(), m, ny, nx,
+        avs.data_ptr(), partial.data_ptr(), m, ny, nx,
         float(desc["scale"]) * float(desc["sign"]),
         int(desc["variant"] == "clean"), float(dt),
         float(np.float32(0.5 * dt)), _taylor_degree(_theta(desc, dt)),

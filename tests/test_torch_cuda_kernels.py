@@ -256,11 +256,22 @@ def test_iter_step_rejects_bad_input(cuda):
                      _desc3d((4, 5, 6), "aniso", cuda))
 
 
-@pytest.mark.parametrize("shape,mode,P,j", [
+# (shape, mode, P, j): nx % 4 == 0 (the 16-byte form) and != 0, ny and nz
+# that no brick height divides, nx > 128 (halo columns), planes of 3 rows
+# (the y-seam rows cross bricks), every bucket up to j = MAX_M - 2
+_PIPE3D_CASES = [
     ((37, 50, 61), "reference", 2, 0), ((37, 50, 61), "clean", 2, 4),
     ((37, 50, 61), "aniso", 2, 8), ((20, 30, 50), "reference", 1, 6),
     ((3, 9, 130), "aniso", 1, 12), ((17, 3, 33), "reference", 2,
-                                    tl.MAX_M - 2)])
+                                    tl.MAX_M - 2),
+    ((21, 23, 64), "aniso", 2, 12), ((21, 23, 64), "clean", 1, 18),
+    ((9, 31, 260), "reference", 2, 5), ((9, 31, 260), "aniso", 1, 2),
+    ((33, 17, 132), "clean", 2, 18), ((33, 17, 132), "aniso", 2, 3)]
+
+
+@pytest.mark.parametrize("shape,mode,P,j", _PIPE3D_CASES,
+                         ids=[f"{s[0]}x{s[1]}x{s[2]}-{m}-P{P}-j{j}"
+                              for s, m, P, j in _PIPE3D_CASES])
 def test_pipe_3d_matches_plain_on_card(cuda, shape, mode, P, j):
     """K8 on ragged grids (tiles cut in x, y and z, planes of 3 rows, so
     the y-seam rows cross tiles), every operator, both field kinds."""
@@ -289,11 +300,26 @@ def test_pipe_3d_rejects_bad_input(cuda):
         t3.pipe_3d(scal, u, [u], dict(desc, wz=desc["wz"].cpu()))
 
 
-@pytest.mark.parametrize("shape,kind,variant,m,bc", [
+# (shape, kind, variant, m, bc): every density, both variants, with and
+# without the ghost ring, m from 1 to 20 (every bucket of the dots), nx %
+# 4 == 0 (the 16-byte form; 200 x 256 and 130 x 260 over several tiles)
+# and != 0
+_RESIDENT_CASES = [
     ((64, 64), "cubic", "reference", 10, True),
     ((37, 131), "cubic_quintic", "clean", 8, True),
     ((250, 333), "saturable", "reference", 20, False),
-    ((5, 3), "cubic", "clean", 1, True)])
+    ((5, 3), "cubic", "clean", 1, True),
+    ((200, 256), "cubic", "clean", 20, False),
+    ((130, 260), "saturable", "clean", 10, True),
+    ((97, 333), "cubic_quintic", "reference", 20, True),
+    ((64, 64), "cubic", "reference", 2, False),
+    ((3, 129), "saturable", "reference", 3, True),
+    ((1024, 1024), "cubic", "reference", 10, True)]
+
+
+@pytest.mark.parametrize("shape,kind,variant,m,bc", _RESIDENT_CASES,
+                         ids=[f"{s[0]}x{s[1]}-{k}-{v}-m{m}{'-bc' * b}"
+                              for s, k, v, m, b in _RESIDENT_CASES])
 def test_resident_step_matches_plain_on_card(cuda, shape, kind, variant, m,
                                              bc):
     """K13, one whole step, against ss2_resident_step_ref; one launch per
@@ -554,3 +580,44 @@ def test_pipe_2d_and_combine_repeat_bit_for_bit(cuda, op, shape):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert all(torch.equal(x, y)
                for x, y in zip(tl.combine(q, W), tl.combine(q, W)))
+
+
+# K8 with bricks of 1 to 25 planes (one plane, several, all but the last
+# of a ragged z, the whole z) and grids of fewer blocks than bricks (a block
+# walks several, marching up and down in z), nx % 4 == 0 and != 0
+@pytest.mark.parametrize("brick", [(1, 5), (4, 3), (5, 2), (7, 1), (25, 7)])
+@pytest.mark.parametrize("mode", ["reference", "clean", "aniso"])
+@pytest.mark.parametrize("nx", [132, 131])
+def test_pipe_3d_bricks_match_plain_on_card(cuda, monkeypatch, brick, mode,
+                                            nx):
+    shape = (23, 37, nx)
+    monkeypatch.setattr(t3, "pipe3d_brick", lambda *a: brick)
+    monkeypatch.setattr(t3, "_brick_cache", {})
+    desc = _desc3d(shape, mode, cuda)
+    av, *W = _fields_on(cuda, 9, (23 * 37, nx), 2, 140)
+    scal = torch.from_numpy(np.random.default_rng(141).uniform(
+        -0.5, 0.5, (9, 2)).astype(np.float32)).to(cuda)
+    _check(*_kernel_and_plain(lambda: t3.pipe_3d(scal, av, W, desc)),
+           [av, *W])
+
+
+def test_pipe_3d_and_resident_repeat_bit_for_bit(cuda):
+    """Two launches of K8 and of K13 on the same inputs give the same bits
+    (fixed grid, fixed order of sums, no atomics)."""
+    from nlsolvers_tpu_torch.ops.cuda import resident2d as r2
+    desc = _desc3d((64, 64, 128), "aniso", cuda)
+    av, *W = _fields_on(cuda, 9, (64 * 64, 128), 2, 150)
+    scal = torch.from_numpy(np.random.default_rng(151).uniform(
+        -0.5, 0.5, (9, 2)).astype(np.float32)).to(cuda)
+    a = t3.pipe_3d(scal, av, W, desc)
+    b = t3.pipe_3d(scal, av, W, desc)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for shape in ((256, 256), (250, 333)):
+        dx = 2.0 * 5.0 / (shape[1] - 1)
+        d2 = tops.laplacian_2d(shape, dx, dx, device=cuda).kernel_desc
+        (u,) = _fields_on(cuda, 1, shape, 2, 152)
+        mf = torch.ones(shape, device=cuda)
+        dt = 2.0 / (8.0 * d2["scale"])
+        sc = {}
+        assert torch.equal(r2.ss2_resident_step(u, mf, d2, dt, 20, scratch=sc),
+                           r2.ss2_resident_step(u, mf, d2, dt, 20, scratch=sc))

@@ -176,3 +176,33 @@ def test_pipe3d_realwave_matches_pallas(pipe3d_on, monkeypatch):
                                   "sinc2_sqrt_half", m)
     assert got.shape == u.shape and len(seen) == m - 2
     assert _rel(got.numpy(), want) <= FIELD_TOL
+
+
+@pytest.mark.parametrize("shape,fit", [((128, 128, 128), 264),
+                                       ((256, 256, 256), 264),
+                                       ((37, 50, 61), 264), ((3, 3, 3), 132),
+                                       ((512, 20, 300), 132),
+                                       ((512, 512, 512), 264)])
+def test_pipe3d_brick_takes_the_fewest_steps(shape, fit):
+    """K8's brick: a grid no larger than the blocks that fit nor the
+    bricks, and the pz whose busiest block walks the fewest plane steps
+    (brute force over every pz), the longest brick among equals."""
+    nz, ny, nx = shape
+    pz, grid = t3.pipe3d_brick(nz, ny, nx, fit)
+    per_plane = -(-nx // t3.PIPE3D_COLS) * -(-ny // t3.PIPE3D_ROWS)
+
+    def steps(p):
+        return -(-per_plane * -(-nz // p) // fit) * (p + 2)
+
+    assert 1 <= pz <= nz
+    assert grid == min(per_plane * -(-nz // pz), fit)
+    best = min(steps(p) for p in range(1, nz + 1))
+    assert steps(pz) == best
+    assert pz == max(p for p in range(1, nz + 1) if steps(p) == best)
+
+
+def test_pipe3d_brick_at_the_measured_points():
+    """128^3 and 256^3 on 264 resident blocks (two per SM of an H100):
+    22 x 12 bricks of 11 planes, and 86 x 3 bricks of 86 planes."""
+    assert t3.pipe3d_brick(128, 128, 128, 264) == (11, 264)
+    assert t3.pipe3d_brick(256, 256, 256, 264) == (86, 258)

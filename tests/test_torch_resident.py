@@ -11,6 +11,11 @@ Tolerances:
 * the resident step against the port's eigh path (one step): rel-L2 <=
   1e-5. The Taylor series is truncated below 1e-8, so what is left is
   float32 rounding.
+* the recurrence the kernel follows (the kick, the pipelined Lanczos loop
+  _lanczos_pipe, the Taylor series, the combine, the kick and the ghost
+  ring), composed from the port's plain pieces in float64, against the
+  Pallas kernel: rel-L2 <= 1e-5, the same algorithm up to the rounding of
+  the float32 side.
 """
 
 import math
@@ -29,6 +34,7 @@ from nlsolvers_tpu.ops.pallas import resident2d as jr
 from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.models import problems as tproblems
 from nlsolvers_tpu_torch.ops import operators as tops
+from nlsolvers_tpu_torch.ops.boundaries import neumann_no_velocity_2d
 from nlsolvers_tpu_torch.ops.cuda import lanczos2d as tl
 from nlsolvers_tpu_torch.ops.cuda import resident2d as tr
 from nlsolvers_tpu_torch.utils import interop
@@ -219,3 +225,83 @@ def test_switches_carry_across():
         interop.set_switches(**old)
     assert (config.resident_mode, config.fused_iter,
             config.pipeline_3d) == ("off", False, False)
+
+
+def _pipe_recurrence_f64(u, mf, desc, dt, m, kind, apply_bc, params):
+    """One SS2 step as the kernel computes it, in float64 on the CPU: the
+    kick, _lanczos_pipe (the default path's deferred-norm recurrence), the
+    Taylor series of exp(i dt T) e1 in the kernel's order, the combine, the
+    second kick (rho of the combined field) and the ghost ring."""
+    s1, s2 = params.get("sigma1", 1.0), params.get("sigma2", -0.1)
+    kappa = params.get("kappa", 1.0)
+    u = torch.from_numpy(u).double()
+    mf = torch.from_numpy(mf).double()
+    half = 0.5 * dt
+    w0 = torch.stack(tr._phase_mul(u[0], u[1], tr._rho(
+        kind, mf, u[0], u[1], s1, s2, kappa), half))
+    old = config.kernel_mode
+    config.kernel_mode = "off"
+    try:
+        W, sv, alphas, betas, beta0 = tl._lanczos_pipe(w0, m, desc)
+    finally:
+        config.kernel_mode = old
+    alpha = torch.zeros(m, dtype=torch.float64)
+    beta = torch.zeros(max(m - 1, 0), dtype=torch.float64)
+    for i, a in enumerate(alphas):
+        alpha[i] = a
+    for i, b in enumerate(betas):
+        beta[i] = b
+    tre = torch.zeros(m, dtype=torch.float64)
+    tre[0] = 1.0
+    tim = torch.zeros_like(tre)
+    yre, yim = tre.clone(), tim.clone()
+    for k in range(1, tr._taylor_degree(tr._theta(desc, dt)) + 1):
+        ar, ai = alpha * tre, alpha * tim
+        ar[1:] += beta * tre[:-1]
+        ai[1:] += beta * tim[:-1]
+        ar[:-1] += beta * tre[1:]
+        ai[:-1] += beta * tim[1:]
+        tre, tim = -(dt / k) * ai, (dt / k) * ar
+        yre, yim = yre + tre, yim + tim
+    outr = torch.zeros_like(w0[0])
+    outi = torch.zeros_like(w0[1])
+    for i in range(m):
+        cr, ci = beta0 * sv[i] * yre[i], beta0 * sv[i] * yim[i]
+        outr = outr + cr * W[i][0] - ci * W[i][1]
+        outi = outi + cr * W[i][1] + ci * W[i][0]
+    out = torch.stack(tr._phase_mul(outr, outi, tr._rho(
+        kind, mf, outr, outi, s1, s2, kappa), half))
+    return neumann_no_velocity_2d(out) if apply_bc else out
+
+
+@pytest.mark.parametrize("kind,variant,apply_bc,m", [
+    ("cubic", "reference", True, 10), ("cubic_quintic", "clean", False, 6),
+    ("saturable", "reference", True, 2), ("cubic", "clean", True, 1)])
+def test_pipe_recurrence_matches_pallas(kind, variant, apply_bc, m):
+    """The recurrence K13 follows, in float64, against the Pallas kernel
+    (two-pass Gram-Schmidt in float32, interpreted)."""
+    dt = 5e-4
+    dx = 2 * 5.0 / (SHAPE[1] - 1)
+    jd = jops.laplacian_2d(SHAPE, dx, dx, variant=variant,
+                           dtype=jnp.float32)._pallas_desc
+    td = tops.laplacian_2d(SHAPE, dx, dx, variant=variant,
+                           device="cpu").kernel_desc
+    z = _u0(SHAPE, 4)
+    u = np.stack([z.real, z.imag]).astype(np.float32)
+    mf = _m_field(SHAPE)
+    want = jr.ss2_resident_step(jnp.asarray(u), jnp.asarray(mf), jd, dt, m,
+                                kind=kind, apply_bc=apply_bc,
+                                interpret=True, **PARAMS[kind])
+    got = _pipe_recurrence_f64(u, mf, td, dt, m, kind, apply_bc,
+                               PARAMS[kind])
+    assert got.shape == (2,) + SHAPE and got.dtype == torch.float64
+    assert _rel(got.numpy(), np.asarray(want)) <= TOL
+
+
+def test_scratch_shapes():
+    """The kernel's scratch: the basis, the two av columns it alternates
+    between, and the partial sums the library asks for."""
+    got = tr.scratch_shapes(10, 1024, 1024, 2 * 131 * 1056)
+    assert got == {"basis": (10, 2, 1024, 1024), "avs": (2, 2, 1024, 1024),
+                   "partial": (2 * 131 * 1056,)}
+    assert tr.scratch_shapes(1, 5, 3, 7)["basis"] == (1, 2, 5, 3)

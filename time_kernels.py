@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time the 2D Lanczos kernels K2, K2' and K3 and the 2D steps on one GPU.
+"""Time the pipelined Lanczos kernels and the steps that run them on one GPU.
 
     python3 time_kernels.py [--root TREE] [--tag NAME] [--out FILE]
+                            [--parts 2d,k8,k13,rates,optin]
+                            [--ms 10,20]
 
 Imports nlsolvers_tpu_torch from TREE (default: the directory of this
 script), so that one machine can time two versions of the package in turns
@@ -9,9 +11,7 @@ script), so that one machine can time two versions of the package in turns
 are this script's chip_smoke.py's, whatever TREE is. Imports torch, numpy,
 chip_smoke and that package only.
 
-Kernel readings, per step of the kernel's path (K2 / K2': the m-1 launches
-j = 0..m-2 of one Lanczos run, the last one LAST; K3: one combine with
-k = 1), each on the same inputs:
+Kernel readings, per step of the kernel's path, each on the same inputs:
   graph     the step's launches captured once in a torch.cuda.CUDAGraph
             (warmed up on a side stream), replayed back to back with CUDA
             events around the replays: device time without the host's
@@ -22,17 +22,30 @@ k = 1), each on the same inputs:
             the host's enqueue time where that is longer.
 Beside them the bytes bound (each input read once, each output written
 once, at 3.35 TB/s) and, for K3, torch.matmul of the same coefficients over
-the same columns (complex64). Sizes: 1024^2 and 4096^2, m = 10 and 20.
-
-Step rates by chip_smoke.py's `rate` (steps/s, the median of 3
-synchronized chunks after a warm-up; device busy time, idle share and the
-top kernels from torch.profiler over 5 steps): 1024^2 iso SS2, 1024^2 c(x)
-SS2 and c(x) sEWI, 4096^2 iso SS2 (the cubic NLSE of chip_smoke.py).
+the same columns (complex64). Parts:
+  2d     K2 / K2' (the m-1 launches j = 0..m-2 of one Lanczos run, the last
+         one LAST) and K3 (one combine, k = 1) at 1024^2 and 4096^2, m = 10
+         and 20;
+  k8     K8 (pipe_3d, the m-2 launches j = 0..m-3 of one 3D Lanczos run)
+         at 128^3 and 256^3, iso and c(x), m = 10 and 20, and the bricks
+         the wrapper picked (trees that pick them in Python);
+  k13    K13 (ss2_resident_step, one whole SS2 step) at 1024^2 and 4096^2,
+         m = 10 and 20, beside its operations bound and the streaming
+         floors of both designs (the two-pass loop's and the pipelined
+         one's);
+  rates  steps/s by chip_smoke.py's `rate` (the median of 3 synchronized
+         chunks after a warm-up; device busy time, idle share and the top
+         kernels from torch.profiler): 1024^2 iso SS2, 1024^2 c(x) SS2 and
+         c(x) sEWI, 4096^2 iso SS2 (the cubic NLSE of chip_smoke.py);
+  optin  the same for the opt-in paths beside their defaults, chunks
+         interleaved: resident vs default at 1024^2 and 4096^2,
+         pipeline_3d vs two-pass at 128^3 and 256^3.
 
 Prints one JSON object per kernel reading and writes them all to --out.
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -47,7 +60,11 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--parts", default="2d,k8,k13,rates,optin")
+    ap.add_argument("--ms", default="10,20")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
+    ms = [int(m) for m in args.ms.split(",")]
     import numpy as np
     import torch
 
@@ -60,6 +77,9 @@ def main():
     from nlsolvers_tpu_torch.ops import operators
     from nlsolvers_tpu_torch.ops.cuda import _build
     from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
+    from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
+    from nlsolvers_tpu_torch.ops.cuda import resident2d as rs
+    from nlsolvers_tpu_torch.utils import interop
     check_root = Path(lz.__file__).resolve().parents[3]
     assert check_root == Path(args.root).resolve(), check_root
     dev = torch.device("cuda", 0)
@@ -67,7 +87,7 @@ def main():
                           "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True).stdout.strip()
     t0 = time.perf_counter()
-    _build.build_all(["lanczos2d"])
+    _build.build_all(["lanczos2d", "lanczos3d", "resident2d"])
     print(f"[{args.tag}] {smi}; root {args.root}; build "
           f"{time.perf_counter() - t0:.1f} s")
     results = []
@@ -79,19 +99,22 @@ def main():
 
     gen = torch.Generator(device=dev).manual_seed(7)
 
-    def field(n, P=2):
-        return torch.randn((P, n, n), generator=gen, device=dev)
+    def field(n, P=2, rows=None):
+        """A random planar (P, rows, n) field; rows = n by default."""
+        return torch.randn((P, n if rows is None else rows, n), generator=gen,
+                           device=dev)
 
-    def readings(name, n, m, fn, nbytes, launches, reps, extra=None):
+    def readings(name, n, m, fn, nbytes, launches, reps, extra=None,
+                 bound=None):
         g = cs.graph_ms(torch, fn, reps)
         p, e = cs.times_ms(torch, fn, reps)
-        bound = cs.bound_ms(nbytes)
+        bound = cs.bound_ms(nbytes) if bound is None else bound
         emit(kernel=name, n=n, m=m, graph_ms=g, graph_ms_per_launch=(
             g / launches), profiler_ms=p, events_ms=e, bound_ms=bound,
              mbytes=nbytes / 1e6, share_graph=bound / g,
              share_profiler=bound / p, **(extra or {}))
 
-    for n in (1024, 4096):
+    for n in ((1024, 4096) if "2d" in parts else ()):
         dx = 2.0 * LX / (n - 1)
         desc = operators.laplacian_2d((n, n), dx, dx, device=dev).kernel_desc
         c = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
@@ -100,7 +123,7 @@ def main():
             c, dx, dx, device=dev).kernel_desc
         col = 2 * n * n * 4
         reps = 20 if n == 1024 else 5
-        for m in (10, 20):
+        for m in ms:
             W = [field(n) for _ in range(m)]
             av = field(n)
             scs = []
@@ -130,6 +153,75 @@ def main():
             del W, av, Wc
             torch.cuda.empty_cache()
 
+    def dt_theta(n):
+        """The time step of an n^2 grid at the theta (|dt| 8 scale = 2.09)
+        of the 1024^2 point, so that the resident step takes it."""
+        return DT * ((1024 - 1) / (n - 1)) ** 2
+
+    # K8 at 128^3 and 256^3: the m-2 launches of one 3D Lanczos run
+    for n in ((128, 256) if "k8" in parts else ()):
+        d3 = 2.0 * LX / (n - 1)
+        shape = (n, n, n)
+        c3 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
+            shape)).astype(np.float32))
+        descs = {"iso": operators.laplacian_3d(shape, d3,
+                                               device=dev).kernel_desc,
+                 "c(x)": operators.anisotropic_laplacian_3d(
+                     c3, d3, device=dev).kernel_desc}
+        col = 2 * n ** 3 * 4
+        reps = 10 if n == 128 else 3
+        for m in ms:
+            W = [field(n, rows=n * n) for _ in range(m - 2)]
+            av = field(n, rows=n * n)
+            scs = []
+            for j in range(m - 2):
+                s = torch.rand((j + 2, 2), generator=gen, device=dev) - 0.5
+                s[0, 0], s[0, 1] = 0.8, 0.0
+                scs.append(s)
+            cols = sum(j + 4 for j in range(m - 2))
+            for op, d in descs.items():
+                wbytes = 3 * n ** 3 * 4 if op == "c(x)" else 0
+
+                def step(d=d):
+                    for j in range(m - 2):
+                        l3.pipe_3d(scs[j], av, W[:j + 1], d)
+
+                nbytes = cols * col + (m - 2) * wbytes
+                readings(f"K8 {op}", n, m, step, nbytes, m - 2, reps)
+                if hasattr(l3, "_brick_cache"):
+                    mode = 2 if op == "c(x)" else 0
+                    emit(kernel=f"K8 {op} bricks", n=n, m=m, picked={
+                        f"bucket {k[2]}": v for k, v in l3._brick_cache.items()
+                        if k[4:7] == shape and k[1] == mode})
+            del W, av
+            torch.cuda.empty_cache()
+
+    # K13 at 1024^2 and 4096^2: one whole SS2 step
+    for n in ((1024, 4096) if "k13" in parts else ()):
+        dx = 2.0 * LX / (n - 1)
+        desc = operators.laplacian_2d((n, n), dx, dx, device=dev).kernel_desc
+        dt = dt_theta(n)
+        u = field(n) * 0.1
+        mf = torch.ones((n, n), device=dev)
+        col, pl = 2 * n * n * 4, n * n * 4
+        reps = 20 if n == 1024 else 5
+        for m in ms:
+            sc = {}
+            ops = n * n * (22 * (m - 1) + 8 * m * (m - 1) + 30 + 8 * m)
+            floor_twopass = (col * (2 + sum(5 + 2 * j + (j > 0)
+                                            for j in range(m - 1)) + m + 1)
+                             + 2 * pl)
+            floor_pipe = (col * (3 + sum(j + 4 for j in range(m - 2))
+                                 + 2 * (m + 1)) + 2 * pl)
+            readings("K13", n, m,
+                     lambda: rs.ss2_resident_step(u, mf, desc, dt, m,
+                                                  scratch=sc),
+                     floor_pipe, 1, reps, bound=cs.ops_ms(ops),
+                     extra=dict(floor_pipe_ms=cs.bound_ms(floor_pipe),
+                                floor_twopass_ms=cs.bound_ms(floor_twopass)))
+            del sc
+            torch.cuda.empty_cache()
+
     # step rates
     def gaussian(n):
         x = torch.linspace(-LX, LX, n, dtype=torch.float32)
@@ -154,9 +246,63 @@ def main():
             ("1024^2 c(x) SS2", 1024, "ss2", True, 200),
             ("1024^2 c(x) sEWI", 1024, "sewi", True, 50),
             ("4096^2 iso SS2", 4096, "ss2", False, 20)):
+        if "rates" not in parts:
+            break
         label = f"[{args.tag}] rate {label}"
         cs.rate(torch, {label: problem(n, integ, aniso)}, chunk, [label] * 3,
                 5)
+        torch.cuda.empty_cache()
+
+    # the opt-in paths beside their defaults, chunks interleaved
+    def with_switches(prob, **sw):
+        def step(s, i):
+            old = interop.set_switches(**sw)
+            try:
+                return prob.step(s, i)
+            finally:
+                interop.set_switches(**old)
+        return dataclasses.replace(prob, step=step)
+
+    def problem2d(n, resident):
+        old = interop.set_switches(resident_mode="auto" if resident else "off")
+        try:
+            prob = problems.nlse_problem("cubic", (n, n), LX, dt_theta(n),
+                                         m_field=torch.ones((n, n)),
+                                         krylov_m=10, dtype=torch.complex64)
+        finally:
+            interop.set_switches(**old)
+        g = gaussian(n)
+        return prob, prob.init(g if prob.meta["planar_state"]
+                               else torch.complex(g[0], g[1]))
+
+    def problem3d(n):
+        prob = problems.nlse_problem("cubic", (n, n, n), LX, DT,
+                                     m_field=torch.ones((n, n, n)),
+                                     krylov_m=10)
+        x = torch.linspace(-LX, LX, n, dtype=torch.float32, device=dev)
+        Z, Y, X = torch.meshgrid(x, x, x, indexing="ij")
+        env = torch.exp(-(X ** 2 + Y ** 2 + Z ** 2) / 4)
+        return prob, prob.init(torch.stack([env * torch.cos(0.5 * X),
+                                            env * torch.sin(0.5 * X)]))
+
+    for n, chunk, n_prof in ((1024, 200, 20), (4096, 20, 5)):
+        if "optin" not in parts:
+            break
+        ro, rd = (f"[{args.tag}] rate {k} {n}^2" for k in ("resident",
+                                                          "default"))
+        cs.rate(torch, {ro: problem2d(n, True), rd: problem2d(n, False)},
+                chunk, [rd, ro, ro, rd, rd, ro], n_prof)
+        torch.cuda.empty_cache()
+    for n, chunk, n_prof in ((128, 100, 20), (256, 20, 5)):
+        if "optin" not in parts:
+            break
+        prob, s0 = problem3d(n)
+        po, pd = (f"[{args.tag}] rate {k} {n}^3" for k in ("pipeline_3d",
+                                                          "two-pass"))
+        cs.rate(torch, {po: (with_switches(prob, pipeline_3d=True), s0),
+                        pd: (prob, s0)}, chunk, [pd, po, po, pd, pd, po],
+                n_prof)
+        del prob, s0
         torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:
