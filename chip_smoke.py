@@ -9,20 +9,23 @@ Phases, one line each (or a few):
   1. device    the card's name and `nvidia-smi` name, power limit
   2. build     one nvcc per csrc/*.cu, all started together; seconds,
                registers and spills from ptxas, and per instantiation of
-               the 2D pass1/pipe kernels (iso and aniso; K2 in its 16-byte
-               and scalar forms), of K3, K5, K8 <P, MAXW, MODE, VEC> and
-               K13 <MAXW, VEC>
+               the 2D pass1/pipe kernels (iso and aniso; K1 and K2 in
+               their 16-byte and scalar forms; the shard policies), of K3,
+               K5 <P, MAXW, OPK, VEC>, K8 <P, MAXW, MODE, VEC> and K13
+               <MAXW, VEC>; fails unless all 96 K1 / K5 instantiations are
+               there and none spills
   3. parity    each 2D kernel (K1-K3) against its plain PyTorch version on
                the same seeded CUDA tensors, at 1024^2 complex64, 4096^2
                and on ragged grids (250x333, 250x334, 251x335: the scalar
                instantiations; j up to 18, real fields with sign -1):
                fields rel-L2 <= 1e-5 (same elementwise arithmetic up to FMA
                contraction); reduced dots |got - want| <= 1e-4 * ||a|| ||b||
-               (summation order differs). K2 and K3 launched twice on the
-               same inputs give the same bits. Times at the main path's
+               (summation order differs). K1 on every bucket (j up to 31)
+               and at 4096^2 too. K1, K2 and K3 launched twice on the same
+               inputs give the same bits. Times at the main path's
                shapes: device time of the launched kernels (torch.profiler)
                and wall time by CUDA events, which include the host's
-               enqueue, over 20 calls; for K2 and K3 per step also by
+               enqueue, over 20 calls; for K1, K2 and K3 per step also by
                CUDA-graph replay (the step's launches captured once and
                replayed back to back: no host in the window), at 1024^2
                and 4096^2, beside torch.matmul's for K3.
@@ -58,8 +61,9 @@ Phases, one line each (or a few):
                a ragged 250x333 grid, j up to 18 (the 16 and 32 column
                buckets of m=20), complex and real fields, the scalar
                instantiations on 250x334 and 251x335, and 4096^2: the gates
-               of phase 3. Device times per step at 1024^2 m=10 beside the
-               bytes bound; K2' by CUDA-graph replay at 1024^2 and 4096^2.
+               of phase 3; K1' launched twice gives the same bits. Device
+               times per step at 1024^2 m=10 beside the bytes bound; K1'
+               and K2' by CUDA-graph replay at 1024^2 and 4096^2.
  12. main2d-aniso  nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) with
                c(x) from default_rng(0) (benchmarks/perf_table.py's
                nlse2d_1024_ss2_aniso): 200 steps through problems.run,
@@ -83,14 +87,18 @@ Phases, one line each (or a few):
                97x333, 3x129, 5x3: every density, both variants, with and
                without the ghost ring, m from 1 to 20); K5 (iter_step) at
                1024^2, 128^3 and ragged grids, every operator it takes,
-               complex and real fields, j up to 18; K8 (pipe_3d) at 128^3,
+               complex and real fields, every bucket (j up to 30), with w
+               on chip and, at 2048^2 and 160^3, in a device scratch (the
+               form of each size printed; the largest square grid whose w
+               stays on chip too); K8 (pipe_3d) at 128^3,
                256^3 and on ragged grids (20x30x50, 37x50x61, 21x23x64,
                9x31x260, 33x17x132, 17x3x33: nx % 4 == 0 and != 0, bricks
                cut in y and z, halo columns), every 3D operator, complex and
-               real, j up to 18. The gates of phase 3; K8 and K13 launched
-               twice repeat bit for bit. Device times per step of their
-               paths beside the bounds, K8 and K13 also by CUDA-graph
-               replay, and K13's streaming floor.
+               real, j up to 18. The gates of phase 3; K5 (both forms of
+               w), K8 and K13 launched twice repeat bit for bit. Device
+               times per step of their paths beside the bounds, K5, K8 and
+               K13 also by CUDA-graph replay (K5 at 1024^2, 128^3 and
+               2048^2), and K13's streaming floor.
  17. main-resident  phase 4's problem with config.resident_mode "auto":
                200 steps through problems.run under
                torch.cuda.set_sync_debug_mode("error") (no host sync),
@@ -143,10 +151,11 @@ Phases, one line each (or a few):
                interleaved, with phase 6's profile.
 Then the card's name and power limit, the kernels as one JSON line (all
 thirteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
-pass1_shard2d, pass1_shard3d; `ms` of K2, K2', K3, K8 and K13 is the
-CUDA-graph reading, with the profiler's sum and the events beside it, and
-K3's library_ms torch.matmul's graph reading), and last {"ok": true,
-"device": ...}. Any failed phase exits non-zero and prints no result.
+pass1_shard2d, pass1_shard3d; `ms` of K1, K2, K3, K1', K2', K5, K8 and K13
+is the CUDA-graph reading, with the profiler's sum and the events beside
+it, and K3's library_ms torch.matmul's graph reading), and last {"ok":
+true, "device": ...}. Any failed phase exits non-zero and prints no
+result.
 """
 
 import dataclasses
@@ -503,15 +512,26 @@ def main():
               f"registers {min(regs, default=0)}-{max(regs, default=0)}; "
               f"kernels that spill registers: {len(spills)} "
               f"{'; '.join(spills)}")
-    # every instantiation of the 2D kernels: <P, MAXW, OP> (OP 1 = aniso),
-    # K2 <P, MAXW, LAST, OP, VEC> and K3 <P, VEC> (VEC 4: 16-byte loads);
-    # K5 <P, MAXW, OPK>, K8 <P, MAXW, MODE, VEC>, K13 <MAXW, VEC>
+    # every instantiation of the 2D kernels: K1 / K1' <P, MAXW, OPK, VEC>
+    # (OPK 1 = aniso), the shard policies <P, MAXW, OP>, K2 <P, MAXW, LAST,
+    # OP, VEC> and K3 <P, VEC> (VEC 4: 16-byte loads); K5 <P, MAXW, OPK,
+    # VEC>, K8 <P, MAXW, MODE, VEC>, K13 <MAXW, VEC>. K1 and K5 spill in no
+    # instantiation.
     for kname, nreg, spill in [r for lib in libs for r in resources[lib]]:
-        if kname.startswith(("pass1_2d_kernel", "pipe_2d_kernel",
-                             "combine_kernel", "iter_kernel",
-                             "pipe3d_kernel", "resident_kernel")):
+        if kname.startswith(("pass1_tile_kernel", "pass1_2d_kernel",
+                             "pipe_2d_kernel", "combine_kernel",
+                             "iter_kernel", "pipe3d_kernel",
+                             "resident_kernel")):
             print(f"ptxas {kname}: {nreg} registers, {spill} bytes spill "
                   f"stores")
+    # 2 P x 4 buckets x 2 VEC x (2 K1 operators + 4 K5 operators) = 96
+    new_kernels = [(k, sp) for k, _, sp in resources["lanczos2d"]
+                   if k.startswith(("pass1_tile_kernel", "iter_kernel"))]
+    print(f"build: {len(new_kernels)} K1 / K5 instantiations, spills in "
+          f"{sum(1 for _, sp in new_kernels if sp)}")
+    check(len(new_kernels) == 96 and not any(sp for _, sp in new_kernels),
+          f"K1 / K5: {len(new_kernels)} instantiations (96 expected), "
+          f"spills {[k for k, sp in new_kernels if sp]}")
 
     # ---------------------------------------------------------- 3. parity
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -594,6 +614,19 @@ def main():
         ("K3 k=1", lambda: parity_combine(1, N, N)),
         ("K3 k=2", lambda: parity_combine(2, N, N)),
         ("K1 j=2 250x333", lambda: parity_pass1(2, ragged, 250, 333)),
+        # K1 on the walker: every bucket (j up to 31), real fields, the
+        # scalar forms (nx % 4 != 0), 4096^2
+        ("K1 j=7 real", lambda: parity_pass1(7, desc, N, N, P=1)),
+        ("K1 j=12 (m=20)", lambda: parity_pass1(12, desc, N, N)),
+        ("K1 j=18 (m=20)", lambda: parity_pass1(18, desc, N, N)),
+        ("K1 j=31 clean 250x333",
+         lambda: parity_pass1(31, dict(ragged, variant="clean"), 250, 333)),
+        ("K1 j=0 250x334", lambda: parity_pass1(0, rag334, 250, 334)),
+        ("K1 j=9 real sign -1 251x335",
+         lambda: parity_pass1(9, dict(rag335, sign=-1.0), 251, 335, P=1)),
+        ("K1 j=0 251x335", lambda: parity_pass1(0, rag335, 251, 335)),
+        (f"K1 j=0 {NS}^2", lambda: parity_pass1(0, desc4, NS, NS)),
+        (f"K1 j=5 {NS}^2", lambda: parity_pass1(5, desc4, NS, NS)),
         ("K2 j=2 250x333", lambda: parity_pipe(2, False, ragged, 250, 333)),
         ("K2 j=2 last 250x333",
          lambda: parity_pipe(2, True, ragged, 250, 333)),
@@ -623,7 +656,9 @@ def main():
     av, *W = [field() for _ in range(KRYLOV_M)]
     sc = scalars(KRYLOV_M)
     q = torch.rand((2, KRYLOV_M - 1, 2), generator=gen, device=dev) - 0.5
+    sc1 = scalars(1)
     for label, fn in (
+            ("K1", lambda: lz.pass1_iso2d(sc1, av, W[:5], desc)),
             ("K2", lambda: lz.pipe_iso2d(sc, av, W, desc, False)),
             ("K2 last", lambda: lz.pipe_iso2d(sc, av, W, desc, True)),
             ("K3", lambda: lz.combine(q, W))):
@@ -685,7 +720,9 @@ def main():
     Wc = stacked_complex(W)
     qc = torch.complex(q1[..., 0], q1[..., 1])               # (1, m)
     k3_lib = times_ms(torch, lambda: torch.matmul(qc, Wc))[0]
-    graphs = {"K2": graph_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc,
+    graphs = {"K1": graph_ms(torch, lambda: lz.pass1_iso2d(one, u, [], desc),
+                             200),
+              "K2": graph_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc,
                                                       scs, av, W)),
               "K3": graph_ms(torch, lambda: lz.combine(q1, W)),
               "K3 matmul": graph_ms(torch, lambda: torch.matmul(qc, Wc))}
@@ -695,6 +732,7 @@ def main():
         show(f"{key} per step", t)
     print(f"time K3 one-call yardstick torch.matmul((1, {KRYLOV_M}) c64, "
           f"({KRYLOV_M}, {N * N}) c64): {k3_lib:.4f} ms device")
+    show_graph("K1", N, graphs["K1"], times["K1"], 1)
     show_graph("K2", N, graphs["K2"], times["K2"], KRYLOV_M - 1)
     show_graph("K3", N, graphs["K3"], times["K3"], 1)
     print(f"time K3 matmul yardstick at {N}^2 by CUDA-graph replay: "
@@ -705,7 +743,7 @@ def main():
     k2_cols = sum(j + 4 for j in range(KRYLOV_M - 2)) + KRYLOV_M + 1
     bytes2 = {"K1": 2 * col2, "K2": k2_cols * col2,
               "K3": (KRYLOV_M + 1) * col2}
-    for key in ("K2", "K3"):
+    for key in ("K1", "K2", "K3"):
         print(f"bound {key} per step at {N}^2: {bytes2[key] / 1e6:.1f} MB -> "
               f"{bound_ms(bytes2[key]):.4f} ms at 3.35 TB/s; graph reading "
               f"at {bound_ms(bytes2[key]) / graphs[key]:.3f} of it (the "
@@ -715,17 +753,21 @@ def main():
     # K2 and K3 at 4096^2 (a column is 134 MB: the bytes bound is honest)
     W = [field(NS, NS) for _ in range(KRYLOV_M)]
     av = field(NS, NS)
-    t4 = {"K2": times_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc4, scs,
+    t4 = {"K1": times_ms(torch, lambda: lz.pass1_iso2d(one, av, [], desc4),
+                         5),
+          "K2": times_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc4, scs,
                                                   av, W), 5),
           "K3": times_ms(torch, lambda: lz.combine(q1, W), 5)}
     Wc = stacked_complex(W)
     qc = torch.complex(q1[..., 0], q1[..., 1])
-    g4 = {"K2": graph_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc4, scs,
+    g4 = {"K1": graph_ms(torch, lambda: lz.pass1_iso2d(one, av, [], desc4),
+                         20),
+          "K2": graph_ms(torch, lambda: pipe_step(lz.pipe_iso2d, desc4, scs,
                                                   av, W), 5),
           "K3": graph_ms(torch, lambda: lz.combine(q1, W), 5),
           "K3 matmul": graph_ms(torch, lambda: torch.matmul(qc, Wc), 5)}
     del Wc
-    for key, launches_ in (("K2", KRYLOV_M - 1), ("K3", 1)):
+    for key, launches_ in (("K1", 1), ("K2", KRYLOV_M - 1), ("K3", 1)):
         show_graph(key, NS, g4[key], t4[key], launches_)
         nb = bytes2[key] * (NS // N) ** 2
         print(f"bound {key} per step at {NS}^2: {nb / 1e6:.1f} MB -> "
@@ -1035,6 +1077,15 @@ def main():
                                              **a2)),
         ("K1' j=2 250x333", lambda: parity_pass1(2, ragged_a, 250, 333,
                                                  **a1)),
+        ("K1' j=0 250x333", lambda: parity_pass1(0, ragged_a, 250, 333,
+                                                 **a1)),
+        ("K1' j=25 250x334", lambda: parity_pass1(25, rag_a334, 250, 334,
+                                                  **a1)),
+        ("K1' j=3 real sign -1 251x335",
+         lambda: parity_pass1(3, dict(rag_a335, sign=-1.0), 251, 335, P=1,
+                              **a1)),
+        ("K1' j=0 251x335", lambda: parity_pass1(0, rag_a335, 251, 335,
+                                                 **a1)),
         ("K2' j=2 250x333", lambda: parity_pipe(2, False, ragged_a, 250, 333,
                                                 **a2)),
         ("K2' j=2 last 250x333",
@@ -1053,7 +1104,13 @@ def main():
     ]
     for label, fn in cases:
         gate(label, *fn())
-    del ragged_a, rag_a334, rag_a335
+    Wr = [field() for _ in range(5)]
+    same = all(bool(torch.equal(a, b)) for a, b in zip(
+        lz.pass1_aniso2d(sc1, Wr[4], Wr[:4], desc_a),
+        lz.pass1_aniso2d(sc1, Wr[4], Wr[:4], desc_a)))
+    print(f"repeat K1' at {N}^2: outputs and dots bit for bit equal {same}")
+    check(same, "K1': two launches on the same inputs differ")
+    del ragged_a, rag_a334, rag_a335, Wr
 
     # K1' and K2' per step of the main2d-aniso path (1024^2, m=10)
     u = field()
@@ -1067,8 +1124,11 @@ def main():
         show(f"K2' j={j}", t)
         ka2 = [a + b for a, b in zip(ka2, t)]
     times_a = {"K1'": ka1, "K2'": tuple(ka2)}
+    graphs["K1'"] = graph_ms(torch, lambda: lz.pass1_aniso2d(one, u, [],
+                                                             desc_a), 200)
     graphs["K2'"] = graph_ms(torch, lambda: pipe_step(lz.pipe_aniso2d,
                                                       desc_a, scs, av, W))
+    show_graph("K1'", N, graphs["K1'"], times_a["K1'"], 1)
     show_graph("K2'", N, graphs["K2'"], times_a["K2'"], KRYLOV_M - 1)
     # bytes per step: K1' reads W_0 and the two weight planes, writes av_0;
     # K2' as K2, plus the two weight planes at every iteration but the last
@@ -1080,13 +1140,25 @@ def main():
         nb = bytes_a[key]
         print(f"bound {key} per step: {nb / 1e6:.1f} MB -> "
               f"{bound_ms(nb):.4f} ms at 3.35 TB/s; kernel at "
-              f"{bound_ms(nb) / t[0]:.3f} of it")
+              f"{bound_ms(nb) / t[0]:.3f} of it (profiler), "
+              f"{bound_ms(nb) / graphs[key]:.3f} (graph)")
     del u, W, av
 
     # K2' at 4096^2
     W = [field(NS, NS) for _ in range(KRYLOV_M)]
     av = field(NS, NS)
     gate(f"K2' j=8 {NS}^2", *parity_pipe(8, False, desc4a, NS, NS, **a2))
+    gate(f"K1' j=0 {NS}^2", *parity_pass1(0, desc4a, NS, NS, **a1))
+    gate(f"K1' j=6 {NS}^2", *parity_pass1(6, desc4a, NS, NS, **a1))
+    t4["K1'"] = times_ms(torch, lambda: lz.pass1_aniso2d(one, av, [],
+                                                         desc4a), 5)
+    g4["K1'"] = graph_ms(torch, lambda: lz.pass1_aniso2d(one, av, [],
+                                                         desc4a), 20)
+    show_graph("K1'", NS, g4["K1'"], t4["K1'"], 1)
+    nb, ga = bytes_a["K1'"] * (NS // N) ** 2, g4["K1'"]
+    print(f"bound K1' per step at {NS}^2: {nb / 1e6:.1f} MB -> "
+          f"{bound_ms(nb):.4f} ms at 3.35 TB/s; graph reading at "
+          f"{bound_ms(nb) / ga:.3f} of it")
     t4["K2'"] = times_ms(torch, lambda: pipe_step(lz.pipe_aniso2d, desc4a,
                                                   scs, av, W), 5)
     g4["K2'"] = graph_ms(torch, lambda: pipe_step(lz.pipe_aniso2d, desc4a,
@@ -1248,7 +1320,14 @@ def main():
         errs["K13"] = max(errs["K13"], float((got - want).abs().max()))
         return rel(got, want), 0.0
 
+    def k5_form(d, rows, nx, P, j):
+        """K5's form of w and grid for a call on fresh (aligned) fields."""
+        onchip, grid = lz.iter_form(P, rows, nx, lz._iter_opk(d, "k5"), j,
+                                    nx % 4 == 0)
+        return f"{'on-chip' if onchip else 'global'} w, {grid} blocks"
+
     def parity_iter(j, d, rows, nx, P=2):
+        print(f"K5 j={j} P={P} {rows}x{nx}: {k5_form(d, rows, nx, P, j)}")
         W = [field(rows, nx, P) for _ in range(j + 1)]
         # inverse norms near 1/||W_i||, as the loop passes them, so that
         # the fields keep the loop's magnitudes
@@ -1284,6 +1363,30 @@ def main():
         """The 2D Laplacian at the main path's spacing (theta 2.09)."""
         return operators.laplacian_2d((ny, nx), dx, dx, variant=variant,
                                       device=dev).kernel_desc
+
+    # K5's global form (w in a device scratch): 2048^2 complex, which
+    # FUSED_ITER_BYTES admits, and 160^3; the largest square 2D complex
+    # grid (a multiple of 64) whose w stays on chip
+    N5 = 2 * N
+    dx5 = 2.0 * LX / (N5 - 1)
+    desc5 = operators.laplacian_2d((N5, N5), dx5, dx5,
+                                   device=dev).kernel_desc
+    desc5a = operators.anisotropic_laplacian_2d(
+        1.0 + 0.4 * torch.rand((N5, N5), generator=gen, device=dev), dx5,
+        dx5, device=dev).kernel_desc
+    n_chip = max(n for n in range(64, N5 + 1, 64)
+                 if lz.iter_form(2, n, n, 0, KRYLOV_M - 2, True)[0])
+    desc_chip = desc2(n_chip, n_chip, "reference")
+    d3g = ops3d((160, 160, 160))
+    print(f"K5 forms of w (iso2d, m={KRYLOV_M}): {N}^2 "
+          f"{k5_form(desc, N, N, 2, KRYLOV_M - 2)}; {n_chip}^2 (the largest "
+          f"on-chip square) {k5_form(desc_chip, n_chip, n_chip, 2, 8)}; "
+          f"{N5}^2 {k5_form(desc5, N5, N5, 2, KRYLOV_M - 2)}; {N3}^3 "
+          f"{k5_form(d3b['iso'], R3, N3, 2, KRYLOV_M - 2)}; 160^3 "
+          f"{k5_form(d3g['iso'], 160 * 160, 160, 2, KRYLOV_M - 2)}")
+    check(not lz.iter_form(2, N5, N5, 0, KRYLOV_M - 2, True)[0]
+          and lz.iter_form(2, N, N, 0, KRYLOV_M - 2, True)[0],
+          f"K5: {N}^2 must keep w on chip and {N5}^2 must not")
     cases = [
         ("K13 1024^2 m=10", lambda: parity_resident(ug, mf1, desc, KRYLOV_M)),
         ("K13 1024^2 m=10 random field",
@@ -1328,6 +1431,32 @@ def main():
         ("K5 iso3d j=4 20x30x50", lambda: parity_iter(4, d3r["iso"], 600, 50)),
         ("K5 iso3d clean j=18 real 20x30x50",
          lambda: parity_iter(18, d3r["clean"], 600, 50, P=1)),
+        # every bucket up to j = 30, both forms of w, the scalar forms
+        ("K5 iso2d j=30", lambda: parity_iter(30, desc, N, N)),
+        ("K5 iso2d clean j=13 real", lambda: parity_iter(13, clean, N, N,
+                                                         P=1)),
+        ("K5 aniso2d j=12 real sign -1 250x333",
+         lambda: parity_iter(12, dict(ragged_an, sign=-1.0), 250, 333, P=1)),
+        ("K5 iso2d j=25 250x334",
+         lambda: parity_iter(25, desc2(250, 334, "clean"), 250, 334)),
+        ("K5 iso3d j=30 37x50x61",
+         lambda: parity_iter(30, ops3d((37, 50, 61))["iso"], 1850, 61)),
+        ("K5 iso3d clean j=14 21x23x64",
+         lambda: parity_iter(14, ops3d((21, 23, 64))["clean"], 483, 64)),
+        ("K5 iso3d j=5 9x31x260",
+         lambda: parity_iter(5, ops3d((9, 31, 260))["iso"], 279, 260)),
+        (f"K5 iso2d j=8 {n_chip}^2 (largest on-chip)",
+         lambda: parity_iter(8, desc_chip, n_chip, n_chip)),
+        (f"K5 iso2d j=0 {N5}^2 (global w)",
+         lambda: parity_iter(0, desc5, N5, N5)),
+        (f"K5 iso2d j=8 {N5}^2 (global w)",
+         lambda: parity_iter(8, desc5, N5, N5)),
+        (f"K5 aniso2d j=17 {N5}^2 (global w)",
+         lambda: parity_iter(17, desc5a, N5, N5)),
+        (f"K5 iso2d j=3 real {N5}^2", lambda: parity_iter(3, desc5, N5, N5,
+                                                          P=1)),
+        ("K5 iso3d clean j=6 160^3 (global w)",
+         lambda: parity_iter(6, d3g["clean"], 160 * 160, 160)),
         ("K8 iso j=0 128^3",
          lambda: parity_pipe(0, False, d3b["iso"], R3, N3, **k8)),
         ("K8 iso j=4 128^3",
@@ -1364,18 +1493,34 @@ def main():
         gate(label, *fn())
     del u_r, mf_r, ragged_cl, ragged_an, d3r
 
-    # K8 and K13 launched twice on the same inputs give the same bits
+    # K8, K13 and K5 (both forms of w) launched twice on the same inputs
+    # give the same bits
     av, *W = [field(R3, N3) for _ in range(KRYLOV_M - 1)]
     sc8 = scalars(KRYLOV_M - 1)
     sc_rep = {}
+
+    def k5_scal(W, j):
+        """K5's scalars [s_j, bs, s_0..s_j], inverse norms near 1/||W_i||
+        (the loop's magnitudes)."""
+        sv = ((0.5 + 0.5 * torch.rand(j + 1, generator=gen, device=dev))
+              / torch.stack([w.norm() for w in W[:j + 1]]))
+        return torch.cat([torch.stack([sv[j], sv[0] * 0 + 0.3]),
+                          sv])[None].contiguous()
+
+    W5 = [field(N5, N5) for _ in range(KRYLOV_M - 1)]
+    s5, s3 = k5_scal(W5, 8), k5_scal(W, 7)
     for label, fn in (
+            (f"K5 {N5}^2 (global w)",
+             lambda: lz.iter_step(s5, W5[8], W5[:8], desc5)),
+            (f"K5 {N3}^3 (on-chip w)",
+             lambda: lz.iter_step(s3, W[7], W[:7], d3b["iso"])),
             ("K8 c(x)", lambda: l3.pipe_3d(sc8, av, W, d3b["aniso"])),
             ("K13", lambda: (rs.ss2_resident_step(ug, mf1, desc, DT, 20,
                                                   scratch=sc_rep),))):
         same = all(bool(torch.equal(a, b)) for a, b in zip(fn(), fn()))
         print(f"repeat {label}: outputs and dots bit for bit equal {same}")
         check(same, f"{label}: two launches on the same inputs differ")
-    del av, W, sc_rep
+    del av, W, sc_rep, W5
 
     # K13, K5 and K8 per step of their paths: K13 and K5 at 1024^2 m=10
     # (iso), K8 at 128^3 m=10 (iso and c(x); it runs for j = 0..m-3)
@@ -1392,15 +1537,36 @@ def main():
     W = [field() for _ in range(KRYLOV_M)]
     t_k5 = [0.0] * 4
     for j in range(KRYLOV_M - 1):
-        sv = ((0.5 + 0.5 * torch.rand(j + 1, generator=gen, device=dev))
-              / torch.stack([w.norm() for w in W[:j + 1]]))
-        sc5 = torch.cat([torch.stack([sv[j], sv[0] * 0 + 0.3]), sv])[None]
-        sc5 = sc5.contiguous()
+        sc5 = k5_scal(W, j)
         t = timed(lambda: lz.iter_step(sc5, W[j], W[:j], desc))
         show(f"K5 j={j}", t)
         t_k5 = [a + b for a, b in zip(t_k5, t)]
     show("K5 per step", t_k5)
+
+    def k5_run(W, d):
+        """The K5 launches of one Lanczos run, j = 0..m-2, at its scalars."""
+        scs5 = [k5_scal(W, j) for j in range(KRYLOV_M - 1)]
+
+        def run():
+            for j in range(KRYLOV_M - 1):
+                lz.iter_step(scs5[j], W[j], W[:j], d)
+        return run
+
+    g_k5 = {f"{N}^2": graph_ms(torch, k5_run(W, desc))}
     del W
+    W = [field(R3, N3) for _ in range(KRYLOV_M - 1)]
+    g_k5[f"{N3}^3"] = graph_ms(torch, k5_run(W, d3b["iso"]))
+    del W
+    W = [field(N5, N5) for _ in range(KRYLOV_M - 1)]
+    g_k5[f"{N5}^2"] = graph_ms(torch, k5_run(W, desc5), 5)
+    del W
+    for key, g in g_k5.items():
+        col = {f"{N}^2": col2, f"{N3}^3": col3, f"{N5}^2": 4 * col2}[key]
+        nb = sum(j + 2 for j in range(KRYLOV_M - 1)) * col
+        print(f"time K5 per step at {key} by CUDA-graph replay: {g:.4f} ms "
+              f"({g / (KRYLOV_M - 1):.4f} ms per launch); bound "
+              f"{nb / 1e6:.1f} MB -> {bound_ms(nb):.4f} ms at 3.35 TB/s, "
+              f"graph reading at {bound_ms(nb) / g:.3f} of it")
     W = [field(R3, N3) for _ in range(KRYLOV_M - 1)]
     av = field(R3, N3)
     t_k8 = {"iso": [0.0] * 4, "aniso": [0.0] * 4}
@@ -1451,7 +1617,8 @@ def main():
               "K8": (bytes_k8, 0), "K8 c(x)": (bytes_k8a, 0)}
     times_o = {"K13": t_rs, "K5": t_k5, "K8": t_k8["iso"],
                "K8 c(x)": t_k8["aniso"]}
-    graphs_o = {"K13": g_rs, "K8": g_k8["iso"], "K8 c(x)": g_k8["aniso"]}
+    graphs_o = {"K13": g_rs, "K8": g_k8["iso"], "K8 c(x)": g_k8["aniso"],
+                "K5": g_k5[f"{N}^2"]}
     for key, (nb, no) in bounds.items():
         b_ms = max(bound_ms(nb), ops_ms(no))
         g = graphs_o.get(key)
@@ -1986,7 +2153,8 @@ def main():
 
     kernels = [
         entry("pass1_iso2d", SOURCE, f"{PALLAS}:473", launches["K1"], steps,
-              errs["K1"], times["K1"], bytes2["K1"], None),
+              errs["K1"], times["K1"], bytes2["K1"], None,
+              graph=graphs["K1"]),
         entry("pipe_iso2d", SOURCE, f"{PALLAS}:779", launches["K2"], steps,
               errs["K2"], times["K2"], bytes2["K2"], None,
               graph=graphs["K2"]),
@@ -2001,7 +2169,8 @@ def main():
         entry("bc3d", SOURCE3, f"{PALLAS_BC}:52", launches3["bc3d"], steps3,
               0.0, t3["bc3d"], bytes3["bc3d"], None),
         entry("pass1_aniso2d", SOURCE, f"{PALLAS}:473", launches_a["K1'"],
-              steps, errs["K1'"], times_a["K1'"], bytes_a["K1'"], None),
+              steps, errs["K1'"], times_a["K1'"], bytes_a["K1'"], None,
+              graph=graphs["K1'"]),
         entry("pipe_aniso2d", SOURCE, f"{PALLAS}:779", launches_a["K2'"],
               steps, errs["K2'"], times_a["K2'"], bytes_a["K2'"], None,
               graph=graphs["K2'"]),
@@ -2009,7 +2178,8 @@ def main():
               launches_r["K13"], steps_r, errs["K13"], t_rs, bytes_rs, None,
               ops_rs, graph=g_rs),
         entry("iter_step", SOURCE, f"{PALLAS}:637", launches_i["K5"],
-              steps_i, errs["K5"], t_k5, bytes_k5, None, ops_k5),
+              steps_i, errs["K5"], t_k5, bytes_k5, None, ops_k5,
+              graph=g_k5[f"{N}^2"]),
         entry("pipe_3d", SOURCE3, f"{PALLAS3}:1135", launches_p["K8"],
               steps_p, errs["K8"], t_k8["iso"], bytes_k8, None,
               graph=g_k8["iso"]),

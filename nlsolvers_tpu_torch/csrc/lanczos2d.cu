@@ -14,7 +14,8 @@
 //        y_spec = sum_i q[spec, i] W_i for k specs in one pass
 //   K5 iter_step (lz_iter)              <- _iter_call, modes iso2d, aniso2d,
 //        iso3d: pass1 and pass2 of iteration j in one cooperative launch,
-//        the opt-in fused iteration (the phase bodies are lz_iter.cuh's)
+//        the opt-in fused iteration (the phases are lz_iter.cuh's; K1 /
+//        K1' run its phase 0 alone)
 //   K1' pass1_shard2d                   <- _pass1_call, modes shard2d,
 //        shard2d_aniso: K1 on one shard's block of a sharded grid, the
 //        shard policies OP_SHARD_ISO / OP_SHARD_ANISO of the same kernel
@@ -39,14 +40,22 @@
 // and writes k.
 //
 // K5 at iteration j reads W_0..W_j (twice: for the dots, then for the
-// subtraction) and writes w and W_{j+1}; w (8.4 MB at 1024^2) is written
-// in phase 0 and read back in phase 1, mostly from the 50 MB L2.
+// subtraction) and writes W_{j+1}; w (8.4 MB at 1024^2) stays in shared
+// memory between the phases where it fits on the card.
 //
 // What the design does about it:
-// * Every column is read from device memory once per launch. K1 owns a
-//   TY x TX tile and walks it row by row; the second and third touches of a
-//   value (a dot after the reconstruction, a stencil neighbour) come one row
-//   step later from L1/L2, not from DRAM.
+// * Every column is read from device memory once per launch. K1 / K1' and
+//   K5's first phase walk rows of 128-column strips on lz_tile.cuh's ring
+//   (lz_iter.cuh's wpass): 16-byte loads, halo rows in the ring, side
+//   neighbours by shuffles, the dots over lane groups; a fixed grid of the
+//   blocks that fit on the card, block b owning one run of S / G rows of
+//   the S strip rows. The shard policies (pass1_2d_kernel) keep one TY x TX
+//   tile per block, the second and third touches of a value one row step
+//   later from L1/L2.
+// * K5 holds w in shared memory from its first phase to its second (the
+//   block's own rows, behind a grid sync) where the field's w fits on the
+//   card, and walks its rows backwards in the second phase, so that it
+//   first reads the basis rows the first phase read last, from L2.
 // * K2 needs the stencil of the column it is building. A block of eight
 //   warps rebuilds W_{j+1} on tiles of 128 columns by 8 S - 2 rows (S
 //   steps of eight rows) plus their halo rows, into a shared ring; lanes 0
@@ -62,7 +71,7 @@
 //   per block, reads 16-byte vectors (four points) per column and plane,
 //   and walks the points in grid-stride order over a fixed grid.
 // * Rows whose width is not a multiple of 4, or fields off a 16-byte
-//   boundary, take K2's and K3's scalar instantiations (VEC = 1).
+//   boundary, take the scalar instantiations (VEC = 1) of K1, K2, K3, K5.
 // * The iso diagonal is computed from the row/column index, so it costs no
 //   traffic.
 // * Scalars (s_j, bs, c_i, q) are read from a device buffer, so no host sync
@@ -83,17 +92,49 @@ constexpr int KMAX = 4;        // most specs one combine launch takes
 struct Outs { float* p[KMAX]; };
 
 // ---------------------------------------------------------------- K1 pass1
-// MAXW bounds j (the number of earlier columns) so the per-column
-// accumulators stay in registers.
-// The shard policies take their halos, offsets and edge face weights from
-// sh (unused otherwise).
+// K1 / K1' (OPK_ISO2D / OPK_ANISO2D): phase 0 of lz_iter.cuh (wpass) over a
+// fixed grid of the blocks that fit on the card, block b owning the
+// segments [b S / G, (b + 1) S / G) of the S rows of 128-column strips; w
+// to w_out (through the per-warp rows wrow for the dots), the raw sums
+// output-major to partial. MAXW bounds j; registers as PASS1_PER_SM.
+template <int P, int MAXW, int OPK, int VEC>
+__global__ void __launch_bounds__(
+    PT, (PASS1_PER_SM<P, MAXW, VEC>)) pass1_tile_kernel(
+    const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
+    int j, OpArgs a, float* __restrict__ w_out, float* __restrict__ partial) {
+  constexpr int L = 32 / (MAXW / 4);  // lanes per dot group
+  __shared__ __align__(16) float ring[RING][P][PX];
+  __shared__ float hal[RING][P][2];
+  __shared__ __align__(16) float wrow[PWARP][P][PX];
+  __shared__ float red[PWARP][RED_W];
+  __shared__ const float* wp[MAXCOLS];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < MAXW; ++i)
+      if (i < j) wp[i] = prev.p[i];
+  }
+  __syncthreads();
+  int s0, s1;
+  block_segs(num_segs(a.ny, a.nx), s0, s1);
+  wpass<P, MAXW, OPK, VEC>(scal[0], scal[1], wj, wp, j, a, s0, s1, nullptr,
+                           w_out, &wrow[0][0][0], ring, hal, red, partial,
+                           lane, w, lane / L, lane % L);
+}
+
+// K1' in modes shard2d and shard2d_aniso (OP_SHARD_ISO / OP_SHARD_ANISO):
+// K1 on one shard's block, one TY x TX tile per block. MAXW bounds j (the
+// number of earlier columns) so the per-column accumulators stay in
+// registers. The shard policies take their halos, offsets and edge face
+// weights from sh.
 template <int P, int MAXW, int OP>
 __global__ void __launch_bounds__(TX) pass1_2d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
     const float* __restrict__ wjm1, int j, Op2d op, Shard2d sh,
     float* __restrict__ w_out, float* __restrict__ partial, int ny, int nx,
     float ss) {
-  constexpr bool SHARD = OP == OP_SHARD_ISO || OP == OP_SHARD_ANISO;
+  static_assert(OP == OP_SHARD_ISO || OP == OP_SHARD_ANISO,
+                "K1 and K1' run pass1_tile_kernel");
   __shared__ float red[NWARP][RED_W];
   const int t = threadIdx.x;
   const int x = blockIdx.x * TX + t;
@@ -109,24 +150,14 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
       const int r = y0 + rr;
       const size_t idx = (size_t)r * nx + x;
       float k[4];
-      if constexpr (SHARD)
-        load_coef_shard<OP>(op, sh, r, x, nx, idx, k);
-      else
-        load_coef<OP>(op, r, x, ny, nx, idx, k);
+      load_coef_shard<OP>(op, sh, r, x, nx, idx, k);
       float c[P], w[P];
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const float* __restrict__ b = wj + p * plane;
         const float cv = __ldg(b + idx);
         float up, dn, lf, rt;
-        if constexpr (SHARD) {
-          neighbours_shard2d(b, sh, p, idx, r, x, ny, nx, up, dn, lf, rt);
-        } else {
-          up = r > 0 ? __ldg(b + idx - nx) : 0.0f;
-          dn = r < ny - 1 ? __ldg(b + idx + nx) : 0.0f;
-          lf = x > 0 ? __ldg(b + idx - 1) : 0.0f;
-          rt = x < nx - 1 ? __ldg(b + idx + 1) : 0.0f;
-        }
+        neighbours_shard2d(b, sh, p, idx, r, x, ny, nx, up, dn, lf, rt);
         const float av = stencil<OP>(cv, up, dn, lf, rt, r, x, k) * ss;
         float wv = s * av;
         if (j > 0) wv = wv - bs * __ldg(wjm1 + p * plane + idx);
@@ -295,76 +326,134 @@ __global__ void __launch_bounds__(CB) combine_kernel(
 }
 
 // ---------------------------------------------------------------- K5 iter
-// One whole iteration j in one cooperative launch: phase_w, a grid sync,
-// every block sums the raw dots and forms q_i = s_i^2 raw_i itself,
-// phase_sub, a grid sync, and block 0 writes raw and ||W_{j+1}||^2.
-// scal: (j+3) [s_j, bs, s_0..s_j]. w: the (P, rows, nx) scratch that holds
-// w between the phases. part_a / part_b: partial-sum rows of the two phases.
-template <int P, int MAXW, int OPK>
-__global__ void __launch_bounds__(CT) iter_kernel(
+// One whole iteration j in one cooperative launch: phase 0 (wpass), a grid
+// sync, every block sums the raw dots (reduce_all) and forms q_i = s_i^2
+// raw_i itself,
+// phase 1 (subpass) over the same segments in reverse order, a grid sync,
+// and block 0 writes ||W_{j+1}||^2 (block 0 also writes raw). scal: (j+3)
+// [s_j, bs, s_0..s_j]. onchip: w in the dynamic shared memory (the block's
+// rows); else w in the (P, rows, nx) global scratch w, and the dynamic
+// shared memory holds the warps' w rows for the dots. part_a / part_b:
+// partial-sum rows of the two phases, output-major. Two blocks per SM (128
+// registers) but where ITER_PER_SM says one; MAXW bounds j.
+template <int P, int MAXW, int OPK, int VEC>
+__global__ void __launch_bounds__(
+    PT, (ITER_PER_SM<P, MAXW, VEC>)) iter_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
-    int j, OpArgs a, float* w, float* __restrict__ wn_out, float* part_a,
-    float* part_b, float* __restrict__ raw_out, float* __restrict__ nsq_out) {
-  __shared__ float red[CWARP][RED_W];
-  __shared__ float rs[2 * MAXCOLS];
+    int j, OpArgs a, int onchip, float* w, float* __restrict__ wn_out,
+    float* part_a, float* part_b, float* __restrict__ raw_out,
+    float* __restrict__ nsq_out) {
+  constexpr int L = 32 / (MAXW / 4);  // lanes per dot group
+  __shared__ __align__(16) float ring[RING][P][PX];
+  __shared__ float hal[RING][P][2];
+  __shared__ float red[PWARP][RED_W];
+  __shared__ float rs[2 * MAXCOLS], qs[2 * MAXCOLS];
+  __shared__ const float* wp[MAXCOLS];
+  extern __shared__ __align__(16) float dyn[];
   cg::grid_group grid = cg::this_grid();
-  const ColList W = {prev, wj, j};
-  const size_t n = (size_t)a.nz * a.ny * a.nx;
-  phase_w<P, MAXW, OPK, LdNC>(scal[0], scal[1], W, j, a, w, red, part_a);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    constexpr int NWP = MAXW < MAXCOLS ? MAXW + 1 : MAXCOLS;
+#pragma unroll
+    for (int i = 0; i < NWP; ++i)
+      if (i <= j) wp[i] = i < j ? prev.p[i] : wj;
+  }
+  __syncthreads();
+  int s0, s1;
+  block_segs(num_segs(a.nz * a.ny, a.nx), s0, s1);
+  float* const wsm = onchip ? dyn : nullptr;
+  wpass<P, MAXW, OPK, VEC>(scal[0], scal[1], wj, wp, j, a, s0, s1, wsm,
+                           onchip ? nullptr : w, dyn, ring, hal, red, part_a,
+                           lane, wid, lane / L, lane % L);
   grid.sync();
-  reduce_all(part_a, 2 * (j + 1), rs);
-  if (blockIdx.x == 0)
-    for (int o = threadIdx.x; o < 2 * (j + 1); o += CT) raw_out[o] = rs[o];
-  phase_sub<P, MAXW, LdNC>(W, j, scal + 2, rs, n, w, wn_out, red, part_b);
+  reduce_all<PWARP>(part_a, 2 * (j + 1), rs);
+  for (int o = threadIdx.x; o < 2 * (j + 1); o += PT) {
+    const float si = scal[2 + o / 2];
+    qs[o] = si * si * rs[o];
+    if (blockIdx.x == 0) raw_out[o] = rs[o];
+  }
+  __syncthreads();
+  subpass<P, VEC>(wp, j + 1, qs, a, s0, s1, wsm, w, wn_out, red, part_b,
+                  lane, wid);
   grid.sync();
   if (blockIdx.x == 0) {
-    reduce_all(part_b, 1, rs);
+    reduce_all<PWARP>(part_b, 1, rs);
     if (threadIdx.x == 0) nsq_out[0] = rs[0];
   }
 }
 
-// The grid of one iter_kernel instantiation, found once.
-template <int P, int MAXW, int OPK>
-int iter_grid() {
-  static const int g = coop_blocks(iter_kernel<P, MAXW, OPK>);
-  return g;
+// Once per instantiation: let it take the dynamic shared memory of the
+// on-chip form. The CUDA error, or 0.
+template <int P, int MAXW, int OPK, int VEC>
+int iter_ready() {
+  static const int err = allow_dyn_smem(iter_kernel<P, MAXW, OPK, VEC>);
+  return err;
 }
 
-template <int P, int MAXW, int OPK>
-int launch_iter(const float* scal, const float* wj, Cols prev, int j,
-                OpArgs a, float* w, float* wn, float* part_a, float* part_b,
-                float* raw, float* nsq, cudaStream_t st) {
-  void* args[] = {&scal, &wj, &prev, &j, &a, &w, &wn, &part_a, &part_b,
-                  &raw, &nsq};
-  return coop_launch(iter_kernel<P, MAXW, OPK>, iter_grid<P, MAXW, OPK>(),
-                     args, st);
+// Blocks per SM of one iter_kernel instantiation with `dyn` bytes of
+// dynamic shared memory (0 if none fits or the card refuses the query).
+struct IterFit {
+  int dyn;
+  template <int P, int MAXW, int OPK, int VEC>
+  int run() const {
+    int occ = 0;
+    if (iter_ready<P, MAXW, OPK, VEC>() != 0
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &occ, iter_kernel<P, MAXW, OPK, VEC>, PT, dyn) != cudaSuccess)
+      return 0;
+    return occ;
+  }
+};
+
+// One K5 launch of an iter_kernel instantiation.
+struct IterLaunch {
+  const float* scal;
+  const float* wj;
+  Cols prev;
+  int j;
+  OpArgs a;
+  int onchip, grid;
+  size_t dyn;
+  float *w, *wn, *part_a, *part_b, *raw, *nsq;
+  cudaStream_t st;
+  template <int P, int MAXW, int OPK, int VEC>
+  int run() const {
+    const int err = iter_ready<P, MAXW, OPK, VEC>();
+    if (err != 0) return err;
+    IterLaunch c = *this;
+    void* args[] = {&c.scal, &c.wj, &c.prev, &c.j, &c.a, &c.onchip, &c.w,
+                    &c.wn, &c.part_a, &c.part_b, &c.raw, &c.nsq};
+    return coop_launch(iter_kernel<P, MAXW, OPK, VEC>, grid, args, st, PT,
+                       dyn);
+  }
+};
+
+// f.run<P, MAXW, OPK, VEC>() for the instantiation of a call: b the bucket
+// of j, vec the 16-byte form.
+template <class F>
+int iter_dispatch(int P, int opk, int b, bool vec, const F& f) {
+#define LZ_V(PP, BB, OO) (vec ? f.template run<PP, BB, OO, 4>()           \
+                              : f.template run<PP, BB, OO, 1>())
+#define LZ_B(PP, OO) (b == 4 ? LZ_V(PP, 4, OO) : b == 8 ? LZ_V(PP, 8, OO) \
+                      : b == 16 ? LZ_V(PP, 16, OO) : LZ_V(PP, 32, OO))
+#define LZ_O(PP) (opk == OPK_ISO2D ? LZ_B(PP, OPK_ISO2D)                  \
+                  : opk == OPK_ANISO2D ? LZ_B(PP, OPK_ANISO2D)            \
+                  : opk == OPK_ISO3D_REF ? LZ_B(PP, OPK_ISO3D_REF)        \
+                  : LZ_B(PP, OPK_ISO3D_CLEAN))
+  return P == 1 ? LZ_O(1) : LZ_O(2);
+#undef LZ_O
+#undef LZ_B
+#undef LZ_V
 }
 
-template <int P, int OPK>
-int iter_bucket(int b, const float* scal, const float* wj, Cols prev, int j,
-                OpArgs a, float* w, float* wn, float* part_a, float* part_b,
-                float* raw, float* nsq, cudaStream_t st) {
-#define LZ_IT(BB) launch_iter<P, BB, OPK>(scal, wj, prev, j, a, w, wn, \
-                                          part_a, part_b, raw, nsq, st)
-  if (b == 4) return LZ_IT(4);
-  if (b == 8) return LZ_IT(8);
-  if (b == 16) return LZ_IT(16);
-  return LZ_IT(32);
-#undef LZ_IT
+// Bytes of dynamic shared memory of a K5 launch: the block's w rows
+// (on-chip), or the warps' w rows.
+size_t iter_dyn_bytes(int P, int onchip, int nseg, int grid) {
+  const size_t rows = onchip ? (size_t)(nseg + grid - 1) / grid : PWARP;
+  return rows * P * PX * sizeof(float);
 }
 
-template <int P>
-int iter_op(int opk, int b, const float* scal, const float* wj, Cols prev,
-            int j, OpArgs a, float* w, float* wn, float* part_a,
-            float* part_b, float* raw, float* nsq, cudaStream_t st) {
-#define LZ_OP(OO) iter_bucket<P, OO>(b, scal, wj, prev, j, a, w, wn, part_a, \
-                                     part_b, raw, nsq, st)
-  if (opk == OPK_ISO2D) return LZ_OP(OPK_ISO2D);
-  if (opk == OPK_ANISO2D) return LZ_OP(OPK_ANISO2D);
-  if (opk == OPK_ISO3D_REF) return LZ_OP(OPK_ISO3D_REF);
-  return LZ_OP(OPK_ISO3D_CLEAN);
-#undef LZ_OP
-}
+// ---------------------------------------------------------------- launchers
 
 template <int P, int MAXW, int OP>
 void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
@@ -373,6 +462,48 @@ void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
   pass1_2d_kernel<P, MAXW, OP><<<tile_grid(ny, nx), TX, 0, st>>>(
       scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, op, sh, w, partial,
       ny, nx, ss);
+}
+
+// K1 / K1' on the walker, then the reduction of its output-major partials.
+template <int P, int MAXW, int OPK, int VEC>
+int launch_pass1_tile(const float* scal, const float* wj, Cols prev, int j,
+                      const OpArgs& a, float* w, float* partial, float* raw,
+                      cudaStream_t st) {
+  auto kern = pass1_tile_kernel<P, MAXW, OPK, VEC>;
+  static const int fit = resident_blocks(kern, PT);
+  if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int nseg = num_segs(a.ny, a.nx);
+  const int grid = nseg < fit ? nseg : fit;
+  kern<<<grid, PT, 0, st>>>(scal, wj, prev, j, a, w, partial);
+  reduce_partials_om<<<2 * (j + 1), RED_THREADS, 0, st>>>(partial, grid, raw);
+  return (int)cudaGetLastError();
+}
+
+// K1 (OPK_ISO2D) / K1' (OPK_ANISO2D). The 16-byte instantiation takes rows
+// of nx % 4 == 0 columns and 16-byte aligned fields and weights; any other
+// call takes the scalar one.
+template <int OPK>
+int pass1_tile(int P, const float* scal, const float* wj,
+               const float* const* prev, int j, const Op2d& op, float* w,
+               float* partial, float* raw, int ny, int nx, float ss,
+               cudaStream_t st) {
+  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < 3 || nx < 3)
+    return (int)cudaErrorInvalidValue;
+  const Cols c = make_cols(prev, j);
+  const OpArgs a = {op, 1, ny, nx, ss};
+  bool vec = nx % 4 == 0 && aligned16(wj) && aligned16(w);
+  for (int i = 0; i < j; ++i) vec = vec && aligned16(prev[i]);
+  if (OPK == OPK_ANISO2D) vec = vec && aligned16(op.wx) && aligned16(op.wy);
+  const int b = bucket(j);
+#define LZ_T(PP, BB) (vec ? launch_pass1_tile<PP, BB, OPK, 4>(              \
+                                scal, wj, c, j, a, w, partial, raw, st)     \
+                          : launch_pass1_tile<PP, BB, OPK, 1>(              \
+                                scal, wj, c, j, a, w, partial, raw, st))
+#define LZ_B(PP) (b == 4 ? LZ_T(PP, 4) : b == 8 ? LZ_T(PP, 8)                \
+                  : b == 16 ? LZ_T(PP, 16) : LZ_T(PP, 32))
+  return P == 1 ? LZ_B(1) : LZ_B(2);
+#undef LZ_B
+#undef LZ_T
 }
 
 template <int P, int MAXW, bool LAST, int OP, int VEC>
@@ -409,15 +540,15 @@ int num_blocks(int ny, int nx) {
   return (int)(g.x * g.y);
 }
 
-// K1 / K1' with the operator OP, then the reduction of its partial sums.
-// A shard's block may have sides of 2 (its halos hold the neighbours).
+// K1' shard2d / shard2d_aniso with the shard policy OP, then the reduction
+// of its partial sums. A shard's block may have sides of 2 (its halos hold
+// the neighbours).
 template <int OP>
 int pass1_2d(int P, const float* scal, const float* wj,
              const float* const* prev, int j, const Op2d& op,
              const Shard2d& sh, float* w, float* partial, float* raw, int ny,
              int nx, float ss, cudaStream_t st) {
-  const int lo = OP == OP_SHARD_ISO || OP == OP_SHARD_ANISO ? 2 : 3;
-  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < lo || nx < lo)
+  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < 2 || nx < 2)
     return (int)cudaErrorInvalidValue;
   const Cols c = make_cols(prev, j);
   const int b = bucket(j);
@@ -480,8 +611,11 @@ int launch_combine(const float* q, Cols W, int m, int k, Outs o, size_t n,
 
 extern "C" {
 
-// Number of blocks (= partial-sum rows) the K1 launches use.
+// Number of blocks (= partial-sum rows) a pass1_shard2d launch uses.
 int lz_num_blocks(int ny, int nx) { return num_blocks(ny, nx); }
+
+// Most blocks (= partial sums per output) a K1 / K1' launch uses.
+int lz_pass1_blocks() { return pipe_max_blocks(); }
 
 // Most blocks (= partial sums per output) a K2 launch uses.
 int lz_pipe_blocks() { return pipe_max_blocks(); }
@@ -493,13 +627,14 @@ const char* lz_error_string(int err) {
 int lz_max_specs() { return KMAX; }
 
 // K1. prev: host array of j device pointers W_0..W_{j-1}. partial: scratch
-// of lz_num_blocks * 2(j+1) floats. raw: (j+1, 2) output.
+// of lz_pass1_blocks * 2(j+1) floats. raw: (j+1, 2) output.
 int lz_pass1_iso2d(int P, const float* scal, const float* wj,
                    const float* const* prev, int j, float* w, float* partial,
                    float* raw, int ny, int nx, float ss, int clean,
                    cudaStream_t st) {
-  return pass1_2d<OP_ISO>(P, scal, wj, prev, j, Op2d{nullptr, nullptr, clean},
-                          Shard2d{}, w, partial, raw, ny, nx, ss, st);
+  return pass1_tile<OPK_ISO2D>(P, scal, wj, prev, j,
+                               Op2d{nullptr, nullptr, clean}, w, partial, raw,
+                               ny, nx, ss, st);
 }
 
 // K1'. As K1, with the (ny, nx) zero-padded face weights wx, wy.
@@ -508,8 +643,8 @@ int lz_pass1_aniso2d(int P, const float* scal, const float* wj,
                      const float* wy, float* w, float* partial, float* raw,
                      int ny, int nx, float ss, cudaStream_t st) {
   if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
-  return pass1_2d<OP_ANISO>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, Shard2d{},
-                            w, partial, raw, ny, nx, ss, st);
+  return pass1_tile<OPK_ANISO2D>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, w,
+                                 partial, raw, ny, nx, ss, st);
 }
 
 // K1' in modes shard2d (aniso = 0: the Laplacian, clean selects the
@@ -564,31 +699,54 @@ int lz_pipe_aniso2d(int P, int last, const float* scal, const float* av,
 // (2 MAXCOLS + 1) * lz_coop_max_blocks floats.
 int lz_coop_max_blocks() { return coop_max_blocks(); }
 
+int lz_num_sms() { return num_sms(); }
+
+// Blocks per SM of the K5 instantiation of (P, opk, j, vec) that fit with
+// dyn bytes of dynamic shared memory: lanczos2d.py's iter_plan.
+int lz_iter_fit(int P, int opk, int j, int vec, int dyn) {
+  if ((P != 1 && P != 2) || opk < OPK_ISO2D || opk > OPK_ISO3D_CLEAN
+      || j < 0 || j + 1 > MAXCOLS || dyn < 0)
+    return 0;
+  return iter_dispatch(P, opk, bucket(j), vec != 0, IterFit{dyn});
+}
+
 // K5. opk: 0 iso2d, 1 aniso2d, 2 iso3d reference, 3 iso3d clean (nz = 1 in
 // 2D; wx, wy are the aniso2d face weights, null otherwise). scal: (j+3)
 // device buffer [s_j, bs, s_0..s_j]; prev: host array of j device pointers
-// W_0..W_{j-1}; w: (P, nz*ny, nx) scratch; partial: scratch of
+// W_0..W_{j-1}. vec: the 16-byte form (nx % 4 == 0, every field and weight
+// 16-byte aligned). onchip, grid: iter_plan's form and grid (at most
+// lz_coop_max_blocks blocks, at most one per segment); w: the (P, nz*ny,
+// nx) scratch of the global form (unused on chip); partial: scratch of
 // (2 MAXCOLS + 1) * lz_coop_max_blocks floats; raw: (j+1, 2), nsq: (1, 1)
 // outputs. A cooperative launch the card refuses returns its error.
-int lz_iter(int P, int opk, const float* scal, const float* wj,
+int lz_iter(int P, int opk, int vec, const float* scal, const float* wj,
             const float* const* prev, int j, const float* wx, const float* wy,
-            int clean, float* w, float* wn, float* partial, float* raw,
-            float* nsq, int nz, int ny, int nx, float ss, cudaStream_t st) {
+            int clean, int onchip, int grid, float* w, float* wn,
+            float* partial, float* raw, float* nsq, int nz, int ny, int nx,
+            float ss, cudaStream_t st) {
   if ((P != 1 && P != 2) || opk < OPK_ISO2D || opk > OPK_ISO3D_CLEAN
       || j < 0 || j + 1 > MAXCOLS || nz < 1 || ny < 3 || nx < 3
       || (opk >= OPK_ISO3D_REF && nz < 3))
     return (int)cudaErrorInvalidValue;
   if (opk == OPK_ANISO2D && (wx == nullptr || wy == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(prev, j);
-  const OpArgs a = {Op2d{wx, wy, clean}, nz, ny, nx, ss};
-  float* part_b = partial + (size_t)2 * MAXCOLS * coop_max_blocks();
-  const int b = bucket(j + 1);
-  if (P == 1)
-    return iter_op<1>(opk, b, scal, wj, c, j, a, w, wn, partial, part_b, raw,
-                      nsq, st);
-  return iter_op<2>(opk, b, scal, wj, c, j, a, w, wn, partial, part_b, raw,
-                    nsq, st);
+  const int nseg = num_segs(nz * ny, nx);
+  if (grid < 1 || grid > coop_max_blocks() || grid > nseg
+      || (!onchip && w == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (vec) {
+    bool ok = nx % 4 == 0 && aligned16(wj) && aligned16(wn)
+              && aligned16(wx) && aligned16(wy) && (onchip || aligned16(w));
+    for (int i = 0; i < j; ++i) ok = ok && aligned16(prev[i]);
+    if (!ok) return (int)cudaErrorInvalidValue;
+  }
+  const IterLaunch f = {scal, wj, make_cols(prev, j), j,
+                        OpArgs{Op2d{wx, wy, clean}, nz, ny, nx, ss},
+                        onchip != 0, grid,
+                        iter_dyn_bytes(P, onchip, nseg, grid), w, wn, partial,
+                        partial + (size_t)2 * MAXCOLS * coop_max_blocks(),
+                        raw, nsq, st};
+  return iter_dispatch(P, opk, bucket(j), vec != 0, f);
 }
 
 // K3. q: (k, m, 2) device buffer. W: host array of m device pointers.

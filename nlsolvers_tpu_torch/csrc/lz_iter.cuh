@@ -1,27 +1,52 @@
-// The phase bodies of a whole Lanczos iteration in one cooperative launch,
-// for the fused iteration (K5, lanczos2d.cu iter_kernel), and the grid-wide
-// pieces (reduce_all, coop_launch) that the resident SS2 step (K13,
-// resident2d.cu) shares with it.
+// The fused Lanczos iteration (K5, lanczos2d.cu iter_kernel) and the first
+// phase it shares with K1 / K1' (lanczos2d.cu pass1_tile_kernel), both on
+// lz_tile.cuh's tile walker; and the grid-wide pieces (reduce_all,
+// coop_launch) that the resident SS2 step (K13, resident2d.cu) shares.
 //
 // One iteration j of the normalized two-pass loop (classical Gram-Schmidt
 // with full reorthogonalization, the JAX package's _iter_call):
-//   phase_w    w = s_j A(W_j) - bs W_{j-1} into a field, and the block's
-//              partial sums of raw_i = <W_i, w>, i <= j;
+//   phase 0 (wpass)    w = s_j A(W_j) - bs W_{j-1}, and the block's partial
+//                      sums of raw_i = <W_i, w>, i <= j (alone, this is
+//                      K1: the JAX package's _pass1_call);
 //   grid sync; every block sums the partials (reduce_all);
-//   phase_sub  W_{j+1} = w - sum_i q_i W_i with q_i = s_i^2 raw_i, and the
-//              block's partial sum of ||W_{j+1}||^2.
+//   phase 1 (subpass)  W_{j+1} = w - sum_i q_i W_i with q_i = s_i^2 raw_i,
+//                      and the block's partial sum of ||W_{j+1}||^2.
 //
-// A cooperative launch holds all its blocks on the card at once, so the
-// phases can be separated by grid syncs (cooperative_groups::this_grid()).
-// Every block walks the cells in the same grid-stride order in every phase:
-// a thread reads back the w it wrote itself. Data that other blocks wrote
-// earlier in the same launch (the partial sums) is read
-// from L2 with __ldcg, never through the read-only cache.
+// Geometry. The field (P, rows, nx) is cut into strips of PX = 128 columns;
+// a segment is one row of one strip, numbered strip-major (segment
+// strip * rows + row). Block b of a grid of G owns the segments
+// [b S / G, (b + 1) S / G) of all S: at most ceil(S / G) rows, in one strip
+// or a few, and the same ones in both phases. 3D fields are the merged
+// (nz ny, nx) view, whose z neighbours lie ny rows away.
+//
+// wpass walks each strip's run of the block's rows (a tile) as K2 does:
+// warp w loads row k = PWARP st + w of the tile's rows and its two halo rows
+// (16-byte loads; lanes 0 and 31 the halo columns) into a shared ring of
+// RING rows; one barrier per step; then warp w stencils tile row k - 2 from
+// the ring, its side neighbours by warp shuffles (3D: the z neighbours from
+// global memory, where the neighbouring blocks' walk has just brought them
+// into L2), forms w = s av - bs W_{j-1} and takes the dots: raw_j from the
+// ring, raw_i (i < j) from lz_tile.cuh's lane-group dots (tile_dots: W_i
+// from global memory, w from shared memory). A warp holds the W_j rows of
+// its next two steps in registers, so that their loads' latency hides
+// behind the steps between.
+//
+// Where w goes. K5 keeps the block's w rows in dynamic shared memory where
+// they fit (the on-chip form): phase 1 reads them back after the grid sync,
+// and no w reaches device memory. A field whose w does not fit on the card
+// (lanczos2d.py's iter_plan decides, by size) writes w to a global scratch
+// and reads it back through L2 (the global form), as K1 writes w, its
+// output. Neither form stands in for the other when a launch fails.
+//
+// Phase 1 walks the block's segments in the reverse order of phase 0, one
+// row per warp: the basis rows that phase 0 read last are then still in
+// the 50 MB L2 when phase 1 reads them first.
 //
 // Cross-block sums are deterministic and need no atomics: each block writes
-// its partial sums, one row per output, and after the grid sync EVERY block
-// sums all rows in the same fixed order, so every block holds the same bits
-// of every scalar and computes the same coefficients from them.
+// its partial sums, one row per output (partial[o * gridDim.x + block]), and
+// after the grid sync EVERY block sums all rows in the same fixed order, so
+// every block holds the same bits of every scalar and computes the same
+// coefficients from them; K1 reduces its rows with reduce_partials_om.
 
 #pragma once
 
@@ -29,16 +54,25 @@
 
 #include "lz_common.cuh"
 #include "lz_stencil.cuh"
+#include "lz_tile.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int CT = 512;             // threads per block of a cooperative launch
-constexpr int CWARP = CT / 32;
-constexpr int COOP_PER_SM = 2;      // most blocks per SM a launch uses
+constexpr int COOP_PER_SM = 2;      // most blocks per SM a K5 launch uses
 
-// The operators of the phase bodies.
+// Blocks per SM the K5 and K1 instantiations are compiled for: two (128
+// registers), but one for the 16-byte forms that would spill at two (K5:
+// dots of 32 columns, or 16 of a real field; K1: 16 or 32 of a real
+// field). MAXW: the bucket of j.
+template <int P, int MAXW, int VEC>
+constexpr int ITER_PER_SM =
+    VEC == 4 && (MAXW == 32 || (P == 1 && MAXW == 16)) ? 1 : 2;
+template <int P, int MAXW, int VEC>
+constexpr int PASS1_PER_SM = VEC == 4 && P == 1 && MAXW >= 16 ? 1 : 2;
+
+// The operators of the fused iteration and of K1 / K1'.
 constexpr int OPK_ISO2D = 0;        // 5-point Laplacian (variant in op2.clean)
 constexpr int OPK_ANISO2D = 1;      // div(c grad u), face weights in op2
 constexpr int OPK_ISO3D_REF = 2;    // 7-point Laplacian with the y-seam
@@ -50,51 +84,11 @@ struct OpArgs {
   float ss;          // scale * sign
 };
 
-template <int OPK, class LD>
-__device__ __forceinline__ float apply_op(const float* b, size_t idx, int r,
-                                          int x, const OpArgs& a) {
-  if (OPK == OPK_ISO2D || OPK == OPK_ANISO2D)
-    return stencil2d<OPK == OPK_ISO2D ? OP_ISO : OP_ANISO, LD>(
-        b, a.op2, idx, r, x, a.ny, a.nx, a.ss);
-  const int z = r / a.ny, y = r - z * a.ny;
-  const Weights none = {nullptr, nullptr, nullptr};
-  return stencil3d<OPK == OPK_ISO3D_REF ? ISO_REF : ISO_CLEAN, LD>(
-      b, none, idx, r, z, y, x, a.nz * a.ny, a.nz, a.ny, a.nx, a.ss);
-}
-
-// Basis columns W_0..W_j: a list of j pointers and W_j.
-struct ColList {
-  Cols c;
-  const float* last;
-  int j;
-  __device__ __forceinline__ const float* operator()(int i) const {
-    return i < j ? c.p[i] : last;
-  }
-};
-
-// Block sum of a per-thread value into red[warp][o].
-__device__ __forceinline__ void cput(float (*red)[RED_W], int o, float v) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5][o] = v;
-}
-
-// The block's sums, one row of gridDim.x per output: partial[o][block].
-__device__ __forceinline__ void cwrite(float (*red)[RED_W], int nout,
-                                       float* partial) {
-  __syncthreads();
-  for (int o = threadIdx.x; o < nout; o += CT) {
-    float v = red[0][o];
-#pragma unroll
-    for (int w = 1; w < CWARP; ++w) v += red[w][o];
-    partial[(size_t)o * gridDim.x + blockIdx.x] = v;
-  }
-}
-
 // After a grid sync, in every block of NW warps: out[o] = sum_b
 // partial[o][b], o < nout, in one fixed order (lane l adds b = l, l + 32,
 // ..., then the warp's shuffle tree), so every block gets the same bits.
 // out is shared memory.
-template <int NW = CWARP>
+template <int NW>
 __device__ __forceinline__ void reduce_all(const float* partial, int nout,
                                            float* out) {
   const int lane = threadIdx.x & 31;
@@ -109,138 +103,313 @@ __device__ __forceinline__ void reduce_all(const float* partial, int nout,
   __syncthreads();
 }
 
-// Phase 0 of iteration j: w = s A(W_j) - bs W_{j-1} into w_out, and the
-// partial sums of raw_i = <W_i, w> at rows 2i (re), 2i + 1 (im), i <= j.
-// The arithmetic of pass1 (K1/K1'/pass1_3d), cell by cell. MAXW bounds j.
-template <int P, int MAXW, int OPK, class LD, class COLS>
-__device__ __forceinline__ void phase_w(float s, float bs, const COLS& W,
-                                        int j, const OpArgs& a, float* w_out,
-                                        float (*red)[RED_W], float* partial) {
-  const int nx = a.nx;
-  const size_t n = (size_t)a.nz * a.ny * nx;
-  const size_t stride = (size_t)gridDim.x * CT;
-  const float* wj = W(j);
-  const float* wjm1 = j > 0 ? W(j - 1) : nullptr;
-  float acc[MAXW][2] = {};
-  float accj[2] = {0.0f, 0.0f};
-  for (size_t e = (size_t)blockIdx.x * CT + threadIdx.x; e < n; e += stride) {
-    const int r = (int)(e / nx);
-    const int x = (int)(e - (size_t)r * nx);
-    float c[P], w[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const float* b = wj + p * n;
-      const float av = apply_op<OPK, LD>(b, e, r, x, a);
-      float wv = s * av;
-      if (j > 0) wv = wv - bs * LD::ld(wjm1 + p * n + e);
-      c[p] = LD::ld(b + e);
-      w[p] = wv;
-      w_out[p * n + e] = wv;
-    }
-    hdot<P>(c, w, accj);
-#pragma unroll
-    for (int i = 0; i < MAXW; ++i) {
-      if (i < j) {
-        float wi[P];
-#pragma unroll
-        for (int p = 0; p < P; ++p) wi[p] = LD::ld(W(i) + p * n + e);
-        hdot<P>(wi, w, acc[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    if (i < j) {
-      cput(red, 2 * i, acc[i][0]);
-      cput(red, 2 * i + 1, acc[i][1]);
-    }
-  }
-  cput(red, 2 * j, accj[0]);
-  cput(red, 2 * j + 1, accj[1]);
-  cwrite(red, 2 * (j + 1), partial);
+// Segments (rows of PX-column strips) of a (rows, nx) field.
+__host__ __device__ __forceinline__ int num_segs(int rows, int nx) {
+  return (nx + PX - 1) / PX * rows;
 }
 
-// Phase 1 of iteration j: W_{j+1} = w - sum_{i<=j} q_i W_i, q_i = s_i^2
-// raw_i (raw as (re, im) pairs, s_i in sv), into wn_out, which may be w
-// itself: a thread reads each of its cells before it writes it. The
-// partial sum of ||W_{j+1}||^2 goes to row 0 of partial. The arithmetic of
-// pass2 (K4). MAXW bounds j + 1.
-template <int P, int MAXW, class LD, class COLS>
-__device__ __forceinline__ void phase_sub(const COLS& W, int j,
-                                          const float* sv, const float* raw,
-                                          size_t n, const float* w,
-                                          float* wn_out, float (*red)[RED_W],
-                                          float* partial) {
-  const size_t stride = (size_t)gridDim.x * CT;
-  float q[MAXW][2];
+// The block's segments [s0, s1) of nseg, split evenly over the grid.
+__device__ __forceinline__ void block_segs(int nseg, int& s0, int& s1) {
+  s0 = (int)((long long)blockIdx.x * nseg / gridDim.x);
+  s1 = (int)((long long)(blockIdx.x + 1) * nseg / gridDim.x);
+}
+
+// The block's sums red[warp][o], o < nout, into partial[o * gridDim.x +
+// block], summed over the warps in a fixed order.
+__device__ __forceinline__ void block_partials(float (*red)[RED_W], int nout,
+                                               float* __restrict__ partial) {
+  __syncthreads();
+  for (int o = threadIdx.x; o < nout; o += PT) {
+    float v = red[0][o];
 #pragma unroll
-  for (int i = 0; i < MAXW; ++i) {
-    const float si = i <= j ? sv[i] : 0.0f;
-    q[i][0] = i <= j ? si * si * raw[2 * i] : 0.0f;
-    q[i][1] = i <= j ? si * si * raw[2 * i + 1] : 0.0f;
+    for (int ww = 1; ww < PWARP; ++ww) v += red[ww][o];
+    partial[(size_t)o * gridDim.x + blockIdx.x] = v;
   }
-  float nsq = 0.0f;
-  for (size_t e = (size_t)blockIdx.x * CT + threadIdx.x; e < n; e += stride) {
-    float a0 = __ldcg(w + e);
-    float a1 = P == 2 ? __ldcg(w + n + e) : 0.0f;
+}
+
+// Tile row k - 1 of W_j (row r0 - 1 + k of the field, 0 outside it) at a
+// lane's four points of the strip at x0 and, in lanes 0 and 31, the halo
+// column left of / right of the strip (0 outside the field).
+template <int P, int VEC>
+__device__ __forceinline__ void wj_row(const float* __restrict__ wj, int k,
+                                       int r0, int rows, int nx, int x0,
+                                       int nv, size_t plane, int lane,
+                                       float (&v)[P][4], float (&h)[P]) {
+  const int r = r0 - 1 + k;
+  const long hoff = lane == 0 ? -1 : PX;
+  const bool hin = (lane == 0 || lane == 31) && x0 + hoff >= 0
+                   && x0 + hoff < nx;
 #pragma unroll
-    for (int i = 0; i < MAXW; ++i) {
-      if (i <= j) {
-        const float* wi = W(i);
-        const float w0 = LD::ld(wi + e);
-        if (P == 1) {
-          a0 = a0 - q[i][0] * w0;
+  for (int p = 0; p < P; ++p) {
+    if (r >= 0 && r < rows) {
+      const float* b = wj + p * plane + (size_t)r * nx + x0;
+      ldv<VEC>(b, lane, nv, v[p]);
+      h[p] = hin ? __ldg(b + hoff) : 0.0f;
+    } else {
+      v[p][0] = v[p][1] = v[p][2] = v[p][3] = 0.0f;
+      h[p] = 0.0f;
+    }
+  }
+}
+
+// The block's raw sums, i <= j, into partial (rows 2i (re), 2i + 1 (im)):
+// i < j from the lane-group sums g (tile_dots), i = j from the lane sums dl.
+template <int MAXW>
+__device__ __forceinline__ void raw_partials(
+    const float (&g)[4][2], const float (&dl)[2], int j, int lane, int w,
+    int q, int gl, float (*red)[RED_W], float* __restrict__ partial) {
+  constexpr int NG = MAXW / 4;
+  constexpr int L = 32 / NG;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int i = q + NG * c;
+    const float g0 = group_sum<L>(g[c][0]), g1 = group_sum<L>(g[c][1]);
+    if (gl == 0 && i < j) {
+      red[w][2 * i] = g0;
+      red[w][2 * i + 1] = g1;
+    }
+  }
+  const float d0 = warp_sum(dl[0]), d1 = warp_sum(dl[1]);
+  if (lane == 0) {
+    red[w][2 * j] = d0;
+    red[w][2 * j + 1] = d1;
+  }
+  block_partials(red, 2 * (j + 1), partial);
+}
+
+// Phase 0 over the block's segments [s0, s1) (see the top of the file): w
+// into wsm (shared, row k = segment s0 + k, P planes of PX floats) or, if
+// wsm is null, into the field wg through the per-warp shared rows wrow (P
+// planes of PX floats per warp); the block's raw sums to partial
+// (raw_partials). wp: W_0..W_{j-1} in shared memory. ring: RING rows, hal:
+// RING rows, red: PWARP rows of RED_W. lane, w: the thread's lane and warp;
+// q, gl: its dot group (of 32 / (MAXW / 4) lanes) and its lane in the
+// group. MAXW bounds j.
+template <int P, int MAXW, int OPK, int VEC>
+__device__ __forceinline__ void wpass(
+    float s, float bs, const float* __restrict__ wj, const float* const* wp,
+    int j, const OpArgs& a, int s0, int s1, float* wsm,
+    float* __restrict__ wg, float* wrow, float (*ring)[P][PX],
+    float (*hal)[P][2], float (*red)[RED_W], float* __restrict__ partial,
+    int lane, int w, int q, int gl) {
+  constexpr bool TWO_D = OPK == OPK_ISO2D || OPK == OPK_ANISO2D;
+  constexpr int OP = OPK == OPK_ANISO2D ? OP_ANISO : OP_ISO;
+  constexpr int MODE = OPK == OPK_ISO3D_REF ? ISO_REF : ISO_CLEAN;
+  const int nx = a.nx, rows = a.nz * a.ny;
+  const size_t plane = (size_t)rows * nx;
+  const size_t zoff = (size_t)a.ny * nx;
+  const float* __restrict__ wjm1 = j > 0 ? wp[j - 1] : nullptr;
+  float g[4][2] = {}, d[4][2] = {};
+  float dl[2] = {0.0f, 0.0f};        // raw_j = <W_j, w>
+
+  for (int sg = s0; sg < s1;) {
+    const int strip = sg / rows, r0 = sg - strip * rows;
+    const int h = min(rows - r0, s1 - sg);        // the tile's rows
+    const int x0 = strip * PX, nv = nx - x0;
+    const int steps = (h + 2 + PWARP - 1) / PWARP;
+    float* const wt = wsm == nullptr ? nullptr
+                                     : wsm + (size_t)(sg - s0) * P * PX;
+    float va[P][4], ha[P], vb[P][4], hb[P];       // rows k and k + PWARP
+    if (w < h + 2)
+      wj_row<P, VEC>(wj, w, r0, rows, nx, x0, nv, plane, lane, va, ha);
+    if (w + PWARP < h + 2)
+      wj_row<P, VEC>(wj, w + PWARP, r0, rows, nx, x0, nv, plane, lane, vb,
+                     hb);
+    for (int st = 0; st < steps; ++st) {
+      const int k = PWARP * st + w;               // ring row: tile row k - 1
+      if (k < h + 2) {
+        const int slot = k % RING;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sts<VEC>(ring[slot][p], lane, va[p]);
+          if (lane == 0) hal[slot][p][0] = ha[p];
+          if (lane == 31) hal[slot][p][1] = ha[p];
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) va[p][e] = vb[p][e];
+        ha[p] = hb[p];
+      }
+      if (k + 2 * PWARP < h + 2)                  // two steps ahead
+        wj_row<P, VEC>(wj, k + 2 * PWARP, r0, rows, nx, x0, nv, plane, lane,
+                       vb, hb);
+      const int t = k - 2;                        // stencilled tile row
+      if (t >= 0 && t < h) {
+        const int r = r0 + t;
+        const size_t base = (size_t)r * nx + x0;
+        const int sc = (t + 1) % RING, su = t % RING, sd = (t + 2) % RING;
+        float kf[4][4];
+        int z = 0, y = 0;
+        if constexpr (TWO_D) {
+          coef_row<OP, VEC>(a.op2, r, x0, a.ny, nx, base, nv, lane, kf);
         } else {
-          const float w1 = LD::ld(wi + n + e);
-          a0 = a0 - (q[i][0] * w0 - q[i][1] * w1);
-          a1 = a1 - (q[i][0] * w1 + q[i][1] * w0);
+          z = r / a.ny;
+          y = r - z * a.ny;
+        }
+        float cv[P][4], wv[P][4];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          float up[4], dn[4], lf[4], rt[4], zu[4], zd[4], pm[4];
+          lds<VEC>(ring[sc][p], lane, cv[p]);
+          lds<VEC>(ring[su][p], lane, up);
+          lds<VEC>(ring[sd][p], lane, dn);
+          row_sides<VEC>(ring[sc][p], cv[p], hal[sc][p], lane, lf, rt);
+          if constexpr (!TWO_D) {
+            const float* b = wj + p * plane + base;
+            if (z > 0)
+              ldv<VEC>(b - zoff, lane, nv, zu);
+            else
+              zu[0] = zu[1] = zu[2] = zu[3] = 0.0f;
+            if (z < a.nz - 1)
+              ldv<VEC>(b + zoff, lane, nv, zd);
+            else
+              zd[0] = zd[1] = zd[2] = zd[3] = 0.0f;
+          }
+          if (j > 0) ldv<VEC>(wjm1 + p * plane + base, lane, nv, pm);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = vcol<VEC>(lane, e);
+            float av = 0.0f;
+            if (c < nv) {
+              if constexpr (TWO_D)
+                av = stencil<OP>(cv[p][e], up[e], dn[e], lf[e], rt[e], r,
+                                 x0 + c, kf[e]) * a.ss;
+              else
+                av = stencil3d_vals<MODE>(
+                    cv[p][e], up[e], dn[e], zu[e], zd[e], lf[e], rt[e],
+                    Weights{nullptr, nullptr, nullptr}, 0, r, z, y, x0 + c,
+                    a.nz, a.ny, nx, a.ss);
+            }
+            float wvv = s * av;
+            if (j > 0) wvv = wvv - bs * pm[e];
+            wv[p][e] = wvv;
+          }
+        }
+        float* const wr = wt != nullptr ? wt + (size_t)t * P * PX
+                                        : wrow + (size_t)w * P * PX;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          sts<VEC>(wr + p * PX, lane, wv[p]);
+          if (wg != nullptr) stv<VEC>(wg + p * plane + base, lane, nv, wv[p]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x[P], y2[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            x[p] = cv[p][e];
+            y2[p] = wv[p][e];
+          }
+          hdot<P>(x, y2, dl);
+        }
+        if (j > 0) {
+          __syncwarp();
+          tile_dots<P, MAXW, true, VEC, LdNC>(wp, j, plane, wr, nullptr, base,
+                                              nv, q, gl, g, d);
+          __syncwarp();
         }
       }
     }
-    wn_out[e] = a0;
-    nsq += a0 * a0;
-    if (P == 2) {
-      wn_out[n + e] = a1;
-      nsq += a1 * a1;
+    __syncthreads();                              // the ring is reused
+    sg += h;
+  }
+  raw_partials<MAXW>(g, dl, j, lane, w, q, gl, red, partial);
+}
+
+// Phase 1 over the block's segments [s0, s1), last to first, one row per
+// warp: W_{j+1} = w - sum_{i < nw} q_i W_i (q as (re, im) pairs in qs) into
+// wn_out, w from wsm (phase 0's rows) or, if wsm is null, from the field wg
+// through L2; the block's partial sum of ||W_{j+1}||^2 to row 0 of partial.
+// The arithmetic of pass2 (K4). wp: W_0..W_{nw-1} in shared memory.
+template <int P, int VEC>
+__device__ __forceinline__ void subpass(
+    const float* const* wp, int nw, const float* qs, const OpArgs& a, int s0,
+    int s1, const float* wsm, const float* wg, float* __restrict__ wn_out,
+    float (*red)[RED_W], float* __restrict__ partial, int lane, int w) {
+  const int nx = a.nx, rows = a.nz * a.ny;
+  const size_t plane = (size_t)rows * nx;
+  float nsq = 0.0f;
+  for (int sg = s1 - 1 - w; sg >= s0; sg -= PWARP) {
+    const int strip = sg / rows, r = sg - strip * rows;
+    const int x0 = strip * PX, nv = nx - x0;
+    const size_t base = (size_t)r * nx + x0;
+    float acc[P][4];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (wsm != nullptr)
+        lds<VEC>(wsm + ((size_t)(sg - s0) * P + p) * PX, lane, acc[p]);
+      else
+        ldv<VEC, LdL2>(wg + p * plane + base, lane, nv, acc[p]);
+    }
+#pragma unroll 4
+    for (int i = 0; i < nw; ++i) {
+      const float qr = qs[2 * i], qi = qs[2 * i + 1];
+      float x[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        ldv<VEC>(wp[i] + p * plane + base, lane, nv, x[p]);
+      if (P == 1) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][e] = acc[0][e] - qr * x[0][e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float a0 = acc[0][e] - (qr * x[0][e] - qi * x[P - 1][e]);
+          acc[P - 1][e] = acc[P - 1][e] - (qr * x[P - 1][e] + qi * x[0][e]);
+          acc[0][e] = a0;
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      stv<VEC>(wn_out + p * plane + base, lane, nv, acc[p]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      nsq += acc[0][e] * acc[0][e];
+      if (P == 2) nsq += acc[P - 1][e] * acc[P - 1][e];
     }
   }
-  cput(red, 0, nsq);
-  cwrite(red, 1, partial);
+  nsq = warp_sum(nsq);
+  if (lane == 0) red[w][0] = nsq;
+  block_partials(red, 1, partial);
 }
 
-// Blocks of a cooperative launch of `kernel` with CT threads: as many as
-// fit on the card at once, at most COOP_PER_SM per SM; 0 if none fits.
+// ---------------------------------------------------------------- host side
+
+// Most blocks any K5 launch uses: the partial-sum rows the caller
+// allocates.
+int coop_max_blocks() { return COOP_PER_SM * num_sms(); }
+
+// Let `kernel` take as much dynamic shared memory as the card lets one
+// block have beside its static shared memory; the CUDA error, or 0.
 template <class K>
-int coop_blocks(K kernel) {
-  int dev = 0, sms = 0, occ = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-             != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, CT, 0)
-             != cudaSuccess)
-    return 0;
-  return (occ < COOP_PER_SM ? occ : COOP_PER_SM) * sms;
+int allow_dyn_smem(K kernel) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)fa.sharedSizeBytes);
+  return (int)err;
 }
 
-// Most blocks any cooperative launch here uses: the partial-sum rows the
-// caller allocates.
-int coop_max_blocks() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
-             != cudaSuccess)
-    return 0;
-  return COOP_PER_SM * sms;
-}
-
-// Launch `kernel` cooperatively on `grid` blocks of `threads` threads; a
-// grid of 0 (nothing fits) or a refused launch returns its error.
+// Launch `kernel` cooperatively on `grid` blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory; a grid of 0 (nothing fits) or a
+// refused launch returns its error.
 template <class K>
 int coop_launch(K kernel, int grid, void** args, cudaStream_t st,
-                int threads = CT) {
+                int threads, size_t smem = 0) {
   if (grid <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)kernel, dim3(grid), dim3(threads), args, 0, st);
+      (const void*)kernel, dim3(grid), dim3(threads), args, smem, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 // The tile walker of the pipelined Lanczos kernels, shared by K2 / K2'
 // (lanczos2d.cu pipe_2d_kernel), K8 (lanczos3d.cu pipe3d_kernel) and K13
-// (resident2d.cu resident_kernel).
+// (resident2d.cu resident_kernel). Its ring, row loads, side neighbours and
+// lane-group dots also carry the first phase of K1 / K1' and K5
+// (lz_iter.cuh's wpass, its own row source and epilogue).
 //
 // One pipe pass builds a column W_{j+1} row by row, stencils it into
 // av_{j+1} = A(W_{j+1}) while the rows are still in shared memory, and takes

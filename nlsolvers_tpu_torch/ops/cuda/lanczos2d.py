@@ -57,7 +57,8 @@ __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
            "pass1_iso2d", "pass1_iso2d_ref", "pass1_aniso2d",
            "pass1_aniso2d_ref", "pipe_iso2d", "pipe_iso2d_ref",
            "pipe_aniso2d", "pipe_aniso2d_ref", "combine", "combine_ref",
-           "iter_step", "iter_ref", "pass1_shard2d", "pass1_shard2d_ref",
+           "iter_step", "iter_ref", "iter_plan", "iter_form",
+           "pass1_shard2d", "pass1_shard2d_ref",
            "MAX_M", "MAX_SPECS", "KINDS_3D",
            "FUSED_ITER_BYTES"]
 
@@ -70,6 +71,13 @@ MAX_SPECS = 4
 # through K5, the JAX package's rule (lanczos2d.py:1387-1390): the w
 # intermediate of one iteration then fits in the H100's 50 MB L2.
 FUSED_ITER_BYTES = 32 * 2**20
+
+# K5's geometry (csrc/lz_iter.cuh): rows of STRIP_COLS-column strips, split
+# evenly over a grid of at most COOP_PER_SM blocks per SM; in the global
+# form the dynamic shared memory holds one w row per warp (ITER_WARPS).
+STRIP_COLS = 128
+COOP_PER_SM = 2
+ITER_WARPS = 8
 
 
 def matvec_descriptor(kind, shape, scale, sign=1.0, variant="reference"):
@@ -129,6 +137,7 @@ def _lib():
     pp = ctypes.POINTER(ctypes.c_void_p)
     for name, args in (
             ("lz_num_blocks", [i32, i32]),
+            ("lz_pass1_blocks", []),
             ("lz_pipe_blocks", []),
             ("lz_max_cols", []),
             ("lz_max_specs", []),
@@ -147,8 +156,10 @@ def _lib():
              [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
               vp, i32, i32, i32, i32, i32, i32, f32, vp]),
             ("lz_coop_max_blocks", []),
-            ("lz_iter", [i32, i32, vp, vp, pp, i32, vp, vp, i32, vp, vp, vp,
-                         vp, vp, i32, i32, i32, f32, vp])):
+            ("lz_num_sms", []),
+            ("lz_iter_fit", [i32, i32, i32, i32, i32]),
+            ("lz_iter", [i32, i32, i32, vp, vp, pp, i32, vp, vp, i32, i32,
+                         i32, vp, vp, vp, vp, vp, i32, i32, i32, f32, vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
@@ -219,6 +230,11 @@ def _check_aux(t, shape, like, what, name):
         raise ValueError(f"{what}: {name} must be a contiguous float32 "
                          f"{tuple(shape)} tensor on {like.device}")
     return t
+
+
+def _bucket(n):
+    """csrc's template bucket of a column count (lz_common.cuh bucket)."""
+    return 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
 
 
 def _check_cols(n, what):
@@ -417,7 +433,7 @@ def _pass1(scal, wj, prev, desc, aniso, what):
     P, ny, nx = wj.shape
     ss = float(desc["scale"]) * float(desc["sign"])
     w = torch.empty_like(wj)
-    partial = torch.empty(lib.lz_num_blocks(ny, nx) * 2 * (j + 1),
+    partial = torch.empty(lib.lz_pass1_blocks() * 2 * (j + 1),
                           dtype=torch.float32, device=wj.device)
     raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
     head = (P, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j)
@@ -617,6 +633,47 @@ def _iter_opk(desc, what):
                      f"_iter_call), not {kind}")
 
 
+def iter_plan(P, rows, nx, sms, fit):
+    """(onchip, grid) of a K5 launch on a (P, rows, nx) field.
+
+    K5's blocks split the S = ceil(nx / 128) * rows rows of 128-column
+    strips evenly, ceil(S / grid) each. The on-chip form keeps each block's
+    w rows in shared memory: it takes the largest grid of COOP_PER_SM, then
+    fewer, blocks per SM (at most S blocks) whose blocks all fit on the card
+    at once with those rows. A field whose w fits no such grid takes the
+    global form (w in a device scratch) on the most blocks that fit, at most
+    COOP_PER_SM per SM. `fit(dyn)`: the blocks per SM that fit with dyn
+    bytes of dynamic shared memory; sms: the card's SMs. This is a rule of
+    size: a launch takes the form it gives, or raises.
+    """
+    segs = -(-nx // STRIP_COLS) * rows
+    for per_sm in range(COOP_PER_SM, 0, -1):
+        grid = min(per_sm * sms, segs)
+        if fit(-(-segs // grid) * P * STRIP_COLS * 4) * sms >= grid:
+            return True, grid
+    per_sm = min(COOP_PER_SM, fit(ITER_WARPS * P * STRIP_COLS * 4))
+    if per_sm < 1:
+        raise RuntimeError("iter_step: no block of the kernel fits on the "
+                           "card")
+    return False, min(per_sm * sms, segs)
+
+
+_plan_cache = {}
+
+
+def iter_form(P, rows, nx, opk, j, vec):
+    """iter_plan for the K5 instantiation of a call (P, the operator code
+    opk, iteration j, the 16-byte form vec), the card's numbers read from
+    the library once per instantiation and shape."""
+    key = (P, rows, nx, opk, _bucket(j), bool(vec))
+    if key not in _plan_cache:
+        lib = _lib()
+        _plan_cache[key] = iter_plan(
+            P, rows, nx, lib.lz_num_sms(),
+            lambda dyn: lib.lz_iter_fit(P, opk, j, int(vec), dyn))
+    return _plan_cache[key]
+
+
 def iter_step(scal, wj, prev, desc):
     """K5: one whole Lanczos iteration j = len(prev) in one launch.
 
@@ -624,7 +681,8 @@ def iter_step(scal, wj, prev, desc):
     W_j; prev: W_0..W_{j-1}, planar (P, rows, nx) fields (the merged view
     for the 3D Laplacian). Returns (W_{j+1}, raw (j+1, 2), nsq (1, 1)):
     w = s_j A(W_j) - bs W_{j-1}, raw_i = <W_i, w>, W_{j+1} = w - sum_i
-    s_i^2 raw_i W_i and ||W_{j+1}||^2.
+    s_i^2 raw_i W_i and ||W_{j+1}||^2. w stays in shared memory where
+    iter_plan finds room for it, else in a scratch field.
     """
     j = len(prev)
     _check_cols(j, "iter_step")
@@ -649,16 +707,21 @@ def iter_step(scal, wj, prev, desc):
         if opk == 1:
             wx, wy = _aniso_weights(desc, wj, "iter_step")
     lib = _lib()
-    w = torch.empty_like(wj)
     wn = torch.empty_like(wj)
+    vec = nx % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in [wj, wn, *prev] + [
+            x for x in (wx, wy) if x is not None])
+    onchip, grid = iter_form(P, rows, nx, opk, j, vec)
+    w = None if onchip else torch.empty_like(wj)
     partial = torch.empty((2 * MAX_M + 1) * lib.lz_coop_max_blocks(),
                           dtype=torch.float32, device=wj.device)
     raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
     nsq = torch.empty((1, 1), dtype=torch.float32, device=wj.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    _check(lib.lz_iter(P, opk, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j,
-                       ptr(wx), ptr(wy), int(desc["variant"] == "clean"),
-                       w.data_ptr(), wn.data_ptr(), partial.data_ptr(),
+    _check(lib.lz_iter(P, opk, int(vec), scal.data_ptr(), wj.data_ptr(),
+                       _ptrs(prev), j, ptr(wx), ptr(wy),
+                       int(desc["variant"] == "clean"), int(onchip), grid,
+                       ptr(w), wn.data_ptr(), partial.data_ptr(),
                        raw.data_ptr(), nsq.data_ptr(), nz, ny, nx,
                        float(desc["scale"]) * float(desc["sign"]),
                        _stream(wj)), "iter_step")

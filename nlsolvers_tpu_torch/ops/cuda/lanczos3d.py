@@ -43,7 +43,8 @@ import torch
 from nlsolvers_tpu_torch.config import use_kernel
 from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (KINDS_3D, MAX_M,
-                                                    _check_aux, _check_fields,
+                                                    _bucket, _check_aux,
+                                                    _check_fields,
                                                     _check_scalars, _dots,
                                                     _pass1_ref, _pipe_ref,
                                                     _ptrs, _stream,
@@ -427,11 +428,6 @@ def pipe3d_brick(nz, ny, nx, fit):
 
 
 _brick_cache = {}
-
-
-def _bucket(n):
-    """csrc's template bucket of a column count (lz_common.cuh bucket)."""
-    return 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
 
 
 def _brick(P, mode, nw, vec, nz, ny, nx):

@@ -67,7 +67,11 @@ def _check(got, want, fields):
 
 @pytest.mark.parametrize("shape,variant,P", [((64, 64), "reference", 2),
                                              ((37, 131), "clean", 2),
-                                             ((19, 300), "reference", 1)])
+                                             ((19, 300), "reference", 1),
+                                             ((251, 335), "clean", 2),
+                                             ((250, 334), "reference", 1),
+                                             ((1024, 1024), "reference", 2),
+                                             ((3, 3), "clean", 2)])
 def test_kernels_match_plain_on_card(cuda, shape, variant, P):
     ny, nx = shape
     desc = _desc(ny, nx, variant)
@@ -79,6 +83,7 @@ def test_kernels_match_plain_on_card(cuda, shape, variant, P):
         rng.uniform(-0.5, 0.5, (5, 2)).astype(np.float32)).to(cuda)
     q = scal[None, :4].contiguous()
     calls = [lambda: tl.pass1_iso2d(scal[:1].contiguous(), u, W[:2], desc),
+             lambda: tl.pass1_iso2d(scal[:1].contiguous(), u, [], desc),
              lambda: tl.pipe_iso2d(scal, av, W, desc, False),
              lambda: tl.pipe_iso2d(scal, av, W, desc, True),
              lambda: tl.combine(q, W)]
@@ -222,14 +227,45 @@ def _iter_descs(mode, cuda):
     return _desc3d(shape, mode[:-2], cuda), 99, 13
 
 
-@pytest.mark.parametrize("mode,P,j", [
-    ("reference", 2, 0), ("clean", 2, 5), ("aniso2d", 2, 8),
-    ("aniso2d", 1, 3), ("reference3d", 2, 8), ("clean3d", 1, tl.MAX_M - 2),
-    ("reference", 2, tl.MAX_M - 2)])
-def test_iter_step_matches_plain_on_card(cuda, mode, P, j):
+# (mode, P, j, form): every operator, both field kinds, every bucket up to
+# j = MAX_M - 2; the form of w by iter_plan's rule ("plan"), forced global
+# (on the most blocks a launch takes) or forced on chip on 7 blocks (each
+# block then owns rows of several strips); the 16-byte form (nx % 4 == 0,
+# 3D 9x11x16) and the scalar one
+_ITER_CASES = [("reference", 2, 0, "plan"), ("clean", 2, 5, "plan"),
+               ("aniso2d", 2, 8, "plan"), ("aniso2d", 1, 3, "plan"),
+               ("reference3d", 2, 8, "plan"), ("clean3d", 1, tl.MAX_M - 2,
+                                                "plan"),
+               ("reference", 2, tl.MAX_M - 2, "plan"),
+               ("reference", 2, 4, "global"), ("aniso2d", 2, 12, "global"),
+               ("clean3d", 2, 17, "global"), ("reference3d", 1, 2, "global"),
+               ("clean", 1, 9, "onchip7"), ("aniso2d", 2, 1, "onchip7"),
+               ("reference3d", 2, 6, "onchip7"),
+               ("reference3d16", 2, 6, "plan"), ("clean3d16", 2, 20,
+                                                 "global"),
+               ("reference1024", 2, 8, "plan")]
+
+
+@pytest.mark.parametrize("mode,P,j,form", _ITER_CASES,
+                         ids=[f"{m}-P{P}-j{j}-{f}"
+                              for m, P, j, f in _ITER_CASES])
+def test_iter_step_matches_plain_on_card(cuda, monkeypatch, mode, P, j,
+                                         form):
     """K5 on every operator it takes, both field kinds, up to j = MAX_M - 2,
-    against iter_ref; W_{j+1} by rel-L2, raw and nsq at the dot scale."""
-    desc, rows, nx = _iter_descs(mode, cuda)
+    both forms of w, against iter_ref; W_{j+1} by rel-L2, raw and nsq at
+    the dot scale."""
+    if mode.endswith("16"):
+        desc, rows, nx = _desc3d((9, 11, 16), mode[:-4], cuda), 99, 16
+    elif mode == "reference1024":
+        desc, rows, nx = _desc(1024, 1024, "reference"), 1024, 1024
+    else:
+        desc, rows, nx = _iter_descs(mode, cuda)
+    if form != "plan":
+        segs = -(-nx // tl.STRIP_COLS) * rows
+        grid = 7 if form == "onchip7" else min(segs,
+                                               tl._lib().lz_coop_max_blocks())
+        monkeypatch.setattr(tl, "iter_form",
+                            lambda *a: (form == "onchip7", grid))
     W = _fields_on(cuda, j + 1, (rows, nx), P, 90 + j)
     rng = np.random.default_rng(9)
     s = rng.uniform(0.2, 1.0, j + 1).astype(np.float32)
@@ -239,6 +275,31 @@ def test_iter_step_matches_plain_on_card(cuda, mode, P, j):
     _check(*_kernel_and_plain(lambda: tl.iter_step(scal, W[j], W[:j], desc)),
            W)
     assert tl.iter_step.launches == before + 1
+
+
+def test_iter_step_and_pass1_repeat_bit_for_bit(cuda, monkeypatch):
+    """Two launches of K5 (on-chip and global w) and of K1 / K1' on the same
+    inputs give the same bits: fields, raw dots and norms (fixed grid, fixed
+    order of sums, no atomics)."""
+    desc = _desc(1024, 1024, "reference")
+    W = _fields_on(cuda, 9, (1024, 1024), 2, 160)
+    s = np.random.default_rng(161).uniform(0.2, 1.0, 9).astype(np.float32)
+    scal = torch.from_numpy(np.concatenate([[s[8], 0.3], s]).astype(
+        np.float32)[None]).to(cuda)
+    sc1 = scal[:, :2].contiguous()
+    da = _desc_aniso(250, 333, cuda)
+    Wa = _fields_on(cuda, 9, (250, 333), 2, 162)
+    calls = [lambda: tl.iter_step(scal, W[8], W[:8], desc),
+             lambda: tl.pass1_iso2d(sc1, W[8], W[:8], desc),
+             lambda: tl.pass1_aniso2d(sc1, Wa[8], Wa[:8], da)]
+    for call in calls:
+        a, b = call(), call()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert tl.iter_form(2, 1024, 1024, 0, 8, True)[0]
+    grid = tl._lib().lz_coop_max_blocks()
+    monkeypatch.setattr(tl, "iter_form", lambda *a: (False, grid))
+    a, b = calls[0](), calls[0]()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_iter_step_rejects_bad_input(cuda):

@@ -170,3 +170,86 @@ def test_size_rule(fused_on, monkeypatch):
         assert len(calls) == 3
         for a, b in zip(big[0], small[0]):
             assert _rel(a.numpy(), b.numpy()) <= COL_TOL
+
+
+# K5's form of w by size (tl.iter_plan): a shared-memory budget of the
+# card's shape (per SM, per block, the static part of a block, the
+# reserve per block) stands in for the occupancy query of the library
+H100_SMEM = dict(sm=233472, block=232448, static=30 * 1024, reserved=1024,
+                 sms=132)
+SMALL_SMEM = dict(H100_SMEM, sm=96 * 1024, block=64 * 1024)
+
+
+def _budget_fit(b):
+    """Blocks per SM (at most the two of the kernel's launch bounds) that
+    fit with dyn bytes of dynamic shared memory, under budget b."""
+    def fit(dyn):
+        need = b["static"] + dyn
+        if need > b["block"]:
+            return 0
+        return min(tl.COOP_PER_SM, b["sm"] // (need + b["reserved"]))
+    return fit
+
+
+# (P, rows, nx, budget, onchip, grid): 1024^2 and 128^3 (the merged view)
+# keep w on chip, two blocks per SM; 2048^2 (FUSED_ITER_BYTES admits it)
+# and 1024^2 under a small budget take the global form; a field that fits
+# only at one block per SM; fewer strip rows than SMs
+_PLAN_CASES = [(2, 1024, 1024, H100_SMEM, True, 264),
+               (2, 128 * 128, 128, H100_SMEM, True, 264),
+               (1, 1024, 1024, H100_SMEM, True, 264),
+               (2, 2048, 2048, H100_SMEM, False, 264),
+               (2, 1024, 1024, SMALL_SMEM, False, 264),
+               (2, 1792, 1792, H100_SMEM, True, 132),
+               (2, 37, 131, H100_SMEM, True, 74),
+               (2, 250, 333, SMALL_SMEM, True, 264)]
+
+
+@pytest.mark.parametrize("P,rows,nx,budget,onchip,grid", _PLAN_CASES,
+                         ids=[f"P{c[0]}-{c[1]}x{c[2]}-"
+                              f"{'h100' if c[3] is H100_SMEM else 'small'}"
+                              for c in _PLAN_CASES])
+def test_iter_plan_keeps_w_on_chip_where_it_fits(P, rows, nx, budget,
+                                                 onchip, grid):
+    """The on-chip form where the largest grid of 2, then 1, blocks per SM
+    holds every block's ceil(S / grid) w rows beside its static shared
+    memory; the global form on the blocks that fit otherwise; never more
+    blocks than rows of 128-column strips."""
+    fit = _budget_fit(budget)
+    got = tl.iter_plan(P, rows, nx, budget["sms"], fit)
+    assert got == (onchip, grid)
+    segs = -(-nx // 128) * rows
+    wrows = -(-segs // grid)
+    if onchip:
+        assert fit(wrows * P * 128 * 4) * budget["sms"] >= grid
+    else:
+        for per_sm in (2, 1):
+            g = min(per_sm * budget["sms"], segs)
+            assert fit(-(-segs // g) * P * 128 * 4) * budget["sms"] < g
+        assert fit(8 * P * 128 * 4) * budget["sms"] >= grid
+
+
+def test_iter_form_reads_the_card_once_per_shape(monkeypatch):
+    """iter_form asks the library for the SMs and the blocks that fit of the
+    call's instantiation (bucket of j, 16-byte form) once per shape, and
+    gives iter_plan's answer under a monkeypatched budget."""
+    calls = []
+    fit = _budget_fit(SMALL_SMEM)
+
+    class FakeLib:
+        def lz_num_sms(self):
+            return SMALL_SMEM["sms"]
+
+        def lz_iter_fit(self, P, opk, j, vec, dyn):
+            calls.append((P, opk, j, vec, dyn))
+            return fit(dyn)
+
+    monkeypatch.setattr(tl, "_lib", lambda: FakeLib())
+    monkeypatch.setattr(tl, "_plan_cache", {})
+    assert tl.iter_form(2, 1024, 1024, 0, 5, True) == (False, 264)
+    n = len(calls)
+    assert n and all(c[:4] == (2, 0, 5, 1) for c in calls)
+    assert tl.iter_form(2, 1024, 1024, 0, 7, True) == (False, 264)
+    assert len(calls) == n                       # the same bucket and shape
+    assert tl.iter_form(2, 250, 333, 1, 5, False) == (True, 264)
+    assert calls[-1][:4] == (2, 1, 5, 0)

@@ -2,7 +2,7 @@
 """Time the pipelined Lanczos kernels and the steps that run them on one GPU.
 
     python3 time_kernels.py [--root TREE] [--tag NAME] [--out FILE]
-                            [--parts 2d,k8,k13,rates,optin]
+                            [--parts 2d,k8,k13,k5,k1,rates,optin]
                             [--ms 10,20]
 
 Imports nlsolvers_tpu_torch from TREE (default: the directory of this
@@ -33,13 +33,26 @@ the same columns (complex64). Parts:
          m = 10 and 20, beside its operations bound and the streaming
          floors of both designs (the two-pass loop's and the pipelined
          one's);
+  k5     K5 (iter_step, the m-1 launches j = 0..m-2 of one fused-iteration
+         Lanczos run) at 1024^2 and 128^3 iso (w on chip) and 2048^2 (w in
+         a device scratch), m = 10 and 20, with the form of w the wrapper
+         picked (trees that pick it);
+  k1     K1 and K1' (pass1_iso2d, pass1_aniso2d) at 1024^2 and 4096^2, at
+         j = 0 (the main path's one launch per matrix function) and
+         j = m - 2;
+  perj   K5 at each j = 0..8 and K1 at j in {0, 1, 2, 4, 8}, one launch each
+         by graph, at 1024^2 and 2048^2 (where a run's time goes);
+  ptxas  ptxas's registers and spill stores of every kernel instantiation
+         the tree builds, one JSON object each (the namespace hash of a
+         name dropped), to compare two trees' code generation;
   rates  steps/s by chip_smoke.py's `rate` (the median of 3 synchronized
          chunks after a warm-up; device busy time, idle share and the top
          kernels from torch.profiler): 1024^2 iso SS2, 1024^2 c(x) SS2 and
          c(x) sEWI, 4096^2 iso SS2 (the cubic NLSE of chip_smoke.py);
   optin  the same for the opt-in paths beside their defaults, chunks
-         interleaved: resident vs default at 1024^2 and 4096^2,
-         pipeline_3d vs two-pass at 128^3 and 256^3.
+         interleaved: resident vs default at 1024^2 and 4096^2 (and
+         fused_iter at 1024^2), pipeline_3d vs two-pass at 128^3 and
+         256^3 (and fused_iter at 128^3).
 
 Prints one JSON object per kernel reading and writes them all to --out.
 """
@@ -47,6 +60,7 @@ Prints one JSON object per kernel reading and writes them all to --out.
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -60,7 +74,7 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--out", default=None)
-    ap.add_argument("--parts", default="2d,k8,k13,rates,optin")
+    ap.add_argument("--parts", default="2d,k8,k13,k5,k1,rates,optin")
     ap.add_argument("--ms", default="10,20")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
@@ -96,6 +110,14 @@ def main():
         kw = dict(tag=args.tag, card=smi, **kw)
         results.append(kw)
         print(json.dumps(kw))
+
+    for lib in (("lanczos2d", "lanczos3d", "resident2d") if "ptxas" in parts
+                else ()):
+        lines = _build.build_log(lib).read_text().splitlines()
+        for kname, nreg, spill in cs.kernel_resources(lines):
+            emit(lib=lib, ptxas=re.sub(r"^_ZN\d+_GLOBAL__N__.*?_cu_[0-9a-f]{8}"
+                                        r"\d+", "", kname), registers=nreg,
+                 spill_bytes=spill)
 
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -222,6 +244,86 @@ def main():
             del sc
             torch.cuda.empty_cache()
 
+    def k5_scal(W, j):
+        """K5's scalars [s_j, bs, s_0..s_j], inverse norms near 1/||W_i||
+        (the loop's magnitudes)."""
+        sv = ((0.5 + 0.5 * torch.rand(j + 1, generator=gen, device=dev))
+              / torch.stack([w.norm() for w in W[:j + 1]]))
+        return torch.cat([torch.stack([sv[j], sv[0] * 0 + 0.3]),
+                          sv])[None].contiguous()
+
+    # K5: the m-1 launches of one fused-iteration Lanczos run
+    for n, three_d in (((1024, False), (2048, False), (128, True))
+                       if "k5" in parts else ()):
+        rows = n * n if three_d else n
+        if three_d:
+            d = operators.laplacian_3d((n, n, n), 2.0 * LX / (n - 1),
+                                       device=dev).kernel_desc
+        else:
+            dx = 2.0 * LX / (n - 1)
+            d = operators.laplacian_2d((n, n), dx, dx,
+                                       device=dev).kernel_desc
+        col = 2 * rows * n * 4
+        for m in ms:
+            W = [field(n, rows=rows) for _ in range(m - 1)]
+            scs = [k5_scal(W, j) for j in range(m - 1)]
+
+            def run(W=W, scs=scs, d=d, m=m):
+                for j in range(m - 1):
+                    lz.iter_step(scs[j], W[j], W[:j], d)
+
+            form = {}
+            if hasattr(lz, "iter_form"):
+                onchip, grid = lz.iter_form(2, rows, n, lz._iter_opk(d, ""),
+                                            m - 2, n % 4 == 0)
+                form = dict(w_form="on-chip" if onchip else "global",
+                            grid=grid)
+            nbytes = sum(j + 2 for j in range(m - 1)) * col
+            readings("K5", f"{n}^3" if three_d else n, m, run, nbytes, m - 1,
+                     5 if n == 2048 else 10, form)
+            del W, scs
+            torch.cuda.empty_cache()
+
+    # K5 and K1 launch by launch
+    for n in ((1024, 2048) if "perj" in parts else ()):
+        dx = 2.0 * LX / (n - 1)
+        d = operators.laplacian_2d((n, n), dx, dx, device=dev).kernel_desc
+        W = [field(n) for _ in range(10)]
+        col = 2 * n * n * 4
+        s1 = torch.tensor([[0.8, 0.3]], device=dev)
+        for name, js in (("K5", range(9)), ("K1", (0, 1, 2, 4, 8))):
+            for j in js:
+                sc = k5_scal(W, j)
+                fn = ((lambda j=j, sc=sc: lz.iter_step(sc, W[j], W[:j], d))
+                      if name == "K5" else
+                      (lambda j=j: lz.pass1_iso2d(s1, W[j], W[:j], d)))
+                g = cs.graph_ms(torch, fn, 20)
+                emit(kernel=f"{name} launch", n=n, j=j, launch_graph_ms=g,
+                     bound_ms=cs.bound_ms((j + 2) * col))
+        del W
+        torch.cuda.empty_cache()
+
+    # K1 / K1': one launch at j = 0 and at j = m - 2
+    for n in ((1024, 4096) if "k1" in parts else ()):
+        dx = 2.0 * LX / (n - 1)
+        desc = operators.laplacian_2d((n, n), dx, dx, device=dev).kernel_desc
+        c = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
+            (n, n))).astype(np.float32))
+        desc_a = operators.anisotropic_laplacian_2d(
+            c, dx, dx, device=dev).kernel_desc
+        col = 2 * n * n * 4
+        W = [field(n) for _ in range(max(ms) - 1)]
+        s1 = torch.tensor([[0.8, 0.3]], device=dev)
+        for j in sorted({0} | {m - 2 for m in ms}):
+            for name, fn_k, d, wbytes in (
+                    ("K1", lz.pass1_iso2d, desc, 0),
+                    ("K1'", lz.pass1_aniso2d, desc_a, 2 * n * n * 4)):
+                readings(name, n, None, lambda fn_k=fn_k, d=d, j=j: fn_k(
+                    s1, W[j], W[:j], d), (j + 2) * col + wbytes, 1,
+                    200 if n == 1024 else 20, dict(j=j))
+        del W
+        torch.cuda.empty_cache()
+
     # step rates
     def gaussian(n):
         x = torch.linspace(-LX, LX, n, dtype=torch.float32)
@@ -288,20 +390,29 @@ def main():
     for n, chunk, n_prof in ((1024, 200, 20), (4096, 20, 5)):
         if "optin" not in parts:
             break
-        ro, rd = (f"[{args.tag}] rate {k} {n}^2" for k in ("resident",
-                                                          "default"))
-        cs.rate(torch, {ro: problem2d(n, True), rd: problem2d(n, False)},
-                chunk, [rd, ro, ro, rd, rd, ro], n_prof)
+        ro, rd, rf = (f"[{args.tag}] rate {k} {n}^2" for k in (
+            "resident", "default", "fused_iter"))
+        runs = {ro: problem2d(n, True), rd: problem2d(n, False)}
+        order = [rd, ro, ro, rd, rd, ro]
+        if n == 1024:                   # K5's path, which FUSED_ITER_BYTES
+            prob, s0 = runs[rd]         # admits up to 2048^2
+            runs[rf] = (with_switches(prob, fused_iter=True), s0)
+            order = [rd, ro, rf, rf, ro, rd, rd, rf, ro]
+        cs.rate(torch, runs, chunk, order, n_prof)
         torch.cuda.empty_cache()
     for n, chunk, n_prof in ((128, 100, 20), (256, 20, 5)):
         if "optin" not in parts:
             break
         prob, s0 = problem3d(n)
-        po, pd = (f"[{args.tag}] rate {k} {n}^3" for k in ("pipeline_3d",
-                                                          "two-pass"))
-        cs.rate(torch, {po: (with_switches(prob, pipeline_3d=True), s0),
-                        pd: (prob, s0)}, chunk, [pd, po, po, pd, pd, po],
-                n_prof)
+        po, pd, pf = (f"[{args.tag}] rate {k} {n}^3" for k in (
+            "pipeline_3d", "two-pass", "fused_iter"))
+        runs = {po: (with_switches(prob, pipeline_3d=True), s0),
+                pd: (prob, s0)}
+        order = [pd, po, po, pd, pd, po]
+        if n == 128:                    # K5's 3D path (16.8 MB fields)
+            runs[pf] = (with_switches(prob, fused_iter=True), s0)
+            order = [pd, po, pf, pf, po, pd, pd, pf, po]
+        cs.rate(torch, runs, chunk, order, n_prof)
         del prob, s0
         torch.cuda.empty_cache()
     if args.out:
