@@ -12,8 +12,8 @@ Phases, one line each (or a few):
                the 2D pass1/pipe kernels (iso and aniso; K1 and K2 in
                their 16-byte and scalar forms; the shard policies), of K3,
                K5 <P, MAXW, OPK, VEC>, K8 <P, MAXW, MODE, VEC> and K13
-               <MAXW, VEC>; fails unless all 96 K1 / K5 instantiations are
-               there and none spills
+               <MAXW, VEC>, and of kick_bc <KIND, VEC>; fails unless all 96
+               K1 / K5 instantiations are there and none spills
   3. parity    each 2D kernel (K1-K3) against its plain PyTorch version on
                the same seeded CUDA tensors, at 1024^2 complex64, 4096^2
                and on ragged grids (250x333, 250x334, 251x335: the scalar
@@ -30,8 +30,10 @@ Phases, one line each (or a few):
                replayed back to back: no host in the window), at 1024^2
                and 4096^2, beside torch.matmul's for K3.
   4. main      nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) through
-               problems.run: 200 steps, exactly 1 K1 + 9 K2 + 1 K3 launches
-               per step, finite snapshots, relative mass drift < 1e-3.
+               problems.run: 200 steps, exactly 1 K1 + 9 K2 + 1 K3 + 2
+               kick_bc launches per step (both half kicks, the closing one
+               with the ghost copy), finite snapshots, relative mass drift
+               < 1e-3.
   5. paths     20 steps with the kernels vs the plain planar versions
                (rel-L2 <= 1e-5), and the plain planar path vs the complex
                ss2_step path (rel-L2 <= 2e-4, the gate of
@@ -47,9 +49,12 @@ Phases, one line each (or a few):
                (torch.matmul for combine, torch.addmm for pass2); combine
                and torch.matmul also by CUDA-graph replay.
   8. main3d    nlse_problem("cubic", (128, 128, 128), 10, 1e-4, m=10): 200
-               steps with exactly 9 pass1_3d + 9 pass2 + 1 combine + 1 bc3d
-               launches per step, finite snapshots, mass drift < 1e-3; then
-               with c(x) = 1 + 0.4 U[0, 1) for 100 steps, same gates.
+               steps with exactly 9 pass1_3d + 9 pass2 + 1 combine + 2
+               kick_bc launches per step and no bc3d, finite snapshots, mass
+               drift < 1e-3; then with c(x) = 1 + 0.4 U[0, 1) for 100 steps,
+               same gates; then 20 steps of 3D sEWI: the bootstrap as an SS2
+               step, every later step 27 pass1_3d + 27 pass2 + 3 combine + 1
+               bc3d (the standalone ghost copy) and no kick_bc.
   9. paths3d   20 steps, iso and c(x): kernels vs plain planar (<= 1e-5),
                plain planar vs complex ss2_step (<= 2e-4).
  10. rate3d    steps/s at 128^3 iso (5 chunks of 100) and 128^3 c(x) (3 of
@@ -67,11 +72,13 @@ Phases, one line each (or a few):
  12. main2d-aniso  nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) with
                c(x) from default_rng(0) (benchmarks/perf_table.py's
                nlse2d_1024_ss2_aniso): 200 steps through problems.run,
-               exactly 1 K1' + 9 K2' + 1 K3 launches per step and no iso
-               launch, finite snapshots, relative mass drift < 1e-3.
+               exactly 1 K1' + 9 K2' + 1 K3 + 2 kick_bc launches per step
+               and no iso launch, finite snapshots, relative mass drift <
+               1e-3.
  13. sewi2d    the same problem with integrator="sewi", 100 steps through
                problems.run: the step-1 bootstrap launches exactly 1 K1' +
-               9 K2' + 1 K3 and every later step 3 K1' + 27 K2' + 3 K3;
+               9 K2' + 1 K3 + 2 kick_bc and every later step 3 K1' + 27 K2'
+               + 3 K3 (its ghost copy is the plain one);
                finite snapshots; the mass drift is printed, not gated (sEWI
                does not conserve it exactly).
  14. paths2d-aniso  20 steps of SS2, sEWI, fused sEWI and Gautschi on c(x):
@@ -102,15 +109,16 @@ Phases, one line each (or a few):
  17. main-resident  phase 4's problem with config.resident_mode "auto":
                200 steps through problems.run under
                torch.cuda.set_sync_debug_mode("error") (no host sync),
-               exactly 1 K13 launch per step and no other counted launch,
+               exactly 1 K13 launch per step and no other counted launch
+               (no kick_bc: K13 kicks inside),
                mass drift < 1e-3.
- 18. main-iter  with config.fused_iter: 1024^2 SS2 (exactly 9 K5 + 1 K3
-               per step) and 128^3 SS2 (9 K5 + 1 K3 + 1 bc3d), 100 steps
-               each, mass drift < 1e-3.
+ 18. main-iter  with config.fused_iter: 1024^2 SS2 (exactly 9 K5 + 1 K3 +
+               2 kick_bc per step) and 128^3 SS2 (the same), 100 steps each,
+               mass drift < 1e-3.
  19. main-pipe3d  with config.pipeline_3d: 128^3 iso and c(x) SS2, 100
                steps each: exactly 1 pass1_3d + 8 K8 + 1 K2 (the last,
-               stencil-free iteration) + 1 K3 + 1 bc3d per step, mass drift
-               < 1e-3.
+               stencil-free iteration) + 1 K3 + 2 kick_bc per step, mass
+               drift < 1e-3.
  20. paths-optin  20 steps of each switch against the default path:
                resident (Taylor in place of eigh) rel-L2 <= 1e-4, fused_iter
                (2D, 3D) and pipeline_3d (iso, c(x)) <= 1e-5 (the same
@@ -134,12 +142,12 @@ Phases, one line each (or a few):
                four shards on this card (local 2048^2, the JAX README's 2D
                anchor), cubic SS2 m=10, reference variant, iso and c(x) =
                1 + 0.4 U[0, 1) from default_rng(0): exactly 4 x (9
-               pass1_shard2d + 9 pass2 + 1 combine) launches per step and no
-               unsharded pass1 or pipe launch, finite state, mass drift <
-               1e-3.
+               pass1_shard2d + 9 pass2 + 1 combine + 2 kick_bc) launches per
+               step and no unsharded pass1 or pipe launch, finite state,
+               mass drift < 1e-3.
  24. main-shard3d  512^3 on (2, 2, 2) (local 256^3), clean variant, iso and
-               c(x): exactly 8 x (9 pass1_shard3d + 9 pass2 + 1 combine + 1
-               bc3d) launches per step; 256^3 on (1, 1, 4), reference
+               c(x): exactly 8 x (9 pass1_shard3d + 9 pass2 + 1 combine + 2
+               kick_bc) launches per step; 256^3 on (1, 1, 4), reference
                variant (x split only): 4 x the same; the same gates.
  25. paths-shard  20 steps: the sharded step with the kernels vs its plain
                versions (rel-L2 <= 1e-5) at 512^2 on (2, 2) and 64^3 on
@@ -149,16 +157,29 @@ Phases, one line each (or a few):
  26. rate-shard  steps/s of the sharded step beside the unsharded one at
                4096^2 (3 chunks of 20 each) and 512^3 (3 of 5), chunks
                interleaved, with phase 6's profile.
+ 27. kick-bc   kick_bc (both half kicks of an SS2 step in one pass each,
+               the closing one with the ghost copy) against kick_bc_ref:
+               every density kind, 2D and 3D, with and without the ghost
+               copy, the 16-byte and scalar forms (nx % 4 != 0, a state 4
+               bytes off), and every shard block of 4096^2 on (2, 2) and
+               512^3 on (2, 2, 2) with its offsets: fields rel-L2 <= 1e-5,
+               every ghost cell bit-equal to its source cell in the
+               kernel's own output, the input untouched, two launches bit
+               for bit. Times per step (both kicks) at 1024^2, 4096^2,
+               128^3 and 256^3 by CUDA-graph replay beside the eager kicks
+               and ghost copy it replaces and 20 bytes per cell per kick.
 Then the card's name and power limit, the kernels as one JSON line (all
-thirteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
-pass1_shard2d, pass1_shard3d; `ms` of K1, K2, K3, K1', K2', K5, K8 and K13
-is the CUDA-graph reading, with the profiler's sum and the events beside
-it, and K3's library_ms torch.matmul's graph reading), and last {"ok":
+fourteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
+pass1_shard2d, pass1_shard3d, kick_bc; `ms` of K1, K2, K3, K1', K2', K5, K8,
+K13 and kick_bc is the CUDA-graph reading, with the profiler's sum and the
+events beside it, and K3's library_ms torch.matmul's graph reading; bc3d's
+launches are the 3D sEWI run's), and last {"ok":
 true, "device": ...}. Any failed phase exits non-zero and prints no
 result.
 """
 
 import dataclasses
+import itertools
 import json
 import math
 import statistics
@@ -179,6 +200,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SOURCE = "nlsolvers_tpu_torch/csrc/lanczos2d.cu"
 SOURCE3 = "nlsolvers_tpu_torch/csrc/lanczos3d.cu"
 SOURCE_RS = "nlsolvers_tpu_torch/csrc/resident2d.cu"
+SOURCE_KB = "nlsolvers_tpu_torch/csrc/kick.cu"
 PALLAS = "nlsolvers_tpu/ops/pallas/lanczos2d.py"
 PALLAS3 = "nlsolvers_tpu/ops/pallas/lanczos3d_pipe.py"
 PALLAS_BC = "nlsolvers_tpu/ops/pallas/bc3d.py"
@@ -475,6 +497,7 @@ def main():
     from nlsolvers_tpu_torch.ops import boundaries, operators
     from nlsolvers_tpu_torch.ops.cuda import _build
     from nlsolvers_tpu_torch.ops.cuda import bc3d as b3
+    from nlsolvers_tpu_torch.ops.cuda import kick as kb
     from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
     from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
     from nlsolvers_tpu_torch.ops.cuda import resident2d as rs
@@ -498,7 +521,7 @@ def main():
     print(smi_line)
 
     # ---------------------------------------------------------- 2. build
-    libs = ("lanczos2d", "lanczos3d", "resident2d")
+    libs = ("lanczos2d", "lanczos3d", "resident2d", "kick")
     _build.build_all(libs)
     resources = {}
     for lib in libs:
@@ -521,7 +544,7 @@ def main():
         if kname.startswith(("pass1_tile_kernel", "pass1_2d_kernel",
                              "pipe_2d_kernel", "combine_kernel",
                              "iter_kernel", "pipe3d_kernel",
-                             "resident_kernel")):
+                             "resident_kernel", "kick_bc_kernel")):
             print(f"ptxas {kname}: {nreg} registers, {spill} bytes spill "
                   f"stores")
     # 2 P x 4 buckets x 2 VEC x (2 K1 operators + 4 K5 operators) = 96
@@ -790,7 +813,8 @@ def main():
     state0 = prob.init(u0)
     snaps, freq = 5, 50
     steps = (snaps - 1) * freq
-    counters2 = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d, "K3": lz.combine}
+    counters2 = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d, "K3": lz.combine,
+                 "kick_bc": kb.phase_kick_bc_planar}
     for f in counters2.values():
         f.launches = 0
     t0 = time.perf_counter()
@@ -798,7 +822,8 @@ def main():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters2.items()}
-    want = {"K1": steps, "K2": (KRYLOV_M - 1) * steps, "K3": steps}
+    want = {"K1": steps, "K2": (KRYLOV_M - 1) * steps, "K3": steps,
+            "kick_bc": 2 * steps}
     print(f"main: {steps} steps of cubic SS2 at {N}^2 m={KRYLOV_M} in "
           f"{wall:.3f} s; launches {launches}")
     check(launches == want, f"launches {launches} != {want}")
@@ -960,9 +985,11 @@ def main():
         return prob, prob.init(u0)
 
     counters3 = {"pass1_3d": l3.pass1_3d, "pass2": l3.pass2,
-                 "combine": lz.combine, "bc3d": b3.neumann_bc_planar_3d}
+                 "combine": lz.combine, "bc3d": b3.neumann_bc_planar_3d,
+                 "kick_bc": kb.phase_kick_bc_planar}
+    # both half kicks are kick_bc, the closing one with the ghost copy
     per_step3 = {"pass1_3d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1,
-                 "combine": 1, "bc3d": 1}
+                 "combine": 1, "bc3d": 0, "kick_bc": 2}
     c3 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
         shape3)).astype(np.float32))
 
@@ -995,6 +1022,28 @@ def main():
     launches3 = main3d("main3d iso", prob3, s3, snaps3, freq3)
     prob3c, s3c = problem3d(N3, c3)
     main3d("main3d c(x)", prob3c, s3c, 3, 50)
+
+    # the standalone bc3d runs after the 3D two-step steps, which no kick
+    # closes: sEWI at 128^3, the bootstrap (an SS2 step) then sEWI steps
+    prob3s, s3s = problem3d(N3, integrator="sewi")
+    steps3s = 20
+    for f in counters3.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    s = advance(prob3s.step, s3s, steps3s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches3s = {k: f.launches for k, f in counters3.items()}
+    boot3 = dict(per_step3)
+    per_sewi3 = {"pass1_3d": 3 * (KRYLOV_M - 1), "pass2": 3 * (KRYLOV_M - 1),
+                 "combine": 3, "bc3d": 1, "kick_bc": 0}
+    want = {k: boot3[k] + (steps3s - 1) * v for k, v in per_sewi3.items()}
+    print(f"main3d sewi: {steps3s} steps of cubic sEWI at {N3}^3 in "
+          f"{wall:.3f} s; launches {launches3s} (bootstrap {boot3}, then "
+          f"{per_sewi3} per step)")
+    check(launches3s == want, f"main3d sewi: launches {launches3s} != {want}")
+    check(finite(torch, s), "main3d sewi: non-finite state")
+    del prob3s, s3s, s
 
     # ---------------------------------------------------------- 9. paths3d
     for label, prob, s0, c in (("iso", prob3, s3, None),
@@ -1174,7 +1223,7 @@ def main():
     # ---------------------------------------------------------- 12. main2d-aniso
     counters2a = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
                   "K1'": lz.pass1_aniso2d, "K2'": lz.pipe_aniso2d,
-                  "K3": lz.combine}
+                  "K3": lz.combine, "kick_bc": kb.phase_kick_bc_planar}
 
     def counted(fn):
         for f in counters2a.values():
@@ -1202,7 +1251,7 @@ def main():
     traj, wall, launches_a = counted(
         lambda: problems.run(prob_a, state_a, snaps, freq))
     want = {"K1": 0, "K2": 0, "K1'": steps, "K2'": (KRYLOV_M - 1) * steps,
-            "K3": steps}
+            "K3": steps, "kick_bc": 2 * steps}
     print(f"main2d-aniso: {steps} steps of cubic SS2 with c(x) at {N}^2 "
           f"m={KRYLOV_M} in {wall:.3f} s; launches {launches_a}")
     check(launches_a == want, f"main2d-aniso: launches {launches_a} != "
@@ -1220,7 +1269,8 @@ def main():
     # ---------------------------------------------------------- 13. sewi2d
     prob_s, state_s = problem2d("sewi")
     _, _, boot = counted(lambda: prob_s.step(state_s, 1))
-    want_boot = {"K1": 0, "K2": 0, "K1'": 1, "K2'": KRYLOV_M - 1, "K3": 1}
+    want_boot = {"K1": 0, "K2": 0, "K1'": 1, "K2'": KRYLOV_M - 1, "K3": 1,
+                 "kick_bc": 2}
     check(boot == want_boot, f"sewi2d: bootstrap launches {boot} != "
           f"{want_boot}")
     snaps_s, freq_s = 5, 25
@@ -1228,7 +1278,7 @@ def main():
     traj, wall, got = counted(
         lambda: problems.run(prob_s, state_s, snaps_s, freq_s))
     per_step = {"K1": 0, "K2": 0, "K1'": 3, "K2'": 3 * (KRYLOV_M - 1),
-                "K3": 3}
+                "K3": 3, "kick_bc": 0}
     want = {k: boot[k] + (steps_s - 1) * v for k, v in per_step.items()}
     print(f"sewi2d: {steps_s} steps of cubic sEWI with c(x) at {N}^2 "
           f"m={KRYLOV_M} in {wall:.3f} s; launches {got} (bootstrap "
@@ -1634,7 +1684,8 @@ def main():
                     "K3": lz.combine, "K5": lz.iter_step,
                     "K13": rs.ss2_resident_step, "pass1_3d": l3.pass1_3d,
                     "pass2": l3.pass2, "K8": l3.pipe_3d,
-                    "bc3d": b3.neumann_bc_planar_3d}
+                    "bc3d": b3.neumann_bc_planar_3d,
+                    "kick_bc": kb.phase_kick_bc_planar}
 
     def main_optin(label, prob, s0, snaps_, freq_, per_step,
                    sync_free=False):
@@ -1701,14 +1752,14 @@ def main():
     p2_fused = with_switches(p2, fused_iter=True)
     launches_i, steps_i = main_optin(
         "main-iter 1024^2", p2_fused, s2, 3, 50,
-        {"K5": KRYLOV_M - 1, "K3": 1})
+        {"K5": KRYLOV_M - 1, "K3": 1, "kick_bc": 2})
     p3, s3 = problem3d(N3)
     main_optin("main-iter 128^3", with_switches(p3, fused_iter=True), s3, 3,
-               50, {"K5": KRYLOV_M - 1, "K3": 1, "bc3d": 1})
+               50, {"K5": KRYLOV_M - 1, "K3": 1, "kick_bc": 2})
 
     # ---------------------------------------------------------- 19. main-pipe3d
     per_pipe3d = {"pass1_3d": 1, "K8": KRYLOV_M - 2, "K2": 1, "K3": 1,
-                  "bc3d": 1}
+                  "kick_bc": 2}
     p3_pipe = with_switches(p3, pipeline_3d=True)
     launches_p, steps_p = main_optin("main-pipe3d iso 128^3", p3_pipe, s3, 3,
                                      50, per_pipe3d)
@@ -2037,9 +2088,10 @@ def main():
         check(drift < 1e-3, f"{label}: mass drift {drift:.3e} >= 1e-3")
         return got, n_steps
 
-    per2 = {"pass1_shard2d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1, "K3": 1}
+    per2 = {"pass1_shard2d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1, "K3": 1,
+            "kick_bc": 2}
     per3 = {"pass1_shard3d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1, "K3": 1,
-            "bc3d": 1}
+            "kick_bc": 2}
     cs2 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
         (NS, NS))).astype(np.float32))
     sp2 = sharded((NS, NS), (2, 2), "reference")
@@ -2131,6 +2183,121 @@ def main():
         del un
     del sp2, sp3
 
+    # ---------------------------------------------------------- 27. kick-bc
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    errs["kick_bc"] = 0.0
+
+    def clamp_gather(out, shape, glob, offs):
+        """out at the clamped index of every cell: what the ghost copy
+        leaves, so in the kernel's own output each ghost cell must equal
+        its source cell."""
+        idx = []
+        for n, g, o in zip(shape, glob, offs):
+            c = torch.arange(n, device=dev)
+            if o == 0:
+                c[0] = 1
+            if o + n == g:
+                c[n - 1] = n - 2
+            idx.append(c)
+        grids = torch.meshgrid(*idx, indexing="ij")
+        return out.reshape((2,) + shape)[(slice(None),) + grids].reshape(
+            out.shape)
+
+    def parity_kick(label, kind, shape, glob=None, offs=None, theta=0.3,
+                    offset=0):
+        """kick_bc with and without the ghost copy against kick_bc_ref on
+        the same inputs: fields rel-L2, ghost cells bit-equal to their
+        source cells, the input untouched, two launches bit for bit."""
+        R, nx = math.prod(shape[:-1]), shape[-1]
+        buf = torch.empty(2 * R * nx + offset, device=dev)
+        up = buf[offset:].view(2, R, nx)
+        up.copy_(field(R, nx))
+        m = 0.5 + torch.rand((R, nx), generator=gen, device=dev)
+        rho = nlse_density_planar(kind, m, sigma1=0.8, sigma2=-0.15,
+                                  kappa=0.7)
+        keep = up.clone()
+        grid = kb.kick_grid(shape, glob, offs)
+        fe = 0.0
+        for g in (None, grid):
+            got, want = both(lambda: kb.phase_kick_bc_planar(up, rho, theta,
+                                                             g))
+            fe = max(fe, rel(got, want))
+            errs["kick_bc"] = max(errs["kick_bc"],
+                                  float((got - want).abs().max()))
+            again = kb.phase_kick_bc_planar(up, rho, theta, g)
+            check(bool(torch.equal(got, again)), f"kick_bc {label}: two "
+                  f"launches on the same inputs differ")
+        ghost_ok = bool(torch.equal(got, clamp_gather(
+            got, shape, glob or shape, offs or (0,) * len(shape))))
+        check(ghost_ok, f"kick_bc {label}: a ghost cell differs from its "
+              f"source cell")
+        check(bool(torch.equal(up, keep)), f"kick_bc {label}: the input "
+              f"changed")
+        gate(f"kick_bc {label} (ghost cells equal their sources, repeats "
+             f"bit for bit)", fe, 0.0)
+
+    for kind in ("cubic", "cubic_quintic", "saturable"):
+        for shape in ((N, N), (250, 333), (N3, N3, N3), (37, 50, 61)):
+            parity_kick(f"{kind} {'x'.join(map(str, shape))}", kind, shape)
+    parity_kick(f"cubic {N}^2 theta dt/2", "cubic", (N, N), theta=0.5 * DT)
+    parity_kick(f"cubic {N}^2 4 bytes off", "cubic", (N, N), offset=1)
+    parity_kick("cubic_quintic 250x334", "cubic_quintic", (250, 334))
+    parity_kick("saturable 251x335", "saturable", (251, 335))
+    for glob, mshape in (((NS, NS), (2, 2)), ((NS3,) * 3, (2, 2, 2))):
+        blk = tuple(g // k for g, k in zip(glob, mshape))
+        for pos in itertools.product(*(range(k) for k in mshape)):
+            offs = tuple(p * n for p, n in zip(pos, blk))
+            parity_kick(f"cubic block {'x'.join(map(str, blk))} at {offs} "
+                        f"of {'x'.join(map(str, glob))}", "cubic", blk, glob,
+                        offs, theta=0.5 * DT)
+            torch.cuda.empty_cache()
+
+    # times per step: the two kick_bc launches (the opening kick, the
+    # closing one with the ghost copy) against the eager ops they replace
+    # (two plain kicks and the ghost copy: in 2D the plain copy, in 3D the
+    # bc3d kernel), by CUDA-graph replay, beside 20 bytes per cell per kick
+    bytes_kb, g_kb, t_kb = {}, {}, {}
+    for shape in ((N, N), (NS, NS), (N3,) * 3, (N3_BIG,) * 3):
+        R, nx = math.prod(shape[:-1]), shape[-1]
+        tag = f"{shape[0]}^{len(shape)}"
+        up = field(R, nx)
+        rho = nlse_density_planar("cubic", torch.ones((R, nx), device=dev))
+        grid = kb.kick_grid(shape)
+        th = 0.5 * DT
+        if len(shape) == 2:
+            neum = boundaries.neumann_no_velocity_2d
+        else:
+            neum = partial(b3.neumann_bc_planar_3d, shape=shape)
+
+        def new_pair():
+            kb.phase_kick_bc_planar(up, rho, th)
+            kb.phase_kick_bc_planar(up, rho, th, grid)
+
+        def old_pair():
+            kb.phase_kick_planar(up, rho(up), th)
+            neum(kb.phase_kick_planar(up, rho(up), th))
+
+        nb = 2 * 20 * R * nx
+        g_new = graph_ms(torch, new_pair)
+        g_one = graph_ms(torch, lambda: kb.phase_kick_bc_planar(up, rho, th,
+                                                                grid))
+        g_old = graph_ms(torch, old_pair)
+        t_new = timed(new_pair, 10)
+        t_old = times_ms(torch, old_pair, 10)
+        print(f"time kick_bc per step at {tag}: CUDA-graph replay "
+              f"{g_new:.4f} ms for both kicks ({g_one:.4f} ms the one with "
+              f"the ghost copy); profiler {t_new[0]:.4f} ms, events "
+              f"{t_new[1]:.4f} ms; plain {t_new[2]:.4f} ms device")
+        print(f"time eager kicks + ghost copy it replaces at {tag}: "
+              f"CUDA-graph replay {g_old:.4f} ms, profiler {t_old[0]:.4f} ms")
+        print(f"bound kick_bc per step at {tag}: {nb / 1e6:.1f} MB -> "
+              f"{bound_ms(nb):.4f} ms at 3.35 TB/s; graph reading at "
+              f"{bound_ms(nb) / g_new:.3f} of it (one kick: "
+              f"{bound_ms(nb / 2) / g_one:.3f})")
+        bytes_kb[tag], g_kb[tag], t_kb[tag] = nb, g_new, t_new
+        del up, rho
+        torch.cuda.empty_cache()
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
         """One kernel of the JSON line: `launches` over the n_steps of its
@@ -2166,8 +2333,8 @@ def main():
               None),
         entry("pass2", SOURCE3, f"{PALLAS}:938", launches3["pass2"], steps3,
               errs["pass2"], t3["pass2"], bytes3["pass2"], pass2_lib),
-        entry("bc3d", SOURCE3, f"{PALLAS_BC}:52", launches3["bc3d"], steps3,
-              0.0, t3["bc3d"], bytes3["bc3d"], None),
+        entry("bc3d", SOURCE3, f"{PALLAS_BC}:52", launches3s["bc3d"],
+              steps3s, 0.0, t3["bc3d"], bytes3["bc3d"], None),
         entry("pass1_aniso2d", SOURCE, f"{PALLAS}:473", launches_a["K1'"],
               steps, errs["K1'"], times_a["K1'"], bytes_a["K1'"], None,
               graph=graphs["K1'"]),
@@ -2191,6 +2358,9 @@ def main():
               launches_s3["pass1_shard3d"], steps_s3, errs["pass1_shard3d"],
               t_s["pass1_shard3d clean"], bytes_s["pass1_shard3d clean"],
               None),
+        entry("kick_bc", SOURCE_KB, f"{PALLAS_BC}:52", launches["kick_bc"],
+              steps, errs["kick_bc"], t_kb[f"{N}^2"], bytes_kb[f"{N}^2"],
+              None, graph=g_kb[f"{N}^2"]),
     ]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")

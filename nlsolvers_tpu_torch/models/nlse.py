@@ -13,14 +13,19 @@ tau = i*dt throughout, as in the reference drivers (nlse_cubic_solver.hpp:
 Each has a planar form on (2, R, nx) float32 state for the fused kernels
 (`*_planar`, given the operator's kernel descriptor and a planar density).
 `ss2_step_planar_sharded` is SS2 on a sharded planar state (a list of local
-blocks, parallel/shards.py) with a shard descriptor. The phase kick and the
-density are plain torch ops in this port.
+blocks, parallel/shards.py) with a shard descriptor. The planar SS2 steps
+take both half kicks, density included, as one pass each
+(ops/cuda/kick.py), the closing one with the no-flux ghost copy folded in
+when the caller passes the block's grid; the two-step integrators' source
+terms are plain torch ops.
 """
 
 import numpy as np
 import torch
 
 from nlsolvers_tpu_torch.config import default_krylov_m
+from nlsolvers_tpu_torch.ops.cuda.kick import (phase_kick_bc_planar,
+                                               phase_kick_planar)
 from nlsolvers_tpu_torch.ops.krylov import MATFUNCS, expm_apply, matfunc_apply
 
 __all__ = ["ss2_step", "ss2_step_planar", "ss2_step_planar_sharded",
@@ -38,37 +43,37 @@ def ss2_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True):
     return torch.exp(0.5 * tau * rho_fn(u)) * u
 
 
-def phase_kick_planar(up, rho, theta):
-    """up * exp(i*theta*rho) on PLANAR (2, ...) float32 state."""
-    th = theta * rho
-    c, s = torch.cos(th), torch.sin(th)
-    return torch.stack([up[0] * c - up[1] * s, up[0] * s + up[1] * c])
-
-
-def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m):
+def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m, grid=None):
     """SS2 on PLANAR state (2, R, nx) float32 (R = ny in 2D, nz*ny in 3D):
     the fused-kernel path. `desc` is the operator's kernel descriptor;
-    `rho_fn` a planar density."""
+    `rho_fn` a planar density (nlse_density_planar). With `grid`
+    (ops/cuda/kick.kick_grid) the closing half kick also does the no-flux
+    ghost copy of that block; without it the step copies no ghost cells."""
     from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
 
-    up = phase_kick_planar(up, rho_fn(up), 0.5 * dt)
+    up = phase_kick_bc_planar(up, rho_fn, 0.5 * dt)
     up = matfunc_apply_planar(up, desc, 1j * dt, "exp", m)
-    return phase_kick_planar(up, rho_fn(up), 0.5 * dt)
+    return phase_kick_bc_planar(up, rho_fn, 0.5 * dt, grid)
 
 
-def ss2_step_planar_sharded(ups, desc, rho_fns, dt, m=default_krylov_m):
+def ss2_step_planar_sharded(ups, desc, rho_fns, dt, m=default_krylov_m,
+                            grids=None):
     """ss2_step_planar on a sharded planar state: `ups` holds each shard's
-    (2, R, nx) float32 block and `rho_fns` each shard's planar density. The
-    kicks run per shard; the matrix function is the sharded Lanczos of the
-    shard descriptor `desc` (parallel/lanczos.py), then K3 combine per
-    shard."""
+    (2, R, nx) float32 block, `rho_fns` each shard's planar density and
+    `grids` (or None: no ghost copy) each shard's block grid with its global
+    offsets. The kicks run per shard; the matrix function is the sharded
+    Lanczos of the shard descriptor `desc` (parallel/lanczos.py), then K3
+    combine per shard."""
     from nlsolvers_tpu_torch.parallel.lanczos import matfunc_apply_sharded
+    from nlsolvers_tpu_torch.parallel.shards import per_shard
 
-    ups = [phase_kick_planar(up, rho(up), 0.5 * dt)
-           for up, rho in zip(ups, rho_fns)]
+    mesh = desc["mesh"]
+    grids = grids or [None] * len(ups)
+    ups = per_shard(mesh, lambda k: phase_kick_bc_planar(
+        ups[k], rho_fns[k], 0.5 * dt))
     ups = matfunc_apply_sharded(ups, desc, 1j * dt, "exp", m)
-    return [phase_kick_planar(up, rho(up), 0.5 * dt)
-            for up, rho in zip(ups, rho_fns)]
+    return per_shard(mesh, lambda k: phase_kick_bc_planar(
+        ups[k], rho_fns[k], 0.5 * dt, grids[k]))
 
 
 def _B(u, rho_fn):

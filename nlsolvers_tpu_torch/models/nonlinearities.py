@@ -11,7 +11,8 @@
 The real-wave g(u) is not ported yet (ROADMAP.md queue 1, item 9).
 """
 
-__all__ = ["nlse_density", "nlse_density_planar", "NLSE_KINDS"]
+__all__ = ["nlse_density", "nlse_density_planar", "PlanarDensity",
+           "NLSE_KINDS"]
 
 NLSE_KINDS = ("cubic", "cubic_quintic", "saturable")
 
@@ -36,8 +37,22 @@ def nlse_density(kind, m, *, sigma1=1.0, sigma2=-0.1, kappa=1.0,
     return lambda u: rho(u.real ** 2 + u.imag ** 2)
 
 
+class PlanarDensity:
+    """rho(up) of a planar state, which also carries (kind, m, sigma1,
+    sigma2, kappa), so that a kernel can compute it in place
+    (ops/cuda/kick.py)."""
+
+    def __init__(self, kind, m, sigma1, sigma2, kappa):
+        self.kind, self.m = kind, m
+        self.sigma1, self.sigma2, self.kappa = sigma1, sigma2, kappa
+        self._rho = _rho_of(kind, m, sigma1, sigma2, kappa)
+
+    def __call__(self, up):
+        return self._rho(up[0] * up[0] + up[1] * up[1])
+
+
 def nlse_density_planar(kind, m, *, sigma1=1.0, sigma2=-0.1, kappa=1.0):
-    """rho(up) for PLANAR state up = (2, ...) stacked (re, im) float32. The
-    device forms only: the host saturable form needs a complex density."""
-    rho = _rho_of(kind, m, sigma1, sigma2, kappa)
-    return lambda up: rho(up[0] * up[0] + up[1] * up[1])
+    """rho(up) for PLANAR state up = (2, ...) stacked (re, im) float32 (a
+    PlanarDensity). The device forms only: the host saturable form needs a
+    complex density."""
+    return PlanarDensity(kind, m, sigma1, sigma2, kappa)

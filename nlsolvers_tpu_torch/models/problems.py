@@ -37,6 +37,7 @@ from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
                                                        nlse_density_planar)
 from nlsolvers_tpu_torch.ops import boundaries as bcs
 from nlsolvers_tpu_torch.ops import operators as ops
+from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
 
 __all__ = ["Problem", "nlse_problem", "run"]
 
@@ -119,6 +120,9 @@ def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
     m2 = _as_tensor(m_field, device).to(torch.float32).reshape(R, nx)
     rho = nlse_density_planar(kind, m2, sigma1=sigma1, sigma2=sigma2,
                               kappa=kappa)
+    # an SS2 step's closing half kick does the ghost copy of `grid`
+    # (ops/cuda/kick.py); the two-step integrators' steps copy it after
+    grid = kick_grid(shape) if bc == "noflux" else None
     if bc != "noflux":
         neum = lambda up: up
     elif len(shape) == 3:
@@ -144,8 +148,8 @@ def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
     if integrator == "ss2":
         def step(up, i):
             del i
-            return neum(nlse_mod.ss2_step_planar(up, desc, rho, dt,
-                                                 m=krylov_m))
+            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
+                                            grid=grid)
 
         return step, init_single, to_complex
 
@@ -154,11 +158,9 @@ def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
     def step(state, i):
         up, up_prev = state
         if i == 1:      # bootstrap: one SS2 step, u_prev := u
-            u_new, u_prev_new = (nlse_mod.ss2_step_planar(up, desc, rho, dt,
-                                                          m=krylov_m), up)
-        else:
-            u_new, u_prev_new = two_step(up, up_prev, desc, rho, dt,
-                                         m=krylov_m)
+            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
+                                            grid=grid), up
+        u_new, u_prev_new = two_step(up, up_prev, desc, rho, dt, m=krylov_m)
         return neum(u_new), u_prev_new
 
     def init(u0):

@@ -12,8 +12,9 @@ works on complex 2D fields only.
 
 import torch
 
-__all__ = ["neumann_no_velocity_2d", "neumann_no_velocity_3d",
-           "neumann_no_velocity_3d_block", "radiating_nlse_2d"]
+__all__ = ["neumann_no_velocity_2d", "neumann_no_velocity_2d_block",
+           "neumann_no_velocity_3d", "neumann_no_velocity_3d_block",
+           "radiating_nlse_2d"]
 
 
 def neumann_no_velocity_2d(u):
@@ -24,6 +25,22 @@ def neumann_no_velocity_2d(u):
     u[..., :, 0] = u[..., :, 1]
     u[..., :, -1] = u[..., :, -2]
     return u
+
+
+def neumann_no_velocity_2d_block(u, coords, dims):
+    """neumann_no_velocity_2d on one (..., ny, nx) block of a grid of
+    `dims`, by where-masks: which cells are edges comes from the block's
+    global coordinates `coords` (gy, gx, index tensors broadcastable to the
+    block), the sources stay block-local, so a block needs at least 2 rows
+    and columns. The order is neumann_no_velocity_2d's: edge rows over
+    interior global columns, then the full edge columns. Returns a new
+    tensor."""
+    (gy, gx), (NY, NX) = coords, dims
+    interior_x = (gx >= 1) & (gx <= NX - 2)
+    u = torch.where((gy == 0) & interior_x, u[..., 1:2, :], u)
+    u = torch.where((gy == NY - 1) & interior_x, u[..., -2:-1, :], u)
+    u = torch.where(gx == 0, u[..., :, 1:2], u)
+    return torch.where(gx == NX - 1, u[..., :, -2:-1], u)
 
 
 def neumann_no_velocity_3d(u):

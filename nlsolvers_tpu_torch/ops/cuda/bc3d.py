@@ -26,7 +26,7 @@ from nlsolvers_tpu_torch.ops.cuda import lanczos3d
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import _stream
 from nlsolvers_tpu_torch.ops.operators import block_coords
 
-__all__ = ["neumann_bc_planar_3d", "bc3d_ref"]
+__all__ = ["neumann_bc_planar_3d", "bc3d_ref", "block_in_grid"]
 
 
 def _view(up, shape, what):
@@ -38,16 +38,19 @@ def _view(up, shape, what):
     return up.view(up.shape[0], nz, ny, nx)
 
 
-def _global(shape, global_shape, offsets, what):
+def block_in_grid(shape, global_shape, offsets, what):
     """(global shape, offsets) of the block, checked: the block lies inside
     the grid and has at least 2 cells per axis (3 when it is the whole
-    axis)."""
+    axis). 2D or 3D."""
     if global_shape is None:
-        global_shape, offsets = tuple(shape), (0, 0, 0)
+        global_shape, offsets = tuple(shape), (0,) * len(shape)
     elif offsets is None:
         raise ValueError(f"{what}: a global_shape needs the block's offsets")
     global_shape = tuple(int(g) for g in global_shape)
     offsets = tuple(int(o) for o in offsets)
+    if not len(shape) == len(global_shape) == len(offsets):
+        raise ValueError(f"{what}: block {tuple(shape)}, grid {global_shape} "
+                         f"and offsets {offsets} differ in rank")
     for n, g, o in zip(shape, global_shape, offsets):
         if n < 2 or g < 3 or o < 0 or o + n > g:
             raise ValueError(f"{what}: block {tuple(shape)} at {offsets} of "
@@ -62,7 +65,7 @@ def bc3d_ref(up, shape, global_shape=None, offsets=None):
     if global_shape is None:
         v.copy_(neumann_no_velocity_3d(v))
         return up
-    glob, offs = _global(shape, global_shape, offsets, "bc3d_ref")
+    glob, offs = block_in_grid(shape, global_shape, offsets, "bc3d_ref")
     v.copy_(neumann_no_velocity_3d_block(
         v, block_coords(offs, shape, up.device), glob))
     return up
@@ -82,7 +85,7 @@ def neumann_bc_planar_3d(up, shape, global_shape=None, offsets=None):
     if up.dtype != torch.float32 or not up.is_contiguous():
         raise ValueError(f"{what}: the state must be a contiguous float32 "
                          f"tensor")
-    glob, offs = _global(shape, global_shape, offsets, what)
+    glob, offs = block_in_grid(shape, global_shape, offsets, what)
     if all(0 < o and o + n < g for n, g, o in zip(shape, glob, offs)):
         return up
     lanczos3d._check(lanczos3d._lib().lz3_bc3d(up.shape[0], up.data_ptr(),

@@ -10,11 +10,11 @@ so the halo IS the boundary condition. The reference-variant diagonal and
 the Neumann ghost copies need global coordinates, which come from the
 shard's place in the mesh.
 
-`make_sharded_nlse_step` is the complex64 planar SS2 step: the density and
-the half kicks per shard, the matrix function through the sharded Lanczos
-loops (parallel/lanczos.py: the shard kernels, K4 pass2 and K3 combine per
-shard, one packed psum per iteration), then the ghost
-copy (per shard in 2D; the K14 kernel with the shard's offsets in 3D).
+`make_sharded_nlse_step` is the complex64 planar SS2 step: the half kicks
+per shard (ops/cuda/kick.py, density included), the matrix function through
+the sharded Lanczos loops (parallel/lanczos.py: the shard kernels, K4 pass2
+and K3 combine per shard, one packed psum per iteration); the closing kick
+also does each shard's ghost copy, with the shard's global offsets.
 """
 
 import numpy as np
@@ -22,13 +22,15 @@ import torch
 
 from nlsolvers_tpu_torch.models import nlse as nlse_mod
 from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
-from nlsolvers_tpu_torch.ops.boundaries import neumann_no_velocity_3d_block
+from nlsolvers_tpu_torch.ops.boundaries import (
+    neumann_no_velocity_2d_block, neumann_no_velocity_3d_block)
+from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
 from nlsolvers_tpu_torch.ops.operators import (block_coords,
                                                boundary_diagonal,
                                                neighbor_sum)
 from nlsolvers_tpu_torch.parallel.lanczos import supported_shard
 from nlsolvers_tpu_torch.parallel.shards import (local_shape, offsets,
-                                                 per_shard, recv_from_next,
+                                                 recv_from_next,
                                                  recv_from_prev)
 
 __all__ = [
@@ -107,18 +109,10 @@ def sharded_neumann_2d(global_shape, mesh, axis_names=("gy", "gx")):
     boundaries.hpp:41-57 (edge rows over interior global columns, then the
     full edge columns), by where-masks on global coordinates. Local blocks
     need at least 2 rows and columns."""
-    NY, NX = global_shape
 
     def apply(parts):
-        out = []
-        for u, (gy, gx) in zip(parts, _coords_of(parts, mesh, axis_names)):
-            interior_x = (gx >= 1) & (gx <= NX - 2)
-            u = torch.where((gy == 0) & interior_x, u[..., 1:2, :], u)
-            u = torch.where((gy == NY - 1) & interior_x, u[..., -2:-1, :], u)
-            u = torch.where(gx == 0, u[..., :, 1:2], u)
-            u = torch.where(gx == NX - 1, u[..., :, -2:-1], u)
-            out.append(u)
-        return out
+        return [neumann_no_velocity_2d_block(u, c, global_shape)
+                for u, c in zip(parts, _coords_of(parts, mesh, axis_names))]
 
     return apply
 
@@ -278,8 +272,8 @@ def sharded_neumann_3d(global_shape, mesh, axis_names=("gz", "gy", "gx")):
     by where-masks on global coordinates, in the order of
     ops.boundaries.neumann_no_velocity_3d: x faces (interior y, z), y faces
     (interior z), z faces. Local blocks need at least 2 cells per axis.
-    The sharded step runs ops/cuda/bc3d.py's kernel instead, which this
-    function's arithmetic checks."""
+    The sharded step folds the copy into its closing half kick
+    (ops/cuda/kick.py), whose plain version runs this arithmetic."""
 
     def apply(parts):
         return [neumann_no_velocity_3d_block(u, c, global_shape)
@@ -339,7 +333,8 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
     shard, stacked (re, im) float32; m and c are float32 local blocks. 3D
     grids take axis_names=("gz", "gy", "gx"). The state stays sharded from
     step to step; shards.gather makes it one global field. With apply_bc
-    the Neumann ghost copy runs after every step; apply_bc=False skips it.
+    every step ends with the Neumann ghost copy (done by the closing half
+    kick); apply_bc=False skips it.
 
     The port takes the complex64 planar path of the JAX package
     (local_single_planar). batch_axis, dtype=complex128 and reorth=False
@@ -376,19 +371,10 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
         raise ValueError(f"the sharded kernels do not take {probe['kind']} "
                          f"(variant {variant!r}) on local blocks {lshape}")
     Rl, nxl = int(np.prod(lshape[:-1])), lshape[-1]
-    if not apply_bc:
-        def neumann(ups):
-            return ups
-    elif three_d:
-        from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
-        offs = [offsets(mesh, k, axis_names, lshape)
-                for k in range(mesh.size)]
-
-        def neumann(ups):
-            return per_shard(mesh, lambda k: neumann_bc_planar_3d(
-                ups[k], lshape, global_shape=global_shape, offsets=offs[k]))
-    else:
-        neumann = sharded_neumann_2d(global_shape, mesh, axis_names)
+    # each shard's closing half kick does its block's ghost copy
+    grids = ([kick_grid(lshape, global_shape,
+                        offsets(mesh, k, axis_names, lshape))
+              for k in range(mesh.size)] if apply_bc else None)
 
     def step(u_parts, m_parts, c_parts=None):
         if use_c:
@@ -406,7 +392,7 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
                                     kappa=kappa) for m in m_parts]
         ups = [u.to(torch.float32).reshape(2, Rl, nxl) for u in u_parts]
         out = nlse_mod.ss2_step_planar_sharded(ups, desc, rhos, dt,
-                                               m=krylov_m)
-        return [o.reshape((2,) + lshape) for o in neumann(out)]
+                                               m=krylov_m, grids=grids)
+        return [o.reshape((2,) + lshape) for o in out]
 
     return step

@@ -21,6 +21,7 @@ import torch
 from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.ops import operators as tops
 from nlsolvers_tpu_torch.ops.cuda import bc3d as tb
+from nlsolvers_tpu_torch.ops.cuda import kick as tk
 from nlsolvers_tpu_torch.ops.cuda import lanczos2d as tl
 from nlsolvers_tpu_torch.ops.cuda import lanczos3d as t3
 
@@ -527,8 +528,8 @@ def test_shard_wrappers_reject_bad_input(cuda):
 def test_sharded_step_on_card(cuda, shape, mshape, variant, use_c):
     """The sharded SS2 step on a mesh of shards on one card: kernels
     against plain versions (rel-L2 <= 1e-5), and the exact launches per
-    step: per shard m-1 shard pass1 and pass2, 1 combine (+ 1 bc3d in 3D);
-    no unsharded pass1."""
+    step: per shard m-1 shard pass1 and pass2, 1 combine and 2 kick_bc (the
+    closing one with the ghost copy, so no bc3d); no unsharded pass1."""
     from nlsolvers_tpu_torch.parallel import mesh as tmesh
     from nlsolvers_tpu_torch.parallel import shards, spatial
 
@@ -547,10 +548,11 @@ def test_sharded_step_on_card(cuda, shape, mshape, variant, use_c):
     parts = [shards.shard(a, mesh) for a in args]
     pass1 = tl.pass1_shard2d if len(shape) == 2 else t3.pass1_shard3d
     counters = (pass1, t3.pass2, tl.combine, tb.neumann_bc_planar_3d,
-                tl.pass1_iso2d, tl.pass1_aniso2d, t3.pass1_3d)
+                tk.phase_kick_bc_planar, tl.pass1_iso2d, tl.pass1_aniso2d,
+                t3.pass1_3d)
     before = [f.launches for f in counters]
     got, want = _kernel_and_plain(lambda: shards.gather(step(*parts), mesh))
-    per = [m - 1, m - 1, 1, len(shape) == 3, 0, 0, 0]
+    per = [m - 1, m - 1, 1, 0, 2, 0, 0, 0]
     assert [f.launches - b for f, b in zip(counters, before)] == [
         n * k for k in per]
     assert _rel(got, want) <= FIELD_TOL
@@ -682,3 +684,109 @@ def test_pipe_3d_and_resident_repeat_bit_for_bit(cuda):
         sc = {}
         assert torch.equal(r2.ss2_resident_step(u, mf, d2, dt, 20, scratch=sc),
                            r2.ss2_resident_step(u, mf, d2, dt, 20, scratch=sc))
+
+
+# ------------------------------------------------ kick_bc: the fused half kick
+
+def _kick_inputs(cuda, shape, seed, offset=0):
+    """A planar state (2, R, nx) and an (R, nx) m field on the card; with
+    offset the state starts `offset` floats into its buffer (4 bytes past a
+    16-byte boundary: the scalar form)."""
+    rng = np.random.default_rng(seed)
+    R, nx = int(np.prod(shape[:-1])), shape[-1]
+    n = 2 * R * nx
+    buf = torch.zeros(n + offset, device=cuda)
+    buf[offset:] = torch.from_numpy(rng.standard_normal(n).astype(
+        np.float32)).to(cuda)
+    up = buf[offset:].view(2, R, nx)
+    m = torch.from_numpy((0.5 + rng.random((R, nx))).astype(np.float32)).to(
+        cuda)
+    return up, m
+
+
+def _clamp_gather(out, shape, glob, offs):
+    """out at the clamped index of each cell (the ghost copy's rule)."""
+    idx = []
+    for n, g, o in zip(shape, glob, offs):
+        c = torch.arange(n, device=out.device)
+        if o == 0:
+            c[0] = 1
+        if o + n == g:
+            c[n - 1] = n - 2
+        idx.append(c)
+    grids = torch.meshgrid(*idx, indexing="ij")
+    return out.reshape((2,) + shape)[(slice(None),) + grids].reshape(
+        out.shape)
+
+
+# (block, global grid or None, offsets, misaligned): 16-byte and scalar
+# forms (nx % 4 in {0, 1, 2, 3}, a state 4 bytes off), 2D and 3D, whole
+# grids, shard blocks at corners and inside, blocks of 2 cells per axis
+_KICK_CASES = [((64, 64), None, None, 0), ((37, 129), None, None, 0),
+               ((50, 130), None, None, 0), ((19, 303), None, None, 0),
+               ((64, 64), None, None, 1), ((512, 1024), None, None, 0),
+               ((32, 64), (64, 128), (32, 0), 0),
+               ((31, 33), (62, 99), (31, 33), 0),
+               ((16, 20, 32), None, None, 0), ((9, 11, 13), None, None, 0),
+               ((8, 10, 16), (16, 20, 32), (8, 10, 16), 0),
+               ((8, 10, 16), (16, 30, 32), (0, 10, 0), 0),
+               ((2, 2, 2), (4, 4, 4), (2, 0, 2), 0),
+               ((64, 64, 128), None, None, 0)]
+
+
+@pytest.mark.parametrize("kind", ["cubic", "cubic_quintic", "saturable"])
+@pytest.mark.parametrize("block,glob,offs,offset", _KICK_CASES,
+                         ids=[f"{'x'.join(map(str, b))}"
+                              f"{'-at-' + '.'.join(map(str, o)) if o else ''}"
+                              f"{'-off' if f else ''}"
+                              for b, _, o, f in _KICK_CASES])
+def test_kick_bc_matches_plain_on_card(cuda, kind, block, glob, offs,
+                                       offset):
+    """kick_bc with and without the ghost copy against kick_bc_ref (rel-L2
+    <= 1e-5); in the kernel's own output every ghost cell equals its source
+    cell bit for bit; the input is left as it was; one launch each."""
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    up, m = _kick_inputs(cuda, block, 170 + len(block), offset)
+    rho = nlse_density_planar(kind, m, sigma1=0.8, sigma2=-0.15, kappa=0.7)
+    keep = up.clone()
+    grid = tk.kick_grid(block, glob, offs)
+    for g in (None, grid):
+        before = tk.phase_kick_bc_planar.launches
+        got, want = _kernel_and_plain(
+            lambda: tk.phase_kick_bc_planar(up, rho, 0.3, g))
+        assert tk.phase_kick_bc_planar.launches == before + 1
+        assert _rel(got, want) <= FIELD_TOL
+        assert torch.equal(up, keep)
+    assert torch.equal(got, _clamp_gather(got, block, glob or block,
+                                          offs or (0,) * len(block)))
+
+
+def test_kick_bc_repeats_bit_for_bit(cuda):
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    for shape in ((1024, 1024), (37, 129)):
+        up, m = _kick_inputs(cuda, shape, 180)
+        rho = nlse_density_planar("saturable", m)
+        grid = tk.kick_grid(shape)
+        assert torch.equal(tk.phase_kick_bc_planar(up, rho, 0.3, grid),
+                           tk.phase_kick_bc_planar(up, rho, 0.3, grid))
+
+
+def test_kick_bc_rejects_bad_input(cuda):
+    """A CUDA tensor the kernel cannot take raises; nothing falls back."""
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    up, m = _kick_inputs(cuda, (16, 32), 181)
+    rho = nlse_density_planar("cubic", m)
+    with pytest.raises(ValueError):          # float64 state
+        tk.phase_kick_bc_planar(up.double(), rho, 0.1)
+    with pytest.raises(ValueError):          # not contiguous
+        tk.phase_kick_bc_planar(up.transpose(1, 2), rho, 0.1)
+    with pytest.raises(ValueError):          # a density without an m field
+        tk.phase_kick_bc_planar(up, lambda u: u[0] * u[0], 0.1)
+    with pytest.raises(ValueError):          # m of another shape
+        tk.phase_kick_bc_planar(
+            up, nlse_density_planar("cubic", m[:, :16].contiguous()), 0.1)
+    with pytest.raises(ValueError):          # m on the CPU
+        tk.phase_kick_bc_planar(
+            up, nlse_density_planar("cubic", m.cpu()), 0.1)
+    with pytest.raises(ValueError):          # a grid of other rows
+        tk.phase_kick_bc_planar(up, rho, 0.1, tk.kick_grid((8, 32)))

@@ -5,6 +5,8 @@
                             [--parts 2d,k8,k13,k5,k1,rates,optin]
                             [--ms 10,20]
 
+(other parts: kickbc, rates3d, shard, perj, ptxas)
+
 Imports nlsolvers_tpu_torch from TREE (default: the directory of this
 script), so that one machine can time two versions of the package in turns
 (run it for each tree, in the order old, new, new, old); the timing helpers
@@ -42,6 +44,16 @@ the same columns (complex64). Parts:
          j = m - 2;
   perj   K5 at each j = 0..8 and K1 at j in {0, 1, 2, 4, 8}, one launch each
          by graph, at 1024^2 and 2048^2 (where a run's time goes);
+  kickbc the step's closing epilogue per step: both half kicks and the
+         no-flux ghost copy, as the tree's SS2 step runs them (two kick_bc
+         launches, the closing one with the copy, where the tree has
+         ops/cuda/kick.py; else the eager kicks and the plain 2D copy or
+         the bc3d kernel), and on a tree with kick_bc also the eager ops it
+         replaces and kick_bc alone with and without the copy; at 1024^2,
+         4096^2, 128^3 and 256^3, and summed over the shards of 4096^2 on
+         (2, 2) and 512^3 on (2, 2, 2) (a sharded tree's 2D copy is its
+         where-masks, its 3D copy bc3d with offsets); beside 20 bytes per
+         cell per kick;
   ptxas  ptxas's registers and spill stores of every kernel instantiation
          the tree builds, one JSON object each (the namespace hash of a
          name dropped), to compare two trees' code generation;
@@ -49,6 +61,10 @@ the same columns (complex64). Parts:
          chunks after a warm-up; device busy time, idle share and the top
          kernels from torch.profiler): 1024^2 iso SS2, 1024^2 c(x) SS2 and
          c(x) sEWI, 4096^2 iso SS2 (the cubic NLSE of chip_smoke.py);
+  rates3d the same for 128^3 and 256^3 iso SS2;
+  shard  the same for the sharded SS2 step (make_sharded_nlse_step, every
+         shard on this card): 4096^2 on (2, 2), reference variant, and
+         512^3 on (2, 2, 2), clean variant;
   optin  the same for the opt-in paths beside their defaults, chunks
          interleaved: resident vs default at 1024^2 and 4096^2 (and
          fused_iter at 1024^2), pipeline_3d vs two-pass at 128^3 and
@@ -65,6 +81,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 LX, DT = 10.0, 1e-4
 
@@ -101,7 +118,10 @@ def main():
                           "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True).stdout.strip()
     t0 = time.perf_counter()
-    _build.build_all(["lanczos2d", "lanczos3d", "resident2d"])
+    has_kick = (Path(args.root) / "nlsolvers_tpu_torch" / "ops" / "cuda"
+                / "kick.py").exists()
+    libs = ["lanczos2d", "lanczos3d", "resident2d"] + ["kick"] * has_kick
+    _build.build_all(libs)
     print(f"[{args.tag}] {smi}; root {args.root}; build "
           f"{time.perf_counter() - t0:.1f} s")
     results = []
@@ -111,8 +131,7 @@ def main():
         results.append(kw)
         print(json.dumps(kw))
 
-    for lib in (("lanczos2d", "lanczos3d", "resident2d") if "ptxas" in parts
-                else ()):
+    for lib in (libs if "ptxas" in parts else ()):
         lines = _build.build_log(lib).read_text().splitlines()
         for kname, nreg, spill in cs.kernel_resources(lines):
             emit(lib=lib, ptxas=re.sub(r"^_ZN\d+_GLOBAL__N__.*?_cu_[0-9a-f]{8}"
@@ -324,6 +343,91 @@ def main():
         del W
         torch.cuda.empty_cache()
 
+    # the step's epilogue: both half kicks and the ghost copy
+    def epilogues(shape, mshape=None):
+        """{name: fn} of the epilogue of one SS2 step on the grid `shape`,
+        split into blocks over `mshape` (every shard's work in one fn): the
+        tree's own (two kick_bc launches where the tree has them, else the
+        eager ops), and on a tree with kick_bc also the eager ops and each
+        kick_bc launch alone."""
+        from nlsolvers_tpu_torch.models import nlse
+        from nlsolvers_tpu_torch.models.nonlinearities import (
+            nlse_density_planar)
+        from nlsolvers_tpu_torch.ops import boundaries
+        from nlsolvers_tpu_torch.ops.cuda import bc3d as b3
+        mshape = mshape or (1,) * len(shape)
+        blk = tuple(g // k for g, k in zip(shape, mshape))
+        R, nx = int(np.prod(blk[:-1])), blk[-1]
+        pos = list(np.ndindex(*mshape))
+        offs = [tuple(int(p * n) for p, n in zip(ps, blk)) for ps in pos]
+        ups = [field(nx, rows=R) for _ in pos]
+        rho = nlse_density_planar("cubic", torch.ones((R, nx), device=dev))
+        th = 0.5 * DT
+        sharded = len(pos) > 1
+        if len(shape) == 3:
+            def copy(outs):
+                for u, o in zip(outs, offs):
+                    b3.neumann_bc_planar_3d(u, blk, shape if sharded else None,
+                                            o if sharded else None)
+        elif sharded:             # the sharded step's where-masks
+            from nlsolvers_tpu_torch.parallel import mesh as pmesh
+            from nlsolvers_tpu_torch.parallel import spatial
+            copy = spatial.sharded_neumann_2d(shape, pmesh.make_mesh(
+                ("gy", "gx"), mshape, devices=[dev] * len(pos)))
+        else:
+            def copy(outs):
+                return [boundaries.neumann_no_velocity_2d(u) for u in outs]
+
+        def eager():
+            for u in ups:
+                nlse.phase_kick_planar(u, rho(u), th)
+            copy([nlse.phase_kick_planar(u, rho(u), th) for u in ups])
+
+        if not has_kick:
+            return {"epilogue": eager}
+        from nlsolvers_tpu_torch.ops.cuda import kick as kb
+        grids = [kb.kick_grid(blk, shape if sharded else None,
+                              o if sharded else None) for o in offs]
+
+        def fused():
+            for u, g in zip(ups, grids):
+                kb.phase_kick_bc_planar(u, rho, th)
+                kb.phase_kick_bc_planar(u, rho, th, g)
+
+        def ghost():
+            for u, g in zip(ups, grids):
+                kb.phase_kick_bc_planar(u, rho, th, g)
+
+        def kick_only():
+            for u in ups:
+                kb.phase_kick_bc_planar(u, rho, th)
+
+        return {"epilogue": fused, "eager kicks + ghost copy": eager,
+                "kick_bc with the copy": ghost, "kick_bc alone": kick_only}
+
+    for shape, mshape in (((1024, 1024), None), ((4096, 4096), None),
+                          ((128,) * 3, None), ((256,) * 3, None),
+                          ((4096, 4096), (2, 2)), ((512,) * 3, (2, 2, 2))):
+        if "kickbc" not in parts:
+            break
+        cells = int(np.prod(shape))
+        n_sh = int(np.prod(mshape or 1))
+        tag = "x".join(map(str, shape)) + (
+            "" if mshape is None else " on " + "x".join(map(str, mshape)))
+        reps = 20 if cells <= 128 ** 3 else 5
+        for name, fn in epilogues(shape, mshape).items():
+            kicks = 1 if name.startswith("kick_bc") else 2
+            # the profiler's kernel rows, launches and ms per call each
+            rows = cs.profiled(torch, lambda fn=fn: [fn() for _ in
+                                                      range(reps)]) or []
+            kernel_rows = {e.key[:70]: [e.count / reps,
+                                        cs.dev_us(e) / 1e3 / reps]
+                           for e in rows if cs.dev_us(e) > 0}
+            readings(name, tag, None, fn, 20 * cells * kicks, kicks * n_sh,
+                     reps, dict(kick_bc_tree=has_kick,
+                                profiler_rows=kernel_rows))
+        torch.cuda.empty_cache()
+
     # step rates
     def gaussian(n):
         x = torch.linspace(-LX, LX, n, dtype=torch.float32)
@@ -353,6 +457,45 @@ def main():
         label = f"[{args.tag}] rate {label}"
         cs.rate(torch, {label: problem(n, integ, aniso)}, chunk, [label] * 3,
                 5)
+        torch.cuda.empty_cache()
+
+    def sharded(global_shape, mshape, variant):
+        """The sharded SS2 step with every shard on this card, as a problem
+        for chip_smoke's rate: its state is a tuple of the shards' blocks."""
+        import math
+
+        from nlsolvers_tpu_torch.parallel import mesh as pmesh
+        from nlsolvers_tpu_torch.parallel import shards, spatial
+        axes = ("gy", "gx") if len(global_shape) == 2 else ("gz", "gy", "gx")
+        mesh = pmesh.make_mesh(axes, mshape,
+                               devices=[dev] * math.prod(mshape))
+        step = spatial.make_sharded_nlse_step(
+            "cubic", global_shape, LX, DT, mesh, axis_names=axes,
+            krylov_m=10, variant=variant)
+        x = torch.linspace(-LX, LX, global_shape[-1], dtype=torch.float32,
+                           device=dev)
+        g = torch.meshgrid(*([x] * len(global_shape)), indexing="ij")
+        env = torch.exp(-sum(a * a for a in g) / 4)
+        u0 = torch.stack([env * torch.cos(0.5 * g[-1]),
+                          env * torch.sin(0.5 * g[-1])])
+        mp = shards.shard(torch.ones(global_shape, device=dev), mesh)
+
+        def stp(s, i):
+            del i
+            return tuple(step(list(s), mp))
+
+        return (SimpleNamespace(step=stp),
+                tuple(shards.shard(u0, mesh)))
+
+    for shape, mshape, variant, chunk, n_prof in (
+            ((4096, 4096), (2, 2), "reference", 20, 5),
+            ((512,) * 3, (2, 2, 2), "clean", 5, 2)):
+        if "shard" not in parts:
+            break
+        label = (f"[{args.tag}] rate sharded {shape[0]}^{len(shape)} on "
+                 f"{mshape}")
+        cs.rate(torch, {label: sharded(shape, mshape, variant)}, chunk,
+                [label] * 3, n_prof)
         torch.cuda.empty_cache()
 
     # the opt-in paths beside their defaults, chunks interleaved
@@ -386,6 +529,13 @@ def main():
         env = torch.exp(-(X ** 2 + Y ** 2 + Z ** 2) / 4)
         return prob, prob.init(torch.stack([env * torch.cos(0.5 * X),
                                             env * torch.sin(0.5 * X)]))
+
+    for n, chunk, n_prof in ((128, 100, 20), (256, 20, 5)):
+        if "rates3d" not in parts:
+            break
+        label = f"[{args.tag}] rate {n}^3 iso SS2"
+        cs.rate(torch, {label: problem3d(n)}, chunk, [label] * 3, n_prof)
+        torch.cuda.empty_cache()
 
     for n, chunk, n_prof in ((1024, 200, 20), (4096, 20, 5)):
         if "optin" not in parts:
