@@ -168,12 +168,48 @@ Phases, one line each (or a few):
                for bit. Times per step (both kicks) at 1024^2, 4096^2,
                128^3 and 256^3 by CUDA-graph replay beside the eager kicks
                and ghost copy it replaces and 20 bytes per cell per kick.
+ 28. parity-rw  the real-wave route: pass1_3d and pass2 on real fields
+               (P=1) with the operator's sign flipped, iso reference, iso
+               clean and aniso, at 128^3 and 37x50x61, j in {0, 4, 8}: the
+               gates of phase 3; bc3d at P=1 exactly equal; K3 at k=2, P=1,
+               1024^2.
+ 29. main-rw   realwave_problem("sine_gordon", (1024, 1024), 10, 1e-4,
+               m=10, gautschi, float32) from benchmarks/perf_table.py's kink
+               (u0 = 4 atan(exp(x/1.5)), v0 = 0, m = 1): 200 steps through
+               problems.run, exactly 2 K1 + 18 K2 + 2 K3 launches per step
+               (K3 combining 2 matrix functions, then 1), no kick_bc and no
+               K13; 128^3 sine-Gordon and 128^3 Klein-Gordon with c = 1 +
+               0.4 U[0, 1) from default_rng(0), 100 steps each, exactly 18
+               pass1_3d + 18 pass2 + 2 K3 + 1 bc3d; 1024^2 c(x)
+               Klein-Gordon, 100 steps, 2 K1' + 18 K2' + 2 K3; finite
+               (u, v) snapshots. The relative drift of the energy (v^2/2 +
+               c |grad u|^2/2 + m V(u)) is printed, not gated.
+ 30. paths-rw  20 steps, each from the kernel path's state, against the
+               same step under config.kernel_mode "off" (the generic
+               Krylov path): rel-L2 on u <= 1e-5 for every kind at 256^2
+               (phi-4 also with c(x)) and at 128^3 iso and c(x); the same
+               against fused_iter (1024^2, 128^3) and pipeline_3d (128^3
+               iso and c(x)), whose launches per step are counted first.
+               The free-running 20-step difference is printed beside it.
+ 31. rate-rw   steps/s of sine-Gordon Gautschi at 1024^2 (3 chunks of 200),
+               128^3 (3 of 100) and 256^3 (3 of 20), each with phase 6's
+               profile (device busy ms, idle share, launches and host syncs
+               per step; two eigh syncs expected).
+ 32. models-rest  Boussinesq Gautschi, 10 steps at 512^2 float32 on the
+               generic path (no counted launch), finite; stochastic phi-4
+               SV at 1024^2, 100 steps twice with one seed: equal bits, and
+               another seed differs; evolve_guarded on a diverging phi-4 SV
+               run: bad_at inside the run, the later snapshots and series
+               zero, at most one host sync per snapshot.
+Each of phases 28-32 prints its seconds.
 Then the card's name and power limit, the kernels as one JSON line (all
 fourteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
 pass1_shard2d, pass1_shard3d, kick_bc; `ms` of K1, K2, K3, K1', K2', K5, K8,
 K13 and kick_bc is the CUDA-graph reading, with the profiler's sum and the
 events beside it, and K3's library_ms torch.matmul's graph reading; bc3d's
-launches are the 3D sEWI run's), and last {"ok":
+launches are the 3D sEWI run's; eight carry the real-wave Gautschi step's
+launches per step, and pass1_3d, pass2, bc3d and K3 their P=1 parity), and
+last {"ok":
 true, "device": ...}. Any failed phase exits non-zero and prints no
 result.
 """
@@ -611,12 +647,12 @@ def main():
             de = max(de, dot_err(got[4], want[4], W + [want[0]], want[1]))
         return fe, de
 
-    def parity_combine(k, ny, nx, P=2, m=KRYLOV_M):
+    def parity_combine(k, ny, nx, P=2, m=KRYLOV_M, key="K3"):
         W = [field(ny, nx, P) for _ in range(m)]
         q = (torch.rand((k, m, 2), generator=gen, device=dev) - 0.5)
         got, want = both(lambda: lz.combine(q, W))
-        errs["K3"] = max([errs["K3"]] + [float((a - b).abs().max())
-                                         for a, b in zip(got, want)])
+        errs[key] = max([errs[key]] + [float((a - b).abs().max())
+                                       for a, b in zip(got, want)])
         return max(rel(a, b) for a, b in zip(got, want)), 0.0
 
     ragged = operators.laplacian_2d((250, 333), dx, dx, device=dev).kernel_desc
@@ -881,18 +917,18 @@ def main():
                 "aniso": operators.anisotropic_laplacian_3d(
                     c, d3, device=dev).kernel_desc}
 
-    def parity_pass1_3d(j, d, R, nx):
-        W = [field(R, nx) for _ in range(j + 1)]
+    def parity_pass1_3d(j, d, R, nx, P=2, key="pass1_3d"):
+        W = [field(R, nx, P) for _ in range(j + 1)]
         scal = torch.tensor([[0.7, 0.3]], device=dev)
         (w, raw), (w0, raw0) = both(lambda: l3.pass1_3d(scal, W[j], W[:j], d))
-        errs["pass1_3d"] = max(errs["pass1_3d"], float((w - w0).abs().max()))
+        errs[key] = max(errs[key], float((w - w0).abs().max()))
         return rel(w, w0), dot_err(raw, raw0, W, w0)
 
-    def parity_pass2(j, R, nx):
-        w, *W = [field(R, nx) for _ in range(j + 2)]
+    def parity_pass2(j, R, nx, P=2, key="pass2"):
+        w, *W = [field(R, nx, P) for _ in range(j + 2)]
         q = torch.rand((j + 1, 2), generator=gen, device=dev) - 0.5
         (a, n1), (b, n0) = both(lambda: l3.pass2(q, w, W))
-        errs["pass2"] = max(errs["pass2"], float((a - b).abs().max()))
+        errs[key] = max(errs[key], float((a - b).abs().max()))
         return rel(a, b), float((n1 - n0).abs().max() / n0.abs().max())
 
     for shape in ((N3, N3, N3), (37, 50, 61)):
@@ -2298,6 +2334,301 @@ def main():
         del up, rho
         torch.cuda.empty_cache()
 
+    # ---------------------------------------------------------- 28. parity-rw
+    # the real-wave problems' route: real fields (P=1) and the operators
+    # with their sign flipped (problems.realwave_problem runs on -Lap)
+    t_ph = time.perf_counter()
+    errs.update({"pass1_3d P=1": 0.0, "pass2 P=1": 0.0, "K3 P=1": 0.0})
+    for shape in ((N3, N3, N3), (37, 50, 61)):
+        R, nx = shape[0] * shape[1], shape[2]
+        tag = "x".join(map(str, shape))
+        for mode, d in ops3d(shape).items():
+            d = dict(d, sign=-1.0)
+            for j in (0, 4, 8):
+                gate(f"pass1_3d {mode} j={j} {tag} real sign -1",
+                     *parity_pass1_3d(j, d, R, nx, P=1, key="pass1_3d P=1"))
+        for j in (0, 4, 8):
+            gate(f"pass2 j={j} {tag} real",
+                 *parity_pass2(j, R, nx, P=1, key="pass2 P=1"))
+        up = field(R, nx, P=1)
+        got, want = both(lambda: b3.neumann_bc_planar_3d(up.clone(), shape))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        print(f"parity bc3d {tag} real (P=1): exactly equal {same}")
+        check(same, f"bc3d {tag} at P=1 differs from its plain version")
+        del up, got, want
+    gate(f"K3 k=2 real {N}^2", *parity_combine(2, N, N, P=1, key="K3 P=1"))
+    print(f"parity-rw: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 29. main-rw
+    # benchmarks/perf_table.py's sg_row: the kink u0 = 4 atan(exp(x/1.5))
+    # along x, v0 = 0, m = 1, Lx = 10, dt = 1e-4, m = 10, float32
+    t_ph = time.perf_counter()
+    from nlsolvers_tpu_torch.models.evolve import evolve_guarded
+    from nlsolvers_tpu_torch.models.nonlinearities import realwave_potential
+
+    def kink(shape):
+        x = torch.linspace(-LX, LX, shape[-1], dtype=torch.float32,
+                           device=dev)
+        return (4.0 * torch.atan(torch.exp(x / 1.5))).expand(
+            shape).contiguous()
+
+    def realwave(kind, shape, c=None, integrator="gautschi"):
+        prob = problems.realwave_problem(
+            kind, shape, LX, DT, m_field=torch.ones(shape), c_field=c,
+            integrator=integrator, krylov_m=KRYLOV_M, dtype=torch.float32)
+        check(prob.meta["device"] == "cuda", "real-wave problem not on the "
+              "card")
+        return prob, prob.init(kink(shape), torch.zeros(shape, device=dev))
+
+    def energy(u, v, V, c=None):
+        """sum (v^2/2 + c |grad u|^2/2 + V(u)) dx^d in float64, forward
+        differences, c on the faces (the operator's face weights)."""
+        u, v = u.double(), v.double()
+        h = 2.0 * LX / (u.shape[-1] - 1)
+        e = (0.5 * v * v + V(u)).sum()
+        for a in range(u.dim()):
+            n = u.shape[a]
+            g2 = torch.diff(u, dim=a) ** 2
+            if c is not None:
+                cd = c.to(dev).double()
+                g2 = g2 * 0.5 * (cd.narrow(a, 0, n - 1) + cd.narrow(a, 1,
+                                                                     n - 1))
+            e = e + 0.5 * g2.sum() / (h * h)
+        return float(e) * h ** u.dim()
+
+    def main_rw(label, kind, prob, s0, snaps_, freq_, per_step, c=None):
+        """problems.run with every launch counter at 0 just before and read
+        just after: exactly per_step launches of each kernel per step and
+        none of the others (no kick_bc, no K13), finite (u, v) snapshots;
+        the relative energy drift printed, not gated."""
+        n_steps = (snaps_ - 1) * freq_
+        for f in counters_all.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u, v = problems.run(prob, s0, snaps_, freq_)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters_all.items()}
+        want = {k: per_step.get(k, 0) * n_steps for k in counters_all}
+        print(f"{label}: {n_steps} steps in {wall:.3f} s; launches "
+              f"{ {k: v_ for k, v_ in got.items() if v_} } "
+              f"({sum(got.values()) / n_steps:.0f} counted per step)")
+        check(got == want, f"{label}: launches {got} != {want}")
+        shp = (snaps_,) + tuple(s0[0].shape)
+        check(tuple(u.shape) == shp == tuple(v.shape)
+              and u.dtype == v.dtype == torch.float32,
+              f"{label}: snapshots {tuple(u.shape)} {tuple(v.shape)}")
+        check(bool(torch.isfinite(u).all() & torch.isfinite(v).all()),
+              f"{label}: non-finite snapshot")
+        V = realwave_potential(kind)
+        E = [energy(u[k], v[k], V, c) for k in range(snaps_)]
+        drift = max(abs(e - E[0]) / abs(E[0]) for e in E)
+        print(f"{label}: energy {E[0]:.6e} -> {E[-1]:.6e}, relative drift "
+              f"over {n_steps} steps {drift:.3e} (printed, not gated)")
+        del u, v
+        return got, n_steps
+
+    def combine_specs(prob, s):
+        """The number of matrix functions each K3 launch of one step
+        combines (the rows of the coefficients it is given)."""
+        ks, orig = [], lz.combine_coefficients
+
+        def spy(*args):
+            q = orig(*args)
+            ks.append(int(q.shape[0]))
+            return q
+
+        lz.combine_coefficients = spy
+        try:
+            prob.step(s, 1)
+        finally:
+            lz.combine_coefficients = orig
+        return ks
+
+    per_rw2 = {"K1": 2, "K2": 2 * (KRYLOV_M - 1), "K3": 2}
+    per_rw2a = {"K1'": 2, "K2'": 2 * (KRYLOV_M - 1), "K3": 2}
+    per_rw3 = {"pass1_3d": 2 * (KRYLOV_M - 1), "pass2": 2 * (KRYLOV_M - 1),
+               "K3": 2, "bc3d": 1}
+    p_sg, s_sg = realwave("sine_gordon", (N, N))
+    check(p_sg.meta["filter"] == "mod_cosine", "sine-Gordon filter")
+    ks = combine_specs(p_sg, s_sg)
+    print(f"main-rw: K3 launches of one Gautschi step combine {ks} matrix "
+          f"functions")
+    check(ks == [2, 1], f"K3 per step {ks} != [2, 1]")
+    launches_rw, steps_rw = main_rw(f"main-rw sine-Gordon {N}^2",
+                                    "sine_gordon", p_sg, s_sg, 5, 50,
+                                    per_rw2)
+    p_sg3, s_sg3 = realwave("sine_gordon", shape3)
+    ks = combine_specs(p_sg3, s_sg3)
+    check(ks == [2, 1], f"K3 per 3D step {ks} != [2, 1]")
+    launches_rw3, steps_rw3 = main_rw(f"main-rw sine-Gordon {N3}^3",
+                                      "sine_gordon", p_sg3, s_sg3, 3, 50,
+                                      per_rw3)
+    p_kg3, s_kg3 = realwave("klein_gordon", shape3, c3)
+    main_rw(f"main-rw Klein-Gordon c(x) {N3}^3", "klein_gordon", p_kg3,
+            s_kg3, 3, 50, per_rw3, c3)
+    p_kg2, s_kg2 = realwave("klein_gordon", (N, N), c2)
+    launches_rwa, steps_rwa = main_rw(f"main-rw Klein-Gordon c(x) {N}^2",
+                                      "klein_gordon", p_kg2, s_kg2, 3, 50,
+                                      per_rw2a, c2)
+    print(f"main-rw: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 30. paths-rw
+    # Each step of the kernel path against the same step, from the same
+    # state, under the other setting: the Gautschi recurrence u' = 2 cos u
+    # - u_past sums each step's rounding into the trajectory (quadratically
+    # in the step count on the kink's flat part), so a free-running
+    # comparison is printed beside the per-step one, not gated.
+    t_ph = time.perf_counter()
+
+    def step_under(prob, s, i, mode="auto", **sw):
+        old = interop.set_switches(**sw)
+        config.kernel_mode = mode
+        try:
+            return prob.step(s, i)
+        finally:
+            config.kernel_mode = "auto"
+            interop.set_switches(**old)
+
+    def paths_rw(label, prob, s0, other, n=n_par, tol=1e-5):
+        s, worst = s0, 0.0
+        for i in range(1, n + 1):
+            a = step_under(prob, s, i)
+            b = step_under(prob, s, i, **other)
+            worst = max(worst, rel(a[0], b[0]))
+            s = a
+        t = s0
+        for i in range(1, n + 1):
+            t = step_under(prob, t, i, **other)
+        free = rel(s[0], t[0])
+        print(f"paths-rw {label}: {n} steps, each step from the kernel "
+              f"path's state: max rel-L2 on u {worst:.3e} (gate {tol:g}); "
+              f"free-running {n} steps {free:.3e}")
+        check(worst <= tol, f"paths-rw {label}: rel-L2 {worst:.3e} > "
+              f"{tol:g}")
+
+    def launches_of(prob, s, **sw):
+        for f in counters_all.values():
+            f.launches = 0
+        step_under(prob, s, 1, **sw)
+        torch.cuda.synchronize()
+        return {k: f.launches for k, f in counters_all.items()
+                if f.launches}
+
+    off = {"mode": "off"}
+    for kind in ("sine_gordon", "double_sine_gordon",
+                 "hyperbolic_sine_gordon", "klein_gordon", "phi4"):
+        pk, sk = realwave(kind, (256, 256))
+        paths_rw(f"{kind} 256^2 kernels vs kernel_mode off", pk, sk, off)
+        if kind == "phi4":
+            pk, sk = realwave(kind, (256, 256), 1.0 + 0.4 * torch.rand(
+                (256, 256), generator=gen, device=dev))
+            paths_rw(f"{kind} c(x) 256^2 kernels vs kernel_mode off", pk,
+                     sk, off)
+    paths_rw(f"sine-Gordon {N3}^3 kernels vs kernel_mode off", p_sg3, s_sg3,
+             off)
+    paths_rw(f"Klein-Gordon c(x) {N3}^3 kernels vs kernel_mode off", p_kg3,
+             s_kg3, off)
+    for label, prob, s, sw, want in (
+            (f"fused_iter {N}^2", p_sg, s_sg, {"fused_iter": True},
+             {"K5": 2 * (KRYLOV_M - 1), "K3": 2}),
+            (f"fused_iter {N3}^3", p_sg3, s_sg3, {"fused_iter": True},
+             {"K5": 2 * (KRYLOV_M - 1), "K3": 2, "bc3d": 1}),
+            (f"pipeline_3d {N3}^3", p_sg3, s_sg3, {"pipeline_3d": True},
+             {"pass1_3d": 2, "K8": 2 * (KRYLOV_M - 2), "K2": 2, "K3": 2,
+              "bc3d": 1}),
+            (f"pipeline_3d c(x) {N3}^3", p_kg3, s_kg3, {"pipeline_3d": True},
+             {"pass1_3d": 2, "K8": 2 * (KRYLOV_M - 2), "K2": 2, "K3": 2,
+              "bc3d": 1})):
+        got = launches_of(prob, s, **sw)
+        print(f"paths-rw {label}: launches per step {got}")
+        check(got == want, f"{label}: launches per step {got} != {want}")
+        paths_rw(f"{label} vs the default real path", prob, s, sw)
+    print(f"paths-rw: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 31. rate-rw
+    t_ph = time.perf_counter()
+    r2 = f"rate-rw sine-Gordon {N}^2"
+    rate(torch, {r2: (p_sg, s_sg)}, 200, [r2] * 3, 20)
+    r3 = f"rate-rw sine-Gordon {N3}^3"
+    rate(torch, {r3: (p_sg3, s_sg3)}, 100, [r3] * 3, 20)
+    del p_sg3, s_sg3, p_kg3, s_kg3, p_kg2, s_kg2
+    torch.cuda.empty_cache()
+    p_big, s_big = realwave("sine_gordon", (N3_BIG,) * 3)
+    rb = f"rate-rw sine-Gordon {N3_BIG}^3"
+    rate(torch, {rb: (p_big, s_big)}, 20, [rb] * 3, 5)
+    del p_big, s_big
+    torch.cuda.empty_cache()
+    print(f"rate-rw: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 32. models-rest
+    t_ph = time.perf_counter()
+    nb_ = 512
+    pbq = problems.boussinesq_problem((nb_, nb_), 20.0, 1e-3,
+                                      krylov_m=KRYLOV_M, dtype=torch.float32)
+    xb = torch.linspace(-20.0, 20.0, nb_, device=dev)
+    ub = (0.5 / torch.cosh(0.7 * xb) ** 2).expand(nb_, nb_).contiguous()
+    for f in counters_all.values():
+        f.launches = 0
+    ubq, vbq = problems.run(pbq, pbq.init(ub), 3, 5)
+    torch.cuda.synchronize()
+    got = {k: f.launches for k, f in counters_all.items() if f.launches}
+    print(f"models-rest Boussinesq Gautschi {nb_}^2: 10 steps on the "
+          f"generic path, counted kernel launches {got}, max |u| "
+          f"{float(ubq[-1].abs().max()):.6f}")
+    check(not got, f"Boussinesq launched counted kernels {got}")
+    check(bool(torch.isfinite(ubq).all() & torch.isfinite(vbq).all()),
+          "Boussinesq: non-finite snapshot")
+    del ubq, vbq, pbq
+
+    def phi4_run(seed):
+        pst = problems.stochastic_phi4_problem((N, N), LX, DT, seed=seed,
+                                               dtype=torch.float32)
+        x = torch.linspace(-LX, LX, N, device=dev)
+        u = torch.tanh(x / math.sqrt(2.0)).expand(N, N).contiguous()
+        return problems.run(pst, pst.init(u), 3, 50)
+
+    a_, b_, c_ = phi4_run(7), phi4_run(7), phi4_run(8)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(x, y)) for x, y in zip(a_, b_))
+    differ = not bool(torch.equal(a_[0][-1], c_[0][-1]))
+    print(f"models-rest stochastic phi-4 SV {N}^2: 100 steps twice with one "
+          f"seed bit for bit equal {same}; another seed differs {differ}")
+    check(same and differ, "stochastic phi-4: seeds do not replay")
+    check(bool(torch.isfinite(a_[0]).all()), "stochastic phi-4: non-finite")
+    del a_, b_, c_
+
+    S_g, f_g = 12, 2
+    pdv = problems.realwave_problem("phi4", (256, 256), LX, 0.05,
+                                    integrator="sv", dtype=torch.float32)
+    udv = 3.0 + 0.1 * torch.randn((256, 256), generator=gen, device=dev)
+    box_g = []
+
+    def guarded():
+        box_g.append(evolve_guarded(
+            pdv.step, pdv.init(udv), S_g, f_g, observe=pdv.observe,
+            scalars={"max_u": lambda s: s[0].abs().amax()}))
+
+    n_sync = host_syncs(torch, guarded)
+    (ug, vg), bad_g, ser_g = box_g[0]
+    ser_g = ser_g["max_u"]
+    k_g = int(bad_g)
+    print(f"models-rest evolve_guarded phi-4 SV diverging: bad_at {k_g} of "
+          f"{S_g} snapshots ({f_g} steps each), host syncs {n_sync}; max|u| "
+          f"series {[f'{x:.3g}' for x in ser_g.tolist()]}")
+    check(0 < k_g < S_g, f"evolve_guarded: bad_at {k_g}")
+    check(not bool(torch.isfinite(ug[k_g]).all()
+                   & torch.isfinite(vg[k_g]).all()),
+          "evolve_guarded: the snapshot at bad_at is finite")
+    check(not bool(ug[k_g + 1:].any() | vg[k_g + 1:].any())
+          and not bool(ser_g[k_g + 1:].any()),
+          "evolve_guarded: the snapshots after the exit are not zero")
+    check(n_sync <= k_g + 1, f"evolve_guarded: {n_sync} host syncs for "
+          f"{k_g} snapshots")
+    print(f"models-rest: {time.perf_counter() - t_ph:.1f} s")
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
         """One kernel of the JSON line: `launches` over the n_steps of its
@@ -2362,6 +2693,24 @@ def main():
               steps, errs["kick_bc"], t_kb[f"{N}^2"], bytes_kb[f"{N}^2"],
               None, graph=g_kb[f"{N}^2"]),
     ]
+    # the real-wave Gautschi step's launches per step (main-rw) and the P=1
+    # sign -1 parity (parity-rw) beside each kernel of its path
+    rw = {"pass1_iso2d": (launches_rw, "K1", steps_rw),
+          "pipe_iso2d": (launches_rw, "K2", steps_rw),
+          "combine": (launches_rw, "K3", steps_rw),
+          "pass1_3d": (launches_rw3, "pass1_3d", steps_rw3),
+          "pass2": (launches_rw3, "pass2", steps_rw3),
+          "bc3d": (launches_rw3, "bc3d", steps_rw3),
+          "pass1_aniso2d": (launches_rwa, "K1'", steps_rwa),
+          "pipe_aniso2d": (launches_rwa, "K2'", steps_rwa)}
+    p1 = {"pass1_3d": errs["pass1_3d P=1"], "pass2": errs["pass2 P=1"],
+          "bc3d": 0.0, "combine": errs["K3 P=1"]}
+    for e in kernels:
+        if e["name"] in rw:
+            got_, key_, n_ = rw[e["name"]]
+            e["realwave_launches_per_step"] = got_[key_] / n_
+        if e["name"] in p1:
+            e["p1_max_abs_err"] = p1[e["name"]]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(smi_line)

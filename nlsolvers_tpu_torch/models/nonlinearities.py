@@ -8,13 +8,28 @@
                   (nlse_saturating_solver.hpp:17-18), a complex "density"
                   kept for parity studies only.
 
-The real-wave g(u) is not ported yet (ROADMAP.md queue 1, item 9).
+Real-wave g(u) of u_tt = Lap u - m g(u), the code's forms where the
+reference's header comments differ:
+  sine_gordon:             g = sin u             (sg_single_solver.hpp:54)
+  double_sine_gordon:      g = sin u + 0.6 sin 2u (sg_double_solver.hpp:17-18;
+                           the header says sin u + sin u/2)
+  hyperbolic_sine_gordon:  g = sinh u            (sg_hyperbolic_solver.hpp:17-18)
+  klein_gordon:            g = u^3, so the force is -m u^3 (kg_solver.hpp:8,17;
+                           the header says m u)
+  phi4:                    g = u - u^3           (phi4_solver.hpp:17-18)
+and their potentials V(u) for an energy series, with the analysis tables'
+phi4 and KG forms (0.5 u^4 for KG, u^2 - u^4 for phi4).
 """
 
+import torch
+
 __all__ = ["nlse_density", "nlse_density_planar", "PlanarDensity",
-           "NLSE_KINDS"]
+           "realwave_g", "realwave_potential", "NLSE_KINDS",
+           "REALWAVE_KINDS"]
 
 NLSE_KINDS = ("cubic", "cubic_quintic", "saturable")
+REALWAVE_KINDS = ("sine_gordon", "double_sine_gordon",
+                  "hyperbolic_sine_gordon", "klein_gordon", "phi4")
 
 
 def _rho_of(kind, m, sigma1, sigma2, kappa):
@@ -56,3 +71,30 @@ def nlse_density_planar(kind, m, *, sigma1=1.0, sigma2=-0.1, kappa=1.0):
     PlanarDensity). The device forms only: the host saturable form needs a
     complex density."""
     return PlanarDensity(kind, m, sigma1, sigma2, kappa)
+
+
+def realwave_g(kind):
+    """g(u) for u_tt = Lap u - m g(u)."""
+    return {
+        "sine_gordon": torch.sin,
+        "double_sine_gordon": lambda u: torch.sin(u) + 0.6 * torch.sin(
+            2.0 * u),
+        "hyperbolic_sine_gordon": torch.sinh,
+        "klein_gordon": lambda u: u ** 3,
+        "phi4": lambda u: u - u ** 3,
+    }[kind]
+
+
+def realwave_potential(kind):
+    """Potential energy density V(u) of an energy series: the analysis
+    tables' forms (KG 0.5 u^4, phi4 u^2 - u^4) and the integral of g for
+    the kinds they leave out."""
+    return {
+        "sine_gordon": lambda u: 1.0 - torch.cos(u),
+        "double_sine_gordon": lambda u: (1.0 - torch.cos(u)
+                                         + 0.3 * (1.0 - torch.cos(2.0 * u))),
+        "hyperbolic_sine_gordon": lambda u: torch.cosh(u) - 1.0,
+        "klein_gordon": lambda u: 0.5 * u ** 4,
+        "phi4": lambda u: u ** 2 - u ** 4,
+        "stochastic_phi4": lambda u: u ** 2 - u ** 4,
+    }[kind]

@@ -19,6 +19,15 @@ config.resident_mode "auto", a 2D SS2 problem that ops/cuda/resident2d.py
 supports takes one resident kernel per step instead, on complex state, as
 the JAX package does. The problem lives on `device`, the card unless the
 caller asks for the CPU.
+
+The real-wave family (`realwave_problem`: sine-Gordon single, double and
+hyperbolic, Klein-Gordon, phi-4; Gautschi or SV), stochastic phi-4 and
+Boussinesq keep the real state (u, u_past), built by init(u0, v0) as
+(u0, u0 - dt v0), and observe (u, (u - u_past)/dt). A real-wave Gautschi
+step runs its matrix functions on -Lap, whose descriptor carries the
+flipped sign, so float32 fields take the fused kernels at P=1 (two matrix
+functions per step); in 3D float32 the ghost copy is the bc3d kernel, in
+place on the fresh u.
 """
 
 from dataclasses import dataclass
@@ -29,17 +38,24 @@ import numpy as np
 import torch
 
 from nlsolvers_tpu_torch import config
-from nlsolvers_tpu_torch.config import default_complex_dtype, real_dtype_of
+from nlsolvers_tpu_torch.config import (default_complex_dtype,
+                                        default_krylov_m, default_real_dtype,
+                                        real_dtype_of)
+from nlsolvers_tpu_torch.models import boussinesq as bq
 from nlsolvers_tpu_torch.models import nlse as nlse_mod
+from nlsolvers_tpu_torch.models import realwave as rw
 from nlsolvers_tpu_torch.models.evolve import evolve
 from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
+                                                       REALWAVE_KINDS,
                                                        nlse_density,
-                                                       nlse_density_planar)
+                                                       nlse_density_planar,
+                                                       realwave_g)
 from nlsolvers_tpu_torch.ops import boundaries as bcs
 from nlsolvers_tpu_torch.ops import operators as ops
 from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
 
-__all__ = ["Problem", "nlse_problem", "run"]
+__all__ = ["Problem", "nlse_problem", "realwave_problem",
+           "stochastic_phi4_problem", "boussinesq_problem", "run"]
 
 
 @dataclass(frozen=True)
@@ -47,8 +63,8 @@ class Problem:
     """A fully specified evolution problem.
 
     step:    (state, step_index) -> state
-    init:    builds the initial state from a field u0
-    observe: state -> snapshot tensor
+    init:    builds the initial state from fields (u0 [, v0])
+    observe: state -> snapshot (a tensor, or the tuple (u, v))
     meta:    static description (equation, integrator, grid, dt, ...)
     """
     step: Callable
@@ -310,4 +326,198 @@ def nlse_problem(kind, shape, Lx, dt, *, m_field=None, c_field=None,
                 dim=dim, bc=bc, variant=variant,
                 planar_state=planar is not None, device=str(device),
                 params=dict(sigma1=sigma1, sigma2=sigma2, kappa=kappa))
+    return Problem(step, init, observe, meta)
+
+
+def _negated(lap):
+    """-lap, carrying lap's kernel descriptor with its sign flipped (the
+    same dict entries otherwise, weight tensors shared), so that the fused
+    Lanczos path takes it."""
+    def omega2(u):
+        return -lap(u)
+
+    base = getattr(lap, "kernel_desc", None)
+    if base is not None:
+        omega2.kernel_desc = dict(base, sign=-base["sign"])
+    return omega2
+
+
+def _real_neumann(shape, rdtype, apply_bc):
+    """The ghost copy after a real two-step step: the plain copy in 2D and
+    in 3D float64; in 3D float32 the bc3d kernel on the (1, nz*ny, nx) view,
+    in place on the fresh u_new (never on the tensor that becomes
+    u_past)."""
+    if not apply_bc:
+        return lambda u: u
+    if len(shape) == 2:
+        return bcs.neumann_no_velocity_2d
+    if rdtype != torch.float32:
+        return bcs.neumann_no_velocity_3d
+    from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
+    nz, ny, nx = shape
+
+    def neumann(u):
+        neumann_bc_planar_3d(u.view(1, nz * ny, nx), shape)
+        return u
+
+    return neumann
+
+
+def _real_fields(shape, m_field, rdtype, device):
+    if m_field is None:
+        m_field = np.ones(shape)
+    return _as_tensor(m_field, device).to(rdtype)
+
+
+def _two_step_real(dt, rdtype, device):
+    """(init, observe) of the real two-step state (u, u_past)."""
+    def init(u0, v0=None):
+        u0 = _as_tensor(u0, device).to(rdtype)
+        v0 = (torch.zeros_like(u0) if v0 is None
+              else _as_tensor(v0, device).to(rdtype))
+        return (u0, u0 - dt * v0)
+
+    def observe(state):
+        u, u_past = state
+        return u, (u - u_past) / dt
+
+    return init, observe
+
+
+def _check_shape(shape):
+    if len(shape) not in (2, 3):
+        raise ValueError(f"shape must be (ny, nx) or (nz, ny, nx), got "
+                         f"{tuple(shape)}")
+
+
+def realwave_problem(kind, shape, Lx, dt, *, m_field=None, c_field=None,
+                     integrator="gautschi", krylov_m=default_krylov_m,
+                     dtype=default_real_dtype, variant="reference",
+                     apply_bc=True, reorth=True, device="cuda"):
+    """Real-wave family: u_tt = div(c grad u) - m g_kind(u).
+
+    kind in {"sine_gordon", "double_sine_gordon", "hyperbolic_sine_gordon",
+    "klein_gordon", "phi4"}; integrator "gautschi" or "sv". The state is
+    (u, u_past); init takes (u0, v0) with u_past = u0 - dt v0
+    (kg_driver.cpp:71), observe gives (u, v) with v = (u - u_past)/dt
+    (kg_driver.cpp:112). m_field defaults to ones. The Gautschi filter is
+    "mod_cosine" for single sine-Gordon and "id_sqrt" for the rest. A
+    float32 Gautschi step takes the fused kernels (2D: K1 / K1' and the
+    pipe, 3D: pass1_3d and pass2, then combine, for each of its two matrix
+    functions); float64 and reorth=False take the generic path, as in JAX.
+    In 3D float32 every step ends in the bc3d ghost copy (the JAX package
+    runs its kernel only on TPU-aligned grids; both equal the plain copy).
+    SV applies the plain Laplacian, no Lanczos kernel.
+    """
+    if kind not in REALWAVE_KINDS:
+        raise ValueError(f"unknown real-wave kind {kind!r}")
+    if integrator not in ("gautschi", "sv"):
+        raise ValueError(f"unknown real-wave integrator {integrator!r}")
+    _check_shape(shape)
+    rdtype = real_dtype_of(dtype)
+    dim, nx = len(shape), shape[-1]
+    dx = 2.0 * Lx / (nx - 1)
+    m_t = _real_fields(shape, m_field, rdtype, device)
+    g = realwave_g(kind)
+    lap = _nlse_operator(shape, dx, c_field, variant, rdtype, device)
+    # all the matrix functions take |lambda|: the step runs on -Lap (PSD)
+    omega2 = _negated(lap)
+    neumann = _real_neumann(shape, rdtype, apply_bc)
+    filter_func = rw.gautschi_filter(kind)
+
+    if integrator == "gautschi":
+        def step(state, i):
+            del i
+            u, u_past = state
+            u_new, u_past_new = rw.gautschi_step(
+                u, u_past, omega2, m_t, g, dt, m=krylov_m,
+                filter_func=filter_func, reorth=reorth)
+            return neumann(u_new), u_past_new
+    else:
+        def step(state, i):
+            del i
+            u, u_past = state
+            u_new, u_past_new = rw.sv_step(u, u_past, lap, m_t, g, dt)
+            return neumann(u_new), u_past_new
+
+    init, observe = _two_step_real(dt, rdtype, device)
+    meta = dict(equation=kind, integrator=integrator, shape=tuple(shape),
+                Lx=Lx, dx=dx, dt=dt, krylov_m=krylov_m, dim=dim,
+                filter=filter_func, variant=variant, device=str(device))
+    return Problem(step, init, observe, meta)
+
+
+def stochastic_phi4_problem(shape, Lx, dt, *, m_field=None,
+                            noise_strength=0.1, seed=0,
+                            dtype=default_real_dtype, variant="reference",
+                            apply_bc=True, device="cuda"):
+    """Stochastic phi-4 with SV stepping (device SP4Solver parity).
+
+    Step i draws its noise xi ~ N(0, 1) on the problem's device from a
+    torch.Generator seeded from (seed, i) (models/realwave.stochastic_noise):
+    one seed gives the same trajectory, unlike the reference's
+    time(nullptr)+idx seeding (stochastic_phi4.cuh:27). The JAX package
+    draws from fold_in(PRNGKey(seed), i) instead: same law, other numbers.
+    """
+    _check_shape(shape)
+    rdtype = real_dtype_of(dtype)
+    dim, nx = len(shape), shape[-1]
+    dx = 2.0 * Lx / (nx - 1)
+    m_t = _real_fields(shape, m_field, rdtype, device)
+    lap = _nlse_operator(shape, dx, None, variant, rdtype, device)
+    neumann = _real_neumann(shape, rdtype, apply_bc)
+    gen = torch.Generator(device=device)
+
+    def step(state, i):
+        u, u_past = state
+        xi = rw.stochastic_noise(seed, i, u, generator=gen)
+        u_new, u_past_new = rw.stochastic_sv_step(
+            u, u_past, xi, lap, m_t, dt, noise_strength)
+        return neumann(u_new), u_past_new
+
+    init, observe = _two_step_real(dt, rdtype, device)
+    meta = dict(equation="stochastic_phi4", integrator="sv",
+                shape=tuple(shape), Lx=Lx, dx=dx, dt=dt, dim=dim,
+                noise_strength=noise_strength, seed=seed, variant=variant,
+                device=str(device))
+    return Problem(step, init, observe, meta)
+
+
+def boussinesq_problem(shape, Lx, dt, *, integrator="gautschi",
+                       krylov_m=default_krylov_m, dtype=default_real_dtype,
+                       variant="reference", apply_bc=True, reorth=True,
+                       device="cuda"):
+    """Boussinesq: u_tt - Lap u + 3 (u^2)_xx - u_xxxx = 0 on an (ny, nx)
+    grid, integrator "gautschi" or "sv" (the stiff SV step, given the
+    operator L = -Lap - d4/dx4 itself, as JAX's problem passes it). The
+    operator has no descriptor: the generic Krylov path."""
+    if integrator not in ("gautschi", "sv"):
+        raise ValueError(f"unknown Boussinesq integrator {integrator!r}")
+    if len(shape) != 2:
+        raise ValueError(f"Boussinesq is 2D, got shape {tuple(shape)}")
+    rdtype = real_dtype_of(dtype)
+    nx = shape[-1]
+    dx = 2.0 * Lx / (nx - 1)
+    omega2 = bq.boussinesq_omega2(shape, dx, dtype=rdtype, variant=variant,
+                                  device=device)
+    neumann = _real_neumann(shape, rdtype, apply_bc)
+
+    if integrator == "gautschi":
+        def step(state, i):
+            del i
+            u, u_past = state
+            u_new, u_past_new = bq.gautschi_step(u, u_past, omega2, dx, dt,
+                                                 m=krylov_m, reorth=reorth)
+            return neumann(u_new), u_past_new
+    else:
+        def step(state, i):
+            del i
+            u, u_past = state
+            u_new, u_past_new = bq.stiff_sv_step(u, u_past, omega2, dx, dt)
+            return neumann(u_new), u_past_new
+
+    init, observe = _two_step_real(dt, rdtype, device)
+    meta = dict(equation="boussinesq", integrator=integrator,
+                shape=tuple(shape), Lx=Lx, dx=dx, dt=dt, krylov_m=krylov_m,
+                dim=2, variant=variant, device=str(device))
     return Problem(step, init, observe, meta)

@@ -1,0 +1,95 @@
+"""Real-wave steppers (port of nlsolvers_tpu/models/realwave.py).
+
+Every real-wave equation of the suite has the form
+
+    u_tt = Lap_c u - m(x) g(u)          (Lap_c = div(c grad .) or plain Lap)
+
+with g from models/nonlinearities.py; the two-step schemes carry
+(u, u_past). Parity map:
+  gautschi_step        <-> SGESolver::step (sg_single_solver.hpp:42-59),
+                           KGESolver::step (kg_solver.hpp:12-22) and the
+                           phi4 / double / hyperbolic solvers:
+      u' = 2 cos(dt W) u - u_past + dt^2 sinc^2(dt/2 W) (-m g(F u))
+      with W = sqrt(|L|) by Lanczos and the filter F mod_cosine (single
+      sine-Gordon) or id_sqrt (= dt W, the rest). The filter and the cosine
+      share one Lanczos run of u (matfunc_apply_multi), so a step runs two
+      matrix functions where the reference runs three.
+  sv_step              <-> SGESolverSV (sg_single_sv_solver.hpp:7-20),
+                           KGESVSolver, Phi4SVSolver:
+      u' = 2u - u_past + dt^2 (Lap u - m g(u))
+  stochastic_sv_step   <-> device::SP4Solver::step (stochastic_phi4.cuh:
+                           19-80): the SV step with white noise in the force,
+                           -m (u - u^3 + sigma xi).
+
+All the matrix functions take |lambda|, so the operator's sign does not
+matter; the problems pass -Lap, whose descriptor (sign flipped) sends real
+float32 fields through the fused kernels at P=1 (ops/krylov._fused_path).
+
+Noise. The JAX package draws xi inside its step from
+jax.random.fold_in(PRNGKey(seed), step_index), which torch's generators
+cannot replay. Here `stochastic_sv_step` takes xi as an argument, and
+`stochastic_noise` draws it on the state's device from a torch.Generator
+seeded from (seed, step_index): one seed gives the same trajectory on the
+same device, as in JAX, but the numbers are not JAX's. Parity with the JAX
+step is shown by passing it JAX's xi.
+"""
+
+import numpy as np
+import torch
+
+from nlsolvers_tpu_torch.config import default_krylov_m
+from nlsolvers_tpu_torch.ops.krylov import matfunc_apply, matfunc_apply_multi
+
+__all__ = ["gautschi_step", "sv_step", "stochastic_sv_step",
+           "stochastic_noise", "gautschi_filter"]
+
+
+def gautschi_filter(kind):
+    """The Gautschi filter F of a real-wave kind: mod_cosine for single
+    sine-Gordon (sg_single_solver.hpp:52), id_sqrt for the rest."""
+    return "mod_cosine" if kind == "sine_gordon" else "id_sqrt"
+
+
+def gautschi_step(u, u_past, omega2, m_field, g_fn, dt, m=default_krylov_m,
+                  filter_func="id_sqrt", reorth=True):
+    """One Gautschi step; returns (u_new, u). `omega2` applies L = Omega^2
+    (either sign); `filter_func` is "mod_cosine" for single sine-Gordon
+    (sg_single_solver.hpp:52) or "id_sqrt" for the rest."""
+    fu, cu = matfunc_apply_multi(omega2, u,
+                                 ((dt, filter_func), (dt, "cos_sqrt")),
+                                 m=m, reorth=reorth)
+    b = -(m_field * g_fn(fu))
+    s2 = matfunc_apply(omega2, b, dt, "sinc2_sqrt_half", m=m, reorth=reorth)
+    return 2.0 * cu - u_past + (dt * dt) * s2, u
+
+
+def sv_step(u, u_past, lap, m_field, g_fn, dt):
+    """One Stormer-Verlet step; returns (u_new, u). `lap` applies +Lap."""
+    accel = lap(u) - m_field * g_fn(u)
+    return 2.0 * u - u_past + (dt * dt) * accel, u
+
+
+def stochastic_sv_step(u, u_past, xi, lap, m_field, dt, noise_strength):
+    """One stochastic phi-4 SV step with the noise field `xi` (N(0, 1) per
+    point); returns (u_new, u). Force: Lap u - m (u - u^3 + sigma xi)
+    (stochastic_phi4.cuh:38-53)."""
+    accel = lap(u) - m_field * (u - u ** 3 + noise_strength * xi)
+    return 2.0 * u - u_past + (dt * dt) * accel, u
+
+
+def _step_seed(seed, step_index):
+    """A 63-bit generator seed mixed from (seed, step_index)."""
+    state = np.random.SeedSequence([int(seed), int(step_index)])
+    return int(state.generate_state(1, np.uint64)[0]) >> 1
+
+
+def stochastic_noise(seed, step_index, like, generator=None):
+    """xi ~ N(0, 1) of `like`'s shape, dtype and device, drawn from a
+    torch.Generator on that device seeded from (seed, step_index): the same
+    pair gives the same field, another step index another one. Pass a
+    `generator` of that device to reuse it (it is re-seeded)."""
+    if generator is None:
+        generator = torch.Generator(device=like.device)
+    generator.manual_seed(_step_seed(seed, step_index))
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
+                       device=like.device)

@@ -30,8 +30,9 @@ carries `kernel_desc`, the descriptor the Krylov dispatch reads
 pair has none and always takes the generic path. The operators and their
 tensors live on `device`, the card unless the caller asks for the CPU.
 
-The biharmonic operator, which only the Boussinesq problem uses, is not
-ported yet (ROADMAP.md queue 1, items 2 and 9).
+`biharmonic_x` reproduces `build_xxxx_noflux` (root laplacians.hpp:
+158-200), the fourth x-derivative of the Boussinesq operator, with the
+reference's one-sided rows at both ends; it carries no descriptor.
 """
 
 import numpy as np
@@ -39,7 +40,7 @@ import torch
 
 __all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_2d",
            "anisotropic_laplacian_3d", "separated_laplacian_2d",
-           "neighbor_sum", "block_coords", "boundary_diagonal"]
+           "biharmonic_x", "neighbor_sum", "block_coords", "boundary_diagonal"]
 
 
 def neighbor_sum(u, dim):
@@ -289,4 +290,54 @@ def anisotropic_laplacian_3d(c, dx, variant="reference", device="cuda"):
                              ny=int(ny), nx=int(nx), scale=float(scale),
                              sign=1.0, variant="aniso", wx=wx_pad, wy=wy_pad,
                              wz=wz_pad)
+    return apply
+
+
+def _biharmonic_coefs(nx):
+    """{k: per-column coefficient of u[i+k] in row i} of biharmonic_x."""
+    interior = (np.arange(nx) >= 2) & (np.arange(nx) <= nx - 3)
+    coefs = {}
+    for k, inner in ((-2, 1.0), (-1, -4.0), (0, 6.0), (1, -4.0), (2, 1.0)):
+        c = np.zeros(nx)
+        c[interior] = inner
+        coefs[k] = c
+    coefs[0][[0, nx - 1]] = 2.0
+    coefs[0][[1, nx - 2]] = 4.0
+    coefs[1][[0, 1]] = -2.0         # rows 0 and 1 touch u1 and u2
+    coefs[2][1] = -2.0              # row 1 touches u3
+    coefs[-1][[nx - 1, nx - 2]] = -2.0
+    coefs[-2][nx - 2] = -2.0        # row nx-2 touches u[-4]
+    return coefs
+
+
+def biharmonic_x(shape, dx, dtype=torch.float32, device="cuda"):
+    """1D fourth derivative along x on an (ny, nx) grid, scaled 1/dx^4, with
+    the reference's closures (per x-index i):
+      i = 0      :  2 u0 - 2 u1
+      i = nx-1   :  2 u[-1] - 2 u[-2]
+      i = 1      :  4 u1 - 2 u2 - 2 u3
+      i = nx-2   :  4 u[-2] - 2 u[-3] - 2 u[-4]
+      interior   :  u[i-2] - 4 u[i-1] + 6 u[i] - 4 u[i+1] + u[i+2]
+    as masked shifts, summed in the order k = -2..2."""
+    _, nx = shape
+    scale = 1.0 / dx ** 4
+    coefs = {k: torch.from_numpy(c).to(device=device, dtype=dtype)
+             for k, c in _biharmonic_coefs(nx).items()}
+
+    def shift(u, k):
+        """u[i+k] along the last axis, zero where out of range."""
+        if k == 0:
+            return u
+        pad = torch.zeros(u.shape[:-1] + (abs(k),), dtype=u.dtype,
+                          device=u.device)
+        if k > 0:
+            return torch.cat([u[..., k:], pad], dim=-1)
+        return torch.cat([pad, u[..., :k]], dim=-1)
+
+    def apply(u):
+        out = torch.zeros_like(u)
+        for k, c in coefs.items():
+            out = out + c * shift(u, k)
+        return out * scale
+
     return apply

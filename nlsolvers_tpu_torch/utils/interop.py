@@ -9,15 +9,20 @@ path, complex), or the (u, u_prev) pair of a two-step one (sEWI, Gautschi).
 `mesh_like` builds a port mesh of a JAX mesh's shape and axis names;
 parallel/shards.shard takes a global numpy array (the packed state u_packed,
 m_field, c) to the port's sharded field, and shards.gather takes it back.
+The real-wave counterparts: `realwave_state_from_numpy` carries the real
+state (u, u_past), and `realwave_args_from_meta` builds realwave_problem's
+arguments from JAX's meta with m_field and c_field beside it.
 """
 
 import numpy as np
 import torch
 
 from nlsolvers_tpu_torch import config
+from nlsolvers_tpu_torch.models.realwave import gautschi_filter
 from nlsolvers_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["state_from_numpy", "field_from_numpy", "nlse_args_from_meta",
+           "realwave_state_from_numpy", "realwave_args_from_meta",
            "switches_from_jax", "set_switches", "mesh_like"]
 
 # the port's opt-in switches (config attributes)
@@ -101,6 +106,52 @@ def nlse_args_from_meta(meta, c_field=None):
         if c.shape != shape:
             raise ValueError(f"c_field {c.shape} != grid {shape}")
         kwargs["c_field"] = c
+    return args, kwargs
+
+
+def realwave_state_from_numpy(x, shape, device):
+    """A JAX real-wave state (u, u_past), as numpy, as the port's tuple of
+    two real tensors of the grid `shape` on `device`, dtype unchanged."""
+    if not isinstance(x, (tuple, list)) or len(x) != 2:
+        raise ValueError("a real-wave state is a pair (u, u_past)")
+    out = []
+    for a in x:
+        a = np.asarray(a)
+        if np.iscomplexobj(a) or a.shape != tuple(shape):
+            raise ValueError(f"real-wave state {a.shape} {a.dtype} is not a "
+                             f"real {tuple(shape)} field")
+        out.append(torch.from_numpy(np.array(a)).to(device))
+    return tuple(out)
+
+
+def _field_arg(a, shape, name):
+    a = np.asarray(a)
+    if a.shape != shape:
+        raise ValueError(f"{name} {a.shape} != grid {shape}")
+    return a
+
+
+def realwave_args_from_meta(meta, m_field=None, c_field=None):
+    """(args, kwargs) for the port's realwave_problem from a JAX real-wave
+    Problem.meta: the kind, grid (2D or 3D), Lx, dt, Krylov m and
+    integrator, with the Gautschi filter checked against the kind. JAX's
+    meta holds neither field: pass the JAX problem's `m_field` and, for
+    div(c grad u), its `c_field` (numpy, the grid's shape) to carry them
+    across. variant, dtype and device are the caller's to add."""
+    kind = meta["equation"]
+    shape = tuple(meta["shape"])
+    if meta["dim"] != len(shape) or meta["dim"] not in (2, 3):
+        raise ValueError(f"meta of dim {meta['dim']} with shape {shape}")
+    want = gautschi_filter(kind)
+    if meta["filter"] != want:
+        raise ValueError(f"{kind}: filter {meta['filter']!r}, the port "
+                         f"uses {want!r}")
+    args = (kind, shape, meta["Lx"], meta["dt"])
+    kwargs = dict(krylov_m=meta["krylov_m"], integrator=meta["integrator"])
+    if m_field is not None:
+        kwargs["m_field"] = _field_arg(m_field, shape, "m_field")
+    if c_field is not None:
+        kwargs["c_field"] = _field_arg(c_field, shape, "c_field")
     return args, kwargs
 
 

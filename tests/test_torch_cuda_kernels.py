@@ -790,3 +790,86 @@ def test_kick_bc_rejects_bad_input(cuda):
             up, nlse_density_planar("cubic", m.cpu()), 0.1)
     with pytest.raises(ValueError):          # a grid of other rows
         tk.phase_kick_bc_planar(up, rho, 0.1, tk.kick_grid((8, 32)))
+
+
+# ------------------------------------------------ the real-wave path (P=1)
+
+@pytest.mark.parametrize("shape,mode,j", [
+    ((37, 50, 61), "reference", 0), ((37, 50, 61), "clean", 4),
+    ((37, 50, 61), "aniso", 8), ((9, 11, 16), "reference", 8),
+    ((9, 11, 13), "aniso", 4), ((5, 7, 33), "clean", 0)])
+def test_3d_kernels_real_sign_minus_match_plain_on_card(cuda, shape, mode,
+                                                        j):
+    """pass1_3d and pass2 on real fields (P=1) with the real-wave problems'
+    sign-flipped descriptor, and bc3d at P=1 exactly equal."""
+    nz, ny, nx = shape
+    desc = dict(_desc3d(shape, mode, cuda), sign=-1.0)
+    w, *W = _fields_on(cuda, j + 2, (nz * ny, nx), 1, 70 + j)
+    scal = torch.tensor([[0.7, 0.3]], device=cuda)
+    q = torch.from_numpy(np.random.default_rng(71 + j).uniform(
+        -0.5, 0.5, (j + 1, 2)).astype(np.float32)).to(cuda)
+    for call in (lambda: t3.pass1_3d(scal, W[j], W[:j], desc),
+                 lambda: t3.pass2(q, w, W)):
+        _check(*_kernel_and_plain(call), [w, *W])
+    got, want = _kernel_and_plain(
+        lambda: tb.neumann_bc_planar_3d(w.clone(), shape))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _realwave(cuda, shape, aniso, integrator="gautschi"):
+    from nlsolvers_tpu_torch.models import problems
+    c = (1.0 + 0.4 * np.random.default_rng(72).random(shape)).astype(
+        np.float32) if aniso else None
+    prob = problems.realwave_problem("sine_gordon", shape, 5.0, 1e-3,
+                                     c_field=c, integrator=integrator,
+                                     dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(73)
+    u0 = (0.2 * rng.standard_normal(shape)).astype(np.float32)
+    return prob, prob.init(u0, np.zeros(shape, np.float32))
+
+
+_COUNTERS = {"K1": tl.pass1_iso2d, "K1'": tl.pass1_aniso2d,
+             "K2": tl.pipe_iso2d, "K2'": tl.pipe_aniso2d, "K3": tl.combine,
+             "pass1_3d": t3.pass1_3d, "pass2": t3.pass2,
+             "bc3d": tb.neumann_bc_planar_3d,
+             "kick_bc": tk.phase_kick_bc_planar}
+
+
+@pytest.mark.parametrize("shape,aniso,want", [
+    ((64, 96), False, {"K1": 2, "K2": 18, "K3": 2}),
+    ((64, 96), True, {"K1'": 2, "K2'": 18, "K3": 2}),
+    ((12, 16, 40), False, {"pass1_3d": 18, "pass2": 18, "K3": 2,
+                           "bc3d": 1}),
+    ((12, 16, 40), True, {"pass1_3d": 18, "pass2": 18, "K3": 2,
+                          "bc3d": 1})])
+def test_realwave_gautschi_launches_on_card(cuda, shape, aniso, want):
+    """A float32 Gautschi step at m=10 runs two matrix functions on the
+    kernels (K3 at k=2, then k=1) and, in 3D, one bc3d; no kick_bc. The
+    kernels' step is within 1e-5 of the plain one."""
+    prob, s = _realwave(cuda, shape, aniso)
+    for f in _COUNTERS.values():
+        f.launches = 0
+    got = prob.step(s, 1)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in _COUNTERS.items() if f.launches}
+    assert counts == want
+    config.kernel_mode = "off"
+    try:
+        plain = prob.step(s, 1)
+    finally:
+        config.kernel_mode = "auto"
+    assert _rel(got[0], plain[0]) <= FIELD_TOL
+    assert got[1] is s[0]
+
+
+def test_realwave_sv_launches_on_card(cuda):
+    """SV applies the plain Laplacian: no Lanczos kernel; 3D float32 still
+    runs bc3d once per step."""
+    for shape, want in (((64, 96), {}), ((12, 16, 40), {"bc3d": 1})):
+        prob, s = _realwave(cuda, shape, False, "sv")
+        for f in _COUNTERS.values():
+            f.launches = 0
+        prob.step(s, 1)
+        assert {k: f.launches for k, f in _COUNTERS.items()
+                if f.launches} == want
