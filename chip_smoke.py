@@ -201,15 +201,57 @@ Phases, one line each (or a few):
                another seed differs; evolve_guarded on a diverging phi-4 SV
                run: bad_at inside the run, the later snapshots and series
                zero, at most one host sync per snapshot.
-Each of phases 28-32 prints its seconds.
+Each of phases 28-36 prints its seconds; from phase 3 on, a line
+"[elapsed s] phase N name" opens each phase.
+ 33. pipeline-env  whether scipy, h5py and g++ are there (scipy is
+               required); the port's native npy writer built into
+               nlsolvers_tpu_torch/_build/ and one array round-tripped.
+ 34. datagen-engine  the datagen engine (pipeline/engine.py) at the
+               production width, 256^2 B=2, with Datagen's samplers and
+               fields (c layered, m piecewise): the NLSE engine (m=20,
+               complex64, planar) makes exactly B x (1 K1' + 19 K2' + 1 K3
+               + 2 kick_bc) counted launches per batched step (no iso
+               launch, no bc3d), each lane's 20 steps are bit-equal to
+               nlse_problem with its m and c run alone, and the kernels are
+               within 1e-5 of kernel_mode "off"; the real-wave engine
+               (sine-Gordon Gautschi, m=10, float32) makes B x (2 K1' +
+               18 K2' + 2 K3), each lane bit-equal to realwave_problem run
+               alone, each of 20 steps from the engine's state within 1e-5
+               of the same step under kernel_mode "off"; a phi-4 Gautschi
+               batch with one lane at 1e3 times the other's amplitude gives
+               that lane bad_at < S while the other stays finite and
+               bit-equal to its run alone.
+ 35. datagen-main  the CLI as a subprocess (python -m
+               nlsolvers_tpu_torch.pipeline), --format npy: the NLSE sweep
+               nlse --phenomenon multi_soliton --system cubic --nx 256 --T
+               0.12 --nt 200 --snapshots 20 --num-runs 8 --batch-size 8
+               --anisotropy-type layered --m-type piecewise --record-energy
+               (the production dt 1.2/2000 at a tenth of its depth) and
+               realwave --phenomenon kink_field --system sine_gordon --nx
+               256 --T 0.6 --nt 200 --snapshots 20 --num-runs 8
+               --batch-size 8: exit 0, 8 runs archived each, every archived
+               trajectory finite, the recorded mass series equal to the
+               archived snapshots' mass (rtol 1e-5); the no-flux sweep's
+               mass drift printed (the ghost copy changes the mass where a
+               draw touches the boundary, as in JAX's engine), the same
+               draws with --bc none gated at relative mass drift < 1e-3 per
+               run; with h5py, the NLSE sweep again with --format hdf5,
+               bit-equal to the npy one (without h5py, printed as not run).
+               The NLSE npy sweep runs alone, the others together after it.
+ 36. rate-datagen  trajectories/min and trajectory-steps/s of the NLSE
+               sweep (its own sweep summary), and one batched step (B=8)
+               in this process: wall ms, device busy ms and idle share
+               (torch.profiler), launches and host syncs per
+               trajectory-step.
 Then the card's name and power limit, the kernels as one JSON line (all
 fourteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
 pass1_shard2d, pass1_shard3d, kick_bc; `ms` of K1, K2, K3, K1', K2', K5, K8,
 K13 and kick_bc is the CUDA-graph reading, with the profiler's sum and the
 events beside it, and K3's library_ms torch.matmul's graph reading; bc3d's
 launches are the 3D sEWI run's; eight carry the real-wave Gautschi step's
-launches per step, and pass1_3d, pass2, bc3d and K3 their P=1 parity), and
-last {"ok":
+launches per step, and pass1_3d, pass2, bc3d and K3 their P=1 parity;
+K1', K2', K3 and kick_bc the 2D NLSE datagen step's launches per
+trajectory-step), and last {"ok":
 true, "device": ...}. Any failed phase exits non-zero and prints no
 result.
 """
@@ -513,6 +555,363 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
                       f"{ncalls // n_prof:5d}x/step {where[:70]}")
 
 
+# the datagen production point (benchmarks/datagen_bench.py:22-26, from the
+# reference's nlse_2d_launch.sh): cubic NLSE, 256^2, Lx = 10, T = 1.2,
+# nt = 2000, 128 snapshots, batch 8, Krylov m = 20, c layered, m piecewise
+DG_N, DG_LX, DG_M, DG_DT = 256, 10.0, 20, 1.2 / 2000
+DG_RW_DT, DG_RW_M = 0.6 / 200, 10      # the real-wave sweep of datagen-main
+DG_PER_STEP = {"K1'": 1, "K2'": DG_M - 1, "K3": 1, "kick_bc": 2}
+DG_RW_PER_STEP = {"K1'": 2, "K2'": 2 * (DG_RW_M - 1), "K3": 2}
+
+
+def datagen_phases(torch, np, root, counters_all):
+    """Phases 33-36: the datagen pipeline (nlsolvers_tpu_torch/pipeline/)
+    on the card. Returns {kernel key: launches per trajectory-step} of the 2D NLSE
+    datagen step, counted in datagen-engine."""
+    import importlib.util
+    import re
+    import shutil
+
+    from nlsolvers_tpu_torch import config, native
+    from nlsolvers_tpu_torch.models import problems
+    from nlsolvers_tpu_torch.pipeline import datagen, engine
+
+    work = root / "_smoke_datagen"          # git-ignored, removed at the end
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    shape = (DG_N, DG_N)
+
+    def counts():
+        return {k: f.launches for k, f in counters_all.items() if f.launches}
+
+    def zero():
+        torch.cuda.synchronize()
+        for f in counters_all.values():
+            f.launches = 0
+
+    # ---------------------------------------------------------- 33. pipeline-env
+    t_ph = time.perf_counter()
+    have = {m_: importlib.util.find_spec(m_) is not None
+            for m_ in ("scipy", "h5py")}
+    gxx = shutil.which("g++")
+    print(f"pipeline-env: scipy {have['scipy']}, h5py {have['h5py']}, g++ "
+          f"{gxx}")
+    check(have["scipy"], "pipeline-env: scipy is missing (fields and "
+          "downsampling need it)")
+    so = native._compile()
+    check(so.parent == root / "nlsolvers_tpu_torch" / "_build",
+          f"native writer built at {so}")
+    a = np.random.default_rng(0).standard_normal((3, 64, 64)).astype(
+        np.float32)
+    with native.AsyncNpyWriter(n_threads=2) as w:
+        w.submit(work / "roundtrip.npy", a)
+        w.flush()
+        errors = w.errors
+    back = np.load(work / "roundtrip.npy")
+    print(f"pipeline-env: native writer {so.name} built; round trip of a "
+          f"{a.shape} float32 array equal {np.array_equal(back, a)}, errors "
+          f"{errors}")
+    check(errors == 0 and np.array_equal(back, a), "native writer round "
+          "trip")
+    print(f"pipeline-env: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 34. datagen-engine
+    t_ph = time.perf_counter()
+    B = 2
+
+    def sample(family, phenomenon, system, batch, seed):
+        """A batch as Datagen samples it (its samplers, fields and RNG)."""
+        cfg = datagen.DatagenConfig(
+            family=family, phenomenon=phenomenon, system=system, nx=DG_N,
+            Lx=DG_LX, num_runs=batch, anisotropy_type="layered",
+            m_type="piecewise", seed=seed, archive_format="npy",
+            output_dir=str(work / f"sample_{family}"))
+        _, u0s, v0s, m_, c_ = datagen.Datagen(cfg)._sample_batch(batch)
+        return u0s, v0s, m_.astype(np.float32), c_.astype(np.float32)
+
+    u0s, _, m_n, c_n = sample("nlse", "multi_soliton", "cubic", B, 0)
+    u0 = np.stack(u0s)
+    packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
+    fn = engine.make_nlse_trajectory_fn("cubic", shape, DG_LX, DG_DT,
+                                        krylov_m=DG_M)
+    check(fn.planar, "datagen-engine: the NLSE engine left the planar path")
+    zero()
+    fn(packed, m_n, c_n, 2, 1)                        # one batched step
+    got = counts()
+    want = {k: B * v for k, v in DG_PER_STEP.items()}
+    print(f"datagen-engine NLSE {DG_N}^2 B={B} m={DG_M}: launches per "
+          f"batched step {got} ({sum(got.values()) / B:.0f} per "
+          f"trajectory-step)")
+    check(got == want, f"datagen-engine: launches {got} != {want}")
+    per_traj_step = {k: v / B for k, v in got.items()}
+    S_e, f_e = 5, 5                                   # 20 steps
+    eng = fn(packed, m_n, c_n, S_e, f_e)
+    for b in range(B):
+        prob = problems.nlse_problem("cubic", shape, DG_LX, DG_DT,
+                                     m_field=m_n[b], c_field=c_n[b],
+                                     krylov_m=DG_M, dtype=torch.complex64)
+        ref = problems.run(prob, prob.init(packed[b]), S_e, f_e)
+        same = bool(torch.equal(eng[b, :, 0], ref.real)
+                    and torch.equal(eng[b, :, 1], ref.imag))
+        print(f"datagen-engine lane {b}: {(S_e - 1) * f_e} steps bit-equal "
+              f"to nlse_problem run alone {same}")
+        check(same, f"datagen-engine lane {b} differs from nlse_problem")
+    config.kernel_mode = "off"
+    try:
+        plain = fn(packed, m_n, c_n, S_e, f_e)
+    finally:
+        config.kernel_mode = "auto"
+    worst = max(rel(eng[b, -1], plain[b, -1]) for b in range(B))
+    print(f"datagen-engine: kernels vs kernel_mode off after "
+          f"{(S_e - 1) * f_e} steps, max rel-L2 {worst:.3e} (gate 1e-5)")
+    check(worst <= 1e-5, f"datagen-engine: kernels vs plain {worst:.3e}")
+    check(bool(torch.isfinite(eng).all()), "datagen-engine: non-finite")
+    del eng, plain
+
+    u0r, v0r, m_r, c_r = sample("realwave", "kink_field", "sine_gordon", B,
+                                1)
+    u0r = np.stack(u0r).astype(np.float32)
+    v0r = np.stack(v0r).astype(np.float32)
+    fr = engine.make_realwave_trajectory_fn("sine_gordon", shape, DG_LX,
+                                            DG_RW_DT, krylov_m=DG_RW_M)
+    zero()
+    fr(u0r, v0r, m_r, c_r, 2, 1)
+    got = counts()
+    want = {k: B * v for k, v in DG_RW_PER_STEP.items()}
+    print(f"datagen-engine sine-Gordon Gautschi {DG_N}^2 B={B} "
+          f"m={DG_RW_M}: launches per batched step {got}")
+    check(got == want, f"datagen-engine real-wave: launches {got} != "
+          f"{want}")
+    n_rw = 20
+    u_s, v_s = fr(u0r, v0r, m_r, c_r, n_rw + 1, 1)
+    for b in range(B):
+        prob = problems.realwave_problem(
+            "sine_gordon", shape, DG_LX, DG_RW_DT, m_field=m_r[b],
+            c_field=c_r[b], krylov_m=DG_RW_M, dtype=torch.float32)
+        s0 = prob.init(u0r[b], v0r[b])
+        ru, rv = problems.run(prob, s0, n_rw + 1, 1)
+        same = bool(torch.equal(u_s[b], ru) and torch.equal(v_s[b], rv))
+        # each step from the engine's state (u_k, u_{k-1}) under
+        # kernel_mode "off" against the engine's next u
+        worst = 0.0
+        config.kernel_mode = "off"
+        try:
+            for k in range(1, n_rw + 1):
+                s = (u_s[b, k - 1], u_s[b, k - 2] if k >= 2 else s0[1])
+                nxt = prob.step(s, k)[0]
+                worst = max(worst, rel(u_s[b, k], nxt))
+        finally:
+            config.kernel_mode = "auto"
+        print(f"datagen-engine real-wave lane {b}: {n_rw} steps bit-equal "
+              f"to realwave_problem run alone {same}; each step from the "
+              f"engine's state vs kernel_mode off, max rel-L2 {worst:.3e} "
+              f"(gate 1e-5)")
+        check(same, f"datagen-engine real-wave lane {b} differs from "
+              f"realwave_problem")
+        check(worst <= 1e-5, f"datagen-engine real-wave lane {b}: per-step "
+              f"rel-L2 {worst:.3e}")
+    del u_s, v_s
+
+    # one diverging lane: phi-4 (focusing) Gautschi, lane 1 at 1e3 times
+    # lane 0's amplitude, dt = 0.05
+    S_d, f_d = 6, 2
+    x = np.linspace(-DG_LX, DG_LX, DG_N)
+    env = np.exp(-(x[:, None] ** 2 + x[None, :] ** 2) / 2.0)
+    u_d = np.stack([0.5 * env, 500.0 * env]).astype(np.float32)
+    fd = engine.make_realwave_trajectory_fn("phi4", shape, DG_LX, 0.05,
+                                            krylov_m=DG_RW_M, guard=True)
+    ud, vd, bad = fd(u_d, np.zeros_like(u_d), m_r, c_r, S_d, f_d)
+    u1, v1, bad1 = fd(u_d[:1], np.zeros_like(u_d[:1]), m_r[:1], c_r[:1],
+                      S_d, f_d)
+    bad = bad.tolist()
+    same = bool(torch.equal(ud[0], u1[0]) and torch.equal(vd[0], v1[0]))
+    print(f"datagen-engine diverging lane (phi-4 Gautschi, x1e3): bad_at "
+          f"{bad} of {S_d} snapshots; the other lane finite "
+          f"{bool(torch.isfinite(ud[0]).all())} and bit-equal to its run "
+          f"alone {same}")
+    check(bad[0] == S_d and bad[1] < S_d and bad1.tolist() == [S_d],
+          f"datagen-engine: bad_at {bad}")
+    check(bool(torch.isfinite(ud[0]).all() & torch.isfinite(vd[0]).all())
+          and same, "datagen-engine: the finite lane changed")
+    del ud, vd, u1, v1
+    torch.cuda.empty_cache()
+    print(f"datagen-engine: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 35. datagen-main
+    t_ph = time.perf_counter()
+    runs = 8
+    nlse_args = ["nlse", "--phenomenon", "multi_soliton", "--system",
+                 "cubic", "--nx", str(DG_N), "--T", "0.12", "--nt", "200",
+                 "--snapshots", "20", "--num-runs", str(runs),
+                 "--batch-size", str(runs), "--anisotropy-type", "layered",
+                 "--m-type", "piecewise", "--record-energy"]
+    rw_args = ["realwave", "--phenomenon", "kink_field", "--system",
+               "sine_gordon", "--nx", str(DG_N), "--T", "0.6", "--nt", "200",
+               "--snapshots", "20", "--num-runs", str(runs), "--batch-size",
+               str(runs)]
+
+    def cli(*jobs):
+        """The CLI sweeps `jobs` [(args, fmt, out)] as subprocesses started
+        together, each writing its output to a file; the sweep wall of each
+        from its own summary line. A sweep that outlives 900 s is killed."""
+        procs = []
+        for args, fmt, out in jobs:
+            cmd = [sys.executable, "-m", "nlsolvers_tpu_torch.pipeline"] + \
+                args + ["--format", fmt, "--output-dir", str(work / out)]
+            log = open(work / f"{out}.log", "w")
+            procs.append((args, fmt, out, log, time.perf_counter(),
+                          subprocess.Popen(cmd, cwd=root, stdout=log,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+        walls = []
+        for args, fmt, out, log, t0, proc in procs:
+            try:
+                rc = proc.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            log.close()
+            text = (work / f"{out}.log").read_text()
+            tail = [ln for ln in text.strip().splitlines()
+                    if "sweep summary" in ln or ln.startswith("wrote")]
+            print(f"datagen-main {out} ({args[0]}, --format {fmt}): exit "
+                  f"{rc} in {time.perf_counter() - t0:.1f} s (process "
+                  f"included); " + " | ".join(tail))
+            check(rc == 0, f"datagen-main {args[0]} {fmt}: exit {rc}: "
+                  f"{text.strip()[-2000:]}")
+            summ = [ln for ln in text.splitlines()
+                    if ln.startswith("sweep summary")]
+            check(len(summ) == 1, f"datagen-main {args[0]}: no sweep "
+                  f"summary")
+            walls.append(float(re.search(r"max ([0-9.]+)s",
+                                         summ[0]).group(1)))
+        return walls
+
+    def npy_runs(out):
+        return sorted((work / out / "npy").glob("run_*.json"))
+
+    def nlse_sweep(out):
+        """The sweep's runs: (u, recorded mass series, relative drift, max
+        |u0| on the boundary ring) each, after the shape, finite and series
+        gates."""
+        metas = npy_runs(out)
+        check(len(metas) == runs, f"datagen-main nlse {out}: {len(metas)} "
+              f"runs archived")
+        dx2 = (2.0 * DG_LX / (DG_N - 1)) ** 2
+        res = []
+        for p in metas:
+            u = np.load(p.with_name(p.stem + "_u.npy"))
+            mass = np.load(p.with_name(p.stem + "_mass.npy"))
+            check(u.shape == (20, DG_N, DG_N) and np.isfinite(u).all(),
+                  f"datagen-main nlse {p.name}: {u.shape}, finite "
+                  f"{np.isfinite(u).all()}")
+            # the series recorded on the device is the mass of the archived
+            # snapshots (tests/test_datagen.py:475-500 holds JAX's so)
+            host = np.sum(np.abs(u) ** 2, axis=(1, 2)) * dx2
+            check(np.allclose(mass, host, rtol=1e-5), f"datagen-main nlse "
+                  f"{p.name}: recorded mass {mass[:3]} != host {host[:3]}")
+            ring = np.concatenate([u[0, [0, -1]].ravel(),
+                                   u[0, :, [0, -1]].ravel()])
+            res.append((u, float(np.max(np.abs(mass - mass[0])) / mass[0]),
+                        float(np.abs(ring).max())))
+        return res
+
+    # the NLSE sweep alone (rate-datagen reads its wall), then the rest
+    # together
+    nlse_wall, = cli((nlse_args, "npy", "nlse_npy"))
+    later = [(nlse_args + ["--bc", "none"], "npy", "nlse_npy_nobc"),
+             (rw_args, "npy", "rw_npy")]
+    if have["h5py"]:
+        later.append((nlse_args, "hdf5", "nlse_h5"))
+    cli(*later)
+    swept = nlse_sweep("nlse_npy")
+    u_npy = [u for u, _, _ in swept]
+    print(f"datagen-main nlse: {runs} runs archived, finite, recorded mass "
+          f"= the archived snapshots' (rtol 1e-5); relative mass drift per "
+          f"run over {19 * 10} steps with the no-flux ghost copy (printed, "
+          f"not gated: the copy does not conserve mass where the field "
+          f"touches the boundary, in JAX's engine alike): "
+          + ", ".join(f"{d:.2e} (|u0| on the edge {r:.2f})"
+                      for _, d, r in swept))
+    drifts = [d for _, d, _ in nlse_sweep("nlse_npy_nobc")]
+    print(f"datagen-main nlse --bc none (the same draws, no ghost copy): "
+          f"relative mass drift per run max {max(drifts):.3e} (gate 1e-3): "
+          f"{', '.join(f'{d:.2e}' for d in drifts)}")
+    check(max(drifts) < 1e-3, f"datagen-main nlse --bc none: mass drift "
+          f"{max(drifts):.3e}")
+    metas = npy_runs("rw_npy")
+    check(len(metas) == runs, f"datagen-main realwave: {len(metas)} runs")
+    for p in metas:
+        for sfx in ("u", "v"):
+            arr = np.load(p.with_name(f"{p.stem}_{sfx}.npy"))
+            check(arr.shape == (20, DG_N, DG_N) and np.isfinite(arr).all(),
+                  f"datagen-main realwave {p.name} {sfx}: not finite")
+    print(f"datagen-main realwave: {runs} runs archived, u and v finite")
+    if have["h5py"]:
+        from nlsolvers_tpu_torch.pipeline import io_hdf5
+        h5s = sorted((work / "nlse_h5" / "hdf5").glob("run_*.h5"))
+        check(len(h5s) == runs, f"datagen-main hdf5: {len(h5s)} runs")
+        same = all(np.array_equal(io_hdf5.load_run(p)["u"], u)
+                   for p, u in zip(h5s, u_npy))
+        print(f"datagen-main nlse --format hdf5: {runs} runs archived, "
+              f"trajectories bit-equal to the npy sweep's {same}")
+        check(same, "datagen-main: hdf5 and npy sweeps differ")
+    else:
+        print("datagen-main --format hdf5: not run, h5py is not installed "
+              "on this machine (the npy format needs no h5py)")
+    del u_npy
+    print(f"datagen-main: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 36. rate-datagen
+    t_ph = time.perf_counter()
+    steps_run = 19 * (200 // 20)          # (snapshots - 1) * snapshot_freq
+    print(f"rate-datagen nlse CLI sweep ({runs} runs of {steps_run} steps, "
+          f"{DG_N}^2 m={DG_M}, sweep wall {nlse_wall:.3f} s incl. sampling "
+          f"and archive): {runs / nlse_wall * 60:.2f} trajectories/min, "
+          f"{runs * steps_run / nlse_wall:.1f} trajectory-steps/s")
+    cfg = datagen.DatagenConfig(
+        family="nlse", phenomenon="multi_soliton", system="cubic", nx=DG_N,
+        Lx=DG_LX, T=0.12, nt=200, snapshots=20, num_runs=runs,
+        batch_size=runs, anisotropy_type="layered", m_type="piecewise",
+        record_energy=True, archive_format="npy",
+        output_dir=str(work / "rate"))
+    dg = datagen.Datagen(cfg)
+    _, u0s, _, m_b, c_b = dg._sample_batch(runs)
+    u0 = np.stack(u0s)
+    packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
+    m_b, c_b = m_b.astype(np.float32), c_b.astype(np.float32)
+    n_b = 10
+    dg.traj_fn(packed, m_b, c_b, 2, 1)                  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dg.traj_fn(packed, m_b, c_b, 2, n_b)
+    torch.cuda.synchronize()
+    wall_step = (time.perf_counter() - t0) / n_b
+    n_p = 5                 # ~4300 kernel records per batched step
+    rows = profiled(torch, lambda: dg.traj_fn(packed, m_b, c_b, 2, n_p))
+    if rows is None:
+        print("rate-datagen: device busy time not measured (no trace)")
+    else:
+        busy = sum(dev_us(e) for e in rows) / 1e3 / n_p
+        launched = sum(e.count for e in rows if dev_us(e) > 0) / n_p
+        print(f"rate-datagen: batched step (B={runs}) {wall_step * 1e3:.3f} "
+              f"ms wall, device busy {busy:.4f} ms -> idle share "
+              f"{1 - busy / (wall_step * 1e3):.3f}; {launched / runs:.1f} "
+              f"kernel launches per trajectory-step (all kernels, "
+              f"{sum(DG_PER_STEP.values())} of them counted ones)")
+        for e in sorted(rows, key=dev_us, reverse=True)[:8]:
+            print(f"  {dev_us(e) / 1e3 / n_p:9.4f} ms/batched step "
+                  f"{e.count // n_p:4d}x {e.key[:70]}")
+    syncs = host_syncs(torch, lambda: dg.traj_fn(packed, m_b, c_b, 2, 1))
+    print(f"rate-datagen: host syncs of one batched step (and its one "
+          f"snapshot check): {syncs}, {syncs / runs:.2f} per trajectory-step")
+    del dg
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"rate-datagen: {time.perf_counter() - t_ph:.1f} s")
+    return per_traj_step
+
+
 def main():
     import numpy as np
     import torch
@@ -593,6 +992,7 @@ def main():
           f"spills {[k for k, sp in new_kernels if sp]}")
 
     # ---------------------------------------------------------- 3. parity
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 3 parity")
     gen = torch.Generator(device=dev).manual_seed(1234)
 
     def field(ny=N, nx=N, P=2):
@@ -837,6 +1237,7 @@ def main():
     del W, av
 
     # ---------------------------------------------------------- 4. main path
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 4 main path")
     x = torch.linspace(-LX, LX, N, dtype=torch.float32)
     X, Y = torch.meshgrid(x, x, indexing="ij")
     env = torch.exp(-(X ** 2 + Y ** 2) / 4)
@@ -874,6 +1275,7 @@ def main():
     del traj
 
     # ---------------------------------------------------------- 5. paths
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 5 paths")
     n_par = 20
     auto = prob.observe(advance(prob.step, state0, n_par))
     config.kernel_mode = "off"
@@ -897,6 +1299,7 @@ def main():
     del auto, plain, cpath
 
     # ---------------------------------------------------------- 6. rate
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 6 rate")
     rate(torch, {"rate": (prob, state0)}, 200, ["rate"] * 3, 20)
     n_eigh = host_syncs(torch, lambda: torch.linalg.eigh(
         torch.eye(KRYLOV_M, device=dev)))
@@ -905,6 +1308,7 @@ def main():
     del prob, state0
 
     # ---------------------------------------------------------- 7. parity3d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 7 parity3d")
     def ops3d(shape, c=None):
         """The main path's three 3D operator descriptors on `shape`."""
         d3 = 2.0 * LX / (shape[-1] - 1)
@@ -1007,6 +1411,7 @@ def main():
     del W, w, Wc, wc, up, d3
 
     # ---------------------------------------------------------- 8. main3d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 8 main3d")
     def problem3d(n, c=None, integrator="ss2"):
         prob = problems.nlse_problem("cubic", (n, n, n), LX, DT,
                                      m_field=torch.ones((n, n, n)),
@@ -1082,6 +1487,7 @@ def main():
     del prob3s, s3s, s
 
     # ---------------------------------------------------------- 9. paths3d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 9 paths3d")
     for label, prob, s0, c in (("iso", prob3, s3, None),
                                ("c(x)", prob3c, s3c, c3)):
         auto = prob.observe(advance(prob.step, s0, n_par))
@@ -1112,6 +1518,7 @@ def main():
         del auto, plain, cpath
 
     # ---------------------------------------------------------- 10. rate3d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 10 rate3d")
     iso, cx = f"rate3d iso {N3}^3", f"rate3d c(x) {N3}^3"
     rate(torch, {iso: (prob3, s3), cx: (prob3c, s3c)}, 100,
          [iso, cx, cx, iso, iso, cx, iso, iso], 20, host_profile=True)
@@ -1122,6 +1529,7 @@ def main():
     del prob_big, s_big
 
     # ---------------------------------------------------------- 11. parity2d-aniso
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 11 parity2d-aniso")
     # c = 1 + 0.4 U[0, 1) from default_rng(0), as benchmarks/perf_table.py's
     # nlse2d_1024_ss2_aniso row
     c2 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
@@ -1257,6 +1665,7 @@ def main():
     del W, av, desc4a
 
     # ---------------------------------------------------------- 12. main2d-aniso
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 12 main2d-aniso")
     counters2a = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
                   "K1'": lz.pass1_aniso2d, "K2'": lz.pipe_aniso2d,
                   "K3": lz.combine, "kick_bc": kb.phase_kick_bc_planar}
@@ -1303,6 +1712,7 @@ def main():
     del traj
 
     # ---------------------------------------------------------- 13. sewi2d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 13 sewi2d")
     prob_s, state_s = problem2d("sewi")
     _, _, boot = counted(lambda: prob_s.step(state_s, 1))
     want_boot = {"K1": 0, "K2": 0, "K1'": 1, "K2'": KRYLOV_M - 1, "K3": 1,
@@ -1328,6 +1738,7 @@ def main():
     del traj
 
     # ---------------------------------------------------------- 14. paths2d-aniso
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 14 paths2d-aniso")
     lap_a = operators.anisotropic_laplacian_2d(c2, dx, dx, device=dev)
     rho = nlse_density("cubic", m_field.to(dev))
     two_step = {"sewi": nlse.sewi_step,
@@ -1385,6 +1796,7 @@ def main():
     del prob3s, s3s, auto, plain
 
     # ---------------------------------------------------------- 15. rate2d-aniso
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 15 rate2d-aniso")
     prob_iso, state_iso = problem2d(c=None)
     iso2, cx2 = f"rate2d iso {N}^2", f"rate2d c(x) {N}^2"
     rate(torch, {iso2: (prob_iso, state_iso), cx2: (prob_a, state_a)}, 200,
@@ -1395,6 +1807,7 @@ def main():
     del prob_a, state_a, prob_s, state_s
 
     # ---------------------------------------------------------- 16. parity-optin
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 16 parity-optin")
     errs.update({"K13": 0.0, "K5": 0.0, "K8": 0.0})
     mf1 = m_field.to(dev)
     ug = u0.to(dev).contiguous()               # the main path's initial field
@@ -1715,6 +2128,7 @@ def main():
               + ("" if g is None else f", {b_ms / g:.3f} (graph)"))
 
     # ---------------------------------------------------------- 17. main-resident
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 17 main-resident")
     counters_all = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
                     "K1'": lz.pass1_aniso2d, "K2'": lz.pipe_aniso2d,
                     "K3": lz.combine, "K5": lz.iter_step,
@@ -1784,6 +2198,7 @@ def main():
                                      snaps, freq, {"K13": 1}, sync_free=True)
 
     # ---------------------------------------------------------- 18. main-iter
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 18 main-iter")
     p2, s2 = problem2d(c=None)
     p2_fused = with_switches(p2, fused_iter=True)
     launches_i, steps_i = main_optin(
@@ -1794,6 +2209,7 @@ def main():
                50, {"K5": KRYLOV_M - 1, "K3": 1, "kick_bc": 2})
 
     # ---------------------------------------------------------- 19. main-pipe3d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 19 main-pipe3d")
     per_pipe3d = {"pass1_3d": 1, "K8": KRYLOV_M - 2, "K2": 1, "K3": 1,
                   "kick_bc": 2}
     p3_pipe = with_switches(p3, pipeline_3d=True)
@@ -1804,6 +2220,7 @@ def main():
     main_optin("main-pipe3d c(x) 128^3", p3c_pipe, s3c, 3, 50, per_pipe3d)
 
     # ---------------------------------------------------------- 20. paths-optin
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 20 paths-optin")
     for label, (po, so), (pd, sd), tol in (
             ("resident vs default 1024^2", (prob_r, state_r), (p2, s2), 1e-4),
             ("fused_iter vs default 1024^2", (p2_fused, s2), (p2, s2), 1e-5),
@@ -1822,6 +2239,7 @@ def main():
         del a, b
 
     # ---------------------------------------------------------- 21. rate-optin
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 21 rate-optin")
     rr, rf, rd = (f"rate-optin {k} {N}^2" for k in
                   ("resident", "fused_iter", "default"))
     rate(torch, {rr: (prob_r, state_r), rf: (p2_fused, s2), rd: (p2, s2)},
@@ -1839,6 +2257,7 @@ def main():
     del pb, sb
 
     # ---------------------------------------------------------- 22. parity-shard
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 22 parity-shard")
     from nlsolvers_tpu_torch.parallel import mesh as pmesh
     from nlsolvers_tpu_torch.parallel import shards, spatial
 
@@ -2050,6 +2469,7 @@ def main():
               f"the bound)")
 
     # ---------------------------------------------------------- 23. main-shard2d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 23 main-shard2d")
     counters_sh = dict(counters_all, pass1_shard2d=lz.pass1_shard2d,
                        pass1_shard3d=l3.pass1_shard3d)
 
@@ -2137,6 +2557,7 @@ def main():
     main_shard(f"main-shard2d {NS}^2 c(x)", sp2c, 50, per2)
 
     # ---------------------------------------------------------- 24. main-shard3d
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 24 main-shard3d")
     cs3 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
         (NS3,) * 3, dtype=np.float32)))
     sp3 = sharded((NS3,) * 3, (2, 2, 2), "clean")
@@ -2149,6 +2570,7 @@ def main():
                per3)
 
     # ---------------------------------------------------------- 25. paths-shard
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 25 paths-shard")
     def kernels_vs_plain(sp, n):
         a = advance(sp.step, sp.state, n)
         config.kernel_mode = "off"
@@ -2208,6 +2630,7 @@ def main():
         del un
 
     # ---------------------------------------------------------- 26. rate-shard
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 26 rate-shard")
     del sp2c, sp3c, sp3r
     for label, sp, chunk, n_prof in ((f"{NS}^2", sp2, 20, 5),
                                      (f"{NS3}^3", sp3, 5, 2)):
@@ -2220,6 +2643,7 @@ def main():
     del sp2, sp3
 
     # ---------------------------------------------------------- 27. kick-bc
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 27 kick-bc")
     from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
     errs["kick_bc"] = 0.0
 
@@ -2335,6 +2759,7 @@ def main():
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 28. parity-rw
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 28 parity-rw")
     # the real-wave problems' route: real fields (P=1) and the operators
     # with their sign flipped (problems.realwave_problem runs on -Lap)
     t_ph = time.perf_counter()
@@ -2361,6 +2786,7 @@ def main():
     print(f"parity-rw: {time.perf_counter() - t_ph:.1f} s")
 
     # ---------------------------------------------------------- 29. main-rw
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 29 main-rw")
     # benchmarks/perf_table.py's sg_row: the kink u0 = 4 atan(exp(x/1.5))
     # along x, v0 = 0, m = 1, Lx = 10, dt = 1e-4, m = 10, float32
     t_ph = time.perf_counter()
@@ -2476,6 +2902,7 @@ def main():
     print(f"main-rw: {time.perf_counter() - t_ph:.1f} s")
 
     # ---------------------------------------------------------- 30. paths-rw
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 30 paths-rw")
     # Each step of the kernel path against the same step, from the same
     # state, under the other setting: the Gautschi recurrence u' = 2 cos u
     # - u_past sums each step's rounding into the trajectory (quadratically
@@ -2549,6 +2976,7 @@ def main():
     print(f"paths-rw: {time.perf_counter() - t_ph:.1f} s")
 
     # ---------------------------------------------------------- 31. rate-rw
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 31 rate-rw")
     t_ph = time.perf_counter()
     r2 = f"rate-rw sine-Gordon {N}^2"
     rate(torch, {r2: (p_sg, s_sg)}, 200, [r2] * 3, 20)
@@ -2564,6 +2992,7 @@ def main():
     print(f"rate-rw: {time.perf_counter() - t_ph:.1f} s")
 
     # ---------------------------------------------------------- 32. models-rest
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 32 models-rest")
     t_ph = time.perf_counter()
     nb_ = 512
     pbq = problems.boussinesq_problem((nb_, nb_), 20.0, 1e-3,
@@ -2628,6 +3057,10 @@ def main():
     check(n_sync <= k_g + 1, f"evolve_guarded: {n_sync} host syncs for "
           f"{k_g} snapshots")
     print(f"models-rest: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 33-36. datagen
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 33-36 datagen")
+    dg_per_step = datagen_phases(torch, np, root, counters_all)
 
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
@@ -2705,7 +3138,13 @@ def main():
           "pipe_aniso2d": (launches_rwa, "K2'", steps_rwa)}
     p1 = {"pass1_3d": errs["pass1_3d P=1"], "pass2": errs["pass2 P=1"],
           "bc3d": 0.0, "combine": errs["K3 P=1"]}
+    # the 2D NLSE datagen step's launches per trajectory-step (datagen-engine)
+    dg_keys = {"pass1_aniso2d": "K1'", "pipe_aniso2d": "K2'",
+               "combine": "K3", "kick_bc": "kick_bc"}
     for e in kernels:
+        if e["name"] in dg_keys:
+            e["datagen_launches_per_trajectory_step"] = dg_per_step[
+                dg_keys[e["name"]]]
         if e["name"] in rw:
             got_, key_, n_ = rw[e["name"]]
             e["realwave_launches_per_step"] = got_[key_] / n_

@@ -77,19 +77,24 @@ def stochastic_sv_step(u, u_past, xi, lap, m_field, dt, noise_strength):
     return 2.0 * u - u_past + (dt * dt) * accel, u
 
 
-def _step_seed(seed, step_index):
-    """A 63-bit generator seed mixed from (seed, step_index)."""
-    state = np.random.SeedSequence([int(seed), int(step_index)])
+def _step_seed(seed, step_index, sample=None):
+    """A 63-bit generator seed mixed from (seed, step_index) or, for one
+    trajectory of a batch, (seed, step_index, sample)."""
+    entropy = [int(seed), int(step_index)]
+    if sample is not None:
+        entropy.append(int(sample))
+    state = np.random.SeedSequence(entropy)
     return int(state.generate_state(1, np.uint64)[0]) >> 1
 
 
-def stochastic_noise(seed, step_index, like, generator=None):
+def stochastic_noise(seed, step_index, like, generator=None, sample=None):
     """xi ~ N(0, 1) of `like`'s shape, dtype and device, drawn from a
-    torch.Generator on that device seeded from (seed, step_index): the same
-    pair gives the same field, another step index another one. Pass a
-    `generator` of that device to reuse it (it is re-seeded)."""
+    torch.Generator on that device seeded from (seed, step_index) and, for
+    trajectory `sample` of a batch (the datagen engine), that index too:
+    the same key gives the same field, another step or sample another one.
+    Pass a `generator` of that device to reuse it (it is re-seeded)."""
     if generator is None:
         generator = torch.Generator(device=like.device)
-    generator.manual_seed(_step_seed(seed, step_index))
+    generator.manual_seed(_step_seed(seed, step_index, sample))
     return torch.randn(like.shape, generator=generator, dtype=like.dtype,
                        device=like.device)

@@ -44,8 +44,8 @@ __all__ = [
     "make_sharded_nlse_step",
 ]
 
-# The arguments that wait for later slices (ROADMAP.md, queue 1 item 12).
-_LATER = "ROADMAP.md queue 1 item 12"
+# The arguments that wait for later slices (ROADMAP.md, queue 1 item 2).
+_LATER = "ROADMAP.md queue 1 item 2"
 
 
 def halo_neighbor_sum(parts, dim, mesh, axis_name):

@@ -1,0 +1,322 @@
+"""Batched trajectory engine (port of nlsolvers_tpu/pipeline/engine.py).
+
+A datagen batch is B trajectories, each with its own coefficient fields m(x)
+and c(x). The JAX package maps one step over the batch with jax.vmap inside
+one jitted scan; here each trajectory keeps its own problem from
+models/problems.py (nlse_problem, realwave_problem), built once per call of
+the trajectory function, so its operator, face weights and planar density
+are made once per batch and not once per step. A batched step advances
+every trajectory by one step in turn, and models/evolve carries the batch:
+the snapshot cadence, the guard (one flag per snapshot across the batch,
+early exit only when every lane has diverged) and the scalar series are
+JAX's. Each trajectory's step is the one the same problem takes alone, so a
+lane's trajectory equals nlse_problem / realwave_problem run alone with its
+fields, bit for bit.
+
+Trajectory functions return snapshot stacks shaped (B, S, ...) where entry
+s=0 is the initial condition, as tensors on the engine's device. Inputs may
+be numpy arrays or tensors. A lane whose state has gone non-finite can make
+the tridiagonal eigensolver fail (torch raises where JAX returns NaN); the
+engine then keeps that lane's state as NaN, which is what JAX's vmapped
+step carries, and the guard flags it.
+
+Not in this slice: sharding the batch over devices (`mesh`, `batch_axis`)
+raises NotImplementedError (ROADMAP.md queue 1 item 2).
+"""
+
+import numpy as np
+import torch
+
+from nlsolvers_tpu_torch import config
+from nlsolvers_tpu_torch.config import real_dtype_of
+from nlsolvers_tpu_torch.models import problems
+from nlsolvers_tpu_torch.models import realwave as rw
+from nlsolvers_tpu_torch.models.evolve import evolve, evolve_guarded
+from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
+                                                       REALWAVE_KINDS,
+                                                       realwave_potential)
+
+__all__ = ["make_nlse_trajectory_fn", "make_realwave_trajectory_fn",
+           "torch_dtype", "LATER"]
+
+# the arguments that wait for a later slice
+LATER = "ROADMAP.md queue 1 item 2"
+
+_DTYPES = {np.dtype(np.complex64): torch.complex64,
+           np.dtype(np.complex128): torch.complex128,
+           np.dtype(np.float32): torch.float32,
+           np.dtype(np.float64): torch.float64}
+
+
+def torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a numpy type or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _DTYPES[np.dtype(dtype)]
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            f"mesh: sharding the trajectory batch over devices is not "
+            f"ported yet ({LATER})")
+
+
+def _tensor(x, device, dtype=None):
+    """x (numpy or tensor) on `device`; its own dtype unless one is given."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device=device, dtype=dtype)
+
+
+def _nan_like(state):
+    if isinstance(state, tuple):
+        return tuple(_nan_like(s) for s in state)
+    return torch.full_like(state, float("nan"))
+
+
+def _batched_step(lane_steps):
+    """One step of every lane, in lane order. A lane whose eigensolver
+    fails (its state has diverged) is NaN from then on and is not stepped
+    again."""
+    dead = [False] * len(lane_steps)
+
+    def step(states, i):
+        out = []
+        for b, (lane, s) in enumerate(zip(lane_steps, states)):
+            if dead[b]:
+                out.append(s)
+                continue
+            try:
+                out.append(lane(s, i))
+            except torch.linalg.LinAlgError:
+                dead[b] = True
+                out.append(_nan_like(s))
+        return out
+
+    return step
+
+
+def _run(step, states, observe, num_snapshots, snapshot_freq, guard,
+         scalars):
+    """(snaps, bad_at, series) with the snapshot axis first; bad_at and
+    series None unguarded."""
+    if not guard:
+        return evolve(step, states, num_snapshots, snapshot_freq,
+                      observe=observe), None, None
+    snaps, bad_at, series = evolve_guarded(
+        step, states, num_snapshots, snapshot_freq, observe=observe,
+        batched=True, scalars=scalars)
+    return snaps, bad_at, {k: v.movedim(0, 1) for k, v in series.items()}
+
+
+def _without_resident(build):
+    """build() with config.resident_mode off: the JAX engine never takes
+    the resident SS2 kernel."""
+    old = config.resident_mode
+    config.resident_mode = "off"
+    try:
+        return build()
+    finally:
+        config.resident_mode = old
+
+
+def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
+                            krylov_m=10, sigma1=1.0, sigma2=-0.1, kappa=1.0,
+                            dtype=torch.complex64, variant="reference",
+                            apply_bc=True, reorth=True, use_c=True,
+                            mesh=None, batch_axis="batch", guard=False,
+                            record_energy=False, boundary="noflux",
+                            device="cuda"):
+    """Builds traj(u0_packed, m, c, num_snapshots, snapshot_freq).
+
+    u0_packed: (B, 2, *shape) real — stacked (real, imag) per trajectory.
+    m, c:      (B, *shape) real coefficient fields (c ignored if use_c=False).
+    Returns    (B, S, 2, *shape) real — packed complex snapshot stacks.
+
+    With guard=True: (snaps, bad_at[, series]) where bad_at is (B,) int32
+    (= S when the lane stayed finite) and, with record_energy=True,
+    series = {"mass": (B, S)}, mass = sum |u|^2 dV recorded on the device.
+
+    Each lane is nlse_problem(kind, shape, Lx, dt, m_field=m[b],
+    c_field=c[b], ...) on `device`: complex64 with the no-flux or no BC
+    takes the planar path when the kernels support the operator, which the
+    trajectory function's `planar` attribute says (probed at build with
+    c = 1, as JAX probes its Pallas gate; the port has no 128-lane gate).
+    An SS2 step's closing half kick does the ghost copy; the two-step
+    integrators copy it after their step and bootstrap with one SS2 step at
+    index 1. `dtype` is a torch dtype or a numpy one.
+    """
+    if kind not in NLSE_KINDS:
+        raise ValueError(f"unknown NLSE kind {kind!r}")
+    if boundary not in ("noflux", "radiating", "none"):
+        raise ValueError(f"unknown boundary {boundary!r}")
+    if boundary == "radiating" and len(shape) != 2:
+        raise ValueError("radiating BC is 2D only (boundaries.hpp:59)")
+    _no_mesh(mesh)
+    del batch_axis
+    dtype = torch_dtype(dtype)
+    rdtype = real_dtype_of(dtype)
+    shape = tuple(int(n) for n in shape)
+    nx = shape[-1]
+    dV = (2.0 * Lx / (nx - 1)) ** len(shape)
+    # JAX's engine: the radiating BC whatever apply_bc says, the no-flux
+    # ghost copy only with apply_bc
+    bc = ("radiating" if boundary == "radiating"
+          else "noflux" if boundary == "noflux" and apply_bc else "none")
+    two_state = integrator != "ss2"
+
+    def lane_problem(m_b, c_b):
+        return _without_resident(lambda: problems.nlse_problem(
+            kind, shape, Lx, dt, m_field=m_b, c_field=c_b, sigma1=sigma1,
+            sigma2=sigma2, kappa=kappa, integrator=integrator,
+            krylov_m=krylov_m, dtype=dtype, variant=variant, reorth=reorth,
+            bc=bc, device=device))
+
+    probe = lane_problem(torch.zeros(shape, dtype=rdtype, device=device),
+                         torch.ones(shape, dtype=rdtype, device=device)
+                         if use_c else None)
+    planar = probe.meta["planar_state"]
+    del probe
+
+    def first(s):
+        return s[0] if two_state else s
+
+    def observe(states):
+        return torch.stack([first(s) for s in states])
+
+    def mass_of(states):
+        if planar:
+            return torch.stack([torch.sum(f * f) for f in map(first, states)
+                                ]) * dV
+        return torch.stack([torch.sum(torch.abs(f) ** 2)
+                            for f in map(first, states)]) * dV
+
+    def pack(snaps):
+        snaps = snaps.movedim(0, 1)             # (B, S, ...)
+        if planar:                              # (B, S, 2, R, nx)
+            return snaps.reshape(snaps.shape[:3] + shape)
+        return torch.stack([snaps.real, snaps.imag], dim=2)
+
+    def traj(u0_packed, m, c, num_snapshots, snapshot_freq):
+        packed = _tensor(u0_packed, device, rdtype)
+        m = _tensor(m, device)
+        c = _tensor(c, device) if use_c else None
+        B = packed.shape[0]
+        probs = [lane_problem(m[b], None if c is None else c[b])
+                 for b in range(B)]
+        if planar:
+            states = [p.init(packed[b]) for b, p in enumerate(probs)]
+        else:
+            states = [p.init(torch.complex(packed[b, 0], packed[b, 1]))
+                      for b, p in enumerate(probs)]
+        step = _batched_step([p.step for p in probs])
+        scalars = {"mass": mass_of} if record_energy else None
+        snaps, bad_at, series = _run(step, states, observe, num_snapshots,
+                                     snapshot_freq, guard, scalars)
+        if not guard:
+            return pack(snaps)
+        return (pack(snaps), bad_at) + ((series,) if record_energy else ())
+
+    traj.planar = planar
+    return traj
+
+
+def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
+                                krylov_m=10, noise_strength=0.0, seed=0,
+                                dtype=torch.float32, variant="reference",
+                                apply_bc=True, reorth=True, use_c=True,
+                                mesh=None, batch_axis="batch", guard=False,
+                                record_energy=False, device="cuda"):
+    """Builds traj(u0, v0, m, c, num_snapshots, snapshot_freq).
+
+    u0, v0, m, c: (B, *shape) real. Returns (u_traj, v_traj), each
+    (B, S, *shape): the field and its finite-difference velocity
+    v = (u - u_past)/dt (kg_driver.cpp:112).
+
+    guard=True appends bad_at (B,) int32 to the return; record_energy=True
+    additionally appends {"energy": (B, S)}, the discrete energy
+    sum (v^2/2 + |grad u|^2/2 + V(u)) dV with torch.gradient's central
+    differences (numpy's edge order).
+
+    Each lane is realwave_problem(kind, ..., m_field=m[b], c_field=c[b]) on
+    `device`: a float32 Gautschi step runs its two matrix functions on -Lap
+    (the sign-flipped descriptor) through the fused kernels. kind may also
+    be "stochastic_phi4": the SV step with white noise, on div(c grad u)
+    when use_c, its noise drawn per (sample, step) from a torch.Generator
+    seeded from (seed, i, b) (models/realwave.stochastic_noise). One seed
+    gives the same batch; the noise is not JAX's, whose
+    fold_in(fold_in(PRNGKey(seed), i), b) torch cannot replay.
+    """
+    stochastic = kind == "stochastic_phi4"
+    if not stochastic and kind not in REALWAVE_KINDS:
+        raise ValueError(f"unknown real-wave kind {kind!r}")
+    _no_mesh(mesh)
+    del batch_axis
+    dtype = torch_dtype(dtype)
+    rdtype = real_dtype_of(dtype)
+    shape = tuple(int(n) for n in shape)
+    dim, nx = len(shape), shape[-1]
+    dx = 2.0 * Lx / (nx - 1)
+    dV = dx ** dim
+    potential = realwave_potential(kind)
+
+    def stochastic_lane(m_b, c_b, b):
+        lap = problems._nlse_operator(shape, dx, c_b, variant, rdtype,
+                                      device)
+        neumann = problems._real_neumann(shape, rdtype, apply_bc)
+        m_t = m_b.to(rdtype)
+        gen = torch.Generator(device=device)
+
+        def step(state, i):
+            u, u_past = state
+            xi = rw.stochastic_noise(seed, i, u, generator=gen, sample=b)
+            u_new, u_past_new = rw.stochastic_sv_step(
+                u, u_past, xi, lap, m_t, dt, noise_strength)
+            return neumann(u_new), u_past_new
+
+        return step
+
+    def lane_step(m_b, c_b, b):
+        if stochastic:
+            return stochastic_lane(m_b, c_b, b)
+        return problems.realwave_problem(
+            kind, shape, Lx, dt, m_field=m_b, c_field=c_b,
+            integrator=integrator, krylov_m=krylov_m, dtype=dtype,
+            variant=variant, apply_bc=apply_bc, reorth=reorth,
+            device=device).step
+
+    def observe(states):
+        return (torch.stack([u for u, _ in states]),
+                torch.stack([(u - u_past) / dt for u, u_past in states]))
+
+    def energy(u, u_past):
+        v = (u - u_past) / dt
+        grad2 = sum(torch.gradient(u, spacing=dx, dim=a)[0] ** 2
+                    for a in range(dim))
+        dens = 0.5 * v ** 2 + 0.5 * grad2 + potential(u)
+        return torch.sum(dens) * dV
+
+    def energy_of(states):
+        return torch.stack([energy(u, u_past) for u, u_past in states])
+
+    def traj(u0, v0, m, c, num_snapshots, snapshot_freq):
+        u0 = _tensor(u0, device, rdtype)
+        v0 = _tensor(v0, device, rdtype)
+        m = _tensor(m, device)
+        c = _tensor(c, device) if use_c else None
+        B = u0.shape[0]
+        past = u0 - dt * v0                  # u_past = u0 - dt v0
+        states = [(u0[b], past[b]) for b in range(B)]
+        step = _batched_step([lane_step(m[b], None if c is None else c[b], b)
+                              for b in range(B)])
+        scalars = {"energy": energy_of} if record_energy else None
+        (u_s, v_s), bad_at, series = _run(step, states, observe,
+                                          num_snapshots, snapshot_freq,
+                                          guard, scalars)
+        out = (u_s.movedim(0, 1), v_s.movedim(0, 1))
+        if not guard:
+            return out
+        return out + (bad_at,) + ((series,) if record_energy else ())
+
+    return traj

@@ -873,3 +873,57 @@ def test_realwave_sv_launches_on_card(cuda):
         prob.step(s, 1)
         assert {k: f.launches for k, f in _COUNTERS.items()
                 if f.launches} == want
+
+
+def _datagen_batch(B, n=256):
+    """B lanes as datagen draws them at 256^2: layered c(x), piecewise
+    m(x) (the port's fields module), Gaussian packed ICs, float32."""
+    from nlsolvers_tpu_torch.pipeline import fields, grids
+    g = grids.Grid2D(n, n, 10.0)
+    rng = np.random.default_rng(74)
+    c = [fields.sample_c_field(g, rng, kind="layered")[0] for _ in range(B)]
+    m = [fields.sample_m_field(g, rng, kind="piecewise", c=c_)[0]
+         for c_ in c]
+    x = np.linspace(-10.0, 10.0, n)
+    u0 = np.stack([np.exp(-((x[:, None] - b) ** 2 + x[None, :] ** 2) / 4.0)
+                   * np.exp(0.5j * x[None, :]) for b in range(B)])
+    packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
+    return (packed, np.stack(m).astype(np.float32),
+            np.stack(c).astype(np.float32))
+
+
+def test_datagen_engine_launches_on_card(cuda):
+    """One batched step of the 2D NLSE datagen engine at m=20: exactly
+    B x (1 K1' + 19 K2' + 1 K3 + 2 kick_bc), no iso launch, no bc3d."""
+    from nlsolvers_tpu_torch.pipeline import engine
+    B = 3
+    packed, m, c = _datagen_batch(B)
+    fn = engine.make_nlse_trajectory_fn("cubic", (256, 256), 10.0, 6e-4,
+                                        krylov_m=20, device=cuda)
+    assert fn.planar
+    torch.cuda.synchronize()
+    for f in _COUNTERS.values():
+        f.launches = 0
+    fn(packed, m, c, 2, 1)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in _COUNTERS.items() if f.launches} == {
+        "K1'": B, "K2'": 19 * B, "K3": B, "kick_bc": 2 * B}
+
+
+def test_datagen_engine_bit_equal_to_problem_on_card(cuda):
+    """Each lane of the engine equals nlse_problem with its own m and c run
+    alone on the card, bit for bit (the same kernels in the same order)."""
+    from nlsolvers_tpu_torch.models import problems
+    from nlsolvers_tpu_torch.pipeline import engine
+    B = 2
+    packed, m, c = _datagen_batch(B)
+    out = engine.make_nlse_trajectory_fn("cubic", (256, 256), 10.0, 6e-4,
+                                         krylov_m=20, device=cuda)(
+        packed, m, c, 3, 4)
+    for b in range(B):
+        prob = problems.nlse_problem("cubic", (256, 256), 10.0, 6e-4,
+                                     m_field=m[b], c_field=c[b],
+                                     krylov_m=20, device=cuda)
+        ref = problems.run(prob, prob.init(packed[b]), 3, 4)
+        assert torch.equal(out[b, :, 0], ref.real)
+        assert torch.equal(out[b, :, 1], ref.imag)

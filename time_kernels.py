@@ -5,7 +5,7 @@
                             [--parts 2d,k8,k13,k5,k1,rates,optin]
                             [--ms 10,20]
 
-(other parts: kickbc, rates3d, shard, perj, ptxas)
+(other parts: kickbc, rates3d, shard, perj, ptxas, datagen)
 
 Imports nlsolvers_tpu_torch from TREE (default: the directory of this
 script), so that one machine can time two versions of the package in turns
@@ -54,6 +54,16 @@ the same columns (complex64). Parts:
          (2, 2) and 512^3 on (2, 2, 2) (a sharded tree's 2D copy is its
          where-masks, its 3D copy bc3d with offsets); beside 20 bytes per
          cell per kick;
+  datagen the datagen production point (benchmarks/datagen_bench.py:
+         22-26: cubic NLSE 256^2, m = 20, c layered, m piecewise, T = 1.2,
+         nt = 2000, 128 snapshots, batch 8; a tree with
+         nlsolvers_tpu_torch/pipeline only): the kernels of one
+         trajectory-step (K1' at j = 0, the 19 K2' launches, K3 beside
+         torch.matmul, the two kick_bc), the engine as that benchmark drives
+         JAX's (guard off, dispatch to readback, the better of two
+         calls), one batched step's device profile (busy ms, idle share,
+         launches per trajectory-step, host syncs), and the sweep through
+         Datagen.run (sampling, guard, npy archive);
   ptxas  ptxas's registers and spill stores of every kernel instantiation
          the tree builds, one JSON object each (the namespace hash of a
          name dropped), to compare two trees' code generation;
@@ -565,6 +575,139 @@ def main():
         cs.rate(torch, runs, chunk, order, n_prof)
         del prob, s0
         torch.cuda.empty_cache()
+    # the datagen production point (benchmarks/datagen_bench.py:22-26):
+    # cubic NLSE 256^2, Lx = 10, T = 1.2, nt = 2000, 128 snapshots, batch 8,
+    # Krylov m = 20, c layered, m piecewise, multi_soliton
+    if "datagen" in parts:
+        import shutil
+
+        from nlsolvers_tpu_torch.pipeline import datagen, engine, fields
+        from nlsolvers_tpu_torch.pipeline.samplers.nlse2d import (
+            NLSEPhenomenonSampler)
+        n, m, B, nt, snaps = 256, 20, 8, 2000, 128
+        dx = 2.0 * LX / (n - 1)
+        # the kernels of one trajectory-step at 256^2 m=20, c(x)
+        c = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
+            (n, n))).astype(np.float32))
+        desc_a = operators.anisotropic_laplacian_2d(
+            c, dx, dx, device=dev).kernel_desc
+        col, wbytes = 2 * n * n * 4, 2 * n * n * 4
+        W = [field(n) for _ in range(m)]
+        av = field(n)
+        scs = []
+        for j in range(m - 1):
+            s = torch.rand((j + 2, 2), generator=gen, device=dev) - 0.5
+            s[0, 0], s[0, 1] = 0.8, 0.0
+            scs.append(s)
+        s1 = torch.tensor([[0.8, 0.3]], device=dev)
+        readings("K1' datagen", n, m, lambda: lz.pass1_aniso2d(
+            s1, W[0], [], desc_a), 2 * col + wbytes, 1, 200)
+
+        def k2_step():
+            for j in range(m - 1):
+                lz.pipe_aniso2d(scs[j], av, W[:j + 1], desc_a, j == m - 2)
+
+        k2_cols = sum(j + 4 for j in range(m - 2)) + m + 1
+        readings("K2' datagen", n, m, k2_step,
+                 k2_cols * col + (m - 2) * wbytes, m - 1, 50)
+        q = torch.rand((1, m, 2), generator=gen, device=dev) - 0.5
+        Wc = torch.stack([torch.complex(w[0], w[1]).reshape(-1) for w in W])
+        qc = torch.complex(q[..., 0], q[..., 1])
+        mm = {"matmul_graph_ms": cs.graph_ms(
+            torch, lambda: torch.matmul(qc, Wc), 200),
+              "matmul_profiler_ms": cs.times_ms(
+                  torch, lambda: torch.matmul(qc, Wc), 200)[0]}
+        readings("K3 datagen", n, m, lambda: lz.combine(q, W), (m + 1) * col,
+                 1, 200, mm)
+        if has_kick:
+            readings("kick_bc datagen", n, None,
+                     epilogues((n, n))["epilogue"], 20 * n * n * 2, 2, 200)
+        del W, av, Wc
+        torch.cuda.empty_cache()
+
+        # the engine as benchmarks/datagen_bench.py drives JAX's: B lanes
+        # sampled with its seeds, guard off, timed dispatch to readback,
+        # the better of two calls (nothing compiles: the kernels are built)
+        rng = np.random.default_rng(0)
+        sampler = NLSEPhenomenonSampler(n, n, LX, seed=0)
+        u0s, ms_, cs_ = [], [], []
+        for _ in range(B):
+            u0 = np.asarray(sampler.generate_sample("multi_soliton"))
+            u0s.append(u0 / max(np.abs(u0).max(), 1e-12))
+            c_f, _ = fields.sample_c_field(sampler.grid, rng, kind="layered")
+            m_f, _ = fields.sample_m_field(sampler.grid, rng,
+                                           kind="piecewise", c=c_f)
+            ms_.append(m_f)
+            cs_.append(c_f)
+        u0 = np.stack(u0s)
+        packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
+        m_b = np.stack(ms_).astype(np.float32)
+        c_b = np.stack(cs_).astype(np.float32)
+        freq = nt // snaps
+        steps = (snaps - 1) * freq
+        fn = engine.make_nlse_trajectory_fn("cubic", (n, n), LX, 1.2 / nt,
+                                            krylov_m=m)
+        assert fn.planar
+        walls = []
+        for rep in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(packed, m_b, c_b, snaps, freq).cpu().numpy()
+            walls.append(time.perf_counter() - t1)
+        assert np.isfinite(out).all() and out.shape == (B, snaps, 2, n, n)
+        best = min(walls)
+        emit(datagen="engine", n=n, m=m, batch=B, nt=nt, snapshots=snaps,
+             steps=steps, walls_s=walls, best_s=best,
+             trajectories_per_min=B / best * 60.0,
+             trajectory_steps_per_s=B * steps / best)
+        # one batched step's device profile: 20 steps inside one call
+        n_b = 20
+        fn(packed, m_b, c_b, 2, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn(packed, m_b, c_b, 2, n_b)
+        torch.cuda.synchronize()
+        wall_step = (time.perf_counter() - t1) / n_b
+        n_p = 5
+        rows = cs.profiled(torch, lambda: fn(packed, m_b, c_b, 2, n_p))
+        busy = (sum(cs.dev_us(e) for e in rows) / 1e3 / n_p
+                if rows is not None else None)
+        launched = (sum(e.count for e in rows if cs.dev_us(e) > 0) / n_p
+                    if rows is not None else None)
+        top = ({e.key[:70]: [e.count / n_p, cs.dev_us(e) / 1e3 / n_p]
+                for e in sorted(rows, key=cs.dev_us, reverse=True)[:8]}
+               if rows is not None else None)
+        syncs = cs.host_syncs(torch, lambda: fn(packed, m_b, c_b, 2, 1))
+        emit(datagen="batched step", n=n, m=m, batch=B,
+             wall_ms=wall_step * 1e3, busy_ms=busy,
+             idle_share=(None if busy is None
+                         else 1 - busy / (wall_step * 1e3)),
+             launches_per_trajectory_step=(None if launched is None
+                                           else launched / B),
+             host_syncs_per_batched_step=syncs, top_kernels=top)
+        del out
+        torch.cuda.empty_cache()
+
+        # the sweep end to end through Datagen (the CLI's path: samplers
+        # and spaces, guard on, npy archive through the native writer)
+        work = Path(args.root) / "_smoke_datagen"
+        shutil.rmtree(work, ignore_errors=True)
+        cfg = datagen.DatagenConfig(
+            family="nlse", phenomenon="multi_soliton", system="cubic", nx=n,
+            Lx=LX, T=1.2, nt=nt, snapshots=snaps, num_runs=B, batch_size=B,
+            anisotropy_type="layered", m_type="piecewise",
+            archive_format="npy", output_dir=str(work))
+        dgen = datagen.Datagen(cfg)
+        t1 = time.perf_counter()
+        written = dgen.run()
+        wall = time.perf_counter() - t1
+        st = dgen.last_stats
+        emit(datagen="sweep", n=n, m=m, batch=B, nt=nt, snapshots=snaps,
+             archived=len(written), wall_s=wall, sample_s=st["sample_s"],
+             evolve_s=st["evolve_s"], archive_s=st["archive_s"],
+             trajectories_per_min=len(written) / wall * 60.0,
+             trajectory_steps_per_s=len(written) * steps / wall)
+        shutil.rmtree(work, ignore_errors=True)
     if args.out:
         with open(args.out, "w") as f:
             for r in results:
