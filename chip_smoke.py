@@ -201,27 +201,45 @@ Phases, one line each (or a few):
                another seed differs; evolve_guarded on a diverging phi-4 SV
                run: bad_at inside the run, the later snapshots and series
                zero, at most one host sync per snapshot.
-Each of phases 28-36 prints its seconds; from phase 3 on, a line
+Each of phases 28-37 prints its seconds; from phase 3 on, a line
 "[elapsed s] phase N name" opens each phase.
  33. pipeline-env  whether scipy, h5py and g++ are there (scipy is
                required); the port's native npy writer built into
                nlsolvers_tpu_torch/_build/ and one array round-tripped.
- 34. datagen-engine  the datagen engine (pipeline/engine.py) at the
-               production width, 256^2 B=2, with Datagen's samplers and
+ 34. parity-batched  the batched forms of K1', K2', K3 and kick_bc at the
+               datagen point (B=8 lanes of 256^2, m=20, complex, c(x) per
+               lane; K1' at j = 0 with ||W_0||^2 and at j = 19, K2' at every
+               j of a run and at j = 19, K3 k=1, both kicks), of K1 / K2 on
+               the iso operator, and a ragged real batch (3 x 251x335, sign
+               -1: the scalar forms): one launch each, against the plain
+               batched versions (the gates of phase 3, every ghost cell
+               bit-equal to its source cell) and bit-equal to B launches of
+               the unbatched kernel, lane by lane. Times per batched step by
+               CUDA-graph replay beside the B unbatched launch sequences of
+               the same work, the profiler and the events, the plain
+               batched versions, torch.matmul of the lanes for K3, and 8 x
+               the 256^2 bytes bound.
+ 35. datagen-engine  the datagen engine (pipeline/engine.py) at the
+               production width, 256^2 B=8, with Datagen's samplers and
                fields (c layered, m piecewise): the NLSE engine (m=20,
-               complex64, planar) makes exactly B x (1 K1' + 19 K2' + 1 K3
-               + 2 kick_bc) counted launches per batched step (no iso
-               launch, no bc3d), each lane's 20 steps are bit-equal to
-               nlse_problem with its m and c run alone, and the kernels are
-               within 1e-5 of kernel_mode "off"; the real-wave engine
-               (sine-Gordon Gautschi, m=10, float32) makes B x (2 K1' +
-               18 K2' + 2 K3), each lane bit-equal to realwave_problem run
-               alone, each of 20 steps from the engine's state within 1e-5
-               of the same step under kernel_mode "off"; a phi-4 Gautschi
-               batch with one lane at 1e3 times the other's amplitude gives
-               that lane bad_at < S while the other stays finite and
-               bit-equal to its run alone.
- 35. datagen-main  the CLI as a subprocess (python -m
+               complex64, planar) steps every lane in one batched step,
+               exactly 1 K1' + 19 K2' + 1 K3 + 2 kick_bc counted launches
+               per batched step whatever B (no iso launch, no bc3d); each
+               lane's 20 steps are bit-equal to nlse_problem with its m and
+               c run alone (each batched kernel gives its lanes the
+               unbatched launch's bits, and the batched eigh gives each
+               matrix the single-matrix eigh's bits on this stack); the
+               kernels are within 1e-5 of kernel_mode "off"; a lane
+               started as NaN gets bad_at 0 and stays NaN while the other
+               two stay within 1e-5 of their runs alone. The real-wave
+               engine (sine-Gordon Gautschi, m=10, float32, B=2, lane by
+               lane) makes B x (2 K1' + 18 K2' + 2 K3), each lane
+               bit-equal to realwave_problem run alone, each of 20 steps
+               from the engine's state within 1e-5 of the same step under
+               kernel_mode "off"; a phi-4 Gautschi batch with one lane at
+               1e3 times the other's amplitude gives that lane bad_at < S
+               while the other stays finite and bit-equal to its run alone.
+ 36. datagen-main  the CLI as a subprocess (python -m
                nlsolvers_tpu_torch.pipeline), --format npy: the NLSE sweep
                nlse --phenomenon multi_soliton --system cubic --nx 256 --T
                0.12 --nt 200 --snapshots 20 --num-runs 8 --batch-size 8
@@ -238,22 +256,23 @@ Each of phases 28-36 prints its seconds; from phase 3 on, a line
                run; with h5py, the NLSE sweep again with --format hdf5,
                bit-equal to the npy one (without h5py, printed as not run).
                The NLSE npy sweep runs alone, the others together after it.
- 36. rate-datagen  trajectories/min and trajectory-steps/s of the NLSE
+ 37. rate-datagen  trajectories/min and trajectory-steps/s of the NLSE
                sweep (its own sweep summary), and one batched step (B=8)
                in this process: wall ms, device busy ms and idle share
-               (torch.profiler), launches and host syncs per
-               trajectory-step.
-Then the card's name and power limit, the kernels as one JSON line (all
-fourteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
-pass1_shard2d, pass1_shard3d, kick_bc; `ms` of K1, K2, K3, K1', K2', K5, K8,
-K13 and kick_bc is the CUDA-graph reading, with the profiler's sum and the
+               (torch.profiler), launches per batched step and per
+               trajectory-step, host syncs.
+Then the card's name and power limit, the kernels as one JSON line
+(eighteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
+pass1_shard2d, pass1_shard3d, kick_bc, and the batched forms of K1', K2',
+K3 and kick_bc; `ms` of K1, K2, K3, K1', K2', K5, K8, K13, kick_bc and the
+batched forms is the CUDA-graph reading, with the profiler's sum and the
 events beside it, and K3's library_ms torch.matmul's graph reading; bc3d's
 launches are the 3D sEWI run's; eight carry the real-wave Gautschi step's
-launches per step, and pass1_3d, pass2, bc3d and K3 their P=1 parity;
-K1', K2', K3 and kick_bc the 2D NLSE datagen step's launches per
-trajectory-step), and last {"ok":
-true, "device": ...}. Any failed phase exits non-zero and prints no
-result.
+launches per step, and pass1_3d, pass2, bc3d and K3 their P=1 parity; the
+batched forms the datagen engine's launches per batched step of 8 lanes
+and the graph time of the 8 unbatched launch sequences beside theirs), and
+last {"ok": true, "device": ...}. Any failed phase exits non-zero and
+prints no result.
 """
 
 import dataclasses
@@ -562,18 +581,271 @@ DG_N, DG_LX, DG_M, DG_DT = 256, 10.0, 20, 1.2 / 2000
 DG_RW_DT, DG_RW_M = 0.6 / 200, 10      # the real-wave sweep of datagen-main
 DG_PER_STEP = {"K1'": 1, "K2'": DG_M - 1, "K3": 1, "kick_bc": 2}
 DG_RW_PER_STEP = {"K1'": 2, "K2'": 2 * (DG_RW_M - 1), "K3": 2}
+DG_B, DG_RW_B = 8, 2           # lanes of the NLSE (batched) and real-wave
+                               # (lane by lane) engine checks
+
+
+def batched_parity(torch, np, operators):
+    """Phase 34: the batched forms of K1', K2', K3 and kick_bc at the
+    datagen point (B = 8 lanes of 256^2, m = 20, P = 2, c(x) per lane),
+    and of K1, K2 on the iso operator and on a ragged real batch (the scalar
+    forms): ONE launch each, against the plain batched versions (fields
+    rel-L2 <= 1e-5, dots <= 1e-4 of the Cauchy-Schwarz scale, every ghost
+    cell bit-equal to its source cell) and bit-equal to B unbatched
+    launches, lane by lane. Then per batched step by CUDA-graph replay,
+    beside the B unbatched launch sequences of the same work, the plain
+    batched versions and, for K3, torch.matmul of the lanes (K1 and K2 on
+    the iso operator too, the datagen path without c(x)). Returns {kernel:
+    readings} for the JSON line."""
+    from nlsolvers_tpu_torch import config
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    from nlsolvers_tpu_torch.ops.cuda import kick as kb
+    from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    B, n, m = DG_B, DG_N, DG_M
+    dx = 2.0 * DG_LX / (n - 1)
+
+    def fld(P=2, shape=(n, n), lanes=B):
+        return torch.randn((lanes, P) + shape, generator=gen, device=dev)
+
+    def plain(fn):
+        config.kernel_mode = "off"
+        try:
+            return fn()
+        finally:
+            config.kernel_mode = "auto"
+
+    def lane_dot_err(got, want, lefts, right):
+        return max(dot_err(got[b], want[b], [x[b] for x in lefts], right[b])
+                   for b in range(got.shape[0]))
+
+    def lane_rel(a, b):
+        return max(rel(a[i], b[i]) for i in range(a.shape[0]))
+
+    def bit_equal(got, lanes):
+        return all(torch.equal(x[b], y) for b, want in enumerate(lanes)
+                   for x, y in zip(got, want))
+
+    errs = {}
+
+    def gate(label, key, fe, de, same, got, want):
+        torch.cuda.synchronize()
+        errs[key] = max(errs.get(key, 0.0),
+                        max(float((a - b).abs().max())
+                            for a, b in zip(got, want) if a.dim() == 4))
+        print(f"parity-batched {label}: field rel-L2 {fe:.3e}, dot err "
+              f"{de:.3e}, bit-equal to {B} unbatched launches {same}")
+        check(fe <= FIELD_TOL, f"{label}: field rel-L2 {fe:.3e}")
+        check(de <= DOT_TOL, f"{label}: dot error {de:.3e}")
+        check(same, f"{label}: a lane differs from its unbatched launch")
+
+    c = 1.0 + 0.4 * torch.rand((B, n, n), generator=gen, device=dev)
+    aniso = operators.batched_aniso_laplacian_2d(list(c), dx, dx, device=dev)
+    iso = operators.laplacian_2d((n, n), dx, dx, device=dev).kernel_desc
+    lane_a = [dict(aniso, wx=aniso["wx"][b], wy=aniso["wy"][b])
+              for b in range(B)]
+
+    def scal_of(rows, lanes=B):
+        s = torch.rand((lanes, rows, 2), generator=gen, device=dev) - 0.5
+        s[:, 0, 0], s[:, 0, 1] = 0.8, 0.0
+        return s
+
+    def check_pass1(label, key, p1, desc, lanes_d, W, j):
+        scal = torch.rand((W[0].shape[0], 1, 2), generator=gen, device=dev)
+        got = p1(scal, W[j], W[:j], desc, norm=True)
+        want = plain(lambda: p1(scal, W[j], W[:j], desc, norm=True))
+        alone = [p1(scal[b], W[j][b], [w[b] for w in W[:j]], lanes_d[b],
+                    norm=True) for b in range(W[0].shape[0])]
+        nerr = float(((got[2] - want[2]).abs() / want[2]).max())
+        gate(label, key, lane_rel(got[0], want[0]),
+             max(lane_dot_err(got[1], want[1], W[:j + 1], want[0]), nerr),
+             bit_equal(got, alone), got, want)
+
+    def check_pipe(label, key, pp, desc, lanes_d, av, W, last):
+        nw = len(W)
+        scal = scal_of(nw + 1, av.shape[0])
+        got = pp(scal, av, W, desc, last)
+        want = plain(lambda: pp(scal, av, W, desc, last))
+        alone = [pp(scal[b], av[b], [w[b] for w in W], lanes_d[b], last)
+                 for b in range(av.shape[0])]
+        nsq, gram = (got[1], got[2]) if last else (got[2], got[3])
+        nsq0, gram0 = (want[1], want[2]) if last else (want[2], want[3])
+        fe = lane_rel(got[0], want[0])
+        de = max(float(((nsq - nsq0).abs() / nsq0.abs()).max()),
+                 lane_dot_err(gram, gram0, W, want[0]))
+        if not last:
+            fe = max(fe, lane_rel(got[1], want[1]))
+            de = max(de, lane_dot_err(got[4], want[4], W + [want[0]],
+                                      want[1]))
+        gate(label, key, fe, de, bit_equal(got, alone), got, want)
+
+    # the datagen path: K1' at j = 0, K2' at every j of m = 20, K3 k = 1
+    W = [fld() for _ in range(m)]
+    av = fld()
+    check_pass1("K1' j=0", "K1'", lz.pass1_aniso2d, aniso, lane_a, W, 0)
+    check_pass1("K1' j=19", "K1'", lz.pass1_aniso2d, aniso, lane_a, W, 19)
+    for j in range(m - 1):
+        check_pipe(f"K2' j={j}{' last' if j == m - 2 else ''}", "K2'",
+                   lz.pipe_aniso2d, aniso, lane_a, av, W[:j + 1],
+                   j == m - 2)
+    check_pipe("K2' j=19", "K2'", lz.pipe_aniso2d, aniso, lane_a, av, W,
+               False)
+    q = torch.rand((B, 1, m, 2), generator=gen, device=dev) - 0.5
+    got = lz.combine(q, W)
+    want = plain(lambda: lz.combine(q, W))
+    alone = [lz.combine(q[b], [w[b] for w in W]) for b in range(B)]
+    gate("K3 k=1 m=20", "K3", lane_rel(got[0], want[0]), 0.0,
+         bit_equal(got, alone), got, want)
+    # the iso operator; a ragged real batch (the scalar forms), sign -1
+    check_pass1("K1 iso j=0", "K1", lz.pass1_iso2d, iso, [iso] * B, W, 0)
+    check_pipe("K2 iso j=5", "K2", lz.pipe_iso2d, iso, [iso] * B, av, W[:6],
+               False)
+    rag = dict(operators.laplacian_2d((251, 335), dx, dx,
+                                      device=dev).kernel_desc, sign=-1.0)
+    Wr = [fld(1, (251, 335), 3) for _ in range(6)]
+    check_pass1("K1 P=1 251x335 j=4", "K1", lz.pass1_iso2d, rag, [rag] * 3,
+                Wr, 4)
+    check_pipe("K2 P=1 251x335 j=4 last", "K2", lz.pipe_iso2d, rag,
+               [rag] * 3, Wr[5], Wr[:5], True)
+    ca = 1.0 + 0.4 * torch.rand((3, 251, 335), generator=gen, device=dev)
+    rag_a = operators.batched_aniso_laplacian_2d(list(ca), dx, dx,
+                                                 device=dev)
+    rag_al = [dict(rag_a, wx=rag_a["wx"][b], wy=rag_a["wy"][b])
+              for b in range(3)]
+    check_pipe("K2' P=1 251x335 j=3", "K2'", lz.pipe_aniso2d, rag_a, rag_al,
+               Wr[5], Wr[:4], False)
+    del Wr
+
+    # kick_bc: the opening kick and the closing one with the ghost copy
+    up = fld()
+    mf = 0.5 + torch.rand((B, n, n), generator=gen, device=dev)
+    rho = nlse_density_planar("cubic", mf)
+    grid = kb.kick_grid((n, n))
+    for g in (None, grid):
+        got = kb.phase_kick_bc_planar(up, rho, 0.3, g)
+        want = plain(lambda: kb.phase_kick_bc_planar(up, rho, 0.3, g))
+        alone = [kb.phase_kick_bc_planar(
+            up[b], nlse_density_planar("cubic", mf[b]), 0.3, g)
+            for b in range(B)]
+        ghost = True
+        if g is not None:
+            rows = torch.arange(n, device=dev).clamp(1, n - 2)
+            ghost = bool(torch.equal(got, got[..., rows, :][..., rows]))
+        print(f"parity-batched kick_bc {'ghost copy' if g else 'kick'}: "
+              f"ghost cells bit-equal to their source cells {ghost}")
+        check(ghost, "kick_bc batched: a ghost cell differs")
+        gate(f"kick_bc {'ghost' if g else 'kick'}", "kick_bc",
+             lane_rel(got, want), 0.0, bit_equal([got], [[a] for a in alone]),
+             [got], [want])
+
+    # times per batched step at the datagen point
+    scs = [scal_of(j + 2) for j in range(m - 1)]
+    one = torch.tensor([[0.8, 0.3]], device=dev).expand(B, 1, 2).contiguous()
+
+    def k1():
+        lz.pass1_aniso2d(one, W[0], [], aniso, norm=True)
+
+    def k1_lanes():
+        for b in range(B):
+            lz.pass1_aniso2d(one[b], W[0][b], [], lane_a[b], norm=True)
+
+    def k2():
+        for j in range(m - 1):
+            lz.pipe_aniso2d(scs[j], av, W[:j + 1], aniso, j == m - 2)
+
+    def k2_lanes():
+        for b in range(B):
+            for j in range(m - 1):
+                lz.pipe_aniso2d(scs[j][b], av[b], [w[b] for w in W[:j + 1]],
+                                lane_a[b], j == m - 2)
+
+    def k1_iso():
+        lz.pass1_iso2d(one, W[0], [], iso, norm=True)
+
+    def k1_iso_lanes():
+        for b in range(B):
+            lz.pass1_iso2d(one[b], W[0][b], [], iso, norm=True)
+
+    def k2_iso():
+        for j in range(m - 1):
+            lz.pipe_iso2d(scs[j], av, W[:j + 1], iso, j == m - 2)
+
+    def k2_iso_lanes():
+        for b in range(B):
+            for j in range(m - 1):
+                lz.pipe_iso2d(scs[j][b], av[b], [w[b] for w in W[:j + 1]],
+                              iso, j == m - 2)
+
+    def k3():
+        lz.combine(q, W)
+
+    def k3_lanes():
+        for b in range(B):
+            lz.combine(q[b], [w[b] for w in W])
+
+    def kick():
+        kb.phase_kick_bc_planar(kb.phase_kick_bc_planar(up, rho, 0.3), rho,
+                                0.3, grid)
+
+    rho_l = [nlse_density_planar("cubic", mf[b]) for b in range(B)]
+
+    def kick_lanes():
+        for b in range(B):
+            kb.phase_kick_bc_planar(kb.phase_kick_bc_planar(
+                up[b], rho_l[b], 0.3), rho_l[b], 0.3, grid)
+
+    Wc = torch.stack([torch.complex(w[:, 0], w[:, 1]).reshape(B, -1)
+                      for w in W], dim=1)
+    qc = torch.complex(q[..., 0], q[..., 1])
+    col = 2 * n * n * 4 * B
+    wbytes = 2 * n * n * 4 * B
+    k2_cols = sum(j + 4 for j in range(m - 2)) + m + 1
+    out = {}
+    for key, fn, lanes, launches, nbytes, lib in (
+            ("K1'", k1, k1_lanes, 1, 2 * col + wbytes, None),
+            ("K2'", k2, k2_lanes, m - 1, k2_cols * col + (m - 2) * wbytes,
+             None),
+            ("K3", k3, k3_lanes, 1, (m + 1) * col,
+             lambda: torch.matmul(qc, Wc)),
+            ("kick_bc", kick, kick_lanes, 2, 20 * n * n * B * 2, None),
+            ("K1", k1_iso, k1_iso_lanes, 1, 2 * col, None),
+            ("K2", k2_iso, k2_iso_lanes, m - 1, k2_cols * col, None)):
+        g = graph_ms(torch, fn, 50)
+        g_lanes = graph_ms(torch, lanes, 20)
+        prof, events = times_ms(torch, fn, 20)
+        plain_ms = plain(lambda: times_ms(torch, fn, 5))[0]
+        lib_ms = None if lib is None else graph_ms(torch, lib, 50)
+        out[key] = dict(err=errs[key], graph=g, lanes_graph=g_lanes,
+                        t=(prof, events, plain_ms), nbytes=nbytes,
+                        lib=lib_ms, launches=launches)
+        print(f"parity-batched {key} B={B} {n}^2 m={m}: graph {g:.4f} ms "
+              f"per batched step ({launches} launch"
+              f"{'es' if launches > 1 else ''}), {B} unbatched launch "
+              f"sequences {g_lanes:.4f} ms ({g_lanes / g:.2f}x); profiler "
+              f"{prof:.4f}, events {events:.4f}; plain batched {plain_ms:.4f}"
+              + ("" if lib_ms is None else f"; torch.matmul of the lanes "
+                 f"{lib_ms:.4f}")
+              + f"; bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)"
+              f" -> {bound_ms(nbytes) / g:.3f} of it")
+    del W, av, up, Wc
+    torch.cuda.empty_cache()
+    return out
 
 
 def datagen_phases(torch, np, root, counters_all):
-    """Phases 33-36: the datagen pipeline (nlsolvers_tpu_torch/pipeline/)
-    on the card. Returns {kernel key: launches per trajectory-step} of the 2D NLSE
-    datagen step, counted in datagen-engine."""
+    """Phases 33-37: the datagen pipeline (nlsolvers_tpu_torch/pipeline/)
+    on the card. Returns ({kernel key: launches per batched step} of the 2D
+    NLSE datagen step, counted in datagen-engine, and parity-batched's
+    readings)."""
     import importlib.util
     import re
     import shutil
 
     from nlsolvers_tpu_torch import config, native
     from nlsolvers_tpu_torch.models import problems
+    from nlsolvers_tpu_torch.ops import operators
     from nlsolvers_tpu_torch.pipeline import datagen, engine
 
     work = root / "_smoke_datagen"          # git-ignored, removed at the end
@@ -615,9 +887,14 @@ def datagen_phases(torch, np, root, counters_all):
           "trip")
     print(f"pipeline-env: {time.perf_counter() - t_ph:.1f} s")
 
-    # ---------------------------------------------------------- 34. datagen-engine
+    # ---------------------------------------------------------- 34. parity-batched
     t_ph = time.perf_counter()
-    B = 2
+    bat = batched_parity(torch, np, operators)
+    print(f"parity-batched: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 35. datagen-engine
+    t_ph = time.perf_counter()
+    B = DG_B
 
     def sample(family, phenomenon, system, batch, seed):
         """A batch as Datagen samples it (its samplers, fields and RNG)."""
@@ -634,16 +911,17 @@ def datagen_phases(torch, np, root, counters_all):
     packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
     fn = engine.make_nlse_trajectory_fn("cubic", shape, DG_LX, DG_DT,
                                         krylov_m=DG_M)
-    check(fn.planar, "datagen-engine: the NLSE engine left the planar path")
+    check(fn.planar and fn.batched, "datagen-engine: the NLSE engine left "
+          "the batched planar path")
     zero()
     fn(packed, m_n, c_n, 2, 1)                        # one batched step
     got = counts()
-    want = {k: B * v for k, v in DG_PER_STEP.items()}
     print(f"datagen-engine NLSE {DG_N}^2 B={B} m={DG_M}: launches per "
-          f"batched step {got} ({sum(got.values()) / B:.0f} per "
-          f"trajectory-step)")
-    check(got == want, f"datagen-engine: launches {got} != {want}")
-    per_traj_step = {k: v / B for k, v in got.items()}
+          f"batched step {got} ({sum(got.values())} counted, one "
+          f"trajectory-step's)")
+    check(got == DG_PER_STEP, f"datagen-engine: launches {got} != "
+          f"{DG_PER_STEP}")
+    per_batched_step = dict(got)
     S_e, f_e = 5, 5                                   # 20 steps
     eng = fn(packed, m_n, c_n, S_e, f_e)
     for b in range(B):
@@ -651,10 +929,11 @@ def datagen_phases(torch, np, root, counters_all):
                                      m_field=m_n[b], c_field=c_n[b],
                                      krylov_m=DG_M, dtype=torch.complex64)
         ref = problems.run(prob, prob.init(packed[b]), S_e, f_e)
-        same = bool(torch.equal(eng[b, :, 0], ref.real)
-                    and torch.equal(eng[b, :, 1], ref.imag))
-        print(f"datagen-engine lane {b}: {(S_e - 1) * f_e} steps bit-equal "
-              f"to nlse_problem run alone {same}")
+        ref = torch.stack([ref.real, ref.imag], dim=1)
+        same = bool(torch.equal(eng[b], ref))
+        print(f"datagen-engine lane {b}: {(S_e - 1) * f_e} steps of the "
+              f"batched step bit-equal to nlse_problem run alone {same} "
+              f"(rel-L2 {rel(eng[b, -1], ref[-1]):.3e})")
         check(same, f"datagen-engine lane {b} differs from nlse_problem")
     config.kernel_mode = "off"
     try:
@@ -667,7 +946,24 @@ def datagen_phases(torch, np, root, counters_all):
     check(worst <= 1e-5, f"datagen-engine: kernels vs plain {worst:.3e}")
     check(bool(torch.isfinite(eng).all()), "datagen-engine: non-finite")
     del eng, plain
+    # a lane started as NaN: the batched eigh gives it NaN coefficients
+    # (torch's eigh would raise), the guard flags it, the others go on
+    fg = engine.make_nlse_trajectory_fn("cubic", shape, DG_LX, DG_DT,
+                                        krylov_m=DG_M, guard=True)
+    nan_in = packed[:3].copy()
+    nan_in[1] = np.nan
+    gs, gbad = fg(nan_in, m_n[:3], c_n[:3], 3, 5)
+    alone = [fn(packed[b:b + 1], m_n[b:b + 1], c_n[b:b + 1], 3, 5)[0]
+             for b in (0, 2)]
+    same = all(torch.equal(gs[b], a) for b, a in zip((0, 2), alone))
+    print(f"datagen-engine NaN lane: bad_at {gbad.tolist()} of 3 snapshots; "
+          f"lane 1 all NaN {bool(torch.isnan(gs[1]).all())}; lanes 0 and 2 "
+          f"bit-equal to their runs alone {same}")
+    check(gbad.tolist() == [3, 0, 3] and bool(torch.isnan(gs[1]).all())
+          and same, "datagen-engine: the NaN lane")
+    del gs
 
+    B = DG_RW_B
     u0r, v0r, m_r, c_r = sample("realwave", "kink_field", "sine_gordon", B,
                                 1)
     u0r = np.stack(u0r).astype(np.float32)
@@ -737,7 +1033,7 @@ def datagen_phases(torch, np, root, counters_all):
     torch.cuda.empty_cache()
     print(f"datagen-engine: {time.perf_counter() - t_ph:.1f} s")
 
-    # ---------------------------------------------------------- 35. datagen-main
+    # ---------------------------------------------------------- 36. datagen-main
     t_ph = time.perf_counter()
     runs = 8
     nlse_args = ["nlse", "--phenomenon", "multi_soliton", "--system",
@@ -862,7 +1158,7 @@ def datagen_phases(torch, np, root, counters_all):
     del u_npy
     print(f"datagen-main: {time.perf_counter() - t_ph:.1f} s")
 
-    # ---------------------------------------------------------- 36. rate-datagen
+    # ---------------------------------------------------------- 37. rate-datagen
     t_ph = time.perf_counter()
     steps_run = 19 * (200 // 20)          # (snapshots - 1) * snapshot_freq
     print(f"rate-datagen nlse CLI sweep ({runs} runs of {steps_run} steps, "
@@ -887,7 +1183,7 @@ def datagen_phases(torch, np, root, counters_all):
     dg.traj_fn(packed, m_b, c_b, 2, n_b)
     torch.cuda.synchronize()
     wall_step = (time.perf_counter() - t0) / n_b
-    n_p = 5                 # ~4300 kernel records per batched step
+    n_p = 5
     rows = profiled(torch, lambda: dg.traj_fn(packed, m_b, c_b, 2, n_p))
     if rows is None:
         print("rate-datagen: device busy time not measured (no trace)")
@@ -896,20 +1192,26 @@ def datagen_phases(torch, np, root, counters_all):
         launched = sum(e.count for e in rows if dev_us(e) > 0) / n_p
         print(f"rate-datagen: batched step (B={runs}) {wall_step * 1e3:.3f} "
               f"ms wall, device busy {busy:.4f} ms -> idle share "
-              f"{1 - busy / (wall_step * 1e3):.3f}; {launched / runs:.1f} "
-              f"kernel launches per trajectory-step (all kernels, "
-              f"{sum(DG_PER_STEP.values())} of them counted ones)")
+              f"{1 - busy / (wall_step * 1e3):.3f}; {launched:.1f} kernel "
+              f"launches per batched step (all kernels, "
+              f"{sum(DG_PER_STEP.values())} of them counted ones), "
+              f"{launched / runs:.2f} per trajectory-step")
         for e in sorted(rows, key=dev_us, reverse=True)[:8]:
             print(f"  {dev_us(e) / 1e3 / n_p:9.4f} ms/batched step "
                   f"{e.count // n_p:4d}x {e.key[:70]}")
     syncs = host_syncs(torch, lambda: dg.traj_fn(packed, m_b, c_b, 2, 1))
-    print(f"rate-datagen: host syncs of one batched step (and its one "
-          f"snapshot check): {syncs}, {syncs / runs:.2f} per trajectory-step")
+    on_card = [torch.from_numpy(a).to("cuda") for a in (packed, m_b, c_b)]
+    s1, s5 = (host_syncs(torch, lambda k=k: dg.traj_fn(*on_card, 2, k))
+              for k in (1, 5))
+    print(f"rate-datagen: host syncs of a call of one batched step: {syncs} "
+          f"(inputs uploaded), {s1} (inputs on the card); per batched step "
+          f"(1 against 5 steps) {(s5 - s1) / 4:.2f}, "
+          f"{(s5 - s1) / 4 / runs:.3f} per trajectory-step")
     del dg
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"rate-datagen: {time.perf_counter() - t_ph:.1f} s")
-    return per_traj_step
+    return per_batched_step, bat
 
 
 def main():
@@ -3059,8 +3361,8 @@ def main():
     print(f"models-rest: {time.perf_counter() - t_ph:.1f} s")
 
     # ---------------------------------------------------------- 33-36. datagen
-    print(f"[{time.perf_counter() - t_start:.1f} s] phase 33-36 datagen")
-    dg_per_step = datagen_phases(torch, np, root, counters_all)
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 33-37 datagen")
+    dg_per_step, bat = datagen_phases(torch, np, root, counters_all)
 
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
@@ -3138,13 +3440,22 @@ def main():
           "pipe_aniso2d": (launches_rwa, "K2'", steps_rwa)}
     p1 = {"pass1_3d": errs["pass1_3d P=1"], "pass2": errs["pass2 P=1"],
           "bc3d": 0.0, "combine": errs["K3 P=1"]}
-    # the 2D NLSE datagen step's launches per trajectory-step (datagen-engine)
-    dg_keys = {"pass1_aniso2d": "K1'", "pipe_aniso2d": "K2'",
-               "combine": "K3", "kick_bc": "kick_bc"}
+    # the batched forms of the 2D NLSE datagen step: launches per batched
+    # step of B = DG_B lanes (datagen-engine), times per batched step
+    # (parity-batched) beside the B unbatched launch sequences
+    for kname, key, source, replaces in (
+            ("pass1_aniso2d", "K1'", SOURCE, f"{PALLAS}:473"),
+            ("pipe_aniso2d", "K2'", SOURCE, f"{PALLAS}:779"),
+            ("combine", "K3", SOURCE, f"{PALLAS}:1005"),
+            ("kick_bc", "kick_bc", SOURCE_KB, f"{PALLAS_BC}:52")):
+        r = bat[key]
+        e = entry(f"{kname} batched", source, replaces, dg_per_step[key], 1,
+                  r["err"], r["t"], r["nbytes"], r["lib"], graph=r["graph"])
+        e.update(lanes=DG_B, unbatched_lanes_graph_ms=r["lanes_graph"],
+                 datagen_launches_per_trajectory_step=dg_per_step[key]
+                 / DG_B)
+        kernels.append(e)
     for e in kernels:
-        if e["name"] in dg_keys:
-            e["datagen_launches_per_trajectory_step"] = dg_per_step[
-                dg_keys[e["name"]]]
         if e["name"] in rw:
             got_, key_, n_ = rw[e["name"]]
             e["realwave_launches_per_step"] = got_[key_] / n_

@@ -44,6 +44,10 @@
 //   reads its own clamped source cell.
 // * Out of place: the input stays as it was (the two-step integrators keep
 //   it as u_prev), and the clamped reads race with no write.
+// * A batch of B states (B, 2, R, nx) takes one launch: lane b is
+//   blockIdx.y, with the unbatched grid and walk, its state and output
+//   2 R nx floats past lane 0's and its m field R nx floats past. The
+//   faces are the same for every lane.
 //
 // Plain C interface for ctypes: the launcher returns cudaGetLastError().
 
@@ -96,6 +100,9 @@ __global__ void __launch_bounds__(KT) kick_bc_kernel(
     const float* __restrict__ u, const float* __restrict__ mf,
     float* __restrict__ out, int nz, int ny, int nx, Faces f, Dens d) {
   const size_t plane = (size_t)nz * ny * nx;
+  u += blockIdx.y * 2 * plane;
+  out += blockIdx.y * 2 * plane;
+  mf += blockIdx.y * plane;
   const int lane = threadIdx.x & 31;
   const int per_row = (nx + 32 * VEC - 1) / (32 * VEC);   // items per row
   const long long items = (long long)nz * ny * per_row;
@@ -141,8 +148,8 @@ __global__ void __launch_bounds__(KT) kick_bc_kernel(
 }
 
 template <int KIND, int VEC>
-int launch(const float* u, const float* mf, float* out, int nz, int ny,
-           int nx, Faces f, Dens d, cudaStream_t st) {
+int launch(int B, const float* u, const float* mf, float* out, int nz,
+           int ny, int nx, Faces f, Dens d, cudaStream_t st) {
   auto kern = kick_bc_kernel<KIND, VEC>;
   static int resident = 0;      // blocks of this instantiation per SM
   static int sms = 0;
@@ -162,15 +169,15 @@ int launch(const float* u, const float* mf, float* out, int nz, int ny,
   const long long want = (items + KW - 1) / KW;
   const long long cap = (long long)resident * sms;
   const unsigned grid = (unsigned)(want < cap ? want : cap);
-  kern<<<grid, KT, 0, st>>>(u, mf, out, nz, ny, nx, f, d);
+  kern<<<dim3(grid, B), KT, 0, st>>>(u, mf, out, nz, ny, nx, f, d);
   return (int)cudaGetLastError();
 }
 
 template <int KIND>
-int launch_kind(int vec, const float* u, const float* mf, float* out, int nz,
-                int ny, int nx, Faces f, Dens d, cudaStream_t st) {
-  return vec == 4 ? launch<KIND, 4>(u, mf, out, nz, ny, nx, f, d, st)
-                  : launch<KIND, 1>(u, mf, out, nz, ny, nx, f, d, st);
+int launch_kind(int vec, int B, const float* u, const float* mf, float* out,
+                int nz, int ny, int nx, Faces f, Dens d, cudaStream_t st) {
+  return vec == 4 ? launch<KIND, 4>(B, u, mf, out, nz, ny, nx, f, d, st)
+                  : launch<KIND, 1>(B, u, mf, out, nz, ny, nx, f, d, st);
 }
 
 bool aligned16(const void* p) {
@@ -185,18 +192,21 @@ const char* kick_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// kick_bc: out = ghost(u * exp(i theta rho(|u|^2))) on the planar (2, nz*ny,
-// nx) block u, out of place (out must not overlap u). kind: 0 cubic, 1
-// cubic_quintic, 2 saturable; m is the (nz*ny, nx) m field. zl..xh say
-// which faces of the grid the block holds (all 0: the kick alone); an axis
-// with a face needs at least 2 cells. vec 4 takes the 16-byte form (nx % 4
-// == 0, every pointer 16-byte aligned), vec 1 the scalar one.
-int kick_bc(int kind, int vec, const float* u, const float* m, float* out,
-            int nz, int ny, int nx, int zl, int zh, int yl, int yh, int xl,
-            int xh, float theta, float sigma1, float sigma2, float kappa,
-            cudaStream_t st) {
+// kick_bc: out = ghost(u * exp(i theta rho(|u|^2))) on each of B planar
+// (2, nz*ny, nx) blocks u (B, 2, nz*ny, nx), out of place (out must not
+// overlap u). kind: 0 cubic, 1 cubic_quintic, 2 saturable; m holds the
+// (nz*ny, nx) m field of each lane, (B, nz*ny, nx). zl..xh say which faces
+// of the grid the block holds
+// (all 0: the kick alone); an axis with a face needs at least 2 cells. vec
+// 4 takes the 16-byte form (nx % 4 == 0, every pointer 16-byte aligned),
+// vec 1 the scalar one.
+int kick_bc(int kind, int vec, int B, const float* u, const float* m,
+            float* out, int nz, int ny, int nx, int zl, int zh, int yl,
+            int yh, int xl, int xh, float theta, float sigma1, float sigma2,
+            float kappa, cudaStream_t st) {
   const Faces f{zl != 0, zh != 0, yl != 0, yh != 0, xl != 0, xh != 0};
-  if (kind < 0 || kind > 2 || (vec != 1 && vec != 4) || nz < 1 || ny < 1
+  if (kind < 0 || kind > 2 || (vec != 1 && vec != 4) || B < 1 || B > 65535
+      || nz < 1 || ny < 1
       || nx < 1 || (long long)nz * ny > 0x7fffffffll
       || ((f.zl || f.zh) && nz < 2) || ((f.yl || f.yh) && ny < 2)
       || ((f.xl || f.xh) && nx < 2))
@@ -205,9 +215,11 @@ int kick_bc(int kind, int vec, const float* u, const float* m, float* out,
                    || !aligned16(out)))
     return (int)cudaErrorInvalidValue;
   const Dens d{theta, sigma1, sigma2, kappa};
-  if (kind == 0) return launch_kind<0>(vec, u, m, out, nz, ny, nx, f, d, st);
-  if (kind == 1) return launch_kind<1>(vec, u, m, out, nz, ny, nx, f, d, st);
-  return launch_kind<2>(vec, u, m, out, nz, ny, nx, f, d, st);
+  if (kind == 0)
+    return launch_kind<0>(vec, B, u, m, out, nz, ny, nx, f, d, st);
+  if (kind == 1)
+    return launch_kind<1>(vec, B, u, m, out, nz, ny, nx, f, d, st);
+  return launch_kind<2>(vec, B, u, m, out, nz, ny, nx, f, d, st);
 }
 
 }  // extern "C"

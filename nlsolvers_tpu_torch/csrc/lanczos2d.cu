@@ -78,6 +78,17 @@
 //   is needed between the scalar recurrence and the kernels.
 // * Cross-block reductions are two-stage and deterministic, with no
 //   atomics (reduce_partials, reduce_partials_om, lz_common.cuh).
+// * K1 / K1' also sum ||W_j||^2 from the rows they read (the Lanczos run's
+//   beta_0^2 at j = 0), one partial row more, so the run needs no separate
+//   norm reduction.
+// * A batch of B fields (the datagen engine's lanes, JAX's vmap of the
+//   Pallas kernels) is one launch of K1 / K1', K2 / K2' or K3: the lane is
+//   blockIdx.y, fields are (B, P, ny, nx) lane-major (Cols carries lane 0's
+//   pointers and the lane stride), the scalars and the aniso weights come
+//   per lane, and each lane keeps the unbatched grid's block-to-segment or
+//   block-to-tile map and its own rows of partial sums, reduced in the
+//   unbatched order. So lane b of a batched launch gives the bits of the
+//   unbatched launch on lane b; an unbatched call is the launch with B = 1.
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
@@ -91,17 +102,31 @@ namespace {
 constexpr int KMAX = 4;        // most specs one combine launch takes
 struct Outs { float* p[KMAX]; };
 
+// The operator of lane blockIdx.y of a batched launch: its (ny, nx) face
+// weights follow lane 0's, lane-major (the iso operator has none).
+__device__ __forceinline__ Op2d lane_op(Op2d op, int ny, int nx) {
+  if (op.wx != nullptr) {
+    op.wx += blockIdx.y * (size_t)ny * nx;
+    op.wy += blockIdx.y * (size_t)ny * nx;
+  }
+  return op;
+}
+
 // ---------------------------------------------------------------- K1 pass1
 // K1 / K1' (OPK_ISO2D / OPK_ANISO2D): phase 0 of lz_iter.cuh (wpass) over a
 // fixed grid of the blocks that fit on the card, block b owning the
 // segments [b S / G, (b + 1) S / G) of the S rows of 128-column strips; w
-// to w_out (through the per-warp rows wrow for the dots), the raw sums
-// output-major to partial. MAXW bounds j; registers as PASS1_PER_SM.
+// to w_out (through the per-warp rows wrow for the dots), the raw sums and
+// ||W_j||^2 output-major to partial. MAXW bounds j; registers as
+// PASS1_PER_SM. A batched launch runs lane blockIdx.y with the same block
+// to segment map: its fields prev.ls floats apart, its scalars, face
+// weights and 2j + 3 partial rows lane-major.
 template <int P, int MAXW, int OPK, int VEC>
 __global__ void __launch_bounds__(
     PT, (PASS1_PER_SM<P, MAXW, VEC>)) pass1_tile_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
-    int j, OpArgs a, float* __restrict__ w_out, float* __restrict__ partial) {
+    int j, OpArgs a, float* __restrict__ w_out,
+    float* __restrict__ partial) {
   constexpr int L = 32 / (MAXW / 4);  // lanes per dot group
   __shared__ __align__(16) float ring[RING][P][PX];
   __shared__ float hal[RING][P][2];
@@ -109,17 +134,22 @@ __global__ void __launch_bounds__(
   __shared__ float red[PWARP][RED_W];
   __shared__ const float* wp[MAXCOLS];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const size_t off = blockIdx.y * prev.ls;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < MAXW; ++i)
-      if (i < j) wp[i] = prev.p[i];
+      if (i < j) wp[i] = prev.p[i] + off;
   }
   __syncthreads();
   int s0, s1;
   block_segs(num_segs(a.ny, a.nx), s0, s1);
-  wpass<P, MAXW, OPK, VEC>(scal[0], scal[1], wj, wp, j, a, s0, s1, nullptr,
-                           w_out, &wrow[0][0][0], ring, hal, red, partial,
-                           lane, w, lane / L, lane % L);
+  a.op2 = lane_op(a.op2, a.ny, a.nx);
+  const float* sc = scal + 2 * blockIdx.y;
+  wpass<P, MAXW, OPK, VEC, true>(
+      sc[0], sc[1], wj + off, wp, j, a, s0, s1, nullptr, w_out + off,
+      &wrow[0][0][0], ring, hal, red,
+      partial + (size_t)blockIdx.y * (2 * j + 3) * gridDim.x, lane, w,
+      lane / L, lane % L);
 }
 
 // K1' in modes shard2d and shard2d_aniso (OP_SHARD_ISO / OP_SHARD_ANISO):
@@ -200,6 +230,8 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
 // partial: output-major, partial[o * gridDim.x + block].
 // Two blocks per SM (128 registers) for the 16-byte forms; the scalar
 // forms and the real 32-column one need more registers than that.
+// A batched launch runs lane blockIdx.y with the same tile walk: its fields
+// W.ls floats apart, its scalars, face weights and partial rows lane-major.
 template <int P, int MAXW, bool LAST, int OP, int VEC>
 __global__ void __launch_bounds__(
     PT, VEC == 4 && (P == 2 || MAXW < 32) ? 2 : 1) pipe_2d_kernel(
@@ -217,18 +249,23 @@ __global__ void __launch_bounds__(
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int q = lane / L, gl = lane % L;
   const size_t plane = (size_t)ny * nx;
+  const size_t off = blockIdx.y * W.ls;
+  const int nout = 1 + 2 * nw + (LAST ? 0 : 2 * (nw + 1));
+  scal += (size_t)blockIdx.y * 2 * (nw + 1);
   const float s = scal[0];
   for (int o = threadIdx.x; o < 2 * nw; o += PT) cf[o] = scal[2 + o];
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < MAXW; ++i)
-      if (i < nw) wp[i] = W.p[i];
+      if (i < nw) wp[i] = W.p[i] + off;
   }
   __syncthreads();
-  const RebuildRows<P, VEC, LdNC> src = {av, wp, cf, nw, s, plane};
-  pipe2d_pass<P, MAXW, LAST, OP, VEC, LdNC>(src, wp, nw, op, wn_out, av_out,
-                                            partial, ny, nx, ss, steps, ring,
-                                            hal, avb, red, lane, w, q, gl);
+  const RebuildRows<P, VEC, LdNC> src = {av + off, wp, cf, nw, s, plane};
+  pipe2d_pass<P, MAXW, LAST, OP, VEC, LdNC>(
+      src, wp, nw, lane_op(op, ny, nx), wn_out + off,
+      LAST ? av_out : av_out + off,
+      partial + (size_t)blockIdx.y * nout * gridDim.x, ny, nx, ss, steps,
+      ring, hal, avb, red, lane, w, q, gl);
 }
 
 // ---------------------------------------------------------------- K3 combine
@@ -237,7 +274,8 @@ __global__ void __launch_bounds__(
 // pointers into shared memory once. A thread takes four points per visit,
 // as one 16-byte vector per column and plane (VEC = 4: n % 4 == 0 and
 // every pointer 16-byte aligned) or as one point (VEC = 1), and keeps up to
-// four columns' loads in flight.
+// four columns' loads in flight. A batched launch runs lane blockIdx.y with
+// the same walk: its columns and outputs W.ls floats apart, its q 2 k m.
 constexpr int CB = 256;               // threads per K3 block
 
 template <int P, int VEC>
@@ -245,12 +283,17 @@ __global__ void __launch_bounds__(CB) combine_kernel(
     const float* __restrict__ q, Cols W, int m, int k, Outs out, size_t n) {
   __shared__ float qs[2 * KMAX * MAXCOLS];
   __shared__ const float* wp[MAXCOLS];
+  const size_t off = blockIdx.y * W.ls;
+  q += (size_t)blockIdx.y * 2 * k * m;
   for (int o = threadIdx.x; o < 2 * k * m; o += CB) qs[o] = q[o];
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < MAXCOLS; ++i)
-      if (i < m) wp[i] = W.p[i];
+      if (i < m) wp[i] = W.p[i] + off;
   }
+#pragma unroll
+  for (int sp = 0; sp < KMAX; ++sp)
+    if (sp < k) out.p[sp] += off;
   __syncthreads();
   const size_t nvec = n / VEC;
   const size_t stride = (size_t)gridDim.x * CB;
@@ -464,41 +507,44 @@ void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
       ny, nx, ss);
 }
 
-// K1 / K1' on the walker, then the reduction of its output-major partials.
+// K1 / K1' on the walker over B lanes, then the reduction of its
+// output-major partials, lane by lane.
 template <int P, int MAXW, int OPK, int VEC>
-int launch_pass1_tile(const float* scal, const float* wj, Cols prev, int j,
-                      const OpArgs& a, float* w, float* partial, float* raw,
-                      cudaStream_t st) {
+int launch_pass1_tile(int B, const float* scal, const float* wj, Cols prev,
+                      int j, const OpArgs& a, float* w, float* partial,
+                      float* raw, cudaStream_t st) {
   auto kern = pass1_tile_kernel<P, MAXW, OPK, VEC>;
   static const int fit = resident_blocks(kern, PT);
   if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
   const int nseg = num_segs(a.ny, a.nx);
   const int grid = nseg < fit ? nseg : fit;
-  kern<<<grid, PT, 0, st>>>(scal, wj, prev, j, a, w, partial);
-  reduce_partials_om<<<2 * (j + 1), RED_THREADS, 0, st>>>(partial, grid, raw);
+  kern<<<dim3(grid, B), PT, 0, st>>>(scal, wj, prev, j, a, w, partial);
+  reduce_partials_om<<<dim3(2 * j + 3, B), RED_THREADS, 0, st>>>(
+      partial, grid, raw);
   return (int)cudaGetLastError();
 }
 
-// K1 (OPK_ISO2D) / K1' (OPK_ANISO2D). The 16-byte instantiation takes rows
-// of nx % 4 == 0 columns and 16-byte aligned fields and weights; any other
-// call takes the scalar one.
+// K1 (OPK_ISO2D) / K1' (OPK_ANISO2D) on B lanes. The 16-byte instantiation
+// takes rows of nx % 4 == 0 columns and 16-byte aligned fields and weights
+// (then every lane's are); any other call takes the scalar one.
 template <int OPK>
-int pass1_tile(int P, const float* scal, const float* wj,
+int pass1_tile(int B, int P, const float* scal, const float* wj,
                const float* const* prev, int j, const Op2d& op, float* w,
                float* partial, float* raw, int ny, int nx, float ss,
                cudaStream_t st) {
-  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < 3 || nx < 3)
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS
+      || ny < 3 || nx < 3)
     return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(prev, j);
+  const Cols c = make_cols(prev, j, (size_t)P * ny * nx);
   const OpArgs a = {op, 1, ny, nx, ss};
   bool vec = nx % 4 == 0 && aligned16(wj) && aligned16(w);
   for (int i = 0; i < j; ++i) vec = vec && aligned16(prev[i]);
   if (OPK == OPK_ANISO2D) vec = vec && aligned16(op.wx) && aligned16(op.wy);
   const int b = bucket(j);
 #define LZ_T(PP, BB) (vec ? launch_pass1_tile<PP, BB, OPK, 4>(              \
-                                scal, wj, c, j, a, w, partial, raw, st)     \
+                                B, scal, wj, c, j, a, w, partial, raw, st)  \
                           : launch_pass1_tile<PP, BB, OPK, 1>(              \
-                                scal, wj, c, j, a, w, partial, raw, st))
+                                B, scal, wj, c, j, a, w, partial, raw, st))
 #define LZ_B(PP) (b == 4 ? LZ_T(PP, 4) : b == 8 ? LZ_T(PP, 8)                \
                   : b == 16 ? LZ_T(PP, 16) : LZ_T(PP, 32))
   return P == 1 ? LZ_B(1) : LZ_B(2);
@@ -506,8 +552,9 @@ int pass1_tile(int P, const float* scal, const float* wj,
 #undef LZ_T
 }
 
+// K2 / K2' over B lanes, each lane's tiles as one unbatched launch's.
 template <int P, int MAXW, bool LAST, int OP, int VEC>
-int launch_pipe(const float* scal, const float* av, Cols W, int nw,
+int launch_pipe(int B, const float* scal, const float* av, Cols W, int nw,
                 const Op2d& op, float* wn, float* avn, float* partial,
                 float* red, int ny, int nx, float ss, cudaStream_t st) {
   auto kern = pipe_2d_kernel<P, MAXW, LAST, OP, VEC>;
@@ -516,20 +563,21 @@ int launch_pipe(const float* scal, const float* av, Cols W, int nw,
   const int steps = pipe_steps(ny, nx, fit);
   const int tiles = pipe_tiles(ny, nx, steps);
   const int grid = tiles < fit ? tiles : fit;
-  kern<<<grid, PT, 0, st>>>(scal, av, W, nw, op, wn, avn, partial, ny, nx,
-                            ss, steps);
+  kern<<<dim3(grid, B), PT, 0, st>>>(scal, av, W, nw, op, wn, avn, partial,
+                                     ny, nx, ss, steps);
   const int nout = 1 + 2 * nw + (LAST ? 0 : 2 * (nw + 1));
-  reduce_partials_om<<<nout, RED_THREADS, 0, st>>>(partial, grid, red);
+  reduce_partials_om<<<dim3(nout, B), RED_THREADS, 0, st>>>(partial, grid,
+                                                            red);
   return (int)cudaGetLastError();
 }
 
 template <int P, int MAXW, int OP>
-int pipe_vec(bool last, bool vec, const float* scal, const float* av,
+int pipe_vec(int B, bool last, bool vec, const float* scal, const float* av,
              Cols W, int nw, const Op2d& op, float* wn, float* avn,
              float* partial, float* red, int ny, int nx, float ss,
              cudaStream_t st) {
 #define LZ_PV(LL, OO, VV) launch_pipe<P, MAXW, LL, OO, VV>(                \
-    scal, av, W, nw, op, wn, avn, partial, red, ny, nx, ss, st)
+    B, scal, av, W, nw, op, wn, avn, partial, red, ny, nx, ss, st)
   if (last) return vec ? LZ_PV(true, OP_ISO, 4) : LZ_PV(true, OP_ISO, 1);
   return vec ? LZ_PV(false, OP, 4) : LZ_PV(false, OP, 1);
 #undef LZ_PV
@@ -568,25 +616,27 @@ int pass1_2d(int P, const float* scal, const float* wj,
   return (int)cudaGetLastError();
 }
 
-// K2 / K2' with the operator OP, then the reduction of its partial sums.
-// The 16-byte instantiation takes rows of nx % 4 == 0 columns and 16-byte
-// aligned fields; any other call takes the scalar one.
+// K2 / K2' with the operator OP on B lanes, then the reduction of its
+// partial sums. The 16-byte instantiation takes rows of nx % 4 == 0
+// columns and 16-byte aligned fields; any other call takes the scalar one.
 template <int OP>
-int pipe_2d(int P, int last, const float* scal, const float* av,
+int pipe_2d(int B, int P, int last, const float* scal, const float* av,
             const float* const* W, int nw, const Op2d& op, float* wn,
             float* avn, float* partial, float* red, int ny, int nx, float ss,
             cudaStream_t st) {
-  if ((P != 1 && P != 2) || nw < 1 || nw + 1 > MAXCOLS || ny < 3 || nx < 3)
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || nw < 1
+      || nw + 1 > MAXCOLS || ny < 3 || nx < 3)
     return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(W, nw);
+  const Cols c = make_cols(W, nw, (size_t)P * ny * nx);
   const int b = bucket(nw);
   const bool l = last != 0;
   bool vec = nx % 4 == 0 && aligned16(av) && aligned16(wn)
              && (l || aligned16(avn));
   for (int i = 0; i < nw; ++i) vec = vec && aligned16(W[i]);
   if (OP == OP_ANISO && !l) vec = vec && aligned16(op.wx) && aligned16(op.wy);
-#define LZ_PI(PP, BB) pipe_vec<PP, BB, OP>(l, vec, scal, av, c, nw, op, wn, \
-                                           avn, partial, red, ny, nx, ss, st)
+#define LZ_PI(PP, BB) pipe_vec<PP, BB, OP>(B, l, vec, scal, av, c, nw, op,  \
+                                           wn, avn, partial, red, ny, nx,   \
+                                           ss, st)
   if (P == 1)
     return b == 4 ? LZ_PI(1, 4) : b == 8 ? LZ_PI(1, 8)
            : b == 16 ? LZ_PI(1, 16) : LZ_PI(1, 32);
@@ -596,14 +646,14 @@ int pipe_2d(int P, int last, const float* scal, const float* av,
 }
 
 template <int P, int VEC>
-int launch_combine(const float* q, Cols W, int m, int k, Outs o, size_t n,
-                   cudaStream_t st) {
+int launch_combine(int B, const float* q, Cols W, int m, int k, Outs o,
+                   size_t n, cudaStream_t st) {
   auto kern = combine_kernel<P, VEC>;
   static const int fit = resident_blocks(kern, CB);
   const size_t need = (n / VEC + CB - 1) / CB;
   const int grid = need < (size_t)fit ? (int)need : fit;
   if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-  kern<<<grid, CB, 0, st>>>(q, W, m, k, o, n);
+  kern<<<dim3(grid, B), CB, 0, st>>>(q, W, m, k, o, n);
   return (int)cudaGetLastError();
 }
 
@@ -626,24 +676,28 @@ const char* lz_error_string(int err) {
 }
 int lz_max_specs() { return KMAX; }
 
-// K1. prev: host array of j device pointers W_0..W_{j-1}. partial: scratch
-// of lz_pass1_blocks * 2(j+1) floats. raw: (j+1, 2) output.
-int lz_pass1_iso2d(int P, const float* scal, const float* wj,
+// K1 on B lanes (B = 1: one field). Every field is (B, P, ny, nx),
+// lane-major; prev: host array of j device pointers W_0..W_{j-1} (lane 0's
+// rows); scal: (B, 2) [s_j, bs] per lane. partial: scratch of
+// lz_pass1_blocks * B (2j + 3) floats. raw: (B, 2j + 3) output, per lane
+// raw_i (re, im), i <= j, then ||W_j||^2.
+int lz_pass1_iso2d(int B, int P, const float* scal, const float* wj,
                    const float* const* prev, int j, float* w, float* partial,
                    float* raw, int ny, int nx, float ss, int clean,
                    cudaStream_t st) {
-  return pass1_tile<OPK_ISO2D>(P, scal, wj, prev, j,
+  return pass1_tile<OPK_ISO2D>(B, P, scal, wj, prev, j,
                                Op2d{nullptr, nullptr, clean}, w, partial, raw,
                                ny, nx, ss, st);
 }
 
-// K1'. As K1, with the (ny, nx) zero-padded face weights wx, wy.
-int lz_pass1_aniso2d(int P, const float* scal, const float* wj,
+// K1'. As K1, with the zero-padded face weights wx, wy: (B, ny, nx), each
+// lane its own.
+int lz_pass1_aniso2d(int B, int P, const float* scal, const float* wj,
                      const float* const* prev, int j, const float* wx,
                      const float* wy, float* w, float* partial, float* raw,
                      int ny, int nx, float ss, cudaStream_t st) {
   if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
-  return pass1_tile<OPK_ANISO2D>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, w,
+  return pass1_tile<OPK_ANISO2D>(B, P, scal, wj, prev, j, Op2d{wx, wy, 0}, w,
                                  partial, raw, ny, nx, ss, st);
 }
 
@@ -673,25 +727,29 @@ int lz_pass1_shard2d(int P, int aniso, int clean, const float* scal,
                                   w, partial, raw, ny, nx, ss, st);
 }
 
-// K2. W: host array of nw = j+1 device pointers W_0..W_j. scal: (nw+1, 2)
-// device buffer [(s_j, 0), c_0..c_j]. partial: scratch of lz_pipe_blocks *
-// nout floats; red: nout outputs, nout = 1 + 2nw (+ 2(nw+1) unless last).
-int lz_pipe_iso2d(int P, int last, const float* scal, const float* av,
+// K2 on B lanes (B = 1: one field). Every field is (B, P, ny, nx),
+// lane-major; W: host array of nw = j+1 device pointers W_0..W_j (lane 0's).
+// scal: (B, nw+1, 2) device buffer [(s_j, 0), c_0..c_j] per lane. partial:
+// scratch of lz_pipe_blocks * B nout floats; red: (B, nout) outputs, nout =
+// 1 + 2nw (+ 2(nw+1) unless last).
+int lz_pipe_iso2d(int B, int P, int last, const float* scal, const float* av,
                   const float* const* W, int nw, float* wn, float* avn,
                   float* partial, float* red, int ny, int nx, float ss,
                   int clean, cudaStream_t st) {
-  return pipe_2d<OP_ISO>(P, last, scal, av, W, nw,
+  return pipe_2d<OP_ISO>(B, P, last, scal, av, W, nw,
                          Op2d{nullptr, nullptr, clean}, wn, avn, partial, red,
                          ny, nx, ss, st);
 }
 
-// K2'. As K2, with the (ny, nx) zero-padded face weights wx, wy.
-int lz_pipe_aniso2d(int P, int last, const float* scal, const float* av,
-                    const float* const* W, int nw, const float* wx,
-                    const float* wy, float* wn, float* avn, float* partial,
-                    float* red, int ny, int nx, float ss, cudaStream_t st) {
+// K2'. As K2, with the zero-padded face weights wx, wy: (B, ny, nx), each
+// lane its own.
+int lz_pipe_aniso2d(int B, int P, int last, const float* scal,
+                    const float* av, const float* const* W, int nw,
+                    const float* wx, const float* wy, float* wn, float* avn,
+                    float* partial, float* red, int ny, int nx, float ss,
+                    cudaStream_t st) {
   if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
-  return pipe_2d<OP_ANISO>(P, last, scal, av, W, nw, Op2d{wx, wy, 0}, wn,
+  return pipe_2d<OP_ANISO>(B, P, last, scal, av, W, nw, Op2d{wx, wy, 0}, wn,
                            avn, partial, red, ny, nx, ss, st);
 }
 
@@ -749,13 +807,15 @@ int lz_iter(int P, int opk, int vec, const float* scal, const float* wj,
   return iter_dispatch(P, opk, bucket(j), vec != 0, f);
 }
 
-// K3. q: (k, m, 2) device buffer. W: host array of m device pointers.
-// outs: host array of k device pointers to (P, ny, nx) outputs.
-int lz_combine(int P, const float* q, const float* const* W, int m, int k,
-               float* const* outs, int ny, int nx, cudaStream_t st) {
-  if ((P != 1 && P != 2) || m < 1 || m > MAXCOLS || k < 1 || k > KMAX)
+// K3 on B lanes (B = 1: one field). q: (B, k, m, 2) device buffer. W:
+// host array of m device pointers (lane 0's), outs: host array of k device
+// pointers to outputs (lane 0's); every field is (B, P, ny, nx), lane-major.
+int lz_combine(int B, int P, const float* q, const float* const* W, int m,
+               int k, float* const* outs, int ny, int nx, cudaStream_t st) {
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || m < 1 || m > MAXCOLS
+      || k < 1 || k > KMAX)
     return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(W, m);
+  const Cols c = make_cols(W, m, (size_t)P * ny * nx);
   Outs o = {};
   const size_t n = (size_t)ny * nx;
   bool vec = n % 4 == 0;
@@ -765,10 +825,10 @@ int lz_combine(int P, const float* q, const float* const* W, int m, int k,
   }
   for (int i = 0; i < m; ++i) vec = vec && aligned16(W[i]);
   if (P == 1)
-    return vec ? launch_combine<1, 4>(q, c, m, k, o, n, st)
-               : launch_combine<1, 1>(q, c, m, k, o, n, st);
-  return vec ? launch_combine<2, 4>(q, c, m, k, o, n, st)
-             : launch_combine<2, 1>(q, c, m, k, o, n, st);
+    return vec ? launch_combine<1, 4>(B, q, c, m, k, o, n, st)
+               : launch_combine<1, 1>(B, q, c, m, k, o, n, st);
+  return vec ? launch_combine<2, 4>(B, q, c, m, k, o, n, st)
+             : launch_combine<2, 1>(B, q, c, m, k, o, n, st);
 }
 
 }  // extern "C"

@@ -27,7 +27,13 @@ constexpr int RED_THREADS = 256;
 // most per-block partial sums: lanczos2d's K2 nsq, gram (2 nw), d (2 (nw+1))
 constexpr int RED_W = 4 * MAXCOLS + 3;
 
-struct Cols { const float* p[MAXCOLS]; };
+// Column pointers of a launch. A batched launch (lanes on blockIdx.y) takes
+// lane 0's pointers and the lane stride ls, in floats (0 unbatched): lane
+// b's column i is p[i] + b ls.
+struct Cols {
+  const float* p[MAXCOLS];
+  size_t ls;
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -136,11 +142,13 @@ __global__ void reduce_partials(const float* __restrict__ partial, int nblk,
 
 // As reduce_partials, for partial sums stored output-major, partial[o, b]
 // (nblk sums per output): consecutive threads read consecutive blocks' sums.
+// A batched launch stacks its lanes' rows, lane-major: blockIdx.y is the
+// lane, so lane l's output o is row l * gridDim.x + o.
 __global__ void reduce_partials_om(const float* __restrict__ partial,
                                    int nblk, float* __restrict__ out) {
   __shared__ float ws[RED_THREADS / 32];
-  const int o = blockIdx.x;
-  const float* __restrict__ row = partial + (size_t)o * nblk;
+  const size_t o = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const float* __restrict__ row = partial + o * nblk;
   float acc = 0.0f;
   for (int b = threadIdx.x; b < nblk; b += RED_THREADS) acc += row[b];
   acc = warp_sum(acc);
@@ -162,9 +170,10 @@ dim3 tile_grid(int ny, int nx) {
   return dim3((nx + TX - 1) / TX, (ny + TY - 1) / TY);
 }
 
-Cols make_cols(const float* const* ptrs, int n) {
+Cols make_cols(const float* const* ptrs, int n, size_t ls = 0) {
   Cols c = {};
   for (int i = 0; i < n; ++i) c.p[i] = ptrs[i];
+  c.ls = ls;
   return c;
 }
 

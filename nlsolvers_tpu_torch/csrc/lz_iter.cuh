@@ -7,7 +7,8 @@
 // with full reorthogonalization, the JAX package's _iter_call):
 //   phase 0 (wpass)    w = s_j A(W_j) - bs W_{j-1}, and the block's partial
 //                      sums of raw_i = <W_i, w>, i <= j (alone, this is
-//                      K1: the JAX package's _pass1_call);
+//                      K1: the JAX package's _pass1_call, which also sums
+//                      ||W_j||^2);
 //   grid sync; every block sums the partials (reduce_all);
 //   phase 1 (subpass)  W_{j+1} = w - sum_i q_i W_i with q_i = s_i^2 raw_i,
 //                      and the block's partial sum of ||W_{j+1}||^2.
@@ -153,11 +154,12 @@ __device__ __forceinline__ void wj_row(const float* __restrict__ wj, int k,
 }
 
 // The block's raw sums, i <= j, into partial (rows 2i (re), 2i + 1 (im)):
-// i < j from the lane-group sums g (tile_dots), i = j from the lane sums dl.
-template <int MAXW>
+// i < j from the lane-group sums g (tile_dots), i = j from the lane sums dl;
+// with NSQ also ||W_j||^2 from the lane sums nj, into row 2j + 2.
+template <int MAXW, bool NSQ>
 __device__ __forceinline__ void raw_partials(
-    const float (&g)[4][2], const float (&dl)[2], int j, int lane, int w,
-    int q, int gl, float (*red)[RED_W], float* __restrict__ partial) {
+    const float (&g)[4][2], const float (&dl)[2], float nj, int j, int lane,
+    int w, int q, int gl, float (*red)[RED_W], float* __restrict__ partial) {
   constexpr int NG = MAXW / 4;
   constexpr int L = 32 / NG;
 #pragma unroll
@@ -174,7 +176,11 @@ __device__ __forceinline__ void raw_partials(
     red[w][2 * j] = d0;
     red[w][2 * j + 1] = d1;
   }
-  block_partials(red, 2 * (j + 1), partial);
+  if (NSQ) {
+    nj = warp_sum(nj);
+    if (lane == 0) red[w][2 * j + 2] = nj;
+  }
+  block_partials(red, 2 * (j + 1) + NSQ, partial);
 }
 
 // Phase 0 over the block's segments [s0, s1) (see the top of the file): w
@@ -184,8 +190,9 @@ __device__ __forceinline__ void raw_partials(
 // (raw_partials). wp: W_0..W_{j-1} in shared memory. ring: RING rows, hal:
 // RING rows, red: PWARP rows of RED_W. lane, w: the thread's lane and warp;
 // q, gl: its dot group (of 32 / (MAXW / 4) lanes) and its lane in the
-// group. MAXW bounds j.
-template <int P, int MAXW, int OPK, int VEC>
+// group. MAXW bounds j. NSQ (K1 / K1'): ||W_j||^2 as one more sum, from the
+// ring's centre rows.
+template <int P, int MAXW, int OPK, int VEC, bool NSQ = false>
 __device__ __forceinline__ void wpass(
     float s, float bs, const float* __restrict__ wj, const float* const* wp,
     int j, const OpArgs& a, int s0, int s1, float* wsm,
@@ -201,6 +208,7 @@ __device__ __forceinline__ void wpass(
   const float* __restrict__ wjm1 = j > 0 ? wp[j - 1] : nullptr;
   float g[4][2] = {}, d[4][2] = {};
   float dl[2] = {0.0f, 0.0f};        // raw_j = <W_j, w>
+  float nj = 0.0f;                    // ||W_j||^2 (NSQ)
 
   for (int sg = s0; sg < s1;) {
     const int strip = sg / rows, r0 = sg - strip * rows;
@@ -304,6 +312,10 @@ __device__ __forceinline__ void wpass(
             y2[p] = wv[p][e];
           }
           hdot<P>(x, y2, dl);
+          if (NSQ) {
+            nj += x[0] * x[0];
+            if (P == 2) nj += x[P - 1] * x[P - 1];
+          }
         }
         if (j > 0) {
           __syncwarp();
@@ -316,7 +328,7 @@ __device__ __forceinline__ void wpass(
     __syncthreads();                              // the ring is reused
     sg += h;
   }
-  raw_partials<MAXW>(g, dl, j, lane, w, q, gl, red, partial);
+  raw_partials<MAXW, NSQ>(g, dl, nj, j, lane, w, q, gl, red, partial);
 }
 
 // Phase 1 over the block's segments [s0, s1), last to first, one row per

@@ -48,7 +48,12 @@ def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m, grid=None):
     the fused-kernel path. `desc` is the operator's kernel descriptor;
     `rho_fn` a planar density (nlse_density_planar). With `grid`
     (ops/cuda/kick.kick_grid) the closing half kick also does the no-flux
-    ghost copy of that block; without it the step copies no ghost cells."""
+    ghost copy of that block; without it the step copies no ghost cells.
+
+    In 2D `up` may be a batch (B, 2, ny, nx): every lane steps in the same
+    launches (batched kicks, Lanczos kernels, one batched eigh), with a
+    batched descriptor (ops/operators.batched_aniso_laplacian_2d, or the
+    shared iso one) and a density whose m field is (B, ny, nx)."""
     from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
 
     up = phase_kick_bc_planar(up, rho_fn, 0.5 * dt)

@@ -55,7 +55,8 @@ def nlse_density(kind, m, *, sigma1=1.0, sigma2=-0.1, kappa=1.0,
 class PlanarDensity:
     """rho(up) of a planar state, which also carries (kind, m, sigma1,
     sigma2, kappa), so that a kernel can compute it in place
-    (ops/cuda/kick.py)."""
+    (ops/cuda/kick.py). The (re, im) pair is axis -3 of up: (2, R, nx), or
+    (B, 2, R, nx) for a batch whose lanes' m fields are m (B, R, nx)."""
 
     def __init__(self, kind, m, sigma1, sigma2, kappa):
         self.kind, self.m = kind, m
@@ -63,7 +64,8 @@ class PlanarDensity:
         self._rho = _rho_of(kind, m, sigma1, sigma2, kappa)
 
     def __call__(self, up):
-        return self._rho(up[0] * up[0] + up[1] * up[1])
+        re, im = up[..., 0, :, :], up[..., 1, :, :]
+        return self._rho(re * re + im * im)
 
 
 def nlse_density_planar(kind, m, *, sigma1=1.0, sigma2=-0.1, kappa=1.0):

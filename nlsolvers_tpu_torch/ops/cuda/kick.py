@@ -8,7 +8,9 @@
                                        shard's block
 
 On a planar (2, R, nx) float32 state: out = ghost(up * exp(i theta rho(up))),
-a NEW tensor (the input is left as it was). `rho` is a planar density from
+a NEW tensor (the input is left as it was). A batch (B, 2, R, nx) of
+states, each lane with its own m field (the density's m is (B, R, nx)),
+takes one launch, the same faces on every lane. `rho` is a planar density from
 models/nonlinearities.nlse_density_planar, which carries its kind and m
 field for the kernel. `grid=None` is the kick alone (the step's opening
 kick, or bc "none"); otherwise `grid` (kick_grid) gives the block's shape,
@@ -43,10 +45,12 @@ _KINDS = {"cubic": 0, "cubic_quintic": 1, "saturable": 2}
 
 
 def phase_kick_planar(up, rho, theta):
-    """up * exp(i*theta*rho) on PLANAR (2, ...) float32 state."""
+    """up * exp(i*theta*rho) on PLANAR state: (re, im) on axis -3, as
+    (2, R, nx) or a batch (B, 2, R, nx)."""
     th = theta * rho
     c, s = torch.cos(th), torch.sin(th)
-    return torch.stack([up[0] * c - up[1] * s, up[0] * s + up[1] * c])
+    re, im = up[..., 0, :, :], up[..., 1, :, :]
+    return torch.stack([re * c - im * s, re * s + im * c], dim=-3)
 
 
 @dataclass(frozen=True)
@@ -101,8 +105,8 @@ def _lib():
         return _lib_cache[0]
     lib = _build.library("kick")
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kick_bc.argtypes = [i32, i32, vp, vp, vp] + [i32] * 9 + [f32] * 4 + [
-        vp]
+    lib.kick_bc.argtypes = [i32, i32, i32, vp, vp, vp] + [i32] * 9 + [
+        f32] * 4 + [vp]
     lib.kick_bc.restype = i32
     lib.kick_error_string.argtypes = [i32]
     lib.kick_error_string.restype = ctypes.c_char_p
@@ -112,25 +116,29 @@ def _lib():
 
 def phase_kick_bc_planar(up, rho, theta, grid=None):
     """ghost(up * exp(i theta rho(up))) on a planar (2, R, nx) float32
-    state, out of place; `grid` None skips the ghost copy."""
+    state, or on each lane of a batch (B, 2, R, nx), out of place; `grid`
+    None skips the ghost copy."""
     if not use_kernel(up):
         return kick_bc_ref(up, rho, theta, grid)
     what = "phase_kick_bc_planar"
-    if (up.dim() != 3 or up.shape[0] != 2 or up.dtype != torch.float32
-            or not up.is_contiguous()):
+    if (up.dim() not in (3, 4) or up.shape[-3] != 2
+            or up.dtype != torch.float32 or not up.is_contiguous()):
         raise ValueError(f"{what}: the state {tuple(up.shape)} {up.dtype} "
-                         f"must be a contiguous float32 (2, R, nx) tensor")
+                         f"must be a contiguous float32 ([B,] 2, R, nx) "
+                         f"tensor")
     kind = _KINDS.get(getattr(rho, "kind", None))
     m = getattr(rho, "m", None)
     if kind is None or not isinstance(m, torch.Tensor):
         raise ValueError(f"{what}: the kernel takes a planar density from "
                          f"nlse_density_planar with an m field")
-    R, nx = up.shape[1], up.shape[2]
-    if (tuple(m.shape) != (R, nx) or m.dtype != torch.float32
+    R, nx = up.shape[-2:]
+    B = up.shape[0] if up.dim() == 4 else 1
+    mshape = tuple(up.shape[:-3]) + (R, nx)
+    if (tuple(m.shape) != mshape or m.dtype != torch.float32
             or m.device != up.device or not m.is_contiguous()):
         raise ValueError(f"{what}: m {tuple(m.shape)} {m.dtype} on "
-                         f"{m.device} must be a contiguous float32 ({R}, "
-                         f"{nx}) tensor on {up.device}")
+                         f"{m.device} must be a contiguous float32 {mshape} "
+                         f"tensor on {up.device}")
     if grid is None:
         nz, ny, faces = 1, R, (0,) * 6
     else:
@@ -143,7 +151,7 @@ def phase_kick_bc_planar(up, rho, theta, grid=None):
     out = torch.empty_like(up)
     vec = 4 if nx % 4 == 0 and all(t.data_ptr() % 16 == 0
                                    for t in (up, m, out)) else 1
-    err = _lib().kick_bc(kind, vec, up.data_ptr(), m.data_ptr(),
+    err = _lib().kick_bc(kind, vec, B, up.data_ptr(), m.data_ptr(),
                          out.data_ptr(), nz, ny, nx, *faces, theta,
                          rho.sigma1, rho.sigma2, rho.kappa,
                          torch.cuda.current_stream(up.device).cuda_stream)

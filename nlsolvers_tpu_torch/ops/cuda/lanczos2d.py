@@ -27,6 +27,18 @@ its plain PyTorch version beside it and a launch counter on its wrapper:
 The iso and aniso wrappers launch one pass1 and one pipe kernel with the
 operator as a template policy; each wrapper counts its own launches.
 
+K1/K1', K2/K2' and K3 also take a batch: fields (B, P, ny, nx) with a
+leading lane axis, scalars (B, ...) and, for the aniso operator, face
+weights (B, ny, nx) (operators.batched_aniso_laplacian_2d), the form that
+jax.vmap gives the Pallas kernels in the JAX package's datagen engine. A
+batch is ONE launch (the lane is the kernel's second grid index), and lane
+b of it gives the bits of the unbatched launch on lane b: the kernel walks
+each lane's field with the unbatched block map and reduces each lane's
+partial sums in the unbatched order. The plain versions take the same
+leading axis, vectorised over it. `lanczos_planar` runs a batch through the
+pipelined 2D loop (_lanczos_pipe) with the scalar recurrence on (B, ...)
+tensors and one batched eigh (ops/krylov.tridiag_eigh).
+
 A wrapper launches its kernel for a CUDA tensor under config.kernel_mode
 "auto" and raises if the kernel cannot run; it takes the plain version for a
 CPU tensor, or under "off". What bounds the kernels, and what their design
@@ -42,6 +54,7 @@ wrapper itself takes one shard's local tensors.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -96,17 +109,19 @@ KINDS_3D = ("laplacian_3d", "aniso_laplacian_3d")
 
 
 def _weight_ok(w, desc):
+    """A face-weight plane (ny, nx), or a batch's planes (B, ny, nx)."""
     return (isinstance(w, torch.Tensor) and w.dtype == torch.float32
-            and w.is_contiguous()
-            and tuple(w.shape) == (desc["ny"], desc["nx"]))
+            and w.is_contiguous() and w.dim() in (2, 3)
+            and tuple(w.shape[-2:]) == (desc["ny"], desc["nx"]))
 
 
 def supported_desc(desc, u_shape, dtype):
     """Can the fused path run this operator/field combination? `u_shape` is
     the grid, (ny, nx) or (nz, ny, nx); the 3D kinds are lanczos3d's. The
     kernels mask ragged edges, so any grid with sides >= 3 qualifies. The
-    aniso weights must be contiguous float32 (ny, nx) tensors; a wrapper
-    given weights on another device than the field raises."""
+    aniso weights must be contiguous float32 (ny, nx) tensors, or (B, ny,
+    nx) for a batch; a wrapper given weights on another device than the
+    field raises."""
     if desc is not None and desc.get("kind") in KINDS_3D:
         from nlsolvers_tpu_torch.ops.cuda import lanczos3d
         return lanczos3d.supported_desc(desc, u_shape, dtype)
@@ -142,16 +157,18 @@ def _lib():
             ("lz_max_cols", []),
             ("lz_max_specs", []),
             ("lz_pass1_iso2d",
-             [i32, vp, vp, pp, i32, vp, vp, vp, i32, i32, f32, i32, vp]),
-            ("lz_pass1_aniso2d",
-             [i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, i32, i32, f32, vp]),
-            ("lz_pipe_iso2d",
-             [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, i32, i32, f32, i32,
+             [i32, i32, vp, vp, pp, i32, vp, vp, vp, i32, i32, f32, i32,
               vp]),
+            ("lz_pass1_aniso2d",
+             [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, i32, i32, f32,
+              vp]),
+            ("lz_pipe_iso2d",
+             [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, i32, i32, f32,
+              i32, vp]),
             ("lz_pipe_aniso2d",
-             [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, i32, i32,
-              f32, vp]),
-            ("lz_combine", [i32, vp, pp, i32, i32, pp, i32, i32, vp]),
+             [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, i32,
+              i32, f32, vp]),
+            ("lz_combine", [i32, i32, vp, pp, i32, i32, pp, i32, i32, vp]),
             ("lz_pass1_shard2d",
              [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
               vp, i32, i32, i32, i32, i32, i32, f32, vp]),
@@ -187,23 +204,28 @@ def _check(err, what):
 
 
 def _check_fields(fields, like, what):
-    P, ny, nx = like.shape
-    if P not in (1, 2):
-        raise ValueError(f"{what}: planar fields are (1|2, ny, nx), "
+    """Planar fields shaped as `like`: (P, ny, nx), or (B, P, ny, nx) for a
+    batch of B lanes, P in (1, 2). Returns B (1 unbatched; the kernels
+    check its range)."""
+    if like.dim() not in (3, 4) or like.shape[-3] not in (1, 2):
+        raise ValueError(f"{what}: planar fields are ([B,] 1|2, ny, nx), "
                          f"got {tuple(like.shape)}")
     for f in fields:
         if not isinstance(f, torch.Tensor) or f.dtype != torch.float32:
             raise TypeError(f"{what}: fields must be float32 tensors")
         if f.device != like.device:
             raise ValueError(f"{what}: fields on {f.device} and {like.device}")
-        if tuple(f.shape) != (P, ny, nx):
+        if f.shape != like.shape:
             raise ValueError(f"{what}: field shape {tuple(f.shape)} != "
-                             f"{(P, ny, nx)}")
+                             f"{tuple(like.shape)}")
         if not f.is_contiguous():
             raise ValueError(f"{what}: fields must be contiguous")
+    return like.shape[0] if like.dim() == 4 else 1
 
 
 def _check_scalars(scal, shape, like, what):
+    """Scalars of `shape` per lane, with like's leading lane axis."""
+    shape = tuple(like.shape[:-3]) + tuple(shape)
     if (scal.dtype != torch.float32 or tuple(scal.shape) != shape
             or scal.device != like.device or not scal.is_contiguous()):
         raise ValueError(f"{what}: scalars must be a contiguous float32 "
@@ -211,13 +233,15 @@ def _check_scalars(scal, shape, like, what):
 
 
 def _aniso_weights(desc, like, what):
-    """The face weights (wx, wy), checked against the field `like`."""
+    """The face weights (wx, wy), checked against the field `like`: (ny, nx),
+    or (B, ny, nx) for a batch of B lanes."""
     ws = (desc["wx"], desc["wy"])
-    if (tuple(like.shape[1:]) != (desc["ny"], desc["nx"])
+    shape = tuple(like.shape[:-3]) + tuple(like.shape[-2:])
+    if (tuple(like.shape[-2:]) != (desc["ny"], desc["nx"])
             or not all(_weight_ok(w, desc) and w.device == like.device
-                       for w in ws)):
+                       and tuple(w.shape) == shape for w in ws)):
         raise ValueError(f"{what}: face weights must be contiguous float32 "
-                         f"{tuple(like.shape[1:])} tensors on {like.device}")
+                         f"{shape} tensors on {like.device}")
     return ws
 
 
@@ -245,9 +269,10 @@ def _check_cols(n, what):
 # ------------------------------------------------------------ plain versions
 
 def _stencil_ref(u, desc):
-    """5-point no-flux Laplacian of a planar (P, ny, nx) field: out-of-grid
-    neighbours are 0, the variant diagonal comes from the indices."""
-    P, ny, nx = u.shape
+    """5-point no-flux Laplacian of a planar ([B,] P, ny, nx) field:
+    out-of-grid neighbours are 0, the variant diagonal comes from the
+    indices."""
+    ny, nx = u.shape[-2:]
     rows = torch.arange(ny, device=u.device)[:, None]
     cols = torch.arange(nx, device=u.device)[None, :]
     top, bot = rows == 0, rows == ny - 1
@@ -257,57 +282,73 @@ def _stencil_ref(u, desc):
     else:
         diag = -(4.0 - top.to(u.dtype) - bot.to(u.dtype) - lft.to(u.dtype)
                  - rgt.to(u.dtype))
-    zr = torch.zeros_like(u[:, :1, :])
-    zc = torch.zeros_like(u[:, :, :1])
-    above = torch.cat([zr, u[:, :-1, :]], dim=1)
-    below = torch.cat([u[:, 1:, :], zr], dim=1)
-    left = torch.cat([zc, u[:, :, :-1]], dim=2)
-    right = torch.cat([u[:, :, 1:], zc], dim=2)
+    zr = torch.zeros_like(u[..., :1, :])
+    zc = torch.zeros_like(u[..., :, :1])
+    above = torch.cat([zr, u[..., :-1, :]], dim=-2)
+    below = torch.cat([u[..., 1:, :], zr], dim=-2)
+    left = torch.cat([zc, u[..., :, :-1]], dim=-1)
+    right = torch.cat([u[..., :, 1:], zc], dim=-1)
     return (above + below + left + right + diag * u) * (
         float(desc["scale"]) * float(desc["sign"]))
 
 
 def _stencil_aniso_ref(u, desc):
-    """div(c grad u) of a planar (P, ny, nx) field from the zero-padded face
-    weights, in the order of terms of the Pallas `_stencil_aniso`:
-    fx - fx[x-1] + fy - fy[r-1], with fx = wx (u[x+1] - u) and
-    fy = wy (u[r+1] - u); no face lies left of x = 0 or above r = 0."""
-    wx, wy = desc["wx"], desc["wy"]
-    zr = torch.zeros_like(u[:, :1, :])
-    zc = torch.zeros_like(u[:, :, :1])
-    fx = wx * (torch.cat([u[:, :, 1:], zc], dim=2) - u)
-    fx_l = torch.cat([zc, fx[:, :, :-1]], dim=2)
-    fy = wy * (torch.cat([u[:, 1:, :], zr], dim=1) - u)
-    fy_u = torch.cat([zr, fy[:, :-1, :]], dim=1)
+    """div(c grad u) of a planar ([B,] P, ny, nx) field from the zero-padded
+    face weights ((ny, nx), or (B, ny, nx) per lane), in the order of terms
+    of the Pallas `_stencil_aniso`: fx - fx[x-1] + fy - fy[r-1], with
+    fx = wx (u[x+1] - u) and fy = wy (u[r+1] - u); no face lies left of
+    x = 0 or above r = 0."""
+    wx, wy = desc["wx"].unsqueeze(-3), desc["wy"].unsqueeze(-3)
+    zr = torch.zeros_like(u[..., :1, :])
+    zc = torch.zeros_like(u[..., :, :1])
+    fx = wx * (torch.cat([u[..., :, 1:], zc], dim=-1) - u)
+    fx_l = torch.cat([zc, fx[..., :, :-1]], dim=-1)
+    fy = wy * (torch.cat([u[..., 1:, :], zr], dim=-2) - u)
+    fy_u = torch.cat([zr, fy[..., :-1, :]], dim=-2)
     return (fx - fx_l + fy - fy_u) * (
         float(desc["scale"]) * float(desc["sign"]))
 
 
+def _lane(x):
+    """A per-lane scalar ([B]) broadcast against ([B,] P, ny, nx) fields."""
+    return x[..., None, None, None]
+
+
 def _dots(a, b):
-    """Hermitian product <a, b> = sum conj(a) b of planar fields, (re, im)."""
-    if a.shape[0] == 1:
-        re = torch.sum(a[0] * b[0])
-        return torch.stack([re, torch.zeros_like(re)])
-    return torch.stack([torch.sum(a[0] * b[0] + a[1] * b[1]),
-                        torch.sum(a[0] * b[1] - a[1] * b[0])])
+    """Hermitian product <a, b> = sum conj(a) b of planar ([B,] P, ny, nx)
+    fields, ([B,] 2) as (re, im)."""
+    def total(x):
+        return torch.sum(x, dim=(-2, -1))
+    a0, b0 = a[..., 0, :, :], b[..., 0, :, :]
+    if a.shape[-3] == 1:
+        re = total(a0 * b0)
+        return torch.stack([re, torch.zeros_like(re)], dim=-1)
+    a1, b1 = a[..., 1, :, :], b[..., 1, :, :]
+    return torch.stack([total(a0 * b0 + a1 * b1),
+                        total(a0 * b1 - a1 * b0)], dim=-1)
 
 
-def _pass1_ref(scal, wj, prev, av):
-    w = scal[0, 0] * av
+def _norm_ref(u):
+    """||u||^2 of a planar ([B,] P, ny, nx) field, per lane."""
+    return torch.sum(u * u, dim=(-3, -2, -1))
+
+
+def _pass1_ref(scal, wj, prev, av, norm=False):
+    w = _lane(scal[..., 0, 0]) * av
     if prev:
-        w = w - scal[0, 1] * prev[-1]
-    raw = torch.stack([_dots(wi, w) for wi in list(prev) + [wj]])
-    return w, raw
+        w = w - _lane(scal[..., 0, 1]) * prev[-1]
+    raw = torch.stack([_dots(wi, w) for wi in list(prev) + [wj]], dim=-2)
+    return (w, raw, _norm_ref(wj)) if norm else (w, raw)
 
 
-def pass1_iso2d_ref(scal, wj, prev, desc):
+def pass1_iso2d_ref(scal, wj, prev, desc, norm=False):
     """Plain version of pass1_iso2d."""
-    return _pass1_ref(scal, wj, prev, _stencil_ref(wj, desc))
+    return _pass1_ref(scal, wj, prev, _stencil_ref(wj, desc), norm)
 
 
-def pass1_aniso2d_ref(scal, wj, prev, desc):
+def pass1_aniso2d_ref(scal, wj, prev, desc, norm=False):
     """Plain version of pass1_aniso2d."""
-    return _pass1_ref(scal, wj, prev, _stencil_aniso_ref(wj, desc))
+    return _pass1_ref(scal, wj, prev, _stencil_aniso_ref(wj, desc), norm)
 
 
 def _stencil_shard2d_ref(u, yh, xh, d):
@@ -345,28 +386,32 @@ def pass1_shard2d_ref(scal, wj, prev, yh, xh, d):
 
 
 def _rebuild_ref(scal, av, W):
-    s = scal[0, 0]
-    a0 = s * av[0]
-    a1 = s * av[1] if av.shape[0] == 2 else None
+    def sc(i, c):                    # lane scalars against (ny, nx) planes
+        return scal[..., i, c, None, None]
+    s = sc(0, 0)
+    a0 = s * av[..., 0, :, :]
+    a1 = s * av[..., 1, :, :] if av.shape[-3] == 2 else None
     for i, wi in enumerate(W):
-        cr = scal[1 + i, 0]
+        cr = sc(1 + i, 0)
+        w0 = wi[..., 0, :, :]
         if a1 is None:
-            a0 = a0 - cr * wi[0]
+            a0 = a0 - cr * w0
         else:
-            ci = scal[1 + i, 1]
-            a0 = a0 - (cr * wi[0] - ci * wi[1])
-            a1 = a1 - (cr * wi[1] + ci * wi[0])
-    return a0[None] if a1 is None else torch.stack([a0, a1])
+            ci, w1 = sc(1 + i, 1), wi[..., 1, :, :]
+            a0 = a0 - (cr * w0 - ci * w1)
+            a1 = a1 - (cr * w1 + ci * w0)
+    return (a0.unsqueeze(-3) if a1 is None
+            else torch.stack([a0, a1], dim=-3))
 
 
 def _pipe_ref(scal, av, W, last, stencil):
     wn = _rebuild_ref(scal, av, W)
-    nsq = torch.sum(wn * wn).reshape(1, 1)
-    gram = torch.stack([_dots(wi, wn) for wi in W])
+    nsq = _norm_ref(wn)[..., None, None]
+    gram = torch.stack([_dots(wi, wn) for wi in W], dim=-2)
     if last:
         return wn, nsq, gram
     avn = stencil(wn)
-    d = torch.stack([_dots(wi, avn) for wi in W] + [_dots(wn, avn)])
+    d = torch.stack([_dots(wi, avn) for wi in W] + [_dots(wn, avn)], dim=-2)
     return wn, avn, nsq, gram, d
 
 
@@ -403,41 +448,48 @@ def iter_ref(scal, wj, prev, desc):
 
 def combine_ref(q, W):
     """Plain version of combine."""
+    def pl(i, p):
+        return W[i][..., p, :, :]
+
     outs = []
-    for spec in range(q.shape[0]):
-        if W[0].shape[0] == 1:
-            acc = q[spec, 0, 0] * W[0][0]
+    for spec in range(q.shape[-3]):
+        def qs(i, c):
+            return q[..., spec, i, c, None, None]
+        if W[0].shape[-3] == 1:
+            acc = qs(0, 0) * pl(0, 0)
             for i in range(1, len(W)):
-                acc = acc + q[spec, i, 0] * W[i][0]
-            outs.append(acc[None])
+                acc = acc + qs(i, 0) * pl(i, 0)
+            outs.append(acc.unsqueeze(-3))
             continue
-        a, b = q[spec, 0, 0], q[spec, 0, 1]
-        y0 = a * W[0][0] - b * W[0][1]
-        y1 = a * W[0][1] + b * W[0][0]
+        a, b = qs(0, 0), qs(0, 1)
+        y0 = a * pl(0, 0) - b * pl(0, 1)
+        y1 = a * pl(0, 1) + b * pl(0, 0)
         for i in range(1, len(W)):
-            a, b = q[spec, i, 0], q[spec, i, 1]
-            y0 = y0 + a * W[i][0] - b * W[i][1]
-            y1 = y1 + a * W[i][1] + b * W[i][0]
-        outs.append(torch.stack([y0, y1]))
+            a, b = qs(i, 0), qs(i, 1)
+            y0 = y0 + a * pl(i, 0) - b * pl(i, 1)
+            y1 = y1 + a * pl(i, 1) + b * pl(i, 0)
+        outs.append(torch.stack([y0, y1], dim=-3))
     return tuple(outs)
 
 
 # ------------------------------------------------------------ kernel wrappers
 
-def _pass1(scal, wj, prev, desc, aniso, what):
-    """Checks, then launches K1 (iso) or K1' (aniso) on a CUDA field."""
-    _check_fields([wj, *prev], wj, what)
+def _pass1(scal, wj, prev, desc, aniso, norm, what):
+    """Checks, then launches K1 (iso) or K1' (aniso) on CUDA fields."""
+    B = _check_fields([wj, *prev], wj, what)
     _check_scalars(scal, (1, 2), wj, what)
     lib = _lib()
     j = len(prev)
-    P, ny, nx = wj.shape
+    P, ny, nx = wj.shape[-3:]
+    lead = tuple(wj.shape[:-3])
     ss = float(desc["scale"]) * float(desc["sign"])
     w = torch.empty_like(wj)
-    partial = torch.empty(lib.lz_pass1_blocks() * 2 * (j + 1),
+    nout = 2 * j + 3                       # raw (re, im), i <= j; ||W_j||^2
+    partial = torch.empty(lib.lz_pass1_blocks() * B * nout,
                           dtype=torch.float32, device=wj.device)
-    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
-    head = (P, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j)
-    outs = (w.data_ptr(), partial.data_ptr(), raw.data_ptr(), ny, nx, ss)
+    red = torch.empty(lead + (nout,), dtype=torch.float32, device=wj.device)
+    head = (B, P, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j)
+    outs = (w.data_ptr(), partial.data_ptr(), red.data_ptr(), ny, nx, ss)
     if aniso:
         wx, wy = _aniso_weights(desc, wj, what)
         err = lib.lz_pass1_aniso2d(*head, wx.data_ptr(), wy.data_ptr(),
@@ -447,19 +499,23 @@ def _pass1(scal, wj, prev, desc, aniso, what):
                                  int(desc["variant"] == "clean"),
                                  _stream(wj))
     _check(err, what)
-    return w, raw
+    raw = red[..., :nout - 1].view(lead + (j + 1, 2))
+    return (w, raw, red[..., nout - 1]) if norm else (w, raw)
 
 
-def pass1_iso2d(scal, wj, prev, desc):
+def pass1_iso2d(scal, wj, prev, desc, norm=False):
     """K1: w = s_j A(W_j) - bs W_{j-1} and raw (j+1, 2) = <W_i, w>, i <= j.
 
     scal: (1, 2) float32 [s_j, bs] on the fields' device; wj: W_j;
-    prev: W_0..W_{j-1} (j = len(prev) >= 0). Returns (w, raw).
+    prev: W_0..W_{j-1} (j = len(prev) >= 0). Returns (w, raw), with `norm`
+    (w, raw, ||W_j||^2) (a 0-d tensor), from the same pass. A batch of B
+    lanes: fields (B, P, ny, nx), scal (B, 1, 2), raw (B, j+1, 2), the norm
+    (B,), in one launch.
     """
     _check_cols(len(prev), "pass1_iso2d")
     if not use_kernel(wj):
-        return pass1_iso2d_ref(scal, wj, prev, desc)
-    out = _pass1(scal, wj, prev, desc, False, "pass1_iso2d")
+        return pass1_iso2d_ref(scal, wj, prev, desc, norm)
+    out = _pass1(scal, wj, prev, desc, False, norm, "pass1_iso2d")
     pass1_iso2d.launches += 1
     return out
 
@@ -467,14 +523,14 @@ def pass1_iso2d(scal, wj, prev, desc):
 pass1_iso2d.launches = 0
 
 
-def pass1_aniso2d(scal, wj, prev, desc):
+def pass1_aniso2d(scal, wj, prev, desc, norm=False):
     """K1': pass1_iso2d for the div(c grad u) operator of an
     "aniso_laplacian_2d" descriptor (face weights wx, wy on the field's
-    device)."""
+    device: (ny, nx), or (B, ny, nx) for a batch's lanes)."""
     _check_cols(len(prev), "pass1_aniso2d")
     if not use_kernel(wj):
-        return pass1_aniso2d_ref(scal, wj, prev, desc)
-    out = _pass1(scal, wj, prev, desc, True, "pass1_aniso2d")
+        return pass1_aniso2d_ref(scal, wj, prev, desc, norm)
+    out = _pass1(scal, wj, prev, desc, True, norm, "pass1_aniso2d")
     pass1_aniso2d.launches += 1
     return out
 
@@ -534,18 +590,19 @@ pass1_shard2d.launches = 0
 def _pipe(scal, av, W, desc, last, aniso, what):
     """Checks, then launches K2 (iso) or K2' (aniso) on CUDA fields."""
     nw = len(W)
-    _check_fields([av, *W], av, what)
+    B = _check_fields([av, *W], av, what)
     _check_scalars(scal, (nw + 1, 2), av, what)
     lib = _lib()
-    P, ny, nx = av.shape
+    P, ny, nx = av.shape[-3:]
+    lead = tuple(av.shape[:-3])
     ss = float(desc["scale"]) * float(desc["sign"])
     nout = 1 + 2 * nw + (0 if last else 2 * (nw + 1))
     wn = torch.empty_like(av)
     avn = None if last else torch.empty_like(av)
-    partial = torch.empty(lib.lz_pipe_blocks() * nout,
+    partial = torch.empty(lib.lz_pipe_blocks() * B * nout,
                           dtype=torch.float32, device=av.device)
-    red = torch.empty(nout, dtype=torch.float32, device=av.device)
-    head = (P, int(last), scal.data_ptr(), av.data_ptr(), _ptrs(W), nw)
+    red = torch.empty(lead + (nout,), dtype=torch.float32, device=av.device)
+    head = (B, P, int(last), scal.data_ptr(), av.data_ptr(), _ptrs(W), nw)
     outs = (wn.data_ptr(), None if last else avn.data_ptr(),
             partial.data_ptr(), red.data_ptr(), ny, nx, ss)
     if aniso:
@@ -556,11 +613,12 @@ def _pipe(scal, av, W, desc, last, aniso, what):
         err = lib.lz_pipe_iso2d(*head, *outs,
                                 int(desc["variant"] == "clean"), _stream(av))
     _check(err, what)
-    nsq = red[:1].view(1, 1)
-    gram = red[1:1 + 2 * nw].view(nw, 2)
+    nsq = red[..., :1].view(lead + (1, 1))
+    gram = red[..., 1:1 + 2 * nw].view(lead + (nw, 2))
     if last:
         return wn, nsq, gram
-    return wn, avn, nsq, gram, red[1 + 2 * nw:].view(nw + 1, 2)
+    return (wn, avn, nsq, gram,
+            red[..., 1 + 2 * nw:].view(lead + (nw + 1, 2)))
 
 
 def pipe_iso2d(scal, av, W, desc, last):
@@ -568,7 +626,9 @@ def pipe_iso2d(scal, av, W, desc, last):
 
     scal: (j+2, 2) float32 [(s_j, 0), c_0..c_j] (complex c_i); av: av_j;
     W: W_0..W_j. Returns (W_{j+1}, av_{j+1}, nsq (1,1), gram (j+1,2),
-    d (j+2,2)), or (W_{j+1}, nsq, gram) when `last`.
+    d (j+2,2)), or (W_{j+1}, nsq, gram) when `last`. A batch of B lanes:
+    fields (B, P, ny, nx), every scalar array with a leading B, in one
+    launch.
     """
     _check_cols(len(W), "pipe_iso2d")
     if not use_kernel(av):
@@ -583,8 +643,9 @@ pipe_iso2d.launches = 0
 
 def pipe_aniso2d(scal, av, W, desc, last):
     """K2': pipe_iso2d for the div(c grad u) operator of an
-    "aniso_laplacian_2d" descriptor. The `last` iteration computes no
-    stencil and reads no weights."""
+    "aniso_laplacian_2d" descriptor (face weights (ny, nx), or (B, ny, nx)
+    for a batch's lanes). The `last` iteration computes no stencil and
+    reads no weights."""
     _check_cols(len(W), "pipe_aniso2d")
     if not use_kernel(av):
         return pipe_aniso2d_ref(scal, av, W, desc, last)
@@ -598,18 +659,19 @@ pipe_aniso2d.launches = 0
 
 def combine(q, W):
     """K3: y_spec = sum_i q[spec, i] W_i (complex q, s_i folded in) for the
-    k = q.shape[0] specs in one pass over the m = len(W) columns."""
-    k, m = q.shape[0], len(W)
+    k = q.shape[-3] specs in one pass over the m = len(W) columns. A batch
+    of B lanes: columns (B, P, ny, nx) and q (B, k, m, 2), in one launch."""
+    k, m = q.shape[-3], len(W)
     if m > MAX_M or k > MAX_SPECS:
         raise ValueError(f"combine: at most {MAX_M} columns and {MAX_SPECS} "
                          f"specs, got {m} and {k}")
     if not use_kernel(W[0]):
         return combine_ref(q, W)
-    _check_fields(W, W[0], "combine")
+    B = _check_fields(W, W[0], "combine")
     _check_scalars(q, (k, m, 2), W[0], "combine")
-    P, ny, nx = W[0].shape
+    P, ny, nx = W[0].shape[-3:]
     outs = [torch.empty_like(W[0]) for _ in range(k)]
-    _check(_lib().lz_combine(P, q.data_ptr(), _ptrs(W), m, k, _ptrs(outs),
+    _check(_lib().lz_combine(B, P, q.data_ptr(), _ptrs(W), m, k, _ptrs(outs),
                              ny, nx, _stream(W[0])), "combine")
     combine.launches += 1
     return tuple(outs)
@@ -745,26 +807,34 @@ def safe_inv(nrm):
 def _pipe_kernels(desc):
     """(pass1, pipe) of the pipelined loop for `desc`: K1/K2, K1'/K2', or
     in 3D pass1_3d and K8 pipe_3d, whose last, stencil-free iteration is
-    K2's geometry-free LAST launch on the merged view."""
+    K2's geometry-free LAST launch on the merged view. pass1 returns
+    (av, d, ||u||^2): K1 and K1' take the norm in the same pass."""
     kind = desc["kind"]
     if kind == "aniso_laplacian_2d":
-        return pass1_aniso2d, pipe_aniso2d
+        return functools.partial(pass1_aniso2d, norm=True), pipe_aniso2d
     if kind in KINDS_3D:
         from nlsolvers_tpu_torch.ops.cuda import lanczos3d
+
+        def pass1(scal, u, prev, desc):
+            return lanczos3d.pass1_3d(scal, u, prev, desc) + (
+                torch.sum(u * u),)
 
         def pipe(scal, av, W, desc, last):
             if last:
                 return pipe_iso2d(scal, av, W, desc, True)
             return lanczos3d.pipe_3d(scal, av, W, desc)
 
-        return lanczos3d.pass1_3d, pipe
-    return pass1_iso2d, pipe_iso2d
+        return pass1, pipe
+    return functools.partial(pass1_iso2d, norm=True), pipe_iso2d
 
 
 def _lanczos_pipe(u, m, desc):
     """Pipelined single-pass Lanczos: pass1 once, then the pipe m-1 times
     (kernels from _pipe_kernels; the 3D one is the JAX package's
     lanczos3d_pipe.lanczos_pipe3d, with the same scalar recurrence).
+    `u` is one planar field (P, R, nx), or a batch (B, P, R, nx) whose
+    lanes run through the same launches: every scalar below then carries a
+    leading B (the per-lane arithmetic is the same elementwise ops).
 
     w_j = s_j av_j - bs W_{j-1} (bs = beta_{j-1} s_{j-1}) is never
     materialized: its projections raw_i = <W_i, w_j> are recovered as
@@ -775,42 +845,53 @@ def _lanczos_pipe(u, m, desc):
     c_i = s_i^2 raw_i + (i == j-1) bs.
     """
     pass1, pipe = _pipe_kernels(desc)
+    lead = tuple(u.shape[:-3])
     f32 = dict(dtype=torch.float32, device=u.device)
-    zero = torch.zeros((), **f32)
-    nsq0 = torch.sum(u * u)
+    zero = torch.zeros(lead, **f32)
+
+    def pair(re, im):                # ([B,] 1, 2) rows of (re, im)
+        return torch.stack([re, im], dim=-1)[..., None, :]
+
+    def per_lane(x):                 # [B] scalars against ([B,] k, 2)
+        return x[..., None, None]
+
+    # init: av_0 = A(W_0), d_0 = <W_0, av_0> and ||W_0||^2, i.e. pass1
+    # with [1, 0]
+    av, d_prev, nsq0 = pass1(
+        torch.eye(1, 2, **f32).expand(lead + (1, 2)).contiguous(), u, [],
+        desc)
     beta0 = torch.sqrt(nsq0)
-    # init: av_0 = A(W_0) and d_0 = <W_0, av_0>, i.e. pass1 with [1, 0]
-    av, d_prev = pass1(torch.eye(1, 2, **f32), u, [], desc)
     W, s = [u], [safe_inv(beta0)]
     alphas, betas = [], []
     g_prev = g_prev2 = None
     for j in range(m - 1):
         sj = s[j]
         if j == 0:
-            raw = sj * d_prev
+            raw = per_lane(sj) * d_prev
             bs = zero
         else:
             bs = betas[j - 1] * s[j - 1]
             parts = [] if j < 2 else [g_prev2]               # i <= j-2
             nb2 = betas[j - 2] ** 2 if j >= 2 else nsq0      # i = j-1
-            parts.append(torch.stack([nb2, zero])[None])
-            parts.append(torch.stack([g_prev[j - 1, 0],      # i = j (conj)
-                                      -g_prev[j - 1, 1]])[None])
-            raw = sj * d_prev - bs * torch.cat(parts)
-        sv = torch.stack(s)                                  # (j+1,)
-        proj = sv[:, None] * raw
-        alphas.append(proj[j, 0])
-        c = sv[:, None] * proj
+            parts.append(pair(nb2, zero))
+            parts.append(pair(g_prev[..., j - 1, 0],         # i = j (conj)
+                              -g_prev[..., j - 1, 1]))
+            raw = (per_lane(sj) * d_prev
+                   - per_lane(bs) * torch.cat(parts, dim=-2))
+        sv = torch.stack(s, dim=-1)                          # ([B,] j+1)
+        proj = sv[..., :, None] * raw
+        alphas.append(proj[..., j, 0])
+        c = sv[..., :, None] * proj
         if j > 0:
-            c[j - 1, 0] += bs
-        scal = torch.cat([torch.stack([sj, zero])[None], c])
+            c[..., j - 1, 0] += bs
+        scal = torch.cat([pair(sj, zero), c], dim=-2)
         last = j == m - 2
         res = pipe(scal, av, W, desc, last)
         if last:
             wn, nsq, gram = res
         else:
             wn, av, nsq, gram, d_prev = res
-        b = torch.sqrt(nsq[0, 0])
+        b = torch.sqrt(nsq[..., 0, 0])
         W.append(wn)
         betas.append(b)
         s.append(safe_inv(b))
@@ -830,9 +911,21 @@ def lanczos_planar(u, desc, m):
     config.fused_iter a field of at most FUSED_ITER_BYTES runs the two-pass
     loop with one K5 per iteration instead (the 3D c(x) operator raises a
     ValueError there, as the JAX package's _iter_call has no mode for it).
+
+    A batch (B, P, ny, nx) of 2D fields runs the pipelined loop over every
+    lane at once: each column is (B, P, ny, nx), each scalar (B,). Its
+    batched forms of K5 and of the 3D kernels are not ported yet (ROADMAP.md
+    queue 2 item 1): a batch with config.fused_iter or a 3D descriptor
+    raises NotImplementedError.
     """
     three_d = desc is not None and desc.get("kind") in KINDS_3D
-    grid = tuple(u.shape[1:])
+    batched = u.dim() == 4
+    if batched and (three_d or config.fused_iter):
+        raise NotImplementedError(
+            "a batch of fields takes the pipelined 2D loop only: the batched "
+            "fused iteration and 3D kernels are not ported yet (ROADMAP.md "
+            "queue 2 item 1)")
+    grid = tuple(u.shape[-2:])
     if three_d and grid == (desc.get("nz", 0) * desc.get("ny", 0),
                             desc.get("nx")):
         grid = (desc["nz"], desc["ny"], desc["nx"])      # the merged view
@@ -852,13 +945,14 @@ def lanczos_planar(u, desc, m):
         if three_d and not config.pipeline_3d:
             return lanczos3d.lanczos_twopass(u, desc, m)
         return _lanczos_pipe(u, m, desc)
-    beta0 = torch.sqrt(torch.sum(u * u))
+    beta0 = torch.sqrt(torch.sum(u * u, dim=(-3, -2, -1)))
     return [u], [safe_inv(beta0)], [], [], beta0
 
 
 def matfunc_apply_planar(u, desc, t, func, m):
     """y = f(t * sign*scale*L) u on a planar (P, ny, nx) float32 field (the
-    merged (P, nz*ny, nx) view for the 3D kinds)."""
+    merged (P, nz*ny, nx) view for the 3D kinds), or on each lane of a 2D
+    batch (B, P, ny, nx)."""
     return matfunc_apply_planar_multi(u, desc, ((t, func),), m)[0]
 
 
@@ -873,11 +967,13 @@ def matfunc_apply_planar_multi(u, desc, specs, m):
 def combine_coefficients(s, alphas, betas, beta0, specs, m):
     """The (len(specs), m, 2) float32 q of K3 combine for the Lanczos run
     (s, alphas, betas, beta0): q[spec, i] = (Re coef_i s_i, Im coef_i s_i)
-    with coef = f(t T) e1 beta0 for each (t, f) in specs."""
+    with coef = f(t T) e1 beta0 for each (t, f) in specs. For a batch the
+    scalars carry a leading B and q is (B, len(specs), m, 2), from one
+    batched eigh."""
     alpha, beta = krylov.tridiag_entries(alphas, betas, beta0, m,
                                          torch.float32)
     lam, Q = krylov.tridiag_eigh(alpha, beta)
-    sv = torch.stack(s)
+    sv = torch.stack(s, dim=-1)
     rows = []
     for t, func in specs:
         coef = krylov.coefficients(func, t, lam, Q, beta0)
@@ -887,4 +983,4 @@ def combine_coefficients(s, alphas, betas, beta0, specs, m):
             cr, ci = coef, torch.zeros_like(coef)
         rows.append(torch.stack([cr.to(torch.float32) * sv,
                                  ci.to(torch.float32) * sv], dim=-1))
-    return torch.stack(rows)
+    return torch.stack(rows, dim=-3)

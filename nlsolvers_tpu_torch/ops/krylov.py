@@ -85,13 +85,15 @@ def lanczos(matvec, u, m, reorth=True):
 
 
 def tridiag_entries(alphas, betas, beta0, m, rdtype):
-    """alpha (m,) and beta (m-1,) of T from the per-iteration scalars."""
+    """alpha (m,) and beta (m-1,) of T from the per-iteration scalars; for a
+    batch of lanes (scalars of shape (B,)) alpha (B, m) and beta (B, m-1)."""
     # alpha[m-1] stays 0: the reference's loop never writes T(m-1, m-1)
     # (eigen_krylov_real.hpp:14,23-49), and f(T) sees that 0.
-    zero = torch.zeros((), dtype=rdtype, device=beta0.device)
-    alpha = torch.stack(alphas + [zero])
-    beta = (torch.stack(betas) if betas
-            else torch.zeros((0,), dtype=rdtype, device=beta0.device))
+    zero = torch.zeros(beta0.shape, dtype=rdtype, device=beta0.device)
+    alpha = torch.stack(alphas + [zero], dim=-1)
+    beta = (torch.stack(betas, dim=-1) if betas
+            else torch.zeros(beta0.shape + (0,), dtype=rdtype,
+                             device=beta0.device))
     return alpha, beta
 
 
@@ -140,20 +142,34 @@ def tridiag_eigh(alpha, beta):
 
     On a CUDA device torch.linalg.eigh runs in cuSOLVER; PERF.md records
     whether it waits for the host.
+
+    A batch (alpha (B, m), beta (B, m-1)) is one batched eigh, as JAX's
+    vmapped eigh. torch raises where a lane's T is not finite, and JAX
+    gives that lane NaN: such a T is replaced by the identity before the
+    eigh (torch.where, no host branch) and its eigenvalues set to NaN
+    after, so its coefficients are NaN and the other lanes are untouched.
     """
-    T = torch.diag(alpha) + torch.diag(beta, 1) + torch.diag(beta, -1)
-    return torch.linalg.eigh(T)
+    T = (torch.diag_embed(alpha) + torch.diag_embed(beta, 1)
+         + torch.diag_embed(beta, -1))
+    if T.dim() == 2:
+        return torch.linalg.eigh(T)
+    ok = torch.isfinite(T).all(dim=-1).all(dim=-1)
+    eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
+    lam, Q = torch.linalg.eigh(torch.where(ok[..., None, None], T, eye))
+    return torch.where(ok[..., None], lam, float("nan")), Q
 
 
 def coefficients(func, t, lam, Q, beta0):
     """beta0 * Q f(t, lam) Q^T e1: the weights of the basis columns. `func`
-    is a MATFUNCS key or a callable (t, lam) -> values.
+    is a MATFUNCS key or a callable (t, lam) -> values. A batch carries a
+    leading B on lam, Q and beta0.
 
     Written as an elementwise product and a sum, so it runs in the full
     precision of Q on every device (no TF32 path)."""
     f = MATFUNCS[func] if isinstance(func, str) else func
     fvals = f(_python_scalar(t), lam)
-    return beta0 * torch.sum(Q * (fvals * Q[0, :]), dim=-1)
+    return beta0[..., None] * torch.sum(
+        Q * (fvals * Q[..., 0, :])[..., None, :], dim=-1)
 
 
 def matfunc_apply(matvec, u, t, func, m=default_krylov_m, reorth=True):

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 __all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_2d",
+           "batched_aniso_laplacian_2d",
            "anisotropic_laplacian_3d", "separated_laplacian_2d",
            "biharmonic_x", "neighbor_sum", "block_coords", "boundary_diagonal"]
 
@@ -197,6 +198,18 @@ def anisotropic_laplacian_2d(c, dx, dy, device="cuda"):
                              nx=int(nx), scale=float(scale), sign=1.0,
                              variant="aniso", wx=wx_pad, wy=wy_pad)
     return apply
+
+
+def batched_aniso_laplacian_2d(cs, dx, dy, device="cuda"):
+    """The kernel descriptor of div(c grad u) for a batch of B lanes, each
+    with its own c: the descriptor of anisotropic_laplacian_2d(cs[b], dx,
+    dy) per lane, built once per batch, with the face weights stacked to
+    (B, ny, nx) float32 (lane b's bits are its own operator's). The fused
+    kernels take it with a (B, P, ny, nx) batch of fields."""
+    descs = [anisotropic_laplacian_2d(c, dx, dy, device=device).kernel_desc
+             for c in cs]
+    return dict(descs[0], wx=torch.stack([d["wx"] for d in descs]),
+                wy=torch.stack([d["wy"] for d in descs]))
 
 
 def separated_laplacian_2d(shape, dx, dy, dtype=torch.float32,

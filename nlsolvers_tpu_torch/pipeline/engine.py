@@ -2,23 +2,37 @@
 
 A datagen batch is B trajectories, each with its own coefficient fields m(x)
 and c(x). The JAX package maps one step over the batch with jax.vmap inside
-one jitted scan; here each trajectory keeps its own problem from
-models/problems.py (nlse_problem, realwave_problem), built once per call of
-the trajectory function, so its operator, face weights and planar density
-are made once per batch and not once per step. A batched step advances
-every trajectory by one step in turn, and models/evolve carries the batch:
-the snapshot cadence, the guard (one flag per snapshot across the batch,
-early exit only when every lane has diverged) and the scalar series are
-JAX's. Each trajectory's step is the one the same problem takes alone, so a
-lane's trajectory equals nlse_problem / realwave_problem run alone with its
-fields, bit for bit.
+one jitted scan, and models/evolve carries the batch here as there: the
+snapshot cadence, the guard (one flag per snapshot across the batch, early
+exit only when every lane has diverged) and the scalar series are JAX's.
+
+The 2D NLSE SS2 step on the planar path (complex64, the production datagen
+step) is ONE batched step, as JAX's vmap: the state is a (B, 2, ny, nx)
+float32 tensor, and each kernel of the step (both kick_bc, K1/K1', the
+m-1 K2/K2', K3) is one launch over all lanes, with the scalar recurrence on
+(B, ...) tensors and one batched eigh (ops/cuda/lanczos2d.py,
+ops/krylov.py). The operator (the lanes' c(x) face weights stacked, or the
+shared Laplacian) and the density (the lanes' m stacked) are built once per
+batch. Each lane takes the unbatched kernels' bits and arithmetic, and the
+batched eigh gives each lane's T the single-matrix eigh's bits (torch 2.11
+with CUDA 12.8 on an H100, and the CPU; chip_smoke.py and the card tests
+check it), so a lane equals nlse_problem run alone bit for bit. A lane
+whose T is not finite gets NaN coefficients from the batched eigh, as from
+JAX's, and stays NaN; the guard flags it.
+
+Every other path (the complex path, the two-step integrators, 3D, the
+real-wave family, stochastic phi-4) keeps one problem from
+models/problems.py per trajectory (nlse_problem, realwave_problem), built
+once per call of the trajectory function, and a batched step advances every
+trajectory by one step in turn; a lane's trajectory there equals the
+problem run alone with its fields, bit for bit. A lane whose state has gone
+non-finite can make the tridiagonal eigensolver fail (torch raises where
+JAX returns NaN); the engine then keeps that lane's state as NaN, which is
+what JAX's vmapped step carries, and the guard flags it.
 
 Trajectory functions return snapshot stacks shaped (B, S, ...) where entry
 s=0 is the initial condition, as tensors on the engine's device. Inputs may
-be numpy arrays or tensors. A lane whose state has gone non-finite can make
-the tridiagonal eigensolver fail (torch raises where JAX returns NaN); the
-engine then keeps that lane's state as NaN, which is what JAX's vmapped
-step carries, and the guard flags it.
+be numpy arrays or tensors.
 
 Not in this slice: sharding the batch over devices (`mesh`, `batch_axis`)
 raises NotImplementedError (ROADMAP.md queue 1 item 2).
@@ -29,12 +43,16 @@ import torch
 
 from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import real_dtype_of
+from nlsolvers_tpu_torch.models import nlse as nlse_mod
 from nlsolvers_tpu_torch.models import problems
 from nlsolvers_tpu_torch.models import realwave as rw
 from nlsolvers_tpu_torch.models.evolve import evolve, evolve_guarded
 from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
                                                        REALWAVE_KINDS,
+                                                       nlse_density_planar,
                                                        realwave_potential)
+from nlsolvers_tpu_torch.ops import operators as ops
+from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
 
 __all__ = ["make_nlse_trajectory_fn", "make_realwave_trajectory_fn",
            "torch_dtype", "LATER"]
@@ -145,7 +163,9 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
     c = 1, as JAX probes its Pallas gate; the port has no 128-lane gate).
     An SS2 step's closing half kick does the ghost copy; the two-step
     integrators copy it after their step and bootstrap with one SS2 step at
-    index 1. `dtype` is a torch dtype or a numpy one.
+    index 1. `dtype` is a torch dtype or a numpy one. The 2D planar SS2
+    step runs all lanes as one batched step (the `batched` attribute), the
+    other paths lane by lane (module docstring).
     """
     if kind not in NLSE_KINDS:
         raise ValueError(f"unknown NLSE kind {kind!r}")
@@ -178,14 +198,42 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
                          if use_c else None)
     planar = probe.meta["planar_state"]
     del probe
+    batched = planar and not two_state and len(shape) == 2
+
+    def batch_step(m, c, B):
+        """The planar SS2 step of all B lanes at once: nlse_problem's
+        planar step on a (B, 2, ny, nx) state, its operator and density
+        built per lane as nlse_problem builds them and stacked."""
+        dx = 2.0 * Lx / (nx - 1)
+        if use_c:
+            desc = ops.batched_aniso_laplacian_2d(
+                [c[b] for b in range(B)], dx, dx, device=device)
+        else:
+            desc = problems._nlse_operator(shape, dx, None, variant, rdtype,
+                                           device).kernel_desc
+        m2 = m.to(rdtype).to(torch.float32).reshape(B, *shape).contiguous()
+        rho = nlse_density_planar(kind, m2, sigma1=sigma1, sigma2=sigma2,
+                                  kappa=kappa)
+        grid = kick_grid(shape) if bc == "noflux" else None
+
+        def step(up, i):
+            del i
+            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
+                                            grid=grid)
+
+        return step
 
     def first(s):
         return s[0] if two_state else s
 
     def observe(states):
+        if batched:
+            return states
         return torch.stack([first(s) for s in states])
 
     def mass_of(states):
+        if batched:
+            return torch.sum(states * states, dim=(1, 2, 3)) * dV
         if planar:
             return torch.stack([torch.sum(f * f) for f in map(first, states)
                                 ]) * dV
@@ -203,14 +251,19 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
         m = _tensor(m, device)
         c = _tensor(c, device) if use_c else None
         B = packed.shape[0]
-        probs = [lane_problem(m[b], None if c is None else c[b])
-                 for b in range(B)]
-        if planar:
-            states = [p.init(packed[b]) for b, p in enumerate(probs)]
+        if batched:
+            states = packed.to(torch.float32).reshape(B, 2,
+                                                      *shape).contiguous()
+            step = batch_step(m, c, B)
         else:
-            states = [p.init(torch.complex(packed[b, 0], packed[b, 1]))
-                      for b, p in enumerate(probs)]
-        step = _batched_step([p.step for p in probs])
+            probs = [lane_problem(m[b], None if c is None else c[b])
+                     for b in range(B)]
+            if planar:
+                states = [p.init(packed[b]) for b, p in enumerate(probs)]
+            else:
+                states = [p.init(torch.complex(packed[b, 0], packed[b, 1]))
+                          for b, p in enumerate(probs)]
+            step = _batched_step([p.step for p in probs])
         scalars = {"mass": mass_of} if record_energy else None
         snaps, bad_at, series = _run(step, states, observe, num_snapshots,
                                      snapshot_freq, guard, scalars)
@@ -219,6 +272,7 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
         return (pack(snaps), bad_at) + ((series,) if record_energy else ())
 
     traj.planar = planar
+    traj.batched = batched
     return traj
 
 

@@ -893,29 +893,32 @@ def _datagen_batch(B, n=256):
 
 
 def test_datagen_engine_launches_on_card(cuda):
-    """One batched step of the 2D NLSE datagen engine at m=20: exactly
-    B x (1 K1' + 19 K2' + 1 K3 + 2 kick_bc), no iso launch, no bc3d."""
+    """One batched step of the 2D NLSE datagen engine at m=20 is ONE step
+    over every lane: exactly 1 K1' + 19 K2' + 1 K3 + 2 kick_bc launches
+    whatever B, no iso launch, no bc3d."""
     from nlsolvers_tpu_torch.pipeline import engine
     B = 3
     packed, m, c = _datagen_batch(B)
     fn = engine.make_nlse_trajectory_fn("cubic", (256, 256), 10.0, 6e-4,
                                         krylov_m=20, device=cuda)
-    assert fn.planar
+    assert fn.planar and fn.batched
     torch.cuda.synchronize()
     for f in _COUNTERS.values():
         f.launches = 0
     fn(packed, m, c, 2, 1)
     torch.cuda.synchronize()
     assert {k: f.launches for k, f in _COUNTERS.items() if f.launches} == {
-        "K1'": B, "K2'": 19 * B, "K3": B, "kick_bc": 2 * B}
+        "K1'": 1, "K2'": 19, "K3": 1, "kick_bc": 2}
 
 
 def test_datagen_engine_bit_equal_to_problem_on_card(cuda):
-    """Each lane of the engine equals nlse_problem with its own m and c run
-    alone on the card, bit for bit (the same kernels in the same order)."""
+    """Each lane of the batched engine equals nlse_problem with its own m
+    and c run alone on the card, bit for bit: each batched kernel gives its
+    lanes the unbatched launch's bits, the scalar ops are elementwise, and
+    the batched eigh gives each matrix the single-matrix eigh's bits."""
     from nlsolvers_tpu_torch.models import problems
     from nlsolvers_tpu_torch.pipeline import engine
-    B = 2
+    B = 3
     packed, m, c = _datagen_batch(B)
     out = engine.make_nlse_trajectory_fn("cubic", (256, 256), 10.0, 6e-4,
                                          krylov_m=20, device=cuda)(
@@ -927,3 +930,119 @@ def test_datagen_engine_bit_equal_to_problem_on_card(cuda):
         ref = problems.run(prob, prob.init(packed[b]), 3, 4)
         assert torch.equal(out[b, :, 0], ref.real)
         assert torch.equal(out[b, :, 1], ref.imag)
+
+
+# ------------------------------------------------ batched kernels (B lanes)
+
+def _batch_field(cuda, gen, B, P, shape, vec):
+    """A (B, P, ny, nx) field; vec False puts it 4 bytes off a 16-byte
+    boundary, which sends every kernel to its scalar form."""
+    n = B * P * shape[0] * shape[1]
+    off = 0 if vec else 1
+    return torch.randn(n + off, generator=gen, device=cuda)[off:].view(
+        (B, P) + shape)
+
+
+def _batch_desc(op, cuda, gen, B, shape, vec):
+    ny, nx = shape
+    if op == "iso":
+        return _desc(ny, nx, "reference"), None
+    c = 1.0 + 0.4 * torch.rand((B, ny, nx), generator=gen, device=cuda)
+    d = tops.batched_aniso_laplacian_2d(list(c), 0.02, 0.02, device=cuda)
+    if not vec:                       # weights off a 16-byte boundary too
+        for k in ("wx", "wy"):
+            w = torch.empty(B * ny * nx + 1, device=cuda)[1:].view(B, ny, nx)
+            w.copy_(d[k])
+            d[k] = w
+    return d, [dict(d, wx=d["wx"][b], wy=d["wy"][b]) for b in range(B)]
+
+
+def _lane_equal(got, lanes):
+    """Each output of a batched launch against the B unbatched launches'."""
+    for b, want in enumerate(lanes):
+        for x, y in zip(got, want):
+            assert torch.equal(x[b], y), (b, x.shape)
+
+
+@pytest.mark.parametrize("op", ["iso", "aniso"])
+@pytest.mark.parametrize("P,vec", [(2, True), (2, False), (1, True),
+                                   (1, False)])
+def test_batched_kernels_bit_equal_to_lane_launches_on_card(cuda, op, P,
+                                                            vec):
+    """K1/K1' (j = 0 with the norm, j = 19), K2/K2' (j up to 19, and the
+    last iteration at j = 18) and K3 (m = 20, k = 1 and 2) at B = 8, 256^2,
+    in their 16-byte and scalar forms: ONE launch each, whose lane b equals
+    the unbatched launch on lane b bit for bit."""
+    B, shape = 8, (256, 256)
+    gen = torch.Generator(device=cuda).manual_seed(900 + P + 10 * vec)
+    desc, lane_desc = _batch_desc(op, cuda, gen, B, shape, vec)
+    lane_desc = lane_desc or [desc] * B
+    cols = [_batch_field(cuda, gen, B, P, shape, vec) for _ in range(22)]
+    p1 = tl.pass1_iso2d if op == "iso" else tl.pass1_aniso2d
+    pp = tl.pipe_iso2d if op == "iso" else tl.pipe_aniso2d
+    for j in (0, 19):
+        scal = torch.rand((B, 1, 2), generator=gen, device=cuda)
+        before = p1.launches
+        got = p1(scal, cols[j], cols[:j], desc, norm=True)
+        assert p1.launches == before + 1
+        _lane_equal(got, [p1(scal[b], cols[j][b], [w[b] for w in cols[:j]],
+                             lane_desc[b], norm=True) for b in range(B)])
+    for j, last in ((0, False), (7, False), (15, False), (19, False),
+                    (18, True)):
+        scal = torch.rand((B, j + 2, 2), generator=gen, device=cuda) - 0.5
+        before = pp.launches
+        got = pp(scal, cols[21], cols[:j + 1], desc, last)
+        assert pp.launches == before + 1
+        _lane_equal(got, [pp(scal[b], cols[21][b],
+                             [w[b] for w in cols[:j + 1]], lane_desc[b],
+                             last) for b in range(B)])
+    for k in (1, 2):
+        q = torch.rand((B, k, 20, 2), generator=gen, device=cuda) - 0.5
+        before = tl.combine.launches
+        got = tl.combine(q, cols[:20])
+        assert tl.combine.launches == before + 1
+        _lane_equal(got, [tl.combine(q[b], [w[b] for w in cols[:20]])
+                          for b in range(B)])
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("kind", ["cubic", "saturable"])
+def test_batched_kick_bc_bit_equal_to_lane_launches_on_card(cuda, vec,
+                                                            kind):
+    """kick_bc on a (8, 2, 256, 256) batch with per-lane m fields, with and
+    without the ghost copy, 16-byte and scalar forms: one launch, each lane
+    the unbatched launch's bits."""
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    B, shape = 8, (256, 256)
+    gen = torch.Generator(device=cuda).manual_seed(950 + vec)
+    up = _batch_field(cuda, gen, B, 2, shape, vec)
+    m = 0.5 + _batch_field(cuda, gen, B, 1, shape, vec)[:, 0].abs()
+    m = m if vec else torch.empty(m.numel() + 1, device=cuda)[1:].view(
+        m.shape).copy_(m)
+    rho = nlse_density_planar(kind, m, kappa=0.7)
+    for grid in (None, tk.kick_grid(shape)):
+        before = tk.phase_kick_bc_planar.launches
+        got = tk.phase_kick_bc_planar(up, rho, 0.3, grid)
+        assert tk.phase_kick_bc_planar.launches == before + 1
+        for b in range(B):
+            lane = nlse_density_planar(kind, m[b], kappa=0.7)
+            assert torch.equal(got[b], tk.phase_kick_bc_planar(
+                up[b], lane, 0.3, grid))
+
+
+def test_batched_wrappers_reject_bad_input(cuda):
+    """A batch the kernels cannot take raises; nothing falls back."""
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    desc = _desc(16, 16, "reference")
+    u = torch.zeros((3, 2, 16, 16), device=cuda)
+    with pytest.raises(ValueError):          # scalars without the lanes
+        tl.pass1_iso2d(torch.eye(1, 2, device=cuda), u, [], desc)
+    with pytest.raises(ValueError):          # columns of other lanes
+        tl.pipe_iso2d(torch.zeros((3, 2, 2), device=cuda), u, [u[:2]], desc,
+                      False)
+    c = torch.ones((2, 16, 16), device=cuda)
+    d2 = tops.batched_aniso_laplacian_2d(list(c), 0.1, 0.1, device=cuda)
+    with pytest.raises(ValueError):          # weights of 2 lanes, 3 fields
+        tl.pass1_aniso2d(torch.zeros((3, 1, 2), device=cuda), u, [], d2)
+    with pytest.raises(ValueError):          # one m field for 3 lanes
+        tk.phase_kick_bc_planar(u, nlse_density_planar("cubic", c[0]), 0.1)

@@ -59,11 +59,14 @@ the same columns (complex64). Parts:
          nt = 2000, 128 snapshots, batch 8; a tree with
          nlsolvers_tpu_torch/pipeline only): the kernels of one
          trajectory-step (K1' at j = 0, the 19 K2' launches, K3 beside
-         torch.matmul, the two kick_bc), the engine as that benchmark drives
-         JAX's (guard off, dispatch to readback, the better of two
+         torch.matmul, the two kick_bc), on a tree with the batched
+         kernels their batched forms over the 8 lanes by chip_smoke.py's
+         parity-batched (checked, then timed per batched step beside the
+         8 unbatched launch sequences), the engine as that benchmark
+         drives JAX's (guard off, dispatch to readback, the better of two
          calls), one batched step's device profile (busy ms, idle share,
-         launches per trajectory-step, host syncs), and the sweep through
-         Datagen.run (sampling, guard, npy archive);
+         launches per batched step and per trajectory-step, host syncs),
+         and the sweep through Datagen.run (sampling, guard, npy archive);
   ptxas  ptxas's registers and spill stores of every kernel instantiation
          the tree builds, one JSON object each (the namespace hash of a
          name dropped), to compare two trees' code generation;
@@ -624,6 +627,16 @@ def main():
                      epilogues((n, n))["epilogue"], 20 * n * n * 2, 2, 200)
         del W, av, Wc
         torch.cuda.empty_cache()
+        if hasattr(operators, "batched_aniso_laplacian_2d"):
+            for key, r in cs.batched_parity(torch, np, operators).items():
+                prof, events, plain = r["t"]
+                bound = cs.bound_ms(r["nbytes"])
+                emit(kernel=f"{key} batched datagen", n=n, m=m, batch=B,
+                     launches=r["launches"], graph_ms=r["graph"],
+                     unbatched_lanes_graph_ms=r["lanes_graph"],
+                     profiler_ms=prof, events_ms=events, plain_ms=plain,
+                     library_graph_ms=r["lib"], bound_ms=bound,
+                     mbytes=r["nbytes"] / 1e6, share_graph=bound / r["graph"])
 
         # the engine as benchmarks/datagen_bench.py drives JAX's: B lanes
         # sampled with its seeds, guard off, timed dispatch to readback,
@@ -678,13 +691,21 @@ def main():
                 for e in sorted(rows, key=cs.dev_us, reverse=True)[:8]}
                if rows is not None else None)
         syncs = cs.host_syncs(torch, lambda: fn(packed, m_b, c_b, 2, 1))
+        # the same with the inputs already on the card (no upload), over 1
+        # and 5 steps: the syncs of the steps themselves
+        on_card = [torch.from_numpy(a).to(dev) for a in (packed, m_b, c_b)]
+        s1, s5 = (cs.host_syncs(torch, lambda k=k: fn(*on_card, 2, k))
+                  for k in (1, 5))
         emit(datagen="batched step", n=n, m=m, batch=B,
              wall_ms=wall_step * 1e3, busy_ms=busy,
              idle_share=(None if busy is None
                          else 1 - busy / (wall_step * 1e3)),
+             launches_per_batched_step=launched,
              launches_per_trajectory_step=(None if launched is None
                                            else launched / B),
-             host_syncs_per_batched_step=syncs, top_kernels=top)
+             host_syncs_per_call_of_one_step=syncs,
+             host_syncs_per_batched_step=(s5 - s1) / 4,
+             host_syncs_one_step_inputs_on_card=s1, top_kernels=top)
         del out
         torch.cuda.empty_cache()
 
