@@ -49,11 +49,12 @@ Phases, one line each (or a few):
                (torch.matmul for combine, torch.addmm for pass2); combine
                and torch.matmul also by CUDA-graph replay.
   8. main3d    nlse_problem("cubic", (128, 128, 128), 10, 1e-4, m=10): 200
-               steps with exactly 9 pass1_3d + 9 pass2 + 1 combine + 2
+               steps with exactly 9 pass1_3d + 10 pass2 (9 and the start
+               norm's norm-only form) + 1 combine + 2
                kick_bc launches per step and no bc3d, finite snapshots, mass
                drift < 1e-3; then with c(x) = 1 + 0.4 U[0, 1) for 100 steps,
                same gates; then 20 steps of 3D sEWI: the bootstrap as an SS2
-               step, every later step 27 pass1_3d + 27 pass2 + 3 combine + 1
+               step, every later step 27 pass1_3d + 30 pass2 + 3 combine + 1
                bc3d (the standalone ghost copy) and no kick_bc.
   9. paths3d   20 steps, iso and c(x): kernels vs plain planar (<= 1e-5),
                plain planar vs complex ss2_step (<= 2e-4).
@@ -180,7 +181,7 @@ Phases, one line each (or a few):
                (K3 combining 2 matrix functions, then 1), no kick_bc and no
                K13; 128^3 sine-Gordon and 128^3 Klein-Gordon with c = 1 +
                0.4 U[0, 1) from default_rng(0), 100 steps each, exactly 18
-               pass1_3d + 18 pass2 + 2 K3 + 1 bc3d; 1024^2 c(x)
+               pass1_3d + 20 pass2 + 2 K3 + 1 bc3d; 1024^2 c(x)
                Klein-Gordon, 100 steps, 2 K1' + 18 K2' + 2 K3; finite
                (u, v) snapshots. The relative drift of the energy (v^2/2 +
                c |grad u|^2/2 + m V(u)) is printed, not gated.
@@ -218,7 +219,14 @@ Each of phases 28-37 prints its seconds; from phase 3 on, a line
                CUDA-graph replay beside the B unbatched launch sequences of
                the same work, the profiler and the events, the plain
                batched versions, torch.matmul of the lanes for K3, and 8 x
-               the 256^2 bytes bound.
+               the 256^2 bytes bound. Then the 3D half at the 3D datagen
+               point (B=8 lanes of 128^3, m=10, iso and c(x) per lane,
+               P=2 and P=1 with sign -1): pass1_3d at j = 0 and 9, pass2
+               with 0 (the norm-only form), 1 and 9 columns, bc3d, and
+               kick_bc on the 3D batch, with the same gates (bc3d exactly
+               equal); times per batched step of the 3D paths (9 pass1_3d,
+               the norm + 9 pass2, 1 bc3d, both kicks) by graph beside the
+               8 unbatched launch sequences and 8 x the 128^3 bytes bound.
  35. datagen-engine  the datagen engine (pipeline/engine.py) at the
                production width, 256^2 B=8, with Datagen's samplers and
                fields (c layered, m piecewise): the NLSE engine (m=20,
@@ -231,14 +239,21 @@ Each of phases 28-37 prints its seconds; from phase 3 on, a line
                matrix the single-matrix eigh's bits on this stack); the
                kernels are within 1e-5 of kernel_mode "off"; a lane
                started as NaN gets bad_at 0 and stays NaN while the other
-               two stay within 1e-5 of their runs alone. The real-wave
-               engine (sine-Gordon Gautschi, m=10, float32, B=2, lane by
-               lane) makes B x (2 K1' + 18 K2' + 2 K3), each lane
-               bit-equal to realwave_problem run alone, each of 20 steps
-               from the engine's state within 1e-5 of the same step under
-               kernel_mode "off"; a phi-4 Gautschi batch with one lane at
-               1e3 times the other's amplitude gives that lane bad_at < S
-               while the other stays finite and bit-equal to its run alone.
+               two stay bit-equal to their runs alone. The
+               real-wave engine (sine-Gordon Gautschi from Datagen's
+               kink_field draws, 256^2, m=10, float32, B=8) is one batched
+               step too: exactly 2 K1' + 18 K2' + 2 K3 per batched step,
+               each lane's 20 steps bit-equal to realwave_problem run
+               alone, each step from the engine's state within 1e-5 of the
+               same step under kernel_mode "off", a NaN lane confined; and
+               the 3D paths at 128^3, m=10, B=8, c(x) per lane: NLSE SS2
+               (9 pass1_3d + 10 pass2 + 1 K3 + 2 kick_bc per batched step)
+               and Klein-Gordon Gautschi (18 pass1_3d + 20 pass2 + 2 K3 + 1
+               bc3d), each lane's 20 steps bit-equal to its problem run
+               alone, a NaN lane confined. A phi-4 Gautschi batch with one
+               lane at 1e3 times the other's amplitude gives that lane
+               bad_at < S while the other stays finite and bit-equal to its
+               run alone.
  36. datagen-main  the CLI as a subprocess (python -m
                nlsolvers_tpu_torch.pipeline), --format npy: the NLSE sweep
                nlse --phenomenon multi_soliton --system cubic --nx 256 --T
@@ -260,19 +275,26 @@ Each of phases 28-37 prints its seconds; from phase 3 on, a line
                sweep (its own sweep summary), and one batched step (B=8)
                in this process: wall ms, device busy ms and idle share
                (torch.profiler), launches per batched step and per
-               trajectory-step, host syncs.
+               trajectory-step, host syncs. Then the sweeps DG_SWEEPS
+               (2D sine-Gordon at 256^2, 3D NLSE SS2 and 3D Klein-Gordon
+               at 128^3, 8 runs each): one batched step's wall, busy time,
+               idle share and launches, and the sweep through Datagen.run
+               in trajectories/min (datagen_rates, which time_kernels.py
+               --parts sweeps runs on another tree).
 Then the card's name and power limit, the kernels as one JSON line
-(eighteen: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
+(twenty-one: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
 pass1_shard2d, pass1_shard3d, kick_bc, and the batched forms of K1', K2',
-K3 and kick_bc; `ms` of K1, K2, K3, K1', K2', K5, K8, K13, kick_bc and the
-batched forms is the CUDA-graph reading, with the profiler's sum and the
-events beside it, and K3's library_ms torch.matmul's graph reading; bc3d's
-launches are the 3D sEWI run's; eight carry the real-wave Gautschi step's
-launches per step, and pass1_3d, pass2, bc3d and K3 their P=1 parity; the
-batched forms the datagen engine's launches per batched step of 8 lanes
-and the graph time of the 8 unbatched launch sequences beside theirs), and
-last {"ok": true, "device": ...}. Any failed phase exits non-zero and
-prints no result.
+K3, kick_bc, pass1_3d, pass2 and bc3d; `ms` of K1, K2, K3, K1', K2', K5,
+K8, K13, kick_bc and the batched forms is the CUDA-graph reading, with the
+profiler's sum and the events beside it, and K3's library_ms torch.matmul's
+graph reading; bc3d's launches are the 3D sEWI run's; eight carry the
+real-wave Gautschi step's launches per step, and pass1_3d, pass2, bc3d and
+K3 their P=1 parity; the batched forms the datagen engine's launches per
+batched step of 8 lanes (the 2D NLSE step's, for pass1_3d and pass2 the 3D
+NLSE step's, for bc3d the 3D real-wave step's; the other paths' beside
+them) and the graph time of the 8 unbatched launch sequences beside
+theirs), and last {"ok": true, "device": ...}. Any failed phase exits
+non-zero and prints no result.
 """
 
 import dataclasses
@@ -581,8 +603,17 @@ DG_N, DG_LX, DG_M, DG_DT = 256, 10.0, 20, 1.2 / 2000
 DG_RW_DT, DG_RW_M = 0.6 / 200, 10      # the real-wave sweep of datagen-main
 DG_PER_STEP = {"K1'": 1, "K2'": DG_M - 1, "K3": 1, "kick_bc": 2}
 DG_RW_PER_STEP = {"K1'": 2, "K2'": 2 * (DG_RW_M - 1), "K3": 2}
-DG_B, DG_RW_B = 8, 2           # lanes of the NLSE (batched) and real-wave
-                               # (lane by lane) engine checks
+DG_B = 8                       # lanes of the datagen engine checks
+
+
+def plain(fn):
+    """fn() with the kernels' plain versions (config.kernel_mode "off")."""
+    from nlsolvers_tpu_torch import config
+    config.kernel_mode = "off"
+    try:
+        return fn()
+    finally:
+        config.kernel_mode = "auto"
 
 
 def batched_parity(torch, np, operators):
@@ -597,7 +628,6 @@ def batched_parity(torch, np, operators):
     batched versions and, for K3, torch.matmul of the lanes (K1 and K2 on
     the iso operator too, the datagen path without c(x)). Returns {kernel:
     readings} for the JSON line."""
-    from nlsolvers_tpu_torch import config
     from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
     from nlsolvers_tpu_torch.ops.cuda import kick as kb
     from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
@@ -609,13 +639,6 @@ def batched_parity(torch, np, operators):
 
     def fld(P=2, shape=(n, n), lanes=B):
         return torch.randn((lanes, P) + shape, generator=gen, device=dev)
-
-    def plain(fn):
-        config.kernel_mode = "off"
-        try:
-            return fn()
-        finally:
-            config.kernel_mode = "auto"
 
     def lane_dot_err(got, want, lefts, right):
         return max(dot_err(got[b], want[b], [x[b] for x in lefts], right[b])
@@ -834,6 +857,301 @@ def batched_parity(torch, np, operators):
     return out
 
 
+DG3_N, DG3_M = 128, 10         # the 3D datagen point: JAX's --dim 3 nx,
+                               # Krylov m = 10 (DatagenConfig's 3D default)
+DG3_PER_STEP = {"pass1_3d": DG3_M - 1, "pass2": DG3_M, "K3": 1,
+                "kick_bc": 2}
+DG3_RW_PER_STEP = {"pass1_3d": 2 * (DG3_M - 1), "pass2": 2 * DG3_M,
+                   "K3": 2, "bc3d": 1}
+
+
+def batched_parity3d(torch, np, operators):
+    """Phase 34, 3D half: the batched forms of pass1_3d, pass2 (its
+    norm-only form too) and bc3d at the 3D datagen point (B = 8 lanes of
+    128^3, m = 10), iso and c(x) per lane, P = 2 and P = 1 (sign -1), and
+    kick_bc on a 3D batch: ONE launch each, against the plain batched
+    versions (fields rel-L2 <= 1e-5, dots <= 1e-4 of the Cauchy-Schwarz
+    scale, bc3d exactly) and bit-equal to B unbatched launches, lane by
+    lane. Then per batched step of the 3D datagen paths (pass1_3d j =
+    0..8; pass2's norm form and nw = 1..9; one bc3d; both kicks) by
+    CUDA-graph replay beside the B unbatched launch sequences, the
+    profiler, the events and the plain batched versions. Returns {kernel:
+    readings} for the JSON line."""
+    from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+    from nlsolvers_tpu_torch.ops.cuda import bc3d as b3
+    from nlsolvers_tpu_torch.ops.cuda import kick as kb
+    from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4322)
+    B, n, m = DG_B, DG3_N, DG3_M
+    shape, R = (n, n, n), n * n
+    dx = 2.0 * DG_LX / (n - 1)
+
+    def fld(P):
+        return torch.randn((B, P, R, n), generator=gen, device=dev)
+
+    errs = {}
+
+    def gate(label, key, got, want, lanes, fields):
+        torch.cuda.synchronize()
+        fe = de = 0.0
+        for b in range(B):
+            scale = max(float(f[b].norm()) ** 2 for f in fields)
+            for x, y in zip(got, want):
+                if x.dim() == 4:
+                    fe = max(fe, rel(x[b], y[b]))
+                else:
+                    de = max(de, float((x[b] - y[b]).abs().max()) / scale)
+        same = all(torch.equal(x[b], y) for b, ys in enumerate(lanes)
+                   for x, y in zip(got, ys))
+        errs[key] = max(errs.get(key, 0.0),
+                        max(float((x - y).abs().max())
+                            for x, y in zip(got, want) if x.dim() == 4))
+        print(f"parity-batched {label}: field rel-L2 {fe:.3e}, dot err "
+              f"{de:.3e}, bit-equal to {B} unbatched launches {same}")
+        check(fe <= FIELD_TOL, f"{label}: field rel-L2 {fe:.3e}")
+        check(de <= DOT_TOL, f"{label}: dot error {de:.3e}")
+        check(same, f"{label}: a lane differs from its unbatched launch")
+
+    c = 1.0 + 0.4 * torch.rand((B,) + shape, generator=gen, device=dev)
+    ops_ = {"iso": (operators.laplacian_3d(shape, dx,
+                                           device=dev).kernel_desc, None),
+            "c(x)": (operators.batched_aniso_laplacian_3d(list(c), dx,
+                                                          device=dev), c)}
+    del c
+    for P in (2, 1):
+        W = [fld(P) for _ in range(m)]
+        for op, (d, _) in ops_.items():
+            d = dict(d, sign=-1.0) if P == 1 else d
+            lanes = [d if "wx" not in d else
+                     dict(d, **{k: d[k][b] for k in ("wx", "wy", "wz")})
+                     for b in range(B)]
+            key = "pass1_3d" + (" P=1" if P == 1 else "")
+            for j in (0, m - 1):
+                scal = torch.rand((B, 1, 2), generator=gen, device=dev)
+                got = l3.pass1_3d(scal, W[j], W[:j], d)
+                want = plain(lambda: l3.pass1_3d(scal, W[j], W[:j], d))
+                alone = [l3.pass1_3d(scal[b], W[j][b],
+                                     [w[b] for w in W[:j]], lanes[b])
+                         for b in range(B)]
+                gate(f"pass1_3d {op} P={P} j={j}", key, got, want, alone,
+                     W[:j + 1] + [want[0]])
+        key = "pass2" + (" P=1" if P == 1 else "")
+        for nw in (0, 1, m - 1):
+            q = (torch.rand((B, nw, 2), generator=gen, device=dev) - 0.5
+                 if nw else None)
+            got = l3.pass2(q, W[-1], W[:nw])
+            want = plain(lambda: l3.pass2(q, W[-1], W[:nw]))
+            alone = [l3.pass2(None if q is None else q[b], W[-1][b],
+                              [w[b] for w in W[:nw]]) for b in range(B)]
+            gate(f"pass2 P={P} nw={nw}{' (norm form)' if not nw else ''}",
+                 key, got, want, alone, W[:nw] + [W[-1], want[0]])
+        up = W[0].clone()
+        alone = [b3.neumann_bc_planar_3d(up[b].clone(), shape)
+                 for b in range(B)]
+        got = b3.neumann_bc_planar_3d(up.clone(), shape)
+        want = plain(lambda: b3.neumann_bc_planar_3d(up.clone(), shape))
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[b], a) for b, a in enumerate(alone))
+        print(f"parity-batched bc3d P={P}: equal to its plain version "
+              f"{bool(torch.equal(got, want))}, bit-equal to {B} unbatched "
+              f"launches {same}")
+        check(bool(torch.equal(got, want)) and same, f"bc3d batched P={P}")
+        del W, up, got, want, alone
+    # kick_bc on the 3D batch: the opening kick and the closing one with
+    # the ghost copy
+    up = fld(2)
+    mf = 0.5 + torch.rand((B, R, n), generator=gen, device=dev)
+    rho = nlse_density_planar("cubic", mf)
+    rho_l = [nlse_density_planar("cubic", mf[b]) for b in range(B)]
+    grid = kb.kick_grid(shape)
+    for g in (None, grid):
+        got = kb.phase_kick_bc_planar(up, rho, 0.3, g)
+        want = plain(lambda: kb.phase_kick_bc_planar(up, rho, 0.3, g))
+        alone = [[kb.phase_kick_bc_planar(up[b], rho_l[b], 0.3, g)]
+                 for b in range(B)]
+        gate(f"kick_bc 3D {'ghost' if g else 'kick'}", "kick_bc 3D", [got],
+             [want], alone, [up])
+
+    # times per batched step of the 3D datagen paths
+    out = {}
+    col1 = R * n * 4 * B                 # one real (B, 1, R, nx) column
+    for P in (2, 1):
+        W = [fld(P) for _ in range(m)]
+        w = fld(P)
+        one = torch.tensor([[0.8, 0.3]], device=dev).expand(
+            B, 1, 2).contiguous()
+        qs = [torch.rand((B, j + 1, 2), generator=gen, device=dev) - 0.5
+              for j in range(m - 1)]
+        col = P * col1
+        runs = []
+        for op, (d, _) in ops_.items():
+            d = dict(d, sign=-1.0) if P == 1 else d
+            lanes = [d if "wx" not in d else
+                     dict(d, **{k: d[k][b] for k in ("wx", "wy", "wz")})
+                     for b in range(B)]
+
+            def p1(d=d):
+                for j in range(m - 1):
+                    l3.pass1_3d(one, W[j], W[:j], d)
+
+            def p1_lanes(lanes=lanes):
+                for b in range(B):
+                    for j in range(m - 1):
+                        l3.pass1_3d(one[b], W[j][b], [x[b] for x in W[:j]],
+                                    lanes[b])
+
+            wts = 3 * col1 * (m - 1) if op == "c(x)" else 0
+            key = "pass1_3d" + (" aniso" if op == "c(x)" else "")
+            runs.append((key + (" P=1" if P == 1 else ""), p1, p1_lanes,
+                         m - 1,
+                         sum(j + 2 for j in range(m - 1)) * col + wts))
+
+        def p2():
+            l3.pass2(None, W[0], [])
+            for j in range(m - 1):
+                l3.pass2(qs[j], w, W[:j + 1])
+
+        def p2_lanes():
+            for b in range(B):
+                l3.pass2(None, W[0][b], [])
+                for j in range(m - 1):
+                    l3.pass2(qs[j][b], w[b], [x[b] for x in W[:j + 1]])
+
+        def bc():
+            b3.neumann_bc_planar_3d(w, shape)
+
+        def bc_lanes():
+            for b in range(B):
+                b3.neumann_bc_planar_3d(w[b], shape)
+
+        sfx = " P=1" if P == 1 else ""
+        runs.append(("pass2" + sfx, p2, p2_lanes, m,
+                     (sum(j + 3 for j in range(m - 1)) + 1) * col))
+        cells = 2 * n * n + 2 * (n - 2) * n + 2 * (n - 2) * (n - 2)
+        runs.append(("bc3d" + sfx, bc, bc_lanes, 1, cells * P * 4 * 2 * B))
+        if P == 2:
+            def kick():
+                kb.phase_kick_bc_planar(kb.phase_kick_bc_planar(
+                    up, rho, 0.3), rho, 0.3, grid)
+
+            def kick_lanes():
+                for b in range(B):
+                    kb.phase_kick_bc_planar(kb.phase_kick_bc_planar(
+                        up[b], rho_l[b], 0.3), rho_l[b], 0.3, grid)
+
+            runs.append(("kick_bc 3D", kick, kick_lanes, 2,
+                         20 * R * n * B * 2))
+        for key, fn, lanes_fn, launches, nbytes in runs:
+            g = graph_ms(torch, fn, 10)
+            g_lanes = graph_ms(torch, lanes_fn, 5)
+            prof, events = times_ms(torch, fn, 5)
+            plain_ms = plain(lambda: times_ms(torch, fn, 2))[0]
+            base = key.replace(" aniso", "")
+            out[key] = dict(err=errs.get(base, 0.0), graph=g,
+                            lanes_graph=g_lanes, t=(prof, events, plain_ms),
+                            nbytes=nbytes, lib=None, launches=launches)
+            print(f"parity-batched {key} B={B} {n}^3 m={m}: graph {g:.4f} "
+                  f"ms per batched step ({launches} launch"
+                  f"{'es' if launches > 1 else ''}), {B} unbatched launch "
+                  f"sequences {g_lanes:.4f} ms ({g_lanes / g:.2f}x); "
+                  f"profiler {prof:.4f}, events {events:.4f}; plain batched "
+                  f"{plain_ms:.4f}; bound {bound_ms(nbytes):.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB) -> {bound_ms(nbytes) / g:.3f} "
+                  f"of it")
+        del W, w
+    del up, ops_
+    torch.cuda.empty_cache()
+    return out
+
+
+# the sweeps of rate-datagen beside the NLSE one: (label, DatagenConfig
+# arguments); 8 runs in one batch each, c layered, m piecewise
+DG_SWEEPS = (
+    ("realwave 2D", dict(family="realwave", phenomenon="kink_field",
+                         system="sine_gordon", nx=DG_N, T=0.6, nt=200,
+                         snapshots=20)),
+    ("nlse 3D", dict(family="nlse", phenomenon="multi_soliton_state",
+                     system="cubic", dim=3, nx=DG3_N, T=0.048, nt=80,
+                     snapshots=5)),
+    ("realwave 3D", dict(family="realwave", phenomenon="kink_field",
+                         system="klein_gordon", dim=3, nx=DG3_N, T=0.24,
+                         nt=80, snapshots=5)))
+
+
+def datagen_rates(torch, np, datagen, work, sweeps=DG_SWEEPS, runs=DG_B):
+    """For each sweep of `sweeps`: one batched step of its engine (B =
+    `runs` lanes drawn by Datagen) timed by the host's clock around 10
+    steps inside one call, synchronized, its device busy time and idle
+    share from torch.profiler over 5 steps and its kernel launches; then
+    the sweep end to end through Datagen.run (sampling, guard, npy
+    archive): trajectories/min. `datagen` is the pipeline module of the
+    package under test (time_kernels.py passes another tree's). Returns
+    {label: readings}."""
+    out = {}
+    for label, kw in sweeps:
+        cfg = datagen.DatagenConfig(
+            Lx=DG_LX, num_runs=runs, batch_size=runs,
+            anisotropy_type="layered", m_type="piecewise",
+            archive_format="npy", output_dir=str(work / "rate_sweep"), **kw)
+        dg = datagen.Datagen(cfg)
+        _, u0s, v0s, m_b, c_b = dg._sample_batch(runs)
+        m_b, c_b = m_b.astype(np.float32), c_b.astype(np.float32)
+        if cfg.family == "nlse":
+            u0 = np.stack(u0s)
+            args = (np.stack([u0.real, u0.imag], axis=1).astype(np.float32),
+                    m_b, c_b)
+        else:
+            args = (np.stack(u0s).astype(np.float32),
+                    np.stack(v0s).astype(np.float32), m_b, c_b)
+        args = [torch.from_numpy(a).to("cuda") for a in args]
+        fn = dg.traj_fn
+        fn(*args, 2, 1)                                  # warm
+        torch.cuda.synchronize()
+        n_b = 10
+        t0 = time.perf_counter()
+        fn(*args, 2, n_b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_b * 1e3
+        n_p = 5
+        rows = profiled(torch, lambda: fn(*args, 2, n_p))
+        busy = launched = None
+        if rows is not None:
+            busy = sum(dev_us(e) for e in rows) / 1e3 / n_p
+            launched = sum(e.count for e in rows if dev_us(e) > 0) / n_p
+        del args
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        written = dg.run()
+        sweep = time.perf_counter() - t0
+        steps = (cfg.snapshots - 1) * cfg.snapshot_freq
+        r = dict(batched=getattr(fn, "batched", False), wall_ms=wall,
+                 busy_ms=busy, idle=None if busy is None else 1 - busy / wall,
+                 launches=launched, sweep_s=sweep, runs=len(written),
+                 steps=steps, per_min=len(written) / sweep * 60.0,
+                 traj_steps_s=len(written) * steps / sweep,
+                 per_min_steps=runs / (wall / 1e3 * steps) * 60.0)
+        out[label] = r
+        print(f"rate-datagen {label} (B={runs}, {cfg.nx}^{cfg.dim} m="
+              f"{cfg.krylov_m}, batched step {r['batched']}): one batched "
+              f"step {wall:.3f} ms wall, device busy "
+              + ("not measured" if busy is None else
+                 f"{busy:.4f} ms -> idle share {r['idle']:.3f}, "
+                 f"{launched:.1f} kernel launches per batched step")
+              + f"; sweep of {len(written)} runs x {steps} steps "
+              f"{sweep:.3f} s (sampling {dg.last_stats['sample_s']:.3f}, "
+              f"evolve {dg.last_stats['evolve_s']:.3f}, archive "
+              f"{dg.last_stats['archive_s']:.3f}): {r['per_min']:.2f} "
+              f"trajectories/min, {r['traj_steps_s']:.1f} trajectory-steps/"
+              f"s; the steps alone {r['per_min_steps']:.2f} "
+              f"trajectories/min")
+        del dg
+        import shutil
+        shutil.rmtree(work / "rate_sweep", ignore_errors=True)
+    return out
+
+
 def datagen_phases(torch, np, root, counters_all):
     """Phases 33-37: the datagen pipeline (nlsolvers_tpu_torch/pipeline/)
     on the card. Returns ({kernel key: launches per batched step} of the 2D
@@ -890,19 +1208,21 @@ def datagen_phases(torch, np, root, counters_all):
     # ---------------------------------------------------------- 34. parity-batched
     t_ph = time.perf_counter()
     bat = batched_parity(torch, np, operators)
+    print(f"parity-batched 2D: {time.perf_counter() - t_ph:.1f} s")
+    bat.update(batched_parity3d(torch, np, operators))
     print(f"parity-batched: {time.perf_counter() - t_ph:.1f} s")
 
     # ---------------------------------------------------------- 35. datagen-engine
     t_ph = time.perf_counter()
     B = DG_B
 
-    def sample(family, phenomenon, system, batch, seed):
+    def sample(family, phenomenon, system, batch, seed, dim=2):
         """A batch as Datagen samples it (its samplers, fields and RNG)."""
         cfg = datagen.DatagenConfig(
-            family=family, phenomenon=phenomenon, system=system, nx=DG_N,
-            Lx=DG_LX, num_runs=batch, anisotropy_type="layered",
-            m_type="piecewise", seed=seed, archive_format="npy",
-            output_dir=str(work / f"sample_{family}"))
+            family=family, phenomenon=phenomenon, system=system, dim=dim,
+            nx=DG_N if dim == 2 else DG3_N, Lx=DG_LX, num_runs=batch,
+            anisotropy_type="layered", m_type="piecewise", seed=seed,
+            archive_format="npy", output_dir=str(work / f"sample_{family}"))
         _, u0s, v0s, m_, c_ = datagen.Datagen(cfg)._sample_batch(batch)
         return u0s, v0s, m_.astype(np.float32), c_.astype(np.float32)
 
@@ -963,50 +1283,148 @@ def datagen_phases(torch, np, root, counters_all):
           and same, "datagen-engine: the NaN lane")
     del gs
 
-    B = DG_RW_B
+    def lanes_alone(label, got, alone):
+        """Each lane of the engine's output against its problem run alone,
+        bit for bit."""
+        for b in range(len(alone)):
+            ref = alone[b]
+            if isinstance(got, tuple):
+                same = all(torch.equal(g[b], r) for g, r in zip(got, ref))
+                err = float((got[0][b] - ref[0]).abs().max())
+            else:
+                same = bool(torch.equal(got[b], ref))
+                err = float((got[b] - ref).abs().max())
+            print(f"datagen-engine {label} lane {b}: 20 steps of the "
+                  f"batched step bit-equal to its problem run alone {same} "
+                  f"(max |difference| {err:.3e})")
+            check(same, f"datagen-engine {label} lane {b} differs from its "
+                  f"problem run alone")
+
+    def launches_per_batched_step(label, fn, args, want):
+        zero()
+        fn(*args, 2, 1)
+        got = counts()
+        print(f"datagen-engine {label}: launches per batched step {got} "
+              f"({sum(got.values())} counted)")
+        check(got == want, f"datagen-engine {label}: launches {got} != "
+              f"{want}")
+        return got
+
+    def nan_lane(label, fg, args):
+        """Lane 1 of three started as NaN: bad_at 0 and NaN throughout;
+        lanes 0 and 2 bit-equal to their runs alone (B = 1)."""
+        bad_args = [a[:3].copy() for a in args]
+        bad_args[0][1] = np.nan
+        out = fg(*bad_args, 3, 5)
+        snaps, gbad = out[0], out[-1]
+        alone = [fg(*[a[b:b + 1] for a in args], 3, 5)[0][0]
+                 for b in (0, 2)]
+        same = all(torch.equal(snaps[b], a) for b, a in zip((0, 2), alone))
+        print(f"datagen-engine {label} NaN lane: bad_at {gbad.tolist()} of "
+              f"3 snapshots; lane 1 all NaN "
+              f"{bool(torch.isnan(snaps[1]).all())}; lanes 0 and 2 "
+              f"bit-equal to their runs alone {same}")
+        check(gbad.tolist() == [3, 0, 3] and bool(torch.isnan(snaps[1]).all())
+              and same, f"datagen-engine {label}: the NaN lane")
+
+    # the real-wave engine (2D sine-Gordon Gautschi) as one batched step
+    B = DG_B
     u0r, v0r, m_r, c_r = sample("realwave", "kink_field", "sine_gordon", B,
                                 1)
     u0r = np.stack(u0r).astype(np.float32)
     v0r = np.stack(v0r).astype(np.float32)
     fr = engine.make_realwave_trajectory_fn("sine_gordon", shape, DG_LX,
                                             DG_RW_DT, krylov_m=DG_RW_M)
-    zero()
-    fr(u0r, v0r, m_r, c_r, 2, 1)
-    got = counts()
-    want = {k: B * v for k, v in DG_RW_PER_STEP.items()}
-    print(f"datagen-engine sine-Gordon Gautschi {DG_N}^2 B={B} "
-          f"m={DG_RW_M}: launches per batched step {got}")
-    check(got == want, f"datagen-engine real-wave: launches {got} != "
-          f"{want}")
+    check(fr.batched, "datagen-engine: the real-wave engine is not batched")
+    per_batched_rw = launches_per_batched_step(
+        f"sine-Gordon Gautschi {DG_N}^2 B={B} m={DG_RW_M}", fr,
+        (u0r, v0r, m_r, c_r), DG_RW_PER_STEP)
     n_rw = 20
     u_s, v_s = fr(u0r, v0r, m_r, c_r, n_rw + 1, 1)
+    worst = 0.0
+    alone = []
     for b in range(B):
         prob = problems.realwave_problem(
             "sine_gordon", shape, DG_LX, DG_RW_DT, m_field=m_r[b],
             c_field=c_r[b], krylov_m=DG_RW_M, dtype=torch.float32)
         s0 = prob.init(u0r[b], v0r[b])
-        ru, rv = problems.run(prob, s0, n_rw + 1, 1)
-        same = bool(torch.equal(u_s[b], ru) and torch.equal(v_s[b], rv))
+        alone.append(problems.run(prob, s0, n_rw + 1, 1))
         # each step from the engine's state (u_k, u_{k-1}) under
         # kernel_mode "off" against the engine's next u
-        worst = 0.0
         config.kernel_mode = "off"
         try:
             for k in range(1, n_rw + 1):
                 s = (u_s[b, k - 1], u_s[b, k - 2] if k >= 2 else s0[1])
-                nxt = prob.step(s, k)[0]
-                worst = max(worst, rel(u_s[b, k], nxt))
+                worst = max(worst, rel(u_s[b, k], prob.step(s, k)[0]))
         finally:
             config.kernel_mode = "auto"
-        print(f"datagen-engine real-wave lane {b}: {n_rw} steps bit-equal "
-              f"to realwave_problem run alone {same}; each step from the "
-              f"engine's state vs kernel_mode off, max rel-L2 {worst:.3e} "
-              f"(gate 1e-5)")
-        check(same, f"datagen-engine real-wave lane {b} differs from "
-              f"realwave_problem")
-        check(worst <= 1e-5, f"datagen-engine real-wave lane {b}: per-step "
-              f"rel-L2 {worst:.3e}")
-    del u_s, v_s
+    lanes_alone("real-wave 2D", (u_s, v_s), alone)
+    print(f"datagen-engine real-wave 2D: each of {n_rw} steps from the "
+          f"engine's state vs kernel_mode off, max rel-L2 {worst:.3e} (gate "
+          f"1e-5)")
+    check(worst <= 1e-5, f"datagen-engine real-wave: per-step rel-L2 "
+          f"{worst:.3e}")
+    del u_s, v_s, alone
+    nan_lane("real-wave 2D", engine.make_realwave_trajectory_fn(
+        "sine_gordon", shape, DG_LX, DG_RW_DT, krylov_m=DG_RW_M, guard=True),
+        (u0r, v0r, m_r, c_r))
+
+    # the 3D paths at 128^3, m = 10, c(x) per lane: NLSE SS2 and the
+    # real-wave Gautschi step, each one batched step
+    shape3 = (DG3_N,) * 3
+    u3, _, m3, c3 = sample("nlse", "multi_soliton_state", "cubic", B, 2, 3)
+    u3 = np.stack(u3)
+    p3 = np.stack([u3.real, u3.imag], axis=1).astype(np.float32)
+    f3 = engine.make_nlse_trajectory_fn("cubic", shape3, DG_LX, DG_DT,
+                                        krylov_m=DG3_M)
+    check(f3.planar and f3.batched, "datagen-engine: the 3D NLSE engine is "
+          "not batched")
+    per_batched_3d = launches_per_batched_step(
+        f"NLSE SS2 {DG3_N}^3 B={B} m={DG3_M}", f3, (p3, m3, c3),
+        DG3_PER_STEP)
+    got3 = f3(p3, m3, c3, 5, 5)
+    alone = []
+    for b in range(B):
+        prob = problems.nlse_problem("cubic", shape3, DG_LX, DG_DT,
+                                     m_field=m3[b], c_field=c3[b],
+                                     krylov_m=DG3_M, dtype=torch.complex64)
+        ref = problems.run(prob, prob.init(p3[b]), 5, 5)
+        alone.append(torch.stack([ref.real, ref.imag], dim=1))
+    lanes_alone("NLSE 3D", got3, alone)
+    check(bool(torch.isfinite(got3).all()), "datagen-engine NLSE 3D: "
+          "non-finite")
+    del got3, alone
+    nan_lane("NLSE 3D", engine.make_nlse_trajectory_fn(
+        "cubic", shape3, DG_LX, DG_DT, krylov_m=DG3_M, guard=True),
+        (p3, m3, c3))
+    del p3
+    u3r, v3r, m3r, c3r = sample("realwave", "kink_field", "klein_gordon", B,
+                                3, 3)
+    u3r = np.stack(u3r).astype(np.float32)
+    v3r = np.stack(v3r).astype(np.float32)
+    f3r = engine.make_realwave_trajectory_fn("klein_gordon", shape3, DG_LX,
+                                             DG_RW_DT, krylov_m=DG3_M)
+    check(f3r.batched, "datagen-engine: the 3D real-wave engine is not "
+          "batched")
+    per_batched_rw3 = launches_per_batched_step(
+        f"Klein-Gordon Gautschi {DG3_N}^3 B={B} m={DG3_M}", f3r,
+        (u3r, v3r, m3r, c3r), DG3_RW_PER_STEP)
+    got3r = f3r(u3r, v3r, m3r, c3r, 5, 5)
+    alone = []
+    for b in range(B):
+        prob = problems.realwave_problem(
+            "klein_gordon", shape3, DG_LX, DG_RW_DT, m_field=m3r[b],
+            c_field=c3r[b], krylov_m=DG3_M, dtype=torch.float32)
+        alone.append(problems.run(prob, prob.init(u3r[b], v3r[b]), 5, 5))
+    lanes_alone("real-wave 3D", got3r, alone)
+    check(all(bool(torch.isfinite(x).all()) for x in got3r),
+          "datagen-engine real-wave 3D: non-finite")
+    del got3r, alone
+    nan_lane("real-wave 3D", engine.make_realwave_trajectory_fn(
+        "klein_gordon", shape3, DG_LX, DG_RW_DT, krylov_m=DG3_M, guard=True),
+        (u3r, v3r, m3r, c3r))
+    del u3r, v3r
+    torch.cuda.empty_cache()
 
     # one diverging lane: phi-4 (focusing) Gautschi, lane 1 at 1e3 times
     # lane 0's amplitude, dt = 0.05
@@ -1016,7 +1434,7 @@ def datagen_phases(torch, np, root, counters_all):
     u_d = np.stack([0.5 * env, 500.0 * env]).astype(np.float32)
     fd = engine.make_realwave_trajectory_fn("phi4", shape, DG_LX, 0.05,
                                             krylov_m=DG_RW_M, guard=True)
-    ud, vd, bad = fd(u_d, np.zeros_like(u_d), m_r, c_r, S_d, f_d)
+    ud, vd, bad = fd(u_d, np.zeros_like(u_d), m_r[:2], c_r[:2], S_d, f_d)
     u1, v1, bad1 = fd(u_d[:1], np.zeros_like(u_d[:1]), m_r[:1], c_r[:1],
                       S_d, f_d)
     bad = bad.tolist()
@@ -1208,10 +1626,13 @@ def datagen_phases(torch, np, root, counters_all):
           f"(1 against 5 steps) {(s5 - s1) / 4:.2f}, "
           f"{(s5 - s1) / 4 / runs:.3f} per trajectory-step")
     del dg
-    shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
+    datagen_rates(torch, np, datagen, work)
+    shutil.rmtree(work, ignore_errors=True)
     print(f"rate-datagen: {time.perf_counter() - t_ph:.1f} s")
-    return per_batched_step, bat
+    per_step = {"nlse 2D": per_batched_step, "realwave 2D": per_batched_rw,
+                "nlse 3D": per_batched_3d, "realwave 3D": per_batched_rw3}
+    return per_step, bat
 
 
 def main():
@@ -1275,13 +1696,15 @@ def main():
     # every instantiation of the 2D kernels: K1 / K1' <P, MAXW, OPK, VEC>
     # (OPK 1 = aniso), the shard policies <P, MAXW, OP>, K2 <P, MAXW, LAST,
     # OP, VEC> and K3 <P, VEC> (VEC 4: 16-byte loads); K5 <P, MAXW, OPK,
-    # VEC>, K8 <P, MAXW, MODE, VEC>, K13 <MAXW, VEC>. K1 and K5 spill in no
-    # instantiation.
+    # VEC>, K8 <P, MAXW, MODE, VEC>, K13 <MAXW, VEC>; pass1_3d <P, MAXW,
+    # MODE, LANES> and pass2 <P, MAXW, STORE, LANES> (LANES: the batched
+    # form). K1 and K5 spill in no instantiation.
     for kname, nreg, spill in [r for lib in libs for r in resources[lib]]:
         if kname.startswith(("pass1_tile_kernel", "pass1_2d_kernel",
                              "pipe_2d_kernel", "combine_kernel",
                              "iter_kernel", "pipe3d_kernel",
-                             "resident_kernel", "kick_bc_kernel")):
+                             "resident_kernel", "kick_bc_kernel",
+                             "pass1_3d_kernel", "pass2_kernel")):
             print(f"ptxas {kname}: {nreg} registers, {spill} bytes spill "
                   f"stores")
     # 2 P x 4 buckets x 2 VEC x (2 K1 operators + 4 K5 operators) = 96
@@ -1683,6 +2106,10 @@ def main():
         print(f"time pass2 j={j} one-call yardstick torch.addmm (leaves out "
               f"the norm): {lib:.4f} ms device")
         pass2_lib += lib
+    # the run's start norm: pass2's norm-only form, one launch per step
+    t = timed(lambda: l3.pass2(None, W[0], []))
+    show("pass2 norm", t)
+    t3["pass2"] = [a + b for a, b in zip(t3["pass2"], t)]
     t3["combine 128^3"] = timed(lambda: lz.combine(q1, W))
     qc = torch.complex(q1[..., 0], q1[..., 1])
     combine3_lib = times_ms(torch, lambda: torch.matmul(qc, Wc))[0]
@@ -1699,11 +2126,12 @@ def main():
     bc_cells = (2 * N3 * N3 + 2 * (N3 - 2) * N3 + 2 * (N3 - 2) * (N3 - 2))
     # bytes per step: pass1 at j reads W_0..W_j and writes w (aniso also
     # reads three weight planes); pass2 at j reads w and W_0..W_j and writes
-    # W_{j+1}; bc3d reads and writes the face cells
+    # W_{j+1}, its norm-only form reads W_0; bc3d reads and writes the face
+    # cells
     bytes3 = {"pass1_3d": sum(j + 2 for j in range(KRYLOV_M - 1)) * col3,
               "pass1_3d aniso": (sum(j + 2 for j in range(KRYLOV_M - 1))
                                  + 1.5 * (KRYLOV_M - 1)) * col3,
-              "pass2": sum(j + 3 for j in range(KRYLOV_M - 1)) * col3,
+              "pass2": (sum(j + 3 for j in range(KRYLOV_M - 1)) + 1) * col3,
               "combine 128^3": (KRYLOV_M + 1) * col3,
               "bc3d": bc_cells * 2 * 4 * 2}
     for key, nb in bytes3.items():
@@ -1730,8 +2158,9 @@ def main():
     counters3 = {"pass1_3d": l3.pass1_3d, "pass2": l3.pass2,
                  "combine": lz.combine, "bc3d": b3.neumann_bc_planar_3d,
                  "kick_bc": kb.phase_kick_bc_planar}
-    # both half kicks are kick_bc, the closing one with the ghost copy
-    per_step3 = {"pass1_3d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1,
+    # both half kicks are kick_bc, the closing one with the ghost copy; the
+    # Lanczos run's start norm is one more pass2 (its norm-only form)
+    per_step3 = {"pass1_3d": KRYLOV_M - 1, "pass2": KRYLOV_M,
                  "combine": 1, "bc3d": 0, "kick_bc": 2}
     c3 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
         shape3)).astype(np.float32))
@@ -1778,7 +2207,7 @@ def main():
     wall = time.perf_counter() - t0
     launches3s = {k: f.launches for k, f in counters3.items()}
     boot3 = dict(per_step3)
-    per_sewi3 = {"pass1_3d": 3 * (KRYLOV_M - 1), "pass2": 3 * (KRYLOV_M - 1),
+    per_sewi3 = {"pass1_3d": 3 * (KRYLOV_M - 1), "pass2": 3 * KRYLOV_M,
                  "combine": 3, "bc3d": 1, "kick_bc": 0}
     want = {k: boot3[k] + (steps3s - 1) * v for k, v in per_sewi3.items()}
     print(f"main3d sewi: {steps3s} steps of cubic sEWI at {N3}^3 in "
@@ -3177,7 +3606,7 @@ def main():
 
     per_rw2 = {"K1": 2, "K2": 2 * (KRYLOV_M - 1), "K3": 2}
     per_rw2a = {"K1'": 2, "K2'": 2 * (KRYLOV_M - 1), "K3": 2}
-    per_rw3 = {"pass1_3d": 2 * (KRYLOV_M - 1), "pass2": 2 * (KRYLOV_M - 1),
+    per_rw3 = {"pass1_3d": 2 * (KRYLOV_M - 1), "pass2": 2 * KRYLOV_M,
                "K3": 2, "bc3d": 1}
     p_sg, s_sg = realwave("sine_gordon", (N, N))
     check(p_sg.meta["filter"] == "mod_cosine", "sine-Gordon filter")
@@ -3440,20 +3869,31 @@ def main():
           "pipe_aniso2d": (launches_rwa, "K2'", steps_rwa)}
     p1 = {"pass1_3d": errs["pass1_3d P=1"], "pass2": errs["pass2 P=1"],
           "bc3d": 0.0, "combine": errs["K3 P=1"]}
-    # the batched forms of the 2D NLSE datagen step: launches per batched
-    # step of B = DG_B lanes (datagen-engine), times per batched step
-    # (parity-batched) beside the B unbatched launch sequences
-    for kname, key, source, replaces in (
-            ("pass1_aniso2d", "K1'", SOURCE, f"{PALLAS}:473"),
-            ("pipe_aniso2d", "K2'", SOURCE, f"{PALLAS}:779"),
-            ("combine", "K3", SOURCE, f"{PALLAS}:1005"),
-            ("kick_bc", "kick_bc", SOURCE_KB, f"{PALLAS_BC}:52")):
+    # the batched forms of the datagen steps: launches per batched step of
+    # B = DG_B lanes (datagen-engine: the 2D NLSE step, and for the 3D
+    # kernels the 3D NLSE step; the real-wave steps' beside them), times
+    # per batched step (parity-batched) beside the B unbatched launch
+    # sequences
+    for kname, key, path, source, replaces in (
+            ("pass1_aniso2d", "K1'", "nlse 2D", SOURCE, f"{PALLAS}:473"),
+            ("pipe_aniso2d", "K2'", "nlse 2D", SOURCE, f"{PALLAS}:779"),
+            ("combine", "K3", "nlse 2D", SOURCE, f"{PALLAS}:1005"),
+            ("kick_bc", "kick_bc", "nlse 2D", SOURCE_KB, f"{PALLAS_BC}:52"),
+            ("pass1_3d", "pass1_3d", "nlse 3D", SOURCE3, f"{PALLAS3}:391"),
+            ("pass2", "pass2", "nlse 3D", SOURCE3, f"{PALLAS}:938"),
+            ("bc3d", "bc3d P=1", "realwave 3D", SOURCE3, f"{PALLAS_BC}:52")):
         r = bat[key]
-        e = entry(f"{kname} batched", source, replaces, dg_per_step[key], 1,
-                  r["err"], r["t"], r["nbytes"], r["lib"], graph=r["graph"])
+        ck = "bc3d" if kname == "bc3d" else key
+        n_l = dg_per_step[path][ck]
+        e = entry(f"{kname} batched", source, replaces, n_l, 1, r["err"],
+                  r["t"], r["nbytes"], r["lib"], graph=r["graph"])
         e.update(lanes=DG_B, unbatched_lanes_graph_ms=r["lanes_graph"],
-                 datagen_launches_per_trajectory_step=dg_per_step[key]
-                 / DG_B)
+                 datagen_path=path,
+                 datagen_launches_per_trajectory_step=n_l / DG_B)
+        for other in ("realwave 2D", "nlse 3D", "realwave 3D"):
+            if other != path and ck in dg_per_step[other]:
+                e[f"launches_per_batched_step {other}"] = \
+                    dg_per_step[other][ck]
         kernels.append(e)
     for e in kernels:
         if e["name"] in rw:

@@ -67,6 +67,20 @@
 //   the faces', not the volume's.
 // * Scalars (s_j, bs, q_i, c_i) are read from a device buffer, and the
 //   reductions are two-stage and deterministic (lz_common.cuh).
+// * pass2's norm-only form (no column, no field written) gives ||W_0||^2,
+//   which scales the run's first pass1_3d, with pass2's grid-stride map
+//   and reduction order, so the start norm of a lane does not depend on
+//   the batch around it.
+// * A batch of B fields (the datagen engine's lanes, JAX's vmap of the
+//   Pallas kernels) is one launch of pass1_3d (lane on blockIdx.z), pass2
+//   or bc3d (lane on blockIdx.y): fields are (B, P, R, nx) lane-major, the
+//   scalars and the aniso weights come per lane, and each lane keeps the
+//   unbatched grid's block map and its own partial sums, reduced in the
+//   unbatched order. So lane b of a batched launch gives the bits of the
+//   unbatched launch on lane b. A launch of one lane takes an instantiation
+//   without the lane offsets (LANES = false): with them, at the same
+//   register counts, the one-lane pass2 <P=2, 8> read 16% and pass1_3d
+//   5-7% slower at 128^3 (PERF.md).
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
@@ -85,7 +99,11 @@ constexpr int PASS2_BLOCKS = 132 * 16;
 // accumulators stay in registers.
 // The shard modes take their halos, offsets and edge face weights from sh
 // (unused otherwise); nz, ny, nx are then the block's.
-template <int P, int MAXW, int MODE>
+// A batched launch (LANES) runs lane blockIdx.z with the unbatched tile
+// map: its fields prev.ls floats apart, its scalars, face weights and
+// partial rows lane-major. A launch of one lane (and every shard launch)
+// takes LANES = false, the code without the lane offsets (the header).
+template <int P, int MAXW, int MODE, bool LANES>
 __global__ void __launch_bounds__(TX) pass1_3d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
     const float* __restrict__ wjm1, int j, Weights wt, Shard3d sh,
@@ -98,6 +116,19 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
   const int r0 = blockIdx.y * TY;
   const int rows = min(TY, R - r0);
   const size_t plane = (size_t)R * nx;
+  const size_t off = LANES ? blockIdx.z * prev.ls : 0;
+  if (LANES) {
+    wj += off;
+    w_out += off;
+    if (j > 0) wjm1 += off;
+    if (wt.wx != nullptr) {
+      wt.wx += blockIdx.z * plane;
+      wt.wy += blockIdx.z * plane;
+      wt.wz += blockIdx.z * plane;
+    }
+    partial += (size_t)blockIdx.z * gridDim.y * gridDim.x * 2 * (j + 1);
+    scal += 2 * blockIdx.z;
+  }
   const float s = scal[0], bs = scal[1];
 
   float acc[MAXW][2] = {};
@@ -128,7 +159,7 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
       for (int i = 0; i < MAXW; ++i) {
         if (i < j) {
           float wi[P];
-          load<P>(prev.p[i], idx, plane, wi);
+          load<P>(prev.p[i], off + idx, plane, wi);
           hdot<P>(wi, w, acc[i]);
         }
       }
@@ -148,12 +179,23 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
 }
 
 // ------------------------------------------------------------ pass2
-// MAXW bounds nw = j + 1 so the coefficients stay in registers.
-template <int P, int MAXW>
+// MAXW bounds nw = j + 1 so the coefficients stay in registers. A batched
+// launch (LANES) runs lane blockIdx.y with the unbatched grid-stride map:
+// its fields W.ls floats apart, its q 2 nw floats apart, its partial row
+// lane-major (write_partials); a launch of one lane takes LANES = false,
+// the code without the lane offsets (as pass1_3d). STORE false is the
+// norm-only form (nw = 0): ||w||^2 and no field written.
+template <int P, int MAXW, bool STORE, bool LANES>
 __global__ void __launch_bounds__(TX) pass2_kernel(
     const float* __restrict__ q, const float* __restrict__ w, Cols W, int nw,
     float* __restrict__ wn_out, float* __restrict__ partial, size_t n) {
   __shared__ float red[NWARP][RED_W];
+  const size_t off = LANES ? blockIdx.y * W.ls : 0;
+  if (LANES) {
+    w += off;
+    if (STORE) wn_out += off;
+    q += (size_t)blockIdx.y * 2 * nw;
+  }
   float cf[MAXW][2];
 #pragma unroll
   for (int i = 0; i < MAXW; ++i) {
@@ -168,20 +210,20 @@ __global__ void __launch_bounds__(TX) pass2_kernel(
 #pragma unroll
     for (int i = 0; i < MAXW; ++i) {
       if (i < nw) {
-        const float w0 = __ldg(W.p[i] + e);
+        const float w0 = __ldg(W.p[i] + off + e);
         if (P == 1) {
           a0 = a0 - cf[i][0] * w0;
         } else {
-          const float w1 = __ldg(W.p[i] + n + e);
+          const float w1 = __ldg(W.p[i] + off + n + e);
           a0 = a0 - (cf[i][0] * w0 - cf[i][1] * w1);
           a1 = a1 - (cf[i][0] * w1 + cf[i][1] * w0);
         }
       }
     }
-    wn_out[e] = a0;
+    if (STORE) wn_out[e] = a0;
     nsq += a0 * a0;
     if (P == 2) {
-      wn_out[n + e] = a1;
+      if (STORE) wn_out[n + e] = a1;
       nsq += a1 * a1;
     }
   }
@@ -461,7 +503,8 @@ __device__ __forceinline__ int clamp_in(int v, int n, int lo, int hi) {
 // (z0, y0, x0) of an (NZ, NY, NX) grid: the cells are enumerated without
 // overlap, the block's z-face planes (all y, x), then its y-face rows on the
 // planes that are not z faces (all x), then its x-face columns on the rows
-// that are neither. Unsharded, the block is the grid.
+// that are neither. Unsharded, the block is the grid. A batched launch
+// copies lane blockIdx.y, P (nz, ny, nx) planes after lane 0's.
 template <int P>
 __global__ void __launch_bounds__(256) bc3d_kernel(float* __restrict__ u,
                                                    int nz, int ny, int nx,
@@ -493,6 +536,7 @@ __global__ void __launch_bounds__(256) bc3d_kernel(float* __restrict__ u,
     return;
   }
   const size_t plane = (size_t)nz * ny * nx;
+  u += blockIdx.y * (size_t)P * plane;
   const size_t dst = ((size_t)z * ny + y) * nx + x;
   const size_t src = ((size_t)clamp_in(z, nz, zl, zh) * ny
                       + clamp_in(y, ny, yl, yh)) * nx + clamp_in(x, nx, xl, xh);
@@ -500,21 +544,33 @@ __global__ void __launch_bounds__(256) bc3d_kernel(float* __restrict__ u,
   for (int p = 0; p < P; ++p) u[p * plane + dst] = u[p * plane + src];
 }
 
+// pass1_3d over B lanes (blockIdx.z), each lane's tiles as one unbatched
+// launch's; one lane (every shard launch) without the lane offsets.
 template <int P, int MAXW, int MODE>
-void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
-                  Weights wt, const Shard3d& sh, float* w, float* partial,
-                  int nz, int ny, int nx, float ss, cudaStream_t st) {
-  pass1_3d_kernel<P, MAXW, MODE><<<tile_grid(nz * ny, nx), TX, 0, st>>>(
-      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, wt, sh, w, partial,
-      nz, ny, nx, ss);
-}
-
-template <int P, int MODE>
-void pass1_bucket(int b, const float* scal, const float* wj, Cols prev,
+void launch_pass1(int B, const float* scal, const float* wj, Cols prev,
                   int j, Weights wt, const Shard3d& sh, float* w,
                   float* partial, int nz, int ny, int nx, float ss,
                   cudaStream_t st) {
-#define LZ_B(BB) launch_pass1<P, BB, MODE>(scal, wj, prev, j, wt, sh, w, \
+  dim3 g = tile_grid(nz * ny, nx);
+  g.z = B;
+  const float* wjm1 = j > 0 ? prev.p[j - 1] : nullptr;
+  if constexpr (MODE < SHARD_REF) {
+    if (B > 1) {
+      pass1_3d_kernel<P, MAXW, MODE, true><<<g, TX, 0, st>>>(
+          scal, wj, prev, wjm1, j, wt, sh, w, partial, nz, ny, nx, ss);
+      return;
+    }
+  }
+  pass1_3d_kernel<P, MAXW, MODE, false><<<g, TX, 0, st>>>(
+      scal, wj, prev, wjm1, j, wt, sh, w, partial, nz, ny, nx, ss);
+}
+
+template <int P, int MODE>
+void pass1_bucket(int B, int b, const float* scal, const float* wj,
+                  Cols prev, int j, Weights wt, const Shard3d& sh, float* w,
+                  float* partial, int nz, int ny, int nx, float ss,
+                  cudaStream_t st) {
+#define LZ_B(BB) launch_pass1<P, BB, MODE>(B, scal, wj, prev, j, wt, sh, w, \
                                            partial, nz, ny, nx, ss, st)
   if (b == 4) LZ_B(4);
   else if (b == 8) LZ_B(8);
@@ -524,11 +580,11 @@ void pass1_bucket(int b, const float* scal, const float* wj, Cols prev,
 }
 
 template <int P>
-void pass1_mode(int mode, int b, const float* scal, const float* wj,
+void pass1_mode(int B, int mode, int b, const float* scal, const float* wj,
                 Cols prev, int j, Weights wt, const Shard3d& sh, float* w,
                 float* partial, int nz, int ny, int nx, float ss,
                 cudaStream_t st) {
-#define LZ_M(MM) pass1_bucket<P, MM>(b, scal, wj, prev, j, wt, sh, w, \
+#define LZ_M(MM) pass1_bucket<P, MM>(B, b, scal, wj, prev, j, wt, sh, w, \
                                      partial, nz, ny, nx, ss, st)
   switch (mode) {
     case ISO_REF: LZ_M(ISO_REF); break;
@@ -541,41 +597,47 @@ void pass1_mode(int mode, int b, const float* scal, const float* wj,
 #undef LZ_M
 }
 
-// pass1_3d (any mode), then the reduction of its partial sums.
-int pass1_any(int P, int mode, const float* scal, const float* wj,
+// pass1_3d (any mode) over B lanes, then the reduction of its partial
+// sums, lane by lane.
+int pass1_any(int B, int P, int mode, const float* scal, const float* wj,
               const float* const* prev, int j, Weights wt, const Shard3d& sh,
               float* w, float* partial, float* raw, int nz, int ny, int nx,
               float ss, cudaStream_t st) {
-  const Cols c = make_cols(prev, j);
+  const Cols c = make_cols(prev, j, (size_t)P * nz * ny * nx);
   const int b = bucket(j);
   if (P == 1)
-    pass1_mode<1>(mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx, ss,
-                  st);
+    pass1_mode<1>(B, mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx,
+                  ss, st);
   else
-    pass1_mode<2>(mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx, ss,
-                  st);
+    pass1_mode<2>(B, mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx,
+                  ss, st);
   const int nout = 2 * (j + 1);
   const dim3 g = tile_grid(nz * ny, nx);
-  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, (int)(g.x * g.y),
-                                                nout, raw);
+  reduce_partials<<<dim3(nout, B), RED_THREADS, 0, st>>>(
+      partial, (int)(g.x * g.y), nout, raw);
   return (int)cudaGetLastError();
 }
 
-template <int P>
-void launch_pass2(int b, const float* q, const float* w, Cols W, int nw,
-                  float* wn, float* partial, size_t n, cudaStream_t st) {
-  if (b == 4)
-    pass2_kernel<P, 4><<<PASS2_BLOCKS, TX, 0, st>>>(q, w, W, nw, wn, partial,
-                                                    n);
+template <int P, bool LANES>
+void launch_pass2(int B, int b, const float* q, const float* w, Cols W,
+                  int nw, float* wn, float* partial, size_t n,
+                  cudaStream_t st) {
+  const dim3 g(PASS2_BLOCKS, B);
+  if (wn == nullptr)
+    pass2_kernel<P, 4, false, LANES><<<g, TX, 0, st>>>(q, w, W, 0, nullptr,
+                                                       partial, n);
+  else if (b == 4)
+    pass2_kernel<P, 4, true, LANES><<<g, TX, 0, st>>>(q, w, W, nw, wn,
+                                                      partial, n);
   else if (b == 8)
-    pass2_kernel<P, 8><<<PASS2_BLOCKS, TX, 0, st>>>(q, w, W, nw, wn, partial,
-                                                    n);
+    pass2_kernel<P, 8, true, LANES><<<g, TX, 0, st>>>(q, w, W, nw, wn,
+                                                      partial, n);
   else if (b == 16)
-    pass2_kernel<P, 16><<<PASS2_BLOCKS, TX, 0, st>>>(q, w, W, nw, wn,
-                                                     partial, n);
+    pass2_kernel<P, 16, true, LANES><<<g, TX, 0, st>>>(q, w, W, nw, wn,
+                                                       partial, n);
   else
-    pass2_kernel<P, 32><<<PASS2_BLOCKS, TX, 0, st>>>(q, w, W, nw, wn,
-                                                     partial, n);
+    pass2_kernel<P, 32, true, LANES><<<g, TX, 0, st>>>(q, w, W, nw, wn,
+                                                       partial, n);
 }
 
 }  // namespace
@@ -597,19 +659,21 @@ const char* lz3_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// pass1_3d. mode: 0 iso reference, 1 iso clean, 2 aniso (wx, wy, wz are
-// (R, nx) device arrays; null otherwise). prev: host array of j device
-// pointers W_0..W_{j-1}. partial: scratch of lz3_pass1_blocks * 2(j+1)
-// floats. raw: (j+1, 2) output.
-int lz3_pass1(int P, int mode, const float* scal, const float* wj,
+// pass1_3d on B lanes (B = 1: one field). Every field is (B, P, R, nx),
+// lane-major. mode: 0 iso reference, 1 iso clean, 2 aniso (wx, wy, wz are
+// (B, R, nx) device arrays, each lane its own; null otherwise). prev: host
+// array of j device pointers W_0..W_{j-1} (lane 0's). scal: (B, 2) [s_j,
+// bs] per lane. partial: scratch of lz3_pass1_blocks * B * 2(j+1) floats.
+// raw: (B, j+1, 2) output.
+int lz3_pass1(int B, int P, int mode, const float* scal, const float* wj,
               const float* const* prev, int j, const float* wx,
               const float* wy, const float* wz, float* w, float* partial,
               float* raw, int nz, int ny, int nx, float ss, cudaStream_t st) {
-  if ((P != 1 && P != 2) || mode < 0 || mode > 2 || j < 0
-      || j + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3)
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || mode < 0 || mode > 2
+      || j < 0 || j + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3)
     return (int)cudaErrorInvalidValue;
   if (mode == ANISO && (!wx || !wy || !wz)) return (int)cudaErrorInvalidValue;
-  return pass1_any(P, mode, scal, wj, prev, j, Weights{wx, wy, wz},
+  return pass1_any(B, P, mode, scal, wj, prev, j, Weights{wx, wy, wz},
                    Shard3d{}, w, partial, raw, nz, ny, nx, ss, st);
 }
 
@@ -634,26 +698,34 @@ int lz3_pass1_shard(int P, int mode, const float* scal, const float* wj,
   if (mode == ANISO && (!wx || !wy || !wz || !wxl || !wyh || !wzh))
     return (int)cudaErrorInvalidValue;
   const Shard3d sh = {yh, zh, xh, wxl, wyh, wzh, z0, y0, x0, NZ, NY, NX};
-  return pass1_any(P, SHARD_REF + mode, scal, wj, prev, j,
+  return pass1_any(1, P, SHARD_REF + mode, scal, wj, prev, j,
                    Weights{wx, wy, wz}, sh, w, partial, raw, nz, ny, nx, ss,
                    st);
 }
 
-// pass2. q: (nw, 2) device buffer. W: host array of nw = j+1 device
-// pointers. n = R * nx points per plane. partial: scratch of
-// lz3_pass2_blocks floats. nsq: 1 output.
-int lz3_pass2(int P, const float* q, const float* w, const float* const* W,
-              int nw, float* wn, float* partial, float* nsq, long long n,
-              cudaStream_t st) {
-  if ((P != 1 && P != 2) || nw < 1 || nw > MAXCOLS || n < 1)
+// pass2 on B lanes (B = 1: one field). Every field is (B, P, n), lane-major,
+// n = R * nx points per plane. q: (B, nw, 2) device buffer. W: host array
+// of nw = j+1 device pointers (lane 0's). partial: scratch of
+// lz3_pass2_blocks * B floats. nsq: (B,) output. The norm-only form: nw = 0
+// and wn null, nsq = ||w||^2 per lane, no field written (q, W unused).
+int lz3_pass2(int B, int P, const float* q, const float* w,
+              const float* const* W, int nw, float* wn, float* partial,
+              float* nsq, long long n, cudaStream_t st) {
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || nw < 0 || nw > MAXCOLS
+      || n < 1 || (nw == 0) != (wn == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(W, nw);
+  const Cols c = make_cols(W, nw, (size_t)P * n);
   const int b = bucket(nw);
-  if (P == 1)
-    launch_pass2<1>(b, q, w, c, nw, wn, partial, (size_t)n, st);
-  else
-    launch_pass2<2>(b, q, w, c, nw, wn, partial, (size_t)n, st);
-  reduce_partials<<<1, RED_THREADS, 0, st>>>(partial, PASS2_BLOCKS, 1, nsq);
+#define LZ_P2(PP, LL) launch_pass2<PP, LL>(B, b, q, w, c, nw, wn, partial, \
+                                          (size_t)n, st)
+  if (P == 1) {
+    if (B > 1) LZ_P2(1, true); else LZ_P2(1, false);
+  } else {
+    if (B > 1) LZ_P2(2, true); else LZ_P2(2, false);
+  }
+#undef LZ_P2
+  reduce_partials<<<dim3(1, B), RED_THREADS, 0, st>>>(partial, PASS2_BLOCKS,
+                                                      1, nsq);
   return (int)cudaGetLastError();
 }
 
@@ -704,10 +776,12 @@ int lz3_pipe3d(int P, int mode, int vec, const float* scal, const float* av,
 
 // bc3d: the ghost copy on the (P, nz*ny, nx) block u at global offsets
 // (z0, y0, x0) of an (NZ, NY, NX) grid, in place (unsharded: offsets 0,
-// the grid's shape). A block with no face cell launches nothing.
-int lz3_bc3d(int P, float* u, int nz, int ny, int nx, int z0, int y0, int x0,
-             int NZ, int NY, int NX, cudaStream_t st) {
-  if ((P != 1 && P != 2) || nz < 2 || ny < 2 || nx < 2 || NZ < 3 || NY < 3
+// the grid's shape), on each of B lanes (B, P, nz*ny, nx), lane-major. A
+// block with no face cell launches nothing.
+int lz3_bc3d(int B, int P, float* u, int nz, int ny, int nx, int z0, int y0,
+             int x0, int NZ, int NY, int NX, cudaStream_t st) {
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || nz < 2 || ny < 2 || nx < 2
+      || NZ < 3 || NY < 3
       || NX < 3 || z0 < 0 || y0 < 0 || x0 < 0 || z0 + nz > NZ
       || y0 + ny > NY || x0 + nx > NX)
     return (int)cudaErrorInvalidValue;
@@ -717,7 +791,7 @@ int lz3_bc3d(int P, float* u, int nz, int ny, int nx, int z0, int y0, int x0,
   const long long cells = (zl + zh) * ny * nx + (yl + yh) * izn * nx
                           + (xl + xh) * izn * iyn;
   if (cells == 0) return (int)cudaSuccess;
-  const unsigned grid = (unsigned)((cells + 255) / 256);
+  const dim3 grid((unsigned)((cells + 255) / 256), B);
   if (P == 1)
     bc3d_kernel<1><<<grid, 256, 0, st>>>(u, nz, ny, nx, z0, y0, x0, NZ, NY,
                                          NX);

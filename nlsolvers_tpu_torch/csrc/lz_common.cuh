@@ -121,11 +121,15 @@ __device__ __forceinline__ void rebuild(const float* __restrict__ av,
   if (P == 2) v[1] = a1;
 }
 
-// Second stage: out[o] = sum_b partial[b, o] in a fixed order.
+// Second stage: out[o] = sum_b partial[b, o] in a fixed order. A batched
+// launch stacks its lanes' (nblk, nout) partials and outputs lane-major:
+// blockIdx.y is the lane.
 __global__ void reduce_partials(const float* __restrict__ partial, int nblk,
                                 int nout, float* __restrict__ out) {
   __shared__ float ws[RED_THREADS / 32];
   const int o = blockIdx.x;
+  partial += (size_t)blockIdx.y * nblk * nout;
+  out += (size_t)blockIdx.y * nout;
   float acc = 0.0f;
   for (int b = threadIdx.x; b < nblk; b += RED_THREADS)
     acc += partial[(size_t)b * nout + o];

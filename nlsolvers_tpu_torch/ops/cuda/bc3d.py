@@ -1,7 +1,8 @@
 """No-flux ghost copy of a planar 3D state (port of
 nlsolvers_tpu/ops/pallas/bc3d.py, sharded grids included).
 
-The kernel (`bc3d_kernel` in csrc/lanczos3d.cu) replaces bc3d._bc_call. It
+The kernel (`bc3d_kernel` in csrc/lanczos3d.cu) replaces bc3d._bc_call (a
+batch of states, the form jax.vmap gives it, in one launch). It
 updates the six faces of the (P, R = nz*ny, nx) state IN PLACE, in the
 reference's order (boundaries_3d.hpp:8-31: x faces on interior y and z, then
 y faces on interior z, then z faces), so it moves the faces' bytes, not the
@@ -31,11 +32,12 @@ __all__ = ["neumann_bc_planar_3d", "bc3d_ref", "block_in_grid"]
 
 def _view(up, shape, what):
     nz, ny, nx = shape
-    if up.dim() != 3 or up.shape[0] not in (1, 2) or tuple(
-            up.shape[1:]) != (nz * ny, nx):
+    if up.dim() not in (3, 4) or up.shape[-3] not in (1, 2) or tuple(
+            up.shape[-2:]) != (nz * ny, nx):
         raise ValueError(f"{what}: state {tuple(up.shape)} is not a planar "
-                         f"(1|2, {nz * ny}, {nx}) view of {tuple(shape)}")
-    return up.view(up.shape[0], nz, ny, nx)
+                         f"([B,] 1|2, {nz * ny}, {nx}) view of "
+                         f"{tuple(shape)}")
+    return up.view(tuple(up.shape[:-2]) + (nz, ny, nx))
 
 
 def block_in_grid(shape, global_shape, offsets, what):
@@ -76,7 +78,8 @@ def neumann_bc_planar_3d(up, shape, global_shape=None, offsets=None):
     `shape` = (nz, ny, nx), IN PLACE; returns up. Unsharded the block is the
     grid; on a sharded grid pass global_shape and the block's offsets. A
     block with no cell on the domain's faces is left as it is, and no kernel
-    is launched."""
+    is launched. A batch (B, P, nz*ny, nx) of states (the datagen engine's
+    lanes) is one launch; each lane's copy is the unbatched one."""
     if not use_kernel(up):
         return bc3d_ref(up, shape, global_shape, offsets)
     what = "neumann_bc_planar_3d"
@@ -88,9 +91,11 @@ def neumann_bc_planar_3d(up, shape, global_shape=None, offsets=None):
     glob, offs = block_in_grid(shape, global_shape, offsets, what)
     if all(0 < o and o + n < g for n, g, o in zip(shape, glob, offs)):
         return up
-    lanczos3d._check(lanczos3d._lib().lz3_bc3d(up.shape[0], up.data_ptr(),
-                                               nz, ny, nx, *offs, *glob,
-                                               _stream(up)), what)
+    B = up.shape[0] if up.dim() == 4 else 1
+    lanczos3d._check(lanczos3d._lib().lz3_bc3d(B, up.shape[-3],
+                                               up.data_ptr(), nz, ny, nx,
+                                               *offs, *glob, _stream(up)),
+                     what)
     neumann_bc_planar_3d.launches += 1
     return up
 

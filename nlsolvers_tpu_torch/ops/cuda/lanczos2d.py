@@ -7,7 +7,8 @@ real field (1, ny, nx). Krylov columns W_i are kept UNNORMALIZED with their inve
 norms s_i tracked as scalars, so normalization folds into the next matvec.
 
 The entry points (supported_desc, lanczos_planar, matfunc_apply_planar*)
-also serve the 3D kinds, whose loop is ops/cuda/lanczos3d.py.
+also serve the 3D kinds, whose loop is ops/cuda/lanczos3d.py (a 3D batch
+too).
 
 Hand-written CUDA kernels (csrc/lanczos2d.cu) carry the 2D loop; each has
 its plain PyTorch version beside it and a launch counter on its wrapper:
@@ -913,18 +914,19 @@ def lanczos_planar(u, desc, m):
     ValueError there, as the JAX package's _iter_call has no mode for it).
 
     A batch (B, P, ny, nx) of 2D fields runs the pipelined loop over every
-    lane at once: each column is (B, P, ny, nx), each scalar (B,). Its
-    batched forms of K5 and of the 3D kernels are not ported yet (ROADMAP.md
-    queue 2 item 1): a batch with config.fused_iter or a 3D descriptor
-    raises NotImplementedError.
+    lane at once, a batch (B, P, nz*ny, nx) of 3D fields the two-pass loop:
+    each column is a (B, ...) tensor, each scalar (B,). The batched forms
+    of K5 and K8 are not ported yet (ROADMAP.md queue 2): a batch with
+    config.fused_iter, or a 3D batch with config.pipeline_3d, raises
+    NotImplementedError.
     """
     three_d = desc is not None and desc.get("kind") in KINDS_3D
     batched = u.dim() == 4
-    if batched and (three_d or config.fused_iter):
+    if batched and (config.fused_iter or (three_d and config.pipeline_3d)):
         raise NotImplementedError(
-            "a batch of fields takes the pipelined 2D loop only: the batched "
-            "fused iteration and 3D kernels are not ported yet (ROADMAP.md "
-            "queue 2 item 1)")
+            "a batch of fields takes the pipelined 2D loop or the two-pass "
+            "3D loop: the batched fused iteration (K5) and 3D pipe (K8) are "
+            "not ported yet (ROADMAP.md queue 2)")
     grid = tuple(u.shape[-2:])
     if three_d and grid == (desc.get("nz", 0) * desc.get("ny", 0),
                             desc.get("nx")):
@@ -951,8 +953,8 @@ def lanczos_planar(u, desc, m):
 
 def matfunc_apply_planar(u, desc, t, func, m):
     """y = f(t * sign*scale*L) u on a planar (P, ny, nx) float32 field (the
-    merged (P, nz*ny, nx) view for the 3D kinds), or on each lane of a 2D
-    batch (B, P, ny, nx)."""
+    merged (P, nz*ny, nx) view for the 3D kinds), or on each lane of a
+    batch (B, P, ny, nx) or (B, P, nz*ny, nx)."""
     return matfunc_apply_planar_multi(u, desc, ((t, func),), m)[0]
 
 

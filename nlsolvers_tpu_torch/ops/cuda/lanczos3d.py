@@ -27,6 +27,16 @@ wrapper:
 
 `lanczos_twopass` is the normalized two-pass loop (pass1_3d then pass2), or
 with fused=True one lanczos2d.iter_step (K5) per iteration, in 2D and 3D.
+
+pass1_3d, pass2 and bc3d also take a batch: fields (B, P, R, nx) with a
+leading lane axis, scalars (B, ...) and, for the aniso operator, face
+weights (B, R, nx) (operators.batched_aniso_laplacian_3d), the form that
+jax.vmap gives the Pallas kernels in the JAX package's datagen engine. A
+batch is ONE launch, and lane b of it gives the bits of the unbatched
+launch on lane b (csrc/lanczos3d.cu); the plain versions take the same
+leading axis. The two-pass loop runs a batch with its scalar recurrence on
+(B, ...) tensors; the loop's start norm is pass2's norm-only form, so it
+too is the same for a lane in a batch and alone.
 The pipelined 3D loop is lanczos2d._lanczos_pipe with pipe_3d. The final
 sum reuses lanczos2d's `combine` on the merged view, and the ghost copy
 after the step is ops/cuda/bc3d.py. A wrapper launches its
@@ -45,10 +55,11 @@ from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (KINDS_3D, MAX_M,
                                                     _bucket, _check_aux,
                                                     _check_fields,
-                                                    _check_scalars, _dots,
-                                                    _pass1_ref, _pipe_ref,
-                                                    _ptrs, _stream,
-                                                    iter_step, safe_inv)
+                                                    _check_scalars,
+                                                    _norm_ref, _pass1_ref,
+                                                    _pipe_ref, _ptrs,
+                                                    _stream, iter_step,
+                                                    safe_inv)
 from nlsolvers_tpu_torch.ops.operators import block_coords, boundary_diagonal
 
 __all__ = ["supported_desc", "lanczos_twopass",
@@ -93,12 +104,12 @@ def _lib():
             ("lz3_pass1_blocks", [i32, i32, i32]),
             ("lz3_pass2_blocks", []),
             ("lz3_max_cols", []),
-            ("lz3_pass1", [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp,
-                           i32, i32, i32, f32, vp]),
-            ("lz3_pass2", [i32, vp, vp, pp, i32, vp, vp, vp, i64, vp]),
+            ("lz3_pass1", [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp,
+                           vp, i32, i32, i32, f32, vp]),
+            ("lz3_pass2", [i32, i32, vp, vp, pp, i32, vp, vp, vp, i64, vp]),
             ("lz3_pass1_shard", [i32, i32, vp, vp, pp, i32] + [vp] * 12
              + [i32] * 9 + [f32, vp]),
-            ("lz3_bc3d", [i32, vp] + [i32] * 9 + [vp]),
+            ("lz3_bc3d", [i32, i32, vp] + [i32] * 9 + [vp]),
             ("lz3_pipe3d_rows", []),
             ("lz3_pipe3d_fit", [i32, i32, i32, i32]),
             ("lz3_pipe3d", [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp,
@@ -124,33 +135,36 @@ def _check(err, what):
 
 def _geom(desc, like, what):
     nz, ny, nx = desc["nz"], desc["ny"], desc["nx"]
-    if tuple(like.shape[1:]) != (nz * ny, nx):
+    if tuple(like.shape[-2:]) != (nz * ny, nx):
         raise ValueError(f"{what}: field {tuple(like.shape)} is not the "
-                         f"merged (P, {nz * ny}, {nx}) view of the operator's "
-                         f"({nz}, {ny}, {nx}) grid")
+                         f"merged ([B,] P, {nz * ny}, {nx}) view of the "
+                         f"operator's ({nz}, {ny}, {nx}) grid")
     return nz, ny, nx
 
 
 def _weights(desc, like, what):
+    """The face weights (wx, wy, wz), checked against the field `like`:
+    (R, nx), or (B, R, nx) for a batch of B lanes."""
     ws = [desc[k] for k in ("wx", "wy", "wz")]
+    shape = tuple(like.shape[:-3]) + tuple(like.shape[-2:])
     for w in ws:
         if (not isinstance(w, torch.Tensor) or w.dtype != torch.float32
                 or w.device != like.device or not w.is_contiguous()
-                or tuple(w.shape) != tuple(like.shape[1:])):
+                or tuple(w.shape) != shape):
             raise ValueError(f"{what}: face weights must be contiguous "
-                             f"float32 {tuple(like.shape[1:])} tensors on "
-                             f"{like.device}")
+                             f"float32 {shape} tensors on {like.device}")
     return ws
 
 
 # ------------------------------------------------------------ plain versions
 
 def _shift_rows(u, k):
-    """v[:, r] = u[:, r - k] where 0 <= r - k < R, else 0 (k may be < 0)."""
-    z = torch.zeros_like(u[:, :abs(k)])
+    """v[..., r, :] = u[..., r - k, :] where 0 <= r - k < R, else 0 (k may
+    be < 0)."""
+    z = torch.zeros_like(u[..., :abs(k), :])
     if k > 0:
-        return torch.cat([z, u[:, :-k]], dim=1)
-    return torch.cat([u[:, -k:], z], dim=1)
+        return torch.cat([z, u[..., :-k, :]], dim=-2)
+    return torch.cat([u[..., -k:, :], z], dim=-2)
 
 
 def _shift_cols(u, k):
@@ -162,19 +176,20 @@ def _shift_cols(u, k):
 
 
 def _stencil3d_ref(u, desc):
-    """The operator of `desc` on a planar (P, R, nx) field, merged view;
-    the arithmetic order of lanczos3d_pipe._stencil_3d_y /
-    _stencil_aniso_3d_y."""
+    """The operator of `desc` on a planar ([B,] P, R, nx) field, merged
+    view (aniso weights (R, nx), or (B, R, nx) per lane); the arithmetic
+    order of lanczos3d_pipe._stencil_3d_y / _stencil_aniso_3d_y."""
     nz, ny, nx = desc["nz"], desc["ny"], desc["nx"]
     ss = float(desc["scale"]) * float(desc["sign"])
     if desc["kind"] == "aniso_laplacian_3d":
-        wx, wy, wz = (desc[k].to(u.device) for k in ("wx", "wy", "wz"))
+        wx, wy, wz = (desc[k].to(u.device).unsqueeze(-3)
+                      for k in ("wx", "wy", "wz"))
         fx = wx * (_shift_cols(u, -1) - u)
         fx_l = _shift_cols(fx, 1)
         fy = wy * (_shift_rows(u, -1) - u)
-        fy_m1 = _shift_rows(wy[None], 1) * (u - _shift_rows(u, 1))
+        fy_m1 = _shift_rows(wy, 1) * (u - _shift_rows(u, 1))
         fz = wz * (_shift_rows(u, -ny) - u)
-        fz_m = _shift_rows(wz[None], ny) * (u - _shift_rows(u, ny))
+        fz_m = _shift_rows(wz, ny) * (u - _shift_rows(u, ny))
         return (fx - fx_l + fy - fy_m1 + fz - fz_m) * ss
     R = nz * ny
     rows = torch.arange(R, device=u.device)[:, None]
@@ -199,11 +214,7 @@ def _stencil3d_ref(u, desc):
 
 def pass1_3d_ref(scal, wj, prev, desc):
     """Plain version of pass1_3d."""
-    w = scal[0, 0] * _stencil3d_ref(wj, desc)
-    if prev:
-        w = w - scal[0, 1] * prev[-1]
-    raw = torch.stack([_dots(wi, w) for wi in list(prev) + [wj]])
-    return w, raw
+    return _pass1_ref(scal, wj, prev, _stencil3d_ref(wj, desc))
 
 
 def _stencil_shard3d_ref(u, yh, zh, xh, d):
@@ -259,18 +270,20 @@ def pass1_shard3d_ref(scal, wj, prev, yh, zh, xh, d):
 
 def pass2_ref(q, w, W):
     """Plain version of pass2."""
-    a0 = w[0]
-    a1 = w[1] if w.shape[0] == 2 else None
+    if not W:
+        return w, _norm_ref(w)[..., None, None]
+    a0 = w[..., 0, :, :]
+    a1 = w[..., 1, :, :] if w.shape[-3] == 2 else None
     for i, wi in enumerate(W):
-        qr = q[i, 0]
+        qr = q[..., i, 0, None, None]
         if a1 is None:
-            a0 = a0 - qr * wi[0]
+            a0 = a0 - qr * wi[..., 0, :, :]
         else:
-            qi = q[i, 1]
-            a0 = a0 - (qr * wi[0] - qi * wi[1])
-            a1 = a1 - (qr * wi[1] + qi * wi[0])
-    wn = a0[None] if a1 is None else torch.stack([a0, a1])
-    return wn, torch.sum(wn * wn).reshape(1, 1)
+            qi = q[..., i, 1, None, None]
+            a0 = a0 - (qr * wi[..., 0, :, :] - qi * wi[..., 1, :, :])
+            a1 = a1 - (qr * wi[..., 1, :, :] + qi * wi[..., 0, :, :])
+    wn = a0.unsqueeze(-3) if a1 is None else torch.stack([a0, a1], dim=-3)
+    return wn, _norm_ref(wn)[..., None, None]
 
 
 def pipe_3d_ref(scal, av, W, desc):
@@ -293,24 +306,29 @@ def pass1_3d(scal, wj, prev, desc):
     the 3D operator of `desc` on the merged (P, R, nx) view.
 
     scal: (1, 2) float32 [s_j, bs] on the fields' device; wj: W_j;
-    prev: W_0..W_{j-1} (j = len(prev) >= 0). Returns (w, raw).
+    prev: W_0..W_{j-1} (j = len(prev) >= 0). Returns (w, raw). A batch of B
+    lanes: fields (B, P, R, nx), scal (B, 1, 2), raw (B, j+1, 2), aniso
+    weights (B, R, nx) (operators.batched_aniso_laplacian_3d), in one
+    launch.
     """
     j = len(prev)
     if j + 1 > MAX_M:
         raise ValueError(f"pass1_3d: at most {MAX_M} columns, got {j + 1}")
     if not use_kernel(wj):
         return pass1_3d_ref(scal, wj, prev, desc)
-    _check_fields([wj, *prev], wj, "pass1_3d")
+    B = _check_fields([wj, *prev], wj, "pass1_3d")
     _check_scalars(scal, (1, 2), wj, "pass1_3d")
     nz, ny, nx = _geom(desc, wj, "pass1_3d")
     mode, wts = _mode_weights(desc, wj, "pass1_3d")
     lib = _lib()
     nout = 2 * (j + 1)
     w = torch.empty_like(wj)
-    partial = torch.empty(lib.lz3_pass1_blocks(nz, ny, nx) * nout,
+    partial = torch.empty(lib.lz3_pass1_blocks(nz, ny, nx) * B * nout,
                           dtype=torch.float32, device=wj.device)
-    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
-    _check(lib.lz3_pass1(wj.shape[0], mode, scal.data_ptr(), wj.data_ptr(),
+    raw = torch.empty(tuple(wj.shape[:-3]) + (j + 1, 2), dtype=torch.float32,
+                      device=wj.device)
+    _check(lib.lz3_pass1(B, wj.shape[-3], mode, scal.data_ptr(),
+                         wj.data_ptr(),
                          _ptrs(prev), j, *wts,
                          w.data_ptr(), partial.data_ptr(), raw.data_ptr(),
                          nz, ny, nx,
@@ -380,24 +398,35 @@ pass1_shard3d.launches = 0
 def pass2(q, w, W):
     """w' = w - sum_{i<=j} q_i W_i (complex q_i as (re, im) rows of the
     (j+1, 2) float32 q) and ||w'||^2 as a (1, 1) tensor; any planar
-    (P, rows, nx) fields. Returns (w', nsq)."""
+    (P, rows, nx) fields. Returns (w', nsq). A batch of B lanes: fields
+    (B, P, rows, nx), q (B, j+1, 2), nsq (B, 1, 1), in one launch.
+
+    With no columns (W empty; q is not read and may be None) the norm-only
+    form: (w, ||w||^2), no field written. It is the start norm of the 3D
+    two-pass loop, from pass2's grid-stride map and reduction order, so a
+    lane's norm has the same bits in a batch and alone.
+    """
     nw = len(W)
     if nw > MAX_M:
         raise ValueError(f"pass2: at most {MAX_M} columns, got {nw}")
     if not use_kernel(w):
         return pass2_ref(q, w, W)
-    _check_fields([w, *W], w, "pass2")
-    _check_scalars(q, (nw, 2), w, "pass2")
+    B = _check_fields([w, *W], w, "pass2")
+    if nw:
+        _check_scalars(q, (nw, 2), w, "pass2")
     lib = _lib()
-    wn = torch.empty_like(w)
-    partial = torch.empty(lib.lz3_pass2_blocks(), dtype=torch.float32,
+    wn = torch.empty_like(w) if nw else None
+    partial = torch.empty(lib.lz3_pass2_blocks() * B, dtype=torch.float32,
                           device=w.device)
-    nsq = torch.empty((1, 1), dtype=torch.float32, device=w.device)
-    _check(lib.lz3_pass2(w.shape[0], q.data_ptr(), w.data_ptr(), _ptrs(W),
-                         nw, wn.data_ptr(), partial.data_ptr(),
-                         nsq.data_ptr(), w[0].numel(), _stream(w)), "pass2")
+    nsq = torch.empty(tuple(w.shape[:-3]) + (1, 1), dtype=torch.float32,
+                      device=w.device)
+    _check(lib.lz3_pass2(B, w.shape[-3], q.data_ptr() if nw else None,
+                         w.data_ptr(), _ptrs(W) if nw else None, nw,
+                         wn.data_ptr() if nw else None, partial.data_ptr(),
+                         nsq.data_ptr(), w.shape[-2] * w.shape[-1],
+                         _stream(w)), "pass2")
     pass2.launches += 1
-    return wn, nsq
+    return (wn if nw else w), nsq
 
 
 pass2.launches = 0
@@ -456,7 +485,9 @@ def pipe_3d(scal, av, W, desc):
         raise ValueError(f"pipe_3d: at most {MAX_M} columns, got {nw + 1}")
     if not use_kernel(av):
         return pipe_3d_ref(scal, av, W, desc)
-    _check_fields([av, *W], av, "pipe_3d")
+    if _check_fields([av, *W], av, "pipe_3d") > 1 or av.dim() != 3:
+        raise ValueError("pipe_3d: one (P, R, nx) field; a batched K8 is "
+                         "not ported (ROADMAP.md queue 2)")
     _check_scalars(scal, (nw + 1, 2), av, "pipe_3d")
     nz, ny, nx = _geom(desc, av, "pipe_3d")
     mode, wts = _mode_weights(desc, av, "pipe_3d")
@@ -494,14 +525,23 @@ def lanczos_twopass(u, desc, m, fused=False):
     (2D or 3D; the _FUSED_ITER branch of its lanczos2d.lanczos_planar),
     whose alpha_j is s_j raw_j.
 
+    The two-pass loop also takes a batch (B, P, rows, nx): every lane runs
+    through the same launches and every scalar carries a leading B (the
+    per-lane arithmetic is the same elementwise ops). Its start norm is
+    pass2's norm-only form, one launch, so that a lane's bits do not depend
+    on the batch; the fused loop keeps torch's sum.
+
     Returns (W, s, alpha, beta, beta0) with the semantics of
     lanczos2d.lanczos_planar.
     """
-    f32 = dict(dtype=torch.float32, device=u.device)
-    beta0 = torch.sqrt(torch.sum(u * u))
+    lead = tuple(u.shape[:-3])
+    if fused:
+        beta0 = torch.sqrt(torch.sum(u * u))
+    else:
+        beta0 = torch.sqrt(pass2(None, u, [])[1][..., 0, 0])
     W, s = [u], [safe_inv(beta0)]
     alphas, betas = [], []
-    zero = torch.zeros((), **f32)
+    zero = torch.zeros(lead, dtype=torch.float32, device=u.device)
     for j in range(m - 1):
         bs = betas[j - 1] * s[j - 1] if j > 0 else zero
         if fused:
@@ -509,16 +549,15 @@ def lanczos_twopass(u, desc, m, fused=False):
             wn, raw, nsq = iter_step(scal, W[j], W[:j], desc)
             alphas.append(s[j] * raw[j, 0])
         else:
-            scal = torch.stack([s[j], bs]).reshape(1, 2)
+            scal = torch.stack([s[j], bs], dim=-1)[..., None, :]
             w, raw = pass1_3d(scal, W[j], W[:j], desc)
-            sv = torch.stack(s)                              # (j+1,)
-            proj = sv[:, None] * raw
-            alphas.append(proj[j, 0])
-            q = sv[:, None] * proj
+            sv = torch.stack(s, dim=-1)                      # ([B,] j+1)
+            proj = sv[..., :, None] * raw
+            alphas.append(proj[..., j, 0])
+            q = sv[..., :, None] * proj
             wn, nsq = pass2(q, w, W[:j + 1])
-        b = torch.sqrt(nsq[0, 0])
+        b = torch.sqrt(nsq[..., 0, 0])
         W.append(wn)
         s.append(safe_inv(b))
         betas.append(b)
     return W, s, alphas, betas, beta0
-

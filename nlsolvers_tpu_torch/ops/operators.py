@@ -40,7 +40,8 @@ import torch
 
 __all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_2d",
            "batched_aniso_laplacian_2d",
-           "anisotropic_laplacian_3d", "separated_laplacian_2d",
+           "anisotropic_laplacian_3d", "batched_aniso_laplacian_3d",
+           "separated_laplacian_2d",
            "biharmonic_x", "neighbor_sum", "block_coords", "boundary_diagonal"]
 
 
@@ -304,6 +305,19 @@ def anisotropic_laplacian_3d(c, dx, variant="reference", device="cuda"):
                              sign=1.0, variant="aniso", wx=wx_pad, wy=wy_pad,
                              wz=wz_pad)
     return apply
+
+
+def batched_aniso_laplacian_3d(cs, dx, variant="reference", device="cuda"):
+    """The kernel descriptor of div(c grad u) on an (nz, ny, nx) grid for a
+    batch of B lanes, each with its own c: the descriptor of
+    anisotropic_laplacian_3d(cs[b], dx, variant) per lane, built once per
+    batch, with the face weights stacked to (B, nz*ny, nx) float32 (lane
+    b's bits are its own operator's). The fused kernels take it with a
+    (B, P, nz*ny, nx) batch of fields."""
+    descs = [anisotropic_laplacian_3d(c, dx, variant=variant,
+                                      device=device).kernel_desc for c in cs]
+    return dict(descs[0], **{k: torch.stack([d[k] for d in descs])
+                             for k in ("wx", "wy", "wz")})
 
 
 def _biharmonic_coefs(nx):

@@ -6,29 +6,32 @@ one jitted scan, and models/evolve carries the batch here as there: the
 snapshot cadence, the guard (one flag per snapshot across the batch, early
 exit only when every lane has diverged) and the scalar series are JAX's.
 
-The 2D NLSE SS2 step on the planar path (complex64, the production datagen
-step) is ONE batched step, as JAX's vmap: the state is a (B, 2, ny, nx)
-float32 tensor, and each kernel of the step (both kick_bc, K1/K1', the
-m-1 K2/K2', K3) is one launch over all lanes, with the scalar recurrence on
-(B, ...) tensors and one batched eigh (ops/cuda/lanczos2d.py,
-ops/krylov.py). The operator (the lanes' c(x) face weights stacked, or the
-shared Laplacian) and the density (the lanes' m stacked) are built once per
+Three steps run as ONE batched step, as JAX's vmap: the NLSE SS2 step on
+the planar path (complex64, 2D or 3D; the production datagen step) and the
+float32 real-wave Gautschi step with the fused kernels (2D or 3D). The
+state is a (B, 2, R, nx) float32 tensor (NLSE) or a pair of (B, *shape)
+float32 tensors (real-wave), and each kernel of the step is one launch over
+all lanes (ops/cuda/lanczos2d.py, lanczos3d.py, kick.py, bc3d.py), with the
+scalar recurrence on (B, ...) tensors and one batched eigh
+(ops/krylov.py). The operator (the lanes' c(x) face weights stacked, or the
+shared Laplacian; sign-flipped for the real-wave step, as
+models/problems._negated flips it) and the lanes' m are built once per
 batch. Each lane takes the unbatched kernels' bits and arithmetic, and the
 batched eigh gives each lane's T the single-matrix eigh's bits (torch 2.11
 with CUDA 12.8 on an H100, and the CPU; chip_smoke.py and the card tests
-check it), so a lane equals nlse_problem run alone bit for bit. A lane
-whose T is not finite gets NaN coefficients from the batched eigh, as from
-JAX's, and stays NaN; the guard flags it.
+check it), so a lane equals nlse_problem or realwave_problem run alone bit
+for bit. A lane whose T is not finite gets NaN coefficients from the
+batched eigh, as from JAX's, and stays NaN; the guard flags it.
 
-Every other path (the complex path, the two-step integrators, 3D, the
-real-wave family, stochastic phi-4) keeps one problem from
-models/problems.py per trajectory (nlse_problem, realwave_problem), built
-once per call of the trajectory function, and a batched step advances every
-trajectory by one step in turn; a lane's trajectory there equals the
-problem run alone with its fields, bit for bit. A lane whose state has gone
-non-finite can make the tridiagonal eigensolver fail (torch raises where
-JAX returns NaN); the engine then keeps that lane's state as NaN, which is
-what JAX's vmapped step carries, and the guard flags it.
+Every other path (the complex path, the two-step NLSE integrators, float64,
+SV, stochastic phi-4) keeps one problem from models/problems.py per
+trajectory (nlse_problem, realwave_problem), built once per call of the
+trajectory function, and a batched step advances every trajectory by one
+step in turn; a lane's trajectory there equals the problem run alone with
+its fields, bit for bit. A lane whose state has gone non-finite can make
+the tridiagonal eigensolver fail (torch raises where JAX returns NaN); the
+engine then keeps that lane's state as NaN, which is what JAX's vmapped
+step carries, and the guard flags it.
 
 Trajectory functions return snapshot stacks shaped (B, S, ...) where entry
 s=0 is the initial condition, as tensors on the engine's device. Inputs may
@@ -50,9 +53,14 @@ from nlsolvers_tpu_torch.models.evolve import evolve, evolve_guarded
 from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
                                                        REALWAVE_KINDS,
                                                        nlse_density_planar,
+                                                       realwave_g,
                                                        realwave_potential)
+from nlsolvers_tpu_torch.ops import boundaries as bcs
 from nlsolvers_tpu_torch.ops import operators as ops
+from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
 from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
+from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (matfunc_apply_planar_multi,
+                                                    supported_desc)
 
 __all__ = ["make_nlse_trajectory_fn", "make_realwave_trajectory_fn",
            "torch_dtype", "LATER"]
@@ -128,6 +136,21 @@ def _run(step, states, observe, num_snapshots, snapshot_freq, guard,
     return snaps, bad_at, {k: v.movedim(0, 1) for k, v in series.items()}
 
 
+def _batched_operator(shape, dx, c, B, variant, rdtype, device):
+    """The kernel descriptor of the B lanes' operator: their c(x) face
+    weights stacked (operators.batched_aniso_laplacian_2d / _3d), or, with
+    c None, the shared Laplacian's; each lane's bits are those of the
+    operator problems.nlse_problem builds for it alone."""
+    if c is None:
+        return problems._nlse_operator(shape, dx, None, variant, rdtype,
+                                       device).kernel_desc
+    cs = [c[b] for b in range(B)]
+    if len(shape) == 2:
+        return ops.batched_aniso_laplacian_2d(cs, dx, dx, device=device)
+    return ops.batched_aniso_laplacian_3d(cs, dx, variant=variant,
+                                          device=device)
+
+
 def _without_resident(build):
     """build() with config.resident_mode off: the JAX engine never takes
     the resident SS2 kernel."""
@@ -163,9 +186,9 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
     c = 1, as JAX probes its Pallas gate; the port has no 128-lane gate).
     An SS2 step's closing half kick does the ghost copy; the two-step
     integrators copy it after their step and bootstrap with one SS2 step at
-    index 1. `dtype` is a torch dtype or a numpy one. The 2D planar SS2
-    step runs all lanes as one batched step (the `batched` attribute), the
-    other paths lane by lane (module docstring).
+    index 1. `dtype` is a torch dtype or a numpy one. The planar SS2
+    step (2D and 3D) runs all lanes as one batched step (the `batched`
+    attribute), the other paths lane by lane (module docstring).
     """
     if kind not in NLSE_KINDS:
         raise ValueError(f"unknown NLSE kind {kind!r}")
@@ -198,20 +221,16 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
                          if use_c else None)
     planar = probe.meta["planar_state"]
     del probe
-    batched = planar and not two_state and len(shape) == 2
+    batched = planar and not two_state
+    R = int(np.prod(shape[:-1]))
 
     def batch_step(m, c, B):
         """The planar SS2 step of all B lanes at once: nlse_problem's
-        planar step on a (B, 2, ny, nx) state, its operator and density
+        planar step on a (B, 2, R, nx) state, its operator and density
         built per lane as nlse_problem builds them and stacked."""
         dx = 2.0 * Lx / (nx - 1)
-        if use_c:
-            desc = ops.batched_aniso_laplacian_2d(
-                [c[b] for b in range(B)], dx, dx, device=device)
-        else:
-            desc = problems._nlse_operator(shape, dx, None, variant, rdtype,
-                                           device).kernel_desc
-        m2 = m.to(rdtype).to(torch.float32).reshape(B, *shape).contiguous()
+        desc = _batched_operator(shape, dx, c, B, variant, rdtype, device)
+        m2 = m.to(rdtype).to(torch.float32).reshape(B, R, nx).contiguous()
         rho = nlse_density_planar(kind, m2, sigma1=sigma1, sigma2=sigma2,
                                   kappa=kappa)
         grid = kick_grid(shape) if bc == "noflux" else None
@@ -252,8 +271,8 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
         c = _tensor(c, device) if use_c else None
         B = packed.shape[0]
         if batched:
-            states = packed.to(torch.float32).reshape(B, 2,
-                                                      *shape).contiguous()
+            states = packed.to(torch.float32).reshape(B, 2, R,
+                                                      nx).contiguous()
             step = batch_step(m, c, B)
         else:
             probs = [lane_problem(m[b], None if c is None else c[b])
@@ -295,7 +314,9 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
 
     Each lane is realwave_problem(kind, ..., m_field=m[b], c_field=c[b]) on
     `device`: a float32 Gautschi step runs its two matrix functions on -Lap
-    (the sign-flipped descriptor) through the fused kernels. kind may also
+    (the sign-flipped descriptor) through the fused kernels, all lanes in
+    one batched step (2D and 3D, the `batched` attribute; module
+    docstring); the other steps run lane by lane. kind may also
     be "stochastic_phi4": the SV step with white noise, on div(c grad u)
     when use_c, its noise drawn per (sample, step) from a torch.Generator
     seeded from (seed, i, b) (models/realwave.stochastic_noise). One seed
@@ -314,6 +335,53 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
     dx = 2.0 * Lx / (nx - 1)
     dV = dx ** dim
     potential = realwave_potential(kind)
+    R = int(np.prod(shape[:-1]))
+    batched = False
+    if not stochastic and integrator == "gautschi" and reorth and \
+            rdtype == torch.float32:
+        probe = problems._nlse_operator(
+            shape, dx, torch.ones(shape, dtype=rdtype, device=device)
+            if use_c else None, variant, rdtype, device)
+        batched = supported_desc(getattr(probe, "kernel_desc", None), shape,
+                                 torch.float32)
+        del probe
+
+    def batch_step(m, c, B):
+        """realwave_problem's float32 Gautschi step (rw.gautschi_step's
+        arithmetic in its order) on all B lanes at once: each matrix
+        function one batched fused-kernel run on the (B, 1, R, nx) view of
+        -Lap (the lanes' operators stacked, the sign flipped), then the
+        ghost copy: the plain one in 2D, one batched bc3d in place on the
+        fresh u_new in 3D. The planar path is called directly: a (B, ny,
+        nx) field would pass for a 3D one in ops/krylov's dispatch."""
+        desc = _batched_operator(shape, dx, c, B, variant, rdtype, device)
+        desc = dict(desc, sign=-desc["sign"])
+        m_t = m.to(rdtype)
+        g = realwave_g(kind)
+        filt = rw.gautschi_filter(kind)
+        view = (B, 1, R, nx)
+
+        def matfuncs(u, specs):
+            return [o.reshape(u.shape) for o in matfunc_apply_planar_multi(
+                u.reshape(view), desc, specs, krylov_m)]
+
+        def neumann(u):
+            if not apply_bc:
+                return u
+            if dim == 2:
+                return bcs.neumann_no_velocity_2d(u)
+            neumann_bc_planar_3d(u.view(view), shape)
+            return u
+
+        def step(state, i):
+            del i
+            u, u_past = state
+            fu, cu = matfuncs(u, ((dt, filt), (dt, "cos_sqrt")))
+            b = -(m_t * g(fu))
+            s2, = matfuncs(b, ((dt, "sinc2_sqrt_half"),))
+            return neumann(2.0 * cu - u_past + (dt * dt) * s2), u
+
+        return step
 
     def stochastic_lane(m_b, c_b, b):
         lap = problems._nlse_operator(shape, dx, c_b, variant, rdtype,
@@ -341,17 +409,24 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
             device=device).step
 
     def observe(states):
+        if batched:
+            u, u_past = states
+            return u, (u - u_past) / dt
         return (torch.stack([u for u, _ in states]),
                 torch.stack([(u - u_past) / dt for u, u_past in states]))
 
     def energy(u, u_past):
+        """The energy of a field, or per lane of a (B, *shape) batch."""
+        axes = tuple(range(u.dim() - dim, u.dim()))
         v = (u - u_past) / dt
         grad2 = sum(torch.gradient(u, spacing=dx, dim=a)[0] ** 2
-                    for a in range(dim))
+                    for a in axes)
         dens = 0.5 * v ** 2 + 0.5 * grad2 + potential(u)
-        return torch.sum(dens) * dV
+        return torch.sum(dens, dim=axes) * dV
 
     def energy_of(states):
+        if batched:
+            return energy(*states)
         return torch.stack([energy(u, u_past) for u, u_past in states])
 
     def traj(u0, v0, m, c, num_snapshots, snapshot_freq):
@@ -361,9 +436,13 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
         c = _tensor(c, device) if use_c else None
         B = u0.shape[0]
         past = u0 - dt * v0                  # u_past = u0 - dt v0
-        states = [(u0[b], past[b]) for b in range(B)]
-        step = _batched_step([lane_step(m[b], None if c is None else c[b], b)
-                              for b in range(B)])
+        if batched:
+            states = (u0.contiguous(), past)
+            step = batch_step(m, c, B)
+        else:
+            states = [(u0[b], past[b]) for b in range(B)]
+            step = _batched_step([lane_step(m[b], None if c is None
+                                            else c[b], b) for b in range(B)])
         scalars = {"energy": energy_of} if record_energy else None
         (u_s, v_s), bad_at, series = _run(step, states, observe,
                                           num_snapshots, snapshot_freq,
@@ -373,4 +452,5 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
             return out
         return out + (bad_at,) + ((series,) if record_energy else ())
 
+    traj.batched = batched
     return traj

@@ -24,8 +24,9 @@ wrappers take the kernels' plain versions, vectorised over the lanes.
 * A lane started as NaN: its snapshots are NaN, bad_at flags it at
   snapshot 0, the mass series is NaN on it, and the other lanes equal their
   runs alone; evolve_guarded carries the tensor state.
-* A batch with the fused iteration or a 3D descriptor raises
-  NotImplementedError (their batched kernels are not ported yet).
+* A batch with the fused iteration, or a 3D batch with the 3D pipe,
+  raises NotImplementedError (K5 and K8 have no batched form yet); a 3D
+  batch runs the two-pass loop (tests/test_torch_batched3d.py).
 """
 
 import jax.numpy as jnp
@@ -246,14 +247,22 @@ def test_nan_lane_stays_confined():
 
 
 def test_batch_without_batched_kernels_raises(monkeypatch):
-    """A batch takes the pipelined 2D loop only: with config.fused_iter or
-    a 3D descriptor lanczos_planar raises NotImplementedError."""
+    """A batch takes the pipelined 2D loop or the two-pass 3D loop: with
+    config.fused_iter (2D or 3D), or a 3D descriptor under
+    config.pipeline_3d, lanczos_planar raises NotImplementedError (K5 and
+    K8 have no batched form yet); the 3D batch runs the two-pass loop."""
     u = torch.zeros((B, 2, 8, 8))
     desc = tops.laplacian_2d((8, 8), 0.1, 0.1, device="cpu").kernel_desc
-    monkeypatch.setattr(config, "fused_iter", True)
-    with pytest.raises(NotImplementedError):
-        tl.lanczos_planar(u, desc, 4)
-    monkeypatch.setattr(config, "fused_iter", False)
     d3 = tops.laplacian_3d((4, 4, 4), 0.1, device="cpu").kernel_desc
+    u3 = torch.zeros((B, 2, 16, 4))
+    monkeypatch.setattr(config, "fused_iter", True)
+    for v, d in ((u, desc), (u3, d3)):
+        with pytest.raises(NotImplementedError):
+            tl.lanczos_planar(v, d, 4)
+    monkeypatch.setattr(config, "fused_iter", False)
+    monkeypatch.setattr(config, "pipeline_3d", True)
     with pytest.raises(NotImplementedError):
-        tl.lanczos_planar(torch.zeros((B, 2, 16, 4)), d3, 4)
+        tl.lanczos_planar(u3, d3, 4)
+    monkeypatch.setattr(config, "pipeline_3d", False)
+    W, s, alphas, betas, beta0 = tl.lanczos_planar(u3, d3, 4)
+    assert len(W) == 4 and W[3].shape == u3.shape and beta0.shape == (B,)

@@ -839,14 +839,15 @@ _COUNTERS = {"K1": tl.pass1_iso2d, "K1'": tl.pass1_aniso2d,
 @pytest.mark.parametrize("shape,aniso,want", [
     ((64, 96), False, {"K1": 2, "K2": 18, "K3": 2}),
     ((64, 96), True, {"K1'": 2, "K2'": 18, "K3": 2}),
-    ((12, 16, 40), False, {"pass1_3d": 18, "pass2": 18, "K3": 2,
+    ((12, 16, 40), False, {"pass1_3d": 18, "pass2": 20, "K3": 2,
                            "bc3d": 1}),
-    ((12, 16, 40), True, {"pass1_3d": 18, "pass2": 18, "K3": 2,
+    ((12, 16, 40), True, {"pass1_3d": 18, "pass2": 20, "K3": 2,
                           "bc3d": 1})])
 def test_realwave_gautschi_launches_on_card(cuda, shape, aniso, want):
     """A float32 Gautschi step at m=10 runs two matrix functions on the
-    kernels (K3 at k=2, then k=1) and, in 3D, one bc3d; no kick_bc. The
-    kernels' step is within 1e-5 of the plain one."""
+    kernels (K3 at k=2, then k=1) and, in 3D, one bc3d; no kick_bc. In 3D
+    each matrix function's start norm is one pass2 launch (its norm-only
+    form). The kernels' step is within 1e-5 of the plain one."""
     prob, s = _realwave(cuda, shape, aniso)
     for f in _COUNTERS.values():
         f.launches = 0
@@ -1046,3 +1047,179 @@ def test_batched_wrappers_reject_bad_input(cuda):
         tl.pass1_aniso2d(torch.zeros((3, 1, 2), device=cuda), u, [], d2)
     with pytest.raises(ValueError):          # one m field for 3 lanes
         tk.phase_kick_bc_planar(u, nlse_density_planar("cubic", c[0]), 0.1)
+
+
+# ------------------------------------------------ batched 3D kernels
+
+def _batch3d_desc(mode, cuda, gen, B, shape):
+    """(batched descriptor, the lanes' descriptors) of a 3D operator."""
+    if mode != "aniso":
+        d = _desc3d(shape, mode, cuda)
+        return d, [d] * B
+    c = 1.0 + 0.4 * torch.rand((B,) + shape, generator=gen, device=cuda)
+    dx = 2.0 * 5.0 / (shape[-1] - 1)
+    d = tops.batched_aniso_laplacian_3d(list(c), dx, device=cuda)
+    return d, [dict(d, **{k: d[k][b] for k in ("wx", "wy", "wz")})
+               for b in range(B)]
+
+
+def _batch_check(got, want, fields):
+    """A batched launch against the plain batched version, lane by lane:
+    fields by rel-L2 <= 1e-5, dots within 1e-4 of the largest squared norm
+    of the lane's fields."""
+    for b in range(fields[0].shape[0]):
+        scale = max(float(f[b].norm()) ** 2 for f in fields)
+        for x, y in zip(got, want):
+            if x.dim() == 4:
+                assert _rel(x[b], y[b]) <= FIELD_TOL
+            else:
+                assert float((x[b] - y[b]).abs().max()) <= DOT_TOL * scale
+
+
+@pytest.mark.parametrize("shape", [(37, 50, 61), (9, 11, 16), (5, 7, 33),
+                                   (16, 16, 128)])
+@pytest.mark.parametrize("mode", ["reference", "clean", "aniso"])
+@pytest.mark.parametrize("P", [1, 2])
+def test_batched_3d_kernels_bit_equal_to_lane_launches_on_card(cuda, shape,
+                                                               mode, P):
+    """pass1_3d (j = 0, 4, 9), pass2 (0, 1 and 10 columns; 0 is the
+    norm-only form) and bc3d on B = 4 lanes of a ragged or 128-column grid:
+    ONE launch each, lane b bit-equal to the unbatched launch on lane b and
+    within the gates of the plain batched version (bc3d exactly)."""
+    B = 4
+    nz, ny, nx = shape
+    gen = torch.Generator(device=cuda).manual_seed(1000 + P)
+    desc, lanes = _batch3d_desc(mode, cuda, gen, B, shape)
+    desc = dict(desc, sign=-1.0) if P == 1 else desc
+    lanes = [dict(d, sign=desc["sign"]) for d in lanes]
+    cols = [torch.randn((B, P, nz * ny, nx), generator=gen, device=cuda)
+            for _ in range(11)]
+    for j in (0, 4, 9):
+        scal = torch.rand((B, 1, 2), generator=gen, device=cuda)
+        before = t3.pass1_3d.launches
+        got, want = _kernel_and_plain(
+            lambda: t3.pass1_3d(scal, cols[j], cols[:j], desc))
+        assert t3.pass1_3d.launches == before + 1
+        _batch_check(got, want, cols[:j + 1] + [want[0]])
+        _lane_equal(got, [t3.pass1_3d(scal[b], cols[j][b],
+                                      [w[b] for w in cols[:j]], lanes[b])
+                          for b in range(B)])
+    for nw in (0, 1, 10):
+        q = (torch.rand((B, nw, 2), generator=gen, device=cuda) - 0.5
+             if nw else None)
+        before = t3.pass2.launches
+        got, want = _kernel_and_plain(lambda: t3.pass2(q, cols[10],
+                                                       cols[:nw]))
+        assert t3.pass2.launches == before + 1
+        _batch_check(got, want, cols[:nw + 1] + [want[0]])
+        _lane_equal(got, [t3.pass2(None if q is None else q[b], cols[10][b],
+                                   [w[b] for w in cols[:nw]])
+                          for b in range(B)])
+    up = cols[10].clone()
+    alone = [tb.neumann_bc_planar_3d(up[b].clone(), shape) for b in range(B)]
+    before = tb.neumann_bc_planar_3d.launches
+    got, want = _kernel_and_plain(
+        lambda: tb.neumann_bc_planar_3d(up.clone(), shape))
+    torch.cuda.synchronize()
+    assert tb.neumann_bc_planar_3d.launches == before + 1
+    assert torch.equal(got, want)
+    _lane_equal([got], [[a] for a in alone])
+
+
+def test_batched_combine_real_k2_bit_equal_on_card(cuda):
+    """K3 at k = 2 on a real (P = 1) batch of merged 3D views, the real-wave
+    step's first combine: one launch, each lane the unbatched launch's
+    bits, within 1e-5 of the plain version."""
+    B, R, nx = 8, 16 * 16, 128
+    gen = torch.Generator(device=cuda).manual_seed(1100)
+    W = [torch.randn((B, 1, R, nx), generator=gen, device=cuda)
+         for _ in range(10)]
+    q = torch.rand((B, 2, 10, 2), generator=gen, device=cuda) - 0.5
+    q[..., 1] = 0.0
+    got, want = _kernel_and_plain(lambda: tl.combine(q, W))
+    for x, y in zip(got, want):
+        for b in range(B):
+            assert _rel(x[b], y[b]) <= FIELD_TOL
+    _lane_equal(got, [tl.combine(q[b], [w[b] for w in W]) for b in range(B)])
+
+
+@pytest.mark.parametrize("mode", ["reference", "aniso"])
+def test_batched_twopass_bit_equal_to_lanes_on_card(cuda, mode):
+    """The two-pass 3D loop on a batch of B = 3 complex lanes at m = 10:
+    every column, s, alpha, beta and beta0 of lane b equal the unbatched
+    loop's on lane b, bit for bit."""
+    B, shape = 3, (12, 16, 40)
+    gen = torch.Generator(device=cuda).manual_seed(1200)
+    desc, lanes = _batch3d_desc(mode, cuda, gen, B, shape)
+    u = torch.randn((B, 2, 12 * 16, 40), generator=gen, device=cuda)
+    got = t3.lanczos_twopass(u, desc, 10)
+    for b in range(B):
+        want = t3.lanczos_twopass(u[b], lanes[b], 10)
+        for xs, ys in zip(got[:4], want[:4]):
+            for x, y in zip(xs, ys):
+                assert torch.equal(x[b], y)
+        assert torch.equal(got[4][b], want[4])
+
+
+def _engine_batch(cuda, path, B):
+    """(trajectory function, its arguments, the lanes' problems run alone)
+    of one of the batched engine paths at a small size."""
+    from nlsolvers_tpu_torch.models import problems
+    from nlsolvers_tpu_torch.pipeline import engine
+    shape = (64, 96) if path == "rw2d" else (12, 16, 40)
+    rng = np.random.default_rng(1300)
+    m = (0.5 + rng.random((B,) + shape)).astype(np.float32)
+    c = (1.0 + 0.4 * rng.random((B,) + shape)).astype(np.float32)
+    if path == "nlse3d":
+        u0 = (0.3 * rng.standard_normal((B, 2) + shape)).astype(np.float32)
+        fn = engine.make_nlse_trajectory_fn("cubic", shape, 5.0, 1e-3,
+                                            device=cuda)
+
+        def alone(b, S, f):
+            prob = problems.nlse_problem("cubic", shape, 5.0, 1e-3,
+                                         m_field=m[b], c_field=c[b],
+                                         device=cuda)
+            ref = problems.run(prob, prob.init(u0[b]), S, f)
+            return torch.stack([ref.real, ref.imag], dim=1)
+
+        return fn, (u0, m, c), alone
+    u0 = (0.3 * rng.standard_normal((B,) + shape)).astype(np.float32)
+    v0 = np.zeros_like(u0)
+    fn = engine.make_realwave_trajectory_fn("sine_gordon", shape, 5.0, 1e-3,
+                                            device=cuda)
+
+    def alone(b, S, f):
+        prob = problems.realwave_problem("sine_gordon", shape, 5.0, 1e-3,
+                                         m_field=m[b], c_field=c[b],
+                                         dtype=torch.float32, device=cuda)
+        return problems.run(prob, prob.init(u0[b], v0[b]), S, f)
+
+    return fn, (u0, v0, m, c), alone
+
+
+@pytest.mark.parametrize("path,want", [
+    ("rw2d", {"K1'": 2, "K2'": 18, "K3": 2}),
+    ("nlse3d", {"pass1_3d": 9, "pass2": 10, "K3": 1, "kick_bc": 2}),
+    ("rw3d", {"pass1_3d": 18, "pass2": 20, "K3": 2, "bc3d": 1})])
+def test_batched_engine_paths_launches_and_lanes_on_card(cuda, path, want):
+    """One batched step of each new batched engine path (m = 10, c(x)) makes
+    the same counted launches for B = 1 and B = 3, and each lane over 8
+    steps equals its problem run alone on the card, bit for bit."""
+    for B in (1, 3):
+        fn, args, alone = _engine_batch(cuda, path, B)
+        assert fn.batched
+        torch.cuda.synchronize()
+        for f in _COUNTERS.values():
+            f.launches = 0
+        fn(*args, 2, 1)
+        torch.cuda.synchronize()
+        assert {k: f.launches for k, f in _COUNTERS.items()
+                if f.launches} == want
+    out = fn(*args, 3, 4)
+    for b in range(3):
+        ref = alone(b, 3, 4)
+        if path == "nlse3d":
+            assert torch.equal(out[b], ref)
+        else:
+            assert torch.equal(out[0][b], ref[0])
+            assert torch.equal(out[1][b], ref[1])

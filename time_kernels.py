@@ -5,7 +5,7 @@
                             [--parts 2d,k8,k13,k5,k1,rates,optin]
                             [--ms 10,20]
 
-(other parts: kickbc, rates3d, shard, perj, ptxas, datagen)
+(other parts: kickbc, rates3d, shard, perj, ptxas, datagen, sweeps, run3d)
 
 Imports nlsolvers_tpu_torch from TREE (default: the directory of this
 script), so that one machine can time two versions of the package in turns
@@ -67,6 +67,19 @@ the same columns (complex64). Parts:
          calls), one batched step's device profile (busy ms, idle share,
          launches per batched step and per trajectory-step, host syncs),
          and the sweep through Datagen.run (sampling, guard, npy archive);
+  sweeps the datagen sweeps beside the NLSE production one, as
+         chip_smoke.py's rate-datagen runs them (chip_smoke.DG_SWEEPS:
+         2D sine-Gordon Gautschi at 256^2, 3D NLSE SS2 and 3D
+         Klein-Gordon Gautschi at 128^3, m = 10, 8 runs in one batch, c
+         layered, m piecewise): one batched step's wall, device busy time,
+         idle share and launches, and the sweep through Datagen.run,
+         trajectories/min (on any tree with nlsolvers_tpu_torch/pipeline:
+         a tree that steps those lanes one at a time is timed as it runs);
+  run3d  one unbatched 3D two-pass Lanczos run (lanczos_planar at 128^3,
+         iso, m = 10, complex): the host's enqueue time (median of 40
+         runs, no sync inside the run) and the wall with the sync, the
+         device time by CUDA-graph replay and the profiler's kernel rows
+         per run, to compare two trees' unbatched 3D loop;
   ptxas  ptxas's registers and spill stores of every kernel instantiation
          the tree builds, one JSON object each (the namespace hash of a
          name dropped), to compare two trees' code generation;
@@ -728,6 +741,44 @@ def main():
              evolve_s=st["evolve_s"], archive_s=st["archive_s"],
              trajectories_per_min=len(written) / wall * 60.0,
              trajectory_steps_per_s=len(written) * steps / wall)
+        shutil.rmtree(work, ignore_errors=True)
+    if "run3d" in parts:
+        import statistics
+        n = 128
+        d3 = operators.laplacian_3d((n, n, n), 2.0 * LX / (n - 1),
+                                    device=dev).kernel_desc
+        u = field(n, rows=n * n)
+
+        def run():
+            lz.lanczos_planar(u, d3, 10)
+
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        hosts, walls = [], []
+        for _ in range(40):
+            t1 = time.perf_counter()
+            run()
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            hosts.append((t2 - t1) * 1e3)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        rows = cs.profiled(torch, lambda: [run() for _ in range(10)])
+        emit(run3d=f"{n}^3 iso m=10", host_ms=statistics.median(hosts),
+             wall_ms=statistics.median(walls),
+             graph_ms=cs.graph_ms(torch, run, 20),
+             kernels=None if rows is None else {
+                 e.key[:90]: [e.count / 10, cs.dev_us(e) / 1e3 / 10]
+                 for e in sorted(rows, key=cs.dev_us, reverse=True)[:8]})
+    if "sweeps" in parts:
+        import shutil
+
+        from nlsolvers_tpu_torch.pipeline import datagen
+        work = Path(args.root) / "_smoke_datagen"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir()
+        for label, r in cs.datagen_rates(torch, np, datagen, work).items():
+            emit(datagen_sweep=label, **r)
         shutil.rmtree(work, ignore_errors=True)
     if args.out:
         with open(args.out, "w") as f:
