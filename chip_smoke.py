@@ -11,9 +11,9 @@ Phases, one line each (or a few):
                registers and spills from ptxas, and per instantiation of
                the 2D pass1/pipe kernels (iso and aniso; K1 and K2 in
                their 16-byte and scalar forms; the shard policies), of K3,
-               K5 <P, MAXW, OPK, VEC>, K8 <P, MAXW, MODE, VEC> and K13
-               <MAXW, VEC>, and of kick_bc <KIND, VEC>; fails unless all 96
-               K1 / K5 instantiations are there and none spills
+               K5 <P, MAXW, OPK, VEC>, K8 <P, MAXW, MODE, VEC, LANES> and
+               K13 <MAXW, VEC>, and of kick_bc <KIND, VEC>; fails unless
+               all 96 K1 / K5 instantiations are there and none spills
   3. parity    each 2D kernel (K1-K3) against its plain PyTorch version on
                the same seeded CUDA tensors, at 1024^2 complex64, 4096^2
                and on ragged grids (250x333, 250x334, 251x335: the scalar
@@ -113,13 +113,14 @@ Phases, one line each (or a few):
                exactly 1 K13 launch per step and no other counted launch
                (no kick_bc: K13 kicks inside),
                mass drift < 1e-3.
- 18. main-iter  with config.fused_iter: 1024^2 SS2 (exactly 9 K5 + 1 K3 +
-               2 kick_bc per step) and 128^3 SS2 (the same), 100 steps each,
+ 18. main-iter  with config.fused_iter: 1024^2 SS2 (exactly 9 K5 + 1 pass2,
+               the start norm's norm-only form, + 1 K3 + 2 kick_bc per
+               step) and 128^3 SS2 (the same), 100 steps each,
                mass drift < 1e-3.
  19. main-pipe3d  with config.pipeline_3d: 128^3 iso and c(x) SS2, 100
-               steps each: exactly 1 pass1_3d + 8 K8 + 1 K2 (the last,
-               stencil-free iteration) + 1 K3 + 2 kick_bc per step, mass
-               drift < 1e-3.
+               steps each: exactly 1 pass2 (the start norm) + 1 pass1_3d +
+               8 K8 + 1 K2 (the last, stencil-free iteration)
+               + 1 K3 + 2 kick_bc per step, mass drift < 1e-3.
  20. paths-optin  20 steps of each switch against the default path:
                resident (Taylor in place of eigh) rel-L2 <= 1e-4, fused_iter
                (2D, 3D) and pipeline_3d (iso, c(x)) <= 1e-5 (the same
@@ -190,7 +191,8 @@ Phases, one line each (or a few):
                Krylov path): rel-L2 on u <= 1e-5 for every kind at 256^2
                (phi-4 also with c(x)) and at 128^3 iso and c(x); the same
                against fused_iter (1024^2, 128^3) and pipeline_3d (128^3
-               iso and c(x)), whose launches per step are counted first.
+               iso and c(x)), whose launches per step are counted first
+               (each matrix function's start norm one pass2).
                The free-running 20-step difference is printed beside it.
  31. rate-rw   steps/s of sine-Gordon Gautschi at 1024^2 (3 chunks of 200),
                128^3 (3 of 100) and 256^3 (3 of 20), each with phase 6's
@@ -227,6 +229,17 @@ Each of phases 28-37 prints its seconds; from phase 3 on, a line
                equal); times per batched step of the 3D paths (9 pass1_3d,
                the norm + 9 pass2, 1 bc3d, both kicks) by graph beside the
                8 unbatched launch sequences and 8 x the 128^3 bytes bound.
+               Then the batched K5 and K8: K5 on 8 lanes of 256^2
+               (m=20, iso and c(x), j = 0, 9, 18) and of 128^3 (iso, j = 0,
+               8), K8 on 8 lanes of 128^3 (iso and c(x), j = 0, 7), P=2 and
+               P=1 with sign -1, ragged real batches (3 x 251x335, 3 x
+               37x50x61: the scalar forms), the form of w each K5 launch
+               takes printed: against the plain batched versions (phase 3's
+               gates), bit-equal to 8 unbatched launches, two launches bit
+               for bit; times per batched step (K5: the 19 or 9 launches of
+               one fused run at 256^2 c(x) and iso and 128^3 iso; K8: the 8
+               of one pipelined run at 128^3 c(x) and iso) by graph beside
+               the 8 unbatched launch sequences and 8 x the bytes bound.
  35. datagen-engine  the datagen engine (pipeline/engine.py) at the
                production width, 256^2 B=8, with Datagen's samplers and
                fields (c layered, m piecewise): the NLSE engine (m=20,
@@ -253,7 +266,23 @@ Each of phases 28-37 prints its seconds; from phase 3 on, a line
                alone, a NaN lane confined. A phi-4 Gautschi batch with one
                lane at 1e3 times the other's amplitude gives that lane
                bad_at < S while the other stays finite and bit-equal to its
-               run alone.
+               run alone. The two-step NLSE integrators are one batched
+               step too, 2D c(x) 256^2 m=20 and 3D c(x) 128^3
+               m=10, B=8: the bootstrap takes the SS2 step's 23 / 22
+               launches, every later step exactly 3 K1' + 57 K2' + 3 K3
+               (sEWI, Gautschi; fused sEWI 2 + 38 + 2) or 27 pass1_3d + 30
+               pass2 + 3 K3 + 1 bc3d (fused sEWI 18 + 20 + 2 + 1); each
+               lane's 20 steps bit-equal to nlse_problem alone, a NaN lane
+               confined. Then the batched engines under the switches, each
+               with its counts per batched step, lanes bit-equal to their
+               problems alone under the same switch over 20 steps, and a
+               NaN lane: SS2 fused_iter 256^2 c(x) (19 K5 + 1 pass2 + 1 K3
+               + 2 kick_bc), SS2 fused_iter 128^3 iso (9 + 1 + 1 + 2; K5
+               has no 3D c(x) mode, as JAX's), SS2 pipeline_3d 128^3 c(x)
+               (1 pass2 + 1 pass1_3d + 8 K8 + 1 K2 + 1 K3 + 2 kick_bc),
+               sine-Gordon Gautschi fused_iter 256^2 c(x) (18 K5 + 2 pass2
+               + 2 K3) and Klein-Gordon Gautschi pipeline_3d 128^3 c(x) (2
+               pass2 + 2 pass1_3d + 16 K8 + 2 K2 + 2 K3 + 1 bc3d).
  36. datagen-main  the CLI as a subprocess (python -m
                nlsolvers_tpu_torch.pipeline), --format npy: the NLSE sweep
                nlse --phenomenon multi_soliton --system cubic --nx 256 --T
@@ -276,25 +305,27 @@ Each of phases 28-37 prints its seconds; from phase 3 on, a line
                in this process: wall ms, device busy ms and idle share
                (torch.profiler), launches per batched step and per
                trajectory-step, host syncs. Then the sweeps DG_SWEEPS
-               (2D sine-Gordon at 256^2, 3D NLSE SS2 and 3D Klein-Gordon
-               at 128^3, 8 runs each): one batched step's wall, busy time,
+               (2D NLSE sEWI at 256^2 m=20 at the NLSE sweep's depth; 2D
+               sine-Gordon at 256^2, 3D NLSE SS2 and 3D Klein-Gordon at
+               128^3, 8 runs each): one batched step's wall, busy time,
                idle share and launches, and the sweep through Datagen.run
                in trajectories/min (datagen_rates, which time_kernels.py
                --parts sweeps runs on another tree).
 Then the card's name and power limit, the kernels as one JSON line
-(twenty-one: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
+(twenty-three: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
 pass1_shard2d, pass1_shard3d, kick_bc, and the batched forms of K1', K2',
-K3, kick_bc, pass1_3d, pass2 and bc3d; `ms` of K1, K2, K3, K1', K2', K5,
-K8, K13, kick_bc and the batched forms is the CUDA-graph reading, with the
-profiler's sum and the events beside it, and K3's library_ms torch.matmul's
-graph reading; bc3d's launches are the 3D sEWI run's; eight carry the
-real-wave Gautschi step's launches per step, and pass1_3d, pass2, bc3d and
-K3 their P=1 parity; the batched forms the datagen engine's launches per
-batched step of 8 lanes (the 2D NLSE step's, for pass1_3d and pass2 the 3D
-NLSE step's, for bc3d the 3D real-wave step's; the other paths' beside
-them) and the graph time of the 8 unbatched launch sequences beside
-theirs), and last {"ok": true, "device": ...}. Any failed phase exits
-non-zero and prints no result.
+K3, kick_bc, pass1_3d, pass2, bc3d, K5 and K8; `ms` of K1, K2, K3, K1',
+K2', K5, K8, K13, kick_bc and the batched forms is the CUDA-graph reading,
+with the profiler's sum and the events beside it, and K3's library_ms
+torch.matmul's graph reading; bc3d's launches are the 3D sEWI run's; eight
+carry the real-wave Gautschi step's launches per step, and pass1_3d,
+pass2, bc3d and K3 their P=1 parity; the batched forms the datagen
+engine's launches per batched step of 8 lanes (the 2D NLSE step's, for
+pass1_3d and pass2 the 3D NLSE step's, for bc3d the 3D real-wave step's,
+for K5 the 2D NLSE step's under fused_iter, for K8 the 3D NLSE step's
+under pipeline_3d; the other paths' beside them) and the graph time of
+the 8 unbatched launch sequences beside theirs), and last {"ok": true,
+"device": ...}. Any failed phase exits non-zero and prints no result.
 """
 
 import dataclasses
@@ -1066,9 +1097,252 @@ def batched_parity3d(torch, np, operators):
     return out
 
 
+def batched_parity_optin(torch, np, operators):
+    """Phase 34, opt-in half: the batched K5 (iter_step, config.fused_iter)
+    and K8 (pipe_3d, config.pipeline_3d) at the datagen points: K5 on B = 8
+    lanes of 256^2 (m = 20, iso and c(x) per lane, j = 0, 9, 18) and of
+    128^3 (iso, j = 0, 8), K8 on 8 lanes of 128^3 (iso and c(x), j = 0, 7),
+    each with P = 2, then P = 1 with the sign flipped, and a ragged real
+    batch of each (the scalar forms): ONE launch each, against the plain
+    batched versions (phase 3's gates), bit-equal to B unbatched launches
+    lane by lane, and two launches bit for bit. Then per batched step (the
+    launches of one Lanczos run: K5 j = 0..m-2, K8 j = 0..m-3) by
+    CUDA-graph replay beside the B unbatched launch sequences, the
+    profiler, the events, the plain batched versions and B x the bytes
+    bound. Returns {kernel: readings} for the JSON line."""
+    from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
+    from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4323)
+    B = DG_B
+
+    def fld(lanes, P, rows, nx):
+        return torch.randn((lanes, P, rows, nx), generator=gen, device=dev)
+
+    errs = {}
+
+    def gate(label, key, fn, want, alone, fields):
+        """fn() (the batched launch) against the plain batched outputs
+        `want` and the unbatched launches `alone`, lane by lane; `fields`
+        are the fields whose products scale the dots."""
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        lanes = got[0].shape[0]
+        fe = de = 0.0
+        for b in range(lanes):
+            scale = max(float(f[b].norm()) ** 2 for f in fields)
+            for x, y in zip(got, want):
+                if x.dim() == 4:
+                    fe = max(fe, rel(x[b], y[b]))
+                else:
+                    de = max(de, float((x[b] - y[b]).abs().max()) / scale)
+        same = all(torch.equal(x[b], y) for b, ys in enumerate(alone)
+                   for x, y in zip(got, ys))
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        errs[key] = max(errs.get(key, 0.0),
+                        max(float((x - y).abs().max())
+                            for x, y in zip(got, want) if x.dim() == 4))
+        print(f"parity-batched {label}: field rel-L2 {fe:.3e}, dot err "
+              f"{de:.3e}, bit-equal to {lanes} unbatched launches {same}, "
+              f"two launches bit for bit {repeat}")
+        check(fe <= FIELD_TOL, f"{label}: field rel-L2 {fe:.3e}")
+        check(de <= DOT_TOL, f"{label}: dot error {de:.3e}")
+        check(same, f"{label}: a lane differs from its unbatched launch")
+        check(repeat, f"{label}: two launches differ")
+
+    def k5_scal(W, j):
+        """(lanes, 1, j+3) [s_j, bs, s_0..s_j], inverse norms near
+        1/||W_i|| per lane (the loop's magnitudes)."""
+        lanes = W[0].shape[0]
+        norms = torch.stack([w.flatten(1).norm(dim=1) for w in W[:j + 1]],
+                            dim=1)
+        sv = (0.5 + 0.5 * torch.rand((lanes, j + 1), generator=gen,
+                                     device=dev)) / norms
+        bs = torch.full((lanes, 1), 0.3, device=dev)
+        return torch.cat([sv[:, j:j + 1], bs, sv], dim=1)[:, None]
+
+    def lane_desc(d, b):
+        return d if "wx" not in d else dict(
+            d, **{k: d[k][b] for k in ("wx", "wy", "wz") if k in d})
+
+    def check_k5(label, d, W, j):
+        lanes = W[0].shape[0]
+        rows, nx = W[0].shape[-2:]
+        opk = lz._iter_opk(d, "k5")
+        onchip, grid = lz.iter_form(W[0].shape[1], rows, nx, opk, j,
+                                    nx % 4 == 0, lanes)
+        scal = k5_scal(W, j)
+
+        def fn():
+            return lz.iter_step(scal, W[j], W[:j], d)
+
+        want = plain(fn)
+        alone = [lz.iter_step(scal[b], W[j][b], [w[b] for w in W[:j]],
+                              lane_desc(d, b)) for b in range(lanes)]
+        w0 = lz._pass1_ref(scal[..., :2], W[j], W[:j],
+                           lz._operator_ref(W[j], d))[0]
+        gate(f"{label} ({'on-chip' if onchip else 'global'} w, {grid} "
+             f"blocks)", "K5", fn, want, alone, W[:j + 1] + [w0])
+
+    def check_k8(label, key, d, W, av, j):
+        lanes = av.shape[0]
+        scal = torch.rand((lanes, j + 2, 2), generator=gen, device=dev) - 0.5
+        scal[:, 0, 0], scal[:, 0, 1] = 0.8, 0.0
+
+        def fn():
+            return l3.pipe_3d(scal, av, W[:j + 1], d)
+
+        want = plain(fn)
+        alone = [l3.pipe_3d(scal[b], av[b], [w[b] for w in W[:j + 1]],
+                            lane_desc(d, b)) for b in range(lanes)]
+        gate(label, key, fn, want, alone, W[:j + 1] + [av, want[0],
+                                                       want[1]])
+
+    n, m = DG_N, DG_M
+    dx = 2.0 * DG_LX / (n - 1)
+    c2 = 1.0 + 0.4 * torch.rand((B, n, n), generator=gen, device=dev)
+    ops2 = {"iso": operators.laplacian_2d((n, n), dx, dx,
+                                          device=dev).kernel_desc,
+            "c(x)": operators.batched_aniso_laplacian_2d(list(c2), dx, dx,
+                                                         device=dev)}
+    n3, m3 = DG3_N, DG3_M
+    dx3 = 2.0 * DG_LX / (n3 - 1)
+    c3 = 1.0 + 0.4 * torch.rand((B, n3, n3, n3), generator=gen, device=dev)
+    ops3 = {"iso": operators.laplacian_3d((n3,) * 3, dx3,
+                                          device=dev).kernel_desc,
+            "c(x)": operators.batched_aniso_laplacian_3d(list(c3), dx3,
+                                                         device=dev)}
+    del c2, c3
+    for P in (2, 1):
+        flip = (lambda d: dict(d, sign=-1.0)) if P == 1 else (lambda d: d)
+        sfx = f" P={P}" + (" sign -1" if P == 1 else "")
+        W = [fld(B, P, n, n) for _ in range(m - 1)]
+        for op, d in ops2.items():
+            for j in (0, 9, 18):
+                check_k5(f"K5 {op} {n}^2 j={j}{sfx}", flip(d), W, j)
+        del W
+        W = [fld(B, P, n3 * n3, n3) for _ in range(m3)]
+        for j in (0, 8):
+            check_k5(f"K5 iso {n3}^3 j={j}{sfx}", flip(ops3["iso"]), W, j)
+        av = fld(B, P, n3 * n3, n3)
+        for op, d in ops3.items():
+            for j in (0, 7):
+                check_k8(f"K8 {op} {n3}^3 j={j}{sfx}", "K8", flip(d), W,
+                         av, j)
+        del W, av
+    # ragged real batches, sign -1: the scalar forms (nx % 4 != 0)
+    rag = operators.batched_aniso_laplacian_2d(
+        list(1.0 + 0.4 * torch.rand((3, 251, 335), generator=gen,
+                                    device=dev)), dx, dx, device=dev)
+    Wr = [fld(3, 1, 251, 335) for _ in range(6)]
+    check_k5("K5 c(x) 3 x 251x335 j=4 P=1 sign -1", dict(rag, sign=-1.0),
+             Wr, 4)
+    check_k5("K5 iso 3 x 251x335 j=5 P=1 sign -1", dict(
+        operators.laplacian_2d((251, 335), dx, dx, device=dev).kernel_desc,
+        sign=-1.0), Wr, 5)
+    shp = (37, 50, 61)
+    rag3 = operators.batched_aniso_laplacian_3d(
+        list(1.0 + 0.4 * torch.rand((3,) + shp, generator=gen, device=dev)),
+        dx3, device=dev)
+    Wr = [fld(3, 1, shp[0] * shp[1], shp[2]) for _ in range(5)]
+    check_k8("K8 c(x) 3 x 37x50x61 j=3 P=1 sign -1", "K8",
+             dict(rag3, sign=-1.0), Wr, Wr[4], 3)
+    check_k5("K5 iso 3 x 37x50x61 j=3 P=1 sign -1", dict(
+        operators.laplacian_3d(shp, dx3, device=dev).kernel_desc,
+        sign=-1.0), Wr, 3)
+    del Wr, rag, rag3
+
+    # times per batched step: the K5 launches of one fused run, the K8
+    # launches of one pipelined 3D run
+    out = {}
+    runs = []
+    col2 = 2 * n * n * 4
+    W2 = [fld(B, 2, n, n) for _ in range(m)]
+    for op in ("c(x)", "iso"):
+        d = ops2[op]
+        scs = [k5_scal(W2, j) for j in range(m - 1)]
+        wts = 2 * n * n * 4 * (m - 1) if op == "c(x)" else 0
+
+        def k5(d=d, scs=scs):
+            for j in range(m - 1):
+                lz.iter_step(scs[j], W2[j], W2[:j], d)
+
+        def k5_lanes(d=d, scs=scs):
+            for b in range(B):
+                db = lane_desc(d, b)
+                for j in range(m - 1):
+                    lz.iter_step(scs[j][b], W2[j][b],
+                                 [w[b] for w in W2[:j]], db)
+
+        runs.append((f"K5 {op} {n}^2 m={m}", k5, k5_lanes, m - 1,
+                     B * (sum(j + 2 for j in range(m - 1)) * col2 + wts)))
+    col3 = 2 * n3 ** 3 * 4
+    W3 = [fld(B, 2, n3 * n3, n3) for _ in range(m3)]
+    av3 = fld(B, 2, n3 * n3, n3)
+    scs3 = [k5_scal(W3, j) for j in range(m3 - 1)]
+
+    def k5_3d():
+        for j in range(m3 - 1):
+            lz.iter_step(scs3[j], W3[j], W3[:j], ops3["iso"])
+
+    def k5_3d_lanes():
+        for b in range(B):
+            for j in range(m3 - 1):
+                lz.iter_step(scs3[j][b], W3[j][b], [w[b] for w in W3[:j]],
+                             ops3["iso"])
+
+    runs.append((f"K5 iso {n3}^3 m={m3}", k5_3d, k5_3d_lanes, m3 - 1,
+                 B * sum(j + 2 for j in range(m3 - 1)) * col3))
+    sc8 = []
+    for j in range(m3 - 2):
+        s8 = torch.rand((B, j + 2, 2), generator=gen, device=dev) - 0.5
+        s8[:, 0, 0], s8[:, 0, 1] = 0.8, 0.0
+        sc8.append(s8)
+    for op in ("c(x)", "iso"):
+        d = ops3[op]
+        wts = 3 * n3 ** 3 * 4 * (m3 - 2) if op == "c(x)" else 0
+
+        def k8(d=d):
+            for j in range(m3 - 2):
+                l3.pipe_3d(sc8[j], av3, W3[:j + 1], d)
+
+        def k8_lanes(d=d):
+            for b in range(B):
+                db = lane_desc(d, b)
+                for j in range(m3 - 2):
+                    l3.pipe_3d(sc8[j][b], av3[b], [w[b] for w in W3[:j + 1]],
+                               db)
+
+        runs.append((f"K8 {op} {n3}^3 m={m3}", k8, k8_lanes, m3 - 2,
+                     B * (sum(j + 4 for j in range(m3 - 2)) * col3 + wts)))
+    for key, fn, lanes_fn, launches, nbytes in runs:
+        g = graph_ms(torch, fn, 10)
+        g_lanes = graph_ms(torch, lanes_fn, 5)
+        prof, events = times_ms(torch, fn, 5)
+        plain_ms = plain(lambda: times_ms(torch, fn, 2))[0]
+        out[key] = dict(err=errs["K8" if key.startswith("K8") else "K5"],
+                        graph=g, lanes_graph=g_lanes,
+                        t=(prof, events, plain_ms), nbytes=nbytes, lib=None,
+                        launches=launches)
+        print(f"parity-batched {key} B={B}: graph {g:.4f} ms per batched "
+              f"step ({launches} launches), {B} unbatched launch sequences "
+              f"{g_lanes:.4f} ms ({g_lanes / g:.2f}x); profiler {prof:.4f}, "
+              f"events {events:.4f}; plain batched {plain_ms:.4f}; bound "
+              f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB) -> "
+              f"{bound_ms(nbytes) / g:.3f} of it")
+    del W2, W3, av3, ops2, ops3
+    torch.cuda.empty_cache()
+    return out
+
+
 # the sweeps of rate-datagen beside the NLSE one: (label, DatagenConfig
-# arguments); 8 runs in one batch each, c layered, m piecewise
+# arguments); 8 runs in one batch each, c layered, m piecewise; the 2D sEWI
+# sweep at the NLSE sweep's production dt and depth
 DG_SWEEPS = (
+    ("nlse 2D sewi", dict(family="nlse", phenomenon="multi_soliton",
+                          system="cubic", nx=DG_N, T=0.12, nt=200,
+                          snapshots=20, integrator="sewi")),
     ("realwave 2D", dict(family="realwave", phenomenon="kink_field",
                          system="sine_gordon", nx=DG_N, T=0.6, nt=200,
                          snapshots=20)),
@@ -1210,6 +1484,8 @@ def datagen_phases(torch, np, root, counters_all):
     bat = batched_parity(torch, np, operators)
     print(f"parity-batched 2D: {time.perf_counter() - t_ph:.1f} s")
     bat.update(batched_parity3d(torch, np, operators))
+    print(f"parity-batched 3D: {time.perf_counter() - t_ph:.1f} s")
+    bat.update(batched_parity_optin(torch, np, operators))
     print(f"parity-batched: {time.perf_counter() - t_ph:.1f} s")
 
     # ---------------------------------------------------------- 35. datagen-engine
@@ -1397,7 +1673,6 @@ def datagen_phases(torch, np, root, counters_all):
     nan_lane("NLSE 3D", engine.make_nlse_trajectory_fn(
         "cubic", shape3, DG_LX, DG_DT, krylov_m=DG3_M, guard=True),
         (p3, m3, c3))
-    del p3
     u3r, v3r, m3r, c3r = sample("realwave", "kink_field", "klein_gordon", B,
                                 3, 3)
     u3r = np.stack(u3r).astype(np.float32)
@@ -1423,7 +1698,114 @@ def datagen_phases(torch, np, root, counters_all):
     nan_lane("real-wave 3D", engine.make_realwave_trajectory_fn(
         "klein_gordon", shape3, DG_LX, DG_RW_DT, krylov_m=DG3_M, guard=True),
         (u3r, v3r, m3r, c3r))
-    del u3r, v3r
+    torch.cuda.empty_cache()
+
+    def lanes_of(family, shp, dt, mk, args, use_c=True, **kw):
+        """Each lane's problem run alone for 20 steps (5 snapshots, 5 steps
+        apart), as the engine returns it."""
+        out = []
+        for b in range(B):
+            c_b = args[-1][b] if use_c else None
+            if family == "nlse":
+                prob = problems.nlse_problem(
+                    "cubic", shp, DG_LX, dt, m_field=args[1][b],
+                    c_field=c_b, krylov_m=mk, dtype=torch.complex64, **kw)
+                ref = problems.run(prob, prob.init(args[0][b]), 5, 5)
+                out.append(torch.stack([ref.real, ref.imag], dim=1))
+            else:
+                prob = problems.realwave_problem(
+                    "sine_gordon" if len(shp) == 2 else "klein_gordon", shp,
+                    DG_LX, dt, m_field=args[2][b], c_field=c_b,
+                    krylov_m=mk, dtype=torch.float32)
+                out.append(problems.run(prob, prob.init(args[0][b],
+                                                        args[1][b]), 5, 5))
+        return out
+
+    # the two-step NLSE integrators (sEWI, fused sEWI, Gautschi) as one
+    # batched step, 2D (256^2, m = 20) and 3D (128^3, m = 10), c(x) per
+    # lane: step 1 is the batched SS2 bootstrap, every later step the
+    # batched two-step step (3 or 2 matrix functions) and its ghost copy
+    for integ, k in (("sewi", 3), ("sewi_fused", 2), ("gautschi", 3)):
+        for label, shp, args, mk, boot, want in (
+                (f"{integ} {DG_N}^2", shape, (packed, m_n, c_n), DG_M,
+                 DG_PER_STEP, {"K1'": k, "K2'": k * (DG_M - 1), "K3": k}),
+                (f"{integ} {DG3_N}^3", shape3, (p3, m3, c3), DG3_M,
+                 DG3_PER_STEP, {"pass1_3d": k * (DG3_M - 1),
+                                "pass2": k * DG3_M, "K3": k, "bc3d": 1})):
+            ft = engine.make_nlse_trajectory_fn("cubic", shp, DG_LX, DG_DT,
+                                                krylov_m=mk, integrator=integ)
+            check(ft.planar and ft.batched, f"datagen-engine {label}: not "
+                  f"one batched planar step")
+            launches_per_batched_step(f"{label} bootstrap", ft, args, boot)
+            zero()
+            ft(*args, 2, 2)
+            got = counts()
+            got2 = {k_: got.get(k_, 0) - boot.get(k_, 0)
+                    for k_ in set(got) | set(boot)
+                    if got.get(k_, 0) != boot.get(k_, 0)}
+            print(f"datagen-engine {label} B={B}: launches per batched "
+                  f"two-step step {got2} ({sum(got2.values())} counted)")
+            check(got2 == want, f"datagen-engine {label}: launches {got2} "
+                  f"!= {want}")
+            eng = ft(*args, 5, 5)
+            check(bool(torch.isfinite(eng).all()), f"datagen-engine {label}:"
+                  f" non-finite")
+            lanes_alone(label, eng, lanes_of("nlse", shp, DG_DT, mk, args,
+                                             integrator=integ))
+            del eng
+            nan_lane(label, engine.make_nlse_trajectory_fn(
+                "cubic", shp, DG_LX, DG_DT, krylov_m=mk, integrator=integ,
+                guard=True), args)
+    torch.cuda.empty_cache()
+
+    # the batched SS2 and real-wave Gautschi engines under the opt-in
+    # switches: one batched K5 per iteration (fused_iter; 3D on the iso
+    # operator, the only 3D one K5 takes) or K8 (pipeline_3d), each loop's
+    # start norm one pass2
+    from nlsolvers_tpu_torch.utils import interop
+    per_sw = {}
+    for label, sw, family, shp, args, dt, mk, use_c, want in (
+            (f"SS2 fused_iter {DG_N}^2 c(x)", {"fused_iter": True}, "nlse",
+             shape, (packed, m_n, c_n), DG_DT, DG_M, True,
+             {"K5": DG_M - 1, "pass2": 1, "K3": 1, "kick_bc": 2}),
+            (f"SS2 fused_iter {DG3_N}^3 iso", {"fused_iter": True}, "nlse",
+             shape3, (p3, m3, c3), DG_DT, DG3_M, False,
+             {"K5": DG3_M - 1, "pass2": 1, "K3": 1, "kick_bc": 2}),
+            (f"SS2 pipeline_3d {DG3_N}^3 c(x)", {"pipeline_3d": True},
+             "nlse", shape3, (p3, m3, c3), DG_DT, DG3_M, True,
+             {"pass2": 1, "pass1_3d": 1, "K8": DG3_M - 2, "K2": 1, "K3": 1,
+              "kick_bc": 2}),
+            (f"sine-Gordon Gautschi fused_iter {DG_N}^2 c(x)",
+             {"fused_iter": True}, "realwave", shape, (u0r, v0r, m_r, c_r),
+             DG_RW_DT, DG_RW_M, True,
+             {"K5": 2 * (DG_RW_M - 1), "pass2": 2, "K3": 2}),
+            (f"Klein-Gordon Gautschi pipeline_3d {DG3_N}^3 c(x)",
+             {"pipeline_3d": True}, "realwave", shape3,
+             (u3r, v3r, m3r, c3r), DG_RW_DT, DG3_M, True,
+             {"pass2": 2, "pass1_3d": 2, "K8": 2 * (DG3_M - 2), "K2": 2,
+              "K3": 2, "bc3d": 1})):
+        old_sw = interop.set_switches(**sw)
+        try:
+            if family == "nlse":
+                def make(**kw):
+                    return engine.make_nlse_trajectory_fn(
+                        "cubic", shp, DG_LX, dt, krylov_m=mk, use_c=use_c,
+                        **kw)
+            else:
+                def make(**kw):
+                    return engine.make_realwave_trajectory_fn(
+                        "sine_gordon" if len(shp) == 2 else "klein_gordon",
+                        shp, DG_LX, dt, krylov_m=mk, use_c=use_c, **kw)
+            fs = make()
+            check(fs.batched, f"datagen-engine {label}: not batched")
+            per_sw[label] = launches_per_batched_step(f"{label} B={B}", fs,
+                                                      args, want)
+            lanes_alone(label, fs(*args, 5, 5),
+                        lanes_of(family, shp, dt, mk, args, use_c))
+            nan_lane(label, make(guard=True), args)
+        finally:
+            interop.set_switches(**old_sw)
+    del u3r, v3r, p3
     torch.cuda.empty_cache()
 
     # one diverging lane: phi-4 (focusing) Gautschi, lane 1 at 1e3 times
@@ -1631,7 +2013,10 @@ def datagen_phases(torch, np, root, counters_all):
     shutil.rmtree(work, ignore_errors=True)
     print(f"rate-datagen: {time.perf_counter() - t_ph:.1f} s")
     per_step = {"nlse 2D": per_batched_step, "realwave 2D": per_batched_rw,
-                "nlse 3D": per_batched_3d, "realwave 3D": per_batched_rw3}
+                "nlse 3D": per_batched_3d, "realwave 3D": per_batched_rw3,
+                "nlse 2D fused_iter": per_sw[f"SS2 fused_iter {DG_N}^2 c(x)"],
+                "nlse 3D pipeline_3d":
+                    per_sw[f"SS2 pipeline_3d {DG3_N}^3 c(x)"]}
     return per_step, bat
 
 
@@ -2932,17 +3317,18 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 18 main-iter")
     p2, s2 = problem2d(c=None)
     p2_fused = with_switches(p2, fused_iter=True)
-    launches_i, steps_i = main_optin(
-        "main-iter 1024^2", p2_fused, s2, 3, 50,
-        {"K5": KRYLOV_M - 1, "K3": 1, "kick_bc": 2})
+    # the fused loop's start norm is pass2's norm-only form
+    per_iter = {"K5": KRYLOV_M - 1, "pass2": 1, "K3": 1, "kick_bc": 2}
+    launches_i, steps_i = main_optin("main-iter 1024^2", p2_fused, s2, 3,
+                                     50, per_iter)
     p3, s3 = problem3d(N3)
     main_optin("main-iter 128^3", with_switches(p3, fused_iter=True), s3, 3,
-               50, {"K5": KRYLOV_M - 1, "K3": 1, "kick_bc": 2})
+               50, per_iter)
 
     # ---------------------------------------------------------- 19. main-pipe3d
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 19 main-pipe3d")
-    per_pipe3d = {"pass1_3d": 1, "K8": KRYLOV_M - 2, "K2": 1, "K3": 1,
-                  "kick_bc": 2}
+    per_pipe3d = {"pass2": 1, "pass1_3d": 1, "K8": KRYLOV_M - 2, "K2": 1,
+                  "K3": 1, "kick_bc": 2}
     p3_pipe = with_switches(p3, pipeline_3d=True)
     launches_p, steps_p = main_optin("main-pipe3d iso 128^3", p3_pipe, s3, 3,
                                      50, per_pipe3d)
@@ -3691,15 +4077,15 @@ def main():
              s_kg3, off)
     for label, prob, s, sw, want in (
             (f"fused_iter {N}^2", p_sg, s_sg, {"fused_iter": True},
-             {"K5": 2 * (KRYLOV_M - 1), "K3": 2}),
+             {"K5": 2 * (KRYLOV_M - 1), "pass2": 2, "K3": 2}),
             (f"fused_iter {N3}^3", p_sg3, s_sg3, {"fused_iter": True},
-             {"K5": 2 * (KRYLOV_M - 1), "K3": 2, "bc3d": 1}),
+             {"K5": 2 * (KRYLOV_M - 1), "pass2": 2, "K3": 2, "bc3d": 1}),
             (f"pipeline_3d {N3}^3", p_sg3, s_sg3, {"pipeline_3d": True},
-             {"pass1_3d": 2, "K8": 2 * (KRYLOV_M - 2), "K2": 2, "K3": 2,
-              "bc3d": 1}),
+             {"pass2": 2, "pass1_3d": 2, "K8": 2 * (KRYLOV_M - 2), "K2": 2,
+              "K3": 2, "bc3d": 1}),
             (f"pipeline_3d c(x) {N3}^3", p_kg3, s_kg3, {"pipeline_3d": True},
-             {"pass1_3d": 2, "K8": 2 * (KRYLOV_M - 2), "K2": 2, "K3": 2,
-              "bc3d": 1})):
+             {"pass2": 2, "pass1_3d": 2, "K8": 2 * (KRYLOV_M - 2), "K2": 2,
+              "K3": 2, "bc3d": 1})):
         got = launches_of(prob, s, **sw)
         print(f"paths-rw {label}: launches per step {got}")
         check(got == want, f"{label}: launches per step {got} != {want}")
@@ -3874,16 +4260,26 @@ def main():
     # kernels the 3D NLSE step; the real-wave steps' beside them), times
     # per batched step (parity-batched) beside the B unbatched launch
     # sequences
-    for kname, key, path, source, replaces in (
-            ("pass1_aniso2d", "K1'", "nlse 2D", SOURCE, f"{PALLAS}:473"),
-            ("pipe_aniso2d", "K2'", "nlse 2D", SOURCE, f"{PALLAS}:779"),
-            ("combine", "K3", "nlse 2D", SOURCE, f"{PALLAS}:1005"),
-            ("kick_bc", "kick_bc", "nlse 2D", SOURCE_KB, f"{PALLAS_BC}:52"),
-            ("pass1_3d", "pass1_3d", "nlse 3D", SOURCE3, f"{PALLAS3}:391"),
-            ("pass2", "pass2", "nlse 3D", SOURCE3, f"{PALLAS}:938"),
-            ("bc3d", "bc3d P=1", "realwave 3D", SOURCE3, f"{PALLAS_BC}:52")):
+    # (K5 and K8: the engine's steps under fused_iter / pipeline_3d, times
+    # at the 2D and 3D datagen points with c(x))
+    for kname, key, ck, path, source, replaces in (
+            ("pass1_aniso2d", "K1'", "K1'", "nlse 2D", SOURCE,
+             f"{PALLAS}:473"),
+            ("pipe_aniso2d", "K2'", "K2'", "nlse 2D", SOURCE,
+             f"{PALLAS}:779"),
+            ("combine", "K3", "K3", "nlse 2D", SOURCE, f"{PALLAS}:1005"),
+            ("kick_bc", "kick_bc", "kick_bc", "nlse 2D", SOURCE_KB,
+             f"{PALLAS_BC}:52"),
+            ("pass1_3d", "pass1_3d", "pass1_3d", "nlse 3D", SOURCE3,
+             f"{PALLAS3}:391"),
+            ("pass2", "pass2", "pass2", "nlse 3D", SOURCE3, f"{PALLAS}:938"),
+            ("bc3d", "bc3d P=1", "bc3d", "realwave 3D", SOURCE3,
+             f"{PALLAS_BC}:52"),
+            ("iter_step", f"K5 c(x) {DG_N}^2 m={DG_M}", "K5",
+             "nlse 2D fused_iter", SOURCE, f"{PALLAS}:637"),
+            ("pipe_3d", f"K8 c(x) {DG3_N}^3 m={DG3_M}", "K8",
+             "nlse 3D pipeline_3d", SOURCE3, f"{PALLAS3}:1135")):
         r = bat[key]
-        ck = "bc3d" if kname == "bc3d" else key
         n_l = dg_per_step[path][ck]
         e = entry(f"{kname} batched", source, replaces, n_l, 1, r["err"],
                   r["t"], r["nbytes"], r["lib"], graph=r["graph"])

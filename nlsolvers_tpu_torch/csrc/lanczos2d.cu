@@ -82,13 +82,15 @@
 //   beta_0^2 at j = 0), one partial row more, so the run needs no separate
 //   norm reduction.
 // * A batch of B fields (the datagen engine's lanes, JAX's vmap of the
-//   Pallas kernels) is one launch of K1 / K1', K2 / K2' or K3: the lane is
-//   blockIdx.y, fields are (B, P, ny, nx) lane-major (Cols carries lane 0's
-//   pointers and the lane stride), the scalars and the aniso weights come
-//   per lane, and each lane keeps the unbatched grid's block-to-segment or
-//   block-to-tile map and its own rows of partial sums, reduced in the
-//   unbatched order. So lane b of a batched launch gives the bits of the
-//   unbatched launch on lane b; an unbatched call is the launch with B = 1.
+//   Pallas kernels) is one launch of K1 / K1', K2 / K2', K3 or K5: the lane
+//   is blockIdx.y (K5, a cooperative launch on one lane's grid, loops over
+//   the lanes in each phase instead), fields are (B, P, ny, nx) lane-major
+//   (Cols carries lane 0's pointers and the lane stride), the scalars and
+//   the aniso weights come per lane, and each lane keeps the unbatched
+//   grid's block-to-segment or block-to-tile map and its own rows of
+//   partial sums, reduced in the unbatched order. So lane b of a batched
+//   launch gives the bits of the unbatched launch on lane b; an unbatched
+//   call is the launch with B = 1.
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
@@ -102,12 +104,14 @@ namespace {
 constexpr int KMAX = 4;        // most specs one combine launch takes
 struct Outs { float* p[KMAX]; };
 
-// The operator of lane blockIdx.y of a batched launch: its (ny, nx) face
-// weights follow lane 0's, lane-major (the iso operator has none).
-__device__ __forceinline__ Op2d lane_op(Op2d op, int ny, int nx) {
+// The operator of lane b of a batched launch (blockIdx.y, or K5's lane
+// loop): its (ny, nx) face weights follow lane 0's, lane-major (the iso
+// operator has none).
+__device__ __forceinline__ Op2d lane_op(Op2d op, unsigned b, int ny,
+                                        int nx) {
   if (op.wx != nullptr) {
-    op.wx += blockIdx.y * (size_t)ny * nx;
-    op.wy += blockIdx.y * (size_t)ny * nx;
+    op.wx += b * (size_t)ny * nx;
+    op.wy += b * (size_t)ny * nx;
   }
   return op;
 }
@@ -143,13 +147,13 @@ __global__ void __launch_bounds__(
   __syncthreads();
   int s0, s1;
   block_segs(num_segs(a.ny, a.nx), s0, s1);
-  a.op2 = lane_op(a.op2, a.ny, a.nx);
+  const Op2d op = lane_op(a.op2, blockIdx.y, a.ny, a.nx);
   const float* sc = scal + 2 * blockIdx.y;
-  wpass<P, MAXW, OPK, VEC, true>(
-      sc[0], sc[1], wj + off, wp, j, a, s0, s1, nullptr, w_out + off,
-      &wrow[0][0][0], ring, hal, red,
-      partial + (size_t)blockIdx.y * (2 * j + 3) * gridDim.x, lane, w,
-      lane / L, lane % L);
+  const WLane ln = {wj + off, nullptr, w_out + off,
+                    partial + (size_t)blockIdx.y * (2 * j + 3) * gridDim.x,
+                    op.wx, op.wy, sc[0], sc[1]};
+  wpass<P, MAXW, OPK, VEC, true>(ln, wp, j, a, s0, s1, &wrow[0][0][0], ring,
+                                 hal, red, lane, w, lane / L, lane % L);
 }
 
 // K1' in modes shard2d and shard2d_aniso (OP_SHARD_ISO / OP_SHARD_ANISO):
@@ -262,7 +266,7 @@ __global__ void __launch_bounds__(
   __syncthreads();
   const RebuildRows<P, VEC, LdNC> src = {av + off, wp, cf, nw, s, plane};
   pipe2d_pass<P, MAXW, LAST, OP, VEC, LdNC>(
-      src, wp, nw, lane_op(op, ny, nx), wn_out + off,
+      src, wp, nw, lane_op(op, blockIdx.y, ny, nx), wn_out + off,
       LAST ? av_out : av_out + off,
       partial + (size_t)blockIdx.y * nout * gridDim.x, ny, nx, ss, steps,
       ring, hal, avb, red, lane, w, q, gl);
@@ -379,49 +383,91 @@ __global__ void __launch_bounds__(CB) combine_kernel(
 // shared memory holds the warps' w rows for the dots. part_a / part_b:
 // partial-sum rows of the two phases, output-major. Two blocks per SM (128
 // registers) but where ITER_PER_SM says one; MAXW bounds j.
+//
+// A batch of B lanes (fields (B, P, rows, nx) lane-major, prev.ls floats
+// apart; scal (B, j+3), face weights, raw and nsq lane-major) is one
+// launch on one lane's grid: every block walks its segments of lane 0, 1,
+// ..., B-1 in each phase, between the same two grid syncs, its w rows of
+// lane b at row b ceil(S / G) of the on-chip rows (or in lane b of the
+// scratch), and writes lane b's partial sums to rows of their own
+// (part_a + b 2 MAXCOLS G, part_b + b G). So each lane keeps the block to
+// segment map and the reduction order of its launch alone: its bits. A
+// cooperative grid is every block that fits on the card, so a lane cannot
+// take a grid index of its own.
 template <int P, int MAXW, int OPK, int VEC>
 __global__ void __launch_bounds__(
     PT, (ITER_PER_SM<P, MAXW, VEC>)) iter_kernel(
-    const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
-    int j, OpArgs a, int onchip, float* w, float* __restrict__ wn_out,
-    float* part_a, float* part_b, float* __restrict__ raw_out,
-    float* __restrict__ nsq_out) {
+    int nlanes, const float* __restrict__ scal,
+    const float* __restrict__ wj, Cols prev, int j, OpArgs a, int onchip,
+    float* w, float* __restrict__ wn_out, float* part_a, float* part_b,
+    float* __restrict__ raw_out, float* __restrict__ nsq_out) {
   constexpr int L = 32 / (MAXW / 4);  // lanes per dot group
+  constexpr int NWP = MAXW < MAXCOLS ? MAXW + 1 : MAXCOLS;
   __shared__ __align__(16) float ring[RING][P][PX];
   __shared__ float hal[RING][P][2];
   __shared__ float red[PWARP][RED_W];
   __shared__ float rs[2 * MAXCOLS], qs[2 * MAXCOLS];
   __shared__ const float* wp[MAXCOLS];
+  __shared__ WLane ln;               // wpass's inputs of the lane
   extern __shared__ __align__(16) float dyn[];
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    constexpr int NWP = MAXW < MAXCOLS ? MAXW + 1 : MAXCOLS;
-#pragma unroll
-    for (int i = 0; i < NWP; ++i)
-      if (i <= j) wp[i] = i < j ? prev.p[i] : wj;
-  }
-  __syncthreads();
+  const int nseg = num_segs(a.nz * a.ny, a.nx);
+  const size_t G = gridDim.x;
+  const size_t lrows = (nseg + G - 1) / G;   // on-chip w rows of a lane
+  const int nraw = 2 * (j + 1);
   int s0, s1;
-  block_segs(num_segs(a.nz * a.ny, a.nx), s0, s1);
-  float* const wsm = onchip ? dyn : nullptr;
-  wpass<P, MAXW, OPK, VEC>(scal[0], scal[1], wj, wp, j, a, s0, s1, wsm,
-                           onchip ? nullptr : w, dyn, ring, hal, red, part_a,
-                           lane, wid, lane / L, lane % L);
-  grid.sync();
-  reduce_all<PWARP>(part_a, 2 * (j + 1), rs);
-  for (int o = threadIdx.x; o < 2 * (j + 1); o += PT) {
-    const float si = scal[2 + o / 2];
-    qs[o] = si * si * rs[o];
-    if (blockIdx.x == 0) raw_out[o] = rs[o];
+  block_segs(nseg, s0, s1);
+  // wp: lane b's W_0..W_j, written by thread 0 where no thread reads it
+  auto lane_cols = [&](int b) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < NWP; ++i)
+        if (i <= j) wp[i] = (i < j ? prev.p[i] : wj) + b * prev.ls;
+    }
+  };
+#pragma unroll 1
+  for (int b = 0; b < nlanes; ++b) {
+    __syncthreads();                  // the last lane's wp and ln are read
+    lane_cols(b);
+    if (threadIdx.x == 0) {
+      const Op2d op = lane_op(a.op2, b, a.ny, a.nx);
+      const float* sc = scal + (size_t)b * (j + 3);
+      ln = {wj + b * prev.ls, onchip ? dyn + b * lrows * P * PX : nullptr,
+            onchip ? nullptr : w + b * prev.ls,
+            part_a + b * 2 * MAXCOLS * G, op.wx, op.wy, sc[0], sc[1]};
+    }
+    __syncthreads();
+    wpass<P, MAXW, OPK, VEC>(ln, wp, j, a, s0, s1, dyn, ring, hal, red,
+                             lane, wid, lane / L, lane % L);
   }
-  __syncthreads();
-  subpass<P, VEC>(wp, j + 1, qs, a, s0, s1, wsm, w, wn_out, red, part_b,
-                  lane, wid);
+  grid.sync();
+#pragma unroll 1
+  for (int b = 0; b < nlanes; ++b) {
+    lane_cols(b);                     // published by reduce_all's barrier
+    const float* sc = scal + (size_t)b * (j + 3);
+    reduce_all<PWARP>(part_a + b * 2 * MAXCOLS * G, nraw, rs);
+    for (int o = threadIdx.x; o < nraw; o += PT) {
+      const float si = sc[2 + o / 2];
+      qs[o] = si * si * rs[o];
+      if (blockIdx.x == 0) raw_out[(size_t)b * nraw + o] = rs[o];
+    }
+    __syncthreads();
+    const size_t off = b * prev.ls;
+    subpass<P, VEC>(wp, j + 1, qs, a, s0, s1,
+                    onchip ? dyn + b * lrows * P * PX : nullptr,
+                    onchip ? nullptr : w + off, wn_out + off, red,
+                    part_b + b * G, lane, wid);
+  }
   grid.sync();
   if (blockIdx.x == 0) {
-    reduce_all<PWARP>(part_b, 1, rs);
-    if (threadIdx.x == 0) nsq_out[0] = rs[0];
+    // lane b's sum is output b of the (nlanes, G) rows: reduce_all's order
+    for (int b0 = 0; b0 < nlanes; b0 += 2 * MAXCOLS) {
+      const int n = min(2 * MAXCOLS, nlanes - b0);
+      reduce_all<PWARP>(part_b + b0 * G, n, rs);
+      for (int o = threadIdx.x; o < n; o += PT) nsq_out[b0 + o] = rs[o];
+      __syncthreads();
+    }
   }
 }
 
@@ -450,6 +496,7 @@ struct IterFit {
 
 // One K5 launch of an iter_kernel instantiation.
 struct IterLaunch {
+  int nlanes;
   const float* scal;
   const float* wj;
   Cols prev;
@@ -464,8 +511,9 @@ struct IterLaunch {
     const int err = iter_ready<P, MAXW, OPK, VEC>();
     if (err != 0) return err;
     IterLaunch c = *this;
-    void* args[] = {&c.scal, &c.wj, &c.prev, &c.j, &c.a, &c.onchip, &c.w,
-                    &c.wn, &c.part_a, &c.part_b, &c.raw, &c.nsq};
+    void* args[] = {&c.nlanes, &c.scal, &c.wj, &c.prev, &c.j, &c.a,
+                    &c.onchip, &c.w, &c.wn, &c.part_a, &c.part_b, &c.raw,
+                    &c.nsq};
     return coop_launch(iter_kernel<P, MAXW, OPK, VEC>, grid, args, st, PT,
                        dyn);
   }
@@ -489,10 +537,11 @@ int iter_dispatch(int P, int opk, int b, bool vec, const F& f) {
 #undef LZ_V
 }
 
-// Bytes of dynamic shared memory of a K5 launch: the block's w rows
-// (on-chip), or the warps' w rows.
-size_t iter_dyn_bytes(int P, int onchip, int nseg, int grid) {
-  const size_t rows = onchip ? (size_t)(nseg + grid - 1) / grid : PWARP;
+// Bytes of dynamic shared memory of a K5 launch on B lanes: the block's w
+// rows of every lane (on-chip), or the warps' w rows.
+size_t iter_dyn_bytes(int B, int P, int onchip, int nseg, int grid) {
+  const size_t rows =
+      onchip ? (size_t)B * ((nseg + grid - 1) / grid) : PWARP;
   return rows * P * PX * sizeof(float);
 }
 
@@ -754,7 +803,7 @@ int lz_pipe_aniso2d(int B, int P, int last, const float* scal,
 }
 
 // Rows of the partial-sum scratch of one K5 launch: lz_iter needs
-// (2 MAXCOLS + 1) * lz_coop_max_blocks floats.
+// B (2 MAXCOLS + 1) * lz_coop_max_blocks floats for B lanes.
 int lz_coop_max_blocks() { return coop_max_blocks(); }
 
 int lz_num_sms() { return num_sms(); }
@@ -768,23 +817,26 @@ int lz_iter_fit(int P, int opk, int j, int vec, int dyn) {
   return iter_dispatch(P, opk, bucket(j), vec != 0, IterFit{dyn});
 }
 
-// K5. opk: 0 iso2d, 1 aniso2d, 2 iso3d reference, 3 iso3d clean (nz = 1 in
-// 2D; wx, wy are the aniso2d face weights, null otherwise). scal: (j+3)
-// device buffer [s_j, bs, s_0..s_j]; prev: host array of j device pointers
-// W_0..W_{j-1}. vec: the 16-byte form (nx % 4 == 0, every field and weight
-// 16-byte aligned). onchip, grid: iter_plan's form and grid (at most
-// lz_coop_max_blocks blocks, at most one per segment); w: the (P, nz*ny,
-// nx) scratch of the global form (unused on chip); partial: scratch of
-// (2 MAXCOLS + 1) * lz_coop_max_blocks floats; raw: (j+1, 2), nsq: (1, 1)
-// outputs. A cooperative launch the card refuses returns its error.
-int lz_iter(int P, int opk, int vec, const float* scal, const float* wj,
-            const float* const* prev, int j, const float* wx, const float* wy,
-            int clean, int onchip, int grid, float* w, float* wn,
-            float* partial, float* raw, float* nsq, int nz, int ny, int nx,
-            float ss, cudaStream_t st) {
-  if ((P != 1 && P != 2) || opk < OPK_ISO2D || opk > OPK_ISO3D_CLEAN
-      || j < 0 || j + 1 > MAXCOLS || nz < 1 || ny < 3 || nx < 3
-      || (opk >= OPK_ISO3D_REF && nz < 3))
+// K5 on B lanes (B = 1: one field). opk: 0 iso2d, 1 aniso2d, 2 iso3d
+// reference, 3 iso3d clean (nz = 1 in 2D; wx, wy are the aniso2d face
+// weights, (B, ny, nx), null otherwise). scal: (B, j+3) device buffer
+// [s_j, bs, s_0..s_j] per lane; prev: host array of j device pointers
+// W_0..W_{j-1} (lane 0's); every field is (B, P, nz*ny, nx), lane-major.
+// vec: the 16-byte form (nx % 4 == 0, every field and weight 16-byte
+// aligned). onchip, grid: iter_plan's form and grid (at most
+// lz_coop_max_blocks blocks, at most one per segment; on chip, B lanes' w
+// rows per block); w: the (B, P, nz*ny, nx) scratch of the global form
+// (unused on chip); partial: scratch of B (2 MAXCOLS + 1) *
+// lz_coop_max_blocks floats; raw: (B, j+1, 2), nsq: (B, 1, 1) outputs. A
+// cooperative launch the card refuses returns its error.
+int lz_iter(int B, int P, int opk, int vec, const float* scal,
+            const float* wj, const float* const* prev, int j,
+            const float* wx, const float* wy, int clean, int onchip,
+            int grid, float* w, float* wn, float* partial, float* raw,
+            float* nsq, int nz, int ny, int nx, float ss, cudaStream_t st) {
+  if (B < 1 || (P != 1 && P != 2) || opk < OPK_ISO2D
+      || opk > OPK_ISO3D_CLEAN || j < 0 || j + 1 > MAXCOLS || nz < 1
+      || ny < 3 || nx < 3 || (opk >= OPK_ISO3D_REF && nz < 3))
     return (int)cudaErrorInvalidValue;
   if (opk == OPK_ANISO2D && (wx == nullptr || wy == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -798,11 +850,13 @@ int lz_iter(int P, int opk, int vec, const float* scal, const float* wj,
     for (int i = 0; i < j; ++i) ok = ok && aligned16(prev[i]);
     if (!ok) return (int)cudaErrorInvalidValue;
   }
-  const IterLaunch f = {scal, wj, make_cols(prev, j), j,
+  const IterLaunch f = {B, scal, wj,
+                        make_cols(prev, j, (size_t)P * nz * ny * nx), j,
                         OpArgs{Op2d{wx, wy, clean}, nz, ny, nx, ss},
                         onchip != 0, grid,
-                        iter_dyn_bytes(P, onchip, nseg, grid), w, wn, partial,
-                        partial + (size_t)2 * MAXCOLS * coop_max_blocks(),
+                        iter_dyn_bytes(B, P, onchip, nseg, grid), w, wn,
+                        partial,
+                        partial + (size_t)B * 2 * MAXCOLS * coop_max_blocks(),
                         raw, nsq, st};
   return iter_dispatch(P, opk, bucket(j), vec != 0, f);
 }

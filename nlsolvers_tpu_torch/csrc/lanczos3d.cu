@@ -72,8 +72,9 @@
 //   and reduction order, so the start norm of a lane does not depend on
 //   the batch around it.
 // * A batch of B fields (the datagen engine's lanes, JAX's vmap of the
-//   Pallas kernels) is one launch of pass1_3d (lane on blockIdx.z), pass2
-//   or bc3d (lane on blockIdx.y): fields are (B, P, R, nx) lane-major, the
+//   Pallas kernels) is one launch of pass1_3d (lane on blockIdx.z), pass2,
+//   pipe_3d or bc3d (lane on blockIdx.y; pipe_3d's lanes keep one lane's
+//   grid of bricks): fields are (B, P, R, nx) lane-major, the
 //   scalars and the aniso weights come per lane, and each lane keeps the
 //   unbatched grid's block map and its own partial sums, reduced in the
 //   unbatched order. So lane b of a batched launch gives the bits of the
@@ -294,7 +295,10 @@ __device__ __forceinline__ void aniso3d_coef(const Weights& wt, int r, int z,
 }
 
 // MAXW bounds nw = j + 1. partial: output-major, as K2's.
-template <int P, int MAXW, int MODE, int VEC>
+// A batched launch (LANES) runs lane blockIdx.y with the unbatched brick
+// walk: its fields W.ls floats apart, its scalars, face weights and
+// partial rows lane-major. A launch of one lane takes LANES = false.
+template <int P, int MAXW, int MODE, int VEC, bool LANES>
 __global__ void __launch_bounds__(
     PT, VEC == 4 && (P == 2 || MAXW < 32) ? 2 : 1) pipe3d_kernel(
     const float* __restrict__ scal, const float* __restrict__ av, Cols W,
@@ -313,12 +317,25 @@ __global__ void __launch_bounds__(
   const int q = lane / L, gl = lane % L;
   const int R = nz * ny;
   const size_t plane = (size_t)R * nx;
+  const size_t off = LANES ? blockIdx.y * W.ls : 0;
+  if (LANES) {
+    av += off;
+    wn_out += off;
+    av_out += off;
+    if (wt.wx != nullptr) {
+      wt.wx += blockIdx.y * plane;
+      wt.wy += blockIdx.y * plane;
+      wt.wz += blockIdx.y * plane;
+    }
+    scal += (size_t)blockIdx.y * 2 * (nw + 1);
+    partial += (size_t)blockIdx.y * (1 + 2 * nw + 2 * (nw + 1)) * gridDim.x;
+  }
   const float s = scal[0];
   for (int o = threadIdx.x; o < 2 * nw; o += PT) cf[o] = scal[2 + o];
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < MAXW; ++i)
-      if (i < nw) wp[i] = W.p[i];
+      if (i < nw) wp[i] = W.p[i] + off;
   }
   __syncthreads();
   float nsq = 0.0f;
@@ -446,28 +463,35 @@ __global__ void __launch_bounds__(
   pipe_partials<MAXW, false>(nsq, g, d, dl, nw, lane, w, q, gl, red, partial);
 }
 
+// One pipe3d_kernel instantiation on B lanes (lane on blockIdx.y; one lane
+// without the lane offsets): the launch (fit == false) or the blocks of it
+// that fit on the card at once (fit == true; the one-lane instantiation's,
+// which the lanes' grid keeps).
 template <int P, int MAXW, int MODE, int VEC>
-int launch_pipe3d(bool fit, const float* scal, const float* av, Cols W,
-                  int nw, Weights wt, float* wn, float* avn, float* partial,
-                  int nz, int ny, int nx, float ss, int pz, int grid,
-                  cudaStream_t st) {
-  auto kern = pipe3d_kernel<P, MAXW, MODE, VEC>;
-  if (fit) return resident_blocks(kern, PT);
-  kern<<<grid, PT, 0, st>>>(scal, av, W, nw, wt, wn, avn, partial, nz, ny,
-                            nx, ss, pz);
-  return (int)cudaGetLastError();
-}
-
-// One pipe3d_kernel instantiation: the launch (fit == false) or the blocks
-// of it that fit on the card at once (fit == true).
-template <int P, int MODE, int VEC>
-int pipe3d_bucket(bool fit, int b, const float* scal, const float* av,
+int launch_pipe3d(bool fit, int B, const float* scal, const float* av,
                   Cols W, int nw, Weights wt, float* wn, float* avn,
                   float* partial, int nz, int ny, int nx, float ss, int pz,
                   int grid, cudaStream_t st) {
-#define LZ_P3(BB) launch_pipe3d<P, BB, MODE, VEC>(fit, scal, av, W, nw, wt, \
-                                                  wn, avn, partial, nz, ny, \
-                                                  nx, ss, pz, grid, st)
+  if (fit) return resident_blocks(pipe3d_kernel<P, MAXW, MODE, VEC, false>,
+                                  PT);
+  if (B > 1)
+    pipe3d_kernel<P, MAXW, MODE, VEC, true><<<dim3(grid, B), PT, 0, st>>>(
+        scal, av, W, nw, wt, wn, avn, partial, nz, ny, nx, ss, pz);
+  else
+    pipe3d_kernel<P, MAXW, MODE, VEC, false><<<grid, PT, 0, st>>>(
+        scal, av, W, nw, wt, wn, avn, partial, nz, ny, nx, ss, pz);
+  return (int)cudaGetLastError();
+}
+
+// One pipe3d_kernel bucket of nw: the launch or the fit, as launch_pipe3d.
+template <int P, int MODE, int VEC>
+int pipe3d_bucket(bool fit, int B, int b, const float* scal, const float* av,
+                  Cols W, int nw, Weights wt, float* wn, float* avn,
+                  float* partial, int nz, int ny, int nx, float ss, int pz,
+                  int grid, cudaStream_t st) {
+#define LZ_P3(BB) launch_pipe3d<P, BB, MODE, VEC>(fit, B, scal, av, W, nw,   \
+                                                  wt, wn, avn, partial, nz, \
+                                                  ny, nx, ss, pz, grid, st)
   if (b == 4) return LZ_P3(4);
   if (b == 8) return LZ_P3(8);
   if (b == 16) return LZ_P3(16);
@@ -475,13 +499,13 @@ int pipe3d_bucket(bool fit, int b, const float* scal, const float* av,
 #undef LZ_P3
 }
 
-int pipe3d_any(bool fit, int P, int vec, int mode, int b, const float* scal,
-               const float* av, Cols W, int nw, Weights wt, float* wn,
-               float* avn, float* partial, int nz, int ny, int nx, float ss,
-               int pz, int grid, cudaStream_t st) {
-#define LZ_A3(PP, MM, VV) pipe3d_bucket<PP, MM, VV>(                         \
-    fit, b, scal, av, W, nw, wt, wn, avn, partial, nz, ny, nx, ss, pz, grid, \
-    st)
+int pipe3d_any(bool fit, int B, int P, int vec, int mode, int b,
+               const float* scal, const float* av, Cols W, int nw,
+               Weights wt, float* wn, float* avn, float* partial, int nz,
+               int ny, int nx, float ss, int pz, int grid, cudaStream_t st) {
+#define LZ_A3(PP, MM, VV) pipe3d_bucket<PP, MM, VV>(                          \
+    fit, B, b, scal, av, W, nw, wt, wn, avn, partial, nz, ny, nx, ss, pz,     \
+    grid, st)
 #define LZ_V3(PP, MM) (vec ? LZ_A3(PP, MM, 4) : LZ_A3(PP, MM, 1))
   if (P == 1)
     return mode == ISO_REF ? LZ_V3(1, ISO_REF)
@@ -738,25 +762,27 @@ int lz3_pipe3d_fit(int P, int mode, int nw, int vec) {
   if ((P != 1 && P != 2) || mode < 0 || mode > 2 || nw < 1
       || nw + 1 > MAXCOLS)
     return 0;
-  return pipe3d_any(true, P, vec, mode, bucket(nw), nullptr, nullptr, Cols{},
-                    nw, Weights{}, nullptr, nullptr, nullptr, 0, 0, 0, 0.0f,
-                    0, 0, nullptr);
+  return pipe3d_any(true, 1, P, vec, mode, bucket(nw), nullptr, nullptr,
+                    Cols{}, nw, Weights{}, nullptr, nullptr, nullptr, 0, 0,
+                    0, 0.0f, 0, 0, nullptr);
 }
 
-// pipe_3d (K8). mode as lz3_pass1. W: host array of nw = j+1 device
-// pointers W_0..W_j. scal: (nw+1, 2) device buffer [(s_j, 0), c_0..c_j].
-// Bricks of PX columns, TY3 rows and pz planes, walked by `grid` blocks (at
-// most the blocks of PT threads an SM holds, times the SMs); vec = 1 takes the 16-byte form (nx % 4 == 0
-// and every field and weight 16-byte aligned). partial: scratch of grid *
-// nout floats; red: nout outputs, nout = 1 + 2 nw + 2 (nw + 1) (nsq, gram,
-// d).
-int lz3_pipe3d(int P, int mode, int vec, const float* scal, const float* av,
-               const float* const* W, int nw, const float* wx,
-               const float* wy, const float* wz, float* wn, float* avn,
-               float* partial, float* red, int nz, int ny, int nx, float ss,
-               int pz, int grid, cudaStream_t st) {
-  if ((P != 1 && P != 2) || mode < 0 || mode > 2 || nw < 1
-      || nw + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3 || pz < 1
+// pipe_3d (K8) on B lanes (B = 1: one field). mode as lz3_pass1 (aniso
+// weights (B, R, nx), each lane its own). W: host array of nw = j+1 device
+// pointers W_0..W_j (lane 0's); every field is (B, P, R, nx), lane-major.
+// scal: (B, nw+1, 2) device buffer [(s_j, 0), c_0..c_j] per lane. Bricks
+// of PX columns, TY3 rows and pz planes, walked by `grid` blocks per lane
+// (at most the blocks of PT threads an SM holds, times the SMs); vec = 1
+// takes the 16-byte form (nx % 4 == 0 and every field and weight 16-byte
+// aligned). partial: scratch of B * grid * nout floats; red: (B, nout)
+// outputs, nout = 1 + 2 nw + 2 (nw + 1) (nsq, gram, d).
+int lz3_pipe3d(int B, int P, int mode, int vec, const float* scal,
+               const float* av, const float* const* W, int nw,
+               const float* wx, const float* wy, const float* wz, float* wn,
+               float* avn, float* partial, float* red, int nz, int ny, int nx,
+               float ss, int pz, int grid, cudaStream_t st) {
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || mode < 0 || mode > 2
+      || nw < 1 || nw + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3 || pz < 1
       || grid < 1 || grid > pipe_max_blocks())
     return (int)cudaErrorInvalidValue;
   if (mode == ANISO && (!wx || !wy || !wz)) return (int)cudaErrorInvalidValue;
@@ -764,13 +790,14 @@ int lz3_pipe3d(int P, int mode, int vec, const float* scal, const float* av,
   for (int i = 0; i < nw; ++i) ok = ok && aligned16(W[i]);
   if (mode == ANISO) ok = ok && aligned16(wx) && aligned16(wy) && aligned16(wz);
   if (vec && !ok) return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(W, nw);
-  const int err = pipe3d_any(false, P, vec, mode, bucket(nw), scal, av, c, nw,
-                             Weights{wx, wy, wz}, wn, avn, partial, nz, ny,
-                             nx, ss, pz, grid, st);
+  const Cols c = make_cols(W, nw, (size_t)P * nz * ny * nx);
+  const int err = pipe3d_any(false, B, P, vec, mode, bucket(nw), scal, av, c,
+                             nw, Weights{wx, wy, wz}, wn, avn, partial, nz,
+                             ny, nx, ss, pz, grid, st);
   if (err != 0) return err;
   const int nout = 1 + 2 * nw + 2 * (nw + 1);
-  reduce_partials_om<<<nout, RED_THREADS, 0, st>>>(partial, grid, red);
+  reduce_partials_om<<<dim3(nout, B), RED_THREADS, 0, st>>>(partial, grid,
+                                                            red);
   return (int)cudaGetLastError();
 }
 

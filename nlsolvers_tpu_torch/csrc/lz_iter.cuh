@@ -43,6 +43,11 @@
 // row per warp: the basis rows that phase 0 read last are then still in
 // the 50 MB L2 when phase 1 reads them first.
 //
+// A batch of lanes is one K5 launch on one lane's grid (lanczos2d.cu
+// iter_kernel): each block runs wpass on its segments of every lane, then
+// after the grid sync subpass on every lane, each lane with partial-sum
+// rows of its own, so each lane sums in the order of its launch alone.
+//
 // Cross-block sums are deterministic and need no atomics: each block writes
 // its partial sums, one row per output (partial[o * gridDim.x + block]), and
 // after the grid sync EVERY block sums all rows in the same fixed order, so
@@ -64,12 +69,14 @@ namespace cg = cooperative_groups;
 constexpr int COOP_PER_SM = 2;      // most blocks per SM a K5 launch uses
 
 // Blocks per SM the K5 and K1 instantiations are compiled for: two (128
-// registers), but one for the 16-byte forms that would spill at two (K5:
-// dots of 32 columns, or 16 of a real field; K1: 16 or 32 of a real
-// field). MAXW: the bucket of j.
+// registers), but one for the forms that would spill at two (K5: the
+// 16-byte forms with dots of 32 columns, or 16 of a real field, and since
+// its lane loop the scalar forms of a complex field; K1: the 16-byte forms
+// with 16 or 32 columns of a real field). MAXW: the bucket of j.
 template <int P, int MAXW, int VEC>
 constexpr int ITER_PER_SM =
-    VEC == 4 && (MAXW == 32 || (P == 1 && MAXW == 16)) ? 1 : 2;
+    (VEC == 4 && (MAXW == 32 || (P == 1 && MAXW == 16)))
+            || (VEC == 1 && P == 2) ? 1 : 2;
 template <int P, int MAXW, int VEC>
 constexpr int PASS1_PER_SM = VEC == 4 && P == 1 && MAXW >= 16 ? 1 : 2;
 
@@ -183,22 +190,36 @@ __device__ __forceinline__ void raw_partials(
   block_partials(red, 2 * (j + 1) + NSQ, partial);
 }
 
+// wpass's inputs of one lane (K1: the lane of blockIdx.y; K5: the lane of
+// its lane loop): W_j, where w goes (the block's on-chip rows wsm, or null;
+// the global rows wg, or null), the block's partial-sum rows, the lane's
+// face weights (aniso2d) and the scalars s_j, bs. K5 keeps them in shared
+// memory: wpass reads them where it uses them, after the walk's barriers,
+// so that they hold no register across the walk.
+struct WLane {
+  const float* wj;
+  float* wsm;
+  float* wg;
+  float* partial;
+  const float* wx;
+  const float* wy;
+  float s, bs;
+};
+
 // Phase 0 over the block's segments [s0, s1) (see the top of the file): w
-// into wsm (shared, row k = segment s0 + k, P planes of PX floats) or, if
-// wsm is null, into the field wg through the per-warp shared rows wrow (P
-// planes of PX floats per warp); the block's raw sums to partial
+// into L.wsm (shared, row k = segment s0 + k, P planes of PX floats) or, if
+// that is null, into the field L.wg through the per-warp shared rows wrow
+// (P planes of PX floats per warp); the block's raw sums to L.partial
 // (raw_partials). wp: W_0..W_{j-1} in shared memory. ring: RING rows, hal:
 // RING rows, red: PWARP rows of RED_W. lane, w: the thread's lane and warp;
 // q, gl: its dot group (of 32 / (MAXW / 4) lanes) and its lane in the
 // group. MAXW bounds j. NSQ (K1 / K1'): ||W_j||^2 as one more sum, from the
-// ring's centre rows.
+// ring's centre rows. a.op2's face weights are L's.
 template <int P, int MAXW, int OPK, int VEC, bool NSQ = false>
 __device__ __forceinline__ void wpass(
-    float s, float bs, const float* __restrict__ wj, const float* const* wp,
-    int j, const OpArgs& a, int s0, int s1, float* wsm,
-    float* __restrict__ wg, float* wrow, float (*ring)[P][PX],
-    float (*hal)[P][2], float (*red)[RED_W], float* __restrict__ partial,
-    int lane, int w, int q, int gl) {
+    const WLane& L, const float* const* wp, int j, const OpArgs& a, int s0,
+    int s1, float* wrow, float (*ring)[P][PX], float (*hal)[P][2],
+    float (*red)[RED_W], int lane, int w, int q, int gl) {
   constexpr bool TWO_D = OPK == OPK_ISO2D || OPK == OPK_ANISO2D;
   constexpr int OP = OPK == OPK_ANISO2D ? OP_ANISO : OP_ISO;
   constexpr int MODE = OPK == OPK_ISO3D_REF ? ISO_REF : ISO_CLEAN;
@@ -215,13 +236,14 @@ __device__ __forceinline__ void wpass(
     const int h = min(rows - r0, s1 - sg);        // the tile's rows
     const int x0 = strip * PX, nv = nx - x0;
     const int steps = (h + 2 + PWARP - 1) / PWARP;
+    float* const wsm = L.wsm;
     float* const wt = wsm == nullptr ? nullptr
                                      : wsm + (size_t)(sg - s0) * P * PX;
     float va[P][4], ha[P], vb[P][4], hb[P];       // rows k and k + PWARP
     if (w < h + 2)
-      wj_row<P, VEC>(wj, w, r0, rows, nx, x0, nv, plane, lane, va, ha);
+      wj_row<P, VEC>(L.wj, w, r0, rows, nx, x0, nv, plane, lane, va, ha);
     if (w + PWARP < h + 2)
-      wj_row<P, VEC>(wj, w + PWARP, r0, rows, nx, x0, nv, plane, lane, vb,
+      wj_row<P, VEC>(L.wj, w + PWARP, r0, rows, nx, x0, nv, plane, lane, vb,
                      hb);
     for (int st = 0; st < steps; ++st) {
       const int k = PWARP * st + w;               // ring row: tile row k - 1
@@ -242,8 +264,8 @@ __device__ __forceinline__ void wpass(
         ha[p] = hb[p];
       }
       if (k + 2 * PWARP < h + 2)                  // two steps ahead
-        wj_row<P, VEC>(wj, k + 2 * PWARP, r0, rows, nx, x0, nv, plane, lane,
-                       vb, hb);
+        wj_row<P, VEC>(L.wj, k + 2 * PWARP, r0, rows, nx, x0, nv, plane,
+                       lane, vb, hb);
       const int t = k - 2;                        // stencilled tile row
       if (t >= 0 && t < h) {
         const int r = r0 + t;
@@ -252,7 +274,8 @@ __device__ __forceinline__ void wpass(
         float kf[4][4];
         int z = 0, y = 0;
         if constexpr (TWO_D) {
-          coef_row<OP, VEC>(a.op2, r, x0, a.ny, nx, base, nv, lane, kf);
+          const Op2d op2 = {L.wx, L.wy, a.op2.clean};
+          coef_row<OP, VEC>(op2, r, x0, a.ny, nx, base, nv, lane, kf);
         } else {
           z = r / a.ny;
           y = r - z * a.ny;
@@ -266,7 +289,7 @@ __device__ __forceinline__ void wpass(
           lds<VEC>(ring[sd][p], lane, dn);
           row_sides<VEC>(ring[sc][p], cv[p], hal[sc][p], lane, lf, rt);
           if constexpr (!TWO_D) {
-            const float* b = wj + p * plane + base;
+            const float* b = L.wj + p * plane + base;
             if (z > 0)
               ldv<VEC>(b - zoff, lane, nv, zu);
             else
@@ -291,13 +314,14 @@ __device__ __forceinline__ void wpass(
                     Weights{nullptr, nullptr, nullptr}, 0, r, z, y, x0 + c,
                     a.nz, a.ny, nx, a.ss);
             }
-            float wvv = s * av;
-            if (j > 0) wvv = wvv - bs * pm[e];
+            float wvv = L.s * av;
+            if (j > 0) wvv = wvv - L.bs * pm[e];
             wv[p][e] = wvv;
           }
         }
         float* const wr = wt != nullptr ? wt + (size_t)t * P * PX
                                         : wrow + (size_t)w * P * PX;
+        float* const wg = L.wg;
 #pragma unroll
         for (int p = 0; p < P; ++p) {
           sts<VEC>(wr + p * PX, lane, wv[p]);
@@ -328,7 +352,7 @@ __device__ __forceinline__ void wpass(
     __syncthreads();                              // the ring is reused
     sg += h;
   }
-  raw_partials<MAXW, NSQ>(g, dl, nj, j, lane, w, q, gl, red, partial);
+  raw_partials<MAXW, NSQ>(g, dl, nj, j, lane, w, q, gl, red, L.partial);
 }
 
 // Phase 1 over the block's segments [s0, s1), last to first, one row per

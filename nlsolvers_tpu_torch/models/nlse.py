@@ -17,7 +17,8 @@ blocks, parallel/shards.py) with a shard descriptor. The planar SS2 steps
 take both half kicks, density included, as one pass each
 (ops/cuda/kick.py), the closing one with the no-flux ghost copy folded in
 when the caller passes the block's grid; the two-step integrators' source
-terms are plain torch ops.
+terms are plain torch ops. Every planar step also takes a batch (B, 2, R,
+nx) of lanes, the datagen engine's form.
 """
 
 import numpy as np
@@ -50,10 +51,10 @@ def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m, grid=None):
     (ops/cuda/kick.kick_grid) the closing half kick also does the no-flux
     ghost copy of that block; without it the step copies no ghost cells.
 
-    In 2D `up` may be a batch (B, 2, ny, nx): every lane steps in the same
+    `up` may be a batch (B, 2, R, nx): every lane steps in the same
     launches (batched kicks, Lanczos kernels, one batched eigh), with a
-    batched descriptor (ops/operators.batched_aniso_laplacian_2d, or the
-    shared iso one) and a density whose m field is (B, ny, nx)."""
+    batched descriptor (ops/operators.batched_aniso_laplacian_2d / _3d, or
+    the shared iso one) and a density whose m field is (B, R, nx)."""
     from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
 
     up = phase_kick_bc_planar(up, rho_fn, 0.5 * dt)
@@ -87,8 +88,15 @@ def _B(u, rho_fn):
 
 
 def _mul_i_planar(up):
-    """i * u on PLANAR (2, ...) state: (re, im) -> (-im, re)."""
-    return torch.stack([-up[1], up[0]])
+    """i * u on PLANAR ([B,] 2, R, nx) state: (re, im) -> (-im, re), the
+    pair on axis -3."""
+    return torch.stack([-up[..., 1, :, :], up[..., 0, :, :]], dim=-3)
+
+
+def _B_planar(up, rho_fn):
+    """B(u) = -rho(u) u on PLANAR ([B,] 2, R, nx) state: the density
+    ([B,] R, nx) broadcast over the (re, im) pair."""
+    return -rho_fn(up).unsqueeze(-3) * up
 
 
 def _exp_sinc(tau, dt):
@@ -104,11 +112,12 @@ def sewi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
                      fuse_exp_sinc=False):
     """One sEWI step on PLANAR (2, R, nx) float32 state; returns (new, up).
     Same semantics as sewi_step; the final u' = e2 - 2 tau e1 is a planar
-    i-rotation."""
+    i-rotation. A batch (B, 2, R, nx) with a batched descriptor and density
+    (as ss2_step_planar takes it) steps every lane in the same launches."""
     from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
 
     tau = 1j * dt
-    Bp = -rho_fn(up) * up                         # B(u) = -rho(u) u, planar
+    Bp = _B_planar(up, rho_fn)
     if fuse_exp_sinc:
         e1 = matfunc_apply_planar(Bp, desc, tau, _exp_sinc(tau, dt), m)
     else:
@@ -120,13 +129,14 @@ def sewi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
 
 def gautschi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
                          convention="cubic"):
-    """gautschi_step on PLANAR state; returns (new, up). Same two sign
-    conventions as the complex form."""
+    """gautschi_step on PLANAR state, or a batch of them as
+    sewi_step_planar takes it; returns (new, up). Same two sign conventions
+    as the complex form."""
     from nlsolvers_tpu_torch.ops.cuda.lanczos2d import matfunc_apply_planar
 
     sgn = -1.0 if convention == "cubic" else 1.0
     tau = 1j * dt
-    Bp = -rho_fn(up) * up
+    Bp = _B_planar(up, rho_fn)
     psi = matfunc_apply_planar(Bp, desc, dt, "sinc", m)
     e1 = matfunc_apply_planar(psi, desc, sgn * tau, "exp", m)
     e2 = matfunc_apply_planar(up_prev, desc, sgn * 2.0 * tau, "exp", m)

@@ -55,7 +55,8 @@ from nlsolvers_tpu_torch.ops import operators as ops
 from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
 
 __all__ = ["Problem", "nlse_problem", "realwave_problem",
-           "stochastic_phi4_problem", "boussinesq_problem", "run"]
+           "stochastic_phi4_problem", "boussinesq_problem", "run",
+           "planar_step"]
 
 
 @dataclass(frozen=True)
@@ -120,6 +121,46 @@ def _two_step(integrator, planar):
     return partial(fn, fuse_exp_sinc=integrator == "sewi_fused")
 
 
+def planar_step(integrator, shape, dt, krylov_m, desc, rho, bc):
+    """The step (state, i) -> state of `integrator` on PLANAR state, given
+    the operator's kernel descriptor and a planar density: SS2 on (2, R,
+    nx) float32, a two-step integrator on the pair (up, up_prev), its index
+    1 the SS2 bootstrap (u_prev := u). The state may be a batch (B, 2, R,
+    nx) (a pair of them) with a batched descriptor and density: the
+    datagen engine's lanes, each stepped as alone.
+
+    An SS2 step's closing half kick does the no-flux ghost copy
+    (ops/cuda/kick.py); a two-step step copies it after: the plain copy in
+    2D, bc3d in place in 3D."""
+    grid = kick_grid(shape) if bc == "noflux" else None
+    if integrator == "ss2":
+        def step(up, i):
+            del i
+            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
+                                            grid=grid)
+
+        return step
+
+    if bc != "noflux":
+        neum = lambda up: up
+    elif len(shape) == 3:
+        from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
+        neum = lambda up: neumann_bc_planar_3d(up, shape)
+    else:
+        neum = bcs.neumann_no_velocity_2d
+    two_step = _two_step(integrator, planar=True)
+
+    def step(state, i):
+        up, up_prev = state
+        if i == 1:      # bootstrap: one SS2 step, u_prev := u
+            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
+                                            grid=grid), up
+        u_new, u_prev_new = two_step(up, up_prev, desc, rho, dt, m=krylov_m)
+        return neum(u_new), u_prev_new
+
+    return step
+
+
 def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
                 kappa, bc, dtype, integrator, device):
     """(step, init, observe) on PLANAR (2, R, nx) float32 state when the
@@ -136,16 +177,7 @@ def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
     m2 = _as_tensor(m_field, device).to(torch.float32).reshape(R, nx)
     rho = nlse_density_planar(kind, m2, sigma1=sigma1, sigma2=sigma2,
                               kappa=kappa)
-    # an SS2 step's closing half kick does the ghost copy of `grid`
-    # (ops/cuda/kick.py); the two-step integrators' steps copy it after
-    grid = kick_grid(shape) if bc == "noflux" else None
-    if bc != "noflux":
-        neum = lambda up: up
-    elif len(shape) == 3:
-        from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
-        neum = lambda up: neumann_bc_planar_3d(up, shape)
-    else:
-        neum = bcs.neumann_no_velocity_2d
+    step = planar_step(integrator, shape, dt, krylov_m, desc, rho, bc)
 
     def init_single(u0):
         z = _as_tensor(u0, device)
@@ -162,22 +194,7 @@ def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
         return torch.complex(u[0], u[1])
 
     if integrator == "ss2":
-        def step(up, i):
-            del i
-            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
-                                            grid=grid)
-
         return step, init_single, to_complex
-
-    two_step = _two_step(integrator, planar=True)
-
-    def step(state, i):
-        up, up_prev = state
-        if i == 1:      # bootstrap: one SS2 step, u_prev := u
-            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
-                                            grid=grid), up
-        u_new, u_prev_new = two_step(up, up_prev, desc, rho, dt, m=krylov_m)
-        return neum(u_new), u_prev_new
 
     def init(u0):
         up = init_single(u0)

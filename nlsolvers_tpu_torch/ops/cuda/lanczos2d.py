@@ -28,17 +28,20 @@ its plain PyTorch version beside it and a launch counter on its wrapper:
 The iso and aniso wrappers launch one pass1 and one pipe kernel with the
 operator as a template policy; each wrapper counts its own launches.
 
-K1/K1', K2/K2' and K3 also take a batch: fields (B, P, ny, nx) with a
+K1/K1', K2/K2', K3 and K5 also take a batch: fields (B, P, ny, nx) with a
 leading lane axis, scalars (B, ...) and, for the aniso operator, face
 weights (B, ny, nx) (operators.batched_aniso_laplacian_2d), the form that
 jax.vmap gives the Pallas kernels in the JAX package's datagen engine. A
 batch is ONE launch (the lane is the kernel's second grid index), and lane
 b of it gives the bits of the unbatched launch on lane b: the kernel walks
 each lane's field with the unbatched block map and reduces each lane's
-partial sums in the unbatched order. The plain versions take the same
-leading axis, vectorised over it. `lanczos_planar` runs a batch through the
-pipelined 2D loop (_lanczos_pipe) with the scalar recurrence on (B, ...)
-tensors and one batched eigh (ops/krylov.tridiag_eigh).
+partial sums in the unbatched order. K5 takes a batch too: its
+cooperative grid stays one lane's, and each block walks its segments in
+every lane between the same grid syncs (csrc/lanczos2d.cu). The plain
+versions take the same leading axis, vectorised over it. `lanczos_planar`
+runs a batch through the loop it picks for one lane, with the scalar
+recurrence on (B, ...) tensors and one batched eigh
+(ops/krylov.tridiag_eigh).
 
 A wrapper launches its kernel for a CUDA tensor under config.kernel_mode
 "auto" and raises if the kernel cannot run; it takes the plain version for a
@@ -176,8 +179,9 @@ def _lib():
             ("lz_coop_max_blocks", []),
             ("lz_num_sms", []),
             ("lz_iter_fit", [i32, i32, i32, i32, i32]),
-            ("lz_iter", [i32, i32, i32, vp, vp, pp, i32, vp, vp, i32, i32,
-                         i32, vp, vp, vp, vp, vp, i32, i32, i32, f32, vp])):
+            ("lz_iter", [i32, i32, i32, i32, vp, vp, pp, i32, vp, vp, i32,
+                         i32, i32, vp, vp, vp, vp, vp, i32, i32, i32, f32,
+                         vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
@@ -439,11 +443,12 @@ def _operator_ref(u, desc):
 
 def iter_ref(scal, wj, prev, desc):
     """Plain version of iter_step: pass1, then pass2 with q_i = s_i^2 raw_i,
-    in the order of operations of the Pallas _iter_call."""
+    in the order of operations of the Pallas _iter_call; on a batch
+    vectorised over the lanes."""
     from nlsolvers_tpu_torch.ops.cuda.lanczos3d import pass2_ref
-    w, raw = _pass1_ref(scal[:, :2], wj, prev, _operator_ref(wj, desc))
-    sv = scal[0, 2:]
-    wn, nsq = pass2_ref((sv * sv)[:, None] * raw, w, list(prev) + [wj])
+    w, raw = _pass1_ref(scal[..., :2], wj, prev, _operator_ref(wj, desc))
+    sv = scal[..., 0, 2:]
+    wn, nsq = pass2_ref((sv * sv)[..., :, None] * raw, w, list(prev) + [wj])
     return wn, raw, nsq
 
 
@@ -696,8 +701,9 @@ def _iter_opk(desc, what):
                      f"_iter_call), not {kind}")
 
 
-def iter_plan(P, rows, nx, sms, fit):
-    """(onchip, grid) of a K5 launch on a (P, rows, nx) field.
+def iter_plan(P, rows, nx, sms, fit, B=1):
+    """(onchip, grid) of a K5 launch on a (P, rows, nx) field, or on each
+    of a batch of B such lanes.
 
     K5's blocks split the S = ceil(nx / 128) * rows rows of 128-column
     strips evenly, ceil(S / grid) each. The on-chip form keeps each block's
@@ -708,32 +714,45 @@ def iter_plan(P, rows, nx, sms, fit):
     COOP_PER_SM per SM. `fit(dyn)`: the blocks per SM that fit with dyn
     bytes of dynamic shared memory; sms: the card's SMs. This is a rule of
     size: a launch takes the form it gives, or raises.
+
+    A batch keeps one lane's grid, so that each block walks the same
+    segments of every lane and each lane reduces its sums in the order of
+    its launch alone (its bits). It keeps w on chip where the blocks of
+    that grid hold the rows of all B lanes, else takes the global form,
+    which gives the same bits.
     """
     segs = -(-nx // STRIP_COLS) * rows
     for per_sm in range(COOP_PER_SM, 0, -1):
         grid = min(per_sm * sms, segs)
         if fit(-(-segs // grid) * P * STRIP_COLS * 4) * sms >= grid:
-            return True, grid
-    per_sm = min(COOP_PER_SM, fit(ITER_WARPS * P * STRIP_COLS * 4))
-    if per_sm < 1:
-        raise RuntimeError("iter_step: no block of the kernel fits on the "
-                           "card")
-    return False, min(per_sm * sms, segs)
+            break
+    else:
+        per_sm = min(COOP_PER_SM, fit(ITER_WARPS * P * STRIP_COLS * 4))
+        if per_sm < 1:
+            raise RuntimeError("iter_step: no block of the kernel fits on "
+                               "the card")
+        return False, min(per_sm * sms, segs)
+    if B == 1 or fit(B * -(-segs // grid) * P * STRIP_COLS * 4) * sms >= grid:
+        return True, grid
+    if fit(ITER_WARPS * P * STRIP_COLS * 4) * sms < grid:
+        raise RuntimeError(f"iter_step: {grid} blocks of the global form do "
+                           f"not fit on the card")
+    return False, grid
 
 
 _plan_cache = {}
 
 
-def iter_form(P, rows, nx, opk, j, vec):
+def iter_form(P, rows, nx, opk, j, vec, B=1):
     """iter_plan for the K5 instantiation of a call (P, the operator code
-    opk, iteration j, the 16-byte form vec), the card's numbers read from
-    the library once per instantiation and shape."""
-    key = (P, rows, nx, opk, _bucket(j), bool(vec))
+    opk, iteration j, the 16-byte form vec, B lanes), the card's numbers
+    read from the library once per instantiation and shape."""
+    key = (P, rows, nx, opk, _bucket(j), bool(vec), B)
     if key not in _plan_cache:
         lib = _lib()
         _plan_cache[key] = iter_plan(
             P, rows, nx, lib.lz_num_sms(),
-            lambda dyn: lib.lz_iter_fit(P, opk, j, int(vec), dyn))
+            lambda dyn: lib.lz_iter_fit(P, opk, j, int(vec), dyn), B)
     return _plan_cache[key]
 
 
@@ -745,16 +764,20 @@ def iter_step(scal, wj, prev, desc):
     for the 3D Laplacian). Returns (W_{j+1}, raw (j+1, 2), nsq (1, 1)):
     w = s_j A(W_j) - bs W_{j-1}, raw_i = <W_i, w>, W_{j+1} = w - sum_i
     s_i^2 raw_i W_i and ||W_{j+1}||^2. w stays in shared memory where
-    iter_plan finds room for it, else in a scratch field.
+    iter_plan finds room for it, else in a scratch field. A batch of B
+    lanes: fields (B, P, rows, nx), scal (B, 1, j+3), raw (B, j+1, 2), nsq
+    (B, 1, 1), aniso weights (B, ny, nx), in one launch whose lane b gives
+    the bits of the launch on lane b alone.
     """
     j = len(prev)
     _check_cols(j, "iter_step")
     opk = _iter_opk(desc, "iter_step")
     if not use_kernel(wj):
         return iter_ref(scal, wj, prev, desc)
-    _check_fields([wj, *prev], wj, "iter_step")
+    B = _check_fields([wj, *prev], wj, "iter_step")
     _check_scalars(scal, (1, j + 3), wj, "iter_step")
-    P, rows, nx = wj.shape
+    P, rows, nx = wj.shape[-3:]
+    lead = tuple(wj.shape[:-3])
     wx = wy = None
     if opk >= 2:
         nz, ny = desc["nz"], desc["ny"]
@@ -774,14 +797,15 @@ def iter_step(scal, wj, prev, desc):
     vec = nx % 4 == 0 and all(
         t.data_ptr() % 16 == 0 for t in [wj, wn, *prev] + [
             x for x in (wx, wy) if x is not None])
-    onchip, grid = iter_form(P, rows, nx, opk, j, vec)
+    onchip, grid = iter_form(P, rows, nx, opk, j, vec, B)
     w = None if onchip else torch.empty_like(wj)
-    partial = torch.empty((2 * MAX_M + 1) * lib.lz_coop_max_blocks(),
+    partial = torch.empty(B * (2 * MAX_M + 1) * lib.lz_coop_max_blocks(),
                           dtype=torch.float32, device=wj.device)
-    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
-    nsq = torch.empty((1, 1), dtype=torch.float32, device=wj.device)
+    raw = torch.empty(lead + (j + 1, 2), dtype=torch.float32,
+                      device=wj.device)
+    nsq = torch.empty(lead + (1, 1), dtype=torch.float32, device=wj.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    _check(lib.lz_iter(P, opk, int(vec), scal.data_ptr(), wj.data_ptr(),
+    _check(lib.lz_iter(B, P, opk, int(vec), scal.data_ptr(), wj.data_ptr(),
                        _ptrs(prev), j, ptr(wx), ptr(wy),
                        int(desc["variant"] == "clean"), int(onchip), grid,
                        ptr(w), wn.data_ptr(), partial.data_ptr(),
@@ -809,7 +833,9 @@ def _pipe_kernels(desc):
     """(pass1, pipe) of the pipelined loop for `desc`: K1/K2, K1'/K2', or
     in 3D pass1_3d and K8 pipe_3d, whose last, stencil-free iteration is
     K2's geometry-free LAST launch on the merged view. pass1 returns
-    (av, d, ||u||^2): K1 and K1' take the norm in the same pass."""
+    (av, d, ||u||^2): K1 and K1' take the norm in the same pass; in 3D it
+    is pass2's norm-only form, one launch more, so that a lane's norm has
+    the same bits in a batch and alone."""
     kind = desc["kind"]
     if kind == "aniso_laplacian_2d":
         return functools.partial(pass1_aniso2d, norm=True), pipe_aniso2d
@@ -817,8 +843,8 @@ def _pipe_kernels(desc):
         from nlsolvers_tpu_torch.ops.cuda import lanczos3d
 
         def pass1(scal, u, prev, desc):
-            return lanczos3d.pass1_3d(scal, u, prev, desc) + (
-                torch.sum(u * u),)
+            nsq = lanczos3d.pass2(None, u, [])[1][..., 0, 0]
+            return lanczos3d.pass1_3d(scal, u, prev, desc) + (nsq,)
 
         def pipe(scal, av, W, desc, last):
             if last:
@@ -913,20 +939,12 @@ def lanczos_planar(u, desc, m):
     loop with one K5 per iteration instead (the 3D c(x) operator raises a
     ValueError there, as the JAX package's _iter_call has no mode for it).
 
-    A batch (B, P, ny, nx) of 2D fields runs the pipelined loop over every
-    lane at once, a batch (B, P, nz*ny, nx) of 3D fields the two-pass loop:
-    each column is a (B, ...) tensor, each scalar (B,). The batched forms
-    of K5 and K8 are not ported yet (ROADMAP.md queue 2): a batch with
-    config.fused_iter, or a 3D batch with config.pipeline_3d, raises
-    NotImplementedError.
+    A batch (B, P, ny, nx) or (B, P, nz*ny, nx) runs the loop one lane
+    would take over every lane at once, one launch of each kernel (K5 and
+    K8 too) for all lanes: each column is a (B, ...) tensor, each scalar
+    (B,). The FUSED_ITER_BYTES gate is per lane, as JAX's is under vmap.
     """
     three_d = desc is not None and desc.get("kind") in KINDS_3D
-    batched = u.dim() == 4
-    if batched and (config.fused_iter or (three_d and config.pipeline_3d)):
-        raise NotImplementedError(
-            "a batch of fields takes the pipelined 2D loop or the two-pass "
-            "3D loop: the batched fused iteration (K5) and 3D pipe (K8) are "
-            "not ported yet (ROADMAP.md queue 2)")
     grid = tuple(u.shape[-2:])
     if three_d and grid == (desc.get("nz", 0) * desc.get("ny", 0),
                             desc.get("nx")):
@@ -941,7 +959,8 @@ def lanczos_planar(u, desc, m):
         raise ValueError(f"Krylov m={m} exceeds the kernels' {MAX_M}")
     if m > 1:
         from nlsolvers_tpu_torch.ops.cuda import lanczos3d
-        if config.fused_iter and u.numel() * 4 <= FUSED_ITER_BYTES:
+        lane_bytes = u.shape[-3] * u.shape[-2] * u.shape[-1] * 4
+        if config.fused_iter and lane_bytes <= FUSED_ITER_BYTES:
             _iter_opk(desc, "fused_iter")
             return lanczos3d.lanczos_twopass(u, desc, m, fused=True)
         if three_d and not config.pipeline_3d:

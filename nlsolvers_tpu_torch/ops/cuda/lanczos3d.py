@@ -28,16 +28,17 @@ wrapper:
 `lanczos_twopass` is the normalized two-pass loop (pass1_3d then pass2), or
 with fused=True one lanczos2d.iter_step (K5) per iteration, in 2D and 3D.
 
-pass1_3d, pass2 and bc3d also take a batch: fields (B, P, R, nx) with a
-leading lane axis, scalars (B, ...) and, for the aniso operator, face
+pass1_3d, pass2, pipe_3d and bc3d also take a batch: fields (B, P, R, nx)
+with a leading lane axis, scalars (B, ...) and, for the aniso operator, face
 weights (B, R, nx) (operators.batched_aniso_laplacian_3d), the form that
 jax.vmap gives the Pallas kernels in the JAX package's datagen engine. A
 batch is ONE launch, and lane b of it gives the bits of the unbatched
 launch on lane b (csrc/lanczos3d.cu); the plain versions take the same
-leading axis. The two-pass loop runs a batch with its scalar recurrence on
-(B, ...) tensors; the loop's start norm is pass2's norm-only form, so it
-too is the same for a lane in a batch and alone.
-The pipelined 3D loop is lanczos2d._lanczos_pipe with pipe_3d. The final
+leading axis. The two-pass loop, the fused loop and the pipelined 3D loop
+run a batch with their scalar recurrence on (B, ...) tensors; each loop's
+start norm is pass2's norm-only form, so it too is the same for a lane in a
+batch and alone. The pipelined 3D loop is lanczos2d._lanczos_pipe with
+pipe_3d. The final
 sum reuses lanczos2d's `combine` on the merged view, and the ghost copy
 after the step is ops/cuda/bc3d.py. A wrapper launches its
 kernel for a CUDA tensor under config.kernel_mode "auto" and raises if the
@@ -112,8 +113,9 @@ def _lib():
             ("lz3_bc3d", [i32, i32, vp] + [i32] * 9 + [vp]),
             ("lz3_pipe3d_rows", []),
             ("lz3_pipe3d_fit", [i32, i32, i32, i32]),
-            ("lz3_pipe3d", [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp,
-                            vp, vp, vp, i32, i32, i32, f32, i32, i32, vp])):
+            ("lz3_pipe3d", [i32, i32, i32, i32, vp, vp, pp, i32, vp, vp, vp,
+                            vp, vp, vp, vp, i32, i32, i32, f32, i32, i32,
+                            vp])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
@@ -478,21 +480,23 @@ def pipe_3d(scal, av, W, desc):
 
     scal: (j+2, 2) float32 [(s_j, 0), c_0..c_j] (complex c_i); av: av_j;
     W: W_0..W_j. Returns (W_{j+1}, av_{j+1}, nsq (1,1), gram (j+1,2),
-    d (j+2,2)), the outputs of the Pallas _pipe3d_call in its order.
+    d (j+2,2)), the outputs of the Pallas _pipe3d_call in its order. A batch
+    of B lanes: fields (B, P, R, nx), every scalar array with a leading B,
+    aniso weights (B, R, nx), in one launch whose lane b gives the bits of
+    the launch on lane b alone.
     """
     nw = len(W)
     if nw + 1 > MAX_M:
         raise ValueError(f"pipe_3d: at most {MAX_M} columns, got {nw + 1}")
     if not use_kernel(av):
         return pipe_3d_ref(scal, av, W, desc)
-    if _check_fields([av, *W], av, "pipe_3d") > 1 or av.dim() != 3:
-        raise ValueError("pipe_3d: one (P, R, nx) field; a batched K8 is "
-                         "not ported (ROADMAP.md queue 2)")
+    B = _check_fields([av, *W], av, "pipe_3d")
     _check_scalars(scal, (nw + 1, 2), av, "pipe_3d")
     nz, ny, nx = _geom(desc, av, "pipe_3d")
     mode, wts = _mode_weights(desc, av, "pipe_3d")
     lib = _lib()
-    P = av.shape[0]
+    P = av.shape[-3]
+    lead = tuple(av.shape[:-3])
     nout = 1 + 2 * nw + 2 * (nw + 1)
     wn = torch.empty_like(av)
     avn = torch.empty_like(av)
@@ -500,16 +504,18 @@ def pipe_3d(scal, av, W, desc):
         p % 16 == 0 for p in [t.data_ptr() for t in (av, wn, avn, *W)]
         + [w for w in wts if w is not None]))
     pz, grid = _brick(P, mode, nw, vec, nz, ny, nx)
-    partial = torch.empty(grid * nout, dtype=torch.float32, device=av.device)
-    red = torch.empty(nout, dtype=torch.float32, device=av.device)
-    _check(lib.lz3_pipe3d(P, mode, vec, scal.data_ptr(), av.data_ptr(),
+    partial = torch.empty(B * grid * nout, dtype=torch.float32,
+                          device=av.device)
+    red = torch.empty(lead + (nout,), dtype=torch.float32, device=av.device)
+    _check(lib.lz3_pipe3d(B, P, mode, vec, scal.data_ptr(), av.data_ptr(),
                           _ptrs(W), nw, *wts, wn.data_ptr(), avn.data_ptr(),
                           partial.data_ptr(), red.data_ptr(), nz, ny, nx,
                           float(desc["scale"]) * float(desc["sign"]), pz,
                           grid, _stream(av)), "pipe_3d")
     pipe_3d.launches += 1
-    return (wn, avn, red[:1].view(1, 1), red[1:1 + 2 * nw].view(nw, 2),
-            red[1 + 2 * nw:].view(nw + 1, 2))
+    return (wn, avn, red[..., :1].view(lead + (1, 1)),
+            red[..., 1:1 + 2 * nw].view(lead + (nw, 2)),
+            red[..., 1 + 2 * nw:].view(lead + (nw + 1, 2)))
 
 
 pipe_3d.launches = 0
@@ -525,29 +531,26 @@ def lanczos_twopass(u, desc, m, fused=False):
     (2D or 3D; the _FUSED_ITER branch of its lanczos2d.lanczos_planar),
     whose alpha_j is s_j raw_j.
 
-    The two-pass loop also takes a batch (B, P, rows, nx): every lane runs
-    through the same launches and every scalar carries a leading B (the
-    per-lane arithmetic is the same elementwise ops). Its start norm is
-    pass2's norm-only form, one launch, so that a lane's bits do not depend
-    on the batch; the fused loop keeps torch's sum.
+    Both loops also take a batch (B, P, rows, nx): every lane runs through
+    the same launches and every scalar carries a leading B (the per-lane
+    arithmetic is the same elementwise ops). The start norm is pass2's
+    norm-only form, one launch, so that a lane's bits do not depend on the
+    batch.
 
     Returns (W, s, alpha, beta, beta0) with the semantics of
     lanczos2d.lanczos_planar.
     """
     lead = tuple(u.shape[:-3])
-    if fused:
-        beta0 = torch.sqrt(torch.sum(u * u))
-    else:
-        beta0 = torch.sqrt(pass2(None, u, [])[1][..., 0, 0])
+    beta0 = torch.sqrt(pass2(None, u, [])[1][..., 0, 0])
     W, s = [u], [safe_inv(beta0)]
     alphas, betas = [], []
     zero = torch.zeros(lead, dtype=torch.float32, device=u.device)
     for j in range(m - 1):
         bs = betas[j - 1] * s[j - 1] if j > 0 else zero
         if fused:
-            scal = torch.stack([s[j], bs] + s).reshape(1, j + 3)
+            scal = torch.stack([s[j], bs] + s, dim=-1)[..., None, :]
             wn, raw, nsq = iter_step(scal, W[j], W[:j], desc)
-            alphas.append(s[j] * raw[j, 0])
+            alphas.append(s[j] * raw[..., j, 0])
         else:
             scal = torch.stack([s[j], bs], dim=-1)[..., None, :]
             w, raw = pass1_3d(scal, W[j], W[:j], desc)

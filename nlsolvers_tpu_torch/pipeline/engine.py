@@ -6,32 +6,37 @@ one jitted scan, and models/evolve carries the batch here as there: the
 snapshot cadence, the guard (one flag per snapshot across the batch, early
 exit only when every lane has diverged) and the scalar series are JAX's.
 
-Three steps run as ONE batched step, as JAX's vmap: the NLSE SS2 step on
-the planar path (complex64, 2D or 3D; the production datagen step) and the
-float32 real-wave Gautschi step with the fused kernels (2D or 3D). The
-state is a (B, 2, R, nx) float32 tensor (NLSE) or a pair of (B, *shape)
-float32 tensors (real-wave), and each kernel of the step is one launch over
-all lanes (ops/cuda/lanczos2d.py, lanczos3d.py, kick.py, bc3d.py), with the
-scalar recurrence on (B, ...) tensors and one batched eigh
-(ops/krylov.py). The operator (the lanes' c(x) face weights stacked, or the
-shared Laplacian; sign-flipped for the real-wave step, as
-models/problems._negated flips it) and the lanes' m are built once per
-batch. Each lane takes the unbatched kernels' bits and arithmetic, and the
-batched eigh gives each lane's T the single-matrix eigh's bits (torch 2.11
-with CUDA 12.8 on an H100, and the CPU; chip_smoke.py and the card tests
-check it), so a lane equals nlse_problem or realwave_problem run alone bit
-for bit. A lane whose T is not finite gets NaN coefficients from the
-batched eigh, as from JAX's, and stays NaN; the guard flags it.
+Every planar NLSE step and the float32 real-wave Gautschi step run as ONE
+batched step, as JAX's vmap: the NLSE SS2 step and the two-step
+integrators (sEWI, fused sEWI, Gautschi) on the planar path (complex64, 2D
+or 3D; the production datagen steps) and the real-wave Gautschi step with
+the fused kernels (2D or 3D). The state is a (B, 2, R, nx) float32 tensor
+(NLSE SS2), a pair of them (the two-step integrators: (u, u_prev), step
+index 1 the batched SS2 bootstrap) or a pair of (B, *shape) float32
+tensors (real-wave), and each kernel of the step is one launch over all
+lanes (ops/cuda/lanczos2d.py, lanczos3d.py, kick.py, bc3d.py; under
+config.fused_iter the batched K5, under config.pipeline_3d the batched K8),
+with the scalar recurrence on (B, ...) tensors and one batched eigh
+(ops/krylov.py). A two-step step's ghost copy follows it: the plain copy in
+2D, one batched bc3d in place in 3D. The operator (the lanes' c(x) face
+weights stacked, or the shared Laplacian; sign-flipped for the real-wave
+step, as models/problems._negated flips it) and the lanes' m are built once
+per batch. Each lane takes the unbatched kernels' bits and arithmetic, and
+the batched eigh gives each lane's T the single-matrix eigh's bits (torch
+2.11 with CUDA 12.8 on an H100, and the CPU; chip_smoke.py and the card
+tests check it), so a lane equals nlse_problem or realwave_problem run
+alone bit for bit. A lane whose T is not finite gets NaN coefficients from
+the batched eigh, as from JAX's, and stays NaN; the guard flags it.
 
-Every other path (the complex path, the two-step NLSE integrators, float64,
-SV, stochastic phi-4) keeps one problem from models/problems.py per
-trajectory (nlse_problem, realwave_problem), built once per call of the
-trajectory function, and a batched step advances every trajectory by one
-step in turn; a lane's trajectory there equals the problem run alone with
-its fields, bit for bit. A lane whose state has gone non-finite can make
-the tridiagonal eigensolver fail (torch raises where JAX returns NaN); the
-engine then keeps that lane's state as NaN, which is what JAX's vmapped
-step carries, and the guard flags it.
+Every other path (the complex NLSE path, float64, SV, stochastic phi-4)
+keeps one problem from models/problems.py per trajectory (nlse_problem,
+realwave_problem), built once per call of the trajectory function, and a
+batched step advances every trajectory by one step in turn; a lane's
+trajectory there equals the problem run alone with its fields, bit for
+bit. A lane whose state has gone non-finite can make the tridiagonal
+eigensolver fail (torch raises where JAX returns NaN); the engine then
+keeps that lane's state as NaN, which is what JAX's vmapped step carries,
+and the guard flags it.
 
 Trajectory functions return snapshot stacks shaped (B, S, ...) where entry
 s=0 is the initial condition, as tensors on the engine's device. Inputs may
@@ -46,7 +51,6 @@ import torch
 
 from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import real_dtype_of
-from nlsolvers_tpu_torch.models import nlse as nlse_mod
 from nlsolvers_tpu_torch.models import problems
 from nlsolvers_tpu_torch.models import realwave as rw
 from nlsolvers_tpu_torch.models.evolve import evolve, evolve_guarded
@@ -58,7 +62,6 @@ from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
 from nlsolvers_tpu_torch.ops import boundaries as bcs
 from nlsolvers_tpu_torch.ops import operators as ops
 from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
-from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (matfunc_apply_planar_multi,
                                                     supported_desc)
 
@@ -186,9 +189,9 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
     c = 1, as JAX probes its Pallas gate; the port has no 128-lane gate).
     An SS2 step's closing half kick does the ghost copy; the two-step
     integrators copy it after their step and bootstrap with one SS2 step at
-    index 1. `dtype` is a torch dtype or a numpy one. The planar SS2
-    step (2D and 3D) runs all lanes as one batched step (the `batched`
-    attribute), the other paths lane by lane (module docstring).
+    index 1. `dtype` is a torch dtype or a numpy one. On the planar path
+    (2D and 3D, every integrator) all lanes run as one batched step (the
+    `batched` attribute), the complex path lane by lane (module docstring).
     """
     if kind not in NLSE_KINDS:
         raise ValueError(f"unknown NLSE kind {kind!r}")
@@ -221,41 +224,33 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
                          if use_c else None)
     planar = probe.meta["planar_state"]
     del probe
-    batched = planar and not two_state
     R = int(np.prod(shape[:-1]))
 
     def batch_step(m, c, B):
-        """The planar SS2 step of all B lanes at once: nlse_problem's
-        planar step on a (B, 2, R, nx) state, its operator and density
-        built per lane as nlse_problem builds them and stacked."""
+        """nlse_problem's planar step of all B lanes at once, on a (B, 2,
+        R, nx) state (a pair of them for a two-step integrator), its
+        operator and density built per lane as nlse_problem builds them and
+        stacked."""
         dx = 2.0 * Lx / (nx - 1)
         desc = _batched_operator(shape, dx, c, B, variant, rdtype, device)
         m2 = m.to(rdtype).to(torch.float32).reshape(B, R, nx).contiguous()
         rho = nlse_density_planar(kind, m2, sigma1=sigma1, sigma2=sigma2,
                                   kappa=kappa)
-        grid = kick_grid(shape) if bc == "noflux" else None
-
-        def step(up, i):
-            del i
-            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
-                                            grid=grid)
-
-        return step
+        return problems.planar_step(integrator, shape, dt, krylov_m, desc,
+                                    rho, bc)
 
     def first(s):
         return s[0] if two_state else s
 
     def observe(states):
-        if batched:
-            return states
+        if planar:
+            return first(states)
         return torch.stack([first(s) for s in states])
 
     def mass_of(states):
-        if batched:
-            return torch.sum(states * states, dim=(1, 2, 3)) * dV
         if planar:
-            return torch.stack([torch.sum(f * f) for f in map(first, states)
-                                ]) * dV
+            u = first(states)
+            return torch.sum(u * u, dim=(1, 2, 3)) * dV
         return torch.stack([torch.sum(torch.abs(f) ** 2)
                             for f in map(first, states)]) * dV
 
@@ -270,18 +265,17 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
         m = _tensor(m, device)
         c = _tensor(c, device) if use_c else None
         B = packed.shape[0]
-        if batched:
+        if planar:
             states = packed.to(torch.float32).reshape(B, 2, R,
                                                       nx).contiguous()
+            if two_state:
+                states = (states, states)
             step = batch_step(m, c, B)
         else:
             probs = [lane_problem(m[b], None if c is None else c[b])
                      for b in range(B)]
-            if planar:
-                states = [p.init(packed[b]) for b, p in enumerate(probs)]
-            else:
-                states = [p.init(torch.complex(packed[b, 0], packed[b, 1]))
-                          for b, p in enumerate(probs)]
+            states = [p.init(torch.complex(packed[b, 0], packed[b, 1]))
+                      for b, p in enumerate(probs)]
             step = _batched_step([p.step for p in probs])
         scalars = {"mass": mass_of} if record_energy else None
         snaps, bad_at, series = _run(step, states, observe, num_snapshots,
@@ -291,7 +285,7 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
         return (pack(snaps), bad_at) + ((series,) if record_energy else ())
 
     traj.planar = planar
-    traj.batched = batched
+    traj.batched = planar
     return traj
 
 

@@ -24,9 +24,10 @@ wrappers take the kernels' plain versions, vectorised over the lanes.
 * A lane started as NaN: its snapshots are NaN, bad_at flags it at
   snapshot 0, the mass series is NaN on it, and the other lanes equal their
   runs alone; evolve_guarded carries the tensor state.
-* A batch with the fused iteration, or a 3D batch with the 3D pipe,
-  raises NotImplementedError (K5 and K8 have no batched form yet); a 3D
-  batch runs the two-pass loop (tests/test_torch_batched3d.py).
+* A batch with the fused iteration runs one K5 call per iteration, a 3D
+  batch with the 3D pipe one K8 call per iteration but the last, a 3D
+  batch with neither the two-pass loop (tests/test_torch_batched3d.py;
+  the batched K5 and K8: tests/test_torch_batched_optin.py).
 """
 
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from nlsolvers_tpu_torch.ops import krylov
 from nlsolvers_tpu_torch.ops import operators as tops
 from nlsolvers_tpu_torch.ops.cuda import kick as tk
 from nlsolvers_tpu_torch.ops.cuda import lanczos2d as tl
+from nlsolvers_tpu_torch.ops.cuda import lanczos3d as t3
 from nlsolvers_tpu_torch.pipeline import engine as teng
 from test_torch_datagen import _jax_planar, jax_interpret  # noqa: F401
 
@@ -246,23 +248,39 @@ def test_nan_lane_stays_confined():
     assert torch.equal(snaps_[[0, 2]], alone)
 
 
-def test_batch_without_batched_kernels_raises(monkeypatch):
-    """A batch takes the pipelined 2D loop or the two-pass 3D loop: with
-    config.fused_iter (2D or 3D), or a 3D descriptor under
-    config.pipeline_3d, lanczos_planar raises NotImplementedError (K5 and
-    K8 have no batched form yet); the 3D batch runs the two-pass loop."""
+def test_batch_under_switches_takes_k5_and_k8(monkeypatch):
+    """A batch runs the loop one lane would take: with config.fused_iter
+    (2D or 3D) the fused loop, one K5 call per iteration for all lanes;
+    with config.pipeline_3d a 3D batch the pipelined loop, one K8 call per
+    iteration but the last; with neither, the 3D batch the two-pass loop.
+    Each returns B-lane columns and (B,) scalars."""
     u = torch.zeros((B, 2, 8, 8))
     desc = tops.laplacian_2d((8, 8), 0.1, 0.1, device="cpu").kernel_desc
     d3 = tops.laplacian_3d((4, 4, 4), 0.1, device="cpu").kernel_desc
     u3 = torch.zeros((B, 2, 16, 4))
+    calls = {"iter": 0, "pipe": 0, "pass1": 0}
+    for name, mod, attr in (("iter", t3, "iter_step"), ("pipe", t3, "pipe_3d"),
+                            ("pass1", t3, "pass1_3d")):
+        real = getattr(mod, attr)
+
+        def counted(*a, _n=name, _f=real):
+            calls[_n] += 1
+            return _f(*a)
+        monkeypatch.setattr(mod, attr, counted)
+
+    def run(v, d):
+        W, s, alphas, betas, beta0 = tl.lanczos_planar(v, d, 4)
+        assert len(W) == 4 and W[3].shape == v.shape
+        assert beta0.shape == (B,) and betas[0].shape == (B,)
+
     monkeypatch.setattr(config, "fused_iter", True)
     for v, d in ((u, desc), (u3, d3)):
-        with pytest.raises(NotImplementedError):
-            tl.lanczos_planar(v, d, 4)
+        run(v, d)
+    assert calls == {"iter": 6, "pipe": 0, "pass1": 0}
     monkeypatch.setattr(config, "fused_iter", False)
     monkeypatch.setattr(config, "pipeline_3d", True)
-    with pytest.raises(NotImplementedError):
-        tl.lanczos_planar(u3, d3, 4)
+    run(u3, d3)
+    assert calls == {"iter": 6, "pipe": 2, "pass1": 1}
     monkeypatch.setattr(config, "pipeline_3d", False)
-    W, s, alphas, betas, beta0 = tl.lanczos_planar(u3, d3, 4)
-    assert len(W) == 4 and W[3].shape == u3.shape and beta0.shape == (B,)
+    run(u3, d3)
+    assert calls == {"iter": 6, "pipe": 2, "pass1": 4}

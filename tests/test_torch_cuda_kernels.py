@@ -1223,3 +1223,177 @@ def test_batched_engine_paths_launches_and_lanes_on_card(cuda, path, want):
         else:
             assert torch.equal(out[0][b], ref[0])
             assert torch.equal(out[1][b], ref[1])
+
+
+# ------------------------------------------------ batched K5 and K8
+
+def _batch_iter_desc(mode, cuda, gen, B):
+    """(batched descriptor, lanes' descriptors, rows, nx) of each operator
+    K5 takes, on ragged grids."""
+    if mode in ("reference", "clean"):
+        d = _desc(37, 131, mode)
+        return d, [d] * B, 37, 131
+    if mode == "aniso2d":
+        c = 1.0 + 0.4 * torch.rand((B, 19, 300), generator=gen, device=cuda)
+        d = tops.batched_aniso_laplacian_2d(list(c), 0.02, 0.02, device=cuda)
+        return d, [dict(d, wx=d["wx"][b], wy=d["wy"][b])
+                   for b in range(B)], 19, 300
+    shape = (9, 11, 16) if mode.endswith("16") else (9, 11, 13)
+    d = _desc3d(shape, mode[:-2].replace("3d", ""), cuda)
+    return d, [d] * B, 99, shape[-1]
+
+
+_BATCH_ITER_CASES = [("reference", 2, "plan"), ("clean", 1, "plan"),
+                     ("aniso2d", 2, "plan"), ("aniso2d", 1, "global"),
+                     ("reference3d", 2, "plan"), ("clean3d", 1, "global"),
+                     ("reference3d16", 2, "onchip7"),
+                     ("reference", 2, "global"), ("aniso2d", 2, "onchip7")]
+
+
+@pytest.mark.parametrize("mode,P,form", _BATCH_ITER_CASES,
+                         ids=[f"{m}-P{P}-{f}"
+                              for m, P, f in _BATCH_ITER_CASES])
+def test_batched_iter_step_bit_equal_to_lane_launches_on_card(
+        cuda, monkeypatch, mode, P, form):
+    """K5 on B = 3 lanes (j = 0, 4, 9), w on chip or in the scratch: ONE
+    launch, within the gates of the plain batched version, lane b
+    bit-equal to the unbatched launch on lane b (which takes the same grid),
+    and the batch the same bits in the other form of w on that grid."""
+    B = 3
+    gen = torch.Generator(device=cuda).manual_seed(1400 + P)
+    desc, lanes, rows, nx = _batch_iter_desc(mode, cuda, gen, B)
+    segs = -(-nx // tl.STRIP_COLS) * rows
+    if form != "plan":
+        grid = 7 if form == "onchip7" else min(
+            segs, tl._lib().lz_coop_max_blocks())
+        monkeypatch.setattr(tl, "iter_form",
+                            lambda *a: (form == "onchip7", grid))
+    cols = [torch.randn((B, P, rows, nx), generator=gen, device=cuda)
+            for _ in range(10)]
+    for j in (0, 4, 9):
+        s = 0.2 + 0.8 * torch.rand((B, j + 1), generator=gen, device=cuda)
+        scal = torch.cat([s[:, j:j + 1], torch.full((B, 1), 0.3,
+                                                    device=cuda), s],
+                         dim=1)[:, None].contiguous()
+        before = tl.iter_step.launches
+        got, want = _kernel_and_plain(
+            lambda: tl.iter_step(scal, cols[j], cols[:j], desc))
+        assert tl.iter_step.launches == before + 1
+        w0 = tl._pass1_ref(scal[..., :2], cols[j], cols[:j],
+                           tl._operator_ref(cols[j], desc))[0]
+        _batch_check(got, want, cols[:j + 1] + [w0, want[0]])
+        _lane_equal(got, [tl.iter_step(scal[b], cols[j][b],
+                                       [w[b] for w in cols[:j]], lanes[b])
+                          for b in range(B)])
+        onchip, grid = tl.iter_form(P, rows, nx, tl._iter_opk(desc, "t"),
+                                    j, nx % 4 == 0, B)
+        monkeypatch.setattr(tl, "iter_form", lambda *a: (not onchip, grid))
+        other = tl.iter_step(scal, cols[j], cols[:j], desc)
+        monkeypatch.setattr(tl, "iter_form", lambda *a: (onchip, grid))
+        assert all(torch.equal(x, y) for x, y in zip(got, other))
+
+
+@pytest.mark.parametrize("shape", [(37, 50, 61), (9, 31, 260),
+                                   (16, 16, 128)])
+@pytest.mark.parametrize("mode", ["reference", "clean", "aniso"])
+@pytest.mark.parametrize("P", [1, 2])
+def test_batched_pipe_3d_bit_equal_to_lane_launches_on_card(cuda, shape,
+                                                            mode, P):
+    """K8 on B = 3 lanes (j = 0, 5), the sign flipped at P = 1: ONE launch,
+    within the gates of the plain batched version, lane b bit-equal to the
+    unbatched launch on lane b; two launches bit for bit."""
+    B = 3
+    nz, ny, nx = shape
+    gen = torch.Generator(device=cuda).manual_seed(1500 + P)
+    desc, lanes = _batch3d_desc(mode, cuda, gen, B, shape)
+    desc = dict(desc, sign=-1.0) if P == 1 else desc
+    lanes = [dict(d, sign=desc["sign"]) for d in lanes]
+    av, *cols = [torch.randn((B, P, nz * ny, nx), generator=gen,
+                             device=cuda) for _ in range(7)]
+    for j in (0, 5):
+        scal = torch.rand((B, j + 2, 2), generator=gen, device=cuda) - 0.5
+        before = t3.pipe_3d.launches
+        got, want = _kernel_and_plain(
+            lambda: t3.pipe_3d(scal, av, cols[:j + 1], desc))
+        assert t3.pipe_3d.launches == before + 1
+        _batch_check(got, want, cols[:j + 1] + [av, want[0], want[1]])
+        _lane_equal(got, [t3.pipe_3d(scal[b], av[b],
+                                     [w[b] for w in cols[:j + 1]], lanes[b])
+                          for b in range(B)])
+        again = t3.pipe_3d(scal, av, cols[:j + 1], desc)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("switch,mode,shape", [
+    ("fused_iter", "reference", (40, 72)), ("fused_iter", "aniso2d", None),
+    ("fused_iter", "reference3d", None), ("pipeline_3d", "reference", None),
+    ("pipeline_3d", "aniso", None)])
+def test_batched_switched_loops_bit_equal_to_lanes_on_card(
+        cuda, monkeypatch, switch, mode, shape):
+    """lanczos_planar under each switch on B = 3 lanes at m = 10: every
+    column, s, alpha, beta and beta0 of lane b equal the unbatched run's,
+    bit for bit."""
+    B = 3
+    gen = torch.Generator(device=cuda).manual_seed(1600)
+    monkeypatch.setattr(config, switch, True)
+    if switch == "fused_iter":
+        if shape is not None:
+            desc = _desc(*shape, mode)
+            lanes, rows, nx = [desc] * B, *shape
+        else:
+            desc, lanes, rows, nx = _batch_iter_desc(mode, cuda, gen, B)
+    else:
+        desc, lanes = _batch3d_desc(mode, cuda, gen, B, (12, 16, 40))
+        rows, nx = 12 * 16, 40
+    u = torch.randn((B, 2, rows, nx), generator=gen, device=cuda)
+    got = tl.lanczos_planar(u, desc, 10)
+    for b in range(B):
+        want = tl.lanczos_planar(u[b], lanes[b], 10)
+        for xs, ys in zip(got[:4], want[:4]):
+            for x, y in zip(xs, ys):
+                assert torch.equal(x[b], y)
+        assert torch.equal(got[4][b], want[4])
+
+
+@pytest.mark.parametrize("integrator,shape,want", [
+    ("sewi", (64, 96), {"K1'": 3, "K2'": 27, "K3": 3}),
+    ("sewi_fused", (64, 96), {"K1'": 2, "K2'": 18, "K3": 2}),
+    ("gautschi", (12, 16, 40), {"pass1_3d": 27, "pass2": 30, "K3": 3,
+                                "bc3d": 1}),
+    ("sewi_fused", (12, 16, 40), {"pass1_3d": 18, "pass2": 20, "K3": 2,
+                                  "bc3d": 1})])
+def test_batched_twostep_engine_launches_and_lanes_on_card(
+        cuda, integrator, shape, want):
+    """The batched two-step engine (m = 10, c(x)): the second step's
+    counted launches are the same for B = 1 and B = 3, and each lane over 8
+    steps equals nlse_problem run alone on the card, bit for bit."""
+    from nlsolvers_tpu_torch.models import problems
+    from nlsolvers_tpu_torch.pipeline import engine
+    rng = np.random.default_rng(1700)
+    for B in (1, 3):
+        m = (0.5 + rng.random((B,) + shape)).astype(np.float32)
+        c = (1.0 + 0.4 * rng.random((B,) + shape)).astype(np.float32)
+        u0 = (0.3 * rng.standard_normal((B, 2) + shape)).astype(np.float32)
+        fn = engine.make_nlse_trajectory_fn("cubic", shape, 5.0, 1e-3,
+                                            krylov_m=10,
+                                            integrator=integrator,
+                                            device=cuda)
+        assert fn.batched
+        counts = []
+        for n in (1, 2):
+            torch.cuda.synchronize()
+            for f in _COUNTERS.values():
+                f.launches = 0
+            fn(u0, m, c, 2, n)
+            torch.cuda.synchronize()
+            counts.append({k: f.launches for k, f in _COUNTERS.items()})
+        assert {k: counts[1][k] - counts[0][k] for k in _COUNTERS
+                if counts[1][k] != counts[0][k]} == want
+    out = fn(u0, m, c, 3, 4)
+    for b in range(3):
+        prob = problems.nlse_problem("cubic", shape, 5.0, 1e-3,
+                                     m_field=m[b], c_field=c[b],
+                                     krylov_m=10, integrator=integrator,
+                                     device=cuda)
+        ref = problems.run(prob, prob.init(u0[b]), 3, 4)
+        assert torch.equal(out[b], torch.stack([ref.real, ref.imag], dim=1))

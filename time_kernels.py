@@ -69,10 +69,10 @@ the same columns (complex64). Parts:
          and the sweep through Datagen.run (sampling, guard, npy archive);
   sweeps the datagen sweeps beside the NLSE production one, as
          chip_smoke.py's rate-datagen runs them (chip_smoke.DG_SWEEPS:
-         2D sine-Gordon Gautschi at 256^2, 3D NLSE SS2 and 3D
-         Klein-Gordon Gautschi at 128^3, m = 10, 8 runs in one batch, c
-         layered, m piecewise): one batched step's wall, device busy time,
-         idle share and launches, and the sweep through Datagen.run,
+         2D NLSE sEWI at 256^2, m = 20; 2D sine-Gordon Gautschi at 256^2,
+         3D NLSE SS2 and 3D Klein-Gordon Gautschi at 128^3, m = 10; 8 runs
+         in one batch, c layered, m piecewise): one batched step's wall,
+         device busy time, idle share and launches, and the sweep through Datagen.run,
          trajectories/min (on any tree with nlsolvers_tpu_torch/pipeline:
          a tree that steps those lanes one at a time is timed as it runs);
   run3d  one unbatched 3D two-pass Lanczos run (lanczos_planar at 128^3,
