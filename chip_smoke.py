@@ -144,12 +144,13 @@ Phases, one line each (or a few):
                four shards on this card (local 2048^2, the JAX README's 2D
                anchor), cubic SS2 m=10, reference variant, iso and c(x) =
                1 + 0.4 U[0, 1) from default_rng(0): exactly 4 x (9
-               pass1_shard2d + 9 pass2 + 1 combine + 2 kick_bc) launches per
+               pass1_shard2d + 10 pass2 (9 and each shard's start norm,
+               the norm-only form) + 1 combine + 2 kick_bc) launches per
                step and no unsharded pass1 or pipe launch, finite state,
                mass drift < 1e-3.
  24. main-shard3d  512^3 on (2, 2, 2) (local 256^3), clean variant, iso and
-               c(x): exactly 8 x (9 pass1_shard3d + 9 pass2 + 1 combine + 2
-               kick_bc) launches per step; 256^3 on (1, 1, 4), reference
+               c(x): exactly 8 x (9 pass1_shard3d + 10 pass2 + 1 combine +
+               2 kick_bc) launches per step; 256^3 on (1, 1, 4), reference
                variant (x split only): 4 x the same; the same gates.
  25. paths-shard  20 steps: the sharded step with the kernels vs its plain
                versions (rel-L2 <= 1e-5) at 512^2 on (2, 2) and 64^3 on
@@ -204,7 +205,7 @@ Phases, one line each (or a few):
                another seed differs; evolve_guarded on a diverging phi-4 SV
                run: bad_at inside the run, the later snapshots and series
                zero, at most one host sync per snapshot.
-Each of phases 28-37 prints its seconds; from phase 3 on, a line
+Each of phases 28-39 prints its seconds; from phase 3 on, a line
 "[elapsed s] phase N name" opens each phase.
  33. pipeline-env  whether scipy, h5py and g++ are there (scipy is
                required); the port's native npy writer built into
@@ -311,11 +312,36 @@ Each of phases 28-37 prints its seconds; from phase 3 on, a line
                idle share and launches, and the sweep through Datagen.run
                in trajectories/min (datagen_rates, which time_kernels.py
                --parts sweeps runs on another tree).
+ 38. parity-batched-shard  the batched forms of pass1_shard2d and
+               pass1_shard3d (batched_parity_shard): B = 2 lanes of the
+               local blocks of the datagen-shard paths (512^2 of 1024^2 on
+               (2, 2), c(x) and iso, j up to 18; (256, 256, 64) of 256^3 on
+               (1, 1, 4), c(x) and iso), ragged real batches and 2 x 2(x2)
+               blocks: one launch each, against the plain batched versions
+               (phase 3's gates), bit-equal to B unbatched launches, two
+               launches bit for bit; one batched sharded Lanczos run's shard
+               kernels (every shard, j = 0..m-2) by graph beside the B
+               lanes' unbatched launch sequences and the bytes bound.
+ 39. datagen-shard  the grid-sharded datagen engines (shard_datagen), B = 2
+               lanes in one batched sharded step, every shard on this card:
+               2D cubic NLSE c(x) 1024^2 m=20 on (2, 2), SS2 (exactly 4 x (19
+               pass1_shard2d + 20 pass2 + 1 K3 + 2 kick_bc) per batched step)
+               and sEWI (after the SS2 bootstrap 4 x (57 + 60 + 3)), 2D
+               sine-Gordon Gautschi float32 1024^2 m=10 on (2, 2) (4 x (18 +
+               20 + 2)), 3D cubic NLSE c(x) 256^3 m=10 on (1, 1, 4), the
+               reference variant (4 x (9 pass1_shard3d + 10 pass2 + 1 K3 + 2
+               kick_bc)), each with the counters at 0 just before and read
+               just after; each lane within 2e-4 rel-L2 of the unsharded
+               engine on the same draws and bit-equal to the lane stepped
+               alone (make_sharded_nlse_step for SS2); then Datagen.run with
+               shard_grid (2, 2) at 1024^2: 2 runs archived, the launches
+               exact, the mass series equal to the archive's mass (1e-5).
 Then the card's name and power limit, the kernels as one JSON line
-(twenty-three: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
+(twenty-five: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
 pass1_shard2d, pass1_shard3d, kick_bc, and the batched forms of K1', K2',
-K3, kick_bc, pass1_3d, pass2, bc3d, K5 and K8; `ms` of K1, K2, K3, K1',
-K2', K5, K8, K13, kick_bc and the batched forms is the CUDA-graph reading,
+K3, kick_bc, pass1_3d, pass2, bc3d, K5, K8, pass1_shard2d and
+pass1_shard3d; `ms` of K1, K2, K3, K1', K2', K5, K8, K13, kick_bc and the
+batched forms is the CUDA-graph reading,
 with the profiler's sum and the events beside it, and K3's library_ms
 torch.matmul's graph reading; bc3d's launches are the 3D sEWI run's; eight
 carry the real-wave Gautschi step's launches per step, and pass1_3d,
@@ -2020,6 +2046,422 @@ def datagen_phases(torch, np, root, counters_all):
     return per_step, bat
 
 
+
+# the grid-sharded datagen points (JAX's Datagen docstring: "single runs too
+# large for one chip (1024^2/256^3 configs)"): the 2D NLSE sweep's physics
+# (Lx = 10, dt = 1.2/2000, m = 20, c layered, m piecewise) at 1024^2 on a
+# (2, 2) mesh, sine-Gordon Gautschi (dt = 0.6/200, m = 10) at 1024^2 on
+# (2, 2), and the 3D cubic NLSE c(x) (m = 10, the 3D datagen dt 0.048/80) at
+# 256^3 on (1, 1, 4) (the reference variant needs z and y whole); B = 2
+# lanes, every shard on this card
+SH_N, SH_N3, SH_B = 1024, 256, 2
+SH_MESH2, SH_MESH3 = (2, 2), (1, 1, 4)
+SH_DT3 = 0.048 / 80
+
+
+def shard_lane_descs(torch, kind, lshape, mshape, scale, B, gen, P=2):
+    """[(batched descriptor, [each lane's descriptor])] for every shard of an
+    mshape mesh of lshape blocks: the shard kernels' descriptors, face
+    weights in [1, 1.4) per lane (aniso), sign -1 with P=1. Under the 3D
+    reference variant z and y are whole."""
+    import numpy as np
+    dev = torch.device("cuda", 0)
+    nd = len(lshape)
+    R = math.prod(lshape[:-1])
+    glob = tuple(a * b for a, b in zip(mshape, lshape))
+    aniso = kind.endswith("aniso")
+    if nd == 2:
+        wsh = (("wx", lshape), ("wy", lshape), ("wxl", lshape[:1]),
+               ("wyh", lshape[1:]))
+    else:
+        wsh = (("wx", (R, lshape[2])), ("wy", (R, lshape[2])),
+               ("wz", (R, lshape[2])), ("wxl", (R,)),
+               ("wyh", (lshape[0], lshape[2])), ("wzh", lshape[1:]))
+    out = []
+    for k in range(math.prod(mshape)):
+        pos = [int(c) for c in np.unravel_index(k, mshape)]
+        d = dict(kind=kind, scale=scale, sign=-1.0 if P == 1 else 1.0,
+                 variant="reference" if not aniso else "aniso",
+                 **dict(zip(("NZ", "NY", "NX")[-nd:], glob)),
+                 **dict(zip(("z0", "y0", "x0")[-nd:],
+                            (p * n for p, n in zip(pos, lshape)))))
+        if nd == 3:
+            d.update(lnz=lshape[0], lny=lshape[1])
+        if aniso:
+            d.update({key: 1.0 + 0.4 * torch.rand(
+                (B,) + shp, generator=gen, device=dev) for key, shp in wsh})
+        lanes = [dict(d, **{key: d[key][b] for key, _ in wsh}) if aniso
+                 else d for b in range(B)]
+        out.append((d, lanes))
+    return out
+
+
+def shard_halos(torch, lshape, P, B, gen):
+    """Random halos of B lanes of a block: (yh, xh) in 2D, (yh, zh, xh) in
+    3D, each with a leading B."""
+    dev = torch.device("cuda", 0)
+    if len(lshape) == 2:
+        ny, nx = lshape
+        shapes = ((P, 2, nx), (P, 2, ny))
+    else:
+        nz, ny, nx = lshape
+        shapes = ((P, 2, nz, nx), (P, 2, ny, nx), (P, 2, nz * ny))
+    return [torch.randn((B,) + s, generator=gen, device=dev) for s in shapes]
+
+
+def batched_parity_shard(torch, np):
+    """Phase 38: the batched forms of pass1_shard2d and pass1_shard3d (K1'
+    shard2d / shard2d_aniso, K9-K12 and K1' shard3d / shard3d_aniso under
+    JAX's vmap of the sharded step) at the grid-sharded datagen points: B =
+    2 lanes of the local 512^2 block of 1024^2 on (2, 2) (P = 2, c(x) per
+    lane, j = 0, 9, 18; the iso reference operator j = 0) and of the local
+    (256, 256, 64) block of 256^3 on (1, 1, 4) (c(x) and iso reference,
+    j = 0, 8), ragged real batches (3 x 250x333 and 3 x 20x30x50, sign -1:
+    the P = 1 forms) and 2 x 2(x2) blocks: ONE launch each, against the
+    plain batched versions (fields rel-L2 <= 1e-5, dots <= 1e-4 of the
+    Cauchy-Schwarz scale), bit-equal to B unbatched launches lane by lane,
+    and two launches bit for bit. Then the shard kernels of one batched
+    sharded Lanczos run of the datagen-shard paths (every shard, j = 0..m-2,
+    the loop's scalars [1/chat, 0]) by CUDA-graph replay beside the B lanes'
+    unbatched launch sequences, the profiler and the events, the plain
+    batched versions and the bytes bound. Returns {kernel: readings}."""
+    from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
+    from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    errs = {"pass1_shard2d": 0.0, "pass1_shard3d": 0.0}
+    scale2 = ((SH_N - 1) / (2 * DG_LX)) ** 2
+    scale3 = ((SH_N3 - 1) / (2 * DG_LX)) ** 2
+
+    def cols(lshape, P, B, n):
+        rows = math.prod(lshape[:-1])
+        return [torch.randn((B, P, rows, lshape[-1]), generator=gen,
+                            device=dev) for _ in range(n)]
+
+    def one(label, key, kern, d, lanes, hs, W, j):
+        B = W[0].shape[0]
+        scal = 0.2 + 0.8 * torch.rand((B, 1, 2), generator=gen, device=dev)
+        got = kern(scal, W[j], W[:j], *hs, d)
+        want = plain(lambda: kern(scal, W[j], W[:j], *hs, d))
+        again = kern(scal, W[j], W[:j], *hs, d)
+        alone = [kern(scal[b], W[j][b], [w[b] for w in W[:j]],
+                      *[h[b] for h in hs], lanes[b]) for b in range(B)]
+        torch.cuda.synchronize()
+        fe = max(rel(got[0][b], want[0][b]) for b in range(B))
+        de = max(dot_err(got[1][b], want[1][b], [w[b] for w in W[:j + 1]],
+                         want[0][b]) for b in range(B))
+        same = all(torch.equal(x[b], y) for b, a in enumerate(alone)
+                   for x, y in zip(got, a))
+        rep = all(torch.equal(x, y) for x, y in zip(got, again))
+        errs[key] = max(errs[key], float((got[0] - want[0]).abs().max()))
+        print(f"parity-batched-shard {label}: field rel-L2 {fe:.3e}, dot err "
+              f"{de:.3e}, bit-equal to {B} unbatched launches {same}, two "
+              f"launches bit for bit {rep}")
+        check(fe <= FIELD_TOL, f"{label}: field rel-L2 {fe:.3e}")
+        check(de <= DOT_TOL, f"{label}: dot error {de:.3e}")
+        check(same, f"{label}: a lane differs from its unbatched launch")
+        check(rep, f"{label}: two launches differ")
+
+    L2 = SH_N // SH_MESH2[1]
+    b3 = (SH_N3, SH_N3, SH_N3 // SH_MESH3[2])
+    cases = []
+    for kind, lshape, mshape, scale, P, B, js in (
+            ("shard2d_aniso", (L2, L2), SH_MESH2, scale2, 2, SH_B,
+             (0, 9, 18)),
+            ("shard2d", (L2, L2), SH_MESH2, scale2, 2, SH_B, (0,)),
+            ("shard2d_aniso", (250, 333), (2, 2), scale2, 1, 3, (4,)),
+            ("shard2d", (2, 2), (3, 3), scale2, 2, 3, (4,)),
+            ("shard3d_aniso", b3, SH_MESH3, scale3, 2, SH_B, (0, 8)),
+            ("shard3d", b3, SH_MESH3, scale3, 2, SH_B, (0,)),
+            ("shard3d_aniso", (20, 30, 50), (2, 2, 2), scale3, 1, 3, (4,)),
+            ("shard3d", (2, 2, 2), (1, 1, 3), scale3, 2, 3, (4,))):
+        key = "pass1_shard2d" if len(lshape) == 2 else "pass1_shard3d"
+        kern = lz.pass1_shard2d if len(lshape) == 2 else l3.pass1_shard3d
+        # the last shard of the mesh: its place shows in the offsets
+        d, lanes = shard_lane_descs(torch, kind, lshape, mshape, scale, B,
+                                    gen, P)[-1]
+        hs = shard_halos(torch, lshape, P, B, gen)
+        W = cols(lshape, P, B, max(js) + 1)
+        tag = "x".join(map(str, lshape))
+        for j in js:
+            one(f"{kind} {tag} P={P} B={B} j={j}", key, kern, d, lanes, hs,
+                W, j)
+        del W, hs
+        cases.append(kind)
+    torch.cuda.empty_cache()
+
+    # one batched sharded Lanczos run's shard kernels (c(x), P = 2)
+    out = {}
+    for key, kern, kind, lshape, mshape, scale, m in (
+            ("pass1_shard2d", lz.pass1_shard2d, "shard2d_aniso", (L2, L2),
+             SH_MESH2, scale2, DG_M),
+            ("pass1_shard3d", l3.pass1_shard3d, "shard3d_aniso", b3,
+             SH_MESH3, scale3, DG3_M)):
+        B = SH_B
+        descs = shard_lane_descs(torch, kind, lshape, mshape, scale, B, gen)
+        hs = [shard_halos(torch, lshape, 2, B, gen) for _ in descs]
+        Ws = [cols(lshape, 2, B, m - 1) for _ in descs]
+        s = torch.tensor([[0.5, 0.0]], device=dev).expand(B, 1, 2)
+        s = s.contiguous()
+
+        def run(Ws=Ws, hs=hs, descs=descs, kern=kern, m=m, s=s):
+            for W, h, (d, _) in zip(Ws, hs, descs):
+                for j in range(m - 1):
+                    kern(s, W[j], W[:j], *h, d)
+
+        def lanes(Ws=Ws, hs=hs, descs=descs, kern=kern, m=m, s=s, B=B):
+            for b in range(B):
+                for W, h, (_, ld) in zip(Ws, hs, descs):
+                    for j in range(m - 1):
+                        kern(s[b], W[j][b], [w[b] for w in W[:j]],
+                             *[x[b] for x in h], ld[b])
+
+        g = graph_ms(torch, run, 10)
+        g_lanes = graph_ms(torch, lanes, 5)
+        prof, events = times_ms(torch, run, 5)
+        plain_ms = plain(lambda: times_ms(torch, run, 2))[0]
+        col = 2 * math.prod(lshape) * 4
+        nsh = len(descs)
+        halo = sum(x[0].numel() for x in hs[0]) * 4
+        wts = sum(descs[0][0][k][0].numel() for k in descs[0][0]
+                  if k.startswith("w")) * 4
+        nbytes = B * nsh * sum((j + 2) * col + halo + wts
+                               for j in range(m - 1))
+        launches = nsh * (m - 1)
+        out[key] = dict(err=errs[key], graph=g, lanes_graph=g_lanes,
+                        t=(prof, events, plain_ms), nbytes=nbytes, lib=None,
+                        launches=launches)
+        tag = "x".join(map(str, lshape))
+        print(f"parity-batched-shard {key} B={B} local {tag} on {mshape} "
+              f"m={m} c(x): graph {g:.4f} ms per batched run ({launches} "
+              f"launches), {B} unbatched launch sequences {g_lanes:.4f} ms "
+              f"({g_lanes / g:.2f}x); profiler {prof:.4f}, events "
+              f"{events:.4f}; plain batched {plain_ms:.4f}; bound "
+              f"{bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB) -> "
+              f"{bound_ms(nbytes) / g:.3f} of it")
+        del Ws, hs, descs
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_datagen(torch, np, root, counters):
+    """Phase 39: the grid-sharded datagen engines
+    (parallel/spatial.make_sharded_*_trajectory_fn, as Datagen runs them
+    under shard_grid) at full width on this card, B = 2 lanes stepped as ONE
+    batched sharded step: 2D cubic NLSE c(x) 1024^2 m = 20 on (2, 2) with
+    SS2 and sEWI (the draws of Datagen's samplers: multi_soliton, c layered,
+    m piecewise), 2D sine-Gordon Gautschi float32 1024^2 m = 10 on (2, 2)
+    (kink_field draws), 3D cubic NLSE c(x) 256^3 m = 10 on (1, 1, 4) (the
+    reference variant; a seeded Gaussian per lane, c = 1 + 0.4 U[0, 1)).
+    Per path, every launch counter set to 0 just before the batched run and
+    read just after: exactly the shard kernels' launches per batched step
+    (per shard m-1 shard pass1, m pass2 with the start norm, 1 K3 and 2
+    kick_bc per SS2 matrix function step; three matrix functions per sEWI
+    step after the SS2 bootstrap; two per Gautschi step) and no unsharded
+    kernel; finite snapshots; each lane within 2e-4 rel-L2 of the unsharded
+    engine on the same draws (pipeline/engine.py); each lane bit-equal to
+    the same lane stepped alone (the unbatched make_sharded_nlse_step for
+    SS2, the engine on one lane otherwise). Returns {path: {kernel: launches
+    per batched step}}."""
+    import shutil
+
+    from nlsolvers_tpu_torch.parallel import mesh as pmesh
+    from nlsolvers_tpu_torch.parallel import shards, spatial
+    from nlsolvers_tpu_torch.pipeline import datagen, engine
+
+    dev = torch.device("cuda", 0)
+    work = root / "_smoke_datagen"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    per_step = {}
+
+    def draws(family, phenomenon, system, n):
+        cfg = datagen.DatagenConfig(
+            family=family, phenomenon=phenomenon, system=system, nx=n,
+            num_runs=SH_B, anisotropy_type="layered", m_type="piecewise",
+            output_dir=str(work), archive_format="npy", device="cuda")
+        dg = datagen.Datagen(cfg)
+        _, u0s, v0s, m, c = dg._sample_batch(SH_B)
+        return u0s, v0s, m.astype(np.float32), c.astype(np.float32)
+
+    def drive(label, traj, args, snaps, freq, want, n_sh, first_step=None):
+        """The batched run with the counters at 0 just before and read just
+        after: want per batched step (first_step: the bootstrap's)."""
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        out = traj(*args, snaps, freq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in counters.items() if f.launches}
+        steps = (snaps - 1) * freq
+        first = want if first_step is None else first_step
+        exp = {k: n_sh * (first.get(k, 0) + (steps - 1) * want.get(k, 0))
+               for k in set(want) | set(first)}
+        exp = {k: v for k, v in exp.items() if v}
+        print(f"datagen-shard {label}: {steps} batched steps of B={SH_B} in "
+              f"{wall:.3f} s ({wall / steps * 1e3:.1f} ms per batched step, "
+              f"snapshots included); launches {got} "
+              f"({sum(got.values()) / steps:.0f} counted per batched step)")
+        check(got == exp, f"datagen-shard {label}: launches {got} != {exp}")
+        per_step[label] = {k: v // steps for k, v in got.items()}
+        return out
+
+    def lanes_close(label, got, want):
+        for b in range(SH_B):
+            for x, y in zip(got, want):
+                check(bool(torch.isfinite(x[b]).all()),
+                      f"datagen-shard {label}: lane {b} not finite")
+                e = rel(x[b, -1], y[b, -1])
+                print(f"datagen-shard {label}: lane {b} last snapshot vs the "
+                      f"unsharded engine rel-L2 {e:.3e}")
+                check(e <= 2e-4, f"datagen-shard {label}: lane {b} {e:.3e}")
+
+    def lanes_alone(label, got, alone):
+        same = all(torch.equal(x[b], y) for b, ys in enumerate(alone)
+                   for x, y in zip(got, ys))
+        print(f"datagen-shard {label}: each lane bit-equal to the lane "
+              f"stepped alone {same}")
+        check(same, f"datagen-shard {label}: a lane differs from its run "
+              f"alone")
+
+    # 2D NLSE, SS2 and sEWI, 1024^2 on (2, 2), m = 20
+    shape = (SH_N, SH_N)
+    mesh = pmesh.make_mesh(("gy", "gx"), SH_MESH2,
+                           devices=[dev] * math.prod(SH_MESH2))
+    n_sh = mesh.size
+    u0s, _, m, c = draws("nlse", "multi_soliton", "cubic", SH_N)
+    u0 = np.stack(u0s)
+    packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
+    ss2 = {"pass1_shard2d": DG_M - 1, "pass2": DG_M, "K3": 1, "kick_bc": 2}
+    sewi = {"pass1_shard2d": 3 * (DG_M - 1), "pass2": 3 * DG_M, "K3": 3}
+    for integ, want, snaps, freq in (("ss2", ss2, 3, 5),
+                                     ("sewi", sewi, 3, 3)):
+        label = f"nlse 2D {integ} {SH_N}^2 m={DG_M} {SH_MESH2}"
+        traj = spatial.make_sharded_nlse_trajectory_fn(
+            "cubic", shape, DG_LX, DG_DT, mesh, integrator=integ,
+            krylov_m=DG_M)
+        got = drive(label, traj, (packed, m, c), snaps, freq, want, n_sh,
+                    None if integ == "ss2" else ss2)
+        ref = engine.make_nlse_trajectory_fn(
+            "cubic", shape, DG_LX, DG_DT, integrator=integ, krylov_m=DG_M)(
+            packed, m, c, snaps, freq)
+        lanes_close(label, [got], [ref])
+        del ref
+        if integ == "ss2":
+            step = spatial.make_sharded_nlse_step(
+                "cubic", shape, DG_LX, DG_DT, mesh, krylov_m=DG_M,
+                use_c=True)
+            alone = []
+            for b in range(SH_B):
+                mp, cp = shards.shard(m[b], mesh), shards.shard(c[b], mesh)
+                s = shards.shard(packed[b], mesh)
+                out = [shards.gather(s, mesh)]
+                for _ in range(snaps - 1):
+                    s = advance(lambda x, i: step(x, mp, cp), s, freq)
+                    out.append(shards.gather(s, mesh))
+                alone.append([torch.stack(out)])
+        else:
+            alone = [[traj(packed[b:b + 1], m[b:b + 1], c[b:b + 1], snaps,
+                           freq)[0]] for b in range(SH_B)]
+        lanes_alone(label, [got], alone)
+        del got, alone
+
+    # 2D sine-Gordon Gautschi float32, 1024^2 on (2, 2), m = 10
+    u0s, v0s, m, c = draws("realwave", "kink_field", "sine_gordon", SH_N)
+    u0 = np.stack(u0s).astype(np.float32)
+    v0 = np.stack(v0s).astype(np.float32)
+    label = f"sine-Gordon 2D gautschi {SH_N}^2 m={DG_RW_M} {SH_MESH2}"
+    traj = spatial.make_sharded_realwave_trajectory_fn(
+        "sine_gordon", shape, DG_LX, DG_RW_DT, mesh, krylov_m=DG_RW_M)
+    rw = {"pass1_shard2d": 2 * (DG_RW_M - 1), "pass2": 2 * DG_RW_M, "K3": 2}
+    got = drive(label, traj, (u0, v0, m, c), 3, 5, rw, n_sh)
+    ref = engine.make_realwave_trajectory_fn(
+        "sine_gordon", shape, DG_LX, DG_RW_DT, krylov_m=DG_RW_M)(
+        u0, v0, m, c, 3, 5)
+    lanes_close(label, got[:1], ref[:1])
+    alone = [traj(u0[b:b + 1], v0[b:b + 1], m[b:b + 1], c[b:b + 1], 3, 5)
+             for b in range(SH_B)]
+    lanes_alone(label, got, [[x[0] for x in a] for a in alone])
+    del got, ref, alone
+
+    # 3D NLSE c(x), 256^3 on (1, 1, 4), the reference variant, m = 10
+    shape3 = (SH_N3,) * 3
+    mesh3 = pmesh.make_mesh(("gz", "gy", "gx"), SH_MESH3,
+                            devices=[dev] * math.prod(SH_MESH3))
+    gen = torch.Generator(device=dev).manual_seed(97)
+    x = torch.linspace(-DG_LX, DG_LX, SH_N3, device=dev)
+    zz, yy, xx = torch.meshgrid(x, x, x, indexing="ij")
+    u3 = []
+    for b in range(SH_B):
+        env = torch.exp(-((xx - b) ** 2 + yy ** 2 + zz ** 2) / (4 + 2 * b))
+        u3.append(torch.stack([env * torch.cos(0.5 * xx),
+                               env * torch.sin(0.5 * xx)]))
+    u3 = torch.stack(u3)
+    del zz, yy, xx
+    m3 = torch.ones((SH_B,) + shape3, device=dev)
+    c3 = 1.0 + 0.4 * torch.rand((SH_B,) + shape3, generator=gen,
+                                device=dev)
+    label = f"nlse 3D ss2 {SH_N3}^3 m={DG3_M} {SH_MESH3} reference"
+    traj = spatial.make_sharded_nlse_trajectory_fn(
+        "cubic", shape3, DG_LX, SH_DT3, mesh3, axis_names=("gz", "gy", "gx"),
+        krylov_m=DG3_M)
+    ss3 = {"pass1_shard3d": DG3_M - 1, "pass2": DG3_M, "K3": 1, "kick_bc": 2}
+    got = drive(label, traj, (u3, m3, c3), 3, 2, ss3, mesh3.size)
+    ref = engine.make_nlse_trajectory_fn(
+        "cubic", shape3, DG_LX, SH_DT3, krylov_m=DG3_M)(u3, m3, c3, 3, 2)
+    lanes_close(label, [got], [ref])
+    del ref
+    alone = [[traj(u3[b:b + 1], m3[b:b + 1], c3[b:b + 1], 3, 2)[0]]
+             for b in range(SH_B)]
+    lanes_alone(label, [got], alone)
+    del got, alone, u3, m3, c3
+    torch.cuda.empty_cache()
+
+    # the user's entry point: Datagen.run with shard_grid (the CLI's
+    # --shard-grid 2,2), 2 runs of the 2D NLSE sweep at 1024^2, guard and
+    # mass series on, npy archives
+    nt, snaps = 10, 3
+    cfg = datagen.DatagenConfig(
+        family="nlse", phenomenon="multi_soliton", system="cubic", nx=SH_N,
+        T=nt * DG_DT, nt=nt, snapshots=snaps, num_runs=SH_B,
+        anisotropy_type="layered", m_type="piecewise", seed=3,
+        output_dir=str(work / "sweep"), archive_format="npy",
+        record_energy=True, shard_grid=SH_MESH2, device="cuda")
+    dg = datagen.Datagen(cfg)
+    steps = (snaps - 1) * cfg.snapshot_freq
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    written = dg.run()
+    wall = time.perf_counter() - t0
+    got = {k: f.launches for k, f in counters.items() if f.launches}
+    exp = {k: n_sh * steps * v for k, v in ss2.items()}
+    print(f"datagen-shard Datagen.run shard_grid={SH_MESH2} {SH_N}^2: "
+          f"{len(written)} runs archived in {wall:.2f} s; launches {got}")
+    check(got == exp, f"datagen-shard Datagen.run: launches {got} != {exp}")
+    check(len(written) == SH_B, f"datagen-shard Datagen.run: "
+          f"{len(written)} archives")
+    dx = 2.0 * DG_LX / (SH_N - 1)
+    for path in written:
+        base = path.with_suffix("")
+        u = np.load(f"{base}_u.npy")
+        mass = np.load(f"{base}_mass.npy")
+        host = (np.abs(u) ** 2).sum(axis=(1, 2)) * dx * dx
+        e = float(np.max(np.abs(mass - host) / host))
+        print(f"datagen-shard {path.name}: u {u.shape} finite "
+              f"{bool(np.isfinite(u).all())}, mass series vs the archive's "
+              f"mass rel {e:.3e}")
+        check(u.shape == (snaps, SH_N, SH_N) and np.isfinite(u).all(),
+              f"datagen-shard {path.name}: archived u")
+        check(e <= 1e-5, f"datagen-shard {path.name}: mass {e:.3e}")
+    shutil.rmtree(work, ignore_errors=True)
+    return per_step
+
+
 def main():
     import numpy as np
     import torch
@@ -3560,10 +4002,10 @@ def main():
     for mode in ("reference", "aniso"):
         t_s[f"pass1_shard2d {mode}"] = shard_step_times(
             lz.pass1_shard2d, mesh_descs(mode, (L2, L2), (2, 2)), (L2, L2),
-            10)
+            5)
     for mode in ("clean", "aniso"):
         t_s[f"pass1_shard3d {mode}"] = shard_step_times(
-            l3.pass1_shard3d, mesh_descs(mode, b3l, (2, 2, 2)), b3l, 3)
+            l3.pass1_shard3d, mesh_descs(mode, b3l, (2, 2, 2)), b3l, 2)
     colL2, colL3 = 2 * L2 * L2 * 4, 2 * L3 ** 3 * 4
     cols = sum(j + 2 for j in range(KRYLOV_M - 1))
     n_it = KRYLOV_M - 1
@@ -3661,9 +4103,9 @@ def main():
         check(drift < 1e-3, f"{label}: mass drift {drift:.3e} >= 1e-3")
         return got, n_steps
 
-    per2 = {"pass1_shard2d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1, "K3": 1,
+    per2 = {"pass1_shard2d": KRYLOV_M - 1, "pass2": KRYLOV_M, "K3": 1,
             "kick_bc": 2}
-    per3 = {"pass1_shard3d": KRYLOV_M - 1, "pass2": KRYLOV_M - 1, "K3": 1,
+    per3 = {"pass1_shard3d": KRYLOV_M - 1, "pass2": KRYLOV_M, "K3": 1,
             "kick_bc": 2}
     cs2 = torch.from_numpy((1.0 + 0.4 * np.random.default_rng(0).random(
         (NS, NS))).astype(np.float32))
@@ -4179,6 +4621,19 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 33-37 datagen")
     dg_per_step, bat = datagen_phases(torch, np, root, counters_all)
 
+    # ---------------------------------------------------------- 38. parity-batched-shard
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 38 "
+          f"parity-batched-shard")
+    t_ph = time.perf_counter()
+    bat_sh = batched_parity_shard(torch, np)
+    print(f"parity-batched-shard: {time.perf_counter() - t_ph:.1f} s")
+
+    # ---------------------------------------------------------- 39. datagen-shard
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 39 datagen-shard")
+    t_ph = time.perf_counter()
+    sh_per_step = shard_datagen(torch, np, root, counters_sh)
+    print(f"datagen-shard: {time.perf_counter() - t_ph:.1f} s")
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
         """One kernel of the JSON line: `launches` over the n_steps of its
@@ -4290,6 +4745,25 @@ def main():
             if other != path and ck in dg_per_step[other]:
                 e[f"launches_per_batched_step {other}"] = \
                     dg_per_step[other][ck]
+        kernels.append(e)
+    # the batched shard kernels: launches per batched sharded step of B =
+    # SH_B lanes (datagen-shard: the 2D NLSE SS2 and 3D NLSE SS2 paths; the
+    # other paths' beside them), times per batched sharded Lanczos run
+    # (parity-batched-shard) beside the B lanes' unbatched launch sequences
+    for kname, source, replaces, path in (
+            ("pass1_shard2d", SOURCE, f"{PALLAS}:473",
+             f"nlse 2D ss2 {SH_N}^2 m={DG_M} {SH_MESH2}"),
+            ("pass1_shard3d", SOURCE3, f"{PALLAS3}:558",
+             f"nlse 3D ss2 {SH_N3}^3 m={DG3_M} {SH_MESH3} reference")):
+        r = bat_sh[kname]
+        n_l = sh_per_step[path][kname]
+        e = entry(f"{kname} batched", source, replaces, n_l, 1, r["err"],
+                  r["t"], r["nbytes"], None, graph=r["graph"])
+        e.update(lanes=SH_B, unbatched_lanes_graph_ms=r["lanes_graph"],
+                 datagen_path=path)
+        for other, counts_ in sh_per_step.items():
+            if other != path and kname in counts_:
+                e[f"launches_per_batched_step {other}"] = counts_[kname]
         kernels.append(e)
     for e in kernels:
         if e["name"] in rw:

@@ -5,6 +5,7 @@ complex64; the CPU tests run float64 / complex128 against the JAX package.
 All public APIs take explicit dtypes and devices; these are the defaults.
 """
 
+import numpy as np
 import torch
 
 default_real_dtype = torch.float32
@@ -72,3 +73,16 @@ def real_dtype_of(dtype):
     """Real dtype matching a possibly complex dtype."""
     return {torch.complex64: torch.float32,
             torch.complex128: torch.float64}.get(dtype, dtype)
+
+
+_TORCH_DTYPES = {np.dtype(np.complex64): torch.complex64,
+                 np.dtype(np.complex128): torch.complex128,
+                 np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
+
+
+def torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a numpy type or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _TORCH_DTYPES[np.dtype(dtype)]

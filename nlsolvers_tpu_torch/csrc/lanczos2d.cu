@@ -82,11 +82,14 @@
 //   beta_0^2 at j = 0), one partial row more, so the run needs no separate
 //   norm reduction.
 // * A batch of B fields (the datagen engine's lanes, JAX's vmap of the
-//   Pallas kernels) is one launch of K1 / K1', K2 / K2', K3 or K5: the lane
-//   is blockIdx.y (K5, a cooperative launch on one lane's grid, loops over
-//   the lanes in each phase instead), fields are (B, P, ny, nx) lane-major
+//   Pallas kernels) is one launch of K1 / K1', K2 / K2', K3, K5 or the shard
+//   pass1: the lane is blockIdx.y (blockIdx.z for the shard pass1, whose
+//   tiles take x and y; K5, a cooperative launch on one lane's grid, loops
+//   over the lanes in each phase instead), fields are (B, P, ny, nx)
+//   lane-major
 //   (Cols carries lane 0's pointers and the lane stride), the scalars and
-//   the aniso weights come per lane, and each lane keeps the unbatched
+//   the aniso weights (and a shard's halos) come per lane, and each lane
+//   keeps the unbatched
 //   grid's block-to-segment or block-to-tile map and its own rows of
 //   partial sums, reduced in the unbatched order. So lane b of a batched
 //   launch gives the bits of the unbatched launch on lane b; an unbatched
@@ -161,7 +164,11 @@ __global__ void __launch_bounds__(
 // number of earlier columns) so the per-column accumulators stay in
 // registers. The shard policies take their halos, offsets and edge face
 // weights from sh.
-template <int P, int MAXW, int OP>
+// A batched launch (LANES) runs lane blockIdx.z with the unbatched tile
+// map: its fields prev.ls floats apart, its scalars, face weights, halos
+// and partial rows lane-major (the offsets are every lane's). A launch of
+// one lane takes LANES = false, the code without the lane offsets.
+template <int P, int MAXW, int OP, bool LANES>
 __global__ void __launch_bounds__(TX) pass1_2d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
     const float* __restrict__ wjm1, int j, Op2d op, Shard2d sh,
@@ -175,6 +182,22 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
   const int y0 = blockIdx.y * TY;
   const int rows = min(TY, ny - y0);
   const size_t plane = (size_t)ny * nx;
+  const size_t off = LANES ? blockIdx.z * prev.ls : 0;
+  if (LANES) {
+    const unsigned b = blockIdx.z;
+    wj += off;
+    w_out += off;
+    if (j > 0) wjm1 += off;
+    op = lane_op(op, b, ny, nx);
+    sh.yh += (size_t)b * 2 * P * nx;
+    sh.xh += (size_t)b * 2 * P * ny;
+    if (OP == OP_SHARD_ANISO) {
+      sh.wxl += (size_t)b * ny;
+      sh.wyh += (size_t)b * nx;
+    }
+    partial += (size_t)b * gridDim.y * gridDim.x * 2 * (j + 1);
+    scal += 2 * b;
+  }
   const float s = scal[0], bs = scal[1];
 
   float acc[MAXW][2] = {};
@@ -204,7 +227,7 @@ __global__ void __launch_bounds__(TX) pass1_2d_kernel(
       for (int i = 0; i < MAXW; ++i) {
         if (i < j) {
           float wi[P];
-          load<P>(prev.p[i], idx, plane, wi);
+          load<P>(prev.p[i], off + idx, plane, wi);
           hdot<P>(wi, w, acc[i]);
         }
       }
@@ -547,13 +570,22 @@ size_t iter_dyn_bytes(int B, int P, int onchip, int nseg, int grid) {
 
 // ---------------------------------------------------------------- launchers
 
+// The shard pass1 over B lanes (blockIdx.z), each lane's tiles as one
+// unbatched launch's; one lane without the lane offsets.
 template <int P, int MAXW, int OP>
-void launch_pass1(const float* scal, const float* wj, Cols prev, int j,
-                  const Op2d& op, const Shard2d& sh, float* w, float* partial,
-                  int ny, int nx, float ss, cudaStream_t st) {
-  pass1_2d_kernel<P, MAXW, OP><<<tile_grid(ny, nx), TX, 0, st>>>(
-      scal, wj, prev, j > 0 ? prev.p[j - 1] : nullptr, j, op, sh, w, partial,
-      ny, nx, ss);
+void launch_pass1(int B, const float* scal, const float* wj, Cols prev,
+                  int j, const Op2d& op, const Shard2d& sh, float* w,
+                  float* partial, int ny, int nx, float ss,
+                  cudaStream_t st) {
+  dim3 g = tile_grid(ny, nx);
+  g.z = B;
+  const float* wjm1 = j > 0 ? prev.p[j - 1] : nullptr;
+  if (B > 1)
+    pass1_2d_kernel<P, MAXW, OP, true><<<g, TX, 0, st>>>(
+        scal, wj, prev, wjm1, j, op, sh, w, partial, ny, nx, ss);
+  else
+    pass1_2d_kernel<P, MAXW, OP, false><<<g, TX, 0, st>>>(
+        scal, wj, prev, wjm1, j, op, sh, w, partial, ny, nx, ss);
 }
 
 // K1 / K1' on the walker over B lanes, then the reduction of its
@@ -637,19 +669,20 @@ int num_blocks(int ny, int nx) {
   return (int)(g.x * g.y);
 }
 
-// K1' shard2d / shard2d_aniso with the shard policy OP, then the reduction
-// of its partial sums. A shard's block may have sides of 2 (its halos hold
-// the neighbours).
+// K1' shard2d / shard2d_aniso with the shard policy OP on B lanes, then
+// the reduction of its partial sums, lane by lane. A shard's block may have
+// sides of 2 (its halos hold the neighbours).
 template <int OP>
-int pass1_2d(int P, const float* scal, const float* wj,
+int pass1_2d(int B, int P, const float* scal, const float* wj,
              const float* const* prev, int j, const Op2d& op,
              const Shard2d& sh, float* w, float* partial, float* raw, int ny,
              int nx, float ss, cudaStream_t st) {
-  if ((P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS || ny < 2 || nx < 2)
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS
+      || ny < 2 || nx < 2)
     return (int)cudaErrorInvalidValue;
-  const Cols c = make_cols(prev, j);
+  const Cols c = make_cols(prev, j, (size_t)P * ny * nx);
   const int b = bucket(j);
-#define LZ_P1(PP, BB) launch_pass1<PP, BB, OP>(scal, wj, c, j, op, sh, w, \
+#define LZ_P1(PP, BB) launch_pass1<PP, BB, OP>(B, scal, wj, c, j, op, sh, w, \
                                                partial, ny, nx, ss, st)
   if (P == 1) {
     if (b == 4) LZ_P1(1, 4); else if (b == 8) LZ_P1(1, 8);
@@ -660,8 +693,8 @@ int pass1_2d(int P, const float* scal, const float* wj,
   }
 #undef LZ_P1
   const int nout = 2 * (j + 1);
-  reduce_partials<<<nout, RED_THREADS, 0, st>>>(partial, num_blocks(ny, nx),
-                                                nout, raw);
+  reduce_partials<<<dim3(nout, B), RED_THREADS, 0, st>>>(
+      partial, num_blocks(ny, nx), nout, raw);
   return (int)cudaGetLastError();
 }
 
@@ -710,7 +743,8 @@ int launch_combine(int B, const float* q, Cols W, int m, int k, Outs o,
 
 extern "C" {
 
-// Number of blocks (= partial-sum rows) a pass1_shard2d launch uses.
+// Number of blocks (= partial-sum rows) of one lane of a pass1_shard2d
+// launch.
 int lz_num_blocks(int ny, int nx) { return num_blocks(ny, nx); }
 
 // Most blocks (= partial sums per output) a K1 / K1' launch uses.
@@ -751,11 +785,13 @@ int lz_pass1_aniso2d(int B, int P, const float* scal, const float* wj,
 }
 
 // K1' in modes shard2d (aniso = 0: the Laplacian, clean selects the
-// diagonal) and shard2d_aniso (aniso = 1: face weights wx, wy (ny, nx),
-// wxl (ny), wyh (nx)) on one shard's (ny, nx) block at global offsets
-// (y0, x0) of an (NY, NX) grid. yh: (P, 2, nx) halo rows, xh: (P, 2, ny)
-// halo columns. Otherwise as K1.
-int lz_pass1_shard2d(int P, int aniso, int clean, const float* scal,
+// diagonal) and shard2d_aniso (aniso = 1: face weights wx, wy (B, ny, nx),
+// wxl (B, ny), wyh (B, nx)) on one shard's (ny, nx) block at global offsets
+// (y0, x0) of an (NY, NX) grid, for B lanes (B = 1: one field; every lane
+// at the same offsets). yh: (B, P, 2, nx) halo rows, xh: (B, P, 2, ny) halo
+// columns. partial: scratch of lz_num_blocks * B * 2(j+1) floats; raw: (B,
+// j+1, 2). Otherwise as K1.
+int lz_pass1_shard2d(int B, int P, int aniso, int clean, const float* scal,
                      const float* wj, const float* const* prev, int j,
                      const float* wx, const float* wy, const float* wxl,
                      const float* wyh, const float* yh, const float* xh,
@@ -767,13 +803,13 @@ int lz_pass1_shard2d(int P, int aniso, int clean, const float* scal,
     return (int)cudaErrorInvalidValue;
   const Shard2d sh = {yh, xh, wxl, wyh, y0, x0, NY, NX};
   if (!aniso)
-    return pass1_2d<OP_SHARD_ISO>(P, scal, wj, prev, j,
+    return pass1_2d<OP_SHARD_ISO>(B, P, scal, wj, prev, j,
                                   Op2d{nullptr, nullptr, clean}, sh, w,
                                   partial, raw, ny, nx, ss, st);
   if (wx == nullptr || wy == nullptr || wxl == nullptr || wyh == nullptr)
     return (int)cudaErrorInvalidValue;
-  return pass1_2d<OP_SHARD_ANISO>(P, scal, wj, prev, j, Op2d{wx, wy, 0}, sh,
-                                  w, partial, raw, ny, nx, ss, st);
+  return pass1_2d<OP_SHARD_ANISO>(B, P, scal, wj, prev, j, Op2d{wx, wy, 0},
+                                  sh, w, partial, raw, ny, nx, ss, st);
 }
 
 // K2 on B lanes (B = 1: one field). Every field is (B, P, ny, nx),

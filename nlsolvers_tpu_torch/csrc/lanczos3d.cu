@@ -81,7 +81,14 @@
 //   unbatched launch on lane b. A launch of one lane takes an instantiation
 //   without the lane offsets (LANES = false): with them, at the same
 //   register counts, the one-lane pass2 <P=2, 8> read 16% and pass1_3d
-//   5-7% slower at 128^3 (PERF.md).
+//   5-7% slower at 128^3 (PERF.md). The shard modes' batched form offsets
+//   the lane's halo and weight pointers at its start, which holds them in
+//   registers (the unbatched form reads them from the kernel parameters):
+//   at (256, 256, 64) blocks its bucket-4 forms take 72-79 registers
+//   against 40-56, fewer blocks per SM, and one batched run takes 1.18x
+//   (c(x)) and 1.41x (iso) the time of the lanes' unbatched launches;
+//   offsets taken at the loads took more registers still, and a register
+//   cap by launch bounds slowed the c(x) form (PERF.md).
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
@@ -101,9 +108,10 @@ constexpr int PASS2_BLOCKS = 132 * 16;
 // The shard modes take their halos, offsets and edge face weights from sh
 // (unused otherwise); nz, ny, nx are then the block's.
 // A batched launch (LANES) runs lane blockIdx.z with the unbatched tile
-// map: its fields prev.ls floats apart, its scalars, face weights and
-// partial rows lane-major. A launch of one lane (and every shard launch)
-// takes LANES = false, the code without the lane offsets (the header).
+// map: its fields prev.ls floats apart, its scalars, face weights, halos
+// and partial rows lane-major (a shard's offsets are every lane's). A
+// launch of one lane takes LANES = false, the code without the lane
+// offsets (the header).
 template <int P, int MAXW, int MODE, bool LANES>
 __global__ void __launch_bounds__(TX) pass1_3d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
@@ -126,6 +134,17 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
       wt.wx += blockIdx.z * plane;
       wt.wy += blockIdx.z * plane;
       wt.wz += blockIdx.z * plane;
+    }
+    if constexpr (MODE >= SHARD_REF) {
+      const size_t b = blockIdx.z;
+      sh.yh += b * 2 * P * nz * nx;
+      sh.zh += b * 2 * P * ny * nx;
+      sh.xh += b * 2 * P * R;
+      if (MODE == SHARD_ANISO) {
+        sh.wxl += b * R;
+        sh.wyh += b * nz * nx;
+        sh.wzh += b * ny * nx;
+      }
     }
     partial += (size_t)blockIdx.z * gridDim.y * gridDim.x * 2 * (j + 1);
     scal += 2 * blockIdx.z;
@@ -569,7 +588,7 @@ __global__ void __launch_bounds__(256) bc3d_kernel(float* __restrict__ u,
 }
 
 // pass1_3d over B lanes (blockIdx.z), each lane's tiles as one unbatched
-// launch's; one lane (every shard launch) without the lane offsets.
+// launch's; one lane without the lane offsets.
 template <int P, int MAXW, int MODE>
 void launch_pass1(int B, const float* scal, const float* wj, Cols prev,
                   int j, Weights wt, const Shard3d& sh, float* w,
@@ -578,12 +597,10 @@ void launch_pass1(int B, const float* scal, const float* wj, Cols prev,
   dim3 g = tile_grid(nz * ny, nx);
   g.z = B;
   const float* wjm1 = j > 0 ? prev.p[j - 1] : nullptr;
-  if constexpr (MODE < SHARD_REF) {
-    if (B > 1) {
-      pass1_3d_kernel<P, MAXW, MODE, true><<<g, TX, 0, st>>>(
-          scal, wj, prev, wjm1, j, wt, sh, w, partial, nz, ny, nx, ss);
-      return;
-    }
+  if (B > 1) {
+    pass1_3d_kernel<P, MAXW, MODE, true><<<g, TX, 0, st>>>(
+        scal, wj, prev, wjm1, j, wt, sh, w, partial, nz, ny, nx, ss);
+    return;
   }
   pass1_3d_kernel<P, MAXW, MODE, false><<<g, TX, 0, st>>>(
       scal, wj, prev, wjm1, j, wt, sh, w, partial, nz, ny, nx, ss);
@@ -702,11 +719,13 @@ int lz3_pass1(int B, int P, int mode, const float* scal, const float* wj,
 }
 
 // pass1_shard3d: pass1_3d on one shard's (nz, ny, nx) block at global
-// offsets (z0, y0, x0) of an (NZ, NY, NX) grid. mode: 0 iso reference, 1
-// iso clean, 2 aniso (wx, wy, wz (R, nx), wxl (R), wyh (nz, nx), wzh
-// (ny, nx); null otherwise). yh (P, 2, nz, nx), zh (P, 2, ny, nx), xh
-// (P, 2, R): the halos. Otherwise as lz3_pass1.
-int lz3_pass1_shard(int P, int mode, const float* scal, const float* wj,
+// offsets (z0, y0, x0) of an (NZ, NY, NX) grid, for B lanes (B = 1: one
+// field; every lane at the same offsets). mode: 0 iso reference, 1 iso
+// clean, 2 aniso (wx, wy, wz (B, R, nx), wxl (B, R), wyh (B, nz, nx), wzh
+// (B, ny, nx); null otherwise). yh (B, P, 2, nz, nx), zh (B, P, 2, ny, nx),
+// xh (B, P, 2, R): the halos. Otherwise as lz3_pass1.
+int lz3_pass1_shard(int B, int P, int mode, const float* scal,
+                    const float* wj,
                     const float* const* prev, int j, const float* wx,
                     const float* wy, const float* wz, const float* wxl,
                     const float* wyh, const float* wzh, const float* yh,
@@ -714,15 +733,16 @@ int lz3_pass1_shard(int P, int mode, const float* scal, const float* wj,
                     float* partial, float* raw, int nz, int ny, int nx,
                     int z0, int y0, int x0, int NZ, int NY, int NX, float ss,
                     cudaStream_t st) {
-  if ((P != 1 && P != 2) || mode < 0 || mode > 2 || j < 0
-      || j + 1 > MAXCOLS || nz < 2 || ny < 2 || nx < 2 || !yh || !zh || !xh
+  if (B < 1 || B > 65535 || (P != 1 && P != 2) || mode < 0 || mode > 2
+      || j < 0 || j + 1 > MAXCOLS || nz < 2 || ny < 2 || nx < 2 || !yh
+      || !zh || !xh
       || z0 < 0 || y0 < 0 || x0 < 0 || z0 + nz > NZ || y0 + ny > NY
       || x0 + nx > NX)
     return (int)cudaErrorInvalidValue;
   if (mode == ANISO && (!wx || !wy || !wz || !wxl || !wyh || !wzh))
     return (int)cudaErrorInvalidValue;
   const Shard3d sh = {yh, zh, xh, wxl, wyh, wzh, z0, y0, x0, NZ, NY, NX};
-  return pass1_any(1, P, SHARD_REF + mode, scal, wj, prev, j,
+  return pass1_any(B, P, SHARD_REF + mode, scal, wj, prev, j,
                    Weights{wx, wy, wz}, sh, w, partial, raw, nz, ny, nx, ss,
                    st);
 }

@@ -13,7 +13,7 @@ tensor per leaf, as JAX maps over the tree.
 
 import torch
 
-__all__ = ["evolve", "evolve_guarded", "simulate"]
+__all__ = ["evolve", "evolve_guarded", "evolve_lanes", "simulate"]
 
 
 def _map(fn, *trees):
@@ -122,6 +122,21 @@ def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
         ok = ok & fin
         s += 1
     return bufs, bad_at, series
+
+
+def evolve_lanes(step_fn, state0, num_snapshots, snapshot_freq, observe,
+                 guard, scalars=None):
+    """A batch of lanes, as the trajectory engines run it: evolve(), or
+    with `guard` evolve_guarded() over the lanes (batched=True) with each
+    series lane-major, (num_snapshots,) + lanes moved to lanes first.
+    Returns (snaps, bad_at, series), bad_at and series None unguarded."""
+    if not guard:
+        return evolve(step_fn, state0, num_snapshots, snapshot_freq,
+                      observe=observe), None, None
+    snaps, bad_at, series = evolve_guarded(
+        step_fn, state0, num_snapshots, snapshot_freq, observe=observe,
+        batched=True, scalars=scalars)
+    return snaps, bad_at, {k: v.movedim(0, 1) for k, v in series.items()}
 
 
 def simulate(step_fn, state0, num_snapshots, snapshot_freq, observe=None):

@@ -12,13 +12,16 @@ tau = i*dt throughout, as in the reference drivers (nlse_cubic_solver.hpp:
 
 Each has a planar form on (2, R, nx) float32 state for the fused kernels
 (`*_planar`, given the operator's kernel descriptor and a planar density).
-`ss2_step_planar_sharded` is SS2 on a sharded planar state (a list of local
-blocks, parallel/shards.py) with a shard descriptor. The planar SS2 steps
+`ss2_step_planar_sharded`, `sewi_step_planar_sharded` and
+`gautschi_step_planar_sharded` are the same steps on a sharded planar state
+(a list of local blocks, parallel/shards.py) with a shard descriptor, the
+matrix functions through parallel/lanczos.py. The planar SS2 steps
 take both half kicks, density included, as one pass each
 (ops/cuda/kick.py), the closing one with the no-flux ghost copy folded in
 when the caller passes the block's grid; the two-step integrators' source
 terms are plain torch ops. Every planar step also takes a batch (B, 2, R,
-nx) of lanes, the datagen engine's form.
+nx) of lanes, the datagen engine's form (a sharded step: (B, 2, R, nx)
+blocks).
 """
 
 import numpy as np
@@ -31,7 +34,8 @@ from nlsolvers_tpu_torch.ops.krylov import MATFUNCS, expm_apply, matfunc_apply
 
 __all__ = ["ss2_step", "ss2_step_planar", "ss2_step_planar_sharded",
            "phase_kick_planar", "sewi_step",
-           "sewi_step_planar", "gautschi_step", "gautschi_step_planar",
+           "sewi_step_planar", "sewi_step_planar_sharded", "gautschi_step",
+           "gautschi_step_planar", "gautschi_step_planar_sharded",
            "sewi_first_step", "gautschi_phi1_bootstrap"]
 
 
@@ -141,6 +145,45 @@ def gautschi_step_planar(up, up_prev, desc, rho_fn, dt, m=default_krylov_m,
     e1 = matfunc_apply_planar(psi, desc, sgn * tau, "exp", m)
     e2 = matfunc_apply_planar(up_prev, desc, sgn * 2.0 * tau, "exp", m)
     return e2 - (sgn * 2.0 * dt) * _mul_i_planar(e1), up
+
+
+def _two_step_sharded(ups, ups_prev, desc, rho_fns, dt, m, sgn, fused):
+    """The sEWI (sgn = 1) or Gautschi (sgn = -1, the "cubic" convention)
+    step on a sharded planar state, in the arithmetic order of
+    sewi_step_planar / gautschi_step_planar: the source term per shard, the
+    matrix functions sharded, the final e2 - 2 sgn tau e1 per shard."""
+    from nlsolvers_tpu_torch.parallel.lanczos import matfunc_apply_sharded
+    from nlsolvers_tpu_torch.parallel.shards import per_shard
+
+    mesh = desc["mesh"]
+    tau = 1j * dt
+    Bp = per_shard(mesh, lambda k: _B_planar(ups[k], rho_fns[k]))
+    if fused:
+        e1 = matfunc_apply_sharded(Bp, desc, tau, _exp_sinc(tau, dt), m)
+    else:
+        psi = matfunc_apply_sharded(Bp, desc, dt, "sinc", m)
+        e1 = matfunc_apply_sharded(psi, desc, sgn * tau, "exp", m)
+    e2 = matfunc_apply_sharded(ups_prev, desc, sgn * 2.0 * tau, "exp", m)
+    return per_shard(mesh, lambda k: e2[k] - (sgn * 2.0 * dt) * _mul_i_planar(
+        e1[k])), ups
+
+
+def sewi_step_planar_sharded(ups, ups_prev, desc, rho_fns, dt,
+                             m=default_krylov_m, fuse_exp_sinc=False):
+    """sewi_step_planar on a sharded planar state: `ups`, `ups_prev` hold
+    each shard's ([B,] 2, R, nx) float32 block, `rho_fns` each shard's
+    planar density, `desc` a shard descriptor. Returns (new, ups); the
+    ghost copy is the caller's, as for sewi_step_planar."""
+    return _two_step_sharded(ups, ups_prev, desc, rho_fns, dt, m, 1.0,
+                             fuse_exp_sinc)
+
+
+def gautschi_step_planar_sharded(ups, ups_prev, desc, rho_fns, dt,
+                                 m=default_krylov_m):
+    """gautschi_step_planar ("cubic" convention, the datagen engine's) on a
+    sharded planar state, as sewi_step_planar_sharded takes it."""
+    return _two_step_sharded(ups, ups_prev, desc, rho_fns, dt, m, -1.0,
+                             False)
 
 
 def sewi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m, reorth=True,

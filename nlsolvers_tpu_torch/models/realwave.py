@@ -24,6 +24,9 @@ with g from models/nonlinearities.py; the two-step schemes carry
 All the matrix functions take |lambda|, so the operator's sign does not
 matter; the problems pass -Lap, whose descriptor (sign flipped) sends real
 float32 fields through the fused kernels at P=1 (ops/krylov._fused_path).
+`gautschi_step_sharded` is the float32 Gautschi step on a sharded grid
+(parallel/shards.py) through the shard kernels, at P=1 with a shard
+descriptor of -Lap.
 
 Noise. The JAX package draws xi inside its step from
 jax.random.fold_in(PRNGKey(seed), step_index), which torch's generators
@@ -40,8 +43,8 @@ import torch
 from nlsolvers_tpu_torch.config import default_krylov_m
 from nlsolvers_tpu_torch.ops.krylov import matfunc_apply, matfunc_apply_multi
 
-__all__ = ["gautschi_step", "sv_step", "stochastic_sv_step",
-           "stochastic_noise", "gautschi_filter"]
+__all__ = ["gautschi_step", "gautschi_step_sharded", "sv_step",
+           "stochastic_sv_step", "stochastic_noise", "gautschi_filter"]
 
 
 def gautschi_filter(kind):
@@ -61,6 +64,39 @@ def gautschi_step(u, u_past, omega2, m_field, g_fn, dt, m=default_krylov_m,
     b = -(m_field * g_fn(fu))
     s2 = matfunc_apply(omega2, b, dt, "sinc2_sqrt_half", m=m, reorth=reorth)
     return 2.0 * cu - u_past + (dt * dt) * s2, u
+
+
+def gautschi_step_sharded(us, us_past, desc, m_fields, g_fn, dt,
+                          m=default_krylov_m, filter_func="id_sqrt"):
+    """gautschi_step on a sharded float32 grid, in its arithmetic order:
+    `us`, `us_past` and `m_fields` hold each shard's ([B,] *block) tensors,
+    `desc` is the shard descriptor of Omega^2 = -Lap (sign flipped, weight
+    tensors shared: models/problems._negated's rule). Each matrix function
+    is one sharded Lanczos run on the ([B,] 1, R, nx) views
+    (parallel/lanczos.py), the filter and the cosine from one run. Returns
+    (u_new, us); the ghost copy is the caller's."""
+    from nlsolvers_tpu_torch.parallel.lanczos import (
+        matfunc_apply_sharded_multi)
+    from nlsolvers_tpu_torch.parallel.shards import per_shard
+
+    mesh = desc["mesh"]
+    nx = us[0].shape[-1]
+    lead = tuple(us[0].shape[:-3 if desc["kind"].startswith("shard3d")
+                            else -2])
+
+    def views(fields):
+        return [f.reshape(lead + (1, -1, nx)) for f in fields]
+
+    def back(fields):
+        return [f.reshape(us[0].shape) for f in fields]
+
+    fu, cu = map(back, matfunc_apply_sharded_multi(
+        views(us), desc, ((dt, filter_func), (dt, "cos_sqrt")), m))
+    b = per_shard(mesh, lambda k: -(m_fields[k] * g_fn(fu[k])))
+    s2, = map(back, matfunc_apply_sharded_multi(
+        views(b), desc, ((dt, "sinc2_sqrt_half"),), m))
+    return per_shard(mesh, lambda k: 2.0 * cu[k] - us_past[k]
+                     + (dt * dt) * s2[k]), us
 
 
 def sv_step(u, u_past, lap, m_field, g_fn, dt):

@@ -28,11 +28,13 @@ its plain PyTorch version beside it and a launch counter on its wrapper:
 The iso and aniso wrappers launch one pass1 and one pipe kernel with the
 operator as a template policy; each wrapper counts its own launches.
 
-K1/K1', K2/K2', K3 and K5 also take a batch: fields (B, P, ny, nx) with a
-leading lane axis, scalars (B, ...) and, for the aniso operator, face
-weights (B, ny, nx) (operators.batched_aniso_laplacian_2d), the form that
-jax.vmap gives the Pallas kernels in the JAX package's datagen engine. A
-batch is ONE launch (the lane is the kernel's second grid index), and lane
+K1/K1', K2/K2', K3, K5 and the shard pass1 also take a batch: fields
+(B, P, ny, nx) with a leading lane axis, scalars (B, ...) and, for the
+aniso operator, face weights (B, ny, nx)
+(operators.batched_aniso_laplacian_2d; a shard's halos and edge weights
+with a leading B too), the form that jax.vmap gives the Pallas kernels in
+the JAX package's datagen engine (and in its sharded engines, inside
+shard_map). A batch is ONE launch (the lane is a grid index), and lane
 b of it gives the bits of the unbatched launch on lane b: the kernel walks
 each lane's field with the unbatched block map and reduces each lane's
 partial sums in the unbatched order. K5 takes a batch too: its
@@ -174,8 +176,8 @@ def _lib():
               i32, f32, vp]),
             ("lz_combine", [i32, i32, vp, pp, i32, i32, pp, i32, i32, vp]),
             ("lz_pass1_shard2d",
-             [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
-              vp, i32, i32, i32, i32, i32, i32, f32, vp]),
+             [i32, i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp,
+              vp, vp, vp, i32, i32, i32, i32, i32, i32, f32, vp]),
             ("lz_coop_max_blocks", []),
             ("lz_num_sms", []),
             ("lz_iter_fit", [i32, i32, i32, i32, i32]),
@@ -358,30 +360,34 @@ def pass1_aniso2d_ref(scal, wj, prev, desc, norm=False):
 
 def _stencil_shard2d_ref(u, yh, xh, d):
     """The operator of a shard descriptor `d` on one shard's planar block
-    (P, ny, nx), in the order of terms of the Pallas _stencil_shard2d /
-    _stencil_shard2d_aniso. yh (P, 2, nx) holds the rows above and below
-    the block, xh (P, 2, ny) the columns left and right of it (zeros at the
-    domain's edge). Iso: the variant diagonal from global coordinates
-    (y0, x0 offsets of (NY, NX)). Aniso: the padded face weights wx, wy
-    (ny, nx), whose last column and row are the cross-shard faces, wxl (ny)
-    the faces left of column 0 and wyh (nx) those above row 0."""
-    P, ny, nx = u.shape
-    above = torch.cat([yh[:, :1], u[:, :-1]], dim=1)
-    below = torch.cat([u[:, 1:], yh[:, 1:]], dim=1)
-    left = torch.cat([xh[:, 0, :, None], u[:, :, :-1]], dim=2)
-    right = torch.cat([u[:, :, 1:], xh[:, 1, :, None]], dim=2)
+    ([B,] P, ny, nx), in the order of terms of the Pallas _stencil_shard2d /
+    _stencil_shard2d_aniso. yh ([B,] P, 2, nx) holds the rows above and
+    below the block, xh ([B,] P, 2, ny) the columns left and right of it
+    (zeros at the domain's edge). Iso: the variant diagonal from global
+    coordinates (y0, x0 offsets of (NY, NX)). Aniso: the padded face weights
+    wx, wy ([B,] ny, nx), whose last column and row are the cross-shard
+    faces, wxl ([B,] ny) the faces left of column 0 and wyh ([B,] nx) those
+    above row 0. A batch carries the lane axis on every array but the
+    offsets."""
+    ny, nx = u.shape[-2:]
+    above = torch.cat([yh[..., :1, :], u[..., :-1, :]], dim=-2)
+    below = torch.cat([u[..., 1:, :], yh[..., 1:, :]], dim=-2)
+    left = torch.cat([xh[..., 0, :, None], u[..., :, :-1]], dim=-1)
+    right = torch.cat([u[..., :, 1:], xh[..., 1, :, None]], dim=-1)
     ss = float(d["scale"]) * float(d["sign"])
     if d["kind"] == "shard2d":
         diag = boundary_diagonal(
             block_coords((d["y0"], d["x0"]), (ny, nx), u.device),
             (d["NY"], d["NX"]), d["variant"], u.dtype)
         return (above + below + left + right + diag * u) * ss
-    wx, wy = d["wx"], d["wy"]
+    wx, wy = d["wx"].unsqueeze(-3), d["wy"]
     fx = wx * (right - u)
-    fx_l = torch.cat([d["wxl"][:, None] * (u[:, :, :1] - left[:, :, :1]),
-                      fx[:, :, :-1]], dim=2)
-    fy = wy * (below - u)
-    fy_m1 = torch.cat([d["wyh"][None], wy[:-1]], dim=0) * (u - above)
+    fx_l = torch.cat([d["wxl"][..., None, :, None]
+                      * (u[..., :, :1] - left[..., :, :1]),
+                      fx[..., :, :-1]], dim=-1)
+    fy = wy.unsqueeze(-3) * (below - u)
+    wy_up = torch.cat([d["wyh"][..., None, :], wy[..., :-1, :]], dim=-2)
+    fy_m1 = wy_up.unsqueeze(-3) * (u - above)
     return (fx - fx_l + fy - fy_m1) * ss
 
 
@@ -553,34 +559,39 @@ def pass1_shard2d(scal, wj, prev, yh, xh, d):
     edges, zeros at the domain's edge). `d` describes the shard's operator:
     kind "shard2d" (variant, offsets y0, x0 and the global NY, NX for the
     diagonal) or "shard2d_aniso" (face weights wx, wy (ny, nx), wxl (ny),
-    wyh (nx)), scale and sign. Returns (w, raw) as pass1_iso2d.
+    wyh (nx)), scale and sign. Returns (w, raw) as pass1_iso2d. A batch of
+    B lanes of the block: fields (B, P, ny, nx), scal (B, 1, 2), halos and
+    face weights with a leading B, raw (B, j+1, 2), in one launch whose
+    lane b gives the bits of the launch on lane b alone.
     """
     what = "pass1_shard2d"
     _check_cols(len(prev), what)
     if not use_kernel(wj):
         return pass1_shard2d_ref(scal, wj, prev, yh, xh, d)
-    _check_fields([wj, *prev], wj, what)
+    B = _check_fields([wj, *prev], wj, what)
     _check_scalars(scal, (1, 2), wj, what)
-    P, ny, nx = wj.shape
+    P, ny, nx = wj.shape[-3:]
+    lead = tuple(wj.shape[:-3])
     if ny < 2 or nx < 2:
         raise ValueError(f"{what}: blocks need sides >= 2, got {(ny, nx)}")
-    _check_aux(yh, (P, 2, nx), wj, what, "yh")
-    _check_aux(xh, (P, 2, ny), wj, what, "xh")
+    _check_aux(yh, lead + (P, 2, nx), wj, what, "yh")
+    _check_aux(xh, lead + (P, 2, ny), wj, what, "xh")
     aniso = d["kind"] == "shard2d_aniso"
     if aniso:
-        wts = [_check_aux(d[k], shp, wj, what, k).data_ptr() for k, shp in (
-            ("wx", (ny, nx)), ("wy", (ny, nx)), ("wxl", (ny,)),
-            ("wyh", (nx,)))]
+        wts = [_check_aux(d[k], lead + shp, wj, what, k).data_ptr()
+               for k, shp in (("wx", (ny, nx)), ("wy", (ny, nx)),
+                              ("wxl", (ny,)), ("wyh", (nx,)))]
     else:
         wts = [None] * 4
     lib = _lib()
     j = len(prev)
     w = torch.empty_like(wj)
-    partial = torch.empty(lib.lz_num_blocks(ny, nx) * 2 * (j + 1),
+    partial = torch.empty(lib.lz_num_blocks(ny, nx) * B * 2 * (j + 1),
                           dtype=torch.float32, device=wj.device)
-    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
+    raw = torch.empty(lead + (j + 1, 2), dtype=torch.float32,
+                      device=wj.device)
     _check(lib.lz_pass1_shard2d(
-        P, int(aniso), int(d.get("variant") == "clean"), scal.data_ptr(),
+        B, P, int(aniso), int(d.get("variant") == "clean"), scal.data_ptr(),
         wj.data_ptr(), _ptrs(prev), j, *wts, yh.data_ptr(), xh.data_ptr(),
         w.data_ptr(), partial.data_ptr(), raw.data_ptr(), ny, nx,
         int(d.get("y0", 0)), int(d.get("x0", 0)), int(d.get("NY", 0)),

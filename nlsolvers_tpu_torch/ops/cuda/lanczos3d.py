@@ -28,9 +28,10 @@ wrapper:
 `lanczos_twopass` is the normalized two-pass loop (pass1_3d then pass2), or
 with fused=True one lanczos2d.iter_step (K5) per iteration, in 2D and 3D.
 
-pass1_3d, pass2, pipe_3d and bc3d also take a batch: fields (B, P, R, nx)
-with a leading lane axis, scalars (B, ...) and, for the aniso operator, face
-weights (B, R, nx) (operators.batched_aniso_laplacian_3d), the form that
+pass1_3d, pass2, pipe_3d, bc3d and pass1_shard3d also take a batch: fields
+(B, P, R, nx) with a leading lane axis, scalars (B, ...) and, for the aniso
+operator, face weights (B, R, nx) (operators.batched_aniso_laplacian_3d; a
+shard's halos and edge weights with a leading B too), the form that
 jax.vmap gives the Pallas kernels in the JAX package's datagen engine. A
 batch is ONE launch, and lane b of it gives the bits of the unbatched
 launch on lane b (csrc/lanczos3d.cu); the plain versions take the same
@@ -108,8 +109,8 @@ def _lib():
             ("lz3_pass1", [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp,
                            vp, i32, i32, i32, f32, vp]),
             ("lz3_pass2", [i32, i32, vp, vp, pp, i32, vp, vp, vp, i64, vp]),
-            ("lz3_pass1_shard", [i32, i32, vp, vp, pp, i32] + [vp] * 12
-             + [i32] * 9 + [f32, vp]),
+            ("lz3_pass1_shard", [i32, i32, i32, vp, vp, pp, i32]
+             + [vp] * 12 + [i32] * 9 + [f32, vp]),
             ("lz3_bc3d", [i32, i32, vp] + [i32] * 9 + [vp]),
             ("lz3_pipe3d_rows", []),
             ("lz3_pipe3d_fit", [i32, i32, i32, i32]),
@@ -221,27 +222,31 @@ def pass1_3d_ref(scal, wj, prev, desc):
 
 def _stencil_shard3d_ref(u, yh, zh, xh, d):
     """The operator of a 3D shard descriptor `d` on one shard's planar block,
-    the merged (P, R = lnz*lny, nx) view, in the order of terms of the
-    Pallas K9 (iso) and K10 (aniso) kernels. yh (P, 2, lnz, nx): the rows
-    above y = 0 and below y = lny-1 of every local z-plane (the ay
+    the merged ([B,] P, R = lnz*lny, nx) view, in the order of terms of the
+    Pallas K9 (iso) and K10 (aniso) kernels. yh ([B,] P, 2, lnz, nx): the
+    rows above y = 0 and below y = lny-1 of every local z-plane (the ay
     neighbours' edge rows, or under the reference variant, which keeps the
-    z and y axes whole, the merged-view seam rows); zh (P, 2, lny, nx): the
-    planes below z = 0 and above z = lnz-1; xh (P, 2, R): the columns left
-    and right. Iso: the variant diagonal from global coordinates (offsets
-    z0, y0, x0 of (NZ, NY, NX)). Aniso: the padded face weights wx, wy, wz
-    (R, nx), wxl (R) left of column 0, wyh (lnz, nx) above each plane's row
-    0 and wzh (lny, nx) below plane 0."""
-    P, R, nx = u.shape
+    z and y axes whole, the merged-view seam rows); zh ([B,] P, 2, lny, nx):
+    the planes below z = 0 and above z = lnz-1; xh ([B,] P, 2, R): the
+    columns left and right. Iso: the variant diagonal from global
+    coordinates (offsets z0, y0, x0 of (NZ, NY, NX)). Aniso: the padded face
+    weights wx, wy, wz ([B,] R, nx), wxl ([B,] R) left of column 0, wyh
+    ([B,] lnz, nx) above each plane's row 0 and wzh ([B,] lny, nx) below
+    plane 0. A batch carries the lane axis on every array but the
+    offsets."""
+    lead = tuple(u.shape[:-3])
+    P, R, nx = u.shape[-3:]
     nz, ny = d["lnz"], d["lny"]
-    u4 = u.view(P, nz, ny, nx)
-    above = torch.cat([yh[:, 0, :, None], u4[:, :, :-1]], dim=2)
-    below = torch.cat([u4[:, :, 1:], yh[:, 1, :, None]], dim=2)
-    z_above = torch.cat([zh[:, :1], u4[:, :-1]], dim=1)
-    z_below = torch.cat([u4[:, 1:], zh[:, 1:]], dim=1)
+    u4 = u.view(lead + (P, nz, ny, nx))
+    above = torch.cat([yh[..., 0, :, None, :], u4[..., :-1, :]], dim=-2)
+    below = torch.cat([u4[..., 1:, :], yh[..., 1, :, None, :]], dim=-2)
+    z_above = torch.cat([zh[..., :1, :, :], u4[..., :-1, :, :]], dim=-3)
+    z_below = torch.cat([u4[..., 1:, :, :], zh[..., 1:, :, :]], dim=-3)
     above, below, z_above, z_below = (
-        a.reshape(P, R, nx) for a in (above, below, z_above, z_below))
-    left = torch.cat([xh[:, 0, :, None], u[:, :, :-1]], dim=2)
-    right = torch.cat([u[:, :, 1:], xh[:, 1, :, None]], dim=2)
+        a.reshape(lead + (P, R, nx)) for a in (above, below, z_above,
+                                               z_below))
+    left = torch.cat([xh[..., 0, :, None], u[..., :, :-1]], dim=-1)
+    right = torch.cat([u[..., :, 1:], xh[..., 1, :, None]], dim=-1)
     ss = float(d["scale"]) * float(d["sign"])
     if d["kind"] == "shard3d":
         coords = block_coords((d["z0"], d["y0"], d["x0"]), (nz, ny, nx),
@@ -251,17 +256,20 @@ def _stencil_shard3d_ref(u, yh, zh, xh, d):
         return (above + below + z_above + z_below + left + right
                 + diag * u) * ss
     wx, wy, wz = d["wx"], d["wy"], d["wz"]
-    fx = wx * (right - u)
-    fx_l = torch.cat([d["wxl"][:, None] * (u[:, :, :1] - left[:, :, :1]),
-                      fx[:, :, :-1]], dim=2)
-    fy = wy * (below - u)
-    wy_up = torch.cat([d["wyh"][:, None], wy.view(nz, ny, nx)[:, :-1]],
-                      dim=1).reshape(R, nx)
-    fy_m1 = wy_up * (u - above)
-    fz = wz * (z_below - u)
-    wz_up = torch.cat([d["wzh"][None], wz.view(nz, ny, nx)[:-1]],
-                      dim=0).reshape(R, nx)
-    fz_m = wz_up * (u - z_above)
+    fx = wx.unsqueeze(-3) * (right - u)
+    fx_l = torch.cat([d["wxl"][..., None, :, None]
+                      * (u[..., :, :1] - left[..., :, :1]),
+                      fx[..., :, :-1]], dim=-1)
+    fy = wy.unsqueeze(-3) * (below - u)
+    wy_up = torch.cat([d["wyh"][..., :, None, :],
+                       wy.view(lead + (nz, ny, nx))[..., :-1, :]],
+                      dim=-2).reshape(lead + (R, nx))
+    fy_m1 = wy_up.unsqueeze(-3) * (u - above)
+    fz = wz.unsqueeze(-3) * (z_below - u)
+    wz_up = torch.cat([d["wzh"][..., None, :, :],
+                       wz.view(lead + (nz, ny, nx))[..., :-1, :, :]],
+                      dim=-3).reshape(lead + (R, nx))
+    fz_m = wz_up.unsqueeze(-3) * (u - z_above)
     return (fx - fx_l + fy - fy_m1 + fz - fz_m) * ss
 
 
@@ -353,6 +361,9 @@ def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
     "shard3d" (variant, offsets z0, y0, x0, global NZ, NY, NX) or
     "shard3d_aniso" (face weights wx, wy, wz (R, nx), wxl (R), wyh (lnz, nx),
     wzh (lny, nx)), lnz, lny, scale and sign. Returns (w, raw) as pass1_3d.
+    A batch of B lanes of the block: fields (B, P, R, nx), scal (B, 1, 2),
+    halos and face weights with a leading B, raw (B, j+1, 2), in one launch
+    whose lane b gives the bits of the launch on lane b alone.
     """
     what = "pass1_shard3d"
     j = len(prev)
@@ -360,32 +371,35 @@ def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
         raise ValueError(f"{what}: at most {MAX_M} columns, got {j + 1}")
     if not use_kernel(wj):
         return pass1_shard3d_ref(scal, wj, prev, yh, zh, xh, d)
-    _check_fields([wj, *prev], wj, what)
+    B = _check_fields([wj, *prev], wj, what)
     _check_scalars(scal, (1, 2), wj, what)
-    P, R, nx = wj.shape
+    P, R, nx = wj.shape[-3:]
+    lead = tuple(wj.shape[:-3])
     nz, ny = d["lnz"], d["lny"]
     if nz * ny != R or min(nz, ny, nx) < 2:
         raise ValueError(f"{what}: field {tuple(wj.shape)} is not the merged "
                          f"view of a ({nz}, {ny}, {nx}) block with sides >= 2")
-    _check_aux(yh, (P, 2, nz, nx), wj, what, "yh")
-    _check_aux(zh, (P, 2, ny, nx), wj, what, "zh")
-    _check_aux(xh, (P, 2, R), wj, what, "xh")
+    _check_aux(yh, lead + (P, 2, nz, nx), wj, what, "yh")
+    _check_aux(zh, lead + (P, 2, ny, nx), wj, what, "zh")
+    _check_aux(xh, lead + (P, 2, R), wj, what, "xh")
     aniso = d["kind"] == "shard3d_aniso"
     if aniso:
-        wts = [_check_aux(d[k], shp, wj, what, k).data_ptr() for k, shp in (
-            ("wx", (R, nx)), ("wy", (R, nx)), ("wz", (R, nx)), ("wxl", (R,)),
-            ("wyh", (nz, nx)), ("wzh", (ny, nx)))]
+        wts = [_check_aux(d[k], lead + shp, wj, what, k).data_ptr()
+               for k, shp in (("wx", (R, nx)), ("wy", (R, nx)),
+                              ("wz", (R, nx)), ("wxl", (R,)),
+                              ("wyh", (nz, nx)), ("wzh", (ny, nx)))]
         mode = _MODES["aniso"]
     else:
         wts = [None] * 6
         mode = _MODES[d["variant"]]
     lib = _lib()
     w = torch.empty_like(wj)
-    partial = torch.empty(lib.lz3_pass1_blocks(nz, ny, nx) * 2 * (j + 1),
+    partial = torch.empty(lib.lz3_pass1_blocks(nz, ny, nx) * B * 2 * (j + 1),
                           dtype=torch.float32, device=wj.device)
-    raw = torch.empty((j + 1, 2), dtype=torch.float32, device=wj.device)
+    raw = torch.empty(lead + (j + 1, 2), dtype=torch.float32,
+                      device=wj.device)
     _check(lib.lz3_pass1_shard(
-        P, mode, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j, *wts,
+        B, P, mode, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j, *wts,
         yh.data_ptr(), zh.data_ptr(), xh.data_ptr(), w.data_ptr(),
         partial.data_ptr(), raw.data_ptr(), nz, ny, nx,
         *(int(d.get(k, 0)) for k in ("z0", "y0", "x0", "NZ", "NY", "NX")),

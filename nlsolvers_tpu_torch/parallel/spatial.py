@@ -1,5 +1,6 @@
 """Spatial domain decomposition: grids sharded over a device mesh (port of
-nlsolvers_tpu/parallel/spatial.py, the single-trajectory SS2 step).
+nlsolvers_tpu/parallel/spatial.py: the sharded steps and the grid-sharded
+trajectory engines).
 
 The JAX package runs its local closures inside shard_map; the port runs the
 same arithmetic over a sharded field, a list of local tensors, one per shard
@@ -15,19 +16,43 @@ per shard (ops/cuda/kick.py, density included), the matrix function through
 the sharded Lanczos loops (parallel/lanczos.py: the shard kernels, K4 pass2
 and K3 combine per shard, one packed psum per iteration); the closing kick
 also does each shard's ghost copy, with the shard's global offsets.
+`make_sharded_realwave_step` is the real-wave step: float32 Gautschi through
+the shard kernels at P=1 on -Lap, or Stormer-Verlet on the plain sharded
+operator in any real dtype.
+
+The trajectory engines (`make_sharded_nlse_trajectory_fn`,
+`make_sharded_realwave_trajectory_fn`) are the datagen path for one
+trajectory too large for one card, with the contract of
+pipeline/engine.py: global (B, ...) inputs are sharded (shards.shard),
+every lane of the batch steps in ONE batched sharded step, as JAX's vmap of
+the step inside shard_map (each kernel one launch per shard over the lanes,
+lane b with the bits of the step run on lane b alone), and every snapshot
+is gathered into one global tensor on the first shard's device. The guard
+checks that gathered snapshot, so each lane's verdict covers every shard
+(JAX's psum of the shards' bits) and all shards stop together; the mass
+and energy series are each shard's sums, psum'd in shard order.
 """
 
 import numpy as np
 import torch
 
+from nlsolvers_tpu_torch.config import real_dtype_of, torch_dtype
 from nlsolvers_tpu_torch.models import nlse as nlse_mod
-from nlsolvers_tpu_torch.models.nonlinearities import nlse_density_planar
+from nlsolvers_tpu_torch.models import realwave as rw
+from nlsolvers_tpu_torch.models.evolve import evolve_lanes
+from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
+                                                       REALWAVE_KINDS,
+                                                       nlse_density_planar,
+                                                       realwave_g,
+                                                       realwave_potential)
 from nlsolvers_tpu_torch.ops.boundaries import (
     neumann_no_velocity_2d_block, neumann_no_velocity_3d_block)
+from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
 from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
 from nlsolvers_tpu_torch.ops.operators import (block_coords,
                                                boundary_diagonal,
                                                neighbor_sum)
+from nlsolvers_tpu_torch.parallel import shards
 from nlsolvers_tpu_torch.parallel.lanczos import supported_shard
 from nlsolvers_tpu_torch.parallel.shards import (local_shape, offsets,
                                                  recv_from_next,
@@ -41,7 +66,11 @@ __all__ = [
     "sharded_neumann_2d",
     "sharded_laplacian_3d",
     "sharded_neumann_3d",
+    "sharded_gradient",
     "make_sharded_nlse_step",
+    "make_sharded_realwave_step",
+    "make_sharded_nlse_trajectory_fn",
+    "make_sharded_realwave_trajectory_fn",
 ]
 
 # The arguments that wait for later slices (ROADMAP.md, queue 1 item 2).
@@ -318,6 +347,135 @@ def _aniso_desc(global_shape, dx, mesh, axis_names, variant, cloc, sign):
                 ax=axis_names[2], c=cloc, mesh=mesh)
 
 
+def _no_batch_axis(batch_axis):
+    """batch_axis waits for a later slice: NotImplementedError."""
+    if batch_axis is not None:
+        raise NotImplementedError(f"batch_axis: sharding the trajectory "
+                                  f"batch over a mesh axis is not ported yet "
+                                  f"({_LATER})")
+
+
+def _later(batch_axis, dtype, reorth, what):
+    """The arguments of the NLSE paths that wait for a later slice raise
+    NotImplementedError."""
+    _no_batch_axis(batch_axis)
+    if dtype != torch.complex64 or not reorth:
+        raise NotImplementedError(f"{what} takes complex64 with reorth=True "
+                                  f"(the planar path); the complex path is "
+                                  f"not ported yet ({_LATER})")
+
+
+def _block_of(global_shape, mesh, axis_names):
+    """The local block of every shard, checked: sides of at least 2 (the
+    ghost copy)."""
+    lshape = local_shape(global_shape, mesh, axis_names)
+    if min(lshape) < 2:
+        raise ValueError(f"local blocks {lshape} need at least 2 cells per "
+                         f"axis (the ghost copy)")
+    return lshape
+
+
+def _shard_desc(global_shape, dx, mesh, axis_names, variant, use_c, lshape):
+    """desc_of(c_parts): the shard descriptor of the sharded Laplacian, or
+    of the sharded div(c grad u) for the c fields of one call (each shard's
+    float32 ([B,] *block) c), checked once against the shard kernels."""
+    three_d = len(global_shape) == 3
+    if use_c:
+        probe = _aniso_desc(global_shape, dx, mesh, axis_names, variant, [],
+                            1.0)
+    else:
+        probe = _sharded_lap(global_shape, dx, mesh, axis_names, variant,
+                             torch.float32).kernel_desc
+    if three_d:
+        if variant == "reference":
+            _check_reference(lshape, global_shape, aniso=use_c)
+        probe = dict(probe, lnz=lshape[0], lny=lshape[1])
+    if not supported_shard(probe, lshape, torch.float32):
+        raise ValueError(f"the sharded kernels do not take {probe['kind']} "
+                         f"(variant {variant!r}) on local blocks {lshape}")
+
+    def desc_of(c_parts):
+        if not use_c:
+            return probe
+        if c_parts is None:
+            raise ValueError("use_c=True: the step takes the c field")
+        cloc = [c.to(torch.float32).contiguous() for c in c_parts]
+        desc = _aniso_desc(global_shape, dx, mesh, axis_names, variant, cloc,
+                           1.0)
+        return dict(desc, lnz=lshape[0], lny=lshape[1]) if three_d else desc
+
+    return desc_of
+
+
+def _planar_nlse(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
+                 sigma1, sigma2, kappa, krylov_m, variant, apply_bc, use_c):
+    """step_of(m_parts, c_parts) -> step(state, i) of a planar NLSE
+    integrator on a sharded grid: state is a sharded field of ([B,] 2, Rl,
+    nxl) float32 blocks (a pair of them for the two-step integrators, whose
+    index 1 is the SS2 bootstrap), m and c each shard's ([B,] *block)
+    fields. The SS2 step's closing kick does the ghost copy (each shard at
+    its offsets); a two-step step is followed by the plain sharded copy in
+    2D and bc3d at the shard's offsets in 3D (JAX's `fix`)."""
+    if integrator not in ("ss2", "sewi", "sewi_fused", "gautschi"):
+        raise ValueError(f"unknown NLSE integrator {integrator!r}")
+    if kind not in NLSE_KINDS:
+        raise ValueError(f"unknown NLSE kind {kind!r}")
+    global_shape = tuple(int(g) for g in global_shape)
+    axis_names = tuple(axis_names)
+    dx = 2.0 * Lx / (global_shape[-1] - 1)
+    lshape = _block_of(global_shape, mesh, axis_names)
+    desc_of = _shard_desc(global_shape, dx, mesh, axis_names, variant, use_c,
+                          lshape)
+    Rl, nxl = int(np.prod(lshape[:-1])), lshape[-1]
+    offs = [offsets(mesh, k, axis_names, lshape) for k in range(mesh.size)]
+    grids = ([kick_grid(lshape, global_shape, o) for o in offs]
+             if apply_bc else None)
+    neumann = _sharded_neumann(global_shape, mesh, axis_names)
+
+    def fix(ups):
+        """The ghost copy after a two-step step, on fresh blocks."""
+        if not apply_bc:
+            return ups
+        if len(global_shape) == 3:
+            return [neumann_bc_planar_3d(u, lshape, global_shape, o)
+                    for u, o in zip(ups, offs)]
+        views = neumann([u.view(u.shape[:-2] + lshape) for u in ups])
+        return [v.reshape(u.shape) for u, v in zip(ups, views)]
+
+    def step_of(m_parts, c_parts=None):
+        desc = desc_of(c_parts)
+        rhos = [nlse_density_planar(
+            kind, m.to(torch.float32).reshape(m.shape[:-len(lshape)]
+                                              + (Rl, nxl)).contiguous(),
+            sigma1=sigma1, sigma2=sigma2, kappa=kappa) for m in m_parts]
+
+        def ss2(ups):
+            return nlse_mod.ss2_step_planar_sharded(ups, desc, rhos, dt,
+                                                    m=krylov_m, grids=grids)
+
+        if integrator == "ss2":
+            return lambda ups, i: ss2(ups)
+
+        def step(state, i):
+            ups, ups_prev = state
+            if i == 1:          # bootstrap: one SS2 step, u_prev := u
+                return ss2(ups), ups
+            if integrator == "gautschi":
+                new, old = nlse_mod.gautschi_step_planar_sharded(
+                    ups, ups_prev, desc, rhos, dt, m=krylov_m)
+            else:
+                new, old = nlse_mod.sewi_step_planar_sharded(
+                    ups, ups_prev, desc, rhos, dt, m=krylov_m,
+                    fuse_exp_sinc=integrator == "sewi_fused")
+            return fix(new), old
+
+        return step
+
+    step_of.block = (Rl, nxl)
+    step_of.lshape = lshape
+    return step_of
+
+
 def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
                            axis_names=("gy", "gx"), batch_axis=None,
                            sigma1=1.0, sigma2=-0.1, kappa=1.0,
@@ -340,59 +498,303 @@ def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
     (local_single_planar). batch_axis, dtype=complex128 and reorth=False
     wait for later slices and raise NotImplementedError.
     """
-    if batch_axis is not None:
-        raise NotImplementedError(f"batch_axis: the trajectory-batched "
-                                  f"sharded step is not ported yet ({_LATER})")
-    if dtype != torch.complex64 or not reorth:
-        raise NotImplementedError(f"the sharded step takes complex64 with "
-                                  f"reorth=True (the planar path); the "
-                                  f"complex path is not ported yet ({_LATER})")
-    global_shape = tuple(int(g) for g in global_shape)
-    axis_names = tuple(axis_names)
-    nx = global_shape[-1]
-    dx = 2.0 * Lx / (nx - 1)
-    lshape = local_shape(global_shape, mesh, axis_names)
-    if min(lshape) < 2:
-        raise ValueError(f"local blocks {lshape} need at least 2 cells per "
-                         f"axis (the ghost copy)")
-    three_d = len(global_shape) == 3
-    if use_c:
-        probe = _aniso_desc(global_shape, dx, mesh, axis_names, variant, [],
-                            1.0)
-    else:
-        lap = _sharded_lap(global_shape, dx, mesh, axis_names, variant,
-                           torch.float32)
-        probe = lap.kernel_desc
-    if three_d:
-        if variant == "reference":
-            _check_reference(lshape, global_shape, aniso=use_c)
-        probe = dict(probe, lnz=lshape[0], lny=lshape[1])
-    if not supported_shard(probe, lshape, dtype):
-        raise ValueError(f"the sharded kernels do not take {probe['kind']} "
-                         f"(variant {variant!r}) on local blocks {lshape}")
-    Rl, nxl = int(np.prod(lshape[:-1])), lshape[-1]
-    # each shard's closing half kick does its block's ghost copy
-    grids = ([kick_grid(lshape, global_shape,
-                        offsets(mesh, k, axis_names, lshape))
-              for k in range(mesh.size)] if apply_bc else None)
+    _later(batch_axis, dtype, reorth, "the sharded step")
+    step_of = _planar_nlse(kind, global_shape, Lx, dt, mesh, axis_names,
+                           "ss2", sigma1, sigma2, kappa, krylov_m, variant,
+                           apply_bc, use_c)
+    lshape = step_of.lshape
 
     def step(u_parts, m_parts, c_parts=None):
-        if use_c:
-            if c_parts is None:
-                raise ValueError("use_c=True: step(u, m, c) takes the c field")
-            cloc = [c.to(torch.float32).contiguous() for c in c_parts]
-            desc = _aniso_desc(global_shape, dx, mesh, axis_names, variant,
-                               cloc, 1.0)
-        else:
-            desc = lap.kernel_desc
-        if three_d:
-            desc = dict(desc, lnz=lshape[0], lny=lshape[1])
-        rhos = [nlse_density_planar(kind, m.to(torch.float32).reshape(Rl, nxl),
-                                    sigma1=sigma1, sigma2=sigma2,
-                                    kappa=kappa) for m in m_parts]
-        ups = [u.to(torch.float32).reshape(2, Rl, nxl) for u in u_parts]
-        out = nlse_mod.ss2_step_planar_sharded(ups, desc, rhos, dt,
-                                               m=krylov_m, grids=grids)
+        ups = [u.to(torch.float32).reshape((2,) + step_of.block)
+               for u in u_parts]
+        out = step_of(m_parts, c_parts)(ups, 1)
         return [o.reshape((2,) + lshape) for o in out]
 
     return step
+
+
+def _realwave(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
+              krylov_m, rdtype, variant, apply_bc, reorth, use_c):
+    """step_of(m_parts, c_parts) -> step((u, u_past), i) of a real-wave
+    integrator on a sharded grid, on each shard's ([B,] *block) fields:
+    float32 Gautschi through the shard kernels on -Lap (P=1, the sign
+    flipped), or SV on the plain sharded operator; then the ghost copy, the
+    sharded where-mask copy or, for a float32 3D field, bc3d in place on the
+    fresh u_new at each shard's offsets (models/problems._real_neumann's
+    rule)."""
+    if kind not in REALWAVE_KINDS:
+        raise ValueError(f"unknown real-wave kind {kind!r}")
+    if integrator not in ("gautschi", "sv"):
+        raise ValueError(f"unknown real-wave integrator {integrator!r}")
+    if integrator == "gautschi" and (rdtype != torch.float32 or not reorth):
+        raise NotImplementedError(
+            f"the sharded Gautschi step takes float32 with reorth=True (the "
+            f"shard kernels); the generic sharded Lanczos is not ported yet "
+            f"({_LATER})")
+    global_shape = tuple(int(g) for g in global_shape)
+    axis_names = tuple(axis_names)
+    dx = 2.0 * Lx / (global_shape[-1] - 1)
+    lshape = _block_of(global_shape, mesh, axis_names)
+    if len(global_shape) == 3 and variant == "reference":
+        _check_reference(lshape, global_shape, aniso=use_c)
+    g = realwave_g(kind)
+    filt = rw.gautschi_filter(kind)
+    offs = [offsets(mesh, k, axis_names, lshape) for k in range(mesh.size)]
+    if integrator == "gautschi":
+        desc_of = _shard_desc(global_shape, dx, mesh, axis_names, variant,
+                              use_c, lshape)
+    elif use_c:
+        aniso = _sharded_aniso(global_shape, dx, mesh, axis_names, variant)
+    else:
+        lap = _sharded_lap(global_shape, dx, mesh, axis_names, variant,
+                           rdtype)
+    neumann = _sharded_neumann(global_shape, mesh, axis_names)
+    nd = len(global_shape)
+
+    def fix(us):
+        if not apply_bc:
+            return us
+        if nd == 3 and rdtype == torch.float32:
+            R = lshape[0] * lshape[1]
+            for u, o in zip(us, offs):
+                neumann_bc_planar_3d(u.view(u.shape[:-3] + (1, R, lshape[2])),
+                                     lshape, global_shape, o)
+            return us
+        return neumann(us)
+
+    def step_of(m_parts, c_parts=None):
+        ms = [m.to(rdtype) for m in m_parts]
+        if integrator == "gautschi":
+            desc = desc_of(c_parts)
+            desc = dict(desc, sign=-desc["sign"])
+
+            def step(state, i):
+                us, us_past = state
+                new, old = rw.gautschi_step_sharded(
+                    us, us_past, desc, ms, g, dt, m=krylov_m,
+                    filter_func=filt)
+                return fix(new), old
+
+            return step
+        if use_c:
+            if c_parts is None:
+                raise ValueError("use_c=True: the step takes the c field")
+            cs = [c.to(rdtype) for c in c_parts]
+            op = lambda us: aniso(us, cs)
+        else:
+            op = lap
+
+        def step(state, i):
+            us, us_past = state
+            lu = op(us)
+            return fix([2.0 * u - up + (dt * dt) * (a - mk * g(u))
+                        for u, up, a, mk in zip(us, us_past, lu, ms)]), us
+
+        return step
+
+    step_of.lshape = lshape
+    return step_of
+
+
+def make_sharded_realwave_step(kind, global_shape, Lx, dt, mesh,
+                               axis_names=("gy", "gx"), batch_axis=None,
+                               integrator="gautschi", krylov_m=10,
+                               dtype=torch.float32, variant="reference",
+                               apply_bc=True, reorth=True, use_c=False):
+    """A real-wave step (Gautschi or SV) on a spatially sharded grid.
+
+    Returns step(u, u_past, m) -> (u_new, u), or step(u, u_past, m, c) with
+    use_c=True (the finite-volume div(c grad u) with cross-shard face
+    fluxes, the reference real-wave drivers' anisotropic operator,
+    sg_single_solver.hpp:42-59). Every argument is a sharded field of local
+    (*block) tensors (parallel/shards.shard); 3D grids take
+    axis_names=("gz", "gy", "gx"). Gautschi runs in float32 through the
+    shard kernels (both matrix functions on -Lap, the filter and the cosine
+    from one Lanczos run); SV applies the plain sharded operator in any
+    real dtype. batch_axis and a float64 or reorth=False Gautschi wait for
+    a later slice and raise NotImplementedError.
+    """
+    _no_batch_axis(batch_axis)
+    step_of = _realwave(kind, global_shape, Lx, dt, mesh, axis_names,
+                        integrator, krylov_m, real_dtype_of(dtype), variant,
+                        apply_bc, reorth, use_c)
+
+    def step(u, u_past, m_parts, c_parts=None):
+        return step_of(m_parts, c_parts)((u, u_past), 1)
+
+    return step
+
+
+def sharded_gradient(parts, dx, dim, mesh, axis_name, N):
+    """np.gradient along one grid dimension `dim` (negative, counted from
+    the end) sharded over `axis_name`: central differences inside, first
+    order one-sided at the GLOBAL ends (N cells), the neighbours across a
+    shard edge from its halo (JAX's sharded_gradient). Lists in, a list
+    out."""
+    n = parts[0].shape[dim]
+    nxt = recv_from_next([u.narrow(dim, 0, 1) for u in parts], mesh,
+                         axis_name)
+    prv = recv_from_prev([u.narrow(dim, n - 1, 1) for u in parts], mesh,
+                         axis_name)
+    shape = [1] * (-dim)
+    shape[0] = n
+    out = []
+    for k, u in enumerate(parts):
+        gc = (mesh.axis_index(k, axis_name) * n
+              + torch.arange(n, device=u.device).reshape(shape))
+        up = torch.cat([u.narrow(dim, 1, n - 1), nxt[k]], dim=dim)
+        dn = torch.cat([prv[k], u.narrow(dim, 0, n - 1)], dim=dim)
+        grad = (up - dn) / (2.0 * dx)
+        grad = torch.where(gc == 0, (up - u) / dx, grad)
+        out.append(torch.where(gc == N - 1, (u - dn) / dx, grad))
+    return out
+
+
+def _lane_sums(parts, nd, mesh, dV):
+    """Each lane's sum over the grid of a sharded (B, *block) field: every
+    shard's sum times dV, psum'd in shard order."""
+    dims = tuple(range(-nd, 0))
+    return shards.psum([torch.sum(p, dim=dims) * dV for p in parts],
+                       mesh)[0]
+
+
+def _tensor(x, dtype):
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dtype)
+
+
+def make_sharded_nlse_trajectory_fn(kind, global_shape, Lx, dt, mesh,
+                                    axis_names=("gy", "gx"),
+                                    batch_axis=None, integrator="ss2",
+                                    sigma1=1.0, sigma2=-0.1, kappa=1.0,
+                                    krylov_m=10, dtype=torch.complex64,
+                                    variant="reference", apply_bc=True,
+                                    reorth=True, use_c=True, guard=False,
+                                    record_energy=False):
+    """Builds traj(u0_packed, m, c, num_snapshots, snapshot_freq) on a
+    spatially sharded grid, with the contract of
+    pipeline/engine.make_nlse_trajectory_fn.
+
+    u0_packed: (B, 2, *global_shape) real, stacked (real, imag); m, c:
+    (B, *global_shape) real (c ignored with use_c=False); numpy arrays or
+    tensors. Returns (B, S, 2, *global_shape) float32 on the first shard's
+    device; guard=True appends bad_at (B,) int32, record_energy=True a
+    {"mass": (B, S)} series, both over the whole grid. The complex64
+    planar path of the JAX package: ss2, sewi, sewi_fused or gautschi (SS2
+    bootstrap at step 1), all B lanes in one batched sharded step.
+    batch_axis, complex128 and reorth=False raise NotImplementedError.
+    """
+    _later(batch_axis, torch_dtype(dtype), reorth,
+           "the sharded NLSE engine")
+    step_of = _planar_nlse(kind, global_shape, Lx, dt, mesh, axis_names,
+                           integrator, sigma1, sigma2, kappa, krylov_m,
+                           variant, apply_bc, use_c)
+    axis_names = tuple(axis_names)
+    lshape, nd = step_of.lshape, len(global_shape)
+    two_state = integrator != "ss2"
+    dV = (2.0 * Lx / (global_shape[-1] - 1)) ** nd
+
+    def first(state):
+        return state[0] if two_state else state
+
+    def observe(state):
+        return shards.gather([u.view(u.shape[:2] + lshape)
+                              for u in first(state)], mesh, axis_names)
+
+    def mass_of(state):
+        return _lane_sums([(u * u).sum(dim=-3) for u in first(state)], 2,
+                          mesh, dV)
+
+    def traj(u0_packed, m, c, num_snapshots, snapshot_freq):
+        u0 = _tensor(u0_packed, torch.float32)
+        B = u0.shape[0]
+        ups = [u.reshape((B, 2) + step_of.block) for u in
+               shards.shard(u0, mesh, axis_names)]
+        ms = shards.shard(_tensor(m, torch.float32), mesh, axis_names)
+        cs = (shards.shard(_tensor(c, torch.float32), mesh, axis_names)
+              if use_c else None)
+        state0 = (ups, ups) if two_state else ups
+        scalars = {"mass": mass_of} if record_energy else None
+        snaps, bad_at, series = evolve_lanes(step_of(ms, cs), state0,
+                                             num_snapshots, snapshot_freq,
+                                             observe, guard, scalars)
+        out = snaps.movedim(0, 1)
+        if not guard:
+            return out
+        return (out, bad_at) + ((series,) if record_energy else ())
+
+    traj.batched = True
+    return traj
+
+
+def make_sharded_realwave_trajectory_fn(kind, global_shape, Lx, dt, mesh,
+                                        axis_names=("gy", "gx"),
+                                        batch_axis=None,
+                                        integrator="gautschi", krylov_m=10,
+                                        dtype=torch.float32,
+                                        variant="reference", apply_bc=True,
+                                        reorth=True, use_c=True,
+                                        guard=False, record_energy=False):
+    """Builds traj(u0, v0, m, c, num_snapshots, snapshot_freq) on a
+    spatially sharded grid, with the contract of
+    pipeline/engine.make_realwave_trajectory_fn: (B, *global_shape) inputs,
+    (u_traj, v_traj) each (B, S, *global_shape) with v = (u - u_past)/dt
+    (kg_driver.cpp:112); guard appends bad_at (B,) int32, record_energy an
+    {"energy": (B, S)} series (the energy of the unsharded engine, its
+    gradients central inside and one-sided at the grid's ends across the
+    shards' halos). Gautschi in float32 through the shard kernels, SV in
+    any real dtype; all B lanes in one batched sharded step. stochastic
+    phi-4 is not grid-shardable (JAX's ValueError); batch_axis and a
+    float64 or reorth=False Gautschi raise NotImplementedError.
+    """
+    if kind == "stochastic_phi4":
+        raise ValueError("stochastic_phi4 is not supported on sharded "
+                         "grids; use pipeline/engine (batch sharding)")
+    _no_batch_axis(batch_axis)
+    rdtype = real_dtype_of(torch_dtype(dtype))
+    step_of = _realwave(kind, global_shape, Lx, dt, mesh, axis_names,
+                        integrator, krylov_m, rdtype, variant, apply_bc,
+                        reorth, use_c)
+    global_shape = tuple(int(g) for g in global_shape)
+    axis_names = tuple(axis_names)
+    nd = len(global_shape)
+    dx = 2.0 * Lx / (global_shape[-1] - 1)
+    potential = realwave_potential(kind)
+
+    def observe(state):
+        us, us_past = state
+        return (shards.gather(us, mesh, axis_names),
+                shards.gather([(u - up) / dt for u, up in zip(us, us_past)],
+                              mesh, axis_names))
+
+    def energy_of(state):
+        us, us_past = state
+        grad2 = None
+        for d, (name, N) in enumerate(zip(axis_names, global_shape)):
+            gr = sharded_gradient(us, dx, d - nd, mesh, name, N)
+            grad2 = ([x * x for x in gr] if grad2 is None
+                     else [a + x * x for a, x in zip(grad2, gr)])
+        dens = [0.5 * ((u - up) / dt) ** 2 + 0.5 * g2 + potential(u)
+                for u, up, g2 in zip(us, us_past, grad2)]
+        return _lane_sums(dens, nd, mesh, dx ** nd)
+
+    def traj(u0, v0, m, c, num_snapshots, snapshot_freq):
+        u0 = _tensor(u0, rdtype)
+        past = u0 - dt * _tensor(v0, rdtype)       # u_past = u0 - dt v0
+        state0 = (shards.shard(u0, mesh, axis_names),
+                  shards.shard(past, mesh, axis_names))
+        ms = shards.shard(_tensor(m, rdtype), mesh, axis_names)
+        cs = (shards.shard(_tensor(c, rdtype), mesh, axis_names)
+              if use_c else None)
+        scalars = {"energy": energy_of} if record_energy else None
+        (u_s, v_s), bad_at, series = evolve_lanes(
+            step_of(ms, cs), state0, num_snapshots, snapshot_freq, observe,
+            guard, scalars)
+        out = (u_s.movedim(0, 1), v_s.movedim(0, 1))
+        if not guard:
+            return out
+        return out + (bad_at,) + ((series,) if record_energy else ())
+
+    traj.batched = True
+    return traj

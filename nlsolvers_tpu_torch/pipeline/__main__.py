@@ -4,8 +4,10 @@ Port of nlsolvers_tpu/pipeline/__main__.py: the same subcommands and flags,
 which mirror the reference launcher argparse surfaces
 (complex_launcher_2d.py:276-354, real_launcher_2d.py parse_args), plus
 --device (default cuda; cpu only when asked). Batching happens in-process
-on one device; --shard-batch and --shard-grid are not ported yet and raise
-NotImplementedError (ROADMAP.md queue 1 item 2).
+on one device; --shard-grid gy,gx (gz,gy,gx in 3D) splits each
+trajectory's grid over that many shards, all on --device (the grid-sharded
+engines); --shard-batch is not ported yet and raises NotImplementedError
+(ROADMAP.md queue 1 item 2).
 
 Examples:
   python -m nlsolvers_tpu_torch.pipeline nlse --phenomenon multi_soliton \
@@ -15,6 +17,10 @@ Examples:
   python -m nlsolvers_tpu_torch.pipeline realwave --phenomenon kink_field \
       --system sine_gordon --integrator gautschi --dim 2 --nx 128 \
       --num-runs 2 --output-dir out
+  python -m nlsolvers_tpu_torch.pipeline nlse --phenomenon multi_soliton \
+      --nx 1024 --T 0.12 --nt 200 --snapshots 5 --num-runs 2 \
+      --anisotropy-type layered --shard-grid 2,2 --format npy \
+      --output-dir out
 """
 
 import argparse
@@ -101,8 +107,10 @@ def build_parser():
                         help="shard the trajectory batch over devices: "
                              "not ported yet (raises)")
         sp.add_argument("--shard-grid", type=str, default="",
-                        help="shard each trajectory's grid over devices: "
-                             "not ported yet (raises)")
+                        help="spatial mesh shape for grid sharding (2D: "
+                             "'gy,gx' e.g. 2,4; 3D: 'gz,gy,gx'): shard "
+                             "EACH trajectory's grid over that many shards "
+                             "on --device")
         sp.add_argument("--device", type=str, default="cuda",
                         help="torch device of the engine (default cuda; "
                              "cpu only when asked)")
@@ -128,10 +136,12 @@ def build_parser():
 
 
 def config_from_args(args):
-    if args.shard_batch or args.shard_grid:
+    if args.shard_batch:
         raise NotImplementedError(
-            f"--shard-batch / --shard-grid: the sharded datagen engines are "
-            f"not ported yet ({LATER})")
+            f"--shard-batch: sharding the trajectory batch over devices "
+            f"is not ported yet ({LATER})")
+    shard_grid = (tuple(int(x) for x in args.shard_grid.split(","))
+                  if args.shard_grid else ())
     kwargs = dict(
         family=args.family, phenomenon=args.phenomenon, system=args.system,
         dim=args.dim, nx=args.nx, Lx=args.Lx, T=args.T, nt=args.nt,
@@ -145,7 +155,7 @@ def config_from_args(args):
         record_energy=args.record_energy,
         archive_format=args.archive_format,
         archive_async=args.async_archive, resume=args.resume,
-        device=args.device)
+        shard_grid=shard_grid, device=args.device)
     if args.family == "nlse":
         kwargs.update(sigma1=args.sigma1, sigma2=args.sigma2,
                       kappa=args.kappa,

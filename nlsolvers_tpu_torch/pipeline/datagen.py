@@ -10,9 +10,15 @@ either package archived. A batch of trajectories runs on the port's engine
 CPU; with device "cuda" and no card, Datagen raises. Downsampling stays on
 the host after readback, in float64 (pipeline/downsample.py).
 
-The process count is 1: the multi-host paths of the JAX package (one batch
-over many hosts' devices) and the sharded engines (`mesh`, `shard_grid`)
-wait for ROADMAP.md queue 1 item 2 and raise NotImplementedError.
+`shard_grid` splits each trajectory's grid over a mesh of that shape, as
+the JAX package's single-process path does (`_build_grid_sharded_traj_fn`):
+the grid-sharded engines of parallel/spatial.py, every shard on the
+config's device unless `mesh` is given, all lanes of a batch in one
+batched sharded step; their outputs are global tensors, so fetching needs
+no stitching. The process count is 1: the multi-host paths of the JAX
+package and a mesh with a batch axis (`mesh` without `shard_grid`, or a
+mesh whose axes include `batch_axis`) wait for ROADMAP.md queue 1 item 2
+and raise NotImplementedError.
 """
 
 import json
@@ -25,6 +31,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from nlsolvers_tpu_torch.parallel import spatial
+from nlsolvers_tpu_torch.parallel.mesh import make_mesh
 from nlsolvers_tpu_torch.pipeline import downsample as ds
 from nlsolvers_tpu_torch.pipeline import fields as field_gen
 from nlsolvers_tpu_torch.pipeline import io_hdf5, spaces
@@ -91,11 +99,14 @@ class DatagenConfig:
     dr_strategy: str = "interpolation"
     seed: int = 0
     output_dir: str = "datagen_out"
-    mesh: object = None              # a mesh to shard the batch axis over:
-    batch_axis: str = "batch"        # not ported yet (NotImplementedError)
-    shard_grid: tuple = ()           # e.g. (2, 4): shard EACH grid over a
-    #                                  mesh's spatial axes: not ported yet
-    #                                  (NotImplementedError)
+    mesh: object = None              # with shard_grid: the mesh of the
+    #                                  grid's shards (parallel/mesh.Mesh);
+    #                                  a batch axis over it is not ported
+    batch_axis: str = "batch"        # yet (NotImplementedError)
+    shard_grid: tuple = ()           # e.g. (2, 4): shard EACH grid over the
+    #                                  mesh's spatial axes (gy, gx) /
+    #                                  (gz, gy, gx) — for single trajectories
+    #                                  too large for one card
     normalize_ic: bool = True        # NLSE only (complex_launcher_2d.py:95)
     boundary: str = "noflux"         # NLSE: "noflux" | "radiating" | "none"
     #                                  (radiating: boundaries.hpp:59-121)
@@ -188,9 +199,9 @@ class Datagen:
     def __init__(self, config):
         self.cfg = config
         cfg = config
-        if cfg.mesh is not None or cfg.shard_grid:
+        if cfg.mesh is not None and not cfg.shard_grid:
             raise NotImplementedError(
-                f"mesh / shard_grid: the sharded datagen engines are not "
+                f"mesh: sharding the trajectory batch over devices is not "
                 f"ported yet ({LATER})")
         if (torch.device(cfg.device).type == "cuda"
                 and not torch.cuda.is_available()):
@@ -257,6 +268,8 @@ class Datagen:
 
     def _build_traj_fn(self):
         cfg = self.cfg
+        if cfg.shard_grid:
+            return self._build_grid_sharded_traj_fn()
         if cfg.family == "nlse":
             return make_nlse_trajectory_fn(
                 cfg.system, cfg.shape, cfg.Lx, cfg.dt,
@@ -271,6 +284,36 @@ class Datagen:
             noise_strength=cfg.noise_strength, seed=cfg.seed,
             dtype=cfg.dtype, variant=cfg.variant, guard=cfg.guard,
             record_energy=cfg.record_energy, device=cfg.device)
+
+    def _build_grid_sharded_traj_fn(self):
+        """The grid-sharded engines (parallel/spatial.py): every
+        trajectory's GRID is split over the mesh's spatial axes, the path
+        for single runs too large for one card (1024^2 / 256^3 configs).
+        One process; the mesh's shards all on cfg.device unless cfg.mesh is
+        given."""
+        cfg = self.cfg
+        axes = ("gy", "gx") if cfg.dim == 2 else ("gz", "gy", "gx")
+        if cfg.mesh is None:
+            n = int(np.prod(cfg.shard_grid))
+            cfg.mesh = make_mesh(axes, shape=cfg.shard_grid,
+                                 devices=[cfg.device] * n)
+        if cfg.batch_axis in cfg.mesh.axis_names:
+            raise NotImplementedError(
+                f"a mesh with the batch axis {cfg.batch_axis!r}: sharding "
+                f"the trajectory batch over devices is not ported yet "
+                f"({LATER})")
+        if cfg.family == "nlse":
+            return spatial.make_sharded_nlse_trajectory_fn(
+                cfg.system, cfg.shape, cfg.Lx, cfg.dt, cfg.mesh,
+                axis_names=axes, integrator=cfg.integrator,
+                krylov_m=cfg.krylov_m, sigma1=cfg.sigma1, sigma2=cfg.sigma2,
+                kappa=cfg.kappa, dtype=cfg.dtype, variant=cfg.variant,
+                guard=cfg.guard, record_energy=cfg.record_energy)
+        return spatial.make_sharded_realwave_trajectory_fn(
+            cfg.system, cfg.shape, cfg.Lx, cfg.dt, cfg.mesh, axis_names=axes,
+            integrator=cfg.integrator, krylov_m=cfg.krylov_m,
+            dtype=cfg.dtype, variant=cfg.variant, guard=cfg.guard,
+            record_energy=cfg.record_energy)
 
     def _adopt_legacy_id(self, det_id):
         """Resume migration: sweeps archived before the config digest was

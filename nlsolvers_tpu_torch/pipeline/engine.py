@@ -50,10 +50,10 @@ import numpy as np
 import torch
 
 from nlsolvers_tpu_torch import config
-from nlsolvers_tpu_torch.config import real_dtype_of
+from nlsolvers_tpu_torch.config import real_dtype_of, torch_dtype
 from nlsolvers_tpu_torch.models import problems
 from nlsolvers_tpu_torch.models import realwave as rw
-from nlsolvers_tpu_torch.models.evolve import evolve, evolve_guarded
+from nlsolvers_tpu_torch.models.evolve import evolve_lanes
 from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
                                                        REALWAVE_KINDS,
                                                        nlse_density_planar,
@@ -70,19 +70,6 @@ __all__ = ["make_nlse_trajectory_fn", "make_realwave_trajectory_fn",
 
 # the arguments that wait for a later slice
 LATER = "ROADMAP.md queue 1 item 2"
-
-_DTYPES = {np.dtype(np.complex64): torch.complex64,
-           np.dtype(np.complex128): torch.complex128,
-           np.dtype(np.float32): torch.float32,
-           np.dtype(np.float64): torch.float64}
-
-
-def torch_dtype(dtype):
-    """A torch dtype from a torch dtype, a numpy type or its name."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return _DTYPES[np.dtype(dtype)]
-
 
 def _no_mesh(mesh):
     if mesh is not None:
@@ -124,19 +111,6 @@ def _batched_step(lane_steps):
         return out
 
     return step
-
-
-def _run(step, states, observe, num_snapshots, snapshot_freq, guard,
-         scalars):
-    """(snaps, bad_at, series) with the snapshot axis first; bad_at and
-    series None unguarded."""
-    if not guard:
-        return evolve(step, states, num_snapshots, snapshot_freq,
-                      observe=observe), None, None
-    snaps, bad_at, series = evolve_guarded(
-        step, states, num_snapshots, snapshot_freq, observe=observe,
-        batched=True, scalars=scalars)
-    return snaps, bad_at, {k: v.movedim(0, 1) for k, v in series.items()}
 
 
 def _batched_operator(shape, dx, c, B, variant, rdtype, device):
@@ -278,8 +252,9 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
                       for b, p in enumerate(probs)]
             step = _batched_step([p.step for p in probs])
         scalars = {"mass": mass_of} if record_energy else None
-        snaps, bad_at, series = _run(step, states, observe, num_snapshots,
-                                     snapshot_freq, guard, scalars)
+        snaps, bad_at, series = evolve_lanes(step, states, num_snapshots,
+                                             snapshot_freq, observe, guard,
+                                             scalars)
         if not guard:
             return pack(snaps)
         return (pack(snaps), bad_at) + ((series,) if record_energy else ())
@@ -438,9 +413,9 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
             step = _batched_step([lane_step(m[b], None if c is None
                                             else c[b], b) for b in range(B)])
         scalars = {"energy": energy_of} if record_energy else None
-        (u_s, v_s), bad_at, series = _run(step, states, observe,
-                                          num_snapshots, snapshot_freq,
-                                          guard, scalars)
+        (u_s, v_s), bad_at, series = evolve_lanes(
+            step, states, num_snapshots, snapshot_freq, observe, guard,
+            scalars)
         out = (u_s.movedim(0, 1), v_s.movedim(0, 1))
         if not guard:
             return out

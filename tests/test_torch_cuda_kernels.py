@@ -552,10 +552,117 @@ def test_sharded_step_on_card(cuda, shape, mshape, variant, use_c):
                 t3.pass1_3d)
     before = [f.launches for f in counters]
     got, want = _kernel_and_plain(lambda: shards.gather(step(*parts), mesh))
-    per = [m - 1, m - 1, 1, 0, 2, 0, 0, 0]
+    per = [m - 1, m, 1, 0, 2, 0, 0, 0]
     assert [f.launches - b for f, b in zip(counters, before)] == [
         n * k for k in per]
     assert _rel(got, want) <= FIELD_TOL
+
+
+def _shard_lanes(cuda, rng, mode, shape, P, B):
+    """B lanes of a shard block: the (yh, xh) or (yh, zh, xh) halos with a
+    leading B, the descriptor of the batch (face weights per lane) and each
+    lane's own; the block at an interior place of a larger grid."""
+    three_d = len(shape) == 3
+    if three_d:
+        nz, ny, nx = shape
+        R = nz * ny
+        halos = [_rand(cuda, rng, B, P, 2, nz, nx),
+                 _rand(cuda, rng, B, P, 2, ny, nx),
+                 _rand(cuda, rng, B, P, 2, R)]
+        d = dict(kind="shard3d" if mode != "aniso" else "shard3d_aniso",
+                 NZ=2 * nz, NY=ny, NX=3 * nx, z0=nz, y0=0, x0=nx, lnz=nz,
+                 lny=ny, variant=mode)
+        wshapes = (("wx", (R, nx)), ("wy", (R, nx)), ("wz", (R, nx)),
+                   ("wxl", (R,)), ("wyh", (nz, nx)), ("wzh", (ny, nx)))
+    else:
+        ny, nx = shape
+        halos = [_rand(cuda, rng, B, P, 2, nx), _rand(cuda, rng, B, P, 2, ny)]
+        d = dict(kind="shard2d" if mode != "aniso" else "shard2d_aniso",
+                 NY=3 * ny, NX=3 * nx, y0=ny, x0=nx, variant=mode)
+        wshapes = (("wx", (ny, nx)), ("wy", (ny, nx)), ("wxl", (ny,)),
+                   ("wyh", (nx,)))
+    d.update(scale=1.0 / 0.02 ** 2, sign=-1.0 if P == 1 else 1.0)
+    if mode == "aniso":
+        d.update({k: _rand(cuda, rng, B, *shp, lo=1.0) for k, shp in wshapes})
+    lanes = [dict(d, **{k: d[k][b] for k, _ in wshapes})
+             if mode == "aniso" else d for b in range(B)]
+    return halos, d, lanes
+
+
+@pytest.mark.parametrize("mode,shape,P", [
+    ("reference", (64, 64), 2), ("clean", (37, 131), 1),
+    ("aniso", (37, 131), 2), ("aniso", (2, 2), 1), ("aniso", (64, 64), 1),
+    ("reference", (6, 9, 70), 2), ("clean", (5, 9, 70), 1),
+    ("aniso", (5, 9, 70), 2), ("aniso", (2, 2, 2), 1),
+    ("clean", (4, 3, 129), 2)])
+def test_batched_shard_kernels_bit_equal_to_lane_launches_on_card(
+        cuda, mode, shape, P):
+    """pass1_shard2d / pass1_shard3d on B = 3 lanes of a shard block, each
+    lane with its own halos (and face weights), j = 0, 4 and 18: ONE
+    launch, lane b bit-equal to the unbatched launch on lane b and within
+    the gates of the plain batched version; two launches bit for bit."""
+    B = 3
+    rng = np.random.default_rng(300 + P + len(shape))
+    halos, d, lanes = _shard_lanes(cuda, rng, mode, shape, P, B)
+    three_d = len(shape) == 3
+    kern = t3.pass1_shard3d if three_d else tl.pass1_shard2d
+    rows = shape[0] * shape[1] if three_d else shape[0]
+    W = [_rand(cuda, rng, B, P, rows, shape[-1]) for _ in range(19)]
+    for j in (0, 4, 18):
+        scal = torch.from_numpy(rng.uniform(0.2, 1.0, (B, 1, 2)).astype(
+            np.float32)).to(cuda)
+        before = kern.launches
+        got, want = _kernel_and_plain(
+            lambda: kern(scal, W[j], W[:j], *halos, d))
+        assert kern.launches == before + 1
+        _batch_check(got, want, W[:j + 1] + [want[0]])
+        _lane_equal(got, [kern(scal[b], W[j][b], [w[b] for w in W[:j]],
+                               *[h[b] for h in halos], lanes[b])
+                          for b in range(B)])
+        again = kern(scal, W[j], W[:j], *halos, d)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("shape,mshape,variant,integrator,per", [
+    ((24, 40), (2, 2), "reference", "ss2", (5, 6, 1, 2)),
+    ((24, 40), (2, 2), "aniso", "sewi", (15, 18, 3, 0)),
+    ((24, 40), (2, 2), "aniso", "sewi_fused", (10, 12, 2, 0)),
+    ((8, 12, 16), (1, 1, 4), "reference", "gautschi", (15, 18, 3, 0)),
+    ((8, 12, 16), (2, 2, 2), "clean", "ss2", (5, 6, 1, 2))])
+def test_batched_sharded_engine_lanes_on_card(cuda, shape, mshape, variant,
+                                              integrator, per):
+    """The sharded NLSE engine on B = 2 lanes (m = 6, c(x) per lane unless
+    iso): each batched step (after the SS2 bootstrap of a two-step
+    integrator) launches exactly, per shard, the shard pass1, pass2,
+    combine and kick_bc counts `per`, whatever B, and lane b of every
+    snapshot is bit-equal to the engine run on lane b alone."""
+    from nlsolvers_tpu_torch.parallel import mesh as tmesh
+    from nlsolvers_tpu_torch.parallel import spatial
+
+    axes = ("gy", "gx") if len(shape) == 2 else ("gz", "gy", "gx")
+    n = int(np.prod(mshape))
+    mesh = tmesh.make_mesh(axes, mshape, devices=[cuda] * n)
+    use_c = variant == "aniso" or len(shape) == 3
+    rng = np.random.default_rng(13)
+    B = 2
+    u0 = 0.1 * rng.standard_normal((B, 2) + shape).astype(np.float32)
+    mf = (1.0 + 0.1 * rng.random((B,) + shape)).astype(np.float32)
+    c = (1.0 + 0.4 * rng.random((B,) + shape)).astype(np.float32)
+    traj = spatial.make_sharded_nlse_trajectory_fn(
+        "cubic", shape, 5.0, 1e-3, mesh, axis_names=axes,
+        integrator=integrator, krylov_m=6, use_c=use_c,
+        variant="clean" if variant == "aniso" else variant)
+    pass1 = tl.pass1_shard2d if len(shape) == 2 else t3.pass1_shard3d
+    counters = (pass1, t3.pass2, tl.combine, tk.phase_kick_bc_planar)
+    traj(u0, mf, c, 2, 2)                     # the bootstrap and one step
+    before = [f.launches for f in counters]
+    got = traj(u0, mf, c, 2, 3)
+    diff = [f.launches - b for f, b in zip(counters, before)]
+    boot = (5, 6, 1, 2) if integrator != "ss2" else per
+    assert diff == [n * (a + 2 * b) for a, b in zip(boot, per)]
+    for b in range(B):
+        alone = traj(u0[b:b + 1], mf[b:b + 1], c[b:b + 1], 2, 3)
+        assert torch.equal(got[b], alone[0])
 
 
 # ------------------------------------------------ K2/K2' tiles and K3 vectors

@@ -366,8 +366,11 @@ def test_cli_main_cpu(tmp_path, capsys):
 
 
 def test_unported_arguments_raise(tmp_path):
+    from nlsolvers_tpu_torch.parallel import mesh as tmesh
+    batch_mesh = tmesh.make_mesh(("batch", "gy", "gx"), (1, 2, 2),
+                                 devices=["cpu"] * 4)
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tdg.Datagen(_cfg(tdg, tmp_path, shard_grid=(2, 2)))
+        tdg.Datagen(_cfg(tdg, tmp_path, shard_grid=(2, 2), mesh=batch_mesh))
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         tdg.Datagen(_cfg(tdg, tmp_path, mesh=object()))
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
@@ -376,7 +379,8 @@ def test_unported_arguments_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         teng.make_realwave_trajectory_fn("sine_gordon", (N, N), LX, DT,
                                          mesh=object(), device="cpu")
-    for flag in (["--shard-batch", "2"], ["--shard-grid", "2,2"]):
+    for flag in (["--shard-batch", "2"],
+                 ["--shard-batch", "2", "--shard-grid", "2,2"]):
         with pytest.raises(NotImplementedError, match="queue 1 item 2"):
             tcli.main(["nlse", "--phenomenon", "multi_soliton", "--device",
                        "cpu", "--output-dir", str(tmp_path)] + flag)

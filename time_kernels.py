@@ -5,7 +5,8 @@
                             [--parts 2d,k8,k13,k5,k1,rates,optin]
                             [--ms 10,20]
 
-(other parts: kickbc, rates3d, shard, perj, ptxas, datagen, sweeps, run3d)
+(other parts: kickbc, rates3d, shard, perj, ptxas, datagen, sweeps, run3d,
+shard-datagen)
 
 Imports nlsolvers_tpu_torch from TREE (default: the directory of this
 script), so that one machine can time two versions of the package in turns
@@ -80,6 +81,19 @@ the same columns (complex64). Parts:
          runs, no sync inside the run) and the wall with the sync, the
          device time by CUDA-graph replay and the profiler's kernel rows
          per run, to compare two trees' unbatched 3D loop;
+  shard-datagen  the grid-sharded datagen path (a tree with the sharded
+         engines): the shard kernels by CUDA-graph replay, unbatched per
+         step of the sharded main paths (every shard's m-1 launches, m =
+         10: 4096^2 on (2, 2) reference and c(x), 512^3 on (2, 2, 2) clean
+         and c(x)) beside their bytes bound, and batched over B = 2 lanes
+         per batched sharded Lanczos run at the datagen-shard points by
+         chip_smoke.py's parity-batched-shard (checked, then timed beside
+         the lanes' unbatched launch sequences); then the batched sharded
+         SS2 step (c(x), 1024^2 m = 20 on (2, 2) and 256^3 m = 10 on
+         (1, 1, 4), B = 2, and 1024^2 at B = 8) beside the same lanes
+         stepped one at a time through make_sharded_nlse_step, chunks
+         interleaved, by chip_smoke.py's `rate` (ms per batched step,
+         device busy time, idle share, launches, host syncs);
   ptxas  ptxas's registers and spill stores of every kernel instantiation
          the tree builds, one JSON object each (the namespace hash of a
          name dropped), to compare two trees' code generation;
@@ -780,11 +794,131 @@ def main():
         for label, r in cs.datagen_rates(torch, np, datagen, work).items():
             emit(datagen_sweep=label, **r)
         shutil.rmtree(work, ignore_errors=True)
+    if "shard-datagen" in parts:
+        shard_datagen(cs, torch, np, dev, emit)
     if args.out:
         with open(args.out, "w") as f:
             for r in results:
                 f.write(json.dumps(r) + "\n")
     return 0
+
+
+def shard_datagen(cs, torch, np, dev, emit):
+    """The shard-datagen part (module docstring)."""
+    import math
+
+    from nlsolvers_tpu_torch.ops.cuda import lanczos2d as lz
+    from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
+    from nlsolvers_tpu_torch.parallel import mesh as pmesh
+    from nlsolvers_tpu_torch.parallel import shards, spatial
+
+    gen = torch.Generator(device=dev).manual_seed(135)
+    # unbatched, per step of the sharded main paths (m = 10)
+    m = 10
+    for key, kern, kind, lshape, mshape in (
+            ("pass1_shard2d reference", lz.pass1_shard2d, "shard2d",
+             (2048, 2048), (2, 2)),
+            ("pass1_shard2d aniso", lz.pass1_shard2d, "shard2d_aniso",
+             (2048, 2048), (2, 2)),
+            ("pass1_shard3d clean", l3.pass1_shard3d, "shard3d",
+             (256, 256, 256), (2, 2, 2)),
+            ("pass1_shard3d aniso", l3.pass1_shard3d, "shard3d_aniso",
+             (256, 256, 256), (2, 2, 2))):
+        n = lshape[-1] * mshape[-1]
+        descs = [lanes[0] for _, lanes in cs.shard_lane_descs(
+            torch, kind, lshape, mshape, ((n - 1) / (2 * LX)) ** 2, 1, gen)]
+        if kind == "shard3d":
+            descs = [dict(d, variant="clean") for d in descs]
+        rows = math.prod(lshape[:-1])
+        hs = [[h[0] for h in cs.shard_halos(torch, lshape, 2, 1, gen)]
+              for _ in descs]
+        Ws = [[torch.randn((2, rows, lshape[-1]), generator=gen, device=dev)
+               for _ in range(m - 1)] for _ in descs]
+        s = torch.tensor([[0.5, 0.0]], device=dev)
+
+        def run(Ws=Ws, hs=hs, descs=descs, kern=kern):
+            for W, h, d in zip(Ws, hs, descs):
+                for j in range(m - 1):
+                    kern(s, W[j], W[:j], *h, d)
+
+        col = 2 * math.prod(lshape) * 4
+        halo = sum(x.numel() for x in hs[0]) * 4
+        wts = sum(v.numel() for k, v in descs[0].items()
+                  if k.startswith("w")) * 4
+        nbytes = len(descs) * sum((j + 2) * col + halo + wts
+                                  for j in range(m - 1))
+        g = cs.graph_ms(torch, run, 3)
+        prof, events = cs.times_ms(torch, run, 3)
+        emit(shard_kernel=key, lshape=list(lshape), mesh=list(mshape), m=m,
+             launches=len(descs) * (m - 1), graph_ms=g, profiler_ms=prof,
+             events_ms=events, bound_ms=cs.bound_ms(nbytes),
+             bytes=nbytes, bound_share=cs.bound_ms(nbytes) / g)
+        del Ws, hs, descs
+        torch.cuda.empty_cache()
+    # batched, per batched sharded Lanczos run at the datagen-shard points
+    for key, r in cs.batched_parity_shard(torch, np).items():
+        emit(shard_kernel=f"{key} batched", lanes=cs.SH_B,
+             launches=r["launches"], graph_ms=r["graph"],
+             lanes_graph_ms=r["lanes_graph"], profiler_ms=r["t"][0],
+             events_ms=r["t"][1], plain_ms=r["t"][2],
+             bound_ms=cs.bound_ms(r["nbytes"]), bytes=r["nbytes"],
+             bound_share=cs.bound_ms(r["nbytes"]) / r["graph"])
+
+    # the batched sharded step beside the lanes through the unbatched step
+    def lanes_in_turn(stepfn, mp, cp, n_sh):
+        """The B lanes' shard lists as one flat tuple, each lane stepped
+        alone through make_sharded_nlse_step."""
+        def step(s, i):
+            del i
+            out = []
+            for b in range(len(mp)):
+                out += stepfn(list(s[b * n_sh:(b + 1) * n_sh]), mp[b], cp[b])
+            return tuple(out)
+        return SimpleNamespace(step=step)
+
+    for shape, mshape, m_, dt, B, chunk in (
+            ((1024, 1024), (2, 2), 20, 1.2 / 2000, 2, 20),
+            ((1024, 1024), (2, 2), 20, 1.2 / 2000, 8, 10),
+            ((256, 256, 256), (1, 1, 4), 10, 0.048 / 80, 2, 10)):
+        axes = ("gy", "gx") if len(shape) == 2 else ("gz", "gy", "gx")
+        mesh = pmesh.make_mesh(axes, mshape,
+                               devices=[dev] * math.prod(mshape))
+        x = torch.linspace(-LX, LX, shape[-1], device=dev)
+        grids = torch.meshgrid(*([x] * len(shape)), indexing="ij")
+        r2 = sum(g * g for g in grids)
+        u0 = torch.stack([torch.stack([torch.exp(-r2 / (4 + b)) * torch.cos(
+            0.5 * grids[-1]), torch.exp(-r2 / (4 + b)) * torch.sin(
+            0.5 * grids[-1])]) for b in range(B)])
+        del grids, r2
+        mf = torch.ones((B,) + shape, device=dev)
+        c = 1.0 + 0.4 * torch.rand((B,) + shape, generator=gen, device=dev)
+        step_of = spatial._planar_nlse(
+            "cubic", shape, LX, dt, mesh, axes, "ss2", 1.0, -0.1, 1.0, m_,
+            "reference", True, True)
+        mp, cp = shards.shard(mf, mesh, axes), shards.shard(c, mesh, axes)
+        bstep = step_of(mp, cp)
+        batched = SimpleNamespace(step=lambda s, i, f=bstep: tuple(
+            f(list(s), i)))
+        s_b = tuple(p.reshape((B, 2) + step_of.block)
+                    for p in shards.shard(u0, mesh, axes))
+        one = spatial.make_sharded_nlse_step(
+            "cubic", shape, LX, dt, mesh, axis_names=axes, krylov_m=m_,
+            use_c=True)
+        mpl = [shards.shard(mf[b], mesh, axes) for b in range(B)]
+        cpl = [shards.shard(c[b], mesh, axes) for b in range(B)]
+        lanes = lanes_in_turn(one, mpl, cpl, mesh.size)
+        s_l = tuple(p for b in range(B)
+                    for p in shards.shard(u0[b], mesh, axes))
+        tag = f"{'x'.join(map(str, shape))} on {mshape} m={m_} B={B}"
+        print(f"[shard-datagen] batched sharded SS2 step vs the lanes in "
+              f"turn, {tag}:")
+        cs.rate(torch, {f"batched {tag}": (batched, s_b),
+                        f"lanes {tag}": (lanes, s_l)}, chunk,
+                [f"batched {tag}", f"lanes {tag}", f"lanes {tag}",
+                 f"batched {tag}"], 3)
+        emit(shard_step=tag, printed="above (chip_smoke.rate)")
+        del u0, mf, c, mp, cp, s_b, s_l, mpl, cpl
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
