@@ -12,8 +12,10 @@ Phases, one line each (or a few):
                the 2D pass1/pipe kernels (iso and aniso; K1 and K2 in
                their 16-byte and scalar forms; the shard policies), of K3,
                K5 <P, MAXW, OPK, VEC>, K8 <P, MAXW, MODE, VEC, LANES> and
-               K13 <MAXW, VEC>, and of kick_bc <KIND, VEC>; fails unless
-               all 96 K1 / K5 instantiations are there and none spills
+               K13 <MAXW, VEC>, of kick_bc <KIND, VEC> and of
+               pass1_shard3d <P, MAXW, MODE, VEC>; fails unless all 96 K1 /
+               K5 and all 48 pass1_shard3d instantiations are there and
+               none of them spills
   3. parity    each 2D kernel (K1-K3) against its plain PyTorch version on
                the same seeded CUDA tensors, at 1024^2 complex64, 4096^2
                and on ragged grids (250x333, 250x334, 251x335: the scalar
@@ -319,9 +321,12 @@ Each of phases 28-39 prints its seconds; from phase 3 on, a line
                (1, 1, 4), c(x) and iso), ragged real batches and 2 x 2(x2)
                blocks: one launch each, against the plain batched versions
                (phase 3's gates), bit-equal to B unbatched launches, two
-               launches bit for bit; one batched sharded Lanczos run's shard
-               kernels (every shard, j = 0..m-2) by graph beside the B
-               lanes' unbatched launch sequences and the bytes bound.
+               launches bit for bit; pass1_shard3d's bricks
+               (lanczos3d.shard3d_tiles) equal to the library's count and
+               ring bytes; one batched sharded Lanczos run's shard kernels
+               (every shard, j = 0..m-2; c(x), and the 3D iso reference
+               operator too) by graph beside the B lanes' unbatched launch
+               sequences and the bytes bound.
  39. datagen-shard  the grid-sharded datagen engines (shard_datagen), B = 2
                lanes in one batched sharded step, every shard on this card:
                2D cubic NLSE c(x) 1024^2 m=20 on (2, 2), SS2 (exactly 4 x (19
@@ -2191,12 +2196,38 @@ def batched_parity_shard(torch, np):
         cases.append(kind)
     torch.cuda.empty_cache()
 
-    # one batched sharded Lanczos run's shard kernels (c(x), P = 2)
+    # the bricks of pass1_shard3d (lanczos3d.shard3d_tiles) against the
+    # library's count of partial rows and bytes of shared memory (a tree
+    # older than the brick kernel, timed by time_kernels.py, has neither)
+    lib3 = l3._lib()
+    for shp in ((b3, (SH_N3,) * 3, (20, 30, 50), (2, 2, 2))
+                if hasattr(l3, "shard3d_tiles") else ()):
+        for aniso in (False, True):
+            for vec in (0, 1):
+                t = l3.shard3d_tiles(*shp, 2, aniso, vec)
+                blocks = lib3.lz3_shard_blocks(*shp, t["nxt"], t["tyt"],
+                                               t["pz"])
+                smem = lib3.lz3_shard_smem(2, 2 if aniso else 0, vec,
+                                           t["nxt"], t["tyt"])
+                check(blocks == t["blocks"] and smem == t["smem"],
+                      f"shard3d_tiles {shp} aniso={aniso} vec={vec}: "
+                      f"{t} against the library's {blocks} bricks, {smem} "
+                      f"bytes")
+        t = l3.shard3d_tiles(*shp, 2, True, shp[-1] % 4 == 0)
+        print(f"parity-batched-shard pass1_shard3d bricks of "
+              f"{'x'.join(map(str, shp))}: {t['nxt']} columns x {t['tyt']} "
+              f"rows x {t['pz']} planes, {t['threads']} threads, "
+              f"{t['blocks']} per lane, ring {t['smem']} bytes (c(x), P=2)")
+
+    # one batched sharded Lanczos run's shard kernels (P = 2): c(x), and the
+    # iso reference operator of the 3D datagen-shard point
     out = {}
     for key, kern, kind, lshape, mshape, scale, m in (
             ("pass1_shard2d", lz.pass1_shard2d, "shard2d_aniso", (L2, L2),
              SH_MESH2, scale2, DG_M),
             ("pass1_shard3d", l3.pass1_shard3d, "shard3d_aniso", b3,
+             SH_MESH3, scale3, DG3_M),
+            ("pass1_shard3d iso", l3.pass1_shard3d, "shard3d", b3,
              SH_MESH3, scale3, DG3_M)):
         B = SH_B
         descs = shard_lane_descs(torch, kind, lshape, mshape, scale, B, gen)
@@ -2229,12 +2260,13 @@ def batched_parity_shard(torch, np):
         nbytes = B * nsh * sum((j + 2) * col + halo + wts
                                for j in range(m - 1))
         launches = nsh * (m - 1)
-        out[key] = dict(err=errs[key], graph=g, lanes_graph=g_lanes,
-                        t=(prof, events, plain_ms), nbytes=nbytes, lib=None,
-                        launches=launches)
+        out[key] = dict(err=errs[key.split()[0]], graph=g,
+                        lanes_graph=g_lanes, t=(prof, events, plain_ms),
+                        nbytes=nbytes, lib=None, launches=launches)
         tag = "x".join(map(str, lshape))
+        op = "c(x)" if kind.endswith("aniso") else "iso"
         print(f"parity-batched-shard {key} B={B} local {tag} on {mshape} "
-              f"m={m} c(x): graph {g:.4f} ms per batched run ({launches} "
+              f"m={m} {op}: graph {g:.4f} ms per batched run ({launches} "
               f"launches), {B} unbatched launch sequences {g_lanes:.4f} ms "
               f"({g_lanes / g:.2f}x); profiler {prof:.4f}, events "
               f"{events:.4f}; plain batched {plain_ms:.4f}; bound "
@@ -2531,7 +2563,8 @@ def main():
                              "pipe_2d_kernel", "combine_kernel",
                              "iter_kernel", "pipe3d_kernel",
                              "resident_kernel", "kick_bc_kernel",
-                             "pass1_3d_kernel", "pass2_kernel")):
+                             "pass1_3d_kernel", "pass2_kernel",
+                             "pass1_shard3d_kernel")):
             print(f"ptxas {kname}: {nreg} registers, {spill} bytes spill "
                   f"stores")
     # 2 P x 4 buckets x 2 VEC x (2 K1 operators + 4 K5 operators) = 96
@@ -2542,6 +2575,17 @@ def main():
     check(len(new_kernels) == 96 and not any(sp for _, sp in new_kernels),
           f"K1 / K5: {len(new_kernels)} instantiations (96 expected), "
           f"spills {[k for k, sp in new_kernels if sp]}")
+    # pass1_shard3d <P, MAXW, MODE, VEC> (MODE 3-5 the shard modes, VEC 4
+    # the 16-byte form): 2 P x 4 buckets x 3 modes x 2 forms = 48
+    shard3d = [(k, nreg, sp) for k, nreg, sp in resources["lanczos3d"]
+               if k.startswith("pass1_shard3d_kernel")]
+    regs3 = [nreg for _, nreg, _ in shard3d]
+    print(f"build: {len(shard3d)} pass1_shard3d instantiations, registers "
+          f"{min(regs3, default=0)}-{max(regs3, default=0)}, spills in "
+          f"{sum(1 for *_, sp in shard3d if sp)}")
+    check(len(shard3d) == 48 and not any(sp for *_, sp in shard3d),
+          f"pass1_shard3d: {len(shard3d)} instantiations (48 expected), "
+          f"spills {[k for k, _, sp in shard3d if sp]}")
 
     # ---------------------------------------------------------- 3. parity
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 3 parity")
@@ -4761,6 +4805,12 @@ def main():
                   r["t"], r["nbytes"], None, graph=r["graph"])
         e.update(lanes=SH_B, unbatched_lanes_graph_ms=r["lanes_graph"],
                  datagen_path=path)
+        iso = bat_sh.get(f"{kname} iso")
+        if iso is not None:      # the iso reference operator's run beside
+            e.update(iso_graph_ms=iso["graph"],
+                     iso_unbatched_lanes_graph_ms=iso["lanes_graph"],
+                     iso_bound_ms=bound_ms(iso["nbytes"]),
+                     iso_max_abs_err=iso["err"])
         for other, counts_ in sh_per_step.items():
             if other != path and kname in counts_:
                 e[f"launches_per_batched_step {other}"] = counts_[kname]

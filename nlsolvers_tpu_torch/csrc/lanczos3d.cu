@@ -15,16 +15,16 @@
 //               _pass1y_shard_aniso_call (K10), _pass1zy_shard_call (K11),
 //               _pass1zy_shard_aniso_call (K12), and lanczos2d.py
 //               _pass1_call in modes shard3d/shard3d_aniso (K1'): pass1_3d
-//               on one shard's block of a sharded grid, the shard modes
-//               SHARD_REF, SHARD_CLEAN, SHARD_ANISO of the same kernel
+//               on one shard's block of a sharded grid, in the shard modes
+//               SHARD_REF, SHARD_CLEAN, SHARD_ANISO, a kernel of its own
 //
 // The TPU split pass1 into y-slab and z-by-y brick kernels (and their
 // sharded twins) only to fit its blocks into VMEM; the function is the
-// same, so here it is one kernel with the operator as a mode. On a shard
-// the neighbours outside the block come from halo arrays that only the
-// threads at the block's edges read, and the iso diagonal from the block's
-// global offsets (lz_stencil.cuh's stencil3d_shard), so a shard costs what
-// an unsharded block of its size costs, plus its halos.
+// same, so here it is one kernel with the operator as a mode (and one for
+// the shard modes). On a shard the neighbours outside the block come from
+// halo arrays, copied into the frame of the kernel's plane ring, and the
+// iso diagonal from the block's global offsets, so a shard costs what an
+// unsharded block of its size costs, plus its halos.
 //
 // Fields are planar float32 (P, R, nx) on the merged row view R = nz * ny;
 // the operator modes (ISO_REF with the reference's y-seam, ISO_CLEAN,
@@ -81,14 +81,20 @@
 //   unbatched launch on lane b. A launch of one lane takes an instantiation
 //   without the lane offsets (LANES = false): with them, at the same
 //   register counts, the one-lane pass2 <P=2, 8> read 16% and pass1_3d
-//   5-7% slower at 128^3 (PERF.md). The shard modes' batched form offsets
-//   the lane's halo and weight pointers at its start, which holds them in
-//   registers (the unbatched form reads them from the kernel parameters):
-//   at (256, 256, 64) blocks its bucket-4 forms take 72-79 registers
-//   against 40-56, fewer blocks per SM, and one batched run takes 1.18x
-//   (c(x)) and 1.41x (iso) the time of the lanes' unbatched launches;
-//   offsets taken at the loads took more registers still, and a register
-//   cap by launch bounds slowed the c(x) form (PERF.md).
+//   5-7% slower at 128^3 (PERF.md).
+// * pass1_shard3d (the shard modes) marches z through bricks of a y-x tile
+//   whose width follows the block's (4 to 64 columns), so every thread
+//   owns points however narrow the shard: pass1_3d's one thread per column
+//   left half of each block idle at the 64 columns of 256^3 on (1, 1, 4).
+//   The planes of W_j (with the halos at the block's edges, and the aniso
+//   face weights) come by cp.async into a ring in shared memory, the next
+//   plane in flight while the current one is stencilled, so each element
+//   of W_j is read from device memory once and the neighbours from shared
+//   memory; the other columns stream with 16-byte loads (a scalar form of
+//   the same kernel takes nx % 4 != 0). A lane's pointers live in shared
+//   memory, so one kernel serves one lane and a batch (lane on blockIdx.y)
+//   at the same registers: the parent's batched form offset them at its
+//   start and held them in registers (72-79 against 40-56, PERF.md).
 //
 // Plain C interface for ctypes: every launcher returns cudaGetLastError().
 
@@ -105,17 +111,14 @@ constexpr int PASS2_BLOCKS = 132 * 16;
 // ------------------------------------------------------------ pass1_3d
 // MAXW bounds j (the number of earlier columns) so the per-column
 // accumulators stay in registers.
-// The shard modes take their halos, offsets and edge face weights from sh
-// (unused otherwise); nz, ny, nx are then the block's.
 // A batched launch (LANES) runs lane blockIdx.z with the unbatched tile
-// map: its fields prev.ls floats apart, its scalars, face weights, halos
-// and partial rows lane-major (a shard's offsets are every lane's). A
-// launch of one lane takes LANES = false, the code without the lane
-// offsets (the header).
+// map: its fields prev.ls floats apart, its scalars, face weights and
+// partial rows lane-major. A launch of one lane takes LANES = false, the
+// code without the lane offsets (the header).
 template <int P, int MAXW, int MODE, bool LANES>
 __global__ void __launch_bounds__(TX) pass1_3d_kernel(
     const float* __restrict__ scal, const float* __restrict__ wj, Cols prev,
-    const float* __restrict__ wjm1, int j, Weights wt, Shard3d sh,
+    const float* __restrict__ wjm1, int j, Weights wt,
     float* __restrict__ w_out, float* __restrict__ partial, int nz, int ny,
     int nx, float ss) {
   __shared__ float red[NWARP][RED_W];
@@ -135,17 +138,6 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
       wt.wy += blockIdx.z * plane;
       wt.wz += blockIdx.z * plane;
     }
-    if constexpr (MODE >= SHARD_REF) {
-      const size_t b = blockIdx.z;
-      sh.yh += b * 2 * P * nz * nx;
-      sh.zh += b * 2 * P * ny * nx;
-      sh.xh += b * 2 * P * R;
-      if (MODE == SHARD_ANISO) {
-        sh.wxl += b * R;
-        sh.wyh += b * nz * nx;
-        sh.wzh += b * ny * nx;
-      }
-    }
     partial += (size_t)blockIdx.z * gridDim.y * gridDim.x * 2 * (j + 1);
     scal += 2 * blockIdx.z;
   }
@@ -162,12 +154,8 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         const float* __restrict__ b = wj + p * plane;
-        float av;
-        if constexpr (MODE >= SHARD_REF)
-          av = stencil3d_shard<MODE>(b, p, wt, sh, idx, r, z, y, x, R, nz, ny,
-                                     nx, ss);
-        else
-          av = stencil3d<MODE>(b, wt, idx, r, z, y, x, R, nz, ny, nx, ss);
+        const float av = stencil3d<MODE>(b, wt, idx, r, z, y, x, R, nz, ny,
+                                         nx, ss);
         float wv = s * av;
         if (j > 0) wv = wv - bs * __ldg(wjm1 + p * plane + idx);
         c[p] = __ldg(b + idx);
@@ -196,6 +184,590 @@ __global__ void __launch_bounds__(TX) pass1_3d_kernel(
   put(red, 2 * j, accj[0]);
   put(red, 2 * j + 1, accj[1]);
   write_partials(red, 2 * (j + 1), partial);
+}
+
+// ------------------------------------------------------------ pass1_shard3d
+// K9-K12 and K1' shard3d / shard3d_aniso: pass1 (w = s_j A(W_j) -
+// bs W_{j-1}, raw_i = <W_i, w>) on one shard's (nz, ny, nx) block, its
+// neighbours outside the block from the halos (lz_stencil.cuh's Shard3d).
+//
+// A block owns a brick: a tile of nxt columns by tyt rows of y, over pz
+// planes of z, and marches z through it, one plane per step. Thread t owns
+// row t / (nxt / 4) of the tile and four of its columns: 4f..4f+3 as one
+// 16-byte vector (VEC = 4) or f, f + nxt/4, f + nxt/2, f + 3nxt/4 (VEC =
+// 1), f = t % (nxt / 4). The wrapper picks nxt from the block's width (4 to
+// 64 columns, lanczos3d.py shard3d_tiles), so every thread of a block owns
+// points at any width; masked points fall only at the tile's ragged end.
+//
+// The planes of W_j come into a ring of three planes in shared memory, each
+// with a one-cell frame: the tile's tyt + 2 rows and nxt + 2 columns, the
+// frame from the block or, at the block's edges, from the halos (corners
+// are not needed). The ANISO face weights of the plane stencilled come into
+// one plane each, wx with the column left of the tile and wy with the row
+// above it, and wz into a pair that also holds the plane below (at the
+// block's edges wxl, wyh, wzh). The copies are cp.async, each thread
+// copying its own points (fill_field, fill_weights). Step k of a brick:
+// wait for its copies, one barrier, stencil plane z from the ring (each
+// neighbour and weight row read just before its term, aniso one term at a
+// time over the planes, so few registers), a second barrier, start
+// the copies of plane z+2 (into the slot of plane z-1) and of the next
+// plane's weights, then the global part while they land. So every element
+// of W_j is read from device memory once (the frame's rows and planes come
+// from L2: neighbouring tiles read them at about the same time; bricks
+// march up (even brick) or down (odd) in z, so two bricks that share a halo
+// plane read it at about the same time). Only the fill reads the halos and
+// edge weights. The ring of three planes (and the weights' four) keeps a
+// c(x) block of 256 threads at 52 KB, so three fit on an SM, as many as
+// its registers allow (a ring of four took 103 KB: two blocks, PERF.md).
+//
+// W_{j-1} and W_0..W_{j-2} stream at the stencilled points with 16-byte
+// loads (VEC = 4) for the -bs W_{j-1} term and the dots; W_{j-1} is loaded
+// once for both, and w is stored after the dots, so that no load waits
+// behind a store. A lane's pointers (lane blockIdx.y of a batched launch,
+// lane 0 alone) are computed once by the block's first thread into shared
+// memory and read there where they are used, so they hold no register
+// across the walk, and one kernel serves one lane and a batch: lane b runs
+// the one-lane tile map and reduces its own partial rows in the one-lane
+// order, so it gives the bits of the launch on lane b alone.
+constexpr int ST = 256;                   // most threads of a block
+constexpr int SMEM_MAX = 232448 - 8192;   // the ring's most bytes: 227 KB
+                                          // less room for the static arrays
+
+// Floats of a ring row: the tile's nxt columns and a side column on each
+// side; the 16-byte form starts the tile at float 4 so that every row
+// stays 16-byte aligned.
+inline int shard_sw(int vec, int nxt) { return vec == 4 ? nxt + 8 : nxt + 2; }
+
+// Bytes of the ring: three planes of P field planes and, aniso, four weight
+// planes (wx, wy, wz of two planes), each of tyt + 2 rows.
+inline int shard_smem(int P, bool aniso, int vec, int nxt, int tyt) {
+  return (3 * P + (aniso ? 4 : 0)) * (tyt + 2) * shard_sw(vec, nxt)
+         * (int)sizeof(float);
+}
+
+// Bricks of one lane (= its partial-sum rows): x tiles fastest, then y
+// tiles, then z.
+inline int shard_tiles(int nz, int ny, int nx, int nxt, int tyt, int pz) {
+  return ((nx + nxt - 1) / nxt) * ((ny + tyt - 1) / tyt)
+         * ((nz + pz - 1) / pz);
+}
+
+// A lane's inputs, in shared memory (see above).
+struct ShardLane {
+  const float* wj;
+  const float* wjm1;                 // W_{j-1}, j > 0
+  float* w;
+  const float* yh;
+  const float* zh;
+  const float* xh;
+  const float* wx;
+  const float* wy;
+  const float* wz;
+  const float* wxl;
+  const float* wyh;
+  const float* wzh;
+  const float* wp[MAXCOLS];          // W_0..W_{j-1}
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The tile column of a thread's point e.
+template <int VEC>
+__device__ __forceinline__ int scol(int f, int tpr, int e) {
+  return VEC == 4 ? 4 * f + e : f + tpr * e;
+}
+
+// A thread's four points of a ring row p (p: the row's column 0).
+template <int VEC>
+__device__ __forceinline__ void lds_row(const float* p, int f, int tpr,
+                                        float (&v)[4]) {
+  if (VEC == 4) {
+    const float4 t = reinterpret_cast<const float4*>(p)[f];
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = p[f + tpr * e];
+  }
+}
+
+// The left (x - 1) neighbours of a thread's points v of ring row p: by a
+// shuffle inside the row's tpr threads (VEC = 4; the row's first thread
+// reads the side column), or from the ring.
+template <int VEC>
+__device__ __forceinline__ void lds_left(const float* p, const float (&v)[4],
+                                         int f, int tpr, float (&lf)[4]) {
+  if (VEC == 4) {
+    float l = __shfl_up_sync(0xffffffffu, v[3], 1, tpr);
+    if (f == 0) l = p[-1];
+    lf[0] = l; lf[1] = v[0]; lf[2] = v[1]; lf[3] = v[2];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lf[e] = p[f + tpr * e - 1];
+  }
+}
+
+// The right (x + 1) neighbours, as lds_left (the row's last thread reads
+// the side column at nxt).
+template <int VEC>
+__device__ __forceinline__ void lds_right(const float* p, const float (&v)[4],
+                                          int f, int tpr, int nxt,
+                                          float (&rt)[4]) {
+  if (VEC == 4) {
+    float r = __shfl_down_sync(0xffffffffu, v[0], 1, tpr);
+    if (f == tpr - 1) r = p[nxt];
+    rt[0] = v[1]; rt[1] = v[2]; rt[2] = v[3]; rt[3] = r;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) rt[e] = p[f + tpr * e + 1];
+  }
+}
+
+// A thread's four points of a field row p (p: the row at the tile's first
+// column, of which nv columns lie inside the block), 0 outside.
+template <int VEC>
+__device__ __forceinline__ void ldg_row(const float* p, int f, int tpr,
+                                        int nv, float (&v)[4]) {
+  if (VEC == 4) {
+    if (4 * f < nv) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p) + f);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = f + tpr * e < nv ? __ldg(p + f + tpr * e) : 0.0f;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void stg_row(float* p, int f, int tpr, int nv,
+                                        const float (&v)[4]) {
+  if (VEC == 4) {
+    if (4 * f < nv)
+      reinterpret_cast<float4*>(p)[f] = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (f + tpr * e < nv) p[f + tpr * e] = v[e];
+  }
+}
+
+// Copies of a thread's four points of a row: src and dst at the tile's
+// first column, of which nv columns lie inside the block.
+template <int VEC>
+__device__ __forceinline__ void cp_points(float* dst, const float* src, int f,
+                                          int tpr, int nv) {
+  if (VEC == 4) {
+    if (4 * f < nv) cp_async16(dst + 4 * f, src + 4 * f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (f + tpr * e < nv) cp_async4(dst + f + tpr * e, src + f + tpr * e);
+  }
+}
+
+// A block's brick and the ring's layout, in shared memory (so that they
+// hold no register across the walk).
+struct Brick {
+  int z0, z1, y0, x0, ye, xe;   // planes [z0, z1), rows [y0, ye), columns
+  int nv;                       // [x0, xe), nv = xe - x0 of them
+  int tpr;                      // threads per tile row
+  int sw, pfl;                  // floats per ring row and per ring plane
+};
+
+// The ring's planes: the field slot of plane zp (P planes; zp >= -1), the
+// weights wx and wy of the plane stencilled, wz of plane zp (a pair).
+template <int P>
+__device__ __forceinline__ float* field_slot(float* ring, const Brick& k,
+                                             int zp) {
+  return ring + ((zp + 3) % 3) * P * k.pfl;
+}
+template <int P>
+__device__ __forceinline__ float* wz_slot(float* ring, const Brick& k,
+                                          int zp) {
+  return ring + (3 * P + 2 + ((zp + 2) & 1)) * k.pfl;
+}
+
+// Start the copies of field plane zp of the brick into its slot: each
+// thread's own points (from W_j, or from the z halo at zp = -1, nz), and on
+// a plane it stencils (zp in [z0, z1)) the frame: the threads of tile row 0
+// copy the row above the tile (W_j, or the y halo at y = -1), those of tile
+// row 1 the row below it (W_j, or the y halo at y = ny), those of column
+// group 0 the side columns of their row (W_j, or the x halo at the block's
+// sides). So the addresses are the thread's own, a few per plane.
+template <int P, int VEC>
+__device__ __forceinline__ void fill_field(float* slot, const ShardLane& L,
+                                           const Brick& k, int ty, int f,
+                                           int zp, int nz, int ny, int nx) {
+  constexpr int OFF = VEC == 4 ? 4 : 1;
+  const size_t plane = (size_t)nz * ny * nx;
+  const int y = k.y0 + ty;
+  float* row = slot + (ty + 1) * k.sw + OFF;     // the thread's ring row
+  if (y < ny) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float* src = zp < 0 ? L.zh + ((size_t)2 * p * ny + y) * nx
+                         : zp >= nz ? L.zh + ((size_t)(2 * p + 1) * ny + y) * nx
+                                    : L.wj + p * plane
+                                          + ((size_t)zp * ny + y) * nx;
+      cp_points<VEC>(row + p * k.pfl, src + k.x0, f, k.tpr, k.nv);
+    }
+  }
+  if (zp < k.z0 || zp >= k.z1) return;         // a halo plane: its tile only
+  const size_t zr = (size_t)zp * ny;            // the plane's first row
+  if (y < ny && f == 0) {                       // the side columns
+    const size_t r = zr + y, R = (size_t)nz * ny;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float* w = L.wj + p * plane + r * nx;
+      cp_async4(row + p * k.pfl - 1,
+                k.x0 > 0 ? w + k.x0 - 1 : L.xh + 2 * p * R + r);
+      cp_async4(row + p * k.pfl + k.nv,
+                k.xe < nx ? w + k.xe : L.xh + (2 * p + 1) * R + r);
+    }
+  }
+  if (ty == 0) {                                // the row above the tile
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      cp_points<VEC>(slot + p * k.pfl + OFF,
+                     (k.y0 > 0 ? L.wj + p * plane + (zr + k.y0 - 1) * nx
+                               : L.yh + ((size_t)2 * p * nz + zp) * nx)
+                         + k.x0,
+                     f, k.tpr, k.nv);
+  } else if (ty == 1) {                         // the row below the tile
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      cp_points<VEC>(slot + p * k.pfl + (k.ye - k.y0 + 1) * k.sw + OFF,
+                     (k.ye < ny ? L.wj + p * plane + (zr + k.ye) * nx
+                                : L.yh + ((size_t)(2 * p + 1) * nz + zp) * nx)
+                         + k.x0,
+                     f, k.tpr, k.nv);
+  }
+}
+
+// Start the copies of the aniso face weights: wx and wy of plane zq (to be
+// stencilled; wx with the column left of the tile, wxl at the block's
+// side; wy with the row above it, wyh at its top), when zq >= 0, and wz of
+// plane zw (wzh for zw = -1).
+template <int P, int VEC>
+__device__ __forceinline__ void fill_weights(float* ring, const ShardLane& L,
+                                             const Brick& k, int ty, int f,
+                                             int zq, int zw, int ny,
+                                             int nx) {
+  constexpr int OFF = VEC == 4 ? 4 : 1;
+  const int y = k.y0 + ty;
+  float* wx = ring + 3 * P * k.pfl + OFF;
+  float* wy = wx + k.pfl;
+  if (y < ny) {
+    cp_points<VEC>(wz_slot<P>(ring, k, zw) + (ty + 1) * k.sw + OFF,
+                   (zw < 0 ? L.wzh + (size_t)y * nx
+                           : L.wz + ((size_t)zw * ny + y) * nx) + k.x0,
+                   f, k.tpr, k.nv);
+  }
+  if (zq < 0) return;
+  const size_t zr = (size_t)zq * ny;
+  if (y < ny) {
+    const size_t r = zr + y;
+    float* row = wx + (ty + 1) * k.sw;
+    cp_points<VEC>(row, L.wx + r * nx + k.x0, f, k.tpr, k.nv);
+    cp_points<VEC>(wy + (ty + 1) * k.sw, L.wy + r * nx + k.x0, f, k.tpr,
+                   k.nv);
+    if (f == 0)
+      cp_async4(row - 1, k.x0 > 0 ? L.wx + r * nx + k.x0 - 1 : L.wxl + r);
+  }
+  if (ty == 0)
+    cp_points<VEC>(wy, (k.y0 > 0 ? L.wy + (zr + k.y0 - 1) * nx
+                                 : L.wyh + (size_t)zq * nx) + k.x0,
+                   f, k.tpr, k.nv);
+}
+
+// MAXW bounds j so the per-column accumulators stay in registers. Grid:
+// (bricks of one lane, lanes); (nxt / 4) tyt threads; dynamic shared memory
+// shard_smem. partial: (lanes, bricks, 2 (j + 1)), raw_i at (2i, 2i+1).
+// Blocks per SM the instantiations are compiled for: three (80 registers:
+// an SM's four schedulers share its 65536 registers among 24 warps) for the
+// 16-byte forms up to 8 columns, the datagen and main paths' (at two the
+// c(x) form read 0.67 of its bound against 0.77, PERF.md), two (128) for
+// the scalar forms and 16 columns, one for 32. Left to itself ptxas held
+// some forms to 80 registers and spilled.
+template <int MAXW, int VEC>
+constexpr int SHARD_PER_SM =
+    MAXW <= 8 ? (VEC == 4 ? 3 : 2) : MAXW == 16 && VEC == 4 ? 2 : 1;
+
+template <int P, int MAXW, int MODE, int VEC>
+__global__ void __launch_bounds__(ST, (SHARD_PER_SM<MAXW, VEC>))
+    pass1_shard3d_kernel(const float* __restrict__ scal, const float* wj,
+                         Cols prev, int j, Weights wt, Shard3d sh,
+                         float* w_out, float* __restrict__ partial, int nz,
+                         int ny, int nx, float ss, int nxt, int tyt, int pz) {
+  constexpr bool AN = MODE == SHARD_ANISO;
+  constexpr int OFF = VEC == 4 ? 4 : 1;
+  extern __shared__ __align__(16) float ring[];
+  __shared__ float red[ST / 32][RED_W];
+  __shared__ ShardLane L;
+  const int R = nz * ny;
+  const size_t plane = (size_t)R * nx;
+  if (threadIdx.x == 0) {
+    const size_t b = blockIdx.y, ls = prev.ls;
+    L.wj = wj + b * ls;
+    L.w = w_out + b * ls;
+    L.wjm1 = nullptr;
+#pragma unroll
+    for (int i = 0; i < MAXW; ++i) {
+      if (i < j) {
+        L.wp[i] = prev.p[i] + b * ls;
+        if (i == j - 1) L.wjm1 = prev.p[i] + b * ls;
+      }
+    }
+    L.yh = sh.yh + b * 2 * P * nz * nx;
+    L.zh = sh.zh + b * 2 * P * ny * nx;
+    L.xh = sh.xh + b * 2 * P * R;
+    if (AN) {
+      L.wx = wt.wx + b * plane;
+      L.wy = wt.wy + b * plane;
+      L.wz = wt.wz + b * plane;
+      L.wxl = sh.wxl + b * R;
+      L.wyh = sh.wyh + b * nz * nx;
+      L.wzh = sh.wzh + b * ny * nx;
+    }
+  }
+  __shared__ Brick bk;
+  if (threadIdx.x == 0) {
+    const int ntx = (nx + nxt - 1) / nxt, nty = (ny + tyt - 1) / tyt;
+    const int zc = blockIdx.x / (ntx * nty);
+    const int txy = blockIdx.x - zc * (ntx * nty);
+    const int ty0 = txy / ntx;
+    bk.y0 = ty0 * tyt;
+    bk.x0 = (txy - ty0 * ntx) * nxt;
+    bk.z0 = zc * pz;
+    bk.z1 = min(bk.z0 + pz, nz);
+    bk.ye = min(bk.y0 + tyt, ny);
+    bk.xe = min(bk.x0 + nxt, nx);
+    bk.nv = bk.xe - bk.x0;
+    bk.tpr = nxt / 4;
+    bk.sw = VEC == 4 ? nxt + 8 : nxt + 2;
+    bk.pfl = (tyt + 2) * bk.sw;
+  }
+  const float s = scal[2 * blockIdx.y], bs = scal[2 * blockIdx.y + 1];
+  const int tpr = nxt / 4, sw = VEC == 4 ? nxt + 8 : nxt + 2;
+  const int pfl = (tyt + 2) * sw;
+  const int ty = threadIdx.x / tpr, f = threadIdx.x - ty * tpr;
+  const int cr = (ty + 1) * sw + OFF;          // the thread's row, column 0
+  __syncthreads();                             // L, bk
+  const int y = bk.y0 + ty;
+  const int dz = ((bk.z0 / pz) & 1) == 0 ? 1 : -1;   // up in z, or down
+  const int zf = dz > 0 ? bk.z0 : bk.z1 - 1;   // the first plane stencilled
+  for (int k = -1; k <= 1; ++k)
+    fill_field<P, VEC>(field_slot<P>(ring, bk, zf + k * dz), L, bk, ty, f,
+                       zf + k * dz, nz, ny, nx);
+  if (AN) {
+    fill_weights<P, VEC>(ring, L, bk, ty, f, zf, zf, ny, nx);
+    fill_weights<P, VEC>(ring, L, bk, ty, f, -1, zf - 1, ny, nx);
+  }
+  cp_async_commit();
+
+  float acc[MAXW][2] = {};
+  float accj[2] = {0.0f, 0.0f};
+  const int nzs = bk.z1 - bk.z0;
+  for (int k = 0; k < nzs; ++k) {
+    const int z = zf + k * dz;
+    cp_async_wait_all();
+    __syncthreads();             // plane z + dz and z's weights landed
+    const float* sc = field_slot<P>(ring, bk, z) + cr;
+    const float* slo = field_slot<P>(ring, bk, z - 1) + cr;   // plane z - 1
+    const float* shi = field_slot<P>(ring, bk, z + 1) + cr;   // plane z + 1
+    // K9's order of terms (iso: up + dn + zu + zd + lf + rt + diag c, the
+    // diagonal from the global coordinates) and K10's (aniso: fx - fx_l +
+    // fy - fy_m1 + fz - fz_m), each neighbour row read from the ring just
+    // before its term; aniso takes one term at a time over the planes, so
+    // that each weight row is read once and few rows are held at once
+    float cv[P][4], wv[P][4], nb[4];
+#pragma unroll
+    for (int p = 0; p < P; ++p) lds_row<VEC>(sc + p * pfl, f, tpr, cv[p]);
+    if (AN) {
+      const float* px = ring + 3 * P * pfl + cr;     // wx, then wy
+      const float* py = px + pfl;
+      float kw[4], kl[4];
+      lds_row<VEC>(px, f, tpr, kw);
+      lds_left<VEC>(px, kw, f, tpr, kl);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        lds_right<VEC>(sc + p * pfl, cv[p], f, tpr, nxt, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wv[p][e] = kw[e] * (nb[e] - cv[p][e]);
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        lds_left<VEC>(sc + p * pfl, cv[p], f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wv[p][e] = wv[p][e] - kl[e] * (cv[p][e] - nb[e]);
+      }
+      lds_row<VEC>(py, f, tpr, kw);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        lds_row<VEC>(sc + p * pfl + sw, f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wv[p][e] = wv[p][e] + kw[e] * (nb[e] - cv[p][e]);
+      }
+      lds_row<VEC>(py - sw, f, tpr, kw);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        lds_row<VEC>(sc + p * pfl - sw, f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wv[p][e] = wv[p][e] - kw[e] * (cv[p][e] - nb[e]);
+      }
+      lds_row<VEC>(wz_slot<P>(ring, bk, z) + cr, f, tpr, kw);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        lds_row<VEC>(shi + p * pfl, f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wv[p][e] = wv[p][e] + kw[e] * (nb[e] - cv[p][e]);
+      }
+      lds_row<VEC>(wz_slot<P>(ring, bk, z - 1) + cr, f, tpr, kw);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        lds_row<VEC>(slo + p * pfl, f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wv[p][e] = (wv[p][e] - kw[e] * (cv[p][e] - nb[e])) * ss;
+      }
+    } else {
+      const int gz = sh.z0 + z, gy = sh.y0 + y;
+      const int zy = (gz == 0) + (gz == sh.NZ - 1) + (gy == 0)
+                     + (gy == sh.NY - 1);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float* pc = sc + p * pfl;
+        float(&a)[4] = wv[p];
+        lds_row<VEC>(pc - sw, f, tpr, a);
+        lds_row<VEC>(pc + sw, f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = a[e] + nb[e];
+        lds_row<VEC>(slo + p * pfl, f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = a[e] + nb[e];
+        lds_row<VEC>(shi + p * pfl, f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = a[e] + nb[e];
+        lds_left<VEC>(pc, cv[p], f, tpr, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = a[e] + nb[e];
+        lds_right<VEC>(pc, cv[p], f, tpr, nxt, nb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gx = sh.x0 + bk.x0 + scol<VEC>(f, tpr, e);
+          const int n = zy + (gx == 0) + (gx == sh.NX - 1);
+          const float diag = MODE == SHARD_REF ? (n ? -5.0f : -6.0f)
+                                               : -(6.0f - (float)n);
+          a[e] = (a[e] + nb[e] + diag * cv[p][e]) * ss;
+        }
+      }
+    }
+    __syncthreads();             // the ring's reads of this step are done
+    if (k + 1 < nzs) {
+      fill_field<P, VEC>(field_slot<P>(ring, bk, z + 2 * dz), L, bk, ty, f,
+                         z + 2 * dz, nz, ny, nx);
+      if (AN)
+        fill_weights<P, VEC>(ring, L, bk, ty, f, z + dz,
+                             dz > 0 ? z + 1 : z - 2, ny, nx);
+    }
+    cp_async_commit();
+    if (y >= ny) continue;       // a row past the block's ragged end
+    const int nv = bk.nv;
+    const size_t rb = ((size_t)z * ny + y) * nx + bk.x0;
+    // w and the dots first, the stores of w after them: no load waits
+    // behind a store
+    float wm[P][4];              // W_{j-1} at the points
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (j > 0) ldg_row<VEC>(L.wjm1 + p * plane + rb, f, tpr, nv, wm[p]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = scol<VEC>(f, tpr, e) < nv;
+        float v = s * wv[p][e];
+        if (j > 0) v = v - bs * wm[p][e];
+        wv[p][e] = in ? v : 0.0f;
+        cv[p][e] = in ? cv[p][e] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float a[P], b[P];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        a[p] = cv[p][e];
+        b[p] = wv[p][e];
+      }
+      hdot<P>(a, b, accj);
+    }
+#pragma unroll
+    for (int i = 0; i < MAXW; ++i) {
+      if (i < j) {
+        float wl[P][4];
+        if (i == j - 1) {
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) wl[p][e] = wm[p][e];
+        } else {
+          const float* wi = L.wp[i];
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            ldg_row<VEC>(wi + p * plane + rb, f, tpr, nv, wl[p]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float a[P], b[P];
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            a[p] = wl[p][e];
+            b[p] = wv[p][e];
+          }
+          hdot<P>(a, b, acc[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      stg_row<VEC>(L.w + p * plane + rb, f, tpr, nv, wv[p]);
+  }
+#pragma unroll
+  for (int i = 0; i < MAXW; ++i) {
+    if (i < j) {
+      put(red, 2 * i, acc[i][0]);
+      put(red, 2 * i + 1, acc[i][1]);
+    }
+  }
+  put(red, 2 * j, accj[0]);
+  put(red, 2 * j + 1, accj[1]);
+  write_partials_n(red, blockDim.x / 32, 2 * (j + 1),
+                   (size_t)blockIdx.y * gridDim.x + blockIdx.x, partial);
 }
 
 // ------------------------------------------------------------ pass2
@@ -591,27 +1163,25 @@ __global__ void __launch_bounds__(256) bc3d_kernel(float* __restrict__ u,
 // launch's; one lane without the lane offsets.
 template <int P, int MAXW, int MODE>
 void launch_pass1(int B, const float* scal, const float* wj, Cols prev,
-                  int j, Weights wt, const Shard3d& sh, float* w,
-                  float* partial, int nz, int ny, int nx, float ss,
-                  cudaStream_t st) {
+                  int j, Weights wt, float* w, float* partial, int nz, int ny,
+                  int nx, float ss, cudaStream_t st) {
   dim3 g = tile_grid(nz * ny, nx);
   g.z = B;
   const float* wjm1 = j > 0 ? prev.p[j - 1] : nullptr;
   if (B > 1) {
     pass1_3d_kernel<P, MAXW, MODE, true><<<g, TX, 0, st>>>(
-        scal, wj, prev, wjm1, j, wt, sh, w, partial, nz, ny, nx, ss);
+        scal, wj, prev, wjm1, j, wt, w, partial, nz, ny, nx, ss);
     return;
   }
   pass1_3d_kernel<P, MAXW, MODE, false><<<g, TX, 0, st>>>(
-      scal, wj, prev, wjm1, j, wt, sh, w, partial, nz, ny, nx, ss);
+      scal, wj, prev, wjm1, j, wt, w, partial, nz, ny, nx, ss);
 }
 
 template <int P, int MODE>
 void pass1_bucket(int B, int b, const float* scal, const float* wj,
-                  Cols prev, int j, Weights wt, const Shard3d& sh, float* w,
-                  float* partial, int nz, int ny, int nx, float ss,
-                  cudaStream_t st) {
-#define LZ_B(BB) launch_pass1<P, BB, MODE>(B, scal, wj, prev, j, wt, sh, w, \
+                  Cols prev, int j, Weights wt, float* w, float* partial,
+                  int nz, int ny, int nx, float ss, cudaStream_t st) {
+#define LZ_B(BB) launch_pass1<P, BB, MODE>(B, scal, wj, prev, j, wt, w, \
                                            partial, nz, ny, nx, ss, st)
   if (b == 4) LZ_B(4);
   else if (b == 8) LZ_B(8);
@@ -622,41 +1192,96 @@ void pass1_bucket(int B, int b, const float* scal, const float* wj,
 
 template <int P>
 void pass1_mode(int B, int mode, int b, const float* scal, const float* wj,
-                Cols prev, int j, Weights wt, const Shard3d& sh, float* w,
-                float* partial, int nz, int ny, int nx, float ss,
-                cudaStream_t st) {
-#define LZ_M(MM) pass1_bucket<P, MM>(B, b, scal, wj, prev, j, wt, sh, w, \
+                Cols prev, int j, Weights wt, float* w, float* partial,
+                int nz, int ny, int nx, float ss, cudaStream_t st) {
+#define LZ_M(MM) pass1_bucket<P, MM>(B, b, scal, wj, prev, j, wt, w, \
                                      partial, nz, ny, nx, ss, st)
   switch (mode) {
     case ISO_REF: LZ_M(ISO_REF); break;
     case ISO_CLEAN: LZ_M(ISO_CLEAN); break;
-    case ANISO: LZ_M(ANISO); break;
-    case SHARD_REF: LZ_M(SHARD_REF); break;
-    case SHARD_CLEAN: LZ_M(SHARD_CLEAN); break;
-    default: LZ_M(SHARD_ANISO); break;
+    default: LZ_M(ANISO); break;
   }
 #undef LZ_M
 }
 
-// pass1_3d (any mode) over B lanes, then the reduction of its partial
-// sums, lane by lane.
+// pass1_3d (unsharded modes) over B lanes, then the reduction of its
+// partial sums, lane by lane.
 int pass1_any(int B, int P, int mode, const float* scal, const float* wj,
-              const float* const* prev, int j, Weights wt, const Shard3d& sh,
-              float* w, float* partial, float* raw, int nz, int ny, int nx,
-              float ss, cudaStream_t st) {
+              const float* const* prev, int j, Weights wt, float* w,
+              float* partial, float* raw, int nz, int ny, int nx, float ss,
+              cudaStream_t st) {
   const Cols c = make_cols(prev, j, (size_t)P * nz * ny * nx);
   const int b = bucket(j);
   if (P == 1)
-    pass1_mode<1>(B, mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx,
-                  ss, st);
+    pass1_mode<1>(B, mode, b, scal, wj, c, j, wt, w, partial, nz, ny, nx, ss,
+                  st);
   else
-    pass1_mode<2>(B, mode, b, scal, wj, c, j, wt, sh, w, partial, nz, ny, nx,
-                  ss, st);
+    pass1_mode<2>(B, mode, b, scal, wj, c, j, wt, w, partial, nz, ny, nx, ss,
+                  st);
   const int nout = 2 * (j + 1);
   const dim3 g = tile_grid(nz * ny, nx);
   reduce_partials<<<dim3(nout, B), RED_THREADS, 0, st>>>(
       partial, (int)(g.x * g.y), nout, raw);
   return (int)cudaGetLastError();
+}
+
+// pass1_shard3d_kernel <P, MAXW, MODE, VEC> on B lanes (blockIdx.y), nblk
+// tiles each: the launch, with the dynamic shared memory of its ring.
+template <int P, int MAXW, int MODE, int VEC>
+int launch_shard(int B, const float* scal, const float* wj, Cols prev, int j,
+                 Weights wt, const Shard3d& sh, float* w, float* partial,
+                 int nz, int ny, int nx, float ss, int nxt, int tyt, int pz,
+                 int nblk, cudaStream_t st) {
+  auto kern = pass1_shard3d_kernel<P, MAXW, MODE, VEC>;
+  const int smem = shard_smem(P, MODE == SHARD_ANISO, VEC, nxt, tyt);
+  // the attribute is per device: set once for each on which it launches
+  static int allowed[64] = {};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != 0) return err;
+    allowed[dev] = smem;
+  }
+  kern<<<dim3(nblk, B), (nxt / 4) * tyt, smem, st>>>(
+      scal, wj, prev, j, wt, sh, w, partial, nz, ny, nx, ss, nxt, tyt, pz);
+  return (int)cudaGetLastError();
+}
+
+template <int P, int MODE, int VEC>
+int shard_bucket(int B, int b, const float* scal, const float* wj, Cols prev,
+                 int j, Weights wt, const Shard3d& sh, float* w,
+                 float* partial, int nz, int ny, int nx, float ss, int nxt,
+                 int tyt, int pz, int nblk, cudaStream_t st) {
+#define LZ_S(BB) launch_shard<P, BB, MODE, VEC>(B, scal, wj, prev, j, wt, sh, \
+                                               w, partial, nz, ny, nx, ss,   \
+                                               nxt, tyt, pz, nblk, st)
+  if (b == 4) return LZ_S(4);
+  if (b == 8) return LZ_S(8);
+  if (b == 16) return LZ_S(16);
+  return LZ_S(32);
+#undef LZ_S
+}
+
+int shard_any(int B, int P, int mode, int vec, int b, const float* scal,
+              const float* wj, Cols prev, int j, Weights wt,
+              const Shard3d& sh, float* w, float* partial, int nz, int ny,
+              int nx, float ss, int nxt, int tyt, int pz, int nblk,
+              cudaStream_t st) {
+#define LZ_SA(PP, MM, VV) shard_bucket<PP, MM, VV>(                           \
+    B, b, scal, wj, prev, j, wt, sh, w, partial, nz, ny, nx, ss, nxt, tyt,   \
+    pz, nblk, st)
+#define LZ_SV(PP, MM) (vec ? LZ_SA(PP, MM, 4) : LZ_SA(PP, MM, 1))
+  if (P == 1)
+    return mode == 0 ? LZ_SV(1, SHARD_REF)
+           : mode == 1 ? LZ_SV(1, SHARD_CLEAN) : LZ_SV(1, SHARD_ANISO);
+  return mode == 0 ? LZ_SV(2, SHARD_REF)
+         : mode == 1 ? LZ_SV(2, SHARD_CLEAN) : LZ_SV(2, SHARD_ANISO);
+#undef LZ_SV
+#undef LZ_SA
 }
 
 template <int P, bool LANES>
@@ -714,8 +1339,21 @@ int lz3_pass1(int B, int P, int mode, const float* scal, const float* wj,
       || j < 0 || j + 1 > MAXCOLS || nz < 3 || ny < 3 || nx < 3)
     return (int)cudaErrorInvalidValue;
   if (mode == ANISO && (!wx || !wy || !wz)) return (int)cudaErrorInvalidValue;
-  return pass1_any(B, P, mode, scal, wj, prev, j, Weights{wx, wy, wz},
-                   Shard3d{}, w, partial, raw, nz, ny, nx, ss, st);
+  return pass1_any(B, P, mode, scal, wj, prev, j, Weights{wx, wy, wz}, w,
+                   partial, raw, nz, ny, nx, ss, st);
+}
+
+// Tiles (= partial-sum rows) of one lane of a pass1_shard3d launch on an
+// (nz, ny, nx) block in tiles of nxt columns, tyt rows and pz planes.
+int lz3_shard_blocks(int nz, int ny, int nx, int nxt, int tyt, int pz) {
+  if (nxt < 1 || tyt < 1 || pz < 1) return 0;
+  return shard_tiles(nz, ny, nx, nxt, tyt, pz);
+}
+
+// Bytes of dynamic shared memory (the plane ring) a pass1_shard3d launch
+// takes: mode as lz3_pass1_shard, vec 1 the 16-byte form.
+int lz3_shard_smem(int P, int mode, int vec, int nxt, int tyt) {
+  return shard_smem(P, mode == 2, vec ? 4 : 1, nxt, tyt);
 }
 
 // pass1_shard3d: pass1_3d on one shard's (nz, ny, nx) block at global
@@ -723,28 +1361,46 @@ int lz3_pass1(int B, int P, int mode, const float* scal, const float* wj,
 // field; every lane at the same offsets). mode: 0 iso reference, 1 iso
 // clean, 2 aniso (wx, wy, wz (B, R, nx), wxl (B, R), wyh (B, nz, nx), wzh
 // (B, ny, nx); null otherwise). yh (B, P, 2, nz, nx), zh (B, P, 2, ny, nx),
-// xh (B, P, 2, R): the halos. Otherwise as lz3_pass1.
-int lz3_pass1_shard(int B, int P, int mode, const float* scal,
-                    const float* wj,
-                    const float* const* prev, int j, const float* wx,
-                    const float* wy, const float* wz, const float* wxl,
-                    const float* wyh, const float* wzh, const float* yh,
-                    const float* zh, const float* xh, float* w,
-                    float* partial, float* raw, int nz, int ny, int nx,
-                    int z0, int y0, int x0, int NZ, int NY, int NX, float ss,
-                    cudaStream_t st) {
+// xh (B, P, 2, R): the halos. Tiles of nxt columns (4 to 128, a power of
+// two), tyt rows and pz planes, (nxt / 4) tyt threads (a multiple of 32, at
+// most 256); vec = 1 takes the 16-byte form (nx % 4 == 0 and every field,
+// face weight and y / z halo 16-byte aligned). partial: scratch of
+// lz3_shard_blocks * B * 2(j+1) floats. Otherwise as lz3_pass1.
+int lz3_pass1_shard(int B, int P, int mode, int vec, const float* scal,
+                    const float* wj, const float* const* prev, int j,
+                    const float* wx, const float* wy, const float* wz,
+                    const float* wxl, const float* wyh, const float* wzh,
+                    const float* yh, const float* zh, const float* xh,
+                    float* w, float* partial, float* raw, int nz, int ny,
+                    int nx, int z0, int y0, int x0, int NZ, int NY, int NX,
+                    float ss, int nxt, int tyt, int pz, cudaStream_t st) {
+  const int threads = (nxt / 4) * tyt;
   if (B < 1 || B > 65535 || (P != 1 && P != 2) || mode < 0 || mode > 2
       || j < 0 || j + 1 > MAXCOLS || nz < 2 || ny < 2 || nx < 2 || !yh
-      || !zh || !xh
-      || z0 < 0 || y0 < 0 || x0 < 0 || z0 + nz > NZ || y0 + ny > NY
-      || x0 + nx > NX)
+      || !zh || !xh || z0 < 0 || y0 < 0 || x0 < 0 || z0 + nz > NZ
+      || y0 + ny > NY || x0 + nx > NX || nxt < 4 || nxt > 128
+      || (nxt & (nxt - 1)) || tyt < 1 || pz < 1
+      || threads > ST || threads % 32
+      || shard_smem(P, mode == 2, vec ? 4 : 1, nxt, tyt) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  if (mode == ANISO && (!wx || !wy || !wz || !wxl || !wyh || !wzh))
+  if (mode == 2 && (!wx || !wy || !wz || !wxl || !wyh || !wzh))
     return (int)cudaErrorInvalidValue;
+  bool ok = nx % 4 == 0 && aligned16(wj) && aligned16(w) && aligned16(yh)
+            && aligned16(zh) && aligned16(wx) && aligned16(wy)
+            && aligned16(wz) && aligned16(wyh) && aligned16(wzh);
+  for (int i = 0; i < j; ++i) ok = ok && aligned16(prev[i]);
+  if (vec && !ok) return (int)cudaErrorInvalidValue;
   const Shard3d sh = {yh, zh, xh, wxl, wyh, wzh, z0, y0, x0, NZ, NY, NX};
-  return pass1_any(B, P, SHARD_REF + mode, scal, wj, prev, j,
-                   Weights{wx, wy, wz}, sh, w, partial, raw, nz, ny, nx, ss,
-                   st);
+  const Cols c = make_cols(prev, j, (size_t)P * nz * ny * nx);
+  const int nblk = shard_tiles(nz, ny, nx, nxt, tyt, pz);
+  const int err = shard_any(B, P, mode, vec, bucket(j), scal, wj, c, j,
+                            Weights{wx, wy, wz}, sh, w, partial, nz, ny, nx,
+                            ss, nxt, tyt, pz, nblk, st);
+  if (err != 0) return err;
+  const int nout = 2 * (j + 1);
+  reduce_partials<<<dim3(nout, B), RED_THREADS, 0, st>>>(partial, nblk, nout,
+                                                         raw);
+  return (int)cudaGetLastError();
 }
 
 // pass2 on B lanes (B = 1: one field). Every field is (B, P, n), lane-major,

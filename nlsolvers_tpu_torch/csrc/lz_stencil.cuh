@@ -26,12 +26,13 @@
 // Shard policies (one shard's block of a grid sharded over a mesh; the
 // JAX package's _stencil_shard2d*, _pass1y_shard*, _pass1zy_shard* kernels):
 // the neighbours outside the block come from halo arrays (the neighbour
-// shards' edges, zeros at the domain's edge), read only by the threads at
-// the block's edges; the iso diagonal comes from GLOBAL coordinates (the
-// block's offsets); the aniso face weights are padded with the cross-shard
-// faces, and the faces left of / above / below the block's first column,
-// row and plane come in their own small arrays. So the shard operators
-// need no masks:
+// shards' edges, zeros at the domain's edge): in 2D read only by the
+// threads at the block's edges, in 3D copied into the frame of the shard
+// kernel's plane ring (lanczos3d.cu); the iso diagonal comes from GLOBAL
+// coordinates (the block's offsets); the aniso face weights are padded
+// with the cross-shard faces, and the faces left of / above / below the
+// block's first column, row and plane come in their own small arrays. So
+// the shard operators need no masks:
 //   OP_SHARD_ISO, OP_SHARD_ANISO   2D (Shard2d)
 //   SHARD_REF, SHARD_CLEAN, SHARD_ANISO   3D on the merged view (Shard3d):
 //     the y halo of each local z-plane carries the ay neighbour's rows
@@ -193,55 +194,6 @@ __device__ __forceinline__ float stencil3d_vals(float cv, float up, float dn,
   const int xb0 = x == 0, xb1 = x == nx - 1;
   float diag;
   if (MODE == ISO_REF)
-    diag = (zb0 | zb1 | yb0 | yb1 | xb0 | xb1) ? -5.0f : -6.0f;
-  else
-    diag = -(6.0f - (float)(zb0 + zb1 + yb0 + yb1 + xb0 + xb1));
-  return (up + dn + zu + zd + lf + rt + diag * cv) * ss;
-}
-
-// The 3D shard operator at cell (z, y, x) = merged row r of plane p of a
-// shard's block b, scaled by ss: K9's order of terms (iso) and K10's
-// (aniso), neighbours outside the block from the halos of sh.
-template <int MODE>
-__device__ __forceinline__ float stencil3d_shard(
-    const float* __restrict__ b, int p, const Weights& wt, const Shard3d& sh,
-    size_t idx, int r, int z, int y, int x, int R, int nz, int ny, int nx,
-    float ss) {
-  const size_t zoff = (size_t)ny * nx;
-  const float cv = __ldg(b + idx);
-  const float up = y > 0 ? __ldg(b + idx - nx)
-                         : __ldg(sh.yh + ((size_t)2 * p * nz + z) * nx + x);
-  const float dn = y < ny - 1
-                       ? __ldg(b + idx + nx)
-                       : __ldg(sh.yh + ((size_t)(2 * p + 1) * nz + z) * nx + x);
-  const float zu = z > 0 ? __ldg(b + idx - zoff)
-                         : __ldg(sh.zh + ((size_t)2 * p * ny + y) * nx + x);
-  const float zd = z < nz - 1
-                       ? __ldg(b + idx + zoff)
-                       : __ldg(sh.zh + ((size_t)(2 * p + 1) * ny + y) * nx + x);
-  const float lf = x > 0 ? __ldg(b + idx - 1)
-                         : __ldg(sh.xh + (size_t)2 * p * R + r);
-  const float rt = x < nx - 1 ? __ldg(b + idx + 1)
-                              : __ldg(sh.xh + (size_t)(2 * p + 1) * R + r);
-  if (MODE == SHARD_ANISO) {
-    const float wl = x > 0 ? __ldg(wt.wx + idx - 1) : __ldg(sh.wxl + r);
-    const float wu = y > 0 ? __ldg(wt.wy + idx - nx)
-                           : __ldg(sh.wyh + (size_t)z * nx + x);
-    const float wb = z > 0 ? __ldg(wt.wz + idx - zoff)
-                           : __ldg(sh.wzh + (size_t)y * nx + x);
-    const float fx = __ldg(wt.wx + idx) * (rt - cv);
-    const float fx_l = wl * (cv - lf);
-    const float fy = __ldg(wt.wy + idx) * (dn - cv);
-    const float fy_m1 = wu * (cv - up);
-    const float fz = __ldg(wt.wz + idx) * (zd - cv);
-    const float fz_m = wb * (cv - zu);
-    return (fx - fx_l + fy - fy_m1 + fz - fz_m) * ss;
-  }
-  const int gz = sh.z0 + z, gy = sh.y0 + y, gx = sh.x0 + x;
-  const int zb0 = gz == 0, zb1 = gz == sh.NZ - 1, yb0 = gy == 0;
-  const int yb1 = gy == sh.NY - 1, xb0 = gx == 0, xb1 = gx == sh.NX - 1;
-  float diag;
-  if (MODE == SHARD_REF)
     diag = (zb0 | zb1 | yb0 | yb1 | xb0 | xb1) ? -5.0f : -6.0f;
   else
     diag = -(6.0f - (float)(zb0 + zb1 + yb0 + yb1 + xb0 + xb1));

@@ -23,7 +23,8 @@ wrapper:
                             (K11), _pass1zy_shard_aniso_call (K12) and
                             lanczos2d._pass1_call in modes shard3d and
                             shard3d_aniso: pass1 on one shard's block of a
-                            sharded 3D grid (shard modes of pass1_3d's kernel)
+                            sharded 3D grid, a kernel of its own that marches
+                            z through bricks of the block (shard3d_tiles)
 
 `lanczos_twopass` is the normalized two-pass loop (pass1_3d then pass2), or
 with fused=True one lanczos2d.iter_step (K5) per iteration, in 2D and 3D.
@@ -66,7 +67,8 @@ from nlsolvers_tpu_torch.ops.operators import block_coords, boundary_diagonal
 
 __all__ = ["supported_desc", "lanczos_twopass",
            "pass1_3d", "pass1_3d_ref", "pass2", "pass2_ref", "pipe_3d",
-           "pipe_3d_ref", "pass1_shard3d", "pass1_shard3d_ref"]
+           "pipe_3d_ref", "pass1_shard3d", "pass1_shard3d_ref",
+           "shard3d_tiles", "shard3d_scratch"]
 
 # csrc/lanczos3d.cu's operator modes
 _MODES = {"reference": 0, "clean": 1, "aniso": 2}
@@ -109,8 +111,10 @@ def _lib():
             ("lz3_pass1", [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp,
                            vp, i32, i32, i32, f32, vp]),
             ("lz3_pass2", [i32, i32, vp, vp, pp, i32, vp, vp, vp, i64, vp]),
-            ("lz3_pass1_shard", [i32, i32, i32, vp, vp, pp, i32]
-             + [vp] * 12 + [i32] * 9 + [f32, vp]),
+            ("lz3_pass1_shard", [i32, i32, i32, i32, vp, vp, pp, i32]
+             + [vp] * 12 + [i32] * 9 + [f32, i32, i32, i32, vp]),
+            ("lz3_shard_blocks", [i32] * 6),
+            ("lz3_shard_smem", [i32] * 5),
             ("lz3_bc3d", [i32, i32, vp] + [i32] * 9 + [vp]),
             ("lz3_pipe3d_rows", []),
             ("lz3_pipe3d_fit", [i32, i32, i32, i32]),
@@ -351,6 +355,68 @@ def pass1_3d(scal, wj, prev, desc):
 pass1_3d.launches = 0
 
 
+# pass1_shard3d's bricks (csrc/lanczos3d.cu): a tile of nxt columns (a
+# power of two, 4 to SHARD3D_MAX_COLS) by tyt rows, four points per thread,
+# (nxt / 4) tyt threads (a multiple of 32, at most SHARD3D_THREADS), over
+# pz planes; in shared memory a ring of three field planes of P planes and,
+# aniso, four planes of face weights, tyt + 2 rows each.
+SHARD3D_THREADS = 256          # lanczos3d.cu ST
+SHARD3D_PER_SM = 3             # bricks resident on each SM (SHARD_PER_SM:
+                               # the 16-byte forms, j <= 8)
+SHARD3D_MAX_COLS = 64
+SHARD3D_MAX_ROWS = 64
+SHARD3D_SMS = 132              # the H100's SMs
+SHARD3D_MIN_PLANES = 4
+SHARD3D_SMEM_MAX = 232448 - 8192   # lanczos3d.cu SMEM_MAX
+
+
+def shard3d_tiles(nz, ny, nx, P, aniso, vec):
+    """The bricks of a pass1_shard3d launch on one lane of an (nz, ny, nx)
+    block: dict(nxt, tyt, pz, threads, blocks, smem).
+
+    nxt: the narrowest power of two (4 to SHARD3D_MAX_COLS) that holds the
+    block's width, so that every thread owns four columns of points
+    whatever the width; tyt: rows to SHARD3D_THREADS threads (at most
+    SHARD3D_MAX_ROWS, and no more than ny needs, in steps that keep the
+    threads a multiple of 32); pz: the planes of a brick, the depth at
+    which the bricks of one lane take the fewest plane steps on the busiest
+    SM, SHARD3D_PER_SM of them on each SM at a time (a brick copies pz + 2
+    planes), and of those the deepest, at least SHARD3D_MIN_PLANES (a
+    brick's start, three planes copied before its first step, is not
+    overlapped). blocks: bricks per lane (the partial-sum rows of a lane,
+    x tiles fastest, then y, then z); smem: bytes of the ring (`vec`: the
+    16-byte form's rows). Depends on the block's shape and form only, never
+    on the batch.
+    """
+    nxt = 4
+    while nxt < min(nx, SHARD3D_MAX_COLS):
+        nxt *= 2
+    tpr = nxt // 4
+    step = max(1, 32 // tpr)
+    tyt = min(SHARD3D_THREADS // tpr, SHARD3D_MAX_ROWS,
+              -(-ny // step) * step)
+    tiles = -(-nx // nxt) * -(-ny // tyt)
+    slots = SHARD3D_SMS * SHARD3D_PER_SM
+    pz = min(range(min(nz, SHARD3D_MIN_PLANES), nz + 1), key=lambda q: (
+        -(-tiles * -(-nz // q) // slots) * (q + 2), -q))
+    sw = nxt + 8 if vec else nxt + 2
+    smem = (3 * P + 4 * bool(aniso)) * (tyt + 2) * sw * 4
+    return dict(nxt=nxt, tyt=tyt, pz=pz, threads=tpr * tyt,
+                blocks=_bricks(nz, ny, nx, nxt, tyt, pz), smem=smem)
+
+
+def _bricks(nz, ny, nx, nxt, tyt, pz):
+    """pass1_shard3d's bricks per lane (lanczos3d.cu shard_tiles)."""
+    return -(-nx // nxt) * -(-ny // tyt) * -(-nz // pz)
+
+
+def shard3d_scratch(nz, ny, nx, t, B, j):
+    """Floats of pass1_shard3d's partial-sum scratch for bricks t (nxt,
+    tyt, pz) on B lanes at iteration j: a row of 2 (j + 1) sums per brick
+    of each lane."""
+    return B * _bricks(nz, ny, nx, t["nxt"], t["tyt"], t["pz"]) * 2 * (j + 1)
+
+
 def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
     """K9-K12 and K1' in modes shard3d, shard3d_aniso: pass1_3d on one
     shard's block of a sharded 3D grid, the merged (P, R, nx) view of a
@@ -363,7 +429,8 @@ def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
     wzh (lny, nx)), lnz, lny, scale and sign. Returns (w, raw) as pass1_3d.
     A batch of B lanes of the block: fields (B, P, R, nx), scal (B, 1, 2),
     halos and face weights with a leading B, raw (B, j+1, 2), in one launch
-    whose lane b gives the bits of the launch on lane b alone.
+    whose lane b gives the bits of the launch on lane b alone. The bricks
+    are shard3d_tiles' (the kernel refuses bricks it cannot run).
     """
     what = "pass1_shard3d"
     j = len(prev)
@@ -394,16 +461,23 @@ def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
         mode = _MODES[d["variant"]]
     lib = _lib()
     w = torch.empty_like(wj)
-    partial = torch.empty(lib.lz3_pass1_blocks(nz, ny, nx) * B * 2 * (j + 1),
+    # the 16-byte form: every pointer it reads rows from 16-byte aligned
+    # (xh and wxl are read a float at a time)
+    vec = int(nx % 4 == 0 and all(
+        p % 16 == 0 for p in [x.data_ptr() for x in (wj, w, yh, zh, *prev)]
+        + [p for p in wts[:3] + wts[4:] if p is not None]))
+    t = shard3d_tiles(nz, ny, nx, P, aniso, vec)
+    partial = torch.empty(shard3d_scratch(nz, ny, nx, t, B, j),
                           dtype=torch.float32, device=wj.device)
     raw = torch.empty(lead + (j + 1, 2), dtype=torch.float32,
                       device=wj.device)
     _check(lib.lz3_pass1_shard(
-        B, P, mode, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j, *wts,
-        yh.data_ptr(), zh.data_ptr(), xh.data_ptr(), w.data_ptr(),
+        B, P, mode, vec, scal.data_ptr(), wj.data_ptr(), _ptrs(prev), j,
+        *wts, yh.data_ptr(), zh.data_ptr(), xh.data_ptr(), w.data_ptr(),
         partial.data_ptr(), raw.data_ptr(), nz, ny, nx,
         *(int(d.get(k, 0)) for k in ("z0", "y0", "x0", "NZ", "NY", "NX")),
-        float(d["scale"]) * float(d["sign"]), _stream(wj)), what)
+        float(d["scale"]) * float(d["sign"]), t["nxt"], t["tyt"], t["pz"],
+        _stream(wj)), what)
     pass1_shard3d.launches += 1
     return w, raw
 

@@ -623,6 +623,110 @@ def test_batched_shard_kernels_bit_equal_to_lane_launches_on_card(
         assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+# pass1_shard3d's bricks: widths whose tiles are 4 (nx = 2) and 64 columns
+# wide (50: ragged, not a multiple of 4, the scalar form; 64 and 256: the
+# 16-byte form, 256 in four tiles); blocks of 2 x 2 and of 9 x 19 (two y
+# tiles, the second ragged, and bricks marching up and down in z); the block
+# at a corner of the grid (every halo at the domain's edge) or inside it
+_SHARD3D_NX = (2, 50, 64, 256)
+_SHARD3D_BLOCKS = ((2, 2), (9, 19))
+_SHARD3D_J = (0, 4, 8, 9, 18)
+
+
+def _shard3d_case(cuda, rng, mode, nz, ny, nx, P, B, corner):
+    """B lanes of an (nz, ny, nx) block (B = 0: one lane without the lane
+    axis): halos, the descriptor (face weights per lane) and 19 columns."""
+    lead = (B,) if B else ()
+    R = nz * ny
+    halos = [_rand(cuda, rng, *lead, P, 2, nz, nx),
+             _rand(cuda, rng, *lead, P, 2, ny, nx),
+             _rand(cuda, rng, *lead, P, 2, R)]
+    ref = mode == "reference"           # z and y whole under the reference
+    d = dict(kind="shard3d" if mode != "aniso" else "shard3d_aniso",
+             NZ=nz if ref else 3 * nz, NY=ny if ref else 3 * ny, NX=3 * nx,
+             z0=0 if corner or ref else nz, y0=0 if corner or ref else ny,
+             x0=0 if corner else nx, lnz=nz, lny=ny, scale=1.0 / 0.02 ** 2,
+             sign=-1.0 if P == 1 else 1.0, variant=mode)
+    if mode == "aniso":
+        d.update({k: _rand(cuda, rng, *lead, *shp, lo=1.0) for k, shp in (
+            ("wx", (R, nx)), ("wy", (R, nx)), ("wz", (R, nx)), ("wxl", (R,)),
+            ("wyh", (nz, nx)), ("wzh", (ny, nx)))})
+    W = [_rand(cuda, rng, *lead, P, R, nx) for _ in range(19)]
+    return halos, d, W
+
+
+@pytest.mark.parametrize("corner", [True, False])
+@pytest.mark.parametrize("block", _SHARD3D_BLOCKS)
+@pytest.mark.parametrize("nx", _SHARD3D_NX)
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("mode", ["reference", "clean", "aniso"])
+def test_pass1_shard3d_bricks_match_plain_on_card(cuda, mode, P, nx, block,
+                                                  corner):
+    """The brick kernel of pass1_shard3d at every width class, on small and
+    ragged blocks at a corner and inside the grid, at j = 0, 4, 8, 9 and 18
+    (every bucket edge): within the gates of pass1_shard3d_ref, one launch
+    each."""
+    nz, ny = block
+    rng = np.random.default_rng(1000 + nx + 7 * P + ny)
+    halos, d, W = _shard3d_case(cuda, rng, mode, nz, ny, nx, P, 0, corner)
+    for j in _SHARD3D_J:
+        scal = torch.tensor([[0.7, 0.3]], device=cuda)
+        before = t3.pass1_shard3d.launches
+        _check(*_kernel_and_plain(
+            lambda: t3.pass1_shard3d(scal, W[j], W[:j], *halos, d)),
+            W[:j + 1])
+        assert t3.pass1_shard3d.launches == before + 1
+
+
+@pytest.mark.parametrize("nx", _SHARD3D_NX)
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("mode", ["reference", "clean", "aniso"])
+def test_pass1_shard3d_three_lanes_bit_equal_to_one_on_card(cuda, mode, P,
+                                                            nx):
+    """B = 3 lanes of a 9 x 19 x nx block inside the grid in ONE launch at
+    j = 0, 4, 8, 9 and 18: lane b bit-equal to the launch on lane b alone
+    (B = 1, no lane axis) and within the gates of the plain batched
+    version."""
+    B = 3
+    rng = np.random.default_rng(2000 + nx + P)
+    halos, d, W = _shard3d_case(cuda, rng, mode, 9, 19, nx, P, B, False)
+    wkeys = [k for k in d if k.startswith("w")]
+    lanes = [dict(d, **{k: d[k][b] for k in wkeys}) for b in range(B)]
+    for j in _SHARD3D_J:
+        scal = torch.from_numpy(rng.uniform(0.2, 1.0, (B, 1, 2)).astype(
+            np.float32)).to(cuda)
+        got, want = _kernel_and_plain(
+            lambda: t3.pass1_shard3d(scal, W[j], W[:j], *halos, d))
+        _batch_check(got, want, W[:j + 1] + [want[0]])
+        _lane_equal(got, [t3.pass1_shard3d(
+            scal[b], W[j][b], [w[b] for w in W[:j]],
+            *[h[b] for h in halos], lanes[b]) for b in range(B)])
+
+
+@pytest.mark.parametrize("tiles", [dict(nxt=16, tyt=16, pz=1),
+                                   dict(nxt=32, tyt=8, pz=3),
+                                   dict(nxt=128, tyt=2, pz=9),
+                                   dict(nxt=4, tyt=64, pz=2)])
+@pytest.mark.parametrize("mode", ["clean", "aniso"])
+def test_pass1_shard3d_other_bricks_match_plain_on_card(cuda, monkeypatch,
+                                                        mode, tiles):
+    """Bricks other than shard3d_tiles' (one plane deep, several x tiles,
+    one wider than the block) give the same function; bricks the kernel
+    cannot take (more than 256 threads, a width that is no power of two)
+    raise."""
+    rng = np.random.default_rng(77)
+    halos, d, W = _shard3d_case(cuda, rng, mode, 9, 19, 64, 2, 0, False)
+    scal = torch.tensor([[0.7, 0.3]], device=cuda)
+    monkeypatch.setattr(t3, "shard3d_tiles", lambda *a: tiles)
+    for j in (0, 9):
+        _check(*_kernel_and_plain(lambda: t3.pass1_shard3d(
+            scal, W[j], W[:j], *halos, d)), W[:j + 1])
+    for bad in (dict(nxt=64, tyt=32, pz=4), dict(nxt=48, tyt=8, pz=4)):
+        monkeypatch.setattr(t3, "shard3d_tiles", lambda *a, bad=bad: bad)
+        with pytest.raises(RuntimeError):
+            t3.pass1_shard3d(scal, W[1], W[:1], *halos, d)
+
+
 @pytest.mark.parametrize("shape,mshape,variant,integrator,per", [
     ((24, 40), (2, 2), "reference", "ss2", (5, 6, 1, 2)),
     ((24, 40), (2, 2), "aniso", "sewi", (15, 18, 3, 0)),

@@ -6,7 +6,7 @@
                             [--ms 10,20]
 
 (other parts: kickbc, rates3d, shard, perj, ptxas, datagen, sweeps, run3d,
-shard-datagen)
+shard-datagen, shard3d-bricks)
 
 Imports nlsolvers_tpu_torch from TREE (default: the directory of this
 script), so that one machine can time two versions of the package in turns
@@ -94,6 +94,14 @@ the same columns (complex64). Parts:
          stepped one at a time through make_sharded_nlse_step, chunks
          interleaved, by chip_smoke.py's `rate` (ms per batched step,
          device busy time, idle share, launches, host syncs);
+  shard3d-bricks  pass1_shard3d (a tree with lanczos3d.shard3d_tiles) by
+         CUDA-graph replay with the bricks that helper picks and with
+         others (put in its place for the run) (plane depths 4-64, tiles half as wide and twice
+         as tall, or half as tall):
+         one batched sharded Lanczos run (B = 2, m = 10) of the 3D
+         datagen-shard point, (256, 256, 64) on (1, 1, 4), c(x) and iso,
+         and the unbatched 512^3 on (2, 2, 2) c(x) one, beside the bytes
+         bound;
   ptxas  ptxas's registers and spill stores of every kernel instantiation
          the tree builds, one JSON object each (the namespace hash of a
          name dropped), to compare two trees' code generation;
@@ -796,11 +804,72 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     if "shard-datagen" in parts:
         shard_datagen(cs, torch, np, dev, emit)
+    if "shard3d-bricks" in parts:
+        shard3d_bricks(cs, torch, dev, emit)
     if args.out:
         with open(args.out, "w") as f:
             for r in results:
                 f.write(json.dumps(r) + "\n")
     return 0
+
+
+def shard3d_bricks(cs, torch, dev, emit):
+    """The shard3d-bricks part (module docstring)."""
+    import math
+
+    from nlsolvers_tpu_torch.ops.cuda import lanczos3d as l3
+
+    gen = torch.Generator(device=dev).manual_seed(246)
+    m = 10
+    for label, kind, lshape, mshape, B in (
+            ("batched c(x)", "shard3d_aniso", (256, 256, 64), (1, 1, 4), 2),
+            ("batched iso", "shard3d", (256, 256, 64), (1, 1, 4), 2),
+            ("512^3 c(x)", "shard3d_aniso", (256, 256, 256), (2, 2, 2), 1)):
+        n = lshape[-1] * mshape[-1]
+        descs = [d for d, _ in cs.shard_lane_descs(
+            torch, kind, lshape, mshape, ((n - 1) / (2 * LX)) ** 2, B, gen)]
+        rows = math.prod(lshape[:-1])
+        hs = [cs.shard_halos(torch, lshape, 2, B, gen) for _ in descs]
+        Ws = [[torch.randn((B, 2, rows, lshape[-1]), generator=gen,
+                           device=dev) for _ in range(m - 1)] for _ in descs]
+        s = torch.tensor([[[0.5, 0.0]]], device=dev).expand(B, 1, 2)
+        s = s.contiguous()
+        if B == 1:
+            descs = [dict(d, **{k: v[0] for k, v in d.items()
+                                if k.startswith("w")}) for d in descs]
+            hs = [[x[0] for x in h] for h in hs]
+            Ws = [[w[0] for w in W] for W in Ws]
+            s = s[0]
+        col = B * 2 * math.prod(lshape) * 4
+        halo = sum(x.numel() for x in hs[0]) * 4
+        wts = sum(v.numel() for k, v in descs[0].items()
+                  if k.startswith("w")) * 4
+        nbytes = len(descs) * sum((j + 2) * col + halo + wts
+                                  for j in range(m - 1))
+        aniso = kind.endswith("aniso")
+        base = l3.shard3d_tiles(*lshape, 2, aniso, 1)
+        cands = [base] + [dict(base, pz=pz) for pz in (4, 8, 16, 32, 64)
+                          if pz != base["pz"]]
+        step = max(1, 128 // base["nxt"])       # rows: threads of 32
+        cands += [dict(base, nxt=base["nxt"] // 2, tyt=base["tyt"] * 2),
+                  dict(base, tyt=base["tyt"] // 2 // step * step)]
+        picker = l3.shard3d_tiles
+        for t in cands:
+            def run(Ws=Ws, hs=hs, descs=descs):
+                for W, h, d in zip(Ws, hs, descs):
+                    for j in range(m - 1):
+                        l3.pass1_shard3d(s, W[j], W[:j], *h, d)
+            l3.shard3d_tiles = lambda *a, t=t: t
+            try:
+                g = cs.graph_ms(torch, run, 5)
+            finally:
+                l3.shard3d_tiles = picker
+            emit(shard3d_bricks=label, lshape=list(lshape), mesh=list(mshape),
+                 lanes=B, m=m, nxt=t["nxt"], tyt=t["tyt"], pz=t["pz"],
+                 picked=t is base, graph_ms=g, bound_ms=cs.bound_ms(nbytes),
+                 bytes=nbytes, bound_share=cs.bound_ms(nbytes) / g)
+        del Ws, hs, descs
+        torch.cuda.empty_cache()
 
 
 def shard_datagen(cs, torch, np, dev, emit):
