@@ -341,6 +341,25 @@ Each of phases 28-39 prints its seconds; from phase 3 on, a line
                alone (make_sharded_nlse_step for SS2); then Datagen.run with
                shard_grid (2, 2) at 1024^2: 2 runs archived, the launches
                exact, the mass series equal to the archive's mass (1e-5).
+ 40. batch-axis  the batch axis (batch_axis_phase), every shard on this
+               card, B = 4: the sharded datagen engine with batch_axis,
+               2D cubic NLSE c(x) 1024^2 SS2 m=20 on (batch, gy, gx) =
+               (2, 2, 2) and 3D c(x) 256^3 SS2 m=10 on (2, 1, 1, 4), each
+               lane bit-equal to its lane block of 2 run on the grid-only
+               mesh, the launches (counters at 0 just before, read just
+               after) equal to the two blocks' grid-only runs; the
+               unsharded engine (256^2 c(x) SS2 m=20, B = 8) with a
+               ("batch",) mesh of 2 bit-equal to no mesh (snapshots,
+               bad_at, mass series), 2 x (1 K1' + 19 K2' + 1 K3 + 2
+               kick_bc) per step, both timed warm; batched_evolve of one
+               planar problem on that mesh, B = 4, each lane bit-equal to
+               the problem stepped alone, the launches those of its two
+               blocks without a mesh; a complex128 sharded SS2
+               step (the generic path, plain torch) at 256^2 on (2, 2)
+               within rel-L2 1e-10 of the unsharded complex128 problem;
+               distributed.initialize at world size 1 (gloo on localhost)
+               and Datagen.run on its global batch mesh, 2 runs archived.
+               Prints its elapsed time.
 Then the card's name and power limit, the kernels as one JSON line
 (twenty-five: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
 pass1_shard2d, pass1_shard3d, kick_bc, and the batched forms of K1', K2',
@@ -355,8 +374,9 @@ engine's launches per batched step of 8 lanes (the 2D NLSE step's, for
 pass1_3d and pass2 the 3D NLSE step's, for bc3d the 3D real-wave step's,
 for K5 the 2D NLSE step's under fused_iter, for K8 the 3D NLSE step's
 under pipeline_3d; the other paths' beside them) and the graph time of
-the 8 unbatched launch sequences beside theirs), and last {"ok": true,
-"device": ...}. Any failed phase exits non-zero and prints no result.
+the 8 unbatched launch sequences beside theirs; the batched shard
+kernels, K1', K2', K3, pass2 and kick_bc also the batch-axis paths'
+launches per step per sub-mesh), and last {"ok": true, "device": ...}. Any failed phase exits non-zero and prints no result.
 """
 
 import dataclasses
@@ -2492,6 +2512,271 @@ def shard_datagen(torch, np, root, counters):
         check(e <= 1e-5, f"datagen-shard {path.name}: mass {e:.3e}")
     shutil.rmtree(work, ignore_errors=True)
     return per_step
+
+
+BA_B, BA_MESH2, BA_MESH3 = 4, (2, 2, 2), (2, 1, 1, 4)
+
+
+def batch_axis_phase(torch, np, root, counters):
+    """Phase 40: the batch axis (parallel/spatial's batch_axis,
+    pipeline/engine's mesh, parallel/distributed), every shard on this
+    card. The grid-sharded datagen engine with batch_axis on a (batch,
+    *grid) mesh, B = BA_B lanes: 2D cubic NLSE c(x) 1024^2 SS2 m = 20 on
+    (2, 2, 2) (the datagen-shard draws) and 3D cubic NLSE c(x) 256^3 SS2
+    m = 10 on (2, 1, 1, 4); each lane bit-equal to its lane block run on the
+    grid-only mesh ((2, 2), (1, 1, 4)), and the launches of the batch-axis
+    run (counters at 0 just before, read just after) equal to those of the
+    grid-only runs of the two blocks of B = 2. The unsharded datagen engine
+    (256^2 c(x) SS2 m = 20, B = 8) with a ("batch",) mesh of 2: snapshots,
+    bad_at and the mass series bit-equal to no mesh, each step 2 x the
+    batched step's launches, both timed after a warm-up round.
+    parallel/batch.batched_evolve of one planar problem (problem.step's
+    batched form) on that mesh, B = BA_B: each lane bit-equal to the problem
+    stepped alone, the launches those of its two blocks without a mesh. A
+    complex128 sharded SS2 step (the generic path) at 256^2 on (2, 2) within rel-L2
+    1e-10 of the unsharded complex128 problem. distributed.initialize at
+    world size 1 (gloo on localhost) and Datagen.run through it on the
+    global batch mesh. Returns ({path: {kernel: launches per step per
+    sub-mesh}}, elapsed seconds)."""
+    import shutil
+    import socket
+
+    from nlsolvers_tpu_torch.models import problems
+    from nlsolvers_tpu_torch.parallel import distributed as dist
+    from nlsolvers_tpu_torch.parallel import mesh as pmesh
+    from nlsolvers_tpu_torch.parallel import shards, spatial
+    from nlsolvers_tpu_torch.pipeline import datagen, engine
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = root / "_smoke_batch_axis"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    per_sub = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counters.items()
+                     if f.launches}
+
+    def one_mesh(axes, shape):
+        return pmesh.make_mesh(axes, shape, devices=[dev] * math.prod(shape))
+
+    def against_blocks(label, make, args, snaps, freq, grid_axes,
+                       grid_shape, steps):
+        """The batch-axis run against the grid-only runs of its two lane
+        blocks: bits and launches."""
+        grid = make(one_mesh(grid_axes, grid_shape), None)
+        half = BA_B // 2
+        n_want, alone = {}, []
+        t1 = time.perf_counter()
+        for sl in (slice(0, half), slice(half, BA_B)):
+            out, n = counted(lambda: grid(*[a[sl] for a in args], snaps,
+                                          freq))
+            alone.append(out)
+            for k, v in n.items():
+                n_want[k] = n_want.get(k, 0) + v
+        wall_grid = time.perf_counter() - t1
+        traj = make(one_mesh(("batch",) + grid_axes, (2,) + grid_shape),
+                    "batch")
+        t1 = time.perf_counter()
+        got, n_got = counted(lambda: traj(*args, snaps, freq))
+        wall = time.perf_counter() - t1
+        same = torch.equal(got, torch.cat(alone))
+        print(f"batch-axis {label}: {steps} steps of B={BA_B} on "
+              f"{(2,) + grid_shape} in {wall:.3f} s ({wall / steps * 1e3:.1f}"
+              f" ms per step, snapshots included; the two blocks of "
+              f"B={half} on {grid_shape} before it, the first warming up: "
+              f"{wall_grid / steps * 1e3:.1f} ms per step together); "
+              f"launches {n_got} (the two grid-only blocks: {n_want}); each "
+              f"lane bit-equal to its block on {grid_shape} {same}")
+        check(bool(torch.isfinite(got).all()),
+              f"batch-axis {label}: not finite")
+        check(same, f"batch-axis {label}: a lane differs from its block "
+              f"run on the grid-only mesh")
+        check(n_got == n_want, f"batch-axis {label}: launches {n_got} != "
+              f"{n_want}")
+        per_sub[label] = {k: v // (2 * steps) for k, v in n_got.items()}
+        del got, alone
+
+    # 2D NLSE c(x) SS2 1024^2 m = 20 on (2, 2, 2), the datagen-shard draws
+    cfg = datagen.DatagenConfig(
+        family="nlse", phenomenon="multi_soliton", system="cubic", nx=SH_N,
+        num_runs=BA_B, anisotropy_type="layered", m_type="piecewise",
+        output_dir=str(work), archive_format="npy", device="cuda")
+    _, u0s, _, m, c = datagen.Datagen(cfg)._sample_batch(BA_B)
+    u0 = np.stack(u0s)
+    packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
+    m, c = m.astype(np.float32), c.astype(np.float32)
+    against_blocks(
+        f"nlse 2D ss2 {SH_N}^2 m={DG_M}",
+        lambda mesh, ba: spatial.make_sharded_nlse_trajectory_fn(
+            "cubic", (SH_N, SH_N), DG_LX, DG_DT, mesh, batch_axis=ba,
+            krylov_m=DG_M),
+        (packed, m, c), 3, 2, ("gy", "gx"), BA_MESH2[1:], 4)
+    del packed, m, c
+
+    # 3D NLSE c(x) SS2 256^3 m = 10 on (2, 1, 1, 4), the reference variant
+    shape3 = (SH_N3,) * 3
+    gen = torch.Generator(device=dev).manual_seed(98)
+    x = torch.linspace(-DG_LX, DG_LX, SH_N3, device=dev)
+    zz, yy, xx = torch.meshgrid(x, x, x, indexing="ij")
+    u3 = []
+    for b in range(BA_B):
+        env = torch.exp(-((xx - b) ** 2 + yy ** 2 + zz ** 2) / (4 + b))
+        u3.append(torch.stack([env * torch.cos(0.5 * xx),
+                               env * torch.sin(0.5 * xx)]))
+    u3 = torch.stack(u3)
+    del zz, yy, xx, env
+    m3 = torch.ones((BA_B,) + shape3, device=dev)
+    c3 = 1.0 + 0.4 * torch.rand((BA_B,) + shape3, generator=gen, device=dev)
+    against_blocks(
+        f"nlse 3D ss2 {SH_N3}^3 m={DG3_M} reference",
+        lambda mesh, ba: spatial.make_sharded_nlse_trajectory_fn(
+            "cubic", shape3, DG_LX, SH_DT3, mesh,
+            axis_names=("gz", "gy", "gx"), batch_axis=ba, krylov_m=DG3_M),
+        (u3, m3, c3), 3, 2, ("gz", "gy", "gx"), BA_MESH3[1:], 4)
+    del u3, m3, c3
+    torch.cuda.empty_cache()
+
+    # the unsharded datagen engine with a ("batch",) mesh of 2
+    cfg = datagen.DatagenConfig(
+        family="nlse", phenomenon="multi_soliton", system="cubic", nx=DG_N,
+        num_runs=DG_B, anisotropy_type="layered", m_type="piecewise",
+        output_dir=str(work), archive_format="npy", device="cuda")
+    _, u0s, _, m, c = datagen.Datagen(cfg)._sample_batch(DG_B)
+    u0 = np.stack(u0s)
+    packed = np.stack([u0.real, u0.imag], axis=1).astype(np.float32)
+    m, c = m.astype(np.float32), c.astype(np.float32)
+    bmesh = one_mesh(("batch",), (2,))
+    label = f"engine nlse 2D ss2 {DG_N}^2 m={DG_M} ('batch',) 2"
+    kw = dict(krylov_m=DG_M, guard=True, record_energy=True, device=dev)
+    fns = {key: engine.make_nlse_trajectory_fn(
+        "cubic", (DG_N, DG_N), DG_LX, DG_DT, mesh=mesh_, **kw)
+        for key, mesh_ in (("none", None), ("mesh", bmesh))}
+    runs, walls = {}, {}
+    for rep in range(2):            # the first round warms both up
+        for key, fn in fns.items():
+            t1 = time.perf_counter()
+            runs[key] = counted(lambda: fn(packed, m, c, 3, 5))
+            walls[key] = time.perf_counter() - t1
+    (want, wbad, wser), n_want = runs["none"]
+    (got, bad, ser), n_got = runs["mesh"]
+    same = (torch.equal(got, want) and torch.equal(bad, wbad)
+            and torch.equal(ser["mass"], wser["mass"]))
+    exp = {k: 2 * 10 * v for k, v in DG_PER_STEP.items()}
+    print(f"batch-axis {label}: launches {n_got} (no mesh {n_want}); "
+          f"snapshots, bad_at and mass series bit-equal to no mesh {same}; "
+          f"10 steps {walls['mesh']:.3f} s (no mesh {walls['none']:.3f} s; "
+          f"both warm, {walls['mesh'] / walls['none']:.2f}x)")
+    check(same, f"batch-axis {label}: differs from the engine without a "
+          f"mesh")
+    check(n_got == exp, f"batch-axis {label}: launches {n_got} != {exp}")
+    per_sub[label] = {k: v // 20 for k, v in n_got.items()}
+    del got, want, runs
+
+    # parallel/batch.batched_evolve of one planar problem (the first draw's
+    # m and c) over the first BA_B draws on a ("batch",) mesh of 2: each
+    # block one batched step (problem.step.batched), each lane bit-equal to
+    # the problem stepped alone, the launches those of the two blocks run
+    # without a mesh
+    from nlsolvers_tpu_torch.models.evolve import evolve
+    from nlsolvers_tpu_torch.parallel import batch as pbatch
+
+    label = f"batched_evolve nlse 2D ss2 {DG_N}^2 m={DG_M} ('batch',) 2"
+    prob = problems.nlse_problem(
+        "cubic", (DG_N, DG_N), DG_LX, DG_DT,
+        m_field=torch.from_numpy(m[0]).to(dev),
+        c_field=torch.from_numpy(c[0]).to(dev), krylov_m=DG_M, device=dev)
+    check(callable(getattr(prob.step, "batched", None)),
+          f"batch-axis {label}: the problem has no batched step")
+    states0 = torch.stack([prob.init(torch.from_numpy(packed[b]).to(dev))
+                           for b in range(BA_B)])
+    n_want = {}
+    for sl in (slice(0, BA_B // 2), slice(BA_B // 2, BA_B)):
+        _, n = counted(lambda: pbatch.batched_evolve(prob, states0[sl], 3, 2))
+        for k, v in n.items():
+            n_want[k] = n_want.get(k, 0) + v
+    got, n_got = counted(lambda: pbatch.batched_evolve(
+        prob, states0, 3, 2, mesh=bmesh))
+    alone = torch.stack([evolve(prob.step, states0[b], 3, 2,
+                                observe=prob.observe)
+                         for b in range(BA_B)])
+    same = torch.equal(got, alone)
+    print(f"batch-axis {label}: B={BA_B}, 4 steps, {tuple(got.shape)}; "
+          f"launches {n_got} (the two blocks without a mesh: {n_want}); "
+          f"each lane bit-equal to the problem stepped alone {same}")
+    check(bool(torch.isfinite(got).all()), f"batch-axis {label}: not finite")
+    check(same, f"batch-axis {label}: a lane differs from the problem "
+          f"stepped alone")
+    check(n_got == n_want and n_got == {
+        k: 2 * 4 * v for k, v in DG_PER_STEP.items()},
+        f"batch-axis {label}: launches {n_got} != {n_want}")
+    per_sub[label] = {k: v // 8 for k, v in n_got.items()}
+    del got, alone, states0, prob, packed, m, c
+
+    # a complex128 sharded SS2 step, the generic path, 256^2 on (2, 2)
+    n2, mesh4 = 256, one_mesh(("gy", "gx"), (2, 2))
+    xs = torch.linspace(-1, 1, n2, dtype=torch.float64, device=dev)
+    env = torch.exp(-(xs[:, None] ** 2 + xs[None, :] ** 2) * 4)
+    u64 = torch.complex(env, env * xs[None, :])
+    m64 = 1.0 + 0.2 * torch.rand((n2, n2), generator=gen, device=dev,
+                                 dtype=torch.float64)
+    prob = problems.nlse_problem("cubic", (n2, n2), DG_LX, 1e-3,
+                                 m_field=m64, krylov_m=8,
+                                 dtype=torch.complex128, device=dev)
+    ref = prob.init(u64)
+    step = spatial.make_sharded_nlse_step(
+        "cubic", (n2, n2), DG_LX, 1e-3, mesh4, krylov_m=8,
+        dtype=torch.complex128)
+    up = shards.shard(torch.stack([u64.real, u64.imag]), mesh4)
+    mp = shards.shard(m64, mesh4)
+    (up, ref), n_c = counted(lambda: advance(
+        lambda st, i: (step(st[0], mp), prob.step(st[1], i)), (up, ref), 3))
+    g = shards.gather(up, mesh4)
+    e = rel(torch.complex(g[0], g[1]), ref)
+    print(f"batch-axis complex128 sharded SS2 {n2}^2 (2, 2), 3 steps: "
+          f"rel-L2 {e:.3e} against the unsharded complex128 problem; "
+          f"counted launches {n_c} (plain torch)")
+    check(e <= 1e-10, f"batch-axis complex128 sharded step {e:.3e}")
+    check(not n_c, f"batch-axis complex128: kernel launches {n_c}")
+
+    # distributed.initialize at world size 1, Datagen.run through it
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.initialize(f"localhost:{port}", 1, 0)
+    try:
+        gmesh = dist.global_mesh(("batch",))
+        cfg = datagen.DatagenConfig(
+            family="nlse", phenomenon="multi_soliton", system="cubic",
+            nx=DG_N, T=10 * DG_DT, nt=10, snapshots=3, num_runs=2,
+            anisotropy_type="layered", m_type="piecewise", seed=5,
+            output_dir=str(work / "dist"), archive_format="npy",
+            mesh=gmesh, device="cuda")
+        dg = datagen.Datagen(cfg)
+        written = dg.run()
+        print(f"batch-axis distributed: world size "
+              f"{dist.process_count()}, rank {dist.process_index()}, global "
+              f"mesh {gmesh.shape} on {[str(d) for d in gmesh.devices]}; "
+              f"Datagen.run archived {len(written)} runs: "
+              f"{dg.summary_line}")
+        check(dist.process_count() == 1 and len(written) == 2,
+              f"batch-axis distributed: {len(written)} archives")
+        for path in written:
+            u = np.load(f"{path.with_suffix('')}_u.npy")
+            check(u.shape == (3, DG_N, DG_N) and np.isfinite(u).all(),
+                  f"batch-axis distributed: {path.name}")
+    finally:
+        dist.shutdown()
+    shutil.rmtree(work, ignore_errors=True)
+    elapsed = time.perf_counter() - t0
+    print(f"batch-axis: {elapsed:.1f} s")
+    return per_sub, elapsed
 
 
 def main():
@@ -4678,6 +4963,10 @@ def main():
     sh_per_step = shard_datagen(torch, np, root, counters_sh)
     print(f"datagen-shard: {time.perf_counter() - t_ph:.1f} s")
 
+    # ---------------------------------------------------------- 40. batch-axis
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 40 batch-axis")
+    ba_per_sub, _ = batch_axis_phase(torch, np, root, counters_sh)
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
         """One kernel of the JSON line: `launches` over the n_steps of its
@@ -4815,6 +5104,17 @@ def main():
             if other != path and kname in counts_:
                 e[f"launches_per_batched_step {other}"] = counts_[kname]
         kernels.append(e)
+    # the batch-axis paths (phase 40): launches per step per sub-mesh
+    for e in kernels:
+        key = {"pass1_shard2d batched": "pass1_shard2d",
+               "pass1_shard3d batched": "pass1_shard3d",
+               "pass1_aniso2d batched": "K1'", "pipe_aniso2d batched": "K2'",
+               "combine batched": "K3", "pass2 batched": "pass2",
+               "kick_bc batched": "kick_bc"}.get(e["name"])
+        for path, counts_ in ba_per_sub.items():
+            if key in counts_:
+                e[f"launches_per_step_per_submesh batch-axis {path}"] = \
+                    counts_[key]
     for e in kernels:
         if e["name"] in rw:
             got_, key_, n_ = rw[e["name"]]

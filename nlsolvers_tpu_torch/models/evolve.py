@@ -13,16 +13,20 @@ tensor per leaf, as JAX maps over the tree.
 
 import torch
 
-__all__ = ["evolve", "evolve_guarded", "evolve_lanes", "simulate"]
+from nlsolvers_tpu_torch.parallel.mesh import lane_blocks
+
+__all__ = ["evolve", "evolve_guarded", "evolve_lanes", "evolve_blocks",
+           "lane_sums", "lanes_in_turn", "simulate", "tree_map"]
 
 
-def _map(fn, *trees):
-    """fn over the leaves (tensors) of equally structured trees."""
+def tree_map(fn, *trees):
+    """fn over the leaves (tensors) of equally structured trees (tuples,
+    lists and dicts of tensors), as jax.tree.map."""
     first = trees[0]
     if isinstance(first, (tuple, list)):
-        return type(first)(_map(fn, *xs) for xs in zip(*trees))
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
     if isinstance(first, dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in first}
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
     return fn(*trees)
 
 
@@ -51,7 +55,7 @@ def evolve(step_fn, state0, num_snapshots, snapshot_freq, observe=None):
             state = step_fn(state, idx + i)
         idx += snapshot_freq
         snaps.append(observe(state))
-    return _map(lambda *xs: torch.stack(xs), *snaps)
+    return tree_map(lambda *xs: torch.stack(xs), *snaps)
 
 
 def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
@@ -103,7 +107,7 @@ def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
         return buf
 
     snap0 = observe(state0)
-    bufs = _map(buffer, snap0)
+    bufs = tree_map(buffer, snap0)
     series = {k: buffer(torch.as_tensor(fn(state0)))
               for k, fn in scalars.items()}
     ok = finite_of(snap0)
@@ -114,7 +118,7 @@ def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
         for i in range(snapshot_freq):
             state = step_fn(state, idx0 + i)
         snap = observe(state)
-        _map(lambda b, x: b[s].copy_(x), bufs, snap)
+        tree_map(lambda b, x: b[s].copy_(x), bufs, snap)
         for k, fn in scalars.items():
             series[k][s] = torch.as_tensor(fn(state))
         fin = finite_of(snap)
@@ -137,6 +141,72 @@ def evolve_lanes(step_fn, state0, num_snapshots, snapshot_freq, observe,
         step_fn, state0, num_snapshots, snapshot_freq, observe=observe,
         batched=True, scalars=scalars)
     return snaps, bad_at, {k: v.movedim(0, 1) for k, v in series.items()}
+
+
+def lanes_in_turn(lane_steps):
+    """step(states, i) of a batch whose lanes step one after the other:
+    `states` is a batched state (a tensor, or a tree of them, with the
+    lanes leading), lane b stepped by lane_steps[b] and the lanes stacked
+    again. A lane whose eigensolver fails (its state has diverged; torch
+    raises where JAX's eigh returns NaN) is NaN from then on, as JAX's
+    vmapped lane, and is not stepped again."""
+    dead = [False] * len(lane_steps)
+
+    def step(states, i):
+        out = []
+        for b, lane in enumerate(lane_steps):
+            s = tree_map(lambda x: x[b], states)
+            if dead[b]:
+                out.append(s)
+                continue
+            try:
+                out.append(lane(s, i))
+            except torch.linalg.LinAlgError:
+                dead[b] = True
+                out.append(tree_map(lambda x: torch.full_like(x, float("nan")),
+                                    s))
+        return tree_map(lambda *xs: torch.stack(xs), *out)
+
+    return step
+
+
+def lane_sums(x):
+    """Each lane's sum of a (B, ...) tensor, one reduction per lane: the
+    card orders a reduction over the trailing dimensions by the batch's
+    shape, so a lane's sum would change with its batch; alone it does
+    not."""
+    return torch.stack([torch.sum(v) for v in x])
+
+
+def evolve_blocks(setup, devices, fields, num_snapshots, snapshot_freq,
+                  observe, guard, scalars=None):
+    """evolve_lanes over the lane blocks of a batch, one block per device:
+    setup(*block_fields, lane0, device) -> (states, step) of the block
+    whose first lane is lane lane0 of the batch, `fields` the batched
+    inputs (a tensor, a tree of them, or None where absent) cut by
+    parallel/mesh.lane_blocks, one block per device. One block is evolved as it
+    is; several step one after the other inside each step, in one loop
+    (the guard's exit is the whole batch's), their snapshots and series
+    joined on the first device."""
+    B = _leaves(fields[0])[0].shape[0]
+    parts = [setup(*[None if f is None else tree_map(lambda x: x[sl], f)
+                     for f in fields], sl.start, dev)
+             for sl, dev in zip(lane_blocks(B, len(devices)), devices)]
+    if len(parts) == 1:
+        states, step = parts[0]
+        return evolve_lanes(step, states, num_snapshots, snapshot_freq,
+                            observe, guard, scalars)
+    steps = [f for _, f in parts]
+
+    def joined(fn):
+        return lambda st: tree_map(
+            lambda *xs: torch.cat([x.to(devices[0]) for x in xs]),
+            *[fn(s) for s in st])
+
+    return evolve_lanes(
+        lambda st, i: [f(s, i) for f, s in zip(steps, st)],
+        [s for s, _ in parts], num_snapshots, snapshot_freq, joined(observe),
+        guard, {k: joined(fn) for k, fn in (scalars or {}).items()})
 
 
 def simulate(step_fn, state0, num_snapshots, snapshot_freq, observe=None):

@@ -39,13 +39,29 @@ __all__ = ["ss2_step", "ss2_step_planar", "ss2_step_planar_sharded",
            "sewi_first_step", "gautschi_phi1_bootstrap"]
 
 
-def ss2_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True):
+def _fields(fn, mesh, *fields):
+    """fn over the fields, or, with a mesh, over each shard's blocks of
+    sharded fields (lists): the pointwise terms of the generic steps."""
+    if mesh is None:
+        return fn(*fields)
+    return [fn(*blocks) for blocks in zip(*fields)]
+
+
+def _kick(u, rho_fn, tau, mesh):
+    return _fields(lambda r, v: torch.exp(0.5 * tau * r) * v, mesh,
+                   rho_fn(u), u)
+
+
+def ss2_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
+             mesh=None):
     """One SS2 Strang step: half nonlinear phase, full linear expm, half
-    phase."""
+    phase. With `mesh` (the JAX package's axis_names), u is a sharded field,
+    lap and rho_fn map sharded fields to sharded fields, and the matrix
+    function is the sharded generic Lanczos (ops/krylov.py)."""
     tau = 1j * dt
-    u = torch.exp(0.5 * tau * rho_fn(u)) * u
-    u = expm_apply(lap, u, tau, m=m, reorth=reorth)
-    return torch.exp(0.5 * tau * rho_fn(u)) * u
+    u = _kick(u, rho_fn, tau, mesh)
+    u = expm_apply(lap, u, tau, m=m, reorth=reorth, mesh=mesh)
+    return _kick(u, rho_fn, tau, mesh)
 
 
 def ss2_step_planar(up, desc, rho_fn, dt, m=default_krylov_m, grid=None):
@@ -86,9 +102,9 @@ def ss2_step_planar_sharded(ups, desc, rho_fns, dt, m=default_krylov_m,
         ups[k], rho_fns[k], 0.5 * dt, grids[k]))
 
 
-def _B(u, rho_fn):
+def _B(u, rho_fn, mesh=None):
     """sEWI source term B(u) = -rho(u) u (nlse.cuh:71-84)."""
-    return -rho_fn(u) * u
+    return _fields(lambda r, v: -r * v, mesh, rho_fn(u), u)
 
 
 def _mul_i_planar(up):
@@ -187,7 +203,7 @@ def gautschi_step_planar_sharded(ups, ups_prev, desc, rho_fns, dt,
 
 
 def sewi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
-              fuse_exp_sinc=False):
+              fuse_exp_sinc=False, mesh=None):
     """One sEWI (exponential wave integrator) step; returns (u_new, u).
 
       psi   = sinc(dt L) B(u)        (real time in the sinc)
@@ -195,28 +211,30 @@ def sewi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
 
     With `fuse_exp_sinc` the product exp(i dt L) sinc(dt L) is one matrix
     function of L from one Krylov projection of B(u): 2 Lanczos runs per
-    step instead of 3, not bit-identical to the sequential form.
+    step instead of 3, not bit-identical to the sequential form. `mesh` as
+    ss2_step takes it.
     """
     tau = 1j * dt
+    kw = dict(m=m, reorth=reorth, mesh=mesh)
     if fuse_exp_sinc:
-        e1 = matfunc_apply(lap, _B(u, rho_fn), tau, _exp_sinc(tau, dt), m=m,
-                           reorth=reorth)
+        e1 = matfunc_apply(lap, _B(u, rho_fn, mesh), tau, _exp_sinc(tau, dt),
+                           **kw)
     else:
-        psi = matfunc_apply(lap, _B(u, rho_fn), dt, "sinc", m=m,
-                            reorth=reorth)
-        e1 = expm_apply(lap, psi, tau, m=m, reorth=reorth)
-    e2 = expm_apply(lap, u_prev, 2.0 * tau, m=m, reorth=reorth)
-    return e2 - 2.0 * tau * e1, u
+        psi = matfunc_apply(lap, _B(u, rho_fn, mesh), dt, "sinc", **kw)
+        e1 = expm_apply(lap, psi, tau, **kw)
+    e2 = expm_apply(lap, u_prev, 2.0 * tau, **kw)
+    return _fields(lambda a, b: a - 2.0 * tau * b, mesh, e2, e1), u
 
 
-def sewi_first_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True):
+def sewi_first_step(u, lap, rho_fn, dt, m=default_krylov_m, reorth=True,
+                    mesh=None):
     """sEWI bootstrap: u_prev := u, then one SS2 step (nlse_dev.hpp:
     206-209)."""
-    return ss2_step(u, lap, rho_fn, dt, m=m, reorth=reorth), u
+    return ss2_step(u, lap, rho_fn, dt, m=m, reorth=reorth, mesh=mesh), u
 
 
 def gautschi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m,
-                  reorth=True, convention="cubic"):
+                  reorth=True, convention="cubic", mesh=None):
     """The reference host's comparison 'Gautschi' NLSE step; returns
     (u_new, u). Two sign conventions:
       "cubic" (nlse_cubic_gautschi_solver.hpp:17-40):
@@ -224,13 +242,15 @@ def gautschi_step(u, u_prev, lap, rho_fn, dt, m=default_krylov_m,
       "plus" (nlse_cubic_quintic_gautschi_solver.hpp:16-41,
         nlse_saturating_gautschi_solver.hpp:11-44):
         u' = exp(+2 tau L) u_prev - 2 tau exp(+tau L) sinc(dt L) B(u)
+    `mesh` as ss2_step takes it.
     """
     tau = 1j * dt
     sgn = -1.0 if convention == "cubic" else 1.0
-    psi = matfunc_apply(lap, _B(u, rho_fn), dt, "sinc", m=m, reorth=reorth)
-    e1 = expm_apply(lap, psi, sgn * tau, m=m, reorth=reorth)
-    e2 = expm_apply(lap, u_prev, sgn * 2.0 * tau, m=m, reorth=reorth)
-    return e2 - sgn * 2.0 * tau * e1, u
+    kw = dict(m=m, reorth=reorth, mesh=mesh)
+    psi = matfunc_apply(lap, _B(u, rho_fn, mesh), dt, "sinc", **kw)
+    e1 = expm_apply(lap, psi, sgn * tau, **kw)
+    e2 = expm_apply(lap, u_prev, sgn * 2.0 * tau, **kw)
+    return _fields(lambda a, b: a - sgn * 2.0 * tau * b, mesh, e2, e1), u
 
 
 def gautschi_phi1_bootstrap(u, lap, rho_fn, dt, bc_fn=None, pre_steps=10,

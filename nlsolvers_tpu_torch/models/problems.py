@@ -13,7 +13,8 @@ at step index 1, as the reference's bootstrap (nlse_dev.hpp:206-209).
 complex64 with an operator the fused kernels support takes the PLANAR path:
 the state is (2, R, nx) float32 with R = ny in 2D and nz*ny in 3D (a pair
 of them for the two-step integrators), and `observe` returns the complex
-field of the grid's shape. Everything else (complex128, the radiating BC,
+field of the grid's shape; its step carries `batched(B)`, the same step on
+a batch of B lanes of the problem (parallel/batch.batched_step). Everything else (complex128, the radiating BC,
 the separated operator, reorth=False) takes the complex path. With
 config.resident_mode "auto", a 2D SS2 problem that ops/cuda/resident2d.py
 supports takes one resident kernel per step instead, on complex state, as
@@ -178,6 +179,18 @@ def _planar_ss2(kind, shape, dt, krylov_m, lap, m_field, sigma1, sigma2,
     rho = nlse_density_planar(kind, m2, sigma1=sigma1, sigma2=sigma2,
                               kappa=kappa)
     step = planar_step(integrator, shape, dt, krylov_m, desc, rho, bc)
+
+    def batched(B):
+        """This step on B lanes of the problem at once, (B, 2, R, nx)
+        state: its descriptor's weights and its m stacked B times
+        (parallel/batch.batched_step, JAX's vmap of the step)."""
+        bdesc = {k: (torch.stack([v] * B) if isinstance(v, torch.Tensor)
+                     else v) for k, v in desc.items()}
+        brho = nlse_density_planar(kind, torch.stack([m2] * B),
+                                   sigma1=sigma1, sigma2=sigma2, kappa=kappa)
+        return planar_step(integrator, shape, dt, krylov_m, bdesc, brho, bc)
+
+    step.batched = batched
 
     def init_single(u0):
         z = _as_tensor(u0, device)

@@ -54,16 +54,27 @@ def gautschi_filter(kind):
 
 
 def gautschi_step(u, u_past, omega2, m_field, g_fn, dt, m=default_krylov_m,
-                  filter_func="id_sqrt", reorth=True):
+                  filter_func="id_sqrt", reorth=True, mesh=None):
     """One Gautschi step; returns (u_new, u). `omega2` applies L = Omega^2
     (either sign); `filter_func` is "mod_cosine" for single sine-Gordon
-    (sg_single_solver.hpp:52) or "id_sqrt" for the rest."""
+    (sg_single_solver.hpp:52) or "id_sqrt" for the rest. With `mesh` (the
+    JAX package's axis_names), u, u_past and m_field are sharded fields,
+    omega2 maps one to one, and the matrix functions are the sharded
+    generic Lanczos (ops/krylov.py): the float64 and reorth=False sharded
+    Gautschi."""
     fu, cu = matfunc_apply_multi(omega2, u,
                                  ((dt, filter_func), (dt, "cos_sqrt")),
-                                 m=m, reorth=reorth)
-    b = -(m_field * g_fn(fu))
-    s2 = matfunc_apply(omega2, b, dt, "sinc2_sqrt_half", m=m, reorth=reorth)
-    return 2.0 * cu - u_past + (dt * dt) * s2, u
+                                 m=m, reorth=reorth, mesh=mesh)
+    if mesh is None:
+        b = -(m_field * g_fn(fu))
+    else:
+        b = [-(mk * g_fn(f)) for mk, f in zip(m_field, fu)]
+    s2 = matfunc_apply(omega2, b, dt, "sinc2_sqrt_half", m=m, reorth=reorth,
+                       mesh=mesh)
+    if mesh is None:
+        return 2.0 * cu - u_past + (dt * dt) * s2, u
+    return [2.0 * c - up + (dt * dt) * s for c, up, s in zip(cu, u_past,
+                                                             s2)], u
 
 
 def gautschi_step_sharded(us, us_past, desc, m_fields, g_fn, dt,

@@ -13,7 +13,10 @@ package pins HIGHEST precision for the same reason (krylov.py:49-55).
 
 Operators that carry a `kernel_desc` and a supported shape and dtype are
 dispatched to the fused kernels (ops/cuda/lanczos2d.py, lanczos3d.py) by
-`_fused_path`.
+`_fused_path`. Every function takes `mesh`, the counterpart of the JAX
+package's `axis_names`: u is then a sharded field (parallel/shards.py) and
+the reductions are sums over its shards, the generic sharded path of the
+complex128 and reorth=False steps (parallel/spatial.py).
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ import torch
 
 from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import default_krylov_m, real_dtype_of
+from nlsolvers_tpu_torch.parallel import shards
 
 __all__ = ["lanczos", "tridiag_eigh", "matfunc_apply", "matfunc_apply_multi",
            "expm_apply", "MATFUNCS"]
@@ -71,17 +75,21 @@ def _python_scalar(t):
     return complex(t) if np.iscomplexobj(t) else float(t)
 
 
-def lanczos(matvec, u, m, reorth=True):
+def lanczos(matvec, u, m, reorth=True, mesh=None):
     """m-step (Hermitian) Lanczos of a matrix-free operator.
 
     Returns V: (m,) + u.shape basis, alpha: (m,) real diagonal of T,
-    beta: (m-1,) real off-diagonal, beta0: real norm of u.
+    beta: (m-1,) real off-diagonal, beta0: real norm of u. With `mesh` (the
+    JAX package's axis_names), u is a sharded field and V one (m,) + block
+    stack per shard; T and beta0 are the first shard's copies.
     """
-    vs, alphas, betas, beta0 = _lanczos_cols(matvec, u, m, reorth=reorth)
-    V = torch.stack(vs)
-    alpha, beta = tridiag_entries(alphas, betas, beta0, m,
-                                  real_dtype_of(u.dtype))
-    return V, alpha, beta, beta0
+    vs, alphas, betas, beta0 = _lanczos_cols(matvec, u, m, reorth=reorth,
+                                             mesh=mesh)
+    rdtype = real_dtype_of(beta0[0].dtype)
+    alpha, beta = tridiag_entries([a[0] for a in alphas],
+                                  [b[0] for b in betas], beta0[0], m, rdtype)
+    V = [torch.stack([v[k] for v in vs]) for k in range(len(beta0))]
+    return (V[0] if mesh is None else V), alpha, beta, beta0[0]
 
 
 def tridiag_entries(alphas, betas, beta0, m, rdtype):
@@ -97,39 +105,57 @@ def tridiag_entries(alphas, betas, beta0, m, rdtype):
     return alpha, beta
 
 
-def _lanczos_cols(matvec, u, m, reorth=True):
-    """Lanczos keeping the basis as a list of columns."""
-    rdtype = real_dtype_of(u.dtype)
+def _lanczos_cols(matvec, u, m, reorth=True, mesh=None):
+    """Lanczos keeping the basis as a list of columns, each column a list
+    of per-shard blocks and each scalar a list of per-shard copies.
 
-    def gnorm(x):
-        sq = x.real ** 2 + x.imag ** 2 if x.is_complex() else x ** 2
-        return torch.sqrt(torch.sum(sq)).to(rdtype)
+    Without a mesh u is one tensor, the one shard of this arithmetic. With
+    `mesh`, u is a sharded field (parallel/shards.py), matvec maps a sharded
+    field to one, and every dot and norm is each shard's partial summed over
+    the shards in shard order (shards.psum: JAX's psum over axis_names), so
+    every shard holds the same scalars."""
+    parts = [u] if mesh is None else list(u)
+    apply = (lambda ps: [matvec(ps[0])]) if mesh is None else matvec
+    dtype = parts[0].dtype
+    rdtype = real_dtype_of(dtype)
+
+    def gsum(xs):
+        return xs if mesh is None else shards.psum(xs, mesh)
+
+    def gnorm(xs):
+        sq = [x.real ** 2 + x.imag ** 2 if x.is_complex() else x ** 2
+              for x in xs]
+        return [torch.sqrt(s).to(rdtype)
+                for s in gsum([torch.sum(q) for q in sq])]
 
     # A zero start vector or an exact breakdown yields ZERO columns instead
     # of NaN; bit-identical to the raw division whenever the norm is > 0.
-    def safe_div(x, nrm):
-        return (x / torch.where(nrm > 0, nrm, torch.ones_like(nrm))).to(
-            u.dtype)
+    def safe_div(xs, nrms):
+        return [(x / torch.where(n > 0, n, torch.ones_like(n))).to(dtype)
+                for x, n in zip(xs, nrms)]
 
-    beta0 = gnorm(u)
-    vs = [safe_div(u, beta0)]
-    n = u.numel()
+    beta0 = gnorm(parts)
+    vs = [safe_div(parts, beta0)]
     alphas, betas = [], []
     for j in range(m - 1):
         vj = vs[j]
-        w = matvec(vj).to(u.dtype)
+        w = [x.to(dtype) for x in apply(vj)]
         if j > 0:
-            w = w - betas[j - 1] * vs[j - 1]
+            w = [x - b * v for x, b, v in zip(w, betas[j - 1], vs[j - 1])]
         if reorth:
             # one classical Gram-Schmidt pass against every column: alpha is
             # the last projection (the Rayleigh quotient v_j . w)
-            Vm = torch.stack([v.reshape(n) for v in vs])      # (j+1, n)
-            proj = torch.matmul(Vm.conj(), w.reshape(n))       # (j+1,)
-            a = proj[j].real.to(rdtype)
-            w = w - torch.matmul(proj, Vm).reshape(u.shape)
+            Vm = [torch.stack([v[k].reshape(-1) for v in vs])  # (j+1, n)
+                  for k in range(len(parts))]
+            proj = gsum([torch.matmul(V.conj(), x.reshape(-1))
+                         for V, x in zip(Vm, w)])             # (j+1,)
+            a = [p[j].real.to(rdtype) for p in proj]
+            w = [x - torch.matmul(p, V).reshape(x.shape)
+                 for x, p, V in zip(w, proj, Vm)]
         else:
-            a = torch.sum(vj.conj() * w).real.to(rdtype)
-            w = w - a * vj
+            a = [s.real.to(rdtype) for s in gsum(
+                [torch.sum(v.conj() * x) for v, x in zip(vj, w)])]
+            w = [x - ak * v for x, ak, v in zip(w, a, vj)]
         b = gnorm(w)
         vs.append(safe_div(w, b))
         alphas.append(a)
@@ -172,29 +198,49 @@ def coefficients(func, t, lam, Q, beta0):
         Q * (fvals * Q[..., 0, :])[..., None, :], dim=-1)
 
 
-def matfunc_apply(matvec, u, t, func, m=default_krylov_m, reorth=True):
+def matfunc_apply(matvec, u, t, func, m=default_krylov_m, reorth=True,
+                  mesh=None):
     """y = beta0 * V (Q f(t, D) Q^T e1): one matrix function of the operator
-    applied to u. `t` may be complex (tau = i dt in SS2)."""
-    return matfunc_apply_multi(matvec, u, ((t, func),), m=m, reorth=reorth)[0]
+    applied to u. `t` may be complex (tau = i dt in SS2). With `mesh`, u and
+    y are sharded fields (_lanczos_cols)."""
+    return matfunc_apply_multi(matvec, u, ((t, func),), m=m, reorth=reorth,
+                               mesh=mesh)[0]
 
 
-def matfunc_apply_multi(matvec, u, specs, m=default_krylov_m, reorth=True):
-    """[f(t L) u for (t, f) in specs] from ONE Lanczos decomposition of u."""
+def matfunc_apply_multi(matvec, u, specs, m=default_krylov_m, reorth=True,
+                        mesh=None):
+    """[f(t L) u for (t, f) in specs] from ONE Lanczos decomposition of u.
+
+    With `mesh` (the JAX package's axis_names: krylov.py:94-140, 221-252),
+    u and each output are sharded fields and the Lanczos reductions are
+    sums over the shards in shard order; tridiag_eigh runs once on the
+    reduced T, which every shard holds, as JAX's replicated eigh, and each
+    shard combines its own columns with those coefficients. The sharded
+    form is the generic path only: the shard kernels take planar state
+    through parallel/lanczos.py."""
     specs = tuple(specs)
-    fused = _fused_path(matvec, u, specs, m, reorth)
-    if fused is not None:
-        return fused
-    vs, alphas, betas, beta0 = _lanczos_cols(matvec, u, m, reorth=reorth)
-    alpha, beta = tridiag_entries(alphas, betas, beta0, m,
-                                  real_dtype_of(u.dtype))
+    if mesh is None:
+        fused = _fused_path(matvec, u, specs, m, reorth)
+        if fused is not None:
+            return fused
+    vs, alphas, betas, beta0 = _lanczos_cols(matvec, u, m, reorth=reorth,
+                                             mesh=mesh)
+    dtype = vs[0][0].dtype
+    alpha, beta = tridiag_entries([a[0] for a in alphas],
+                                  [b[0] for b in betas], beta0[0], m,
+                                  real_dtype_of(dtype))
     lam, Q = tridiag_eigh(alpha, beta)
     outs = []
     for t, func in specs:
-        coef = coefficients(func, t, lam, Q, beta0).to(u.dtype)
-        out = coef[0] * vs[0]
-        for i in range(1, m):
-            out = out + coef[i] * vs[i]
-        outs.append(out.to(u.dtype))
+        coef = coefficients(func, t, lam, Q, beta0[0]).to(dtype)
+        coefs = [coef] if mesh is None else shards.broadcast(coef, mesh)
+        out = []
+        for k, ck in enumerate(coefs):
+            y = ck[0] * vs[0][k]
+            for i in range(1, m):
+                y = y + ck[i] * vs[i][k]
+            out.append(y.to(dtype))
+        outs.append(out[0] if mesh is None else out)
     return tuple(outs)
 
 
@@ -224,7 +270,7 @@ def _fused_path(matvec, u, specs, m, reorth):
     return tuple(o[0].reshape(u.shape) for o in outs)
 
 
-def expm_apply(matvec, u, t, m=default_krylov_m, reorth=True):
+def expm_apply(matvec, u, t, m=default_krylov_m, reorth=True, mesh=None):
     """exp(t L) u: the reference's `expm_multiply`
     (eigen_krylov_complex.hpp:54-83)."""
-    return matfunc_apply(matvec, u, t, "exp", m=m, reorth=reorth)
+    return matfunc_apply(matvec, u, t, "exp", m=m, reorth=reorth, mesh=mesh)

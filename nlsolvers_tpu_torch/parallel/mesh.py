@@ -6,6 +6,13 @@ shard in row-major order, and one process runs every shard's work on its
 device. A device may appear more than once, so one card can hold every shard
 of a mesh (the kernels then run with real cross-shard halos), or four cards
 one shard each.
+
+A mesh axis that splits no grid dimension is a batch axis (JAX's
+P(batch_axis, ...)): it splits the lanes of a trajectory batch. A mesh
+(batch, *grid) is n_b grid sub-meshes, one per batch index
+(`batch_blocks`), and lane block b (`lane_blocks`) runs on sub-mesh b;
+nothing crosses the batch axis, as under shard_map, so halos and psums stay
+within a sub-mesh.
 """
 
 import math
@@ -14,7 +21,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "factor_devices"]
+__all__ = ["Mesh", "make_mesh", "factor_devices", "batch_blocks",
+           "lane_blocks"]
 
 
 def factor_devices(n, dims=3):
@@ -95,3 +103,35 @@ def make_mesh(axis_names=("batch", "gy", "gx"), shape=None, devices=None):
     if shape is None:
         shape = factor_devices(len(devices), dims=len(axis_names))
     return Mesh(tuple(int(s) for s in shape), tuple(axis_names), devices)
+
+
+def batch_blocks(mesh, batch_axis):
+    """The mesh cut along `batch_axis`: for each batch index b, (the
+    sub-mesh over the other axes whose devices are the shards at index b,
+    the indices of those shards in `mesh`), the shards in row-major order
+    as np.unravel_index gives them. batch_axis None: one block, the mesh
+    itself."""
+    if batch_axis is None:
+        return [(mesh, tuple(range(mesh.size)))]
+    if batch_axis not in mesh.axis_names:
+        raise ValueError(f"batch axis {batch_axis!r} is not an axis of the "
+                         f"mesh {mesh.axis_names}")
+    a = mesh.axis_names.index(batch_axis)
+    names = mesh.axis_names[:a] + mesh.axis_names[a + 1:]
+    shape = mesh.shape[:a] + mesh.shape[a + 1:]
+    out = []
+    for b in range(mesh.shape[a]):
+        ks = tuple(k for k in range(mesh.size) if mesh.coords(k)[a] == b)
+        out.append((Mesh(shape, names, tuple(mesh.devices[k] for k in ks)),
+                    ks))
+    return out
+
+
+def lane_blocks(B, n_b):
+    """The lanes [b*B/n_b, (b+1)*B/n_b) of each of n_b batch indices, as
+    slices. Raises JAX's ValueError when n_b does not divide B."""
+    if B % n_b:
+        raise ValueError(f"the batch of {B} lanes is not divisible by the "
+                         f"{n_b} shards of the mesh's batch axis")
+    n = B // n_b
+    return [slice(b * n, (b + 1) * n) for b in range(n_b)]

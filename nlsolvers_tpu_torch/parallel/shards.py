@@ -18,7 +18,8 @@ The collectives are those of JAX's shard_map, written out over the shards:
                                     handed to every shard, so all shards see
                                     the same bits
 A value moves between shards with Tensor.to, a no-op when both shards sit
-on one device.
+on one device. A mesh's batch axis (parallel/mesh.batch_blocks) splits a
+batch's lane dimension: `shard` and `gather` take it as `batch_axis`.
 """
 
 import contextlib
@@ -26,24 +27,28 @@ import contextlib
 import numpy as np
 import torch
 
+from nlsolvers_tpu_torch.parallel.mesh import lane_blocks
+
 __all__ = ["local_shape", "offsets", "shard", "gather", "recv_from_prev",
            "recv_from_next", "psum", "pmax", "broadcast", "per_shard"]
 
 
-def local_shape(global_shape, mesh, axis_names):
+def local_shape(global_shape, mesh, axis_names, batch_axis=None):
     """The block each shard holds of a `global_shape` grid whose dimensions
-    are split over the mesh axes `axis_names`. Raises ValueError when a
-    dimension does not divide over its axis, as shard_map does."""
+    are split over the mesh axes `axis_names`; `batch_axis` may name one
+    more axis, which splits the lanes of a batch, never the grid. Raises
+    ValueError when a dimension does not divide over its axis, as
+    shard_map does."""
     global_shape, axis_names = tuple(global_shape), tuple(axis_names)
     if len(global_shape) != len(axis_names):
         raise ValueError(f"grid {global_shape} needs one mesh axis per "
                          f"dimension, got {axis_names}")
-    for a in axis_names:
+    for a in axis_names + ((batch_axis,) if batch_axis else ()):
         if a not in mesh.axis_names:
             raise ValueError(f"axis {a!r} is not an axis of the mesh "
                              f"{mesh.axis_names}")
     for a, n in zip(mesh.axis_names, mesh.shape):
-        if a not in axis_names and n > 1:
+        if a not in axis_names and a != batch_axis and n > 1:
             raise ValueError(f"mesh axis {a!r} of size {n} splits no grid "
                              f"dimension")
     out = []
@@ -61,32 +66,58 @@ def offsets(mesh, k, axis_names, lshape):
     return tuple(mesh.axis_index(k, a) * n for a, n in zip(axis_names, lshape))
 
 
-def _block(mesh, k, axis_names, lshape):
-    return (Ellipsis,) + tuple(slice(o, o + n) for o, n in zip(
+def _block(mesh, k, axis_names, lshape, lanes=None):
+    """Shard k's index into a global field; `lanes` (batch_axis, dim, n):
+    the n lanes of its batch index along dimension `dim` too."""
+    index = (Ellipsis,) + tuple(slice(o, o + n) for o, n in zip(
         offsets(mesh, k, axis_names, lshape), lshape))
+    if lanes is None:
+        return index
+    batch_axis, dim, n = lanes
+    b0 = mesh.axis_index(k, batch_axis) * n
+    return (slice(None),) * dim + (slice(b0, b0 + n),) + index
 
 
-def shard(x, mesh, axis_names=None):
+def _grid_axes(mesh, axis_names, batch_axis):
+    if axis_names is not None:
+        return tuple(axis_names)
+    return tuple(a for a in mesh.axis_names if a != batch_axis)
+
+
+def shard(x, mesh, axis_names=None, batch_axis=None, batch_dim=0):
     """A global field (tensor or numpy) as a sharded field: one contiguous
-    copy of each shard's block on that shard's device."""
-    axis_names = tuple(mesh.axis_names if axis_names is None else axis_names)
+    copy of each shard's block on that shard's device. With `batch_axis`,
+    dimension `batch_dim` of x holds the lanes of a batch, split over that
+    mesh axis (JAX's P(batch_axis) on it): shard k holds the lanes of its
+    batch index."""
+    axis_names = _grid_axes(mesh, axis_names, batch_axis)
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x))
-    lshape = local_shape(x.shape[-len(axis_names):], mesh, axis_names)
-    return [x[_block(mesh, k, axis_names, lshape)].to(
+    lshape = local_shape(x.shape[x.dim() - len(axis_names):], mesh,
+                         axis_names, batch_axis)
+    lanes = None
+    if batch_axis is not None:         # each batch index's lane count
+        n = lane_blocks(x.shape[batch_dim], mesh.axis_size(batch_axis))[0]
+        lanes = (batch_axis, batch_dim, n.stop)
+    return [x[_block(mesh, k, axis_names, lshape, lanes)].to(
         mesh.devices[k], copy=True).contiguous() for k in range(mesh.size)]
 
 
-def gather(parts, mesh, axis_names=None):
-    """The global field of a sharded field, on the first shard's device."""
-    axis_names = tuple(mesh.axis_names if axis_names is None else axis_names)
+def gather(parts, mesh, axis_names=None, batch_axis=None, batch_dim=0):
+    """The global field of a sharded field, on the first shard's device
+    (`batch_axis`, `batch_dim` as shard takes them)."""
+    axis_names = _grid_axes(mesh, axis_names, batch_axis)
     nd = len(axis_names)
-    lshape = tuple(parts[0].shape[-nd:])
+    lshape = tuple(parts[0].shape[parts[0].dim() - nd:])
     grid = tuple(n * mesh.axis_size(a) for n, a in zip(lshape, axis_names))
-    out = torch.empty(tuple(parts[0].shape[:-nd]) + grid,
-                      dtype=parts[0].dtype, device=parts[0].device)
+    shape = list(parts[0].shape[:parts[0].dim() - nd]) + list(grid)
+    lanes = None
+    if batch_axis is not None:
+        lanes = (batch_axis, batch_dim, shape[batch_dim])
+        shape[batch_dim] *= mesh.axis_size(batch_axis)
+    out = torch.empty(shape, dtype=parts[0].dtype, device=parts[0].device)
     for k, p in enumerate(parts):
-        out[_block(mesh, k, axis_names, lshape)] = p.to(out.device)
+        out[_block(mesh, k, axis_names, lshape, lanes)] = p.to(out.device)
     return out
 
 

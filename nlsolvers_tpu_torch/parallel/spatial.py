@@ -11,14 +11,23 @@ so the halo IS the boundary condition. The reference-variant diagonal and
 the Neumann ghost copies need global coordinates, which come from the
 shard's place in the mesh.
 
-`make_sharded_nlse_step` is the complex64 planar SS2 step: the half kicks
-per shard (ops/cuda/kick.py, density included), the matrix function through
-the sharded Lanczos loops (parallel/lanczos.py: the shard kernels, K4 pass2
-and K3 combine per shard, one packed psum per iteration); the closing kick
-also does each shard's ghost copy, with the shard's global offsets.
-`make_sharded_realwave_step` is the real-wave step: float32 Gautschi through
-the shard kernels at P=1 on -Lap, or Stormer-Verlet on the plain sharded
-operator in any real dtype.
+`make_sharded_nlse_step` is the SS2 step. complex64 takes the planar path:
+the half kicks per shard (ops/cuda/kick.py, density included), the matrix
+function through the sharded Lanczos loops (parallel/lanczos.py: the shard
+kernels, K4 pass2 and K3 combine per shard, one packed psum per
+iteration); the closing kick also does each shard's ghost copy, with the
+shard's global offsets. complex128 and reorth=False take the generic path
+(JAX's local_single): complex blocks, models/nlse.py with the mesh, whose
+Lanczos sums each dot over the shards (ops/krylov.py), on the plain
+sharded operators. `make_sharded_realwave_step` is the real-wave step:
+float32 Gautschi through the shard kernels at P=1 on -Lap, float64 or
+reorth=False Gautschi on the generic path, or Stormer-Verlet on the plain
+sharded operator in any real dtype.
+
+A mesh axis that splits no grid dimension, `batch_axis`, splits the lanes
+of a batch (JAX's P(batch_axis, ...)): the mesh is one grid sub-mesh per
+batch index (parallel/mesh.batch_blocks), each of which runs its block of
+lanes through everything above; nothing crosses the batch axis.
 
 The trajectory engines (`make_sharded_nlse_trajectory_fn`,
 `make_sharded_realwave_trajectory_fn`) are the datagen path for one
@@ -27,11 +36,16 @@ pipeline/engine.py: global (B, ...) inputs are sharded (shards.shard),
 every lane of the batch steps in ONE batched sharded step, as JAX's vmap of
 the step inside shard_map (each kernel one launch per shard over the lanes,
 lane b with the bits of the step run on lane b alone), and every snapshot
-is gathered into one global tensor on the first shard's device. The guard
-checks that gathered snapshot, so each lane's verdict covers every shard
-(JAX's psum of the shards' bits) and all shards stop together; the mass
-and energy series are each shard's sums, psum'd in shard order.
+is gathered into one global tensor on the first shard's device (on the
+generic path the lanes step in turn). The guard checks that gathered
+snapshot, so each lane's verdict covers every shard (JAX's psum of the
+shards' bits) and all shards stop together; the mass and energy series are
+each shard's sums of each lane alone, psum'd in shard order, so a lane's
+series does not depend on its batch. With a batch axis each sub-mesh
+runs its own loop on its lanes, as each batch shard does under shard_map.
 """
+
+from functools import partial
 
 import numpy as np
 import torch
@@ -39,9 +53,11 @@ import torch
 from nlsolvers_tpu_torch.config import real_dtype_of, torch_dtype
 from nlsolvers_tpu_torch.models import nlse as nlse_mod
 from nlsolvers_tpu_torch.models import realwave as rw
-from nlsolvers_tpu_torch.models.evolve import evolve_lanes
+from nlsolvers_tpu_torch.models.evolve import (evolve_lanes, lane_sums,
+                                               lanes_in_turn, tree_map)
 from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
                                                        REALWAVE_KINDS,
+                                                       nlse_density,
                                                        nlse_density_planar,
                                                        realwave_g,
                                                        realwave_potential)
@@ -54,6 +70,7 @@ from nlsolvers_tpu_torch.ops.operators import (block_coords,
                                                neighbor_sum)
 from nlsolvers_tpu_torch.parallel import shards
 from nlsolvers_tpu_torch.parallel.lanczos import supported_shard
+from nlsolvers_tpu_torch.parallel.mesh import batch_blocks, lane_blocks
 from nlsolvers_tpu_torch.parallel.shards import (local_shape, offsets,
                                                  recv_from_next,
                                                  recv_from_prev)
@@ -72,10 +89,6 @@ __all__ = [
     "make_sharded_nlse_trajectory_fn",
     "make_sharded_realwave_trajectory_fn",
 ]
-
-# The arguments that wait for later slices (ROADMAP.md, queue 1 item 2).
-_LATER = "ROADMAP.md queue 1 item 2"
-
 
 def halo_neighbor_sum(parts, dim, mesh, axis_name):
     """u[i-1] + u[i+1] along one grid dimension sharded over `axis_name`,
@@ -347,22 +360,12 @@ def _aniso_desc(global_shape, dx, mesh, axis_names, variant, cloc, sign):
                 ax=axis_names[2], c=cloc, mesh=mesh)
 
 
-def _no_batch_axis(batch_axis):
-    """batch_axis waits for a later slice: NotImplementedError."""
-    if batch_axis is not None:
-        raise NotImplementedError(f"batch_axis: sharding the trajectory "
-                                  f"batch over a mesh axis is not ported yet "
-                                  f"({_LATER})")
-
-
-def _later(batch_axis, dtype, reorth, what):
-    """The arguments of the NLSE paths that wait for a later slice raise
-    NotImplementedError."""
-    _no_batch_axis(batch_axis)
-    if dtype != torch.complex64 or not reorth:
-        raise NotImplementedError(f"{what} takes complex64 with reorth=True "
-                                  f"(the planar path); the complex path is "
-                                  f"not ported yet ({_LATER})")
+def _per_block(mesh, batch_axis, build):
+    """[(shard indices, build(sub-mesh))] for each batch index of the mesh
+    (parallel/mesh.batch_blocks): one entry, the mesh itself, without a
+    batch axis. Raises JAX's ValueError when batch_axis is no axis of the
+    mesh."""
+    return [(ks, build(sub)) for sub, ks in batch_blocks(mesh, batch_axis)]
 
 
 def _block_of(global_shape, mesh, axis_names):
@@ -476,39 +479,157 @@ def _planar_nlse(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
     return step_of
 
 
+def _generic_nlse(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
+                  sigma1, sigma2, kappa, krylov_m, rdtype, variant, apply_bc,
+                  reorth, use_c):
+    """lane_of(m_parts, c_parts) -> step(state, i) of ONE lane on the
+    generic (complex) path, JAX's local_single and single_step
+    (spatial.py:476-488, 754-780): a state is a sharded field of complex
+    blocks (a pair of them for the two-step integrators, whose index 1 is
+    the SS2 bootstrap), the matrix functions the sharded generic Lanczos
+    (models/nlse.py with the mesh) on the plain sharded operator, then the
+    where-mask ghost copy. m and c are the lane's real blocks. The path of
+    complex128 and of reorth=False; plain torch, as JAX's is jnp."""
+    if integrator not in ("ss2", "sewi", "sewi_fused", "gautschi"):
+        raise ValueError(f"unknown NLSE integrator {integrator!r}")
+    if kind not in NLSE_KINDS:
+        raise ValueError(f"unknown NLSE kind {kind!r}")
+    global_shape = tuple(int(g) for g in global_shape)
+    axis_names = tuple(axis_names)
+    dx = 2.0 * Lx / (global_shape[-1] - 1)
+    lshape = _block_of(global_shape, mesh, axis_names)
+    if len(global_shape) == 3 and variant == "reference":
+        _check_reference(lshape, global_shape, aniso=use_c)
+    if use_c:
+        aniso = _sharded_aniso(global_shape, dx, mesh, axis_names, variant)
+    else:
+        lap = _sharded_lap(global_shape, dx, mesh, axis_names, variant,
+                           rdtype)
+    neumann = (_sharded_neumann(global_shape, mesh, axis_names) if apply_bc
+               else (lambda us: us))
+    kw = dict(m=krylov_m, reorth=reorth, mesh=mesh)
+    if integrator == "gautschi":
+        two_step = nlse_mod.gautschi_step
+    else:
+        two_step = partial(nlse_mod.sewi_step,
+                           fuse_exp_sinc=integrator == "sewi_fused")
+
+    def lane_of(m_parts, c_parts=None):
+        if use_c:
+            if c_parts is None:
+                raise ValueError("use_c=True: the step takes the c field")
+            cs = [c.to(rdtype) for c in c_parts]
+            op = lambda us: aniso(us, cs)
+        else:
+            op = lap
+        rhos = [nlse_density(kind, m.to(rdtype), sigma1=sigma1,
+                             sigma2=sigma2, kappa=kappa) for m in m_parts]
+        rho = lambda us: [r(u) for r, u in zip(rhos, us)]
+        if integrator == "ss2":
+            return lambda us, i: neumann(nlse_mod.ss2_step(us, op, rho, dt,
+                                                           **kw))
+
+        def step(state, i):
+            us, us_prev = state
+            if i == 1:
+                new, old = nlse_mod.sewi_first_step(us, op, rho, dt, **kw)
+            else:
+                new, old = two_step(us, us_prev, op, rho, dt, **kw)
+            return neumann(new), old
+
+        return step
+
+    lane_of.lshape = lshape
+    return lane_of
+
+
+def _lanes(lane_of, fields):
+    """The step of lane_of over a batch, the lanes one after the other
+    (models/evolve.lanes_in_turn; JAX vmaps its generic step, but a sharded
+    Lanczos run's reductions span a lane's whole grid, so the lanes cannot
+    share one): fields are the sharded (B, *block) m and c (c None without
+    use_c)."""
+    m_parts, c_parts = fields
+    B = m_parts[0].shape[0]
+
+    def pick(parts, b):
+        return None if parts is None else [x[b] for x in parts]
+
+    return lanes_in_turn([lane_of(pick(m_parts, b), pick(c_parts, b))
+                          for b in range(B)])
+
+
 def make_sharded_nlse_step(kind, global_shape, Lx, dt, mesh,
                            axis_names=("gy", "gx"), batch_axis=None,
                            sigma1=1.0, sigma2=-0.1, kappa=1.0,
                            krylov_m=10, dtype=torch.complex64,
                            variant="reference", apply_bc=True, reorth=True,
                            use_c=False):
-    """An SS2 step over a spatially sharded grid.
+    """An SS2 step over a spatially sharded (optionally also
+    trajectory-batched) grid.
 
     Returns step(u_parts, m_parts) -> u_parts, or step(u_parts, m_parts,
     c_parts) with use_c=True (the finite-volume div(c grad u) with
     cross-shard face fluxes). Every argument is a sharded field
-    (parallel/shards.shard): u is planar, (2,) + the local block of each
-    shard, stacked (re, im) float32; m and c are float32 local blocks. 3D
-    grids take axis_names=("gz", "gy", "gx"). The state stays sharded from
-    step to step; shards.gather makes it one global field. With apply_bc
-    every step ends with the Neumann ghost copy (done by the closing half
-    kick); apply_bc=False skips it.
+    (parallel/shards.shard): u is packed, (2,) + the local block of each
+    shard, stacked (re, im); m and c are real local blocks. 3D grids take
+    axis_names=("gz", "gy", "gx"). With `batch_axis` (a mesh axis that
+    splits no grid dimension) u is (2, B, *grid) and m, c (B, *grid),
+    sharded with shards.shard(..., batch_axis=batch_axis, batch_dim=1 for u
+    and 0 for m and c): each batch index's grid sub-mesh steps its lanes,
+    nothing crosses the batch axis. The state stays sharded from step to
+    step; shards.gather makes it one global field. With apply_bc every step
+    ends with the Neumann ghost copy; apply_bc=False skips it.
 
-    The port takes the complex64 planar path of the JAX package
-    (local_single_planar). batch_axis, dtype=complex128 and reorth=False
-    wait for later slices and raise NotImplementedError.
+    complex64 with reorth=True takes the planar path of the JAX package
+    (local_single_planar): the shard kernels, float32, every lane of a
+    sub-mesh in one batched step (the closing kick does the ghost copy).
+    complex128 and reorth=False take the generic path (local_single):
+    complex blocks in the state's precision, the sharded generic Lanczos,
+    the lanes in turn.
     """
-    _later(batch_axis, dtype, reorth, "the sharded step")
-    step_of = _planar_nlse(kind, global_shape, Lx, dt, mesh, axis_names,
-                           "ss2", sigma1, sigma2, kappa, krylov_m, variant,
-                           apply_bc, use_c)
-    lshape = step_of.lshape
+    dtype = torch_dtype(dtype)
+    rdtype = real_dtype_of(dtype)
+    generic = dtype != torch.complex64 or not reorth
+    if generic:
+        blocks = _per_block(mesh, batch_axis, lambda sub: _generic_nlse(
+            kind, global_shape, Lx, dt, sub, axis_names, "ss2", sigma1,
+            sigma2, kappa, krylov_m, rdtype, variant, apply_bc, reorth,
+            use_c))
+    else:
+        blocks = _per_block(mesh, batch_axis, lambda sub: _planar_nlse(
+            kind, global_shape, Lx, dt, sub, axis_names, "ss2", sigma1,
+            sigma2, kappa, krylov_m, variant, apply_bc, use_c))
+    lshape = blocks[0][1].lshape
+    lead = () if batch_axis is None else (-1,)
+
+    def sub_step(step_of, us, ms, cs):
+        if generic:
+            zs = [torch.complex(u[0].to(rdtype), u[1].to(rdtype)) for u in us]
+            if batch_axis is None:
+                out = step_of(ms, cs)(zs, 1)
+            else:
+                out = _lanes(step_of, (ms, cs))(zs, 1)
+            return [torch.stack([z.real, z.imag]) for z in out]
+        # planar: ([B,] 2, R, nx) float32 blocks, the lanes first
+        ups = [(u if batch_axis is None else u.movedim(1, 0)).to(
+            torch.float32).reshape(lead + (2,) + step_of.block).contiguous()
+            for u in us]
+        out = step_of(ms, cs)(ups, 1)
+        if batch_axis is None:
+            return [o.reshape((2,) + lshape) for o in out]
+        return [o.reshape(lead + (2,) + lshape).movedim(0, 1).contiguous()
+                for o in out]
 
     def step(u_parts, m_parts, c_parts=None):
-        ups = [u.to(torch.float32).reshape((2,) + step_of.block)
-               for u in u_parts]
-        out = step_of(m_parts, c_parts)(ups, 1)
-        return [o.reshape((2,) + lshape) for o in out]
+        out = [None] * mesh.size
+        for ks, step_of in blocks:
+            pick = lambda parts: (None if parts is None
+                                  else [parts[k] for k in ks])
+            for k, o in zip(ks, sub_step(step_of, pick(u_parts),
+                                         pick(m_parts), pick(c_parts))):
+                out[k] = o
+        return out
 
     return step
 
@@ -518,19 +639,19 @@ def _realwave(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
     """step_of(m_parts, c_parts) -> step((u, u_past), i) of a real-wave
     integrator on a sharded grid, on each shard's ([B,] *block) fields:
     float32 Gautschi through the shard kernels on -Lap (P=1, the sign
-    flipped), or SV on the plain sharded operator; then the ghost copy, the
-    sharded where-mask copy or, for a float32 3D field, bc3d in place on the
-    fresh u_new at each shard's offsets (models/problems._real_neumann's
-    rule)."""
+    flipped), all lanes in one batched step; a float64 or reorth=False
+    Gautschi on the generic path (models/realwave.gautschi_step with the
+    mesh, the sharded generic Lanczos of -Lap, JAX's rw.gautschi_step with
+    axis_names), the lanes in turn; or SV on the plain sharded operator.
+    Then the ghost copy, the sharded where-mask copy or, for a float32 3D
+    field, bc3d in place on the fresh u_new at each shard's offsets
+    (models/problems._real_neumann's rule)."""
     if kind not in REALWAVE_KINDS:
         raise ValueError(f"unknown real-wave kind {kind!r}")
     if integrator not in ("gautschi", "sv"):
         raise ValueError(f"unknown real-wave integrator {integrator!r}")
-    if integrator == "gautschi" and (rdtype != torch.float32 or not reorth):
-        raise NotImplementedError(
-            f"the sharded Gautschi step takes float32 with reorth=True (the "
-            f"shard kernels); the generic sharded Lanczos is not ported yet "
-            f"({_LATER})")
+    generic = integrator == "gautschi" and (rdtype != torch.float32
+                                            or not reorth)
     global_shape = tuple(int(g) for g in global_shape)
     axis_names = tuple(axis_names)
     dx = 2.0 * Lx / (global_shape[-1] - 1)
@@ -540,7 +661,7 @@ def _realwave(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
     g = realwave_g(kind)
     filt = rw.gautschi_filter(kind)
     offs = [offsets(mesh, k, axis_names, lshape) for k in range(mesh.size)]
-    if integrator == "gautschi":
+    if integrator == "gautschi" and not generic:
         desc_of = _shard_desc(global_shape, dx, mesh, axis_names, variant,
                               use_c, lshape)
     elif use_c:
@@ -562,8 +683,33 @@ def _realwave(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
             return us
         return neumann(us)
 
+    def op_of(c_parts):
+        if not use_c:
+            return lap
+        if c_parts is None:
+            raise ValueError("use_c=True: the step takes the c field")
+        cs = [c.to(rdtype) for c in c_parts]
+        return lambda us: aniso(us, cs)
+
+    def generic_lane(m_parts, c_parts):
+        op = op_of(c_parts)
+        omega2 = lambda us: [-x for x in op(us)]
+
+        def step(state, i):
+            us, us_past = state
+            new, old = rw.gautschi_step(us, us_past, omega2, m_parts, g, dt,
+                                        m=krylov_m, filter_func=filt,
+                                        reorth=reorth, mesh=mesh)
+            return fix(new), old
+
+        return step
+
     def step_of(m_parts, c_parts=None):
         ms = [m.to(rdtype) for m in m_parts]
+        if generic:
+            if ms[0].dim() == nd:
+                return generic_lane(ms, c_parts)
+            return _lanes(generic_lane, (ms, c_parts))
         if integrator == "gautschi":
             desc = desc_of(c_parts)
             desc = dict(desc, sign=-desc["sign"])
@@ -576,13 +722,7 @@ def _realwave(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
                 return fix(new), old
 
             return step
-        if use_c:
-            if c_parts is None:
-                raise ValueError("use_c=True: the step takes the c field")
-            cs = [c.to(rdtype) for c in c_parts]
-            op = lambda us: aniso(us, cs)
-        else:
-            op = lap
+        op = op_of(c_parts)
 
         def step(state, i):
             us, us_past = state
@@ -593,6 +733,7 @@ def _realwave(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
         return step
 
     step_of.lshape = lshape
+    step_of.batched = not generic
     return step_of
 
 
@@ -607,20 +748,30 @@ def make_sharded_realwave_step(kind, global_shape, Lx, dt, mesh,
     use_c=True (the finite-volume div(c grad u) with cross-shard face
     fluxes, the reference real-wave drivers' anisotropic operator,
     sg_single_solver.hpp:42-59). Every argument is a sharded field of local
-    (*block) tensors (parallel/shards.shard); 3D grids take
-    axis_names=("gz", "gy", "gx"). Gautschi runs in float32 through the
-    shard kernels (both matrix functions on -Lap, the filter and the cosine
-    from one Lanczos run); SV applies the plain sharded operator in any
-    real dtype. batch_axis and a float64 or reorth=False Gautschi wait for
-    a later slice and raise NotImplementedError.
+    (*block) tensors (parallel/shards.shard), or (B, *grid) ones sharded
+    with batch_axis (shards.shard(..., batch_axis=batch_axis)); 3D grids
+    take axis_names=("gz", "gy", "gx"). A float32 Gautschi step runs
+    through the shard kernels (both matrix functions on -Lap, the filter
+    and the cosine from one Lanczos run), a float64 or reorth=False one on
+    the generic path; SV applies the plain sharded operator in any real
+    dtype. With batch_axis each batch index's grid sub-mesh steps its
+    lanes.
     """
-    _no_batch_axis(batch_axis)
-    step_of = _realwave(kind, global_shape, Lx, dt, mesh, axis_names,
-                        integrator, krylov_m, real_dtype_of(dtype), variant,
-                        apply_bc, reorth, use_c)
+    rdtype = real_dtype_of(torch_dtype(dtype))
+    blocks = _per_block(mesh, batch_axis, lambda sub: _realwave(
+        kind, global_shape, Lx, dt, sub, axis_names, integrator, krylov_m,
+        rdtype, variant, apply_bc, reorth, use_c))
 
     def step(u, u_past, m_parts, c_parts=None):
-        return step_of(m_parts, c_parts)((u, u_past), 1)
+        new, old = [None] * mesh.size, [None] * mesh.size
+        for ks, step_of in blocks:
+            pick = lambda parts: (None if parts is None
+                                  else [parts[k] for k in ks])
+            n, o = step_of(pick(m_parts), pick(c_parts))(
+                (pick(u), pick(u_past)), 1)
+            for k, nk, ok in zip(ks, n, o):
+                new[k], old[k] = nk, ok
+        return new, old
 
     return step
 
@@ -650,18 +801,42 @@ def sharded_gradient(parts, dx, dim, mesh, axis_name, N):
     return out
 
 
-def _lane_sums(parts, nd, mesh, dV):
+def _lane_sums(parts, mesh, dV):
     """Each lane's sum over the grid of a sharded (B, *block) field: every
-    shard's sum times dV, psum'd in shard order."""
-    dims = tuple(range(-nd, 0))
-    return shards.psum([torch.sum(p, dim=dims) * dV for p in parts],
-                       mesh)[0]
+    shard's sum of each lane alone (models/evolve.lane_sums) times dV,
+    psum'd in shard order."""
+    return shards.psum([lane_sums(p) * dV for p in parts], mesh)[0]
 
 
 def _tensor(x, dtype):
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return x.to(dtype)
+
+
+def _batch_axis_traj(mesh, batch_axis, build):
+    """The trajectory function of a (batch, *grid) mesh: build(sub-mesh)
+    for each batch index, each run on its block of the batch's lanes
+    (parallel/mesh.lane_blocks; JAX's P(batch_axis, ...) specs,
+    spatial.py:782-787, 922-925), the outputs joined on the first shard's
+    device. Each block keeps JAX's contract within it: its guard stops when
+    every lane of the block has diverged, as each batch shard's loop does
+    under shard_map. No batch axis: build(mesh) itself."""
+    if batch_axis is None:
+        return build(mesh)
+    trajs = [t for _, t in _per_block(mesh, batch_axis, build)]
+
+    def traj(*args):
+        *fields, num_snapshots, snapshot_freq = args
+        outs = [t(*[None if f is None else f[sl] for f in fields],
+                  num_snapshots, snapshot_freq)
+                for t, sl in zip(trajs, lane_blocks(len(fields[0]),
+                                                    len(trajs)))]
+        return tree_map(lambda *xs: torch.cat([x.to(mesh.devices[0])
+                                               for x in xs]), *outs)
+
+    traj.batched = trajs[0].batched
+    return traj
 
 
 def make_sharded_nlse_trajectory_fn(kind, global_shape, Lx, dt, mesh,
@@ -678,20 +853,40 @@ def make_sharded_nlse_trajectory_fn(kind, global_shape, Lx, dt, mesh,
 
     u0_packed: (B, 2, *global_shape) real, stacked (real, imag); m, c:
     (B, *global_shape) real (c ignored with use_c=False); numpy arrays or
-    tensors. Returns (B, S, 2, *global_shape) float32 on the first shard's
-    device; guard=True appends bad_at (B,) int32, record_energy=True a
-    {"mass": (B, S)} series, both over the whole grid. The complex64
-    planar path of the JAX package: ss2, sewi, sewi_fused or gautschi (SS2
-    bootstrap at step 1), all B lanes in one batched sharded step.
-    batch_axis, complex128 and reorth=False raise NotImplementedError.
+    tensors. Returns (B, S, 2, *global_shape) on the first shard's device;
+    guard=True appends bad_at (B,) int32, record_energy=True a
+    {"mass": (B, S)} series, both over the whole grid. complex64 with
+    reorth=True takes the planar path of the JAX package (float32, ss2,
+    sewi, sewi_fused or gautschi with the SS2 bootstrap at step 1), all B
+    lanes in one batched sharded step; complex128 or reorth=False the
+    generic path (JAX's single_step, spatial.py:754-780) in the state's
+    precision, the lanes in turn (the `batched` attribute says which).
+    `batch_axis` splits the lanes over that mesh axis, each batch index's
+    grid sub-mesh running its block.
     """
-    _later(batch_axis, torch_dtype(dtype), reorth,
-           "the sharded NLSE engine")
-    step_of = _planar_nlse(kind, global_shape, Lx, dt, mesh, axis_names,
-                           integrator, sigma1, sigma2, kappa, krylov_m,
-                           variant, apply_bc, use_c)
-    axis_names = tuple(axis_names)
-    lshape, nd = step_of.lshape, len(global_shape)
+    dtype = torch_dtype(dtype)
+    return _batch_axis_traj(mesh, batch_axis, lambda sub: _nlse_traj(
+        kind, global_shape, Lx, dt, sub, tuple(axis_names), integrator,
+        sigma1, sigma2, kappa, krylov_m, dtype, variant, apply_bc, reorth,
+        use_c, guard, record_energy))
+
+
+def _nlse_traj(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
+               sigma1, sigma2, kappa, krylov_m, dtype, variant, apply_bc,
+               reorth, use_c, guard, record_energy):
+    """make_sharded_nlse_trajectory_fn on a grid-only mesh."""
+    rdtype = real_dtype_of(dtype)
+    generic = dtype != torch.complex64 or not reorth
+    if generic:
+        lane_of = _generic_nlse(kind, global_shape, Lx, dt, mesh, axis_names,
+                                integrator, sigma1, sigma2, kappa, krylov_m,
+                                rdtype, variant, apply_bc, reorth, use_c)
+    else:
+        step_of = _planar_nlse(kind, global_shape, Lx, dt, mesh, axis_names,
+                               integrator, sigma1, sigma2, kappa, krylov_m,
+                               variant, apply_bc, use_c)
+    lshape = (lane_of if generic else step_of).lshape
+    nd = len(global_shape)
     two_state = integrator != "ss2"
     dV = (2.0 * Lx / (global_shape[-1] - 1)) ** nd
 
@@ -699,32 +894,45 @@ def make_sharded_nlse_trajectory_fn(kind, global_shape, Lx, dt, mesh,
         return state[0] if two_state else state
 
     def observe(state):
+        if generic:                                 # complex (B, *grid)
+            return shards.gather(first(state), mesh, axis_names)
         return shards.gather([u.view(u.shape[:2] + lshape)
                               for u in first(state)], mesh, axis_names)
 
     def mass_of(state):
-        return _lane_sums([(u * u).sum(dim=-3) for u in first(state)], 2,
-                          mesh, dV)
+        if generic:
+            return _lane_sums([torch.abs(u) ** 2 for u in first(state)],
+                              mesh, dV)
+        return _lane_sums([u * u for u in first(state)], mesh, dV)
 
     def traj(u0_packed, m, c, num_snapshots, snapshot_freq):
-        u0 = _tensor(u0_packed, torch.float32)
-        B = u0.shape[0]
-        ups = [u.reshape((B, 2) + step_of.block) for u in
-               shards.shard(u0, mesh, axis_names)]
-        ms = shards.shard(_tensor(m, torch.float32), mesh, axis_names)
-        cs = (shards.shard(_tensor(c, torch.float32), mesh, axis_names)
-              if use_c else None)
+        ms = shards.shard(_tensor(m, rdtype if generic else torch.float32),
+                          mesh, axis_names)
+        cs = (shards.shard(_tensor(c, rdtype if generic else torch.float32),
+                           mesh, axis_names) if use_c else None)
+        if generic:
+            u0 = _tensor(u0_packed, rdtype)
+            ups = shards.shard(torch.complex(u0[:, 0], u0[:, 1]), mesh,
+                               axis_names)
+            step = _lanes(lane_of, (ms, cs))
+        else:
+            u0 = _tensor(u0_packed, torch.float32)
+            ups = [u.reshape((u0.shape[0], 2) + step_of.block) for u in
+                   shards.shard(u0, mesh, axis_names)]
+            step = step_of(ms, cs)
         state0 = (ups, ups) if two_state else ups
         scalars = {"mass": mass_of} if record_energy else None
-        snaps, bad_at, series = evolve_lanes(step_of(ms, cs), state0,
-                                             num_snapshots, snapshot_freq,
-                                             observe, guard, scalars)
+        snaps, bad_at, series = evolve_lanes(step, state0, num_snapshots,
+                                             snapshot_freq, observe, guard,
+                                             scalars)
         out = snaps.movedim(0, 1)
+        if generic:                                 # pack (re, im)
+            out = torch.stack([out.real, out.imag], dim=2)
         if not guard:
             return out
         return (out, bad_at) + ((series,) if record_energy else ())
 
-    traj.batched = True
+    traj.batched = not generic
     return traj
 
 
@@ -743,21 +951,30 @@ def make_sharded_realwave_trajectory_fn(kind, global_shape, Lx, dt, mesh,
     (kg_driver.cpp:112); guard appends bad_at (B,) int32, record_energy an
     {"energy": (B, S)} series (the energy of the unsharded engine, its
     gradients central inside and one-sided at the grid's ends across the
-    shards' halos). Gautschi in float32 through the shard kernels, SV in
-    any real dtype; all B lanes in one batched sharded step. stochastic
-    phi-4 is not grid-shardable (JAX's ValueError); batch_axis and a
-    float64 or reorth=False Gautschi raise NotImplementedError.
+    shards' halos). Gautschi in float32 through the shard kernels, all B
+    lanes in one batched sharded step; float64 or reorth=False Gautschi on
+    the generic path, the lanes in turn; SV in any real dtype, batched.
+    stochastic phi-4 is not grid-shardable (JAX's ValueError). `batch_axis`
+    splits the lanes over that mesh axis, as the NLSE engine does.
     """
     if kind == "stochastic_phi4":
         raise ValueError("stochastic_phi4 is not supported on sharded "
                          "grids; use pipeline/engine (batch sharding)")
-    _no_batch_axis(batch_axis)
     rdtype = real_dtype_of(torch_dtype(dtype))
+    return _batch_axis_traj(mesh, batch_axis, lambda sub: _realwave_traj(
+        kind, global_shape, Lx, dt, sub, tuple(axis_names), integrator,
+        krylov_m, rdtype, variant, apply_bc, reorth, use_c, guard,
+        record_energy))
+
+
+def _realwave_traj(kind, global_shape, Lx, dt, mesh, axis_names, integrator,
+                   krylov_m, rdtype, variant, apply_bc, reorth, use_c, guard,
+                   record_energy):
+    """make_sharded_realwave_trajectory_fn on a grid-only mesh."""
     step_of = _realwave(kind, global_shape, Lx, dt, mesh, axis_names,
                         integrator, krylov_m, rdtype, variant, apply_bc,
                         reorth, use_c)
     global_shape = tuple(int(g) for g in global_shape)
-    axis_names = tuple(axis_names)
     nd = len(global_shape)
     dx = 2.0 * Lx / (global_shape[-1] - 1)
     potential = realwave_potential(kind)
@@ -777,7 +994,7 @@ def make_sharded_realwave_trajectory_fn(kind, global_shape, Lx, dt, mesh,
                      else [a + x * x for a, x in zip(grad2, gr)])
         dens = [0.5 * ((u - up) / dt) ** 2 + 0.5 * g2 + potential(u)
                 for u, up, g2 in zip(us, us_past, grad2)]
-        return _lane_sums(dens, nd, mesh, dx ** nd)
+        return _lane_sums(dens, mesh, dx ** nd)
 
     def traj(u0, v0, m, c, num_snapshots, snapshot_freq):
         u0 = _tensor(u0, rdtype)
@@ -796,5 +1013,5 @@ def make_sharded_realwave_trajectory_fn(kind, global_shape, Lx, dt, mesh,
             return out
         return out + (bad_at,) + ((series,) if record_energy else ())
 
-    traj.batched = True
+    traj.batched = step_of.batched
     return traj

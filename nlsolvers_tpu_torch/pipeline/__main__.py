@@ -3,11 +3,15 @@
 Port of nlsolvers_tpu/pipeline/__main__.py: the same subcommands and flags,
 which mirror the reference launcher argparse surfaces
 (complex_launcher_2d.py:276-354, real_launcher_2d.py parse_args), plus
---device (default cuda; cpu only when asked). Batching happens in-process
-on one device; --shard-grid gy,gx (gz,gy,gx in 3D) splits each
-trajectory's grid over that many shards, all on --device (the grid-sharded
-engines); --shard-batch is not ported yet and raises NotImplementedError
-(ROADMAP.md queue 1 item 2).
+--device (default cuda; cpu only when asked). --shard-batch N splits each
+batch over N shards (-1: every visible device; the visible cards taken in
+turn, so that several shards may share one, as --shard-grid's do);
+--shard-grid gy,gx (gz,gy,gx in 3D) splits each trajectory's grid over
+that many shards, all on --device (the grid-sharded engines); both
+together make a (batch, *grid) mesh. With NLS_COORDINATOR,
+NLS_NUM_PROCESSES and NLS_PROCESS_ID set, every process of the group runs
+this CLI (parallel/distributed.py): --num-runs per process, the batch over
+every process's devices, archives per process.
 
 Examples:
   python -m nlsolvers_tpu_torch.pipeline nlse --phenomenon multi_soliton \
@@ -21,13 +25,20 @@ Examples:
       --nx 1024 --T 0.12 --nt 200 --snapshots 5 --num-runs 2 \
       --anisotropy-type layered --shard-grid 2,2 --format npy \
       --output-dir out
+  python -m nlsolvers_tpu_torch.pipeline nlse --phenomenon multi_soliton \
+      --nx 256 --num-runs 8 --shard-batch 2 --format npy --output-dir out
 """
 
 import argparse
 import sys
 
+import numpy as np
+
+import torch
+
+from nlsolvers_tpu_torch.parallel import distributed as dist
+from nlsolvers_tpu_torch.parallel.mesh import make_mesh
 from nlsolvers_tpu_torch.pipeline.datagen import Datagen, DatagenConfig
-from nlsolvers_tpu_torch.pipeline.engine import LATER
 
 NLSE_SYSTEMS = ["cubic", "cubic_quintic", "saturable"]
 REALWAVE_SYSTEMS = ["sine_gordon", "double_sine_gordon",
@@ -104,13 +115,16 @@ def build_parser():
                              "(realwave) per snapshot ON DEVICE during "
                              "generation; archived under energy/")
         sp.add_argument("--shard-batch", type=int, default=0,
-                        help="shard the trajectory batch over devices: "
-                             "not ported yet (raises)")
+                        help="shard the trajectory batch over this many "
+                             "shards (-1 = every visible device, 0 = off), "
+                             "the visible devices taken in turn; the "
+                             "replacement for SLURM-array farming")
         sp.add_argument("--shard-grid", type=str, default="",
                         help="spatial mesh shape for grid sharding (2D: "
                              "'gy,gx' e.g. 2,4; 3D: 'gz,gy,gx'): shard "
                              "EACH trajectory's grid over that many shards "
-                             "on --device")
+                             "on --device. Combine with --shard-batch N "
+                             "for a (batch, *grid) mesh")
         sp.add_argument("--device", type=str, default="cuda",
                         help="torch device of the engine (default cuda; "
                              "cpu only when asked)")
@@ -135,11 +149,41 @@ def build_parser():
     return p
 
 
+def _visible(device):
+    """The devices a CLI mesh takes: every visible card for a CUDA
+    --device, the CPU for --device cpu."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            raise RuntimeError(f"--device {device}: torch sees no CUDA "
+                               f"device")
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev]
+
+
+def _build_mesh(shard_batch, shard_grid, dim, device):
+    """Mesh from the CLI sharding flags (JAX's _build_mesh,
+    nlsolvers_tpu/pipeline/__main__.py:140-163): batch-only, grid-only
+    (left to Datagen) or a combined (batch, *grid) mesh. -1 takes every
+    visible device (over the grid's shards for a combined mesh); the
+    shards take the visible devices in turn, so a count above them puts
+    several shards on one device."""
+    if not shard_batch:
+        return None     # none, or grid-only: Datagen builds it
+    devices = _visible(device)
+    grid_n = int(np.prod(shard_grid)) if shard_grid else 1
+    n = shard_batch if shard_batch > 0 else max(1, len(devices) // grid_n)
+    total = n * grid_n
+    picked = [devices[i % len(devices)] for i in range(total)]
+    if not shard_grid:
+        return make_mesh(("batch",), shape=(n,), devices=picked)
+    axes = (("batch", "gy", "gx") if dim == 2
+            else ("batch", "gz", "gy", "gx"))
+    return make_mesh(axes, shape=(n,) + tuple(shard_grid), devices=picked)
+
+
 def config_from_args(args):
-    if args.shard_batch:
-        raise NotImplementedError(
-            f"--shard-batch: sharding the trajectory batch over devices "
-            f"is not ported yet ({LATER})")
     shard_grid = (tuple(int(x) for x in args.shard_grid.split(","))
                   if args.shard_grid else ())
     kwargs = dict(
@@ -155,7 +199,9 @@ def config_from_args(args):
         record_energy=args.record_energy,
         archive_format=args.archive_format,
         archive_async=args.async_archive, resume=args.resume,
-        shard_grid=shard_grid, device=args.device)
+        shard_grid=shard_grid, device=args.device,
+        mesh=_build_mesh(args.shard_batch, shard_grid, args.dim,
+                         args.device))
     if args.family == "nlse":
         kwargs.update(sigma1=args.sigma1, sigma2=args.sigma2,
                       kappa=args.kappa,
@@ -167,9 +213,22 @@ def config_from_args(args):
 
 
 def main(argv=None):
+    # In a process group (NLS_COORDINATOR / NLS_NUM_PROCESSES /
+    # NLS_PROCESS_ID set) every process runs this same CLI and the batch
+    # axis spans every process's devices: --num-runs is per process, the
+    # archives per process.
     args = build_parser().parse_args(argv)
-    cfg = config_from_args(args)
-    written = Datagen(cfg).run()
+    joined = dist.initialize_from_env(
+        platform="cpu" if torch.device(args.device).type == "cpu" else None)
+    try:
+        cfg = config_from_args(args)
+        if joined and not cfg.shard_grid:
+            # with --shard-grid Datagen builds the (nproc, *grid) mesh
+            cfg.mesh = dist.global_mesh(("batch",))
+        written = Datagen(cfg).run()
+    finally:
+        if joined:
+            dist.shutdown()
     print(f"wrote {len(written)} archives under "
           f"{cfg.output_dir}/{cfg.archive_format}")
     return 0

@@ -1,24 +1,34 @@
 """Datagen launchers: sample -> evolve (batched) -> downsample -> archive.
 
-Port of nlsolvers_tpu/pipeline/datagen.py, the single-process path: the
-same config, run ids, sampler draws, archive layouts (the reference HDF5
-schema of pipeline/io_hdf5.py, or the npy files of the native writer) and
-resume rules, so a sweep gives the same ICs, fields, manifest and file names
-as the JAX package's for the same config and seed, and `resume` skips what
-either package archived. A batch of trajectories runs on the port's engine
-(pipeline/engine.py) on `device`, the card unless the config asks for the
-CPU; with device "cuda" and no card, Datagen raises. Downsampling stays on
-the host after readback, in float64 (pipeline/downsample.py).
+Port of nlsolvers_tpu/pipeline/datagen.py: the same config, run ids,
+sampler draws, archive layouts (the reference HDF5 schema of
+pipeline/io_hdf5.py, or the npy files of the native writer) and resume
+rules, so a sweep gives the same ICs, fields, manifest and file names as
+the JAX package's for the same config, seed and mesh, and `resume` skips
+what either package archived. A batch of trajectories runs on the port's
+engine (pipeline/engine.py) on `device`, the card unless the config asks
+for the CPU; with device "cuda" and no card, Datagen raises. Downsampling
+stays on the host after readback, in float64 (pipeline/downsample.py).
 
-`shard_grid` splits each trajectory's grid over a mesh of that shape, as
-the JAX package's single-process path does (`_build_grid_sharded_traj_fn`):
-the grid-sharded engines of parallel/spatial.py, every shard on the
-config's device unless `mesh` is given, all lanes of a batch in one
-batched sharded step; their outputs are global tensors, so fetching needs
-no stitching. The process count is 1: the multi-host paths of the JAX
-package and a mesh with a batch axis (`mesh` without `shard_grid`, or a
-mesh whose axes include `batch_axis`) wait for ROADMAP.md queue 1 item 2
-and raise NotImplementedError.
+`mesh` with the axis `batch_axis` splits each batch over that axis, as the
+JAX package's engine does; the batch is padded up to a multiple of the
+axis by sampling more runs, which are evolved and not archived (the pad
+draws keep the sampler stream, and so the archived ICs, equal to JAX's for
+the same (seed, mesh, batch_size)). `shard_grid` splits each trajectory's
+grid over a mesh of that shape, as the JAX package's
+`_build_grid_sharded_traj_fn`: the grid-sharded engines of
+parallel/spatial.py, every shard on the config's device unless `mesh` is
+given (with a batch axis too: a (batch, *grid) mesh), all lanes of a
+sub-mesh in one batched sharded step; their outputs are global tensors.
+
+In a process group (parallel/distributed.py) every process runs this same
+sweep: num_runs is per process, each process samples its own runs from its
+process_seed stream, drives its host-major block of the global batch on its
+part of the global mesh (distributed.local_mesh) and archives it under the
+global run indices pid*num_runs + offset + b, in the shared deterministic
+run id; process 0 writes the manifest and prints the sweep summary of every
+process (allgathered), and a resume round is skipped only when every
+process has archived it.
 """
 
 import json
@@ -31,13 +41,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from nlsolvers_tpu_torch.parallel import distributed as dist
 from nlsolvers_tpu_torch.parallel import spatial
 from nlsolvers_tpu_torch.parallel.mesh import make_mesh
 from nlsolvers_tpu_torch.pipeline import downsample as ds
 from nlsolvers_tpu_torch.pipeline import fields as field_gen
 from nlsolvers_tpu_torch.pipeline import io_hdf5, spaces
-from nlsolvers_tpu_torch.pipeline.engine import (LATER,
-                                                 make_nlse_trajectory_fn,
+from nlsolvers_tpu_torch.pipeline.engine import (make_nlse_trajectory_fn,
                                                  make_realwave_trajectory_fn)
 from nlsolvers_tpu_torch.pipeline.grids import Grid2D, Grid3D
 from nlsolvers_tpu_torch.pipeline.samplers.nlse2d import NLSEPhenomenonSampler
@@ -99,10 +109,10 @@ class DatagenConfig:
     dr_strategy: str = "interpolation"
     seed: int = 0
     output_dir: str = "datagen_out"
-    mesh: object = None              # with shard_grid: the mesh of the
-    #                                  grid's shards (parallel/mesh.Mesh);
-    #                                  a batch axis over it is not ported
-    batch_axis: str = "batch"        # yet (NotImplementedError)
+    mesh: object = None              # parallel/mesh.Mesh to shard the
+    #                                  batch axis over (and, with
+    #                                  shard_grid, the grid's shards)
+    batch_axis: str = "batch"
     shard_grid: tuple = ()           # e.g. (2, 4): shard EACH grid over the
     #                                  mesh's spatial axes (gy, gx) /
     #                                  (gz, gy, gx) — for single trajectories
@@ -199,10 +209,10 @@ class Datagen:
     def __init__(self, config):
         self.cfg = config
         cfg = config
-        if cfg.mesh is not None and not cfg.shard_grid:
-            raise NotImplementedError(
-                f"mesh: sharding the trajectory batch over devices is not "
-                f"ported yet ({LATER})")
+        # In a process group every process runs this same code; each one
+        # samples, evolves and archives only its own block of the batch.
+        self.nproc = dist.process_count()
+        self.pid = dist.process_index()
         if (torch.device(cfg.device).type == "cuda"
                 and not torch.cuda.is_available()):
             raise RuntimeError(
@@ -217,11 +227,19 @@ class Datagen:
         # archived, so it is identical on every host.
         det_id = f"{cfg.seed & 0xFFFFFFFF:08x}-{self._config_digest()}"
         det_id = self._adopt_legacy_id(det_id)
-        # resumable sweeps need a relaunch-stable id; otherwise keep the
-        # collision-free uuid (reruns into one dir never overwrite)
-        self.run_id = det_id if cfg.resume else str(uuid.uuid4())[:8]
-        self.rng = np.random.default_rng(cfg.seed)
-        sampler_seed = cfg.seed
+        if self.nproc > 1:
+            # deterministic id shared by every process (the reference
+            # bcasts rank 0's run id, submit_nlse.py:96-102)
+            self.run_id = det_id
+            seed_seq = dist.process_seed(cfg.seed, self.pid)
+            self.rng = np.random.default_rng(seed_seq)
+            sampler_seed = int(seed_seq.generate_state(2)[1])
+        else:
+            # resumable sweeps need a relaunch-stable id; otherwise keep the
+            # collision-free uuid (reruns into one dir never overwrite)
+            self.run_id = det_id if cfg.resume else str(uuid.uuid4())[:8]
+            self.rng = np.random.default_rng(cfg.seed)
+            sampler_seed = cfg.seed
         self._sampler_seed = sampler_seed
         self.grid = (Grid2D(cfg.nx, cfg.nx, cfg.Lx) if cfg.dim == 2
                      else Grid3D(cfg.nx, cfg.nx, cfg.nx, cfg.Lx))
@@ -229,7 +247,8 @@ class Datagen:
         self.out = Path(cfg.output_dir)
         self.h5_dir = self.out / cfg.archive_format
         self.h5_dir.mkdir(parents=True, exist_ok=True)
-        self._write_manifest()
+        if self.pid == 0:
+            self._write_manifest()
 
         # archive workers: downsample + disk IO run off the critical path so
         # they overlap the next batch's device compute (the reference's
@@ -266,62 +285,95 @@ class Datagen:
             self.space = self._space_for("realwave")
         self.traj_fn = self._build_traj_fn()
 
+    def _local_mesh(self):
+        """The part of cfg.mesh this process drives: the mesh itself in one
+        process, this process's batch indices of the global mesh in a
+        group."""
+        mesh = self.cfg.mesh
+        if self.nproc > 1:
+            return dist.local_mesh(mesh, self.cfg.batch_axis)
+        return mesh
+
     def _build_traj_fn(self):
         cfg = self.cfg
         if cfg.shard_grid:
             return self._build_grid_sharded_traj_fn()
+        if self.nproc > 1 and cfg.mesh is None:
+            raise ValueError("a multi-process sweep needs the global batch "
+                             "mesh (parallel/distributed.global_mesh)")
+        mesh = None if cfg.mesh is None else self._local_mesh()
         if cfg.family == "nlse":
             return make_nlse_trajectory_fn(
                 cfg.system, cfg.shape, cfg.Lx, cfg.dt,
                 integrator=cfg.integrator, krylov_m=cfg.krylov_m,
                 sigma1=cfg.sigma1, sigma2=cfg.sigma2, kappa=cfg.kappa,
-                dtype=cfg.dtype, variant=cfg.variant, guard=cfg.guard,
+                dtype=cfg.dtype, variant=cfg.variant, mesh=mesh,
+                batch_axis=cfg.batch_axis, guard=cfg.guard,
                 record_energy=cfg.record_energy, boundary=cfg.boundary,
                 device=cfg.device)
         return make_realwave_trajectory_fn(
             cfg.system, cfg.shape, cfg.Lx, cfg.dt,
             integrator=cfg.integrator, krylov_m=cfg.krylov_m,
             noise_strength=cfg.noise_strength, seed=cfg.seed,
-            dtype=cfg.dtype, variant=cfg.variant, guard=cfg.guard,
+            dtype=cfg.dtype, variant=cfg.variant, mesh=mesh,
+            batch_axis=cfg.batch_axis, guard=cfg.guard,
             record_energy=cfg.record_energy, device=cfg.device)
 
     def _build_grid_sharded_traj_fn(self):
         """The grid-sharded engines (parallel/spatial.py): every
         trajectory's GRID is split over the mesh's spatial axes, the path
         for single runs too large for one card (1024^2 / 256^3 configs).
-        One process; the mesh's shards all on cfg.device unless cfg.mesh is
-        given."""
+        One process: the mesh's shards all on cfg.device unless cfg.mesh is
+        given, the batch split over its batch axis if it has one. A group:
+        the batch over the processes, each trajectory's grid over each
+        process's devices, a (nproc, *shard_grid) global mesh whose batch
+        axis leads (JAX datagen.py:289-303)."""
         cfg = self.cfg
         axes = ("gy", "gx") if cfg.dim == 2 else ("gz", "gy", "gx")
-        if cfg.mesh is None:
+        if self.nproc > 1:
             n = int(np.prod(cfg.shard_grid))
-            cfg.mesh = make_mesh(axes, shape=cfg.shard_grid,
-                                 devices=[cfg.device] * n)
-        if cfg.batch_axis in cfg.mesh.axis_names:
-            raise NotImplementedError(
-                f"a mesh with the batch axis {cfg.batch_axis!r}: sharding "
-                f"the trajectory batch over devices is not ported yet "
-                f"({LATER})")
+            local = dist.local_devices()
+            if n != len(local):
+                raise ValueError(
+                    f"--shard-grid {cfg.shard_grid} needs exactly the "
+                    f"{len(local)} local devices per host (got {n}); the "
+                    f"batch axis spans hosts")
+            if cfg.mesh is None:
+                cfg.mesh = dist.global_mesh(
+                    (cfg.batch_axis,) + axes,
+                    shape=(self.nproc,) + tuple(cfg.shard_grid))
+            batch_ax = cfg.batch_axis
+        else:
+            if cfg.mesh is None:
+                n = int(np.prod(cfg.shard_grid))
+                cfg.mesh = make_mesh(axes, shape=cfg.shard_grid,
+                                     devices=[cfg.device] * n)
+            batch_ax = (cfg.batch_axis if cfg.batch_axis in cfg.mesh.axis_names
+                        else None)
+        mesh = self._local_mesh()
         if cfg.family == "nlse":
             return spatial.make_sharded_nlse_trajectory_fn(
-                cfg.system, cfg.shape, cfg.Lx, cfg.dt, cfg.mesh,
-                axis_names=axes, integrator=cfg.integrator,
-                krylov_m=cfg.krylov_m, sigma1=cfg.sigma1, sigma2=cfg.sigma2,
-                kappa=cfg.kappa, dtype=cfg.dtype, variant=cfg.variant,
-                guard=cfg.guard, record_energy=cfg.record_energy)
+                cfg.system, cfg.shape, cfg.Lx, cfg.dt, mesh,
+                axis_names=axes, batch_axis=batch_ax,
+                integrator=cfg.integrator, krylov_m=cfg.krylov_m,
+                sigma1=cfg.sigma1, sigma2=cfg.sigma2, kappa=cfg.kappa,
+                dtype=cfg.dtype, variant=cfg.variant, guard=cfg.guard,
+                record_energy=cfg.record_energy)
         return spatial.make_sharded_realwave_trajectory_fn(
-            cfg.system, cfg.shape, cfg.Lx, cfg.dt, cfg.mesh, axis_names=axes,
-            integrator=cfg.integrator, krylov_m=cfg.krylov_m,
-            dtype=cfg.dtype, variant=cfg.variant, guard=cfg.guard,
-            record_energy=cfg.record_energy)
+            cfg.system, cfg.shape, cfg.Lx, cfg.dt, mesh, axis_names=axes,
+            batch_axis=batch_ax, integrator=cfg.integrator,
+            krylov_m=cfg.krylov_m, dtype=cfg.dtype, variant=cfg.variant,
+            guard=cfg.guard, record_energy=cfg.record_energy)
 
     def _adopt_legacy_id(self, det_id):
         """Resume migration: sweeps archived before the config digest was
         folded into the run id used a plain 8-hex seed id. If resuming and
         nothing exists under the new id but legacy files do, adopt the
-        legacy id so completed work is not silently redone."""
+        legacy id so completed work is not silently redone. The decision
+        scans the shared output dir, so every process reaches the same
+        answer without a collective."""
         cfg = self.cfg
-        if not cfg.resume:
+        if not cfg.resume and self.nproc <= 1:
             return det_id
         fmt = "h5" if cfg.archive_format == "hdf5" else "json"
         arch = Path(cfg.output_dir) / cfg.archive_format
@@ -329,8 +381,9 @@ class Datagen:
             return det_id
         legacy = f"{cfg.seed & 0xFFFFFFFF:08x}"
         if next(arch.glob(f"run_{legacy}_*.{fmt}"), None) is not None:
-            print(f"resume: adopting pre-digest run id {legacy} "
-                  f"(archives found under the legacy naming)")
+            if self.pid == 0:
+                print(f"resume: adopting pre-digest run id {legacy} "
+                      f"(archives found under the legacy naming)")
             return legacy
         return det_id
 
@@ -617,16 +670,21 @@ class Datagen:
 
     # -- the sweep ------------------------------------------------------
     def _sweep_summary(self, stats):
-        """End-of-sweep farm summary, the JAX package's line for one host
-        (the reference MPI farm gathers per-rank walltimes to rank 0,
-        submit_nlse.py:129-134). Returns the summary string."""
-        allv = np.asarray([stats[k] for k in (
+        """End-of-sweep farm summary: every process's (walltime, sample_s,
+        evolve_s, archived, guard / resume skips) allgathered and ONE line
+        printed by process 0, the reference MPI farm's gather of per-rank
+        walltimes to rank 0 (submit_nlse.py:129-134). Returns the summary
+        string (None on the other processes)."""
+        local = np.asarray([stats[k] for k in (
             "wall_s", "sample_s", "evolve_s", "archived", "guard_skipped",
-            "resume_skipped")], np.float64)[None]
+            "resume_skipped")], np.float64)
+        allv = dist.process_allgather(local).reshape(self.nproc, local.size)
+        if self.pid != 0:
+            return None
         wall = allv[:, 0]
         archived = int(allv[:, 3].sum())
-        total_runs = self.cfg.num_runs
-        line = (f"sweep summary [{self.run_id}]: 1 host(s), "
+        total_runs = self.cfg.num_runs * self.nproc
+        line = (f"sweep summary [{self.run_id}]: {self.nproc} host(s), "
                 f"{archived}/{total_runs} runs archived "
                 f"({int(allv[:, 4].sum())} guard-skipped, "
                 f"{int(allv[:, 5].sum())} resume-skipped); "
@@ -644,6 +702,13 @@ class Datagen:
         stats = dict(wall_s=0.0, sample_s=0.0, evolve_s=0.0, archive_s=0.0,
                      archived=0, guard_skipped=0, resume_skipped=0)
         t_sweep0 = time.time()
+        # pad quota: the batch must divide the mesh's batch axis (grid axes
+        # shard the grid, not the batch); in a group, this process's share
+        # of the global batch axis
+        mesh_n = (cfg.mesh.axis_size(cfg.batch_axis)
+                  if cfg.mesh is not None
+                  and cfg.batch_axis in cfg.mesh.axis_names else 1)
+        quota = max(1, mesh_n // self.nproc)
 
         # plan the batches, then pipeline: dispatch k+1 before fetching k
         plan = []          # (batch, offset into this host's run block)
@@ -661,16 +726,26 @@ class Datagen:
                   f"{self.run_id}")
         skip_round = None
         if existing is not None:
-            skip_round = [all(off + b in existing
+            skip_round = [all(self.pid * cfg.num_runs + off + b in existing
                               for b in range(bsz)) for bsz, off in plan]
+            if self.nproc > 1:
+                # every process must evolve a round or none: skip it only
+                # if EVERY process has it fully archived
+                allv = dist.process_allgather(np.asarray(skip_round, bool))
+                skip_round = list(np.all(allv.reshape(self.nproc, len(plan)),
+                                         axis=0))
 
         pending = None     # (batch, base, metas, u0s, v0s, m, c, dev_out, t0)
         for k, item in enumerate(plan + [None]):
             if item is not None:
                 batch, off = item
-                base = off
+                base = self.pid * cfg.num_runs + off
+                # pad by resampling, the extra runs evolved and not
+                # archived: they consume sampler draws, so the archived ICs
+                # depend on the mesh whenever batch % quota != 0, as JAX's
+                pad = (-batch) % quota
                 ts0 = time.time()
-                metas, u0s, v0s, m, c = self._sample_batch(batch)
+                metas, u0s, v0s, m, c = self._sample_batch(batch + pad)
                 stats["sample_s"] += time.time() - ts0
                 if skip_round is not None and skip_round[k]:
                     # fully archived: the sampler draws above kept the RNG
@@ -703,6 +778,8 @@ class Datagen:
             stats["evolve_s"] += walltime
 
             for b in range(batch):
+                # globally unique run index: host-major blocks, so a sweep's
+                # archive is the union of every process's files
                 idx = base + b
                 if bad_at is not None and bad_at[b] < cfg.snapshots:
                     # flagged ON DEVICE by the in-loop guard; the batch may

@@ -42,8 +42,15 @@ Trajectory functions return snapshot stacks shaped (B, S, ...) where entry
 s=0 is the initial condition, as tensors on the engine's device. Inputs may
 be numpy arrays or tensors.
 
-Not in this slice: sharding the batch over devices (`mesh`, `batch_axis`)
-raises NotImplementedError (ROADMAP.md queue 1 item 2).
+`mesh` with `batch_axis` splits the batch over the mesh's batch axis, as
+JAX's shard_batch does (pipeline/engine.py:244-256, 370-380): lane block b
+(parallel/mesh.lane_blocks) runs on the first device of batch index b, as
+one batched step of its lanes there (or its lanes in turn, off the planar
+path), and one loop steps every block, so the guard's early exit is the
+whole batch's, as in JAX's one program (models/evolve.evolve_blocks).
+Each lane keeps the bits it has without a mesh, its mass or energy series
+too: the series sums each lane alone (models/evolve.lane_sums). The
+outputs are joined on the first block's device.
 """
 
 import numpy as np
@@ -53,7 +60,8 @@ from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import real_dtype_of, torch_dtype
 from nlsolvers_tpu_torch.models import problems
 from nlsolvers_tpu_torch.models import realwave as rw
-from nlsolvers_tpu_torch.models.evolve import evolve_lanes
+from nlsolvers_tpu_torch.models.evolve import (evolve_blocks, lane_sums,
+                                               lanes_in_turn, tree_map)
 from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
                                                        REALWAVE_KINDS,
                                                        nlse_density_planar,
@@ -64,18 +72,10 @@ from nlsolvers_tpu_torch.ops import operators as ops
 from nlsolvers_tpu_torch.ops.cuda.bc3d import neumann_bc_planar_3d
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (matfunc_apply_planar_multi,
                                                     supported_desc)
+from nlsolvers_tpu_torch.parallel.mesh import batch_blocks
 
 __all__ = ["make_nlse_trajectory_fn", "make_realwave_trajectory_fn",
-           "torch_dtype", "LATER"]
-
-# the arguments that wait for a later slice
-LATER = "ROADMAP.md queue 1 item 2"
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh: sharding the trajectory batch over devices is not "
-            f"ported yet ({LATER})")
+           "torch_dtype"]
 
 
 def _tensor(x, device, dtype=None):
@@ -85,32 +85,12 @@ def _tensor(x, device, dtype=None):
     return x.to(device=device, dtype=dtype)
 
 
-def _nan_like(state):
-    if isinstance(state, tuple):
-        return tuple(_nan_like(s) for s in state)
-    return torch.full_like(state, float("nan"))
-
-
-def _batched_step(lane_steps):
-    """One step of every lane, in lane order. A lane whose eigensolver
-    fails (its state has diverged) is NaN from then on and is not stepped
-    again."""
-    dead = [False] * len(lane_steps)
-
-    def step(states, i):
-        out = []
-        for b, (lane, s) in enumerate(zip(lane_steps, states)):
-            if dead[b]:
-                out.append(s)
-                continue
-            try:
-                out.append(lane(s, i))
-            except torch.linalg.LinAlgError:
-                dead[b] = True
-                out.append(_nan_like(s))
-        return out
-
-    return step
+def _block_devices(mesh, batch_axis, device):
+    """The device of each lane block: `device` alone without a mesh, else
+    the first device of each batch index's sub-mesh."""
+    if mesh is None:
+        return [torch.device(device)]
+    return [sub.devices[0] for sub, _ in batch_blocks(mesh, batch_axis)]
 
 
 def _batched_operator(shape, dx, c, B, variant, rdtype, device):
@@ -157,7 +137,8 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
     series = {"mass": (B, S)}, mass = sum |u|^2 dV recorded on the device.
 
     Each lane is nlse_problem(kind, shape, Lx, dt, m_field=m[b],
-    c_field=c[b], ...) on `device`: complex64 with the no-flux or no BC
+    c_field=c[b], ...) on `device` (with `mesh`, on its lane block's device:
+    module docstring): complex64 with the no-flux or no BC
     takes the planar path when the kernels support the operator, which the
     trajectory function's `planar` attribute says (probed at build with
     c = 1, as JAX probes its Pallas gate; the port has no 128-lane gate).
@@ -173,8 +154,7 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
         raise ValueError(f"unknown boundary {boundary!r}")
     if boundary == "radiating" and len(shape) != 2:
         raise ValueError("radiating BC is 2D only (boundaries.hpp:59)")
-    _no_mesh(mesh)
-    del batch_axis
+    devices = _block_devices(mesh, batch_axis, device)
     dtype = torch_dtype(dtype)
     rdtype = real_dtype_of(dtype)
     shape = tuple(int(n) for n in shape)
@@ -186,27 +166,28 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
           else "noflux" if boundary == "noflux" and apply_bc else "none")
     two_state = integrator != "ss2"
 
-    def lane_problem(m_b, c_b):
+    def lane_problem(m_b, c_b, dev):
         return _without_resident(lambda: problems.nlse_problem(
             kind, shape, Lx, dt, m_field=m_b, c_field=c_b, sigma1=sigma1,
             sigma2=sigma2, kappa=kappa, integrator=integrator,
             krylov_m=krylov_m, dtype=dtype, variant=variant, reorth=reorth,
-            bc=bc, device=device))
+            bc=bc, device=dev))
 
-    probe = lane_problem(torch.zeros(shape, dtype=rdtype, device=device),
-                         torch.ones(shape, dtype=rdtype, device=device)
-                         if use_c else None)
+    dev0 = devices[0]
+    probe = lane_problem(torch.zeros(shape, dtype=rdtype, device=dev0),
+                         torch.ones(shape, dtype=rdtype, device=dev0)
+                         if use_c else None, dev0)
     planar = probe.meta["planar_state"]
     del probe
     R = int(np.prod(shape[:-1]))
 
-    def batch_step(m, c, B):
+    def batch_step(m, c, B, dev):
         """nlse_problem's planar step of all B lanes at once, on a (B, 2,
         R, nx) state (a pair of them for a two-step integrator), its
         operator and density built per lane as nlse_problem builds them and
         stacked."""
         dx = 2.0 * Lx / (nx - 1)
-        desc = _batched_operator(shape, dx, c, B, variant, rdtype, device)
+        desc = _batched_operator(shape, dx, c, B, variant, rdtype, dev)
         m2 = m.to(rdtype).to(torch.float32).reshape(B, R, nx).contiguous()
         rho = nlse_density_planar(kind, m2, sigma1=sigma1, sigma2=sigma2,
                                   kappa=kappa)
@@ -217,16 +198,11 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
         return s[0] if two_state else s
 
     def observe(states):
-        if planar:
-            return first(states)
-        return torch.stack([first(s) for s in states])
+        return first(states)
 
     def mass_of(states):
-        if planar:
-            u = first(states)
-            return torch.sum(u * u, dim=(1, 2, 3)) * dV
-        return torch.stack([torch.sum(torch.abs(f) ** 2)
-                            for f in map(first, states)]) * dV
+        u = first(states)
+        return lane_sums(u * u if planar else torch.abs(u) ** 2) * dV
 
     def pack(snaps):
         snaps = snaps.movedim(0, 1)             # (B, S, ...)
@@ -234,27 +210,31 @@ def make_nlse_trajectory_fn(kind, shape, Lx, dt, *, integrator="ss2",
             return snaps.reshape(snaps.shape[:3] + shape)
         return torch.stack([snaps.real, snaps.imag], dim=2)
 
-    def traj(u0_packed, m, c, num_snapshots, snapshot_freq):
-        packed = _tensor(u0_packed, device, rdtype)
-        m = _tensor(m, device)
-        c = _tensor(c, device) if use_c else None
+    def setup(packed, m, c, lane0, dev):
+        """(states, step) of a block of lanes on dev."""
+        del lane0
+        packed = _tensor(packed, dev, rdtype)
+        m = _tensor(m, dev)
+        c = _tensor(c, dev) if use_c else None
         B = packed.shape[0]
         if planar:
             states = packed.to(torch.float32).reshape(B, 2, R,
                                                       nx).contiguous()
             if two_state:
                 states = (states, states)
-            step = batch_step(m, c, B)
-        else:
-            probs = [lane_problem(m[b], None if c is None else c[b])
-                     for b in range(B)]
-            states = [p.init(torch.complex(packed[b, 0], packed[b, 1]))
-                      for b, p in enumerate(probs)]
-            step = _batched_step([p.step for p in probs])
+            return states, batch_step(m, c, B, dev)
+        probs = [lane_problem(m[b], None if c is None else c[b], dev)
+                 for b in range(B)]
+        states = tree_map(lambda *xs: torch.stack(xs), *[
+            p.init(torch.complex(packed[b, 0], packed[b, 1]))
+            for b, p in enumerate(probs)])
+        return states, lanes_in_turn([p.step for p in probs])
+
+    def traj(u0_packed, m, c, num_snapshots, snapshot_freq):
         scalars = {"mass": mass_of} if record_energy else None
-        snaps, bad_at, series = evolve_lanes(step, states, num_snapshots,
-                                             snapshot_freq, observe, guard,
-                                             scalars)
+        snaps, bad_at, series = evolve_blocks(
+            setup, devices, (u0_packed, m, c if use_c else None),
+            num_snapshots, snapshot_freq, observe, guard, scalars)
         if not guard:
             return pack(snaps)
         return (pack(snaps), bad_at) + ((series,) if record_energy else ())
@@ -282,7 +262,8 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
     differences (numpy's edge order).
 
     Each lane is realwave_problem(kind, ..., m_field=m[b], c_field=c[b]) on
-    `device`: a float32 Gautschi step runs its two matrix functions on -Lap
+    `device` (with `mesh`, its lane block's device: module docstring): a
+    float32 Gautschi step runs its two matrix functions on -Lap
     (the sign-flipped descriptor) through the fused kernels, all lanes in
     one batched step (2D and 3D, the `batched` attribute; module
     docstring); the other steps run lane by lane. kind may also
@@ -295,8 +276,7 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
     stochastic = kind == "stochastic_phi4"
     if not stochastic and kind not in REALWAVE_KINDS:
         raise ValueError(f"unknown real-wave kind {kind!r}")
-    _no_mesh(mesh)
-    del batch_axis
+    devices = _block_devices(mesh, batch_axis, device)
     dtype = torch_dtype(dtype)
     rdtype = real_dtype_of(dtype)
     shape = tuple(int(n) for n in shape)
@@ -309,13 +289,13 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
     if not stochastic and integrator == "gautschi" and reorth and \
             rdtype == torch.float32:
         probe = problems._nlse_operator(
-            shape, dx, torch.ones(shape, dtype=rdtype, device=device)
-            if use_c else None, variant, rdtype, device)
+            shape, dx, torch.ones(shape, dtype=rdtype, device=devices[0])
+            if use_c else None, variant, rdtype, devices[0])
         batched = supported_desc(getattr(probe, "kernel_desc", None), shape,
                                  torch.float32)
         del probe
 
-    def batch_step(m, c, B):
+    def batch_step(m, c, B, device):
         """realwave_problem's float32 Gautschi step (rw.gautschi_step's
         arithmetic in its order) on all B lanes at once: each matrix
         function one batched fused-kernel run on the (B, 1, R, nx) view of
@@ -352,7 +332,7 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
 
         return step
 
-    def stochastic_lane(m_b, c_b, b):
+    def stochastic_lane(m_b, c_b, b, device):
         lap = problems._nlse_operator(shape, dx, c_b, variant, rdtype,
                                       device)
         neumann = problems._real_neumann(shape, rdtype, apply_bc)
@@ -368,9 +348,9 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
 
         return step
 
-    def lane_step(m_b, c_b, b):
+    def lane_step(m_b, c_b, b, device):
         if stochastic:
-            return stochastic_lane(m_b, c_b, b)
+            return stochastic_lane(m_b, c_b, b, device)
         return problems.realwave_problem(
             kind, shape, Lx, dt, m_field=m_b, c_field=c_b,
             integrator=integrator, krylov_m=krylov_m, dtype=dtype,
@@ -378,27 +358,22 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
             device=device).step
 
     def observe(states):
-        if batched:
-            u, u_past = states
-            return u, (u - u_past) / dt
-        return (torch.stack([u for u, _ in states]),
-                torch.stack([(u - u_past) / dt for u, u_past in states]))
+        u, u_past = states
+        return u, (u - u_past) / dt
 
-    def energy(u, u_past):
-        """The energy of a field, or per lane of a (B, *shape) batch."""
+    def energy_of(states):
+        """Each lane's energy of a (B, *shape) batch."""
+        u, u_past = states
         axes = tuple(range(u.dim() - dim, u.dim()))
         v = (u - u_past) / dt
         grad2 = sum(torch.gradient(u, spacing=dx, dim=a)[0] ** 2
                     for a in axes)
         dens = 0.5 * v ** 2 + 0.5 * grad2 + potential(u)
-        return torch.sum(dens, dim=axes) * dV
+        return lane_sums(dens) * dV
 
-    def energy_of(states):
-        if batched:
-            return energy(*states)
-        return torch.stack([energy(u, u_past) for u, u_past in states])
-
-    def traj(u0, v0, m, c, num_snapshots, snapshot_freq):
+    def setup(u0, v0, m, c, lane0, device):
+        """(states, step) of a block of lanes on `device`, its first lane
+        lane0 of the batch (the stochastic noise's sample index)."""
         u0 = _tensor(u0, device, rdtype)
         v0 = _tensor(v0, device, rdtype)
         m = _tensor(m, device)
@@ -406,16 +381,16 @@ def make_realwave_trajectory_fn(kind, shape, Lx, dt, *, integrator="gautschi",
         B = u0.shape[0]
         past = u0 - dt * v0                  # u_past = u0 - dt v0
         if batched:
-            states = (u0.contiguous(), past)
-            step = batch_step(m, c, B)
-        else:
-            states = [(u0[b], past[b]) for b in range(B)]
-            step = _batched_step([lane_step(m[b], None if c is None
-                                            else c[b], b) for b in range(B)])
+            return (u0.contiguous(), past), batch_step(m, c, B, device)
+        return (u0, past), lanes_in_turn([lane_step(
+            m[b], None if c is None else c[b], lane0 + b, device)
+            for b in range(B)])
+
+    def traj(u0, v0, m, c, num_snapshots, snapshot_freq):
         scalars = {"energy": energy_of} if record_energy else None
-        (u_s, v_s), bad_at, series = evolve_lanes(
-            step, states, num_snapshots, snapshot_freq, observe, guard,
-            scalars)
+        (u_s, v_s), bad_at, series = evolve_blocks(
+            setup, devices, (u0, v0, m, c if use_c else None),
+            num_snapshots, snapshot_freq, observe, guard, scalars)
         out = (u_s.movedim(0, 1), v_s.movedim(0, 1))
         if not guard:
             return out

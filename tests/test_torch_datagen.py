@@ -25,8 +25,9 @@ wrappers take the kernels' plain versions (no launch is counted).
   manifest, ICs, c, m and phenomenon params, trajectories at the float64
   gate, in hdf5 and npy; resume skips what JAX archived and redoes only
   what is missing; the CLI's main(argv) with --device cpu.
-* the unported arguments raise NotImplementedError: mesh, shard_grid,
-  --shard-batch, --shard-grid; device="cuda" with no card raises.
+* the arguments of the batch axis: a mesh without it raises JAX's
+  ValueError (Datagen, both engines), --shard-batch builds the (batch,)
+  and (batch, *grid) meshes; device="cuda" with no card raises.
 """
 
 import json
@@ -366,24 +367,36 @@ def test_cli_main_cpu(tmp_path, capsys):
 
 
 def test_unported_arguments_raise(tmp_path):
+    """The batch-axis arguments, ported since: a mesh without the batch
+    axis raises JAX's ValueError in Datagen (with and without shard_grid)
+    and in both engines; --shard-batch builds the mesh JAX's _build_mesh
+    builds, on --device."""
     from nlsolvers_tpu_torch.parallel import mesh as tmesh
-    batch_mesh = tmesh.make_mesh(("batch", "gy", "gx"), (1, 2, 2),
-                                 devices=["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tdg.Datagen(_cfg(tdg, tmp_path, shard_grid=(2, 2), mesh=batch_mesh))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tdg.Datagen(_cfg(tdg, tmp_path, mesh=object()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        teng.make_nlse_trajectory_fn("cubic", (N, N), LX, DT, mesh=object(),
-                                     device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    grid_mesh = tmesh.make_mesh(("gy", "gx"), (2, 2), devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="batch axis"):
+        tdg.Datagen(_cfg(tdg, tmp_path, mesh=grid_mesh))
+    with pytest.raises(ValueError, match="batch axis"):
+        teng.make_nlse_trajectory_fn("cubic", (N, N), LX, DT,
+                                     mesh=grid_mesh, device="cpu")
+    with pytest.raises(ValueError, match="batch axis"):
         teng.make_realwave_trajectory_fn("sine_gordon", (N, N), LX, DT,
-                                         mesh=object(), device="cpu")
-    for flag in (["--shard-batch", "2"],
-                 ["--shard-batch", "2", "--shard-grid", "2,2"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            tcli.main(["nlse", "--phenomenon", "multi_soliton", "--device",
-                       "cpu", "--output-dir", str(tmp_path)] + flag)
+                                         mesh=grid_mesh, device="cpu")
+    wrong = tmesh.make_mesh(("batch", "gy"), (1, 2), devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="not an axis"):
+        tdg.Datagen(_cfg(tdg, tmp_path, mesh=wrong, shard_grid=(2, 1)))
+    parser = tcli.build_parser()
+    base = ["nlse", "--phenomenon", "multi_soliton", "--device", "cpu",
+            "--output-dir", str(tmp_path)]
+    for flag, shape, axes in (
+            (["--shard-batch", "2"], (2,), ("batch",)),
+            (["--shard-batch", "2", "--shard-grid", "2,2"], (2, 2, 2),
+             ("batch", "gy", "gx")),
+            (["--shard-batch", "-1"], (1,), ("batch",))):
+        cfg = tcli.config_from_args(parser.parse_args(base + flag))
+        assert cfg.mesh.shape == shape and cfg.mesh.axis_names == axes
+        assert all(d.type == "cpu" for d in cfg.mesh.devices)
+    assert tcli.config_from_args(parser.parse_args(
+        base + ["--shard-grid", "2,2"])).mesh is None
 
 
 def test_cuda_without_card_raises(tmp_path):

@@ -148,13 +148,14 @@ def test_cli_shard_grid(tmp_path, capsys, fmt):
 
 def test_3d_reference_split_and_batch_mesh_raise(tmp_path):
     """A 3D reference-variant sweep split along z or y raises JAX's
-    ValueError (the y-seam is not shard-local); --shard-batch and a mesh
-    with the batch axis wait for a later slice."""
+    ValueError (the y-seam is not shard-local), with or without a batch
+    axis in the mesh (--shard-batch with --shard-grid)."""
     with pytest.raises(ValueError, match="unsplit z"):
         tdg.Datagen(_cfg(tdg, tmp_path, dim=3, nx=8,
                          phenomenon="multi_soliton_state",
                          shard_grid=(2, 1, 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["nlse", "--phenomenon", "multi_soliton", "--shard-grid",
-                   "2,2", "--shard-batch", "2", "--device", "cpu",
+    with pytest.raises(ValueError, match="unsplit z"):
+        tcli.main(["nlse", "--phenomenon", "multi_soliton_state", "--dim",
+                   "3", "--nx", "8", "--shard-grid", "1,2,1",
+                   "--shard-batch", "2", "--device", "cpu",
                    "--output-dir", str(tmp_path)])

@@ -373,8 +373,13 @@ def test_sharded_step_positional_arguments_bind_as_jax():
                                             reorth=True, use_c=True)
     np.testing.assert_array_equal(shards.gather(by_pos(*parts), tm).numpy(),
                                   shards.gather(by_kw(*parts), tm).numpy())
-    with pytest.raises(NotImplementedError):     # reorth=False by position
-        tspatial.make_sharded_nlse_step(*head, True, False, False)
+    # reorth=False by position: the generic path, as by keyword
+    np.testing.assert_array_equal(
+        shards.gather(tspatial.make_sharded_nlse_step(
+            *head, True, False, False)(*parts[:2]), tm).numpy(),
+        shards.gather(tspatial.make_sharded_nlse_step(
+            *head, apply_bc=True, reorth=False, use_c=False)(*parts[:2]),
+            tm).numpy())
 
 
 def test_sharded_step_errors():
@@ -387,8 +392,8 @@ def test_sharded_step_errors():
         jspatial.make_sharded_nlse_step("cubic", (30, 33), LX, DT, jm,
                                         axis_names=AXES)(
             jnp.zeros((2, 30, 33)), jnp.ones((30, 33)))
-    for kw in (dict(batch_axis="batch"), dict(dtype=torch.complex128),
-               dict(reorth=False)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(batch_axis="batch"), dict(batch_axis="gy"),
+               dict(dtype=torch.complex128, batch_axis="batch")):
+        with pytest.raises(ValueError):          # no such batch axis
             tspatial.make_sharded_nlse_step("cubic", (32, 32), LX, DT, tm,
                                             axis_names=AXES, **kw)

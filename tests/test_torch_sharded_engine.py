@@ -305,26 +305,35 @@ def test_sharded_engines_guard_and_mass():
 
 
 def test_sharded_arguments_for_later_slices_raise():
-    """batch_axis, complex128, reorth=False and a float64 or reorth=False
-    Gautschi raise NotImplementedError naming ROADMAP.md; stochastic phi-4
-    and the 3D reference variant on split z or y raise JAX's ValueError."""
+    """batch_axis on a mesh without that axis, or with a batch the axis
+    does not divide, raises JAX's ValueError on every sharded step and
+    engine (complex128, reorth=False and the float64 or reorth=False
+    Gautschi run since the generic sharded path was ported);
+    stochastic phi-4 and the 3D reference variant on split z or y raise
+    JAX's ValueError."""
     mesh = _port_mesh((2, 4), AX2)
     mk = tspatial.make_sharded_nlse_trajectory_fn
-    for kw in (dict(batch_axis="batch"), dict(dtype=torch.complex128),
-               dict(reorth=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mk("cubic", (N, N), LX, DT, mesh, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    rw = tspatial.make_sharded_realwave_trajectory_fn
+    for kw in (dict(), dict(dtype=torch.complex128), dict(reorth=False)):
+        with pytest.raises(ValueError, match="batch axis"):
+            mk("cubic", (N, N), LX, DT, mesh, batch_axis="batch", **kw)
+    for kw in (dict(dtype=torch.float64), dict(reorth=False), dict()):
+        with pytest.raises(ValueError, match="batch axis"):
+            rw("sine_gordon", (N, N), LX, DT, mesh, batch_axis="batch",
+               **kw)
+    with pytest.raises(ValueError, match="batch axis"):
         tspatial.make_sharded_nlse_step("cubic", (N, N), LX, DT, mesh,
                                         batch_axis="batch")
-    rw = tspatial.make_sharded_realwave_trajectory_fn
-    for kw in (dict(dtype=torch.float64), dict(reorth=False),
-               dict(batch_axis="batch")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rw("sine_gordon", (N, N), LX, DT, mesh, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="batch axis"):
         tspatial.make_sharded_realwave_step("sine_gordon", (N, N), LX, DT,
-                                            mesh, dtype=torch.float64)
+                                            mesh, batch_axis="batch",
+                                            dtype=torch.float64)
+    bmesh = _port_mesh((2, 1, 2), ("batch",) + AX2)
+    u0, m, c = _nlse_inputs((N, N), 3)
+    traj = mk("cubic", (N, N), LX, DT, bmesh, batch_axis="batch",
+              krylov_m=4)
+    with pytest.raises(ValueError, match="not divisible"):
+        traj(u0[:1], m[:1], c[:1], 2, 1)
     with pytest.raises(ValueError, match="stochastic_phi4"):
         rw("stochastic_phi4", (N, N), LX, DT, mesh)
     mesh3 = _port_mesh((2, 1, 2), AX3)
