@@ -360,6 +360,37 @@ Each of phases 28-39 prints its seconds; from phase 3 on, a line
                distributed.initialize at world size 1 (gloo on localhost)
                and Datagen.run on its global batch mesh, 2 runs archived.
                Prints its elapsed time.
+ 41. study     the integrator study (study_phase) through
+               nlsolvers_tpu_torch.analysis on the card, files under
+               _smoke_study/: compare.integrator_study on study._study_inputs'
+               cubic colliding packets, c piecewise layers, m constant, seed
+               0, Lx 10, SS2 vs sEWI at 256^2, 512^2, 1024^2 x dt 1e-3,
+               5e-4, T 0.05, 11 snapshots, m=10, complex64 (the trajectories
+               kept at dt 5e-4); sine-Gordon kink Gautschi vs SV at 256^2,
+               1024^2, dt 1e-3, T 0.02, float32. One cell a call with the
+               counters at 0 just before and read just after: exactly its
+               steps x (SS2 1 K1' + 9 K2' + 1 K3 + 2 kick_bc; sEWI the SS2
+               bootstrap, then 3 K1' + 27 K2' + 3 K3; Gautschi 2 K1 + 18 K2
+               + 2 K3; SV none), every cell simulation_stable. The NLSE
+               cells at dt 5e-4 against kernel_mode "off": at 512^2 over
+               the whole cell (final snapshot rel-L2 and mass series <=
+               1e-5); at 1024^2, where dt rho(A) ~ 21 with m=10 amplifies
+               rounding in a free-running cell, steps 1-3 and every 10th
+               from the kernel run's state (field and mass <= 1e-5), the
+               free-running difference printed beside the kernel run's own
+               under a 2^-24 perturbation of u0. The summary rows, the CSV
+               and the SS2-sEWI / Gautschi-SV differences (finite) with
+               their ratio between the two dt printed, mass drift printed,
+               not gated. Structure SSIM and the modal energy grid of |u| at
+               1024^2, the modal spectrum at 256^2, finite. profiling.trace
+               around one 1024^2 SS2 cell inside annotate("study-cell"): the
+               Chrome trace names the annotation and pass1_tile_kernel,
+               pipe_2d_kernel, combine_kernel, kick_bc_kernel (up to 5
+               tries, printed); StepTimer over 20 SS2 steps with a sync
+               each, printed beside phase 15's c(x) steps/s. With
+               matplotlib, study.run_study at 256^2 and 512^2 with the same
+               gates and its artifacts listed; else "not run". Prints its
+               elapsed time.
 Then the card's name and power limit, the kernels as one JSON line
 (twenty-five: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
 pass1_shard2d, pass1_shard3d, kick_bc, and the batched forms of K1', K2',
@@ -611,7 +642,8 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
     with host_profile, the host functions that take the most time (cProfile
     over n_prof steps). runs: {label: (problem, initial state)}. Each run
     carries its step index, so a two-step integrator bootstraps once, in the
-    warm-up, and every timed step is a step of the integrator itself."""
+    warm-up, and every timed step is a step of the integrator itself.
+    Returns {label: median steps/s}."""
     state = {k: advance(p.step, s, 3) for k, (p, s) in runs.items()}
     nxt = {k: 4 for k in runs}
     torch.cuda.synchronize()
@@ -676,6 +708,7 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
                 where = f"{Path(fname).name}:{line}({fn})"
                 print(f"  {tt / n_prof * 1e3:8.4f} ms/step "
                       f"{ncalls // n_prof:5d}x/step {where[:70]}")
+    return {k: statistics.median(r) for k, r in rates.items()}
 
 
 # the datagen production point (benchmarks/datagen_bench.py:22-26, from the
@@ -2779,6 +2812,287 @@ def batch_axis_phase(torch, np, root, counters):
     return per_sub, elapsed
 
 
+# phase 41, the integrator study (the reference's integrator-comparison
+# study, compare_utils_complex_2d.py; SURVEY.md section 4 item 3) through
+# nlsolvers_tpu_torch.analysis: the cubic NLSE on the c(x) main path's
+# operator (colliding packets, c piecewise layers) at three widths up to the
+# main path's 1024^2, SS2 against sEWI; sine-Gordon (kink) Gautschi against
+# SV; complex64 / float32, which take the kernels
+ST_LX, ST_M, ST_SNAPS = 10.0, 10, 11
+ST_NX, ST_DT, ST_T = (256, 512, 1024), (1e-3, 5e-4), 0.05
+ST_OFF_NX = 512      # the widest where dt rho(A) at dt 5e-4 stays ~m/2
+ST_RW_NX, ST_RW_DT, ST_RW_T = (256, 1024), (1e-3,), 0.02
+ST_PER_STEP = {"ss2": {"K1'": 1, "K2'": ST_M - 1, "K3": 1, "kick_bc": 2},
+               "sewi": {"K1'": 3, "K2'": 3 * (ST_M - 1), "K3": 3},
+               "gautschi": {"K1": 2, "K2": 2 * (ST_M - 1), "K3": 2},
+               "sv": {}}
+ST_TRACE_NAMES = ("study-cell", "pass1_tile_kernel", "pipe_2d_kernel",
+                  "combine_kernel", "kick_bc_kernel")
+
+
+def study_steps(T, dt):
+    """The steps of a study cell, as compare.integrator_study counts them."""
+    nt = max(1, int(round(T / dt)))
+    freq = max(1, nt // (ST_SNAPS - 1))
+    return nt // freq * freq
+
+
+def study_launches(integrator, n):
+    """Counted launches of an n-step cell; sEWI's first step is the SS2
+    bootstrap."""
+    if integrator != "sewi":
+        return {k: n * v for k, v in ST_PER_STEP[integrator].items()}
+    boot, per = ST_PER_STEP["ss2"], ST_PER_STEP["sewi"]
+    return {k: boot.get(k, 0) + (n - 1) * per.get(k, 0)
+            for k in set(boot) | set(per)}
+
+
+def study_phase(torch, np, root, counters, rate_ref):
+    """Phase 41: the integrator study through nlsolvers_tpu_torch.analysis
+    on the card. Every cell runs through compare.integrator_study, one cell
+    a call (the same downsampled inputs as one call over the matrix) with
+    the launch counters at 0 just before and read just after: exactly its
+    steps x ST_PER_STEP (sEWI after its SS2 bootstrap), every cell
+    simulation_stable. The dt 5e-4 NLSE cells against config.kernel_mode
+    "off": over the whole cell at ST_OFF_NX^2, steps 1-3 and every 10th
+    from the kernel run's state at 1024^2 (final snapshot / field and mass
+    within 1e-5).
+    Printed: summary rows, the CSV, the SS2-sEWI (Gautschi-SV) differences
+    and their ratio between the two dt. Then structure / spectral
+    diagnostics on the kept trajectories (finite), profiling.trace around
+    one 1024^2 SS2 cell (the annotation and the four kernels named, up to 5
+    tries), StepTimer over 20 SS2 steps beside phase 15's rate, and
+    study.run_study at 256^2 / 512^2 where matplotlib is installed. Returns
+    the elapsed seconds."""
+    import csv
+    import importlib.util
+    import shutil
+
+    from nlsolvers_tpu_torch.analysis import (compare, spectral, structure,
+                                              study)
+    from nlsolvers_tpu_torch.models import problems
+    from nlsolvers_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    work = root / "_smoke_study"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir()
+    c64 = torch.complex64
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counters.items()
+                     if f.launches}
+
+    def cell(family, kind, inputs, integrator, nx, dt, T, dtype,
+             keep=None):
+        u0, v0, m, c = inputs
+        return compare.integrator_study(
+            family, kind, u0, v0_high=v0, m_high=m, c_high=c,
+            integrators=(integrator,), nx_values=[nx], dt_values=[dt], T=T,
+            Lx=ST_LX, num_snapshots=ST_SNAPS, krylov_m=ST_M, dtype=dtype,
+            keep_traj=keep, device="cuda")
+
+    def matrix(family, kind, inputs, integrators, nxs, dts, T, dtype,
+               keep=None):
+        results = {}
+        for nx in nxs:
+            for dt in dts:
+                for integ in integrators:
+                    res, got = counted(lambda: cell(family, kind, inputs,
+                                                    integ, nx, dt, T, dtype,
+                                                    keep))
+                    r = res[(integ, nx, dt)]
+                    n = study_steps(T, dt)
+                    want = study_launches(integ, n)
+                    print(f"study {kind} {integ} {nx}^2 dt {dt:g}: {n} "
+                          f"steps, walltime {r['walltime']:.4f} s (run, "
+                          f"readback, analysis); launches {got}")
+                    check(got == {k: v for k, v in want.items() if v},
+                          f"study {integ} {nx}^2 dt {dt:g}: launches {got} "
+                          f"!= {want}")
+                    check(bool(r["simulation_stable"]),
+                          f"study {integ} {nx}^2 dt {dt:g}: not stable")
+                    results.update(res)
+        return results
+
+    def show(results, pair, dts, T, label):
+        rows = study.summary_rows(results, T)
+        for r in rows:
+            print(f"study row {json.dumps(r)}")
+        path = study.save_summary_csv(rows, work / f"summary_{label}.csv")
+        print(f"study {path.name}:\n{path.read_text().rstrip()}")
+        diffs = compare.pairwise_solution_difference(results, pair)
+        for (nx, dt), d in sorted(diffs.items()):
+            print(f"study {pair[0]}-{pair[1]} {nx}^2 dt {dt:g}: rel-L2 "
+                  f"{d:.6e}")
+            check(math.isfinite(d), f"study {pair}: difference {d}")
+        if len(dts) == 2:
+            for nx in sorted({k[0] for k in diffs}):
+                print(f"study {pair[0]}-{pair[1]} {nx}^2: dt {dts[0]:g} / "
+                      f"{dts[1]:g} ratio "
+                      f"{diffs[(nx, dts[0])] / diffs[(nx, dts[1])]:.4f}")
+
+    # 1. the NLSE study
+    nl_in = study._study_inputs("nlse", "cubic", "colliding_packets",
+                                max(ST_NX), ST_LX, 0, "constant",
+                                "piecewise_layers", {})
+    dt_min = min(ST_DT)
+    keep = lambda nx, dt: dt == dt_min
+    nl = matrix("nlse", "cubic", nl_in, ("ss2", "sewi"), ST_NX, ST_DT, ST_T,
+                c64, keep)
+    nbig = max(ST_NX)
+
+    def apart(a, b):
+        """(final snapshot rel-L2, mass series max relative) of two cells."""
+        return (float(np.linalg.norm(a["final_snapshot"] - b["final_snapshot"])
+                      / np.linalg.norm(b["final_snapshot"])),
+                float(np.max(np.abs(a["mass"] - b["mass"]) / b["mass"])))
+
+    # the kernels against kernel_mode "off" at dt 5e-4. Free-running over
+    # the whole cell at ST_OFF_NX^2, where dt rho(A) ~ 5 keeps the m=10
+    # Krylov step resolved: phase 5's 1e-5. At 1024^2 (dt rho(A) ~ 21) a
+    # free-running cell amplifies rounding: its difference is printed beside
+    # the kernel run's own under a 2^-24 perturbation of u0, and steps 1-3
+    # and every 10th are gated from the kernel run's state instead (1e-5 on
+    # the field and on its mass), as phase 30 does for the same reason
+    for integ in ("ss2", "sewi"):
+        off = plain(lambda: cell("nlse", "cubic", nl_in, integ, ST_OFF_NX,
+                                 dt_min, ST_T, c64))
+        e, em = apart(nl[(integ, ST_OFF_NX, dt_min)],
+                      off[(integ, ST_OFF_NX, dt_min)])
+        print(f"study {integ} {ST_OFF_NX}^2 dt {dt_min:g}: kernels vs "
+              f"kernel_mode off over the cell, final snapshot rel-L2 "
+              f"{e:.3e}, mass series {em:.3e}")
+        check(e <= 1e-5 and em <= 1e-5, f"study {integ} {ST_OFF_NX}^2: "
+              f"kernels vs plain {e:.3e} / {em:.3e} > 1e-5")
+        on = nl[(integ, nbig, dt_min)]
+        off = plain(lambda: cell("nlse", "cubic", nl_in, integ, nbig, dt_min,
+                                 ST_T, c64))[(integ, nbig, dt_min)]
+        rng = np.random.default_rng(1)
+        u0p = nl_in[0] * (1 + 2.0 ** -24 * rng.standard_normal(
+            nl_in[0].shape))
+        pert = cell("nlse", "cubic", (u0p,) + nl_in[1:], integ, nbig, dt_min,
+                    ST_T, c64)[(integ, nbig, dt_min)]
+        (e, em), (ep, emp) = apart(on, off), apart(pert, on)
+        prob = problems.nlse_problem(
+            "cubic", (nbig, nbig), ST_LX, dt_min, m_field=nl_in[2],
+            c_field=nl_in[3], integrator=integ, krylov_m=ST_M, dtype=c64)
+        s, worst, worst_m = prob.init(nl_in[0]), 0.0, 0.0
+        n = study_steps(ST_T, dt_min)
+        gated = sorted({1, 2, 3} | set(range(10, n + 1, 10)))
+        for i in range(1, n + 1):
+            if i in gated:
+                b = prob.observe(plain(lambda: prob.step(s, i)))
+            s = prob.step(s, i)
+            if i in gated:
+                a = prob.observe(s)
+                ma, mb = (a.abs() ** 2).sum(), (b.abs() ** 2).sum()
+                worst = max(worst, rel(a, b))
+                worst_m = max(worst_m, float((ma - mb).abs() / mb))
+        print(f"study {integ} {nbig}^2 dt {dt_min:g}: steps {gated} from "
+              f"the kernel run's state vs the same step under kernel_mode off: "
+              f"field rel-L2 <= {worst:.3e}, mass <= {worst_m:.3e}; over the "
+              f"cell (free-running, not gated) final snapshot {e:.3e}, mass "
+              f"series {em:.3e}, where the kernel run with u0 perturbed by "
+              f"2^-24 reads {ep:.3e} / {emp:.3e}; walltime {on['walltime']:.4f}"
+              f" s vs {off['walltime']:.4f} s off")
+        check(worst <= 1e-5 and worst_m <= 1e-5, f"study {integ} {nbig}^2: "
+              f"a step vs plain {worst:.3e} / {worst_m:.3e} > 1e-5")
+        del prob, s, a, b
+    show(nl, ("ss2", "sewi"), ST_DT, ST_T, "nlse")
+
+    # 2. the real-wave study
+    rw_in = study._study_inputs("realwave", "sine_gordon", "kink_solution",
+                                max(ST_RW_NX), ST_LX, 0, "constant", None, {})
+    rw = matrix("realwave", "sine_gordon", rw_in, ("gautschi", "sv"),
+                ST_RW_NX, ST_RW_DT, ST_RW_T, torch.float32)
+    show(rw, ("gautschi", "sv"), ST_RW_DT, ST_RW_T, "realwave")
+
+    # 3. diagnostics on the card's output
+    t1 = time.perf_counter()
+    kept = nl[("ss2", nbig, dt_min)]["trajectory"]
+    ssim = structure.structure_similarity(np.abs(kept))
+    modes = structure.modal_energy_grid(kept)
+    k_c, spec = spectral.modal_energy_spectrum(
+        nl[("ss2", min(ST_NX), dt_min)]["trajectory"])
+    print(f"study diagnostics: SSIM of |u| at {nbig}^2 against frame 0 "
+          f"{[round(float(x), 6) for x in ssim]}; modal energy grid "
+          f"{modes.shape}, its total {float(modes.sum()):.6e}; modal "
+          f"spectrum at {min(ST_NX)}^2 {spec.shape}, the first bins "
+          f"{[f'{x:.4e}' for x in spec[-1, :4]]}; "
+          f"{time.perf_counter() - t1:.2f} s")
+    check(all(np.isfinite(x).all() for x in (ssim, modes, k_c, spec)),
+          "study diagnostics: not finite")
+
+    # 4. profiling
+    for tries in range(1, 6):
+        logdir = work / f"trace_{tries}"
+        with profiling.trace(logdir):
+            with profiling.annotate("study-cell"):
+                cell("nlse", "cubic", nl_in, "ss2", nbig, max(ST_DT), ST_T,
+                     c64)
+        text = next(logdir.glob("trace_*.json")).read_text()
+        missing = [k for k in ST_TRACE_NAMES if k not in text]
+        if not missing:
+            break
+        time.sleep(0.2)
+    print(f"study trace: {tries} tries; {len(text) / 1e6:.1f} MB Chrome "
+          f"trace; names {[k for k in ST_TRACE_NAMES if k in text]}, "
+          f"missing {missing}")
+    check(not missing, f"study trace: missing {missing}")
+    for d in work.glob("trace_*"):
+        shutil.rmtree(d)
+    u0, _, m, c = nl_in
+    prob = problems.nlse_problem("cubic", (nbig, nbig), ST_LX, max(ST_DT),
+                                 m_field=m, c_field=c, krylov_m=ST_M,
+                                 dtype=c64)
+    s = profiling.sync(prob.step(prob.init(u0), 1))
+    timer = profiling.StepTimer()
+    for i in range(2, 22):
+        s = prob.step(s, i)
+        timer.lap(s)
+    summ = timer.summary()
+    print(f"study StepTimer, SS2 {nbig}^2 c(x) dt {max(ST_DT):g}, a sync "
+          f"per step: {json.dumps(summ)}; phase 15's rate2d c(x) {N}^2 "
+          f"(200-step chunks, one sync per chunk): {rate_ref:.2f} steps/s")
+    check(summ["count"] == 20 and math.isfinite(summ["steps_per_s"]),
+          f"study StepTimer: {summ}")
+    del prob, s
+
+    # 5. the figure set, where matplotlib is installed
+    if importlib.util.find_spec("matplotlib") is None:
+        print("study run_study: not run (no matplotlib on this machine)")
+    else:
+        nxs = (256, 512)
+        arts, got = counted(lambda: study.run_study(
+            work / "figures", "nlse", "cubic", integrators=("ss2", "sewi"),
+            nx_values=list(nxs), dt_values=list(ST_DT), T=ST_T, Lx=ST_LX,
+            phenomenon="colliding_packets", m_type="constant",
+            c_type="piecewise_layers", num_snapshots=ST_SNAPS,
+            krylov_m=ST_M, seed=0, dtype=c64, device="cuda"))
+        want = {}
+        for integ in ("ss2", "sewi"):
+            for dt in ST_DT:
+                for k, v in study_launches(integ, study_steps(ST_T, dt)
+                                           ).items():
+                    want[k] = want.get(k, 0) + v * len(nxs)
+        with open(arts["summary_csv"]) as f:
+            stable = [r["simulation_stable"] for r in csv.DictReader(f)]
+        print(f"study run_study at {list(nxs)}: launches {got}; artifacts "
+              f"{sorted(arts)}; stable {stable}")
+        check(got == {k: v for k, v in want.items() if v},
+              f"study run_study: launches {got} != {want}")
+        check(stable == ["True"] * 8, f"study run_study: stable {stable}")
+    elapsed = time.perf_counter() - t0
+    print(f"study: {elapsed:.1f} s")
+    return elapsed
+
+
 def main():
     import numpy as np
     import torch
@@ -3686,8 +4000,9 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 15 rate2d-aniso")
     prob_iso, state_iso = problem2d(c=None)
     iso2, cx2 = f"rate2d iso {N}^2", f"rate2d c(x) {N}^2"
-    rate(torch, {iso2: (prob_iso, state_iso), cx2: (prob_a, state_a)}, 200,
-         [iso2, cx2, cx2, iso2, iso2, cx2], 20)
+    rates2a = rate(torch, {iso2: (prob_iso, state_iso),
+                           cx2: (prob_a, state_a)}, 200,
+                   [iso2, cx2, cx2, iso2, iso2, cx2], 20)
     del prob_iso, state_iso
     sw2 = f"rate2d c(x) sewi {N}^2"
     rate(torch, {sw2: (prob_s, state_s)}, 50, [sw2] * 3, 10)
@@ -4966,6 +5281,10 @@ def main():
     # ---------------------------------------------------------- 40. batch-axis
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 40 batch-axis")
     ba_per_sub, _ = batch_axis_phase(torch, np, root, counters_sh)
+
+    # ---------------------------------------------------------- 41. study
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 41 study")
+    study_phase(torch, np, root, counters_sh, rates2a[cx2])
 
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
