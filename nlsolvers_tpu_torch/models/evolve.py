@@ -14,6 +14,7 @@ tensor per leaf, as JAX maps over the tree.
 import torch
 
 from nlsolvers_tpu_torch.parallel.mesh import lane_blocks
+from nlsolvers_tpu_torch.utils.profiling import annotate
 
 __all__ = ["evolve", "evolve_guarded", "evolve_lanes", "evolve_blocks",
            "lane_sums", "lanes_in_turn", "simulate", "tree_map"]
@@ -45,17 +46,21 @@ def evolve(step_fn, state0, num_snapshots, snapshot_freq, observe=None):
     observe: state -> snapshot (a tensor or a tree of them); defaults to
     identity. Returns the snapshots stacked on a leading axis of
     num_snapshots: one tensor, or the snapshot's tree of stacked tensors.
+    Observing and stacking run in the span `nls.snapshot`.
     """
     if observe is None:
         observe = lambda s: s
-    snaps = [observe(state0)]
+    with annotate("nls.snapshot"):
+        snaps = [observe(state0)]
     state, idx = state0, 1
     for _ in range(num_snapshots - 1):
         for i in range(snapshot_freq):
             state = step_fn(state, idx + i)
         idx += snapshot_freq
-        snaps.append(observe(state))
-    return tree_map(lambda *xs: torch.stack(xs), *snaps)
+        with annotate("nls.snapshot"):
+            snaps.append(observe(state))
+    with annotate("nls.snapshot"):
+        return tree_map(lambda *xs: torch.stack(xs), *snaps)
 
 
 def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
@@ -69,7 +74,9 @@ def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
     stops at the first snapshot at which every lane is non-finite. The
     checks, the exit flags and the series stay on the device: the loop
     reads one flag per snapshot (one host sync per snapshot, never one per
-    step) to decide whether to go on.
+    step) to decide whether to go on. The snapshot and series copies run in
+    the span `nls.snapshot`, the checks and the flag read in `nls.guard`
+    (utils/profiling.annotate).
 
     batched: the leading axis of each observed leaf is the batch; finiteness
       reduces over the trailing axes only, per lane.
@@ -106,25 +113,31 @@ def evolve_guarded(step_fn, state0, num_snapshots, snapshot_freq,
         buf[0] = x
         return buf
 
-    snap0 = observe(state0)
-    bufs = tree_map(buffer, snap0)
-    series = {k: buffer(torch.as_tensor(fn(state0)))
-              for k, fn in scalars.items()}
-    ok = finite_of(snap0)
-    bad_at = torch.where(ok, S, 0).to(torch.int32)
+    with annotate("nls.snapshot"):
+        snap0 = observe(state0)
+        bufs = tree_map(buffer, snap0)
+        series = {k: buffer(torch.as_tensor(fn(state0)))
+                  for k, fn in scalars.items()}
+    with annotate("nls.guard"):
+        ok = finite_of(snap0)
+        bad_at = torch.where(ok, S, 0).to(torch.int32)
+        go = S > 1 and bool(ok.any())
     state, s = state0, 1
-    while s < S and bool(ok.any()):
+    while go:
         idx0 = (s - 1) * snapshot_freq + 1
         for i in range(snapshot_freq):
             state = step_fn(state, idx0 + i)
-        snap = observe(state)
-        tree_map(lambda b, x: b[s].copy_(x), bufs, snap)
-        for k, fn in scalars.items():
-            series[k][s] = torch.as_tensor(fn(state))
-        fin = finite_of(snap)
-        bad_at = torch.where(ok & ~fin, s, bad_at).to(torch.int32)
-        ok = ok & fin
-        s += 1
+        with annotate("nls.snapshot"):
+            snap = observe(state)
+            tree_map(lambda b, x: b[s].copy_(x), bufs, snap)
+            for k, fn in scalars.items():
+                series[k][s] = torch.as_tensor(fn(state))
+        with annotate("nls.guard"):
+            fin = finite_of(snap)
+            bad_at = torch.where(ok & ~fin, s, bad_at).to(torch.int32)
+            ok = ok & fin
+            s += 1
+            go = s < S and bool(ok.any())
     return bufs, bad_at, series
 
 
@@ -187,11 +200,13 @@ def evolve_blocks(setup, devices, fields, num_snapshots, snapshot_freq,
     parallel/mesh.lane_blocks, one block per device. One block is evolved as it
     is; several step one after the other inside each step, in one loop
     (the guard's exit is the whole batch's), their snapshots and series
-    joined on the first device."""
+    joined on the first device. The blocks' setup runs in the span
+    `nls.setup`."""
     B = _leaves(fields[0])[0].shape[0]
-    parts = [setup(*[None if f is None else tree_map(lambda x: x[sl], f)
-                     for f in fields], sl.start, dev)
-             for sl, dev in zip(lane_blocks(B, len(devices)), devices)]
+    with annotate("nls.setup"):
+        parts = [setup(*[None if f is None else tree_map(lambda x: x[sl], f)
+                         for f in fields], sl.start, dev)
+                 for sl, dev in zip(lane_blocks(B, len(devices)), devices)]
     if len(parts) == 1:
         states, step = parts[0]
         return evolve_lanes(step, states, num_snapshots, snapshot_freq,

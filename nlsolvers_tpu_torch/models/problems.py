@@ -54,6 +54,7 @@ from nlsolvers_tpu_torch.models.nonlinearities import (NLSE_KINDS,
 from nlsolvers_tpu_torch.ops import boundaries as bcs
 from nlsolvers_tpu_torch.ops import operators as ops
 from nlsolvers_tpu_torch.ops.cuda.kick import kick_grid
+from nlsolvers_tpu_torch.utils.profiling import annotate
 
 __all__ = ["Problem", "nlse_problem", "realwave_problem",
            "stochastic_phi4_problem", "boussinesq_problem", "run",
@@ -132,13 +133,15 @@ def planar_step(integrator, shape, dt, krylov_m, desc, rho, bc):
 
     An SS2 step's closing half kick does the no-flux ghost copy
     (ops/cuda/kick.py); a two-step step copies it after: the plain copy in
-    2D, bc3d in place in 3D."""
+    2D, bc3d in place in 3D. Each step runs inside the span `nls.step`
+    (utils/profiling.annotate)."""
     grid = kick_grid(shape) if bc == "noflux" else None
     if integrator == "ss2":
         def step(up, i):
             del i
-            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
-                                            grid=grid)
+            with annotate("nls.step"):
+                return nlse_mod.ss2_step_planar(up, desc, rho, dt,
+                                                m=krylov_m, grid=grid)
 
         return step
 
@@ -153,11 +156,13 @@ def planar_step(integrator, shape, dt, krylov_m, desc, rho, bc):
 
     def step(state, i):
         up, up_prev = state
-        if i == 1:      # bootstrap: one SS2 step, u_prev := u
-            return nlse_mod.ss2_step_planar(up, desc, rho, dt, m=krylov_m,
-                                            grid=grid), up
-        u_new, u_prev_new = two_step(up, up_prev, desc, rho, dt, m=krylov_m)
-        return neum(u_new), u_prev_new
+        with annotate("nls.step"):
+            if i == 1:      # bootstrap: one SS2 step, u_prev := u
+                return nlse_mod.ss2_step_planar(up, desc, rho, dt,
+                                                m=krylov_m, grid=grid), up
+            u_new, u_prev_new = two_step(up, up_prev, desc, rho, dt,
+                                         m=krylov_m)
+            return neum(u_new), u_prev_new
 
     return step
 

@@ -26,6 +26,7 @@ from nlsolvers_tpu_torch.ops.boundaries import (
 from nlsolvers_tpu_torch.ops.cuda import lanczos3d
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import _stream
 from nlsolvers_tpu_torch.ops.operators import block_coords
+from nlsolvers_tpu_torch.utils.profiling import spanned
 
 __all__ = ["neumann_bc_planar_3d", "bc3d_ref", "block_in_grid"]
 
@@ -73,6 +74,7 @@ def bc3d_ref(up, shape, global_shape=None, offsets=None):
     return up
 
 
+@spanned("nls.launch.neumann_bc_planar_3d")
 def neumann_bc_planar_3d(up, shape, global_shape=None, offsets=None):
     """Ghost copy on a planar (P, nz*ny, nx) float32 state of the block
     `shape` = (nz, ny, nx), IN PLACE; returns up. Unsharded the block is the

@@ -37,6 +37,7 @@ from nlsolvers_tpu_torch.ops.boundaries import (neumann_no_velocity_2d,
 from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.cuda.bc3d import bc3d_ref, block_in_grid
 from nlsolvers_tpu_torch.ops.operators import block_coords
+from nlsolvers_tpu_torch.utils.profiling import spanned
 
 __all__ = ["KickGrid", "kick_grid", "phase_kick_planar",
            "phase_kick_bc_planar", "kick_bc_ref"]
@@ -114,6 +115,7 @@ def _lib():
     return lib
 
 
+@spanned("nls.kick")
 def phase_kick_bc_planar(up, rho, theta, grid=None):
     """ghost(up * exp(i theta rho(up))) on a planar (2, R, nx) float32
     state, or on each lane of a batch (B, 2, R, nx), out of place; `grid`

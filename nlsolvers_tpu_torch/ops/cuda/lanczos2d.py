@@ -26,7 +26,10 @@ its plain PyTorch version beside it and a launch counter on its wrapper:
                                       block of a sharded 2D grid
 
 The iso and aniso wrappers launch one pass1 and one pipe kernel with the
-operator as a template policy; each wrapper counts its own launches.
+operator as a template policy; each wrapper counts its own launches and
+runs, plain path included, inside the span `nls.launch.<wrapper>`
+(utils/profiling.spanned); `lanczos_planar` runs inside `nls.lanczos`,
+`combine_coefficients` inside `nls.coefficients`.
 
 K1/K1', K2/K2', K3, K5 and the shard pass1 also take a batch: fields
 (B, P, ny, nx) with a leading lane axis, scalars (B, ...) and, for the
@@ -69,6 +72,7 @@ from nlsolvers_tpu_torch.config import use_kernel
 from nlsolvers_tpu_torch.ops import krylov
 from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.operators import block_coords, boundary_diagonal
+from nlsolvers_tpu_torch.utils.profiling import spanned
 
 __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
            "matfunc_apply_planar", "matfunc_apply_planar_multi",
@@ -515,6 +519,7 @@ def _pass1(scal, wj, prev, desc, aniso, norm, what):
     return (w, raw, red[..., nout - 1]) if norm else (w, raw)
 
 
+@spanned("nls.launch.pass1_iso2d")
 def pass1_iso2d(scal, wj, prev, desc, norm=False):
     """K1: w = s_j A(W_j) - bs W_{j-1} and raw (j+1, 2) = <W_i, w>, i <= j.
 
@@ -535,6 +540,7 @@ def pass1_iso2d(scal, wj, prev, desc, norm=False):
 pass1_iso2d.launches = 0
 
 
+@spanned("nls.launch.pass1_aniso2d")
 def pass1_aniso2d(scal, wj, prev, desc, norm=False):
     """K1': pass1_iso2d for the div(c grad u) operator of an
     "aniso_laplacian_2d" descriptor (face weights wx, wy on the field's
@@ -550,6 +556,7 @@ def pass1_aniso2d(scal, wj, prev, desc, norm=False):
 pass1_aniso2d.launches = 0
 
 
+@spanned("nls.launch.pass1_shard2d")
 def pass1_shard2d(scal, wj, prev, yh, xh, d):
     """K1' in modes shard2d and shard2d_aniso: pass1_iso2d on one shard's
     (P, ny, nx) block of a sharded 2D grid.
@@ -638,6 +645,7 @@ def _pipe(scal, av, W, desc, last, aniso, what):
             red[..., 1 + 2 * nw:].view(lead + (nw + 1, 2)))
 
 
+@spanned("nls.launch.pipe_iso2d")
 def pipe_iso2d(scal, av, W, desc, last):
     """K2: one pipelined Lanczos iteration j = len(W) - 1.
 
@@ -658,6 +666,7 @@ def pipe_iso2d(scal, av, W, desc, last):
 pipe_iso2d.launches = 0
 
 
+@spanned("nls.launch.pipe_aniso2d")
 def pipe_aniso2d(scal, av, W, desc, last):
     """K2': pipe_iso2d for the div(c grad u) operator of an
     "aniso_laplacian_2d" descriptor (face weights (ny, nx), or (B, ny, nx)
@@ -674,6 +683,7 @@ def pipe_aniso2d(scal, av, W, desc, last):
 pipe_aniso2d.launches = 0
 
 
+@spanned("nls.launch.combine")
 def combine(q, W):
     """K3: y_spec = sum_i q[spec, i] W_i (complex q, s_i folded in) for the
     k = q.shape[-3] specs in one pass over the m = len(W) columns. A batch
@@ -767,6 +777,7 @@ def iter_form(P, rows, nx, opk, j, vec, B=1):
     return _plan_cache[key]
 
 
+@spanned("nls.launch.iter_step")
 def iter_step(scal, wj, prev, desc):
     """K5: one whole Lanczos iteration j = len(prev) in one launch.
 
@@ -937,6 +948,7 @@ def _lanczos_pipe(u, m, desc):
     return W, s, alphas, betas, beta0
 
 
+@spanned("nls.lanczos")
 def lanczos_planar(u, desc, m):
     """Fused-kernel Lanczos on a planar (P, ny, nx) float32 field, or for
     the 3D kinds on the merged (P, nz*ny, nx) view of an (nz, ny, nx) grid.
@@ -996,6 +1008,7 @@ def matfunc_apply_planar_multi(u, desc, specs, m):
     return combine(combine_coefficients(s, alphas, betas, beta0, specs, m), W)
 
 
+@spanned("nls.coefficients")
 def combine_coefficients(s, alphas, betas, beta0, specs, m):
     """The (len(specs), m, 2) float32 q of K3 combine for the Lanczos run
     (s, alphas, betas, beta0): q[spec, i] = (Re coef_i s_i, Im coef_i s_i)

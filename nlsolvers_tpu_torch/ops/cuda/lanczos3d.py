@@ -42,7 +42,8 @@ start norm is pass2's norm-only form, so it too is the same for a lane in a
 batch and alone. The pipelined 3D loop is lanczos2d._lanczos_pipe with
 pipe_3d. The final
 sum reuses lanczos2d's `combine` on the merged view, and the ghost copy
-after the step is ops/cuda/bc3d.py. A wrapper launches its
+after the step is ops/cuda/bc3d.py. Each wrapper runs inside the span
+`nls.launch.<wrapper>` beside its launch counter. A wrapper launches its
 kernel for a CUDA tensor under config.kernel_mode "auto" and raises if the
 kernel cannot run; it takes the plain version for a CPU tensor, or under
 "off". The kernels mask ragged edges, so the TPU's alignment gates (nx a
@@ -64,6 +65,7 @@ from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (KINDS_3D, MAX_M,
                                                     _stream, iter_step,
                                                     safe_inv)
 from nlsolvers_tpu_torch.ops.operators import block_coords, boundary_diagonal
+from nlsolvers_tpu_torch.utils.profiling import spanned
 
 __all__ = ["supported_desc", "lanczos_twopass",
            "pass1_3d", "pass1_3d_ref", "pass2", "pass2_ref", "pipe_3d",
@@ -315,6 +317,7 @@ def _mode_weights(desc, like, what):
     return mode, [None if w is None else w.data_ptr() for w in ws]
 
 
+@spanned("nls.launch.pass1_3d")
 def pass1_3d(scal, wj, prev, desc):
     """w = s_j A(W_j) - bs W_{j-1} and raw (j+1, 2) = <W_i, w>, i <= j, for
     the 3D operator of `desc` on the merged (P, R, nx) view.
@@ -417,6 +420,7 @@ def shard3d_scratch(nz, ny, nx, t, B, j):
     return B * _bricks(nz, ny, nx, t["nxt"], t["tyt"], t["pz"]) * 2 * (j + 1)
 
 
+@spanned("nls.launch.pass1_shard3d")
 def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
     """K9-K12 and K1' in modes shard3d, shard3d_aniso: pass1_3d on one
     shard's block of a sharded 3D grid, the merged (P, R, nx) view of a
@@ -485,6 +489,7 @@ def pass1_shard3d(scal, wj, prev, yh, zh, xh, d):
 pass1_shard3d.launches = 0
 
 
+@spanned("nls.launch.pass2")
 def pass2(q, w, W):
     """w' = w - sum_{i<=j} q_i W_i (complex q_i as (re, im) rows of the
     (j+1, 2) float32 q) and ||w'||^2 as a (1, 1) tensor; any planar
@@ -562,6 +567,7 @@ def _brick(P, mode, nw, vec, nz, ny, nx):
     return _brick_cache[key]
 
 
+@spanned("nls.launch.pipe_3d")
 def pipe_3d(scal, av, W, desc):
     """K8: one pipelined 3D Lanczos iteration j = len(W) - 1 on the merged
     (P, R, nx) view, pass2(j) fused with pass1(j+1).

@@ -36,6 +36,7 @@ from nlsolvers_tpu_torch.ops.boundaries import neumann_no_velocity_2d
 from nlsolvers_tpu_torch.ops.cuda import _build
 from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (MAX_M, _stencil_ref,
                                                     _stream, safe_inv)
+from nlsolvers_tpu_torch.utils.profiling import spanned
 
 __all__ = ["supported_resident", "scratch_shapes", "ss2_resident_step",
            "ss2_resident_step_ref", "THETA_MAX"]
@@ -211,6 +212,7 @@ def _scratch(scratch, m, ny, nx, device):
     return scratch["basis"], scratch["avs"], scratch["partial"]
 
 
+@spanned("nls.launch.ss2_resident_step")
 def ss2_resident_step(u, m_field, desc, dt, m, kind="cubic", sigma1=1.0,
                       sigma2=-0.1, kappa=1.0, apply_bc=True, scratch=None):
     """K13: one full SS2 step on a planar (2, ny, nx) float32 field u.

@@ -25,6 +25,7 @@ import torch
 from nlsolvers_tpu_torch import config
 from nlsolvers_tpu_torch.config import default_krylov_m, real_dtype_of
 from nlsolvers_tpu_torch.parallel import shards
+from nlsolvers_tpu_torch.utils.profiling import spanned
 
 __all__ = ["lanczos", "tridiag_eigh", "matfunc_apply", "matfunc_apply_multi",
            "expm_apply", "MATFUNCS"]
@@ -163,6 +164,7 @@ def _lanczos_cols(matvec, u, m, reorth=True, mesh=None):
     return vs, alphas, betas, beta0
 
 
+@spanned("nls.eigh")
 def tridiag_eigh(alpha, beta):
     """Eigendecomposition of the real symmetric tridiagonal T(alpha, beta).
 

@@ -32,6 +32,7 @@ from nlsolvers_tpu_torch.ops.cuda.lanczos2d import (MAX_M, combine,
 from nlsolvers_tpu_torch.ops.cuda.lanczos3d import pass1_shard3d, pass2
 from nlsolvers_tpu_torch.ops.operators import block_coords
 from nlsolvers_tpu_torch.parallel import shards
+from nlsolvers_tpu_torch.utils.profiling import spanned
 
 __all__ = ["SHARD_KINDS", "supported_shard", "lanczos_sharded",
            "matfunc_apply_sharded", "matfunc_apply_sharded_multi"]
@@ -330,6 +331,7 @@ def _lanczos_shard3d(u, desc, m):
     return _deferred_norm_cgs(u, m, chat, mesh, p1)
 
 
+@spanned("nls.lanczos")
 def lanczos_sharded(u, desc, m):
     """lanczos_planar for a shard descriptor: u and every column of W are
     sharded fields of planar ([B,] P, R, nx) blocks; the scalars are one set

@@ -13,20 +13,28 @@ torch.profiler and torch.cuda:
   file and retries.
 * `StepTimer` — per-step walltime accounting with device-synchronized laps
   (the same summary keys as JAX's).
-* `annotate(name)` — torch.profiler.record_function, so named regions show
-  up inside traces.
+* `annotate(name)` — torch.profiler.record_function while a torch.profiler
+  profile is active, so named regions show up inside its trace; one shared
+  no-op context otherwise (one flag read). `spanned(name)` puts every call
+  of a function inside `annotate(name)`. The program's own spans are named
+  `nls.<layer>` (PERF.md section 3 lists them and what reads each); they
+  are kept in memory by the profiler and written with its trace.
 * `sync(x)` — torch.cuda.synchronize on each card holding a tensor of x.
 """
 
 import contextlib
+import functools
 import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "StepTimer", "annotate", "sync"]
+__all__ = ["trace", "StepTimer", "annotate", "spanned", "sync"]
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _cuda_devices(x, out):
@@ -80,8 +88,27 @@ def trace(logdir, device="cuda"):
 
 
 def annotate(name):
-    """Named region visible in profiler traces."""
+    """Named region visible in profiler traces: record_function(name) while
+    a profiler is enabled, else the shared no-op context. The flag is
+    torch's own Python-side record of a running profile, so a span costs
+    one attribute read when nothing traces (record_function enters torch's
+    dispatcher even then)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
     return torch.profiler.record_function(name)
+
+
+def spanned(name):
+    """Decorator: each call of the function runs inside annotate(name).
+    Attributes set on the decorated name (a wrapper's `.launches` counter)
+    live on the returned function."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 class StepTimer:
