@@ -33,9 +33,9 @@ Phases, one line each (or a few):
                and 4096^2, beside torch.matmul's for K3.
   4. main      nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) through
                problems.run: 200 steps, exactly 1 K1 + 9 K2 + 1 K3 + 2
-               kick_bc launches per step (both half kicks, the closing one
-               with the ghost copy), finite snapshots, relative mass drift
-               < 1e-3.
+               kick_bc + 10 recur launches per step (both half kicks, the
+               closing one with the ghost copy), finite snapshots,
+               relative mass drift < 1e-3.
   5. paths     20 steps with the kernels vs the plain planar versions
                (rel-L2 <= 1e-5), and the plain planar path vs the complex
                ss2_step path (rel-L2 <= 2e-4, the gate of
@@ -75,13 +75,14 @@ Phases, one line each (or a few):
  12. main2d-aniso  nlse_problem("cubic", (1024, 1024), 10, 1e-4, m=10) with
                c(x) from default_rng(0) (benchmarks/perf_table.py's
                nlse2d_1024_ss2_aniso): 200 steps through problems.run,
-               exactly 1 K1' + 9 K2' + 1 K3 + 2 kick_bc launches per step
-               and no iso launch, finite snapshots, relative mass drift <
-               1e-3.
+               exactly 1 K1' + 9 K2' + 1 K3 + 2 kick_bc + 10 recur
+               launches per step and no iso launch, finite snapshots,
+               relative mass drift < 1e-3.
  13. sewi2d    the same problem with integrator="sewi", 100 steps through
                problems.run: the step-1 bootstrap launches exactly 1 K1' +
-               9 K2' + 1 K3 + 2 kick_bc and every later step 3 K1' + 27 K2'
-               + 3 K3 (its ghost copy is the plain one);
+               9 K2' + 1 K3 + 2 kick_bc + 10 recur and every later step
+               3 K1' + 27 K2' + 3 K3 + 30 recur (its ghost copy is the
+               plain one);
                finite snapshots; the mass drift is printed, not gated (sEWI
                does not conserve it exactly).
  14. paths2d-aniso  20 steps of SS2, sEWI, fused sEWI and Gautschi on c(x):
@@ -178,16 +179,16 @@ Phases, one line each (or a few):
                clean and aniso, at 128^3 and 37x50x61, j in {0, 4, 8}: the
                gates of phase 3; bc3d at P=1 exactly equal; K3 at k=2, P=1,
                1024^2.
- 29. main-rw   realwave_problem("sine_gordon", (1024, 1024), 10, 1e-4,
-               m=10, gautschi, float32) from benchmarks/perf_table.py's kink
-               (u0 = 4 atan(exp(x/1.5)), v0 = 0, m = 1): 200 steps through
-               problems.run, exactly 2 K1 + 18 K2 + 2 K3 launches per step
-               (K3 combining 2 matrix functions, then 1), no kick_bc and no
-               K13; 128^3 sine-Gordon and 128^3 Klein-Gordon with c = 1 +
-               0.4 U[0, 1) from default_rng(0), 100 steps each, exactly 18
-               pass1_3d + 20 pass2 + 2 K3 + 1 bc3d; 1024^2 c(x)
-               Klein-Gordon, 100 steps, 2 K1' + 18 K2' + 2 K3; finite
-               (u, v) snapshots. The relative drift of the energy (v^2/2 +
+ 29. main-rw   realwave_problem("sine_gordon", (1024, 1024), 10, 1e-4, m=10,
+               gautschi, float32) from benchmarks/perf_table.py's kink (u0 = 4
+               atan(exp(x/1.5)), v0 = 0, m = 1): 200 steps through
+               problems.run, exactly 2 K1 + 18 K2 + 2 K3 + 20 recur launches
+               per step (K3 combining 2 matrix functions, then 1), no kick_bc
+               and no K13; 128^3 sine-Gordon and 128^3 Klein-Gordon with c = 1
+               + 0.4 U[0, 1) from default_rng(0), 100 steps each, exactly 18
+               pass1_3d + 20 pass2 + 2 K3 + 1 bc3d; 1024^2 c(x) Klein-Gordon,
+               100 steps, 2 K1' + 18 K2' + 2 K3 + 20 recur; finite (u, v)
+               snapshots. The relative drift of the energy (v^2/2 +
                c |grad u|^2/2 + m V(u)) is printed, not gated.
  30. paths-rw  20 steps, each from the kernel path's state, against the
                same step under config.kernel_mode "off" (the generic
@@ -246,11 +247,11 @@ Each of phases 28-39 prints its seconds; from phase 3 on, a line
  35. datagen-engine  the datagen engine (pipeline/engine.py) at the
                production width, 256^2 B=8, with Datagen's samplers and
                fields (c layered, m piecewise): the NLSE engine (m=20,
-               complex64, planar) steps every lane in one batched step,
-               exactly 1 K1' + 19 K2' + 1 K3 + 2 kick_bc counted launches
+               complex64, planar) steps every lane in one batched step, exactly
+               1 K1' + 19 K2' + 1 K3 + 2 kick_bc + 20 recur counted launches
                per batched step whatever B (no iso launch, no bc3d); each
-               lane's 20 steps are bit-equal to nlse_problem with its m and
-               c run alone (each batched kernel gives its lanes the
+               lane's 20 steps are bit-equal to nlse_problem with its m and c
+               run alone (each batched kernel gives its lanes the
                unbatched launch's bits, and the batched eigh gives each
                matrix the single-matrix eigh's bits on this stack); the
                kernels are within 1e-5 of kernel_mode "off"; a lane
@@ -258,7 +259,8 @@ Each of phases 28-39 prints its seconds; from phase 3 on, a line
                two stay bit-equal to their runs alone. The
                real-wave engine (sine-Gordon Gautschi from Datagen's
                kink_field draws, 256^2, m=10, float32, B=8) is one batched
-               step too: exactly 2 K1' + 18 K2' + 2 K3 per batched step,
+               step too: exactly 2 K1' + 18 K2' + 2 K3 + 20 recur per
+               batched step,
                each lane's 20 steps bit-equal to realwave_problem run
                alone, each step from the engine's state within 1e-5 of the
                same step under kernel_mode "off", a NaN lane confined; and
@@ -271,10 +273,11 @@ Each of phases 28-39 prints its seconds; from phase 3 on, a line
                bad_at < S while the other stays finite and bit-equal to its
                run alone. The two-step NLSE integrators are one batched
                step too, 2D c(x) 256^2 m=20 and 3D c(x) 128^3
-               m=10, B=8: the bootstrap takes the SS2 step's 23 / 22
-               launches, every later step exactly 3 K1' + 57 K2' + 3 K3
-               (sEWI, Gautschi; fused sEWI 2 + 38 + 2) or 27 pass1_3d + 30
-               pass2 + 3 K3 + 1 bc3d (fused sEWI 18 + 20 + 2 + 1); each
+               m=10, B=8: the bootstrap takes the SS2 step's 43 / 22
+               launches, every later step exactly 3 K1' + 57 K2' + 3 K3 +
+               60 recur (sEWI, Gautschi; fused sEWI 2 + 38 + 2 + 40) or
+               27 pass1_3d + 30 pass2 + 3 K3 + 1 bc3d (fused sEWI 18 + 20
+               + 2 + 1); each
                lane's 20 steps bit-equal to nlse_problem alone, a NaN lane
                confined. Then the batched engines under the switches, each
                with its counts per batched step, lanes bit-equal to their
@@ -391,14 +394,35 @@ Each of phases 28-39 prints its seconds; from phase 3 on, a line
                matplotlib, study.run_study at 256^2 and 512^2 with the same
                gates and its artifacts listed; else "not run". Prints its
                elapsed time.
+ 42. recurrence  the 2D pipelined loop's scalar recurrence on the card
+               (lanczos2d._lanczos_rec: the recurrence kernel launched
+               inside each K1' / K2' call) against the eager loop
+               (_lanczos_eager, called directly) on the same seeded fields:
+               200^2 c(x) m=20 with B=1 and B=30 (a zero lane, a NaN lane),
+               256^2 iso m=10, P=1 with sign -1 (iso 256^2 m=10, c(x)
+               200^2 m=20): W, s, alphas, betas and beta0 bit-equal, each of
+               the 30 lanes bit-equal to the lane run alone; exactly 1 K1' /
+               K1 + m-1 K2' / K2 and m recurrence launches a device run, the
+               eager run the same kernels and none; _lanczos_pipe takes the
+               device recurrence on the card, the eager loop under
+               kernel_mode "off"; the recurrence kernel's device time a
+               run (profiler) beside the eager recurrence's, at 1024^2
+               iso m=10 one lane and 200^2 c(x) m=20 B=30. Prints its
+               elapsed time.
+Every phase that counts launches counts the recurrence kernel too
+(lanczos2d.recur_kernel.launches, key "recur"): m a 2D pipelined Lanczos
+run on the card, 0 for every other loop.
 Then the card's name and power limit, the kernels as one JSON line
-(twenty-five: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
-pass1_shard2d, pass1_shard3d, kick_bc, and the batched forms of K1', K2',
+(twenty-six: K1-K3, pass1_3d, pass2, bc3d, K1', K2', K13, K5, K8,
+pass1_shard2d, pass1_shard3d, kick_bc, recur_kernel, and the batched
+forms of K1', K2',
 K3, kick_bc, pass1_3d, pass2, bc3d, K5, K8, pass1_shard2d and
 pass1_shard3d; `ms` of K1, K2, K3, K1', K2', K5, K8, K13, kick_bc and the
 batched forms is the CUDA-graph reading,
 with the profiler's sum and the events beside it, and K3's library_ms
-torch.matmul's graph reading; bc3d's launches are the 3D sEWI run's; eight
+torch.matmul's graph reading; bc3d's launches are the 3D sEWI run's;
+recur_kernel's `ms` the profiler's sum, `plain_ms` the eager recurrence's
+device time, with the task30 cell's point beside them; nine
 carry the real-wave Gautschi step's launches per step, and pass1_3d,
 pass2, bc3d and K3 their P=1 parity; the batched forms the datagen
 engine's launches per batched step of 8 lanes (the 2D NLSE step's, for
@@ -716,8 +740,10 @@ def rate(torch, runs, chunk, order, n_prof, host_profile=False):
 # nt = 2000, 128 snapshots, batch 8, Krylov m = 20, c layered, m piecewise
 DG_N, DG_LX, DG_M, DG_DT = 256, 10.0, 20, 1.2 / 2000
 DG_RW_DT, DG_RW_M = 0.6 / 200, 10      # the real-wave sweep of datagen-main
-DG_PER_STEP = {"K1'": 1, "K2'": DG_M - 1, "K3": 1, "kick_bc": 2}
-DG_RW_PER_STEP = {"K1'": 2, "K2'": 2 * (DG_RW_M - 1), "K3": 2}
+DG_PER_STEP = {"K1'": 1, "K2'": DG_M - 1, "K3": 1, "kick_bc": 2,
+               "recur": DG_M}
+DG_RW_PER_STEP = {"K1'": 2, "K2'": 2 * (DG_RW_M - 1), "K3": 2,
+                  "recur": 2 * DG_RW_M}
 DG_B = 8                       # lanes of the datagen engine checks
 
 
@@ -1812,7 +1838,8 @@ def datagen_phases(torch, np, root, counters_all):
     for integ, k in (("sewi", 3), ("sewi_fused", 2), ("gautschi", 3)):
         for label, shp, args, mk, boot, want in (
                 (f"{integ} {DG_N}^2", shape, (packed, m_n, c_n), DG_M,
-                 DG_PER_STEP, {"K1'": k, "K2'": k * (DG_M - 1), "K3": k}),
+                 DG_PER_STEP, {"K1'": k, "K2'": k * (DG_M - 1), "K3": k,
+                               "recur": k * DG_M}),
                 (f"{integ} {DG3_N}^3", shape3, (p3, m3, c3), DG3_M,
                  DG3_PER_STEP, {"pass1_3d": k * (DG3_M - 1),
                                 "pass2": k * DG3_M, "K3": k, "bc3d": 1})):
@@ -2822,12 +2849,182 @@ ST_LX, ST_M, ST_SNAPS = 10.0, 10, 11
 ST_NX, ST_DT, ST_T = (256, 512, 1024), (1e-3, 5e-4), 0.05
 ST_OFF_NX = 512      # the widest where dt rho(A) at dt 5e-4 stays ~m/2
 ST_RW_NX, ST_RW_DT, ST_RW_T = (256, 1024), (1e-3,), 0.02
-ST_PER_STEP = {"ss2": {"K1'": 1, "K2'": ST_M - 1, "K3": 1, "kick_bc": 2},
-               "sewi": {"K1'": 3, "K2'": 3 * (ST_M - 1), "K3": 3},
-               "gautschi": {"K1": 2, "K2": 2 * (ST_M - 1), "K3": 2},
+ST_PER_STEP = {"ss2": {"K1'": 1, "K2'": ST_M - 1, "K3": 1, "kick_bc": 2,
+                       "recur": ST_M},
+               "sewi": {"K1'": 3, "K2'": 3 * (ST_M - 1), "K3": 3,
+                        "recur": 3 * ST_M},
+               "gautschi": {"K1": 2, "K2": 2 * (ST_M - 1), "K3": 2,
+                            "recur": 2 * ST_M},
                "sv": {}}
 ST_TRACE_NAMES = ("study-cell", "pass1_tile_kernel", "pipe_2d_kernel",
                   "combine_kernel", "kick_bc_kernel")
+
+
+# phase 42, the device recurrence: the 2D pipelined loop's scalar
+# recurrence as the recurrence kernel launched inside K1' / K2' (K1 / K2),
+# against the same loop's eager torch ops (lanczos2d._lanczos_eager, the
+# plain function called directly), at the datagen sweep's point (200^2 c(x)
+# m=20, one lane and a batch of 30), on 256^2 iso m=10 and on the real-wave
+# operator (P=1, sign -1)
+RC_N, RC_M, RC_B = 200, 20, 30
+RC_ISO_N, RC_ISO_M = 256, 10
+
+
+def bits_equal(torch, a, b):
+    """Same shape, dtype and bits (NaN where NaN, the other bits equal)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        torch.where(na, 0, a).view(torch.int32),
+        torch.where(nb, 0, b).view(torch.int32)))
+
+
+def runs_equal(torch, got, want, lane=None):
+    """Two Lanczos runs (W, s, alphas, betas, beta0) bit for bit, or the
+    `lane` of a batched `got` against the unbatched run `want`."""
+    pick = (lambda x: x) if lane is None else (lambda x: x[lane])
+    if [len(x) for x in got[:4]] != [len(x) for x in want[:4]]:
+        return False
+    pairs = [(pick(a), b) for g, w in zip(got[:4], want[:4])
+             for a, b in zip(g, w)] + [(pick(got[4]), want[4])]
+    return all(bits_equal(torch, a, b) for a, b in pairs)
+
+
+def recurrence_phase(torch, lz, operators, counters):
+    """Phase 42: the device recurrence (lanczos2d._lanczos_rec) against
+    the eager loop (lanczos2d._lanczos_eager) on the same seeded fields:
+    W, s, alphas, betas and beta0 bit-equal, on RC_N^2 c(x) m=RC_M one lane
+    and RC_B lanes (lane 1 zero: safe_inv's 0; lane 2 NaN), each lane of the
+    batch bit-equal to the lane run alone, RC_ISO_N^2 iso m=RC_ISO_M one
+    lane, and P=1 with sign -1 (iso and c(x)). Counters at 0 before each
+    run: the device run exactly 1 K1' / K1 + m-1 K2' / K2 and m recurrence
+    launches, the eager run the same kernels and no recurrence launch;
+    _lanczos_pipe takes the device recurrence on the card and the eager
+    loop under kernel_mode "off" (no recurrence launch)."""
+    from nlsolvers_tpu_torch import config
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    dx = 2.0 * LX / (RC_N - 1)
+
+    def aniso(B):
+        cs = [1.0 + 0.4 * torch.rand((RC_N, RC_N), generator=gen,
+                                     device=dev, dtype=torch.float64)
+              for _ in range(B)]
+        d = operators.batched_aniso_laplacian_2d(cs, dx, dx, device=dev)
+        one = dict(d, wx=d["wx"][0].contiguous(), wy=d["wy"][0].contiguous())
+        return d, one, [dict(d, wx=d["wx"][b].contiguous(),
+                             wy=d["wy"][b].contiguous()) for b in range(B)]
+
+    def counted(fn, *args):
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counters.items()
+                     if f.launches}
+
+    def compare(label, u, m, desc, k1, k2):
+        dev_run, n_dev = counted(lz._lanczos_rec, u, m, desc)
+        eager, n_eager = counted(lz._lanczos_eager, u, m, desc)
+        want = {k1: 1, k2: m - 1}
+        check(n_dev == dict(want, recur=m), f"recurrence {label}: "
+              f"launches {n_dev} != {dict(want, recur=m)}")
+        check(n_eager == want, f"recurrence {label}: eager launches "
+              f"{n_eager} != {want}")
+        same = runs_equal(torch, dev_run, eager)
+        print(f"recurrence {label}: device vs eager bit-equal {same}, "
+              f"launches {n_dev}")
+        check(same, f"recurrence {label}: the device recurrence differs "
+              f"from the eager loop")
+        return dev_run
+
+    d30, d1, lanes = aniso(RC_B)
+    u1 = torch.randn((2, RC_N, RC_N), generator=gen, device=dev)
+    compare(f"{RC_N}^2 c(x) m={RC_M} B=1", u1, RC_M, d1, "K1'", "K2'")
+    u30 = torch.randn((RC_B, 2, RC_N, RC_N), generator=gen, device=dev)
+    u30[1] = 0.0
+    u30[2] = float("nan")
+    run30 = compare(f"{RC_N}^2 c(x) m={RC_M} B={RC_B}", u30, RC_M, d30,
+                    "K1'", "K2'")
+    alone = [runs_equal(torch, run30, lz._lanczos_rec(
+        u30[b].contiguous(), RC_M, lanes[b]), lane=b) for b in range(RC_B)]
+    print(f"recurrence B={RC_B}: lanes bit-equal to the lane run alone "
+          f"{sum(alone)} of {RC_B}")
+    check(all(alone), f"recurrence: lanes "
+          f"{[b for b, ok in enumerate(alone) if not ok]} differ from their "
+          f"runs alone")
+    check(float(run30[1][0][1]) == 0 and float(run30[1][1][1]) == 0,
+          "recurrence: the zero lane's s_0, s_1 are not 0")
+    dxi = 2.0 * LX / (RC_ISO_N - 1)
+    iso = operators.laplacian_2d((RC_ISO_N, RC_ISO_N), dxi, dxi,
+                                 device=dev).kernel_desc
+    ui = torch.randn((2, RC_ISO_N, RC_ISO_N), generator=gen, device=dev)
+    compare(f"{RC_ISO_N}^2 iso m={RC_ISO_M} B=1", ui, RC_ISO_M, iso, "K1",
+            "K2")
+    ur = torch.randn((1, RC_ISO_N, RC_ISO_N), generator=gen, device=dev)
+    compare(f"{RC_ISO_N}^2 iso P=1 sign -1 m={RC_ISO_M}", ur, RC_ISO_M,
+            dict(iso, sign=-1.0), "K1", "K2")
+    ua = torch.randn((1, RC_N, RC_N), generator=gen, device=dev)
+    compare(f"{RC_N}^2 c(x) P=1 sign -1 m={RC_M}", ua, RC_M,
+            dict(d1, sign=-1.0), "K1'", "K2'")
+    _, n_pipe = counted(lz._lanczos_pipe, u1, RC_M, d1)
+    config.kernel_mode = "off"
+    try:
+        _, n_off = counted(lz._lanczos_pipe, u1, RC_M, d1)
+    finally:
+        config.kernel_mode = "auto"
+    print(f"recurrence: _lanczos_pipe launches {n_pipe} (kernels), {n_off} "
+          f"(kernel_mode off)")
+    check(n_pipe.get("recur") == RC_M and n_off == {},
+          f"recurrence: _lanczos_pipe launches {n_pipe}, off {n_off}")
+
+    def recur_ms(label, u, m, desc, reps=10):
+        """(recurrence kernel, eager recurrence) device ms a run: the
+        recur_kernel rows of reps profiled _lanczos_rec runs, and the eager
+        runs' device time less the device runs' other kernels (the same
+        K1 / K2 and reductions)."""
+        def dev_ms(fn, key=""):
+            rows = profiled(torch, lambda: [fn(u, m, desc)
+                                            for _ in range(reps)])
+            if rows is None:
+                return None
+            return sum(dev_us(e) for e in rows if key in e.key) / 1e3 / reps
+        k = dev_ms(lz._lanczos_rec, "recur_kernel")
+        rec_all, eager = dev_ms(lz._lanczos_rec), dev_ms(lz._lanczos_eager)
+        if None in (k, rec_all, eager):
+            print(f"recurrence {label}: device time not measured (no trace)")
+            return None, None
+        print(f"recurrence {label}: recur_kernel {k:.4f} ms a run ({m} "
+              f"launches, {k / m * 1e3:.2f} us each); the eager recurrence "
+              f"{eager - (rec_all - k):.4f} ms of device time a run")
+        return k, eager - (rec_all - k)
+
+    dxn = 2.0 * LX / (N - 1)
+    main_desc = operators.laplacian_2d((N, N), dxn, dxn,
+                                       device=dev).kernel_desc
+    un = torch.randn((2, N, N), generator=gen, device=dev)
+    times = {"main": recur_ms(f"{N}^2 iso m={KRYLOV_M} B=1", un, KRYLOV_M,
+                              main_desc),
+             "task30": recur_ms(f"{RC_N}^2 c(x) m={RC_M} B={RC_B}", u30,
+                                RC_M, d30)}
+    print(f"recurrence: {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def recur_bytes(B, m):
+    """Least device traffic of a run's m recurrence launches on B lanes:
+    each reads its launch's reduced sums and writes beta and s and, but for
+    the last, alpha, the next K2's scal and the gram it keeps (float32)."""
+    n = 0
+    for j in range(-1, m - 1):
+        last = j == m - 2
+        nout = 3 if j < 0 else 1 + 2 * (j + 1) + (0 if last else 2 * (j + 2))
+        n += nout + 2 + (0 if last else 1 + 2 * (j + 3) + 2 * (j + 1))
+    return 4 * B * n
 
 
 def study_steps(T, dt):
@@ -3446,7 +3643,8 @@ def main():
     snaps, freq = 5, 50
     steps = (snaps - 1) * freq
     counters2 = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d, "K3": lz.combine,
-                 "kick_bc": kb.phase_kick_bc_planar}
+                 "kick_bc": kb.phase_kick_bc_planar,
+                 "recur": lz.recur_kernel}
     for f in counters2.values():
         f.launches = 0
     t0 = time.perf_counter()
@@ -3455,7 +3653,7 @@ def main():
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters2.items()}
     want = {"K1": steps, "K2": (KRYLOV_M - 1) * steps, "K3": steps,
-            "kick_bc": 2 * steps}
+            "kick_bc": 2 * steps, "recur": KRYLOV_M * steps}
     print(f"main: {steps} steps of cubic SS2 at {N}^2 m={KRYLOV_M} in "
           f"{wall:.3f} s; launches {launches}")
     check(launches == want, f"launches {launches} != {want}")
@@ -3869,7 +4067,8 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 12 main2d-aniso")
     counters2a = {"K1": lz.pass1_iso2d, "K2": lz.pipe_iso2d,
                   "K1'": lz.pass1_aniso2d, "K2'": lz.pipe_aniso2d,
-                  "K3": lz.combine, "kick_bc": kb.phase_kick_bc_planar}
+                  "K3": lz.combine, "kick_bc": kb.phase_kick_bc_planar,
+                  "recur": lz.recur_kernel}
 
     def counted(fn):
         for f in counters2a.values():
@@ -3897,7 +4096,7 @@ def main():
     traj, wall, launches_a = counted(
         lambda: problems.run(prob_a, state_a, snaps, freq))
     want = {"K1": 0, "K2": 0, "K1'": steps, "K2'": (KRYLOV_M - 1) * steps,
-            "K3": steps, "kick_bc": 2 * steps}
+            "K3": steps, "kick_bc": 2 * steps, "recur": KRYLOV_M * steps}
     print(f"main2d-aniso: {steps} steps of cubic SS2 with c(x) at {N}^2 "
           f"m={KRYLOV_M} in {wall:.3f} s; launches {launches_a}")
     check(launches_a == want, f"main2d-aniso: launches {launches_a} != "
@@ -3917,7 +4116,7 @@ def main():
     prob_s, state_s = problem2d("sewi")
     _, _, boot = counted(lambda: prob_s.step(state_s, 1))
     want_boot = {"K1": 0, "K2": 0, "K1'": 1, "K2'": KRYLOV_M - 1, "K3": 1,
-                 "kick_bc": 2}
+                 "kick_bc": 2, "recur": KRYLOV_M}
     check(boot == want_boot, f"sewi2d: bootstrap launches {boot} != "
           f"{want_boot}")
     snaps_s, freq_s = 5, 25
@@ -3925,7 +4124,7 @@ def main():
     traj, wall, got = counted(
         lambda: problems.run(prob_s, state_s, snaps_s, freq_s))
     per_step = {"K1": 0, "K2": 0, "K1'": 3, "K2'": 3 * (KRYLOV_M - 1),
-                "K3": 3, "kick_bc": 0}
+                "K3": 3, "kick_bc": 0, "recur": 3 * KRYLOV_M}
     want = {k: boot[k] + (steps_s - 1) * v for k, v in per_step.items()}
     print(f"sewi2d: {steps_s} steps of cubic sEWI with c(x) at {N}^2 "
           f"m={KRYLOV_M} in {wall:.3f} s; launches {got} (bootstrap "
@@ -4337,7 +4536,8 @@ def main():
                     "K13": rs.ss2_resident_step, "pass1_3d": l3.pass1_3d,
                     "pass2": l3.pass2, "K8": l3.pipe_3d,
                     "bc3d": b3.neumann_bc_planar_3d,
-                    "kick_bc": kb.phase_kick_bc_planar}
+                    "kick_bc": kb.phase_kick_bc_planar,
+                    "recur": lz.recur_kernel}
 
     def main_optin(label, prob, s0, snaps_, freq_, per_step,
                    sync_free=False):
@@ -5076,8 +5276,10 @@ def main():
             lz.combine_coefficients = orig
         return ks
 
-    per_rw2 = {"K1": 2, "K2": 2 * (KRYLOV_M - 1), "K3": 2}
-    per_rw2a = {"K1'": 2, "K2'": 2 * (KRYLOV_M - 1), "K3": 2}
+    per_rw2 = {"K1": 2, "K2": 2 * (KRYLOV_M - 1), "K3": 2,
+               "recur": 2 * KRYLOV_M}
+    per_rw2a = {"K1'": 2, "K2'": 2 * (KRYLOV_M - 1), "K3": 2,
+                "recur": 2 * KRYLOV_M}
     per_rw3 = {"pass1_3d": 2 * (KRYLOV_M - 1), "pass2": 2 * KRYLOV_M,
                "K3": 2, "bc3d": 1}
     p_sg, s_sg = realwave("sine_gordon", (N, N))
@@ -5286,6 +5488,10 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] phase 41 study")
     study_phase(torch, np, root, counters_sh, rates2a[cx2])
 
+    # ---------------------------------------------------------- 42. recurrence
+    print(f"[{time.perf_counter() - t_start:.1f} s] phase 42 recurrence")
+    rc_times = recurrence_phase(torch, lz, operators, counters_all)
+
     def entry(kname, source, replaces, launches_, n_steps, err, t, nbytes,
               lib, nops=0, graph=None):
         """One kernel of the JSON line: `launches` over the n_steps of its
@@ -5350,6 +5556,21 @@ def main():
               steps, errs["kick_bc"], t_kb[f"{N}^2"], bytes_kb[f"{N}^2"],
               None, graph=g_kb[f"{N}^2"]),
     ]
+    # the recurrence kernel: per step of the main path (one Lanczos run of
+    # KRYLOV_M columns), bit-equal to the eager recurrence (max_abs_err 0,
+    # phase 42), plain_ms the eager recurrence's device time; beside it the
+    # same at the task30 cell's point (RC_N^2 c(x), m = RC_M, B = RC_B)
+    (k_main, eager_main), (k_30, eager_30) = rc_times["main"], \
+        rc_times["task30"]
+    e = entry("recur_kernel", SOURCE, f"{PALLAS}:1058 (jnp ops between the "
+              f"kernels)", launches["recur"], steps, 0.0,
+              (k_main, None, eager_main), recur_bytes(1, KRYLOV_M), None)
+    e.update(task30_ms=k_30, task30_plain_ms=eager_30,
+             task30_bound_ms=bound_ms(recur_bytes(RC_B, RC_M)),
+             task30_launches=RC_M,
+             datagen_launches_per_batched_step=dg_per_step["nlse 2D"][
+                 "recur"])
+    kernels.append(e)
     # the real-wave Gautschi step's launches per step (main-rw) and the P=1
     # sign -1 parity (parity-rw) beside each kernel of its path
     rw = {"pass1_iso2d": (launches_rw, "K1", steps_rw),
@@ -5359,7 +5580,8 @@ def main():
           "pass2": (launches_rw3, "pass2", steps_rw3),
           "bc3d": (launches_rw3, "bc3d", steps_rw3),
           "pass1_aniso2d": (launches_rwa, "K1'", steps_rwa),
-          "pipe_aniso2d": (launches_rwa, "K2'", steps_rwa)}
+          "pipe_aniso2d": (launches_rwa, "K2'", steps_rwa),
+          "recur_kernel": (launches_rw, "recur", steps_rw)}
     p1 = {"pass1_3d": errs["pass1_3d P=1"], "pass2": errs["pass2 P=1"],
           "bc3d": 0.0, "combine": errs["K3 P=1"]}
     # the batched forms of the datagen steps: launches per batched step of

@@ -21,6 +21,13 @@
 //        shard policies OP_SHARD_ISO / OP_SHARD_ANISO of the same kernel
 //        (halos from the neighbour shards, read by the edge threads only;
 //        the diagonal from global coordinates; lz_stencil.cuh)
+// and, with no Pallas counterpart (the JAX package runs it as jnp ops
+// between the kernels):
+//   recur_kernel                        <- lanczos2d.py _lanczos_pipe's
+//        scalar recurrence: launched by K1 / K1' (with the norm) and K2 /
+//        K2' after their reduction when given a run's recurrence state, it
+//        turns the reduced sums into beta, s, alpha and the next K2's
+//        coefficients on the device (one block and one thread a lane)
 //
 // Fields are planar float32 (P, ny, nx); the block shape, the dot and the
 // reduction are in lz_common.cuh, the operators in lz_stencil.cuh. The
@@ -75,7 +82,12 @@
 // * The iso diagonal is computed from the row/column index, so it costs no
 //   traffic.
 // * Scalars (s_j, bs, c_i, q) are read from a device buffer, so no host sync
-//   is needed between the scalar recurrence and the kernels.
+//   is needed between the scalar recurrence and the kernels. In the 2D
+//   pipelined loop the recurrence itself runs on the device too: one
+//   recur_kernel launch inside each K1 / K2 call, in place of ~22 eager
+//   torch ops an iteration. It rounds every scalar as those ops do
+//   (__fmul_rn and the like, which nvcc never contracts into an FMA), so a
+//   run keeps the eager loop's bits.
 // * Cross-block reductions are two-stage and deterministic, with no
 //   atomics (reduce_partials, reduce_partials_om, lz_common.cuh).
 // * K1 / K1' also sum ||W_j||^2 from the rows they read (the Lanczos run's
@@ -395,6 +407,86 @@ __global__ void __launch_bounds__(CB) combine_kernel(
   }
 }
 
+// ---------------------------------------------------------------- recurrence
+// The state of one pipelined run of m columns (lanczos2d.py _lanczos_rec),
+// float32: first every lane's RECUR_LANE(m) scalars, lane-major,
+//   beta0, ||W_0||^2, s_0..s_{m-1}, alpha_0..alpha_{m-1},
+//   beta_0..beta_{m-1}, the last K2's gram (m, 2),
+// then for each K2 iteration J = 0..m-2 its scal, (B, J + 2, 2) lane-major
+// [(s_J, 0), c_0..c_J], at B (RECUR_LANE(m) + J (J + 3)): the block that
+// K2 reads as it is.
+__host__ __device__ constexpr int recur_lane(int m) { return 5 * m + 2; }
+__host__ __device__ constexpr size_t recur_scal_at(int B, int m, int j) {
+  return (size_t)B * (recur_lane(m) + j * (j + 3));
+}
+
+__device__ __forceinline__ float recur_inv(float nrm) {
+  return nrm > 0.0f ? __fdiv_rn(1.0f, nrm) : 0.0f;  // safe_inv
+}
+
+// Lane blockIdx.x after K1 (j = -1: red holds raw_0 (re, im) and ||W_0||^2)
+// or after K2 iteration j (red: nsq, gram (j+1, 2), d (j+2, 2); nout
+// floats a lane). Writes beta and s of the column just built and, unless
+// it was the last (j = m - 2), alpha_J and K2 J's scal for J = j + 1:
+//   raw_i = s_J d_i - bs g_i, bs = beta_{J-1} s_{J-1}, g_i the gram of
+//   K2 J-2 (i <= J-2), (beta_{J-2}^2 or ||W_0||^2, 0) (i = J-1), the conj
+//   of the gram's last entry of K2 J-1 (i = J); raw_0 = s_0 d_0 at J = 0;
+//   alpha_J = s_J^2 raw_J (re), c_i = s_i (s_i raw_i) + (i == J-1) bs,
+// each scalar rounded as _lanczos_pipe's eager ops round it.
+__global__ void __launch_bounds__(1) recur_kernel(
+    const float* __restrict__ red, int nout, int j, int m,
+    float* __restrict__ rec) {
+  const unsigned b = blockIdx.x, B = gridDim.x;
+  const int K = recur_lane(m);
+  float* st = rec + (size_t)b * K;
+  float* s = st + 2;
+  float* al = s + m;
+  float* be = al + m;
+  float* gp = be + m;
+  const float* r = red + (size_t)b * nout;
+  const float* d = r;
+  int J = 0;
+  if (j < 0) {
+    st[1] = r[2];
+    st[0] = __fsqrt_rn(r[2]);
+    s[0] = recur_inv(st[0]);
+  } else {
+    be[j] = __fsqrt_rn(r[0]);
+    s[j + 1] = recur_inv(be[j]);
+    if (j == m - 2) return;
+    J = j + 1;
+    d = r + 1 + 2 * J;
+  }
+  const float* g = r + 1;               // K2 J-1's gram (J, 2)
+  float* sc = rec + recur_scal_at(B, m, J) + (size_t)b * 2 * (J + 2);
+  const float sj = s[J];
+  float bs = 0.0f, nb2 = 0.0f;
+  if (J > 0) {
+    bs = __fmul_rn(be[J - 1], s[J - 1]);
+    nb2 = J >= 2 ? __fmul_rn(be[J - 2], be[J - 2]) : st[1];
+  }
+  sc[0] = sj;
+  sc[1] = 0.0f;
+  for (int i = 0; i <= J; ++i) {
+    float re = __fmul_rn(sj, d[2 * i]), im = __fmul_rn(sj, d[2 * i + 1]);
+    if (J > 0) {
+      const float gr = i < J - 1 ? gp[2 * i] : i == J - 1 ? nb2 : g[2 * i - 2];
+      const float gi = i < J - 1 ? gp[2 * i + 1]
+                       : i == J - 1 ? 0.0f : -g[2 * i - 1];
+      re = __fsub_rn(re, __fmul_rn(bs, gr));
+      im = __fsub_rn(im, __fmul_rn(bs, gi));
+    }
+    const float si = s[i];
+    const float pr = __fmul_rn(si, re), pi = __fmul_rn(si, im);
+    if (i == J) al[J] = pr;
+    float cr = __fmul_rn(si, pr);
+    if (i == J - 1) cr = __fadd_rn(cr, bs);
+    sc[2 + 2 * i] = cr;
+    sc[3 + 2 * i] = __fmul_rn(si, pi);
+  }
+  for (int i = 0; i < 2 * J; ++i) gp[i] = g[i];
+}
+
 // ---------------------------------------------------------------- K5 iter
 // One whole iteration j in one cooperative launch: phase 0 (wpass), a grid
 // sync, every block sums the raw dots (reduce_all) and forms q_i = s_i^2
@@ -588,6 +680,15 @@ void launch_pass1(int B, const float* scal, const float* wj, Cols prev,
         scal, wj, prev, wjm1, j, op, sh, w, partial, ny, nx, ss);
 }
 
+// The run's recurrence after a K1 (j = -1) or K2 iteration j whose B
+// lanes reduced nout sums each into red; no launch without a state.
+int launch_recur(int B, const float* red, int nout, int j, int m, float* rec,
+                 cudaStream_t st) {
+  if (rec == nullptr) return 0;
+  recur_kernel<<<B, 1, 0, st>>>(red, nout, j, m, rec);
+  return (int)cudaGetLastError();
+}
+
 // K1 / K1' on the walker over B lanes, then the reduction of its
 // output-major partials, lane by lane.
 template <int P, int MAXW, int OPK, int VEC>
@@ -607,14 +708,17 @@ int launch_pass1_tile(int B, const float* scal, const float* wj, Cols prev,
 
 // K1 (OPK_ISO2D) / K1' (OPK_ANISO2D) on B lanes. The 16-byte instantiation
 // takes rows of nx % 4 == 0 columns and 16-byte aligned fields and weights
-// (then every lane's are); any other call takes the scalar one.
+// (then every lane's are); any other call takes the scalar one. With a
+// recurrence state rec of an m-column run (j = 0 only), then the
+// recurrence's first launch.
 template <int OPK>
 int pass1_tile(int B, int P, const float* scal, const float* wj,
                const float* const* prev, int j, const Op2d& op, float* w,
                float* partial, float* raw, int ny, int nx, float ss,
-               cudaStream_t st) {
+               float* rec, int m, cudaStream_t st) {
   if (B < 1 || B > 65535 || (P != 1 && P != 2) || j < 0 || j + 1 > MAXCOLS
-      || ny < 3 || nx < 3)
+      || ny < 3 || nx < 3
+      || (rec != nullptr && (j != 0 || m < 2 || m > MAXCOLS)))
     return (int)cudaErrorInvalidValue;
   const Cols c = make_cols(prev, j, (size_t)P * ny * nx);
   const OpArgs a = {op, 1, ny, nx, ss};
@@ -628,9 +732,10 @@ int pass1_tile(int B, int P, const float* scal, const float* wj,
                                 B, scal, wj, c, j, a, w, partial, raw, st))
 #define LZ_B(PP) (b == 4 ? LZ_T(PP, 4) : b == 8 ? LZ_T(PP, 8)                \
                   : b == 16 ? LZ_T(PP, 16) : LZ_T(PP, 32))
-  return P == 1 ? LZ_B(1) : LZ_B(2);
+  const int err = P == 1 ? LZ_B(1) : LZ_B(2);
 #undef LZ_B
 #undef LZ_T
+  return err != 0 ? err : launch_recur(B, raw, 2 * j + 3, -1, m, rec, st);
 }
 
 // K2 / K2' over B lanes, each lane's tiles as one unbatched launch's.
@@ -701,13 +806,17 @@ int pass1_2d(int B, int P, const float* scal, const float* wj,
 // K2 / K2' with the operator OP on B lanes, then the reduction of its
 // partial sums. The 16-byte instantiation takes rows of nx % 4 == 0
 // columns and 16-byte aligned fields; any other call takes the scalar one.
+// With a recurrence state rec of an m-column run (its iteration nw - 1,
+// the last one exactly when nw = m - 1), then the recurrence's launch.
 template <int OP>
 int pipe_2d(int B, int P, int last, const float* scal, const float* av,
             const float* const* W, int nw, const Op2d& op, float* wn,
             float* avn, float* partial, float* red, int ny, int nx, float ss,
-            cudaStream_t st) {
+            float* rec, int m, cudaStream_t st) {
   if (B < 1 || B > 65535 || (P != 1 && P != 2) || nw < 1
-      || nw + 1 > MAXCOLS || ny < 3 || nx < 3)
+      || nw + 1 > MAXCOLS || ny < 3 || nx < 3
+      || (rec != nullptr
+          && (m > MAXCOLS || nw > m - 1 || (last != 0) != (nw == m - 1))))
     return (int)cudaErrorInvalidValue;
   const Cols c = make_cols(W, nw, (size_t)P * ny * nx);
   const int b = bucket(nw);
@@ -719,12 +828,13 @@ int pipe_2d(int B, int P, int last, const float* scal, const float* av,
 #define LZ_PI(PP, BB) pipe_vec<PP, BB, OP>(B, l, vec, scal, av, c, nw, op,  \
                                            wn, avn, partial, red, ny, nx,   \
                                            ss, st)
-  if (P == 1)
-    return b == 4 ? LZ_PI(1, 4) : b == 8 ? LZ_PI(1, 8)
-           : b == 16 ? LZ_PI(1, 16) : LZ_PI(1, 32);
-  return b == 4 ? LZ_PI(2, 4) : b == 8 ? LZ_PI(2, 8)
-         : b == 16 ? LZ_PI(2, 16) : LZ_PI(2, 32);
+  const int err = P == 1 ? (b == 4 ? LZ_PI(1, 4) : b == 8 ? LZ_PI(1, 8)
+                            : b == 16 ? LZ_PI(1, 16) : LZ_PI(1, 32))
+                         : (b == 4 ? LZ_PI(2, 4) : b == 8 ? LZ_PI(2, 8)
+                            : b == 16 ? LZ_PI(2, 16) : LZ_PI(2, 32));
 #undef LZ_PI
+  const int nout = 1 + 2 * nw + (l ? 0 : 2 * (nw + 1));
+  return err != 0 ? err : launch_recur(B, red, nout, nw - 1, m, rec, st);
 }
 
 template <int P, int VEC>
@@ -754,6 +864,13 @@ int lz_pass1_blocks() { return pipe_max_blocks(); }
 int lz_pipe_blocks() { return pipe_max_blocks(); }
 
 int lz_max_cols() { return MAXCOLS; }
+
+// Floats of one lane's scalars in the recurrence state of an m-column run,
+// and the offset of K2 iteration j's scal in the state of B lanes.
+int lz_recur_lane(int m) { return recur_lane(m); }
+int lz_recur_scal_at(int B, int m, int j) {
+  return (int)recur_scal_at(B, m, j);
+}
 const char* lz_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
@@ -763,14 +880,16 @@ int lz_max_specs() { return KMAX; }
 // lane-major; prev: host array of j device pointers W_0..W_{j-1} (lane 0's
 // rows); scal: (B, 2) [s_j, bs] per lane. partial: scratch of
 // lz_pass1_blocks * B (2j + 3) floats. raw: (B, 2j + 3) output, per lane
-// raw_i (re, im), i <= j, then ||W_j||^2.
+// raw_i (re, im), i <= j, then ||W_j||^2. rec: null, or at j = 0 the
+// recurrence state of an m-column run (recur_kernel), which the call
+// starts.
 int lz_pass1_iso2d(int B, int P, const float* scal, const float* wj,
                    const float* const* prev, int j, float* w, float* partial,
                    float* raw, int ny, int nx, float ss, int clean,
-                   cudaStream_t st) {
+                   float* rec, int m, cudaStream_t st) {
   return pass1_tile<OPK_ISO2D>(B, P, scal, wj, prev, j,
                                Op2d{nullptr, nullptr, clean}, w, partial, raw,
-                               ny, nx, ss, st);
+                               ny, nx, ss, rec, m, st);
 }
 
 // K1'. As K1, with the zero-padded face weights wx, wy: (B, ny, nx), each
@@ -778,10 +897,11 @@ int lz_pass1_iso2d(int B, int P, const float* scal, const float* wj,
 int lz_pass1_aniso2d(int B, int P, const float* scal, const float* wj,
                      const float* const* prev, int j, const float* wx,
                      const float* wy, float* w, float* partial, float* raw,
-                     int ny, int nx, float ss, cudaStream_t st) {
+                     int ny, int nx, float ss, float* rec, int m,
+                     cudaStream_t st) {
   if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
   return pass1_tile<OPK_ANISO2D>(B, P, scal, wj, prev, j, Op2d{wx, wy, 0}, w,
-                                 partial, raw, ny, nx, ss, st);
+                                 partial, raw, ny, nx, ss, rec, m, st);
 }
 
 // K1' in modes shard2d (aniso = 0: the Laplacian, clean selects the
@@ -816,14 +936,16 @@ int lz_pass1_shard2d(int B, int P, int aniso, int clean, const float* scal,
 // lane-major; W: host array of nw = j+1 device pointers W_0..W_j (lane 0's).
 // scal: (B, nw+1, 2) device buffer [(s_j, 0), c_0..c_j] per lane. partial:
 // scratch of lz_pipe_blocks * B nout floats; red: (B, nout) outputs, nout =
-// 1 + 2nw (+ 2(nw+1) unless last).
+// 1 + 2nw (+ 2(nw+1) unless last). rec: null, or the recurrence state of an
+// m-column run whose iteration nw - 1 this is (last exactly when nw =
+// m - 1), which the call carries on.
 int lz_pipe_iso2d(int B, int P, int last, const float* scal, const float* av,
                   const float* const* W, int nw, float* wn, float* avn,
                   float* partial, float* red, int ny, int nx, float ss,
-                  int clean, cudaStream_t st) {
+                  int clean, float* rec, int m, cudaStream_t st) {
   return pipe_2d<OP_ISO>(B, P, last, scal, av, W, nw,
                          Op2d{nullptr, nullptr, clean}, wn, avn, partial, red,
-                         ny, nx, ss, st);
+                         ny, nx, ss, rec, m, st);
 }
 
 // K2'. As K2, with the zero-padded face weights wx, wy: (B, ny, nx), each
@@ -832,10 +954,10 @@ int lz_pipe_aniso2d(int B, int P, int last, const float* scal,
                     const float* av, const float* const* W, int nw,
                     const float* wx, const float* wy, float* wn, float* avn,
                     float* partial, float* red, int ny, int nx, float ss,
-                    cudaStream_t st) {
+                    float* rec, int m, cudaStream_t st) {
   if (wx == nullptr || wy == nullptr) return (int)cudaErrorInvalidValue;
   return pipe_2d<OP_ANISO>(B, P, last, scal, av, W, nw, Op2d{wx, wy, 0}, wn,
-                           avn, partial, red, ny, nx, ss, st);
+                           avn, partial, red, ny, nx, ss, rec, m, st);
 }
 
 // Rows of the partial-sum scratch of one K5 launch: lz_iter needs

@@ -24,6 +24,11 @@ its plain PyTorch version beside it and a launch counter on its wrapper:
   pass1_shard2d / pass1_shard2d_ref   replaces _pass1_call (modes shard2d,
                                       shard2d_aniso): pass1 on one shard's
                                       block of a sharded 2D grid
+  recur_kernel  / recur_ref           the 2D pipelined loop's scalar
+                                      recurrence (jnp ops in the JAX
+                                      package), launched inside the K1 /
+                                      K2 calls of a run; counter
+                                      recur_kernel.launches
 
 The iso and aniso wrappers launch one pass1 and one pipe kernel with the
 operator as a template policy; each wrapper counts its own launches and
@@ -45,7 +50,8 @@ cooperative grid stays one lane's, and each block walks its segments in
 every lane between the same grid syncs (csrc/lanczos2d.cu). The plain
 versions take the same leading axis, vectorised over it. `lanczos_planar`
 runs a batch through the loop it picks for one lane, with the scalar
-recurrence on (B, ...) tensors and one batched eigh
+recurrence on every lane at once ((B, ...) tensors in the eager loop, a
+block a lane in the recurrence kernel) and one batched eigh
 (ops/krylov.tridiag_eigh).
 
 A wrapper launches its kernel for a CUDA tensor under config.kernel_mode
@@ -53,17 +59,23 @@ A wrapper launches its kernel for a CUDA tensor under config.kernel_mode
 CPU tensor, or under "off". What bounds the kernels, and what their design
 does about it, is in the header of csrc/lanczos2d.cu.
 
-The scalar recurrence between the kernels (_lanczos_pipe) runs as 0-d/1-d
-torch ops on the device, with no .item(); the one host sync left in a
-matrix function is torch.linalg.eigh's (PERF.md). `lanczos_planar` picks
-the loop: the pipe (2D; 3D with config.pipeline_3d), the two-pass loop (3D)
-or, with config.fused_iter, the two-pass loop with one K5 per iteration.
+The scalar recurrence between the kernels of the pipelined loop
+(_lanczos_pipe) runs on the device with no .item(). Where the 2D kernels
+run it is the recurrence kernel, which the K1 / K1' and K2 / K2' calls of
+a run launch after their reduction (_lanczos_rec: one state tensor a run,
+no torch op an iteration); elsewhere (the plain versions, the 3D loop of
+config.pipeline_3d) it is the eager torch ops of _lanczos_eager, which the
+kernel repeats bit for bit. The one host sync left in a matrix function is
+torch.linalg.eigh's (PERF.md). `lanczos_planar` picks the loop: the pipe
+(2D; 3D with config.pipeline_3d), the two-pass loop (3D) or, with
+config.fused_iter, the two-pass loop with one K5 per iteration.
 The sharded loop that drives pass1_shard2d is parallel/lanczos.py; the
 wrapper itself takes one shard's local tensors.
 """
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -81,7 +93,7 @@ __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
            "pass1_aniso2d_ref", "pipe_iso2d", "pipe_iso2d_ref",
            "pipe_aniso2d", "pipe_aniso2d_ref", "combine", "combine_ref",
            "iter_step", "iter_ref", "iter_plan", "iter_form",
-           "pass1_shard2d", "pass1_shard2d_ref",
+           "pass1_shard2d", "pass1_shard2d_ref", "recur_ref",
            "MAX_M", "MAX_SPECS", "KINDS_3D",
            "FUSED_ITER_BYTES"]
 
@@ -89,6 +101,11 @@ __all__ = ["matvec_descriptor", "supported_desc", "lanczos_planar",
 # take: csrc/lanczos2d.cu's MAXCOLS and KMAX, checked when it is loaded.
 MAX_M = 32
 MAX_SPECS = 4
+
+# The recurrence kernel (csrc/lanczos2d.cu recur_kernel), which no wrapper
+# of its own launches: its `.launches` counter, as each wrapper's, m a
+# pipelined 2D run on the card (1 in its K1 call, 1 in each K2 call).
+recur_kernel = types.SimpleNamespace(launches=0)
 
 # Largest field (P * rows * nx float32 bytes) that config.fused_iter takes
 # through K5, the JAX package's rule (lanczos2d.py:1387-1390): the w
@@ -166,18 +183,20 @@ def _lib():
             ("lz_pipe_blocks", []),
             ("lz_max_cols", []),
             ("lz_max_specs", []),
+            ("lz_recur_lane", [i32]),
+            ("lz_recur_scal_at", [i32, i32, i32]),
             ("lz_pass1_iso2d",
              [i32, i32, vp, vp, pp, i32, vp, vp, vp, i32, i32, f32, i32,
-              vp]),
+              vp, i32, vp]),
             ("lz_pass1_aniso2d",
              [i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, i32, i32, f32,
-              vp]),
+              vp, i32, vp]),
             ("lz_pipe_iso2d",
              [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, i32, i32, f32,
-              i32, vp]),
+              i32, vp, i32, vp]),
             ("lz_pipe_aniso2d",
              [i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp, i32,
-              i32, f32, vp]),
+              i32, f32, vp, i32, vp]),
             ("lz_combine", [i32, i32, vp, pp, i32, i32, pp, i32, i32, vp]),
             ("lz_pass1_shard2d",
              [i32, i32, i32, i32, vp, vp, pp, i32, vp, vp, vp, vp, vp, vp,
@@ -193,9 +212,12 @@ def _lib():
         fn.restype = i32
     lib.lz_error_string.argtypes = [i32]
     lib.lz_error_string.restype = ctypes.c_char_p
-    if lib.lz_max_cols() != MAX_M or lib.lz_max_specs() != MAX_SPECS:
+    if (lib.lz_max_cols() != MAX_M or lib.lz_max_specs() != MAX_SPECS
+            or lib.lz_recur_lane(MAX_M) != _recur_lane(MAX_M)
+            or lib.lz_recur_scal_at(3, MAX_M, MAX_M - 1)
+            != _recur_scal_at(3, MAX_M, MAX_M - 1)):
         raise RuntimeError("csrc/lanczos2d.cu limits differ from MAX_M / "
-                           "MAX_SPECS")
+                           "MAX_SPECS / the recurrence state's layout")
     _lib_cache.append(lib)
     return lib
 
@@ -265,6 +287,47 @@ def _check_aux(t, shape, like, what, name):
         raise ValueError(f"{what}: {name} must be a contiguous float32 "
                          f"{tuple(shape)} tensor on {like.device}")
     return t
+
+
+def _recur_lane(m):
+    """Floats of one lane's scalars in the recurrence state of an m-column
+    run: beta0, ||W_0||^2, s (m), alpha (m), beta (m), the last K2's gram
+    (m, 2) (csrc/lanczos2d.cu recur_lane)."""
+    return 5 * m + 2
+
+
+def _recur_scal_at(B, m, j):
+    """Offset in the recurrence state of K2 iteration j's (B, j+2, 2) scal:
+    the B lanes' scalars, then each earlier iteration's scal
+    (csrc/lanczos2d.cu recur_scal_at)."""
+    return B * (_recur_lane(m) + j * (j + 3))
+
+
+def _rec_args(rec, like, j, last, what, ok=True):
+    """(state pointer, m) of a run's recurrence state `rec` = (state, m)
+    for the launch after which the recurrence takes its step j (-1: K1 at
+    j = 0 with the norm, `ok` that check; else K2 iteration j, the last one
+    at j = m - 2), checked against the field `like`; (None, 0) without a
+    state."""
+    if rec is None:
+        return None, 0
+    state, m = rec
+    size = _recur_scal_at(like.shape[0] if like.dim() == 4 else 1, m, m - 1)
+    if (not ok or not 2 <= m <= MAX_M or j > m - 2
+            or (last is not None and last != (j == m - 2))):
+        raise ValueError(f"{what}: a recurrence state of {m} columns does "
+                         f"not take this call")
+    if (state.dtype != torch.float32 or state.device != like.device
+            or not state.is_contiguous() or state.numel() != size):
+        raise ValueError(f"{what}: the recurrence state must be a "
+                         f"contiguous float32 tensor of {size} floats on "
+                         f"{like.device}")
+    return state.data_ptr(), m
+
+
+def _count_recur(rec):
+    if rec is not None:
+        recur_kernel.launches += 1
 
 
 def _bucket(n):
@@ -488,12 +551,75 @@ def combine_ref(q, W):
     return tuple(outs)
 
 
+def recur_ref(state, red, j, m):
+    """Plain version of the recurrence kernel, in place on the flat float32
+    state of an m-column run (_lanczos_rec): red (B, nout) holds the sums
+    the launch before it reduced, K1's raw_0 (re, im) and ||W_0||^2 (j = -1)
+    or K2 iteration j's nsq, gram and d. The kernel's arithmetic op by op,
+    each op over the B lanes at once: beta and s of the new column, then,
+    unless j = m - 2, alpha_J and the scal of K2 J = j + 1."""
+    B = red.shape[0]
+    K = _recur_lane(m)
+    lanes = state[:B * K].view(B, K)
+    s, al, be = (lanes[:, 2 + k * m:2 + (k + 1) * m] for k in range(3))
+    gp = lanes[:, 2 + 3 * m:].view(B, m, 2)
+    if j < 0:
+        lanes[:, 1] = red[:, 2]
+        lanes[:, 0] = torch.sqrt(red[:, 2])
+        s[:, 0] = safe_inv(lanes[:, 0])
+        J, d = 0, red[:, :2].reshape(B, 1, 2)
+    else:
+        be[:, j] = torch.sqrt(red[:, 0])
+        s[:, j + 1] = safe_inv(be[:, j])
+        if j == m - 2:
+            return
+        J = j + 1
+        d = red[:, 1 + 2 * J:].reshape(B, J + 1, 2)
+    raw = s[:, J, None, None] * d
+    if J > 0:
+        g = red[:, 1:1 + 2 * J].reshape(B, J, 2)
+        bs = be[:, J - 1] * s[:, J - 1]
+        nb2 = be[:, J - 2] * be[:, J - 2] if J >= 2 else lanes[:, 1]
+        part = torch.cat([
+            gp[:, :J - 1],
+            torch.stack([nb2, torch.zeros_like(nb2)], -1)[:, None],
+            torch.stack([g[:, J - 1, 0], -g[:, J - 1, 1]], -1)[:, None]],
+            dim=1)
+        raw = raw - bs[:, None, None] * part
+        gp[:, :J] = g
+    proj = s[:, :J + 1, None] * raw
+    al[:, J] = proj[:, J, 0]
+    c = s[:, :J + 1, None] * proj
+    if J > 0:
+        c[:, J - 1, 0] += bs
+    at = _recur_scal_at(B, m, J)
+    sc = state[at:at + 2 * B * (J + 2)].view(B, J + 2, 2)
+    sc[:, 0, 0] = s[:, J]
+    sc[:, 0, 1] = 0.0
+    sc[:, 1:] = c
+
+
 # ------------------------------------------------------------ kernel wrappers
 
-def _pass1(scal, wj, prev, desc, aniso, norm, what):
-    """Checks, then launches K1 (iso) or K1' (aniso) on CUDA fields."""
+def _recur_plain(out, like, j, last, rec, what, ok=True):
+    """A plain wrapper's result `out`, once recur_ref has taken the run's
+    recurrence state `rec` past it (step j, as _rec_args), from out's
+    reduced sums in the kernel's order."""
+    if rec is not None:
+        _rec_args(rec, like, j, last, what, ok)
+        lead = tuple(like.shape[:-3])
+        sums = out[1:] if j < 0 or last else out[2:]
+        red = torch.cat([x.reshape(lead + (-1,)) for x in sums], dim=-1)
+        recur_ref(rec[0], red.reshape(-1, red.shape[-1]), j, rec[1])
+    return out
+
+
+def _pass1(scal, wj, prev, desc, aniso, norm, what, rec):
+    """Checks, then launches K1 (iso) or K1' (aniso) on CUDA fields, and
+    the recurrence kernel after it with a run's state `rec`."""
     B = _check_fields([wj, *prev], wj, what)
     _check_scalars(scal, (1, 2), wj, what)
+    rec_args = _rec_args(rec, wj, -1, None, what, norm and not prev)
     lib = _lib()
     j = len(prev)
     P, ny, nx = wj.shape[-3:]
@@ -509,30 +635,34 @@ def _pass1(scal, wj, prev, desc, aniso, norm, what):
     if aniso:
         wx, wy = _aniso_weights(desc, wj, what)
         err = lib.lz_pass1_aniso2d(*head, wx.data_ptr(), wy.data_ptr(),
-                                   *outs, _stream(wj))
+                                   *outs, *rec_args, _stream(wj))
     else:
         err = lib.lz_pass1_iso2d(*head, *outs,
                                  int(desc["variant"] == "clean"),
-                                 _stream(wj))
+                                 *rec_args, _stream(wj))
     _check(err, what)
+    _count_recur(rec)
     raw = red[..., :nout - 1].view(lead + (j + 1, 2))
     return (w, raw, red[..., nout - 1]) if norm else (w, raw)
 
 
 @spanned("nls.launch.pass1_iso2d")
-def pass1_iso2d(scal, wj, prev, desc, norm=False):
+def pass1_iso2d(scal, wj, prev, desc, norm=False, rec=None):
     """K1: w = s_j A(W_j) - bs W_{j-1} and raw (j+1, 2) = <W_i, w>, i <= j.
 
     scal: (1, 2) float32 [s_j, bs] on the fields' device; wj: W_j;
     prev: W_0..W_{j-1} (j = len(prev) >= 0). Returns (w, raw), with `norm`
     (w, raw, ||W_j||^2) (a 0-d tensor), from the same pass. A batch of B
     lanes: fields (B, P, ny, nx), scal (B, 1, 2), raw (B, j+1, 2), the norm
-    (B,), in one launch.
+    (B,), in one launch. `rec` (with the norm at j = 0 only): the state of
+    a pipelined run (_lanczos_rec), whose recurrence the call then starts
+    (the recurrence kernel, or recur_ref on the plain path).
     """
     _check_cols(len(prev), "pass1_iso2d")
     if not use_kernel(wj):
-        return pass1_iso2d_ref(scal, wj, prev, desc, norm)
-    out = _pass1(scal, wj, prev, desc, False, norm, "pass1_iso2d")
+        return _recur_plain(pass1_iso2d_ref(scal, wj, prev, desc, norm), wj,
+                            -1, None, rec, "pass1_iso2d", norm and not prev)
+    out = _pass1(scal, wj, prev, desc, False, norm, "pass1_iso2d", rec)
     pass1_iso2d.launches += 1
     return out
 
@@ -541,14 +671,16 @@ pass1_iso2d.launches = 0
 
 
 @spanned("nls.launch.pass1_aniso2d")
-def pass1_aniso2d(scal, wj, prev, desc, norm=False):
+def pass1_aniso2d(scal, wj, prev, desc, norm=False, rec=None):
     """K1': pass1_iso2d for the div(c grad u) operator of an
     "aniso_laplacian_2d" descriptor (face weights wx, wy on the field's
     device: (ny, nx), or (B, ny, nx) for a batch's lanes)."""
     _check_cols(len(prev), "pass1_aniso2d")
     if not use_kernel(wj):
-        return pass1_aniso2d_ref(scal, wj, prev, desc, norm)
-    out = _pass1(scal, wj, prev, desc, True, norm, "pass1_aniso2d")
+        return _recur_plain(pass1_aniso2d_ref(scal, wj, prev, desc, norm),
+                            wj, -1, None, rec, "pass1_aniso2d",
+                            norm and not prev)
+    out = _pass1(scal, wj, prev, desc, True, norm, "pass1_aniso2d", rec)
     pass1_aniso2d.launches += 1
     return out
 
@@ -611,11 +743,13 @@ def pass1_shard2d(scal, wj, prev, yh, xh, d):
 pass1_shard2d.launches = 0
 
 
-def _pipe(scal, av, W, desc, last, aniso, what):
-    """Checks, then launches K2 (iso) or K2' (aniso) on CUDA fields."""
+def _pipe(scal, av, W, desc, last, aniso, what, rec):
+    """Checks, then launches K2 (iso) or K2' (aniso) on CUDA fields, and
+    the recurrence kernel after it with a run's state `rec`."""
     nw = len(W)
     B = _check_fields([av, *W], av, what)
     _check_scalars(scal, (nw + 1, 2), av, what)
+    rec_args = _rec_args(rec, av, nw - 1, last, what)
     lib = _lib()
     P, ny, nx = av.shape[-3:]
     lead = tuple(av.shape[:-3])
@@ -632,11 +766,13 @@ def _pipe(scal, av, W, desc, last, aniso, what):
     if aniso:
         wx, wy = _aniso_weights(desc, av, what)
         err = lib.lz_pipe_aniso2d(*head, wx.data_ptr(), wy.data_ptr(), *outs,
-                                  _stream(av))
+                                  *rec_args, _stream(av))
     else:
         err = lib.lz_pipe_iso2d(*head, *outs,
-                                int(desc["variant"] == "clean"), _stream(av))
+                                int(desc["variant"] == "clean"), *rec_args,
+                                _stream(av))
     _check(err, what)
+    _count_recur(rec)
     nsq = red[..., :1].view(lead + (1, 1))
     gram = red[..., 1:1 + 2 * nw].view(lead + (nw, 2))
     if last:
@@ -646,19 +782,21 @@ def _pipe(scal, av, W, desc, last, aniso, what):
 
 
 @spanned("nls.launch.pipe_iso2d")
-def pipe_iso2d(scal, av, W, desc, last):
+def pipe_iso2d(scal, av, W, desc, last, rec=None):
     """K2: one pipelined Lanczos iteration j = len(W) - 1.
 
     scal: (j+2, 2) float32 [(s_j, 0), c_0..c_j] (complex c_i); av: av_j;
     W: W_0..W_j. Returns (W_{j+1}, av_{j+1}, nsq (1,1), gram (j+1,2),
     d (j+2,2)), or (W_{j+1}, nsq, gram) when `last`. A batch of B lanes:
     fields (B, P, ny, nx), every scalar array with a leading B, in one
-    launch.
+    launch. `rec`: the state of a pipelined run (_lanczos_rec) whose
+    iteration j this is (`last` at j = m - 2), which the call carries on.
     """
     _check_cols(len(W), "pipe_iso2d")
     if not use_kernel(av):
-        return pipe_iso2d_ref(scal, av, W, desc, last)
-    out = _pipe(scal, av, W, desc, last, False, "pipe_iso2d")
+        return _recur_plain(pipe_iso2d_ref(scal, av, W, desc, last), av,
+                            len(W) - 1, last, rec, "pipe_iso2d")
+    out = _pipe(scal, av, W, desc, last, False, "pipe_iso2d", rec)
     pipe_iso2d.launches += 1
     return out
 
@@ -667,15 +805,16 @@ pipe_iso2d.launches = 0
 
 
 @spanned("nls.launch.pipe_aniso2d")
-def pipe_aniso2d(scal, av, W, desc, last):
+def pipe_aniso2d(scal, av, W, desc, last, rec=None):
     """K2': pipe_iso2d for the div(c grad u) operator of an
     "aniso_laplacian_2d" descriptor (face weights (ny, nx), or (B, ny, nx)
     for a batch's lanes). The `last` iteration computes no stencil and
     reads no weights."""
     _check_cols(len(W), "pipe_aniso2d")
     if not use_kernel(av):
-        return pipe_aniso2d_ref(scal, av, W, desc, last)
-    out = _pipe(scal, av, W, desc, last, True, "pipe_aniso2d")
+        return _recur_plain(pipe_aniso2d_ref(scal, av, W, desc, last), av,
+                            len(W) - 1, last, rec, "pipe_aniso2d")
+    out = _pipe(scal, av, W, desc, last, True, "pipe_aniso2d", rec)
     pipe_aniso2d.launches += 1
     return out
 
@@ -882,8 +1021,49 @@ def _lanczos_pipe(u, m, desc):
     (kernels from _pipe_kernels; the 3D one is the JAX package's
     lanczos3d_pipe.lanczos_pipe3d, with the same scalar recurrence).
     `u` is one planar field (P, R, nx), or a batch (B, P, R, nx) whose
-    lanes run through the same launches: every scalar below then carries a
-    leading B (the per-lane arithmetic is the same elementwise ops).
+    lanes run through the same launches. Where the 2D kernels run (a CUDA
+    field under kernel_mode "auto", a 2D descriptor) the recurrence runs on
+    the device (_lanczos_rec), else as eager torch ops (_lanczos_eager);
+    both give the same bits."""
+    if m > 1 and use_kernel(u) and desc["kind"] in KINDS_2D:
+        return _lanczos_rec(u, m, desc)
+    return _lanczos_eager(u, m, desc)
+
+
+def _lanczos_rec(u, m, desc):
+    """_lanczos_eager with the recurrence in one float32 state a run: the
+    K1 call starts it and each K2 call carries it on (the recurrence kernel
+    on the card, recur_ref on the plain path), and each K2 reads its scal as
+    a view of the state. Returns (W, s, alphas, betas, beta0) as the eager
+    loop does, the scalars views of the state."""
+    pass1, pipe = _pipe_kernels(desc)
+    lead = tuple(u.shape[:-3])
+    B = lead[0] if lead else 1
+    K = _recur_lane(m)
+    state = torch.empty(_recur_scal_at(B, m, m - 1), dtype=torch.float32,
+                        device=u.device)
+    rec = (state, m)
+    av = pass1(torch.eye(1, 2, dtype=torch.float32, device=u.device).expand(
+        lead + (1, 2)).contiguous(), u, [], desc, rec=rec)[0]
+    W = [u]
+    for j in range(m - 1):
+        at = _recur_scal_at(B, m, j)
+        scal = state[at:at + 2 * B * (j + 2)].view(lead + (j + 2, 2))
+        res = pipe(scal, av, W, desc, j == m - 2, rec=rec)
+        W.append(res[0])
+        av = res[1]
+    lanes = state[:B * K].view(lead + (K,))
+
+    def row(k, n):                   # s, alpha, beta: rows of m a lane
+        return list(lanes[..., 2 + k * m:2 + k * m + n].unbind(-1))
+
+    return W, row(0, m), row(1, m - 1), row(2, m - 1), lanes[..., 0]
+
+
+def _lanczos_eager(u, m, desc):
+    """_lanczos_pipe's plain version, the recurrence as eager torch ops:
+    every scalar carries u's leading B (the per-lane arithmetic is the same
+    elementwise ops).
 
     w_j = s_j av_j - bs W_{j-1} (bs = beta_{j-1} s_{j-1}) is never
     materialized: its projections raw_i = <W_i, w_j> are recovered as
