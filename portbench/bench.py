@@ -3,10 +3,12 @@ and the result line.
 
 The window drives the sweep's own trajectory function,
 nlsolvers_tpu_torch.pipeline.datagen.Datagen(DatagenConfig(...)).traj_fn,
-on one batch made on the device from the seed, and reads each batch back as
-the sweep does (Datagen._host). It starts batches while less than
-`seconds` has elapsed and closes when the last started batch's snapshots
-are on the host, so every timed batch is whole. Set-up runs from the
+as traj(*state, m, c, S, freq) on one batch made on the device from the
+seed, and reads each batch back as the sweep does (Datagen._host, every
+returned array); the configuration's family (portbench/families.py) says
+what the state and the returned arrays are. It starts batches while less
+than `seconds` has elapsed and closes when the last started batch's
+snapshots are on the host, so every timed batch is whole. Set-up runs from the
 harness's first line to the first timed dispatch: imports, the CUDA
 context, building or loading the kernels (nlsolvers_tpu_torch/_build/),
 the inputs, and a warm-up call of one snapshot interval.
@@ -26,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from portbench import cells, check, roofline
+from portbench import cells, check, families, roofline
 from portbench.trace import count_syncs, short_name, traced
 from portbench.traffic import generate
 
@@ -37,11 +39,17 @@ TRACED_SNAPSHOTS = 3
 
 @dataclass
 class Record:
-    """What one run measured; the metric readers read it."""
+    """What one run measured; the metric readers read it. `family`,
+    `integrator`, `system` and `dtype` are the configuration's
+    DatagenConfig fields, for readers whose counts depend on the path."""
     cell: str
     shape: roofline.Shape
     snapshots: int
     freq: int
+    family: str = ""
+    integrator: str = ""
+    system: str = ""
+    dtype: str = ""
     setup_s: float = 0.0
     window_s: float = 0.0
     batches: list = field(default_factory=list)   # per batch: seconds
@@ -96,11 +104,8 @@ def build(cell, out_dir, device="cuda", root=cells.HERE):
     fields = dict(cells.datagen_fields(cfg_file), num_runs=B, batch_size=B,
                   device=device)
     dg = Datagen(DatagenConfig(output_dir=out_dir, **fields))
-    dgc = dg.cfg
-    spec = dict(reference=cfg_file["reference"], Lx=dgc.Lx, dt=dgc.dt,
-                krylov_m=dgc.krylov_m, snapshots=dgc.snapshots,
-                freq=dgc.snapshot_freq)
-    return Cell(wl, mix, fields, dg, spec)
+    return Cell(wl, mix, fields, dg, check.spec(cfg_file["reference"],
+                                                dg.cfg))
 
 
 def run_cell(cell, seed, seconds, trace, t_start, device="cuda",
@@ -117,16 +122,21 @@ def run_cell(cell, seed, seconds, trace, t_start, device="cuda",
         dgc = dg.cfg
         B = mix["batch"]
         traj, host = dg.traj_fn, type(dg)._host
+        fam = families.family(fields)
         S, freq = spec["snapshots"], spec["freq"]
-        rec = Record(cell=cell, snapshots=S, freq=freq,
+        rec = Record(cell=cell, snapshots=S, freq=freq, family=dgc.family,
+                     integrator=dgc.integrator, system=dgc.system,
+                     dtype=dgc.dtype,
                      shape=roofline.Shape(
                          B=B, dim=dgc.dim, nx=dgc.nx, krylov_m=dgc.krylov_m,
                          weight_planes=dgc.dim
-                         if dgc.anisotropy_type != "constant" else 0))
-        u0, m, c, _ = generate.make_inputs(mix, fields, seed, device)
+                         if dgc.anisotropy_type != "constant" else 0,
+                         planes=fam.planes))
+        state, m, c, _ = generate.make_inputs(mix, fields, seed, device,
+                                              Path(root) / "traffic")
 
-        out = traj(u0, m, c, 2, freq)                     # warm-up
-        host(out[0]), host(out[1])
+        out = traj(*state, m, c, 2, freq)                 # warm-up
+        families.held(fam, out, host)
         del out
         sync()
         if cuda:
@@ -136,13 +146,12 @@ def run_cell(cell, seed, seconds, trace, t_start, device="cuda",
         held = []
         while not held or time.perf_counter() - t0 < seconds:
             t_a = time.perf_counter()
-            out = traj(u0, m, c, S, freq)
+            out = traj(*state, m, c, S, freq)
             sync()
             t_b = time.perf_counter()
-            snaps, bad_at = host(out[0]), host(out[1])
+            held.append(families.held(fam, out, host))
             t_c = time.perf_counter()
             del out
-            held.append(dict(snaps=snaps, bad_at=bad_at))
             rec.batches.append(dict(evolve_s=t_b - t_a, readback_s=t_c - t_b))
             log(f"{cell}: batch {len(held)}: evolve {t_b - t_a:.3f} s, "
                 f"readback {t_c - t_b:.3f} s")
@@ -154,7 +163,7 @@ def run_cell(cell, seed, seconds, trace, t_start, device="cuda",
 
         if trace and cuda:
             def call():
-                traj(u0, m, c, TRACED_SNAPSHOTS, freq)
+                traj(*state, m, c, TRACED_SNAPSHOTS, freq)
             rec.traced_steps = (TRACED_SNAPSHOTS - 1) * freq
             rec.trace = traced(torch, call)
             rec.syncs = count_syncs(torch, call)
@@ -168,7 +177,7 @@ def run_cell(cell, seed, seconds, trace, t_start, device="cuda",
 
         picks = check.sample_lanes(seed, B, wl["check_lanes"], len(held))
         t_c0 = time.perf_counter()
-        correct, numbers = check.judge(held, u0, m, c, picks, spec,
+        correct, numbers = check.judge(held, state, m, c, picks, spec,
                                        wl["limits"], wl["check_block"])
         log(f"{cell}: check of lanes {picks} (batch: lanes) took "
             f"{time.perf_counter() - t_c0:.3f} s")

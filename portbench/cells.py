@@ -9,6 +9,8 @@ metric readers and the metrics each cell reports.
   portbench/traffic/<mix>.json     a traffic mix (traffic/generate.py)
   portbench/metrics/<metric>.py    a metric's reader: read(record) -> a
                                   number, or None where it finds nothing
+  portbench/traffic/recipes/<kind>/<name>.py
+                                  an ic, c or m recipe (traffic/generate.py)
 
 A cell, configuration, mix or per-layer metric is added by adding its file
 and its entry in BENCHMARK.json; no file of the harness changes.
@@ -19,7 +21,7 @@ import json
 import re
 from pathlib import Path
 
-__all__ = ["HERE", "manifest", "workload", "config", "reader",
+__all__ = ["HERE", "manifest", "workload", "config", "load_file", "reader",
            "metric_entries", "datagen_fields"]
 
 HERE = Path(__file__).resolve().parent
@@ -52,16 +54,23 @@ def datagen_fields(cfg):
     return {k: v for k, v in cfg.items() if k not in NOT_FIELDS}
 
 
-def reader(name, root=HERE):
-    """The reader module of metric `name`: portbench/metrics/<name>.py."""
-    path = Path(root) / "metrics" / f"{name}.py"
+def load_file(path, what, prefix):
+    """The module of the Python file `path` (a file the harness finds by
+    name), loaded under a name made of `prefix` and the file's stem."""
+    path = Path(path)
     if not path.is_file():
-        raise FileNotFoundError(f"no reader for metric {name!r} ({path})")
+        raise FileNotFoundError(f"no {what} {path.stem!r} ({path})")
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + re.sub(r"\W", "_", name), path)
+        prefix + "_" + re.sub(r"\W", "_", path.stem), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(name, root=HERE):
+    """The reader module of metric `name`: portbench/metrics/<name>.py."""
+    return load_file(Path(root) / "metrics" / f"{name}.py",
+                     "reader for metric", "portbench_metric")
 
 
 def metric_entries(man, cell, trace):

@@ -33,11 +33,33 @@ operands rounded to TF32's 10-bit mantissa, as a tensor-core matrix
 product rounds them, and accumulated in float32. `precision="float32"` is
 the same arithmetic in plain complex64: a second float32 implementation,
 the witness of what float32 rounding alone does to a lane.
+
+What the check reads of it (portbench/check.py): the program's snapshot
+field it compares (FIELDS, the packed u), how it starts an interval from
+the program's snapshot s-1 (`start`: the packed u as an input's u0), how it
+reads the program's field (`from_program`: the packed u as complex), and
+the fields that snapshot 0 holds bit for bit (EXACT_START: u, the input).
 """
 
 import torch
 
-__all__ = ["trajectory", "operator", "tf32_round"]
+__all__ = ["FIELDS", "EXACT_START", "start", "from_program", "trajectory",
+           "operator", "tf32_round"]
+
+FIELDS = ("u",)
+EXACT_START = ("u",)
+
+
+def start(snapshot):
+    """The state an interval starts from: the program's snapshot s-1
+    ({field: (B, ...) tensor}), its packed u as an input's u0."""
+    return (snapshot["u"],)
+
+
+def from_program(fields):
+    """The program's FIELDS (float64 tensors) as trajectory emits them."""
+    p, = fields
+    return (torch.complex(p[:, 0], p[:, 1]),)
 
 
 def tf32_round(x):
@@ -157,11 +179,14 @@ def _expm(apply, u, t, krylov_m, rnd):
 
 
 def trajectory(u0, m, c, *, Lx, dt, krylov_m, num_snapshots, snapshot_freq,
-               emit, precision="float64"):
+               emit, precision="float64", system="cubic"):
     """Evolve lanes (u0 (B, 2, *shape) packed re/im, m and c (B, *shape))
-    and call emit(s, u) with each snapshot s, u complex (B, *shape)."""
+    of the cubic NLSE and call emit(s, u) with each snapshot s, u complex
+    (B, *shape)."""
     if precision not in ("float64", "float32", "tf32"):
         raise ValueError(f"unknown precision {precision!r}")
+    if system != "cubic":
+        raise ValueError(f"no SS2 reference for {system!r}")
     exact = precision == "float64"
     cdt = torch.complex128 if exact else torch.complex64
     rdt = torch.float64 if exact else torch.float32

@@ -15,10 +15,15 @@ written once, so they do not depend on what the cache held:
   portbench/roofline/kernel_names/<family>.txt
                                         the CUDA function names (one a line)
                                         that belong to the family
-  portbench/roofline/step_ss2.py        the whole SS2 step's algorithm,
+  portbench/roofline/step_<integrator>.py
+                                        the whole step's algorithm of an
+                                        integrator (step_ss2.py: SS2),
                                         whatever kernels implement it
 
-A kernel family is added by adding its two files.
+A kernel family is added by adding its two files. The families' counts are
+those of the SS2 path's launches; a reader of another path (the real-wave
+Gautschi step's two matrix functions, P = 1) passes kernel_share counts of
+its own from files it adds.
 """
 
 import importlib
@@ -26,7 +31,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 __all__ = ["HBM_BYTES_PER_S", "F32_FLOPS_PER_S", "Shape", "least_s",
-           "families", "family_of", "per_step"]
+           "families", "family_of", "per_step", "kernel_share"]
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -36,14 +41,16 @@ HERE = Path(__file__).resolve().parent
 
 @dataclass(frozen=True)
 class Shape:
-    """What the counts need of a cell: B lanes of an (nx,)*dim grid, P = 2
-    planes (re, im) of float32, Krylov m, and the operator's face weights
-    per cell (dim planes for div(c grad u), 0 for the Laplacian)."""
+    """What the counts need of a cell: B lanes of an (nx,)*dim grid,
+    Krylov m, the operator's face weights per cell (dim planes for
+    div(c grad u), 0 for the Laplacian), and the float32 planes of the
+    state (2, re and im, for complex; 1 for real)."""
     B: int
     dim: int
     nx: int
     krylov_m: int
     weight_planes: int
+    planes: int = 2
 
     @property
     def points(self):
@@ -51,8 +58,9 @@ class Shape:
 
     @property
     def col(self):
-        """Bytes of one complex column of the batch (2 float32 planes)."""
-        return 8 * self.points
+        """Bytes of one Krylov column of the batch (`planes` float32
+        planes)."""
+        return 4 * self.planes * self.points
 
     @property
     def wbytes(self):
@@ -89,11 +97,12 @@ def per_step(family, shape):
     return mod.per_step(shape)
 
 
-def kernel_share(rec, only=None):
+def kernel_share(rec, only=None, counts=per_step):
     """Percent of their least time that the hand-written kernels of the
-    traced call reach: the sum of each family's least time (per_step scaled
-    by the launches traced) over the sum of their traced device time. Only
-    the families in `only`, when given; None when none was traced."""
+    traced call reach: the sum of each family's least time (counts(family,
+    shape), per_step by default, scaled by the launches traced) over the
+    sum of their traced device time. Only the families in `only`, when
+    given; None when none was traced."""
     if rec.trace is None:
         return None
     names = families()
@@ -105,10 +114,10 @@ def kernel_share(rec, only=None):
             seen[fam] = (n + 1, t + (e - s))
     least = spent = 0.0
     for fam, (n, t) in seen.items():
-        counts = per_step(fam, rec.shape)
-        if counts is None:
+        got = counts(fam, rec.shape)
+        if got is None:
             continue
-        launches, nbytes, flops = counts
+        launches, nbytes, flops = got
         least += least_s(nbytes, flops) * n / launches
         spent += t
     return 100.0 * least / spent if spent > 0 else None

@@ -11,7 +11,7 @@ from .conftest import add_tiny
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("tiny", ("tiny2d", "tiny3d"))
+@pytest.mark.parametrize("tiny", ("tiny2d", "tiny3d", "tinysg2d"))
 def test_traced_tiny_cell(card, tiny_root, tiny):
     cell = add_tiny(tiny_root, tiny, batch=2)
     rec, ok, numbers, attempted, failed = bench.run_cell(

@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from portbench import cells
+from portbench import cells, families
 from portbench.traffic import generate
 
 from .conftest import HERE
@@ -27,14 +27,17 @@ def test_manifest_keys():
 
 @pytest.mark.parametrize("w", MAN["workloads"], ids=lambda w: w["name"])
 def test_cell_files_load(w):
-    """The cell's workload, configuration and mix load by name, and the
-    workload file names the manifest's configuration and mix."""
+    """The cell's workload, configuration, mix and recipes load by name,
+    and the workload file names the manifest's configuration and mix."""
     wl = cells.workload(w["name"])
     assert (wl["config"], wl["traffic"]) == (w["config"], w["traffic"])
     cfg = cells.config(w["config"])
     mix = generate.load_mix(w["traffic"])
-    assert cfg["phenomenon"] in mix["ic"]
-    assert cfg["anisotropy_type"] in mix["c"] and cfg["m_type"] in mix["m"]
+    families.family(cfg)
+    for kind, key in (("ic", "phenomenon"), ("c", "anisotropy_type"),
+                      ("m", "m_type")):
+        assert cfg[key] in mix[kind]
+        assert callable(generate.recipe(kind, cfg[key]))
     assert set(wl["limits"]) == {"rel_l2", "start_gap", "lanes_not_finite"}
     assert w["chips"] == 1 and NAME.match(w["name"]) and len(w["why"]) <= 200
 

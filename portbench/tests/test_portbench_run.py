@@ -13,6 +13,7 @@ import torch
 
 from portbench import bench, cells, check, run
 from portbench.trace import Trace
+from portbench.traffic import generate
 
 from .conftest import HERE, add_tiny
 
@@ -35,11 +36,13 @@ def _run(root, cell, seed=2 ** 31 + 7, trace=0):
     return line, numbers
 
 
-@pytest.mark.parametrize("tiny", ("tiny2d", "tiny3d"))
+@pytest.mark.parametrize("tiny", ("tiny2d", "tiny3d", "tinysg2d"))
 def test_added_cell_runs_and_is_correct(tiny_root, tiny):
     """A cell added as a configuration, a mix, a workload file and a
-    manifest entry runs without any file of the harness edited, and the
-    port's CPU path is correct against the reference."""
+    manifest entry (tinysg2d, a real-wave sine-Gordon Gautschi cell: with
+    the recipe file of its phenomenon too) runs without any file of the
+    harness edited, and the port's CPU path is correct against the
+    reference."""
     before = _digests(tiny_root)
     cell = add_tiny(tiny_root, tiny)
     after = _digests(tiny_root)
@@ -50,6 +53,39 @@ def test_added_cell_runs_and_is_correct(tiny_root, tiny):
                           "device", "check"]
     assert set(line["metrics"]) == {"traj_steps_per_s", "setup_s"}
     assert line["attempted"] >= 2 and line["failed"] == 0
+
+
+# Recorded on the CPU at commit 4178e57, before the harness took its
+# family table: the sha256 of u0, m and c of each mix at B=2 and 32^2
+# (seed 2**31 + 21), and the check's numbers of the tiny2d cell at B=2
+# (seed 2**31 + 7); the family table changed neither.
+BEFORE_INPUTS = (
+    "b769edbeb8ff29f179a43ec858539571466abbd4431c9bc839c71da9795e2dfc",
+    "37c07dcba2ad5d263499c51b2251e13356f1ccbd8b7912e4b7c762fd0f1a0b04",
+    "8b5d3fc86b12b03e8ed6bfeb4f7d4a2800aceb52284d8c0353fdc8db583f9881")
+BEFORE_CHECK = {"rel_l2": (2.4299625792710543e-06, 0.0001),
+                "start_gap": (0.0, 0), "lanes_not_finite": (0, 0)}
+
+
+@pytest.mark.parametrize("mix", ("task30", "batch240"))
+def test_inputs_are_unchanged(mix):
+    """Each mix's inputs are bit for bit those recorded before the family
+    table."""
+    cfg = cells.config("nlse2d-sweep")
+    fields = dict(cells.datagen_fields(cfg), nx=32)
+    state, m, c, _ = generate.make_inputs(
+        dict(generate.load_mix(mix), batch=2), fields, 2 ** 31 + 21, "cpu")
+    assert len(state) == 1
+    got = tuple(hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
+                for t in (state[0], m, c))
+    assert got == BEFORE_INPUTS
+
+
+def test_check_numbers_are_unchanged(tiny_root):
+    """The check's numbers of a tiny NLSE cell are those recorded before
+    the family table."""
+    _, numbers = _run(tiny_root, add_tiny(tiny_root, "tiny2d", batch=2))
+    assert numbers == BEFORE_CHECK
 
 
 def test_added_metric_is_reported(tiny_root):

@@ -1,0 +1,9 @@
+"""multi_soliton, the 2D sweep's phenomenon: a superposition of bright
+solitons (traffic/solitons.py), complex128 on the grid's device."""
+
+from portbench.traffic.solitons import soliton_state
+
+
+def make(rng, p, X, L, cfg):
+    del cfg
+    return soliton_state(rng, p, X, L)
